@@ -1,0 +1,55 @@
+"""Carry a JAX model's weights into a port model.
+
+The JAX package and the port build their tuning bases by SVD, whose
+singular vectors are defined only up to sign (and order, for equal
+singular values).  Loading the JAX model's ``tuning_basis`` together with
+its ``params`` makes both packages compute the same tuning curves, and so
+the same decode.  Everything crosses as numpy arrays: this module imports
+neither jax nor the JAX package.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+__all__ = ["state_from_model", "load_jax_state"]
+
+
+def state_from_model(model):
+    """``{'params', 'tuning_basis', 'tuning'}`` of a model of either package
+    as float32 numpy arrays."""
+    return {
+        k: np.asarray(getattr(model, k), dtype=np.float32)
+        for k in ("params", "tuning_basis", "tuning")
+    }
+
+
+def load_jax_state(model, params, tuning_basis, tuning=None):
+    """Load ``params`` (n_basis, N) and ``tuning_basis`` (L, n_basis) into
+    the port ``model`` (in place, on its device) and return it.  ``tuning``
+    (L, N) is taken as given when passed, else recomputed through the
+    model's link function."""
+    params = np.asarray(params, dtype=np.float32)
+    tuning_basis = np.asarray(tuning_basis, dtype=np.float32)
+    n_basis, n_neuron = params.shape
+    if n_neuron != model.n_neuron:
+        raise ValueError(f"params has {n_neuron} neurons, model has "
+                         f"{model.n_neuron}")
+    if tuning_basis.shape != (model.n_latent_bin, n_basis):
+        raise ValueError(
+            f"tuning_basis must be ({model.n_latent_bin}, {n_basis}), got "
+            f"{tuning_basis.shape}"
+        )
+    model.params = torch.tensor(params, device=model.device)
+    model.tuning_basis = torch.tensor(tuning_basis, device=model.device)
+    model.n_basis = n_basis
+    if tuning is None:
+        model.tuning = model.get_tuning(model.params, {}, model.tuning_basis)
+    else:
+        tuning = np.asarray(tuning, dtype=np.float32)
+        if tuning.shape != (model.n_latent_bin, n_neuron):
+            raise ValueError(f"tuning must be ({model.n_latent_bin}, "
+                             f"{n_neuron}), got {tuning.shape}")
+        model.tuning = torch.tensor(tuning, device=model.device)
+    return model

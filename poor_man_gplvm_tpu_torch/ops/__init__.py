@@ -1,0 +1,58 @@
+"""Numerics core of the port: kernels, basis, emissions, HMM engines,
+tuning links, and the hand-written CUDA scan kernels."""
+
+from poor_man_gplvm_tpu_torch.ops import (
+    basis,
+    emissions,
+    hmm,
+    kernels,
+    mstep,
+    scan_kernels,
+)
+from poor_man_gplvm_tpu_torch.ops.basis import generate_basis
+from poor_man_gplvm_tpu_torch.ops.emissions import (
+    MASK_NEG,
+    RATE_FLOOR,
+    get_loglikelihood_ma_all,
+    get_naive_bayes_ma,
+    get_naive_bayes_ma_chunk,
+    poisson_lgamma_term,
+    poisson_loglik,
+)
+from poor_man_gplvm_tpu_torch.ops.hmm import (
+    JOINT_ACC_INIT,
+    JointTransition,
+    LatentTransition,
+    auto_chunk_size,
+    compute_transition_posterior_prob,
+    compute_transition_posterior_prob_latent,
+    prob_to_log,
+    smooth_combined_chunked,
+)
+from poor_man_gplvm_tpu_torch.ops.kernels import (
+    create_transition_prob_1d,
+    rbf_gram,
+    uniform_gram,
+)
+from poor_man_gplvm_tpu_torch.ops.mstep import (
+    get_tuning_linear,
+    get_tuning_softplus,
+)
+from poor_man_gplvm_tpu_torch.ops.scan_kernels import (
+    filter_chunk,
+    filter_scan,
+    smoother_chunk,
+    smoother_scan,
+)
+
+__all__ = [
+    "basis", "emissions", "hmm", "kernels", "mstep", "scan_kernels",
+    "generate_basis", "MASK_NEG", "RATE_FLOOR", "get_loglikelihood_ma_all",
+    "get_naive_bayes_ma", "get_naive_bayes_ma_chunk", "poisson_lgamma_term",
+    "poisson_loglik", "JOINT_ACC_INIT", "JointTransition", "LatentTransition",
+    "auto_chunk_size", "compute_transition_posterior_prob",
+    "compute_transition_posterior_prob_latent", "prob_to_log",
+    "smooth_combined_chunked", "create_transition_prob_1d", "rbf_gram",
+    "uniform_gram", "get_tuning_linear", "get_tuning_softplus",
+    "filter_chunk", "filter_scan", "smoother_chunk", "smoother_scan",
+]

@@ -1,0 +1,465 @@
+"""Forward-backward smoother over the (dynamics x latent) state space.
+
+Counterpart of ``poor_man_gplvm_tpu/ops/hmm.py`` for the decode path:
+scaled probability-space forward/backward recursions, the chunked host
+driver ``smooth_combined_chunked`` in full memory mode, and the
+transition-posterior extraction.
+
+Engines:
+* ``'prob'``: a plain PyTorch loop over time (``_forward_scan_prob``,
+  ``_backward_scan_prob``), one small tensor op after another;
+* ``'cuda'``: the hand-written sequential kernels K1/K2
+  (``ops/scan_kernels.py``), the counterpart of the JAX ``'pallas'``
+  engine.  On CPU tensors the kernels' wrappers run their plain versions.
+
+As in the JAX package the pairwise-joint accumulation is not carried
+through the scan; in probability space it factorizes,
+
+    acc[d,e,i,j] = Tdyn[d,e] * Tlat[e,i,j] * sum_t filt_t[d,i] * r_t[e,j]
+
+with r_t = smooth_{t+1} / prior_{t+1}, so it is one matmul after the scan.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk
+from poor_man_gplvm_tpu_torch.ops.emissions import get_loglikelihood_ma_all
+
+# The f32-representable stand-in for the reference's -1e40 zero-probability
+# sentinel (the JAX package's JOINT_ACC_INIT).
+JOINT_ACC_INIT = -3.0e38
+
+ENGINES = ("prob", "cuda")
+_NOT_PORTED = {
+    "log": "engine='log' is not ported yet (ROADMAP queue 1, item 4b)",
+    "pallas_parallel": (
+        "the parallel-in-time engine is not ported yet (ROADMAP queue 1, "
+        "item 9; kernels K3/K4)"
+    ),
+}
+
+__all__ = [
+    "JOINT_ACC_INIT",
+    "LatentTransition",
+    "JointTransition",
+    "prob_to_log",
+    "auto_chunk_size",
+    "smooth_combined_chunked",
+    "compute_transition_posterior_prob",
+    "compute_transition_posterior_prob_latent",
+]
+
+
+def check_engine(engine):
+    """Raise unless ``engine`` is one the port runs."""
+    if engine in _NOT_PORTED:
+        raise NotImplementedError(_NOT_PORTED[engine])
+    if engine not in ENGINES:
+        raise ValueError(f"engine must be 'prob' or 'cuda', got {engine!r}")
+
+
+def prob_to_log(p, floor=JOINT_ACC_INIT):
+    """Elementwise log with a finite floor for exact zeros."""
+    pos = p > 0
+    return torch.where(pos, torch.log(torch.where(pos, p, 1.0)),
+                       torch.full_like(p, floor))
+
+
+def _tiny(x):
+    return torch.finfo(x.dtype).tiny
+
+
+# ---------------------------------------------------------------------------
+# Transition structures
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LatentTransition:
+    """Latent-only (L, L) transition; T[i, j] = p(j | i)."""
+
+    T: torch.Tensor
+    logT: torch.Tensor
+    uniform_rows: tuple = None
+
+    def __post_init__(self):
+        if self.uniform_rows is None:
+            object.__setattr__(self, "uniform_rows",
+                               sk._detect_uniform_rows(self.T[None]))
+
+    @property
+    def n_latent(self):
+        return self.T.shape[-1]
+
+    def uniform_log_init(self):
+        L = self.n_latent
+        return torch.log(torch.ones((L,), dtype=self.T.dtype,
+                                    device=self.T.device) / L)
+
+    def bcast_ll(self, x):
+        return x
+
+    def push(self, p):
+        return p @ self.T
+
+    def push_batch(self, p):
+        return p @ self.T
+
+    def pull(self, r):
+        return self.T @ r
+
+    def outer_acc(self, P, R):
+        return (P.T @ R) * self.T
+
+    def joint_shape(self):
+        return (self.n_latent, self.n_latent)
+
+    # kernel engine ----------------------------------------------------
+    def cuda_filter(self, ll, p_init, likelihood_scale):
+        ones = torch.ones((1, 1), dtype=self.T.dtype, device=self.T.device)
+        post, prior, ratios = sk.filter_chunk(
+            ll, self.T[None], ones, p_init[None], likelihood_scale,
+            uniform_rows=self.uniform_rows,
+        )
+        return post[:, 0], prior[:, 0], ratios
+
+    def cuda_smooth(self, filt_xs, prior_xs, smooth_init):
+        ones = torch.ones((1, 1), dtype=self.T.dtype, device=self.T.device)
+        smooth, r = sk.smoother_chunk(
+            filt_xs[:, None], prior_xs[:, None], self.T[None], ones,
+            smooth_init[None], uniform_rows=self.uniform_rows,
+        )
+        return smooth[:, 0], r[:, 0]
+
+
+@dataclasses.dataclass(frozen=True)
+class JointTransition:
+    """Joint dynamics x latent transition, state shape (n_dyn, L).  The
+    forward push applies the dynamics transition first, then the
+    dynamics-conditioned latent transition."""
+
+    Tdyn: torch.Tensor  # (n_dyn, n_dyn); Tdyn[d, e] = p(e | d)
+    Tlat: torch.Tensor  # (n_dyn, L, L); Tlat[e, i, j] = p(j | i, dyn=e)
+    logTdyn: torch.Tensor
+    logTlat: torch.Tensor
+    uniform_rows: tuple = None
+
+    def __post_init__(self):
+        if self.uniform_rows is None:
+            object.__setattr__(self, "uniform_rows",
+                               sk._detect_uniform_rows(self.Tlat))
+
+    @property
+    def n_latent(self):
+        return self.Tlat.shape[-1]
+
+    @property
+    def n_dyn(self):
+        return self.Tdyn.shape[0]
+
+    def uniform_log_init(self):
+        n_dyn, L = self.n_dyn, self.n_latent
+        return torch.log(torch.ones((n_dyn, L), dtype=self.Tlat.dtype,
+                                    device=self.Tlat.device) / (n_dyn * L))
+
+    def bcast_ll(self, x):
+        return x[None, :]
+
+    def push(self, p):
+        q = self.Tdyn.T @ p  # q[d] = sum_p Tdyn[p, d] * p[p]
+        return torch.einsum("di,dij->dj", q, self.Tlat)
+
+    def push_batch(self, p):
+        q = torch.einsum("tpl,pd->tdl", p, self.Tdyn)
+        return torch.einsum("tdi,dij->tdj", q, self.Tlat)
+
+    def pull(self, r):
+        s = torch.einsum("eij,ej->ei", self.Tlat, r)
+        return self.Tdyn @ s
+
+    def outer_acc(self, P, R):
+        raw = torch.einsum("tdi,tej->deij", P, R)
+        return raw * self.Tdyn[:, :, None, None] * self.Tlat[None]
+
+    def joint_shape(self):
+        return (self.n_dyn, self.n_dyn, self.n_latent, self.n_latent)
+
+    # kernel engine ----------------------------------------------------
+    def cuda_filter(self, ll, p_init, likelihood_scale):
+        return sk.filter_chunk(ll, self.Tlat, self.Tdyn, p_init,
+                               likelihood_scale,
+                               uniform_rows=self.uniform_rows)
+
+    def cuda_smooth(self, filt_xs, prior_xs, smooth_init):
+        return sk.smoother_chunk(filt_xs, prior_xs, self.Tlat, self.Tdyn,
+                                 smooth_init, uniform_rows=self.uniform_rows)
+
+
+# ---------------------------------------------------------------------------
+# probability-space scans (plain PyTorch loops)
+# ---------------------------------------------------------------------------
+
+
+def _forward_scan_prob(ll, trans, carry, likelihood_scale):
+    """Scaled causal filter.  The max-shifted weights are elementwise, so
+    they are formed for all steps at once; the loop holds the dependent
+    push/normalise chain.  Returns (post, prior, ratios, (p_last, logz))."""
+    p, logz = carry
+    m = ll.amax(dim=1)
+    w = torch.exp(likelihood_scale * (ll - m[:, None]))
+    T = ll.shape[0]
+    post = torch.empty((T, *p.shape), dtype=p.dtype, device=p.device)
+    prior = torch.empty_like(post)
+    s_all = torch.empty((T,), dtype=p.dtype, device=p.device)
+    for t in range(T):
+        pr = trans.push(p)
+        u = pr * trans.bcast_ll(w[t])
+        s = u.sum()
+        p = u / torch.clamp(s, min=_tiny(u))
+        post[t], prior[t], s_all[t] = p, pr, s
+    ratios = torch.log(s_all) + likelihood_scale * m
+    return post, prior, ratios, (p, logz + ratios.sum())
+
+
+def _backward_scan_prob_ratios(p_filt_xs, p_prior_xs, trans, p_smooth_init):
+    """Reverse smoother scan; returns (smooth, ratios r)."""
+    smooth = torch.empty_like(p_filt_xs)
+    ratios = torch.empty_like(p_filt_xs)
+    carry = p_smooth_init
+    for t in range(p_filt_xs.shape[0] - 1, -1, -1):
+        pn = p_prior_xs[t]
+        pos = pn > 0
+        r = torch.where(pos, carry / torch.where(pos, pn, 1.0),
+                        torch.zeros_like(pn))
+        sm = p_filt_xs[t] * trans.pull(r)
+        carry = sm / torch.clamp(sm.sum(), min=_tiny(sm))
+        smooth[t], ratios[t] = carry, r
+    return smooth, ratios
+
+
+def _backward_scan_prob(p_filt_xs, p_prior_xs, trans, p_smooth_init):
+    smooth, ratios = _backward_scan_prob_ratios(
+        p_filt_xs, p_prior_xs, trans, p_smooth_init
+    )
+    return smooth, trans.outer_acc(p_filt_xs, ratios)
+
+
+# ---------------------------------------------------------------------------
+# per-chunk programs
+# ---------------------------------------------------------------------------
+
+
+def _filter_chunk(y, tuning, hyperparam, trans, ma_neuron, ma_latent, carry,
+                  likelihood_scale, observation_model, engine):
+    ll = get_loglikelihood_ma_all(
+        y, tuning, hyperparam, ma_neuron, ma_latent,
+        observation_model=observation_model,
+    )
+    if engine == "cuda":
+        post, prior, ratios = trans.cuda_filter(ll, carry[0],
+                                                likelihood_scale)
+        carry_out = (post[-1], carry[1] + ratios.sum())
+    else:
+        post, prior, ratios, carry_out = _forward_scan_prob(
+            ll, trans, carry, likelihood_scale
+        )
+    return post, prior, ratios, carry_out, ll
+
+
+def _backward_chunk(filt_xs, prior_xs, trans, carry, engine):
+    if filt_xs.shape[0] == 0:  # T=1 sequence: nothing to smooth over
+        return filt_xs, carry
+    smooth_init, acc_in = carry
+    if engine == "cuda":
+        smooth, r = trans.cuda_smooth(filt_xs, prior_xs, smooth_init)
+        acc = trans.outer_acc(filt_xs, r)
+    else:
+        smooth, acc = _backward_scan_prob(filt_xs, prior_xs, trans,
+                                          smooth_init)
+    return smooth, (smooth[0], acc_in + acc)
+
+
+def _chunk_inputs(y, ma_neuron, n, n_time_per_chunk):
+    """Chunk ``n``'s spikes and neuron mask; a (N,) mask is broadcast to the
+    chunk's (T', N), as the JAX driver does."""
+    sl = slice(n * n_time_per_chunk, (n + 1) * n_time_per_chunk)
+    y_chunk = y[sl]
+    if ma_neuron.ndim == 2:
+        return y_chunk, ma_neuron[sl]
+    return y_chunk, torch.broadcast_to(ma_neuron, y_chunk.shape)
+
+
+# ---------------------------------------------------------------------------
+# public driver
+# ---------------------------------------------------------------------------
+
+
+def _device_memory_budget(device):
+    """Device memory in bytes: the card's total memory, 8 GB elsewhere."""
+    device = torch.device(device)
+    if device.type == "cuda":
+        return float(torch.cuda.get_device_properties(device).total_memory)
+    return 8e9
+
+
+def auto_chunk_size(n_time_tot, state_size, n_latent, device="cpu"):
+    """``n_time_per_chunk`` used when None is passed: one chunk whenever the
+    full-mode working set fits comfortably (chunking is exact, so its only
+    upside is bounding peak memory); past that, chunks sized to a fraction
+    of the device budget, never below 10000."""
+    per_t = (3 * state_size + n_latent) * 4  # posterior+prior+ratio+ll, f32
+    budget = _device_memory_budget(device)
+    if n_time_tot * per_t <= min(4e9, 0.5 * budget):
+        return int(n_time_tot)
+    chunk = int(max(1e9, 0.125 * budget) // per_t)
+    return int(np.clip(chunk, 10_000, n_time_tot))
+
+
+def smooth_combined_chunked(
+    y,
+    tuning,
+    hyperparam,
+    trans,
+    ma_neuron,
+    ma_latent=None,
+    likelihood_scale=1.0,
+    n_time_per_chunk=None,
+    observation_model="poisson",
+    engine="prob",
+    memory_mode="auto",
+):
+    """Chunked forward-backward smoother.
+
+    Returns ``(log_acausal_posterior_all, log_marginal_final,
+    log_causal_posterior_all, log_one_step_predictive_marginals,
+    log_accumulated_joint, log_likelihood_all)``.
+
+    The backward pass consumes the +1-shifted causal prior: chunk [a, b)
+    pairs with priors [a+1, b+1), and the final timestep's smoothed
+    posterior equals its filter posterior.  Chunking is exact.  Only the
+    'full' memory mode is ported ('auto' resolves to it; on an 80 GB card
+    the full working set of the north-star shape fits)."""
+    check_engine(engine)
+    if memory_mode not in ("auto", "full"):
+        raise NotImplementedError(
+            f"memory_mode={memory_mode!r} is not ported yet (ROADMAP queue "
+            "1, item 12); use 'full' or 'auto'"
+        )
+    device = tuning.device
+    y = torch.as_tensor(y, dtype=torch.float32, device=device)
+    n_time_tot = y.shape[0]
+    if n_time_per_chunk is None:
+        n_time_per_chunk = auto_chunk_size(
+            n_time_tot, trans.uniform_log_init().numel(), tuning.shape[0],
+            device,
+        )
+    n_chunks = -(-n_time_tot // n_time_per_chunk)
+    ma_neuron = torch.as_tensor(ma_neuron, dtype=torch.float32, device=device)
+    if ma_latent is None:
+        ma_latent = torch.ones(tuning.shape[0], dtype=torch.float32,
+                               device=device)
+
+    # ---- forward pass over chunks ----
+    carry = (torch.exp(trans.uniform_log_init()),
+             torch.zeros((), dtype=torch.float32, device=device))
+    post_chunks, prior_chunks, ratio_chunks, ll_chunks = [], [], [], []
+    for n in range(n_chunks):
+        y_chunk, ma_chunk = _chunk_inputs(y, ma_neuron, n, n_time_per_chunk)
+        post, prior, ratios, carry, ll = _filter_chunk(
+            y_chunk, tuning, hyperparam, trans, ma_chunk, ma_latent, carry,
+            likelihood_scale, observation_model, engine,
+        )
+        post_chunks.append(post)
+        prior_chunks.append(prior)
+        ratio_chunks.append(ratios)
+        ll_chunks.append(ll)
+    log_marginal_final = carry[1]
+    prior_all = torch.cat(prior_chunks, dim=0)
+
+    # ---- backward pass over chunks, reversed ----
+    smooth_chunks = [None] * n_chunks
+    bwd_carry = None
+    for n in range(n_chunks - 1, -1, -1):
+        a = n * n_time_per_chunk
+        b = min((n + 1) * n_time_per_chunk, n_time_tot)
+        filt_chunk = post_chunks[n]
+        prior_shifted = prior_all[a + 1: b + 1]
+        if bwd_carry is None:  # last chunk: start from the last filter post
+            bwd_carry = (
+                filt_chunk[-1],
+                torch.zeros(trans.joint_shape(), dtype=torch.float32,
+                            device=device),
+            )
+            smooth, bwd_carry = _backward_chunk(
+                filt_chunk[:-1], prior_shifted, trans, bwd_carry, engine
+            )
+            smooth = torch.cat([smooth, filt_chunk[-1][None]], dim=0)
+        else:
+            smooth, bwd_carry = _backward_chunk(
+                filt_chunk, prior_shifted, trans, bwd_carry, engine
+            )
+        smooth_chunks[n] = smooth
+
+    return (
+        prob_to_log(torch.cat(smooth_chunks, dim=0)),
+        log_marginal_final,
+        prob_to_log(torch.cat(post_chunks, dim=0)),
+        torch.cat(ratio_chunks, dim=0),
+        prob_to_log(bwd_carry[1]),
+        torch.cat(ll_chunks, dim=0),
+    )
+
+
+# ---------------------------------------------------------------------------
+# transition posterior extraction
+# ---------------------------------------------------------------------------
+
+
+def _lse(x, dims, keepdim=False):
+    return torch.logsumexp(x, dim=dims, keepdim=keepdim)
+
+
+def compute_transition_posterior_prob(log_accumulated_joint_total):
+    """12-key dict of joint/conditional transition posteriors for the joint
+    model."""
+    acc = log_accumulated_joint_total
+    log_joint_full = acc - _lse(acc, tuple(range(acc.ndim)))
+    log_joint_latent = _lse(log_joint_full, (0, 1))
+    log_joint_dynamics = _lse(log_joint_full, (2, 3))
+    log_transition_latent = log_joint_latent - _lse(log_joint_latent, 1, True)
+    log_transition_dynamics = log_joint_dynamics - _lse(
+        log_joint_dynamics, 1, True
+    )
+    log_transition_full = log_joint_full - _lse(log_joint_full, (1, 3), True)
+    return {
+        "p_joint_full": torch.exp(log_joint_full),
+        "p_joint_latent": torch.exp(log_joint_latent),
+        "p_joint_dynamics": torch.exp(log_joint_dynamics),
+        "p_transition_full": torch.exp(log_transition_full),
+        "p_transition_latent": torch.exp(log_transition_latent),
+        "p_transition_dynamics": torch.exp(log_transition_dynamics),
+        "log_joint_full": log_joint_full,
+        "log_joint_latent": log_joint_latent,
+        "log_joint_dynamics": log_joint_dynamics,
+        "log_transition_full": log_transition_full,
+        "log_transition_latent": log_transition_latent,
+        "log_transition_dynamics": log_transition_dynamics,
+    }
+
+
+def compute_transition_posterior_prob_latent(log_accumulated_joint_total):
+    """4-key dict for the latent-only model."""
+    acc = log_accumulated_joint_total
+    log_joint_latent = acc - _lse(acc, (0, 1))
+    log_transition_latent = log_joint_latent - _lse(log_joint_latent, 1, True)
+    return {
+        "p_joint_latent": torch.exp(log_joint_latent),
+        "p_transition_latent": torch.exp(log_transition_latent),
+        "log_joint_latent": log_joint_latent,
+        "log_transition_latent": log_transition_latent,
+    }

@@ -1,0 +1,79 @@
+"""Card tests: the CUDA scan kernels K1/K2 against their plain versions.
+
+Imports no jax, so it runs on a machine with a card and no JAX:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
+
+(``--noconftest`` skips ``tests/conftest.py``, which configures JAX.)
+Without a CUDA card every test here skips: the kernels have no interpret
+mode, and their plain versions are held against JAX in
+``test_torch_scan_kernels.py``.
+"""
+
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk  # noqa: E402
+from poor_man_gplvm_tpu_torch.testing import (  # noqa: E402
+    SCAN_CASES,
+    SCAN_TOLERANCES,
+    kernel_vs_plain,
+    scan_case,
+)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("case", SCAN_CASES)
+@pytest.mark.parametrize("n_dyn", [1, 2])
+@pytest.mark.parametrize("L", [100, 500])
+def test_kernels_match_plain(cuda, L, n_dyn, case):
+    err = kernel_vs_plain(scan_case(L + n_dyn, 1001, L, n_dyn, case), cuda)
+    torch.cuda.synchronize()
+    for key, tol in SCAN_TOLERANCES.items():
+        assert err[key] <= tol, (key, err)
+    assert err["finite"], err
+    assert err["masked_exact_zero"], err
+
+
+def test_launch_counts(cuda):
+    case = scan_case(0, 33, 40, 2, "jump")
+    ll = torch.as_tensor(case["ll"], device=cuda)
+    tlat = torch.as_tensor(case["tlat"], device=cuda)
+    tdyn = torch.as_tensor(case["tdyn"], device=cuda)
+    init = torch.as_tensor(case["p_init"], device=cuda)
+    f0, s0 = sk.filter_scan.launches, sk.smoother_scan.launches
+    post, prior, _ = sk.filter_chunk(ll, tlat, tdyn, init, 1.0)
+    assert sk.filter_scan.launches == f0 + 1
+    # a T=1 sequence hands the smoother zero rows: nothing is launched
+    smooth, r = sk.smoother_chunk(post[:0], prior[:0], tlat, tdyn, post[-1])
+    assert smooth.shape == (0, 2, 40) and sk.smoother_scan.launches == s0
+    sk.smoother_chunk(post[:-1], prior[1:], tlat, tdyn, post[-1])
+    torch.cuda.synchronize()
+    assert sk.smoother_scan.launches == s0 + 1
+
+
+def test_wrappers_reject_bad_inputs(cuda):
+    w = torch.rand(5, 8, device=cuda)
+    tlat = torch.rand(1, 8, 8, device=cuda)
+    tdyn = torch.ones(1, 1, device=cuda)
+    init = torch.rand(1, 8, device=cuda)
+    with pytest.raises(TypeError):
+        sk.filter_scan(w.double(), tlat, tdyn, init, (False,))
+    with pytest.raises(ValueError):
+        sk.filter_scan(w, tlat.transpose(1, 2), tdyn, init, (False,))
+    with pytest.raises(ValueError):
+        sk.filter_scan(w, tlat, tdyn.cpu(), init, (False,))
+    big = torch.rand(2, 1100, device=cuda)
+    with pytest.raises(ValueError):
+        sk.filter_scan(big, torch.rand(1, 1100, 1100, device=cuda), tdyn,
+                       torch.rand(1, 1100, device=cuda), (False,))

@@ -1,0 +1,167 @@
+"""The port's scan kernels K1/K2 (their plain versions, on the CPU) against
+the JAX package: the Pallas kernels in interpret mode
+(``filter_chunk_pallas`` / ``smoother_chunk_pallas``) and the prob-engine
+scans (``_forward_scan_prob`` / ``_backward_scan_prob_ratios``).
+
+Inputs are made with numpy from a seed (``poor_man_gplvm_tpu_torch.testing``)
+and fed to both packages in float32.  Tolerances: ``SCAN_TOLERANCES``
+(posteriors 1e-4 absolute, summed log ratios 1e-5 relative, as PARITY.json).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from poor_man_gplvm_tpu.ops import hmm as jhmm  # noqa: E402
+from poor_man_gplvm_tpu.ops.pallas import scan_kernels as jsk  # noqa: E402
+from poor_man_gplvm_tpu_torch.ops import hmm  # noqa: E402
+from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk  # noqa: E402
+from poor_man_gplvm_tpu_torch.testing import (  # noqa: E402
+    SCAN_TOLERANCES as TOL,
+    scan_case,
+)
+
+torch.set_num_threads(1)
+
+T_ODD = 51
+# (n_dyn, L, case): constant, non-constant and identical-non-constant
+# channels, masked bins, at L in {20, 37}
+CASES = [
+    (1, 20, "jump"), (1, 37, "identical"), (1, 37, "masked"),
+    (2, 37, "jump"), (2, 20, "identical"), (2, 20, "masked"),
+]
+
+
+def _t(x):
+    return torch.tensor(np.asarray(x, dtype=np.float32))
+
+
+def _np(x):
+    return np.asarray(x, dtype=np.float32)
+
+
+def _r_rel(r, r_ref, prior, nxt):
+    sel = (prior > 1e-30) & (nxt > 1e-30)
+    diff = np.abs(r[sel] - r_ref[sel])
+    return float((diff / np.abs(r_ref[sel])).max()) if sel.any() else 0.0
+
+
+def _joint(tlat, tdyn):
+    logs = [np.log(np.where(a > 0, a, 1.0)) for a in (tdyn, tlat)]
+    return (jhmm.JointTransition(jnp.asarray(tdyn), jnp.asarray(tlat),
+                                 jnp.asarray(logs[0]), jnp.asarray(logs[1])),
+            hmm.JointTransition(_t(tdyn), _t(tlat), _t(logs[0]),
+                                _t(logs[1])))
+
+
+@pytest.mark.parametrize("n_dyn,L,case", CASES)
+def test_filter_smoother_match_jax(n_dyn, L, case):
+    c = scan_case(L * 7 + n_dyn, T_ODD, L, n_dyn, case)
+    ll, tlat, tdyn, init = c["ll"], c["tlat"], c["tdyn"], c["p_init"]
+    if case == "identical":
+        assert jsk._detect_uniform_rows(tlat)[0] is False
+    assert sk._detect_uniform_rows(_t(tlat)) == jsk._detect_uniform_rows(
+        tlat)
+
+    # K1: port (plain version on the CPU) vs the Pallas kernel, interpreted
+    j_post, j_prior, j_ratios = (_np(a) for a in jsk.filter_chunk_pallas(
+        jnp.asarray(ll), jnp.asarray(tlat), jnp.asarray(tdyn),
+        jnp.asarray(init), 1.0))
+    post, prior, ratios = (a.numpy() for a in sk.filter_chunk(
+        _t(ll), _t(tlat), _t(tdyn), _t(init), 1.0))
+    assert np.abs(post - j_post).max() <= TOL["post_abs"]
+    assert np.abs(prior - j_prior).max() <= TOL["prior_abs"]
+    assert abs(ratios.sum() - j_ratios.sum()) <= (
+        TOL["log_ratio_sum_rel"] * abs(j_ratios.sum()))
+
+    # K2 on identical inputs (the JAX filter's outputs)
+    filt, prior_n, last = j_post[:-1], j_prior[1:], j_post[-1]
+    j_smooth, j_r = (_np(a) for a in jsk.smoother_chunk_pallas(
+        jnp.asarray(filt), jnp.asarray(prior_n), jnp.asarray(tlat),
+        jnp.asarray(tdyn), jnp.asarray(last)))
+    smooth, r = (a.numpy() for a in sk.smoother_chunk(
+        _t(filt), _t(prior_n), _t(tlat), _t(tdyn), _t(last)))
+    nxt = np.concatenate([j_smooth[1:], last[None]])
+    assert np.abs(smooth - j_smooth).max() <= TOL["smooth_abs"]
+    assert _r_rel(r, j_r, prior_n, nxt) <= TOL["r_rel"]
+
+    # both against the JAX prob engine's scans
+    j_trans, trans = _joint(tlat, tdyn)
+    jp_post, _, jp_ratios, _ = jhmm._forward_scan_prob(
+        jnp.asarray(ll), j_trans, (jnp.asarray(init), jnp.float32(0.0)), 1.0)
+    jp_smooth, _ = jhmm._backward_scan_prob_ratios(
+        jnp.asarray(filt), jnp.asarray(prior_n), j_trans, jnp.asarray(last))
+    assert np.abs(post - _np(jp_post)).max() <= TOL["post_abs"]
+    assert np.abs(smooth - _np(jp_smooth)).max() <= TOL["smooth_abs"]
+    p_post, _, p_ratios, (_, p_logz) = hmm._forward_scan_prob(
+        _t(ll), trans, (_t(init), torch.zeros(())), 1.0)
+    p_smooth, _ = hmm._backward_scan_prob_ratios(
+        _t(filt), _t(prior_n), trans, _t(last))
+    assert np.abs(p_post.numpy() - _np(jp_post)).max() <= TOL["post_abs"]
+    assert np.abs(p_smooth.numpy() - _np(jp_smooth)).max() <= TOL["smooth_abs"]
+    jp_sum = float(np.sum(_np(jp_ratios)))
+    assert abs(float(p_logz) - jp_sum) <= TOL["log_ratio_sum_rel"] * abs(jp_sum)
+
+    if case == "masked":
+        m = c["masked"]
+        assert (post[..., m] == 0).all() and (smooth[..., m] == 0).all()
+        assert np.isfinite(r).all() and np.isfinite(smooth).all()
+
+
+def test_single_step_sequence():
+    """T=1: the filter runs one step and the smoother gets zero rows."""
+    c = scan_case(5, 1, 20, 2, "jump")
+    j_post, j_prior, j_ratios = (_np(a) for a in jsk.filter_chunk_pallas(
+        jnp.asarray(c["ll"]), jnp.asarray(c["tlat"]), jnp.asarray(c["tdyn"]),
+        jnp.asarray(c["p_init"]), 1.0))
+    post, prior, ratios = sk.filter_chunk(_t(c["ll"]), _t(c["tlat"]),
+                                          _t(c["tdyn"]), _t(c["p_init"]), 1.0)
+    np.testing.assert_allclose(post.numpy(), j_post, atol=TOL["post_abs"])
+    np.testing.assert_allclose(ratios.numpy(), j_ratios,
+                               rtol=TOL["log_ratio_sum_rel"])
+    _, trans = _joint(c["tlat"], c["tdyn"])
+    acc0 = torch.zeros(trans.joint_shape())
+    smooth, carry = hmm._backward_chunk(post[:0], prior[1:], trans,
+                                        (post[-1], acc0), "cuda")
+    assert smooth.shape == (0, 2, 20) and carry[1] is acc0
+    smooth, r = sk.smoother_chunk(post[:0], prior[:0], _t(c["tlat"]),
+                                  _t(c["tdyn"]), post[-1])
+    assert smooth.shape == r.shape == (0, 2, 20)
+
+
+def test_latent_transition_kernel_hooks_match_joint():
+    """The latent-only hooks (n_dyn=1 lift) equal the joint n_dyn=1 path."""
+    c = scan_case(9, 31, 20, 1, "masked")
+    tl = _t(c["tlat"][0])
+    lat = hmm.LatentTransition(tl, torch.log(tl))
+    _, joint = _joint(c["tlat"], c["tdyn"])
+    post_l, prior_l, rat_l = lat.cuda_filter(_t(c["ll"]), _t(c["p_init"][0]),
+                                             1.0)
+    post_j, prior_j, rat_j = joint.cuda_filter(_t(c["ll"]), _t(c["p_init"]),
+                                               1.0)
+    torch.testing.assert_close(post_l, post_j[:, 0], rtol=0, atol=0)
+    torch.testing.assert_close(rat_l, rat_j, rtol=0, atol=0)
+    sm_l, r_l = lat.cuda_smooth(post_l[:-1], prior_l[1:], post_l[-1])
+    sm_j, r_j = joint.cuda_smooth(post_j[:-1], prior_j[1:], post_j[-1])
+    torch.testing.assert_close(sm_l, sm_j[:, 0], rtol=0, atol=0)
+    torch.testing.assert_close(r_l, r_j[:, 0], rtol=0, atol=0)
+
+
+def test_wrappers_check_inputs():
+    w = torch.rand(5, 8)
+    tlat = torch.rand(1, 8, 8)
+    tdyn = torch.ones(1, 1)
+    init = torch.rand(1, 8)
+    with pytest.raises(TypeError):
+        sk.filter_scan(w.double(), tlat, tdyn, init, (False,))
+    with pytest.raises(ValueError):
+        sk.filter_scan(w, tlat.transpose(1, 2), tdyn, init, (False,))
+    with pytest.raises(ValueError):
+        sk.filter_scan(w, tlat, tdyn, init, (False, False))
+    with pytest.raises(ValueError):
+        sk.smoother_scan(torch.rand(4, 3, 8), torch.rand(4, 3, 8),
+                         torch.rand(3, 8, 8), torch.ones(3, 3),
+                         torch.rand(3, 8), (False,) * 3)
