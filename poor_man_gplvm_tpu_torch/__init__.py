@@ -3,12 +3,13 @@
 The port mirrors the JAX package's module paths, names and result-dict
 contracts; the JAX package stays the reference it is tested against.  It
 imports ``torch`` only: no jax, no triton, and no GPU is needed to import
-it.  The sequential filter/smoother scans run as hand-written CUDA kernels
-(``csrc/scan_kernels.cu``) on a CUDA device, built with ``nvcc`` at first
-use.
+it.  The filter/smoother scans run as hand-written CUDA kernels on a CUDA
+device, built with ``nvcc`` at first use: the sequential pair K1/K2
+(``csrc/scan_kernels.cu``) and the parallel-in-time pair K3/K4
+(``csrc/parallel_scan.cu``) for long sequences.
 
 Ported so far: ``PoissonGPLVMJump1D`` decoding (``decode_latent``,
-``decode_latent_naive_bayes``) and sampling.
+``decode_latent_naive_bayes``), sampling and fitting (``fit_em``).
 """
 
 from poor_man_gplvm_tpu_torch import convert, models, ops

@@ -1,11 +1,13 @@
-"""Carry a JAX model's weights into a port model.
+"""Carry a JAX model's weights and optimizer state into a port model.
 
 The JAX package and the port build their tuning bases by SVD, whose
 singular vectors are defined only up to sign (and order, for equal
 singular values).  Loading the JAX model's ``tuning_basis`` together with
 its ``params`` makes both packages compute the same tuning curves, and so
-the same decode.  Everything crosses as numpy arrays: this module imports
-neither jax nor the JAX package.
+the same decode.  An optax Adam state carried across with
+``adam_state_from_jax`` lets a fit continue from where the JAX one stopped.
+Everything crosses as numpy arrays: this module imports neither jax, optax
+nor the JAX package.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["state_from_model", "load_jax_state"]
+__all__ = ["state_from_model", "load_jax_state", "adam_state_from_jax"]
 
 
 def state_from_model(model):
@@ -53,3 +55,34 @@ def load_jax_state(model, params, tuning_basis, tuning=None):
                              f"{n_neuron}), got {tuning.shape}")
         model.tuning = torch.tensor(tuning, device=model.device)
     return model
+
+
+def _find_adam_state(opt_state):
+    """The ``ScaleByAdamState`` inside an optax state: ``optax.adam`` gives a
+    tuple (ScaleByAdamState, EmptyState); found by its fields, so optax
+    need not be imported."""
+    if all(hasattr(opt_state, k) for k in ("count", "mu", "nu")):
+        return opt_state
+    if isinstance(opt_state, (tuple, list)):
+        for part in opt_state:
+            found = _find_adam_state(part)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_state_from_jax(opt_state, device="cpu"):
+    """The port's ``AdamState`` from an optax ``optax.adam`` state (or its
+    ``ScaleByAdamState``): count as int32, mu and nu as float32, on
+    ``device``."""
+    from poor_man_gplvm_tpu_torch.ops.mstep import AdamState
+
+    adam = _find_adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no ScaleByAdamState (count, mu, nu) in opt_state")
+    return AdamState(
+        count=torch.tensor(np.asarray(adam.count, dtype=np.int32),
+                           device=device),
+        mu=torch.tensor(np.asarray(adam.mu, dtype=np.float32), device=device),
+        nu=torch.tensor(np.asarray(adam.nu, dtype=np.float32), device=device),
+    )

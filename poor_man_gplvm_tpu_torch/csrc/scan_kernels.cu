@@ -41,8 +41,8 @@
 //     sum(q) * row: no matrix traffic at all (detected on the host exactly
 //     as _detect_uniform_rows does; identical but non-constant rows take
 //     the general matvec).
-// Filling the card (thread-block clusters with distributed shared memory,
-// the parallel-in-time kernels K3/K4, or batching sequences) is later work.
+// Long sequences fill the card through the parallel-in-time kernels K3/K4
+// (parallel_scan.cu), which run this step on one block per chunk.
 //
 // Numerics: f32 with FMA; the normaliser is clamped at 1e-38 as in K1/K2;
 // r = 0 where the prior is 0 (never 0/0), so latent bins masked to zero
@@ -50,32 +50,11 @@
 // itself (Mosaic could not store a dynamic 1-D slice, so JAX recomputed it
 // outside the kernel); the caller forms log(s_t) + scale * m_t.
 
-#include <cuda_runtime.h>
-#include <stddef.h>
+#include "scan_common.cuh"
 
 namespace {
 
-constexpr int kMaxThreads = 1024;
-constexpr int kMaxDyn = 2;
-// keep the transition stack resident in shared memory up to this many
-// bytes of dynamic shared memory (the card allows 227 KB per block)
-constexpr size_t kResidentCap = 200 * 1024;
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// prior/pull for one non-constant channel: sum_i vec[i] * mat[i, j]
-__device__ __forceinline__ float col_matvec(const float* __restrict__ vec,
-                                            const float* __restrict__ mat,
-                                            int L, int j) {
-  float a = 0.f;
-#pragma unroll 4
-  for (int i = 0; i < L; ++i) a = fmaf(vec[i], mat[(size_t)i * L + j], a);
-  return a;
-}
+using namespace pmg;
 
 // K1: causal filter over pre-computed weights w = exp(scale*(ll - rowmax)).
 // w (T, L); tlat (ND, L, L) with tlat[d][i][j] = p(j | i, dyn=d);
@@ -267,21 +246,6 @@ size_t resident_bytes(int n_dyn, int L) {
 
 bool is_resident(int n_dyn, int L) {
   return resident_bytes(n_dyn, L) <= kResidentCap;
-}
-
-template <typename Kernel>
-cudaError_t launch_prep(Kernel kernel, size_t smem) {
-  if (smem > 48 * 1024) {
-    return cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  }
-  return cudaSuccess;
-}
-
-int block_threads(int L) { return ((L + 31) / 32) * 32; }
-
-bool bad_shape(int n_dyn, int L) {
-  return n_dyn < 1 || n_dyn > kMaxDyn || L < 1 || block_threads(L) > kMaxThreads;
 }
 
 template <int ND, bool RESIDENT>

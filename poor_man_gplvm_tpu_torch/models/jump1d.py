@@ -1,12 +1,12 @@
 """Jump models: smooth 1-D latent + 2-state (continuous/jump) dynamics HMM.
 
 Counterpart of ``AbstractGPLVMJump1D`` and ``PoissonGPLVMJump1D`` in
-``poor_man_gplvm_tpu/models/jump1d.py`` for decoding and sampling.  Random
-draws take an explicit ``torch.Generator`` (a CPU generator, so a seed
-gives the same draws on every device) in place of a ``jax.random`` key;
-the two give different numbers from the same seed.  ``fit_em``,
-``m_step`` and ``GaussianGPLVMJump1D`` come with later slices (ROADMAP
-queue 1, items 6 and 11).
+``poor_man_gplvm_tpu/models/jump1d.py`` for decoding, sampling and
+fitting.  Random draws take an explicit ``torch.Generator`` (a CPU
+generator, so a seed gives the same draws on every device) in place of a
+``jax.random`` key; the two give different numbers from the same seed.
+``GaussianGPLVMJump1D`` comes with a later slice (ROADMAP queue 1, item
+11).
 """
 
 from __future__ import annotations
@@ -225,3 +225,49 @@ class PoissonGPLVMJump1D(AbstractGPLVMJump1D):
             tuning = self.tuning
         rate = tuning[torch.as_tensor(latent_l, device=tuning.device)] * dt
         return torch.poisson(rate.cpu(), generator=g).to(self.device)
+
+    def m_step(
+        self, param_curr, y, log_posterior_curr, tuning_basis, hyperparam,
+        opt_state_curr=None, host_trim=True,
+    ):
+        """Adam M-step on the grouped statistics of ``log_posterior_curr``
+        (T, L), continuing from ``opt_state_curr`` (an ``AdamState``).
+        ``host_trim=False`` leaves the history trimming to the caller."""
+        y_weighted, t_weighted = fth.get_statistics(log_posterior_curr, y)
+        adam_res = self.adam_runner(
+            param_curr, opt_state_curr, hyperparam, tuning_basis, y_weighted,
+            t_weighted,
+        )
+        return fth.package_adam_result(adam_res, host_trim=host_trim)
+
+    def fit_em(
+        self, y, hyperparam=None, generator=None, n_iter=20,
+        log_posterior_init=None, ma_neuron=None, ma_latent=None,
+        n_time_per_chunk=None, dt=1.0, likelihood_scale=1.0,
+        save_every=None, m_step_step_size=0.01, m_step_maxiter=1000,
+        m_step_tol=1e-6, **kwargs,
+    ):
+        """EM fit (see ``_GPLVMCommon.fit_em``) with Adam M-steps of
+        ``m_step_step_size``, ``m_step_maxiter`` and ``m_step_tol``; the
+        optimizer state starts fresh and is threaded across iterations."""
+        hyperparam_ = dict(hyperparam or {})
+        hyperparam_["param_prior_std"] = hyperparam_.get(
+            "param_prior_std", self.param_prior_std
+        )
+        hyperparam_["smoothness_penalty"] = hyperparam_.get(
+            "smoothness_penalty", self.smoothness_penalty
+        )
+        self.adam_runner, self.opt_state_init_fun = fth.make_adam_runner(
+            fth.poisson_m_step_objective_smoothness
+            if self.basis_type == "bspline"
+            else fth.poisson_m_step_objective,
+            m_step_step_size, maxiter=m_step_maxiter, tol=m_step_tol,
+        )
+        opt_state_curr = self.opt_state_init_fun(self.params)
+        return super().fit_em(
+            y, hyperparam=hyperparam_, generator=generator, n_iter=n_iter,
+            log_posterior_init=log_posterior_init, ma_neuron=ma_neuron,
+            ma_latent=ma_latent, n_time_per_chunk=n_time_per_chunk, dt=dt,
+            likelihood_scale=likelihood_scale, save_every=save_every,
+            opt_state_curr=opt_state_curr, **kwargs,
+        )

@@ -1,5 +1,5 @@
 """Numerics core of the port: kernels, basis, emissions, HMM engines,
-tuning links, and the hand-written CUDA scan kernels."""
+the M-step, and the hand-written CUDA scan kernels."""
 
 from poor_man_gplvm_tpu_torch.ops import (
     basis,
@@ -7,6 +7,7 @@ from poor_man_gplvm_tpu_torch.ops import (
     hmm,
     kernels,
     mstep,
+    parallel_scan,
     scan_kernels,
 )
 from poor_man_gplvm_tpu_torch.ops.basis import generate_basis
@@ -24,6 +25,7 @@ from poor_man_gplvm_tpu_torch.ops.hmm import (
     JointTransition,
     LatentTransition,
     auto_chunk_size,
+    engine_resolves_parallel,
     compute_transition_posterior_prob,
     compute_transition_posterior_prob_latent,
     prob_to_log,
@@ -35,8 +37,18 @@ from poor_man_gplvm_tpu_torch.ops.kernels import (
     uniform_gram,
 )
 from poor_man_gplvm_tpu_torch.ops.mstep import (
+    AdamState,
+    get_statistics,
     get_tuning_linear,
     get_tuning_softplus,
+    make_adam_runner,
+    poisson_m_step_objective,
+)
+from poor_man_gplvm_tpu_torch.ops.parallel_scan import (
+    choose_parallel_config,
+    pfilter_pass,
+    psmooth_pass,
+    smooth_parallel,
 )
 from poor_man_gplvm_tpu_torch.ops.scan_kernels import (
     filter_chunk,
@@ -46,13 +58,18 @@ from poor_man_gplvm_tpu_torch.ops.scan_kernels import (
 )
 
 __all__ = [
-    "basis", "emissions", "hmm", "kernels", "mstep", "scan_kernels",
+    "basis", "emissions", "hmm", "kernels", "mstep", "parallel_scan",
+    "scan_kernels",
     "generate_basis", "MASK_NEG", "RATE_FLOOR", "get_loglikelihood_ma_all",
     "get_naive_bayes_ma", "get_naive_bayes_ma_chunk", "poisson_lgamma_term",
     "poisson_loglik", "JOINT_ACC_INIT", "JointTransition", "LatentTransition",
-    "auto_chunk_size", "compute_transition_posterior_prob",
+    "auto_chunk_size", "engine_resolves_parallel",
+    "compute_transition_posterior_prob",
     "compute_transition_posterior_prob_latent", "prob_to_log",
     "smooth_combined_chunked", "create_transition_prob_1d", "rbf_gram",
-    "uniform_gram", "get_tuning_linear", "get_tuning_softplus",
-    "filter_chunk", "filter_scan", "smoother_chunk", "smoother_scan",
+    "uniform_gram", "AdamState", "get_statistics", "get_tuning_linear",
+    "get_tuning_softplus", "make_adam_runner", "poisson_m_step_objective",
+    "choose_parallel_config", "pfilter_pass", "psmooth_pass",
+    "smooth_parallel", "filter_chunk", "filter_scan", "smoother_chunk",
+    "smoother_scan",
 ]

@@ -1,13 +1,19 @@
 """Build and load the hand-written CUDA kernels (``csrc/*.cu``).
 
-The sources are compiled with ``nvcc`` for ``sm_90a`` into a shared library
-with a plain C interface and loaded with ``ctypes`` — no PyTorch headers,
-so a build takes seconds, not minutes.  The library goes into
-``build/torch_kernels/`` at the repository root and its file name carries
-a hash of the source, so a changed source rebuilds and an unchanged one is
-reused.  Nothing is built at import time: ``load_scan_kernels`` runs at the
-first launch (or when called directly, as ``chip_smoke.py`` does to time
-the build).
+Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
+of its own, with a plain C interface, and loaded with ``ctypes`` — no
+PyTorch headers, so a build takes seconds, not minutes.  The libraries go
+into ``build/torch_kernels/`` at the repository root and their file names
+carry a hash of the source and the shared header, so a changed source
+rebuilds and an unchanged one is reused.  Nothing is built at import time:
+a library is built at its first launch, or by ``build_all``, which starts
+one ``nvcc`` per missing library at once (``chip_smoke.py`` calls it to
+time the build).
+
+Libraries:
+
+* ``scan_kernels``: K1/K2, the sequential filter and smoother;
+* ``parallel_scan``: K3/K4, the parallel-in-time filter and smoother passes.
 """
 
 from __future__ import annotations
@@ -20,19 +26,47 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["load_scan_kernels", "BUILD_DIR", "SCAN_SOURCE"]
+__all__ = [
+    "BUILD_DIR",
+    "SOURCES",
+    "build_all",
+    "load",
+    "load_parallel_scan",
+    "load_scan_kernels",
+]
 
 _PKG = Path(__file__).resolve().parents[1]
-SCAN_SOURCE = _PKG / "csrc" / "scan_kernels.cu"
+CSRC = _PKG / "csrc"
+SOURCES = {
+    "scan_kernels": CSRC / "scan_kernels.cu",
+    "parallel_scan": CSRC / "parallel_scan.cu",
+}
+HEADERS = (CSRC / "scan_common.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_lib = None
-#: ptxas report (registers, shared memory, spills) of the last build
-build_log = ""
+_vp, _ci = ctypes.c_void_p, ctypes.c_int
+#: (restype, argtypes) of every exported function, per library
+_SIGNATURES = {
+    "scan_kernels": {
+        "pmg_filter_scan": [_vp] * 7 + [_ci] * 4 + [_vp],
+        "pmg_smoother_scan": [_vp] * 7 + [_ci] * 4 + [_vp],
+        "pmg_scan_tlat_resident": [_ci, _ci],
+    },
+    "parallel_scan": {
+        "pmg_pfilter_pass": [_vp] * 7 + [_ci] * 7 + [_vp],
+        "pmg_psmooth_pass": [_vp] * 8 + [_ci] * 7 + [_vp],
+        "pmg_pscan_tlat_resident": [_ci, _ci, _ci],
+    },
+}
+
+_libs = {}
+#: ptxas report (registers, shared memory, spills) of each library built
+#: by this process
+build_log = {}
 
 
 def _nvcc():
@@ -45,44 +79,73 @@ def _nvcc():
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def _compile(src: Path, out: Path) -> str:
-    out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
+def _so_path(name):
+    h = hashlib.sha256(SOURCES[name].read_bytes())
+    for header in HEADERS:
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
+
+
+def build_all(names=None):
+    """Compile every library in ``names`` (default: all) that is not built
+    yet, one ``nvcc`` process per source, all started together; raise if
+    any fails.  Each library is written atomically (a reader never sees a
+    partial .so)."""
+    names = list(SOURCES) if names is None else list(names)
+    jobs = []
     try:
-        proc = subprocess.run(
-            [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(src)],
-            capture_output=True, text=True, check=False,
-        )
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed on {src.name} (exit {proc.returncode}):\n"
-                f"{proc.stdout}{proc.stderr}"
+        for name in names:
+            out = _so_path(name)
+            if out.exists():
+                continue
+            out.parent.mkdir(parents=True, exist_ok=True)
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+            os.close(fd)
+            proc = subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCES[name])],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
-        os.replace(tmp, out)  # atomic: a reader never sees a partial .so
+            jobs.append((name, out, tmp, proc))
+        failed = []
+        for name, out, tmp, proc in jobs:
+            text, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed on {SOURCES[name].name} (exit "
+                              f"{proc.returncode}):\n{text}")
+                continue
+            os.replace(tmp, out)
+            build_log[name] = text
+        if failed:
+            raise RuntimeError("\n".join(failed))
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return proc.stdout + proc.stderr
+        for _, _, tmp, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+
+
+def load(name):
+    """Build (if needed) and load library ``name``; returns the
+    ``ctypes.CDLL`` with every exported function's types declared."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    build_all([name])
+    lib = ctypes.CDLL(str(_so_path(name)))
+    for fn, argtypes in _SIGNATURES[name].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = _ci
+    _libs[name] = lib
+    return lib
 
 
 def load_scan_kernels():
-    """Compile (if needed) and load the K1/K2 library; returns the
-    ``ctypes.CDLL`` with argument types declared."""
-    global _lib, build_log
-    if _lib is not None:
-        return _lib
-    digest = hashlib.sha256(SCAN_SOURCE.read_bytes()).hexdigest()[:16]
-    so = BUILD_DIR / f"scan_kernels_{digest}.so"
-    if not so.exists():
-        build_log = _compile(SCAN_SOURCE, so)
-    lib = ctypes.CDLL(str(so))
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    lib.pmg_filter_scan.argtypes = [vp] * 7 + [ci] * 4 + [vp]
-    lib.pmg_filter_scan.restype = ci
-    lib.pmg_smoother_scan.argtypes = [vp] * 7 + [ci] * 4 + [vp]
-    lib.pmg_smoother_scan.restype = ci
-    lib.pmg_scan_tlat_resident.argtypes = [ci, ci]
-    lib.pmg_scan_tlat_resident.restype = ci
-    _lib = lib
-    return lib
+    """The K1/K2 library."""
+    return load("scan_kernels")
+
+
+def load_parallel_scan():
+    """The K3/K4 library."""
+    return load("parallel_scan")

@@ -1,16 +1,21 @@
 """Forward-backward smoother over the (dynamics x latent) state space.
 
-Counterpart of ``poor_man_gplvm_tpu/ops/hmm.py`` for the decode path:
-scaled probability-space forward/backward recursions, the chunked host
-driver ``smooth_combined_chunked`` in full memory mode, and the
-transition-posterior extraction.
+Counterpart of ``poor_man_gplvm_tpu/ops/hmm.py`` for the decode and fit
+paths: scaled probability-space forward/backward recursions, the chunked
+host driver ``smooth_combined_chunked`` in full memory mode, the
+parallel-in-time driver, and the transition-posterior extraction.
 
 Engines:
 * ``'prob'``: a plain PyTorch loop over time (``_forward_scan_prob``,
   ``_backward_scan_prob``), one small tensor op after another;
 * ``'cuda'``: the hand-written sequential kernels K1/K2
   (``ops/scan_kernels.py``), the counterpart of the JAX ``'pallas'``
-  engine.  On CPU tensors the kernels' wrappers run their plain versions.
+  engine.  On a CUDA device it is upgraded to ``'cuda_parallel'`` from
+  ``_PARALLEL_UPGRADE_MIN_T`` steps on, while the parallel engine's
+  buffers fit the card (``engine_resolves_parallel``);
+* ``'cuda_parallel'``: the parallel-in-time kernels K3/K4
+  (``ops/parallel_scan.py``), the counterpart of ``'pallas_parallel'``.
+On CPU tensors the kernels' wrappers run their plain versions.
 
 As in the JAX package the pairwise-joint accumulation is not carried
 through the scan; in probability space it factorizes,
@@ -27,6 +32,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from poor_man_gplvm_tpu_torch.ops import parallel_scan as ps
 from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk
 from poor_man_gplvm_tpu_torch.ops.emissions import get_loglikelihood_ma_all
 
@@ -34,13 +40,9 @@ from poor_man_gplvm_tpu_torch.ops.emissions import get_loglikelihood_ma_all
 # sentinel (the JAX package's JOINT_ACC_INIT).
 JOINT_ACC_INIT = -3.0e38
 
-ENGINES = ("prob", "cuda")
+ENGINES = ("prob", "cuda", "cuda_parallel")
 _NOT_PORTED = {
     "log": "engine='log' is not ported yet (ROADMAP queue 1, item 4b)",
-    "pallas_parallel": (
-        "the parallel-in-time engine is not ported yet (ROADMAP queue 1, "
-        "item 9; kernels K3/K4)"
-    ),
 }
 
 __all__ = [
@@ -50,6 +52,7 @@ __all__ = [
     "prob_to_log",
     "auto_chunk_size",
     "smooth_combined_chunked",
+    "engine_resolves_parallel",
     "compute_transition_posterior_prob",
     "compute_transition_posterior_prob_latent",
 ]
@@ -60,7 +63,9 @@ def check_engine(engine):
     if engine in _NOT_PORTED:
         raise NotImplementedError(_NOT_PORTED[engine])
     if engine not in ENGINES:
-        raise ValueError(f"engine must be 'prob' or 'cuda', got {engine!r}")
+        raise ValueError(
+            f"engine must be one of {ENGINES}, got {engine!r}"
+        )
 
 
 def prob_to_log(p, floor=JOINT_ACC_INIT):
@@ -332,6 +337,8 @@ def smooth_combined_chunked(
     observation_model="poisson",
     engine="prob",
     memory_mode="auto",
+    want_acc=True,
+    diag_out=None,
 ):
     """Chunked forward-backward smoother.
 
@@ -343,7 +350,14 @@ def smooth_combined_chunked(
     pairs with priors [a+1, b+1), and the final timestep's smoothed
     posterior equals its filter posterior.  Chunking is exact.  Only the
     'full' memory mode is ported ('auto' resolves to it; on an 80 GB card
-    the full working set of the north-star shape fits)."""
+    the full working set of the north-star shape fits).
+
+    ``want_acc=False``: the caller discards ``log_accumulated_joint``
+    (``fit_em`` does).  The parallel engine then skips the pairwise-joint
+    contraction and returns None in that slot; the sequential engines
+    ignore the hint, as in the JAX package.  ``diag_out``: a list to which
+    the parallel engine appends its fixed-point diagnostics
+    ``(fwd_passes, bwd_passes, fwd_delta, bwd_delta)``."""
     check_engine(engine)
     if memory_mode not in ("auto", "full"):
         raise NotImplementedError(
@@ -353,6 +367,12 @@ def smooth_combined_chunked(
     device = tuning.device
     y = torch.as_tensor(y, dtype=torch.float32, device=device)
     n_time_tot = y.shape[0]
+    if engine_resolves_parallel(n_time_tot, trans, engine, device):
+        return _smooth_parallel_driver(
+            y, tuning, hyperparam, trans, ma_neuron, ma_latent,
+            likelihood_scale, observation_model, memory_mode,
+            n_time_per_chunk, want_acc, diag_out,
+        )
     if n_time_per_chunk is None:
         n_time_per_chunk = auto_chunk_size(
             n_time_tot, trans.uniform_log_init().numel(), tuning.shape[0],
@@ -412,6 +432,108 @@ def smooth_combined_chunked(
         torch.cat(ratio_chunks, dim=0),
         prob_to_log(bwd_carry[1]),
         torch.cat(ll_chunks, dim=0),
+    )
+
+
+# ---------------------------------------------------------------------------
+# parallel-in-time engine
+# ---------------------------------------------------------------------------
+
+#: 'cuda' -> 'cuda_parallel' auto-upgrade floor on a CUDA device.  Decode
+#: at N = L = 100 on an H100 (700 W): T=1,000 sequential 5.87 ms vs
+#: parallel 6.78 ms; T=2,000 10.14 vs 5.89 ms; T=10,000 43.2 vs 4.8 ms
+#: (PERF.md).  The JAX package's 20,000 was measured on a TPU v5e.
+_PARALLEL_UPGRADE_MIN_T = 2_000
+
+
+def _parallel_upgrade_ok(n_time, n_latent, n_dyn, device):
+    """Whether the parallel engine's full-sequence buffers fit the card.
+    It holds, at its peak, the log-likelihoods and weights (2 x (T, L))
+    and five (T, n_dyn, L) f32 arrays (filter posteriors, smoothed
+    posteriors, ratios, and the two log-space outputs), with no O(chunk)
+    fallback; the upgrade is allowed while they take at most 3/4 of what
+    the card has free (the caching allocator's unused blocks count as
+    free).  An explicit engine='cuda_parallel' bypasses this."""
+    est_bytes = 4.0 * n_time * n_latent * (2 + 5 * max(1, n_dyn))
+    free, _ = torch.cuda.mem_get_info(device)
+    cached = (torch.cuda.memory_reserved(device)
+              - torch.cuda.memory_allocated(device))
+    return est_bytes <= 0.75 * (free + cached)
+
+
+def engine_resolves_parallel(n_time, trans, engine, device):
+    """Whether ``smooth_combined_chunked`` with this engine runs the
+    parallel-in-time driver for ``n_time`` steps on ``device``: always for
+    'cuda_parallel', and for 'cuda' on a CUDA device from
+    ``_PARALLEL_UPGRADE_MIN_T`` steps on while the buffers fit."""
+    if engine == "cuda_parallel":
+        return True
+    device = torch.device(device)
+    return (
+        engine == "cuda"
+        and device.type == "cuda"
+        and n_time >= _PARALLEL_UPGRADE_MIN_T
+        and _parallel_upgrade_ok(n_time, trans.n_latent,
+                                 getattr(trans, "n_dyn", 1), device)
+    )
+
+
+def _smooth_parallel_driver(
+    y, tuning, hyperparam, trans, ma_neuron, ma_latent, likelihood_scale,
+    observation_model, memory_mode, n_time_per_chunk, want_acc, diag_out,
+):
+    """engine='cuda_parallel': the fixed-point parallel-in-time scans
+    (``ops/parallel_scan.py``).  Falls back to the sequential 'cuda' engine
+    when the sequence is too short to chunk (a problem-size rule of the
+    JAX package)."""
+    T = y.shape[0]
+    is_joint = hasattr(trans, "Tdyn")
+    n_dyn = trans.n_dyn if is_joint else 1
+    L = trans.n_latent
+    cfg = ps.choose_parallel_config(T, L, n_dyn)
+    if cfg is None:
+        return smooth_combined_chunked(
+            y, tuning, hyperparam, trans, ma_neuron, ma_latent,
+            likelihood_scale=likelihood_scale,
+            n_time_per_chunk=n_time_per_chunk,
+            observation_model=observation_model, engine="cuda",
+            memory_mode=memory_mode,
+        )
+    device = tuning.device
+    if ma_latent is None:
+        ma_latent = torch.ones(L, dtype=torch.float32, device=device)
+    # the emissions are formed exactly as the sequential chunk loop forms
+    # them (a 1-D neuron mask broadcast to (T, N)), so that the two engines
+    # differ only in the scan.  (The JAX package folds a 1-D mask into one
+    # matmul instead; the per-bin rounding of that fold moved sharp L=500
+    # posteriors by 3e-4 against the sequential engine on the H100.)
+    y, ma_t = _chunk_inputs(
+        y, torch.as_tensor(ma_neuron, dtype=torch.float32, device=device),
+        0, T)
+    ll = get_loglikelihood_ma_all(y, tuning, hyperparam, ma_t, ma_latent,
+                                  observation_model=observation_model)
+    tlat = trans.Tlat if is_joint else trans.T[None]
+    tdyn = trans.Tdyn if is_joint else torch.ones(
+        (1, 1), dtype=torch.float32, device=device)
+    p_init = torch.exp(trans.uniform_log_init())
+    if not is_joint:
+        p_init = p_init[None]
+    smooth, log_marginal, post, ratios, acc, diag = ps.smooth_parallel(
+        ll, tlat, tdyn, p_init, likelihood_scale,
+        uniform_rows=trans.uniform_rows, config=cfg, want_acc=want_acc,
+    )
+    if diag_out is not None:
+        diag_out.append(diag)
+    if not is_joint:
+        smooth, post = smooth[:, 0], post[:, 0]
+        acc = None if acc is None else acc[0, 0]
+    return (
+        prob_to_log(smooth),
+        log_marginal,
+        prob_to_log(post),
+        ratios,
+        None if acc is None else prob_to_log(acc),
+        ll,
     )
 
 

@@ -1,15 +1,44 @@
-"""Tuning links (PyTorch).
+"""M-step: sufficient statistics, tuning links, the Poisson objective and
+its Adam runner (PyTorch).
 
-Counterpart of the link functions in ``poor_man_gplvm_tpu/ops/mstep.py``.
-The rest of the M-step (statistics, objectives, Adam) comes with the fit
-slice (ROADMAP item 6).
+Counterpart of ``poor_man_gplvm_tpu/ops/mstep.py`` for the Poisson models.
+The EM M-step works on *grouped* statistics, the posterior-weighted counts
+``y_weighted`` (L, N) and occupancy ``t_weighted`` (L,), so its cost does
+not depend on T; the statistics are one (T, L)^T @ (T, N) matmul.
+
+Adam is written out by hand in optax's order of operations (``optax.adam``
+with b1 = 0.9, b2 = 0.999, eps = 1e-8, eps_root = 0), with an explicit state
+``AdamState(count, mu, nu)``, so that a fit resumed from a JAX optimizer
+state (``convert.adam_state_from_jax``) computes the same thing.  The
+runner keeps the JAX package's stopping rule; its loop reads the stopping
+test on the host once per iteration after the first five.
 """
 
 from __future__ import annotations
 
+import math
+from typing import NamedTuple
+
 import torch
 
-__all__ = ["get_tuning_linear", "get_tuning_softplus"]
+__all__ = [
+    "AdamState",
+    "adam_init",
+    "adam_update",
+    "batch_trim_m_step_histories",
+    "get_statistics",
+    "get_tuning_linear",
+    "get_tuning_softplus",
+    "make_adam_runner",
+    "package_adam_result",
+    "poisson_m_step_objective",
+    "poisson_m_step_objective_smoothness",
+    "tree_l2_norm",
+]
+
+ADAM_B1 = 0.9
+ADAM_B2 = 0.999
+ADAM_EPS = 1e-8
 
 
 def get_tuning_linear(params, basis):
@@ -23,3 +52,182 @@ def get_tuning_softplus(params, basis):
     to the identity above x=20, which the JAX link does not)."""
     x = get_tuning_linear(params, basis)
     return torch.logaddexp(x, torch.zeros_like(x))
+
+
+def _statistics_block(log_posterior_probs, y):
+    posterior_probs = torch.exp(log_posterior_probs)
+    return posterior_probs.T @ y, posterior_probs.sum(dim=0)
+
+
+def get_statistics(log_posterior_probs, y, n_time_per_chunk=200_000):
+    """Posterior-weighted observations and occupancy per latent bin,
+    accumulated over time chunks so the exp + matmul transients stay
+    O(chunk).  Returns (y_weighted (L, N), t_weighted (L,))."""
+    y = torch.as_tensor(y, dtype=torch.float32,
+                        device=log_posterior_probs.device)
+    T = log_posterior_probs.shape[0]
+    if T <= n_time_per_chunk:
+        return _statistics_block(log_posterior_probs, y)
+    y_weighted = t_weighted = None
+    for start in range(0, T, n_time_per_chunk):
+        sl = slice(start, start + n_time_per_chunk)
+        yw, tw = _statistics_block(log_posterior_probs[sl], y[sl])
+        if y_weighted is None:
+            y_weighted, t_weighted = yw, tw
+        else:
+            y_weighted = y_weighted + yw
+            t_weighted = t_weighted + tw
+    return y_weighted, t_weighted
+
+
+def _norm_logpdf(x, scale):
+    """``jax.scipy.stats.norm.logpdf(x, 0, scale)`` in its order of
+    operations: (log(2 pi scale^2) + x^2 / scale^2) / -2."""
+    scale = torch.as_tensor(scale, dtype=x.dtype, device=x.device)
+    log_normalizer = torch.log(2 * math.pi * scale**2)
+    return (log_normalizer + x**2 / scale**2) / -2
+
+
+def poisson_m_step_objective(param, hyperparam, basis_mat, y_weighted,
+                             t_weighted):
+    """Negative expected log joint on grouped statistics plus the Gaussian
+    prior on the basis weights."""
+    pf_hat = get_tuning_softplus(param, basis_mat)  # (L, N)
+    norm_term = pf_hat * t_weighted[:, None]
+    fit_term = torch.xlogy(y_weighted, pf_hat + 1e-20)
+    log_likelihood = torch.sum(fit_term - norm_term)
+    log_prior = _norm_logpdf(param, hyperparam["param_prior_std"]).sum()
+    return -log_likelihood - log_prior
+
+
+def poisson_m_step_objective_smoothness(param, hyperparam, basis_mat,
+                                        y_weighted, t_weighted):
+    """The bspline basis's roughness-penalised objective: not ported."""
+    raise NotImplementedError(
+        "the bspline basis and its smoothness objective are not ported yet "
+        "(ROADMAP queue 1, item 2)"
+    )
+
+
+def tree_l2_norm(x):
+    """L2 norm of a tensor (a pytree with one leaf in the JAX package)."""
+    return torch.sqrt(torch.sum(torch.square(x)))
+
+
+class AdamState(NamedTuple):
+    """optax's ``ScaleByAdamState``: step count (int32) and moments."""
+
+    count: torch.Tensor
+    mu: torch.Tensor
+    nu: torch.Tensor
+
+
+def adam_init(params):
+    return AdamState(
+        count=torch.zeros((), dtype=torch.int32, device=params.device),
+        mu=torch.zeros_like(params), nu=torch.zeros_like(params),
+    )
+
+
+def adam_update(grads, state, step_size):
+    """One ``optax.adam(step_size)`` update: returns (updates, new state).
+    The order of operations is optax's: moment EMAs, count + 1, bias
+    corrections 1 - b**count in f32, mu_hat / (sqrt(nu_hat) + eps), then
+    the scale by -step_size."""
+    mu = (1 - ADAM_B1) * grads + ADAM_B1 * state.mu
+    nu = (1 - ADAM_B2) * grads**2 + ADAM_B2 * state.nu
+    count = state.count + 1
+    b1 = torch.tensor(ADAM_B1, dtype=torch.float32, device=grads.device)
+    b2 = torch.tensor(ADAM_B2, dtype=torch.float32, device=grads.device)
+    mu_hat = mu / (1 - b1**count)
+    nu_hat = nu / (1 - b2**count)
+    updates = mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS)
+    return -step_size * updates, AdamState(count, mu, nu)
+
+
+def make_adam_runner(fun, step_size, maxiter=1000, tol=1e-6):
+    """Adam loop with the JAX package's (and the reference's) stopping
+    rule: at least 5 iterations, then stop once the relative loss change
+    is <= ``tol``, and at ``maxiter - 1`` at the latest.  The first loop
+    iteration re-evaluates the loss at the unchanged initial parameters,
+    duplicating the evaluation before the loop, as the reference does.
+    Loss and error histories are allocated at ``maxiter`` and trimmed by
+    the callers.
+
+    Returns ``(run, adam_init)``; ``run(init_params, opt_state, *args)``
+    -> dict with params / opt_state / n_iter / final_loss / final_error /
+    loss_history / error_history (tensors on the parameters' device)."""
+
+    def value_and_grad(params, args):
+        params = params.detach().requires_grad_(True)
+        with torch.enable_grad():
+            loss = fun(params, *args)
+            (grads,) = torch.autograd.grad(loss, params)
+        return loss.detach(), grads
+
+    def run(init_params, opt_state, *args):
+        params = init_params
+        loss, grads = value_and_grad(params, args)
+        error = tree_l2_norm(grads)
+        loss_history = torch.zeros(maxiter, device=params.device)
+        error_history = torch.zeros(maxiter, device=params.device)
+        loss_history[0], error_history[0] = loss, error
+        loss_prev = loss
+        i = 0
+        while i < maxiter - 1:
+            if i >= 5:
+                rel_change = (loss - loss_prev).abs() / torch.clamp(
+                    loss.abs(), min=1e-8)
+                if not bool(rel_change > tol):
+                    break
+            new_loss, grads = value_and_grad(params, args)
+            updates, opt_state = adam_update(grads, opt_state, step_size)
+            params = params + updates
+            error = tree_l2_norm(grads)
+            loss_prev, loss = loss, new_loss
+            i += 1
+            loss_history[i], error_history[i] = loss, error
+        return {
+            "params": params,
+            "opt_state": opt_state,
+            "n_iter": torch.tensor(i + 1, device=params.device),
+            "final_loss": loss,
+            "final_error": error,
+            "loss_history": loss_history,
+            "error_history": error_history,
+        }
+
+    return run, adam_init
+
+
+def package_adam_result(adam_res, host_trim=True):
+    """Package an Adam runner result for m_step callers.  ``host_trim``
+    trims the pre-allocated histories to the realised iteration count;
+    ``host_trim=False`` leaves that to ``batch_trim_m_step_histories``
+    after the EM loop."""
+    out = {k: adam_res[k] for k in (
+        "params", "opt_state", "n_iter", "final_loss", "final_error",
+        "loss_history", "error_history")}
+    if host_trim:
+        n_iter = int(adam_res["n_iter"])
+        out["n_iter"] = n_iter
+        out["loss_history"] = adam_res["loss_history"][:n_iter].cpu().numpy()
+        out["error_history"] = (
+            adam_res["error_history"][:n_iter].cpu().numpy())
+    return out
+
+
+def batch_trim_m_step_histories(m_step_res_l):
+    """Trim the deferred (``host_trim=False``) M-step histories of every EM
+    iteration in one batch.  Mutates and returns the dict."""
+    if not m_step_res_l.get("loss_history"):
+        return m_step_res_l
+    if isinstance(m_step_res_l["n_iter"][0], int):
+        return m_step_res_l  # already trimmed (host_trim=True path)
+    n_arr = torch.stack(m_step_res_l["n_iter"]).cpu().tolist()
+    loss_h = torch.stack(m_step_res_l["loss_history"]).cpu().numpy()
+    err_h = torch.stack(m_step_res_l["error_history"]).cpu().numpy()
+    m_step_res_l["n_iter"] = [int(v) for v in n_arr]
+    m_step_res_l["loss_history"] = [loss_h[j, :v] for j, v in enumerate(n_arr)]
+    m_step_res_l["error_history"] = [err_h[j, :v] for j, v in enumerate(n_arr)]
+    return m_step_res_l

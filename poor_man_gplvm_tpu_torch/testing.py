@@ -1,5 +1,8 @@
 """Seeded inputs for holding the scan kernels against their plain versions.
 
+K1/K2 (sequential) are compared by ``kernel_vs_plain``, K3/K4
+(parallel-in-time passes) by ``pscan_vs_plain``.
+
 Shared by the CPU tests, the card tests and ``chip_smoke.py``.  Everything
 is built with numpy from a seed, so the same case can be fed to the JAX
 package, the plain PyTorch versions and the CUDA kernels.
@@ -10,10 +13,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from poor_man_gplvm_tpu_torch.ops import parallel_scan as ps
 from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk
 from poor_man_gplvm_tpu_torch.ops.emissions import MASK_NEG
 
-__all__ = ["SCAN_CASES", "SCAN_TOLERANCES", "scan_case", "kernel_vs_plain"]
+__all__ = [
+    "SCAN_CASES", "SCAN_TOLERANCES", "PSCAN_TOLERANCES", "scan_case",
+    "kernel_vs_plain", "pscan_inputs", "pscan_vs_plain", "bwd_guess",
+]
 
 #: kernel vs plain version (and port vs JAX): posteriors/priors/smoothed
 #: values absolute, r relative where the prior and the smoothed numerator
@@ -124,4 +131,94 @@ def kernel_vs_plain(case, device):
         "masked_exact_zero": bool(
             (post_k[..., masked] == 0).all() and (sm_k[..., masked] == 0).all()
         ),
+    }
+
+
+#: K3/K4 vs their plain versions: posteriors, smoothed values and boundary
+#: carries absolute; r relative where the prior and the numerator r*prior
+#: are > 1e-30 (as for K2); summed log normalisers relative
+PSCAN_TOLERANCES = {
+    "fwd_finals_abs": 1e-4, "post_abs": 1e-4, "log_norm_sum_rel": 1e-5,
+    "bwd_finals_abs": 1e-4, "smooth_abs": 1e-4, "r_rel": 1e-4,
+}
+
+
+def pscan_inputs(case, device, C=None):
+    """K3/K4 inputs of a ``scan_case`` on ``device``: C chunks (default:
+    ``choose_parallel_config``'s), the likelihood weights, the transition
+    stacks, and forward boundary carries converged by the plain K3 passes
+    as ``smooth_parallel`` converges them.  (Emitting from unconverged
+    carries would hand K4 chunk-first posteriors inconsistent with its
+    recomputed priors, whose subnormal tails then overflow r.)"""
+    t = {k: torch.as_tensor(v, device=device) for k, v in case.items()
+         if k != "masked"}
+    T, L = t["ll"].shape
+    n_dyn = t["tlat"].shape[0]
+    if C is None:
+        C = ps.choose_parallel_config(T, L, n_dyn)[0]
+    m = t["ll"].amax(dim=1)
+    w = torch.exp(t["ll"] - m[:, None]).contiguous()
+    tc = -(-T // C)
+    flags = sk._detect_uniform_rows(t["tlat"])
+    ins0 = torch.full((C, n_dyn, L), 1.0 / (n_dyn * L), device=device)
+    ins0[0] = t["p_init"]
+    ins, _, _ = ps._solve(
+        lambda ins: ps.pfilter_pass_plain(w, t["tlat"], t["tdyn"], ins, tc,
+                                          flags, emit=False)[2],
+        lambda fin: torch.cat([ins0[:1], fin[:-1]]), ins0, 1e-6, C)
+    return {
+        "w": w, "m": m, "tlat": t["tlat"],
+        "tlat_t": t["tlat"].transpose(-1, -2).contiguous(),
+        "tdyn": t["tdyn"], "ins": ins, "tc": tc, "flags": flags,
+    }
+
+
+def bwd_guess(post, tc, C):
+    """The backward boundary carries ``smooth_parallel`` starts from."""
+    T = post.shape[0]
+    rows = torch.arange(1, C + 1, device=post.device) * tc
+    guess = post[torch.clamp(rows, max=T - 1)].contiguous()
+    guess[(T - 1) // tc:] = post[T - 1]
+    return guess
+
+
+def pscan_vs_plain(case, device, C=None):
+    """Run K3 (finals-only and emit) and K4 (finals-only and full) and
+    their plain versions on the same inputs on ``device`` (C chunks, see
+    ``pscan_inputs``), K4 on the plain K3's posteriors, and return their
+    largest disagreements (see ``PSCAN_TOLERANCES``), whether every output
+    is finite, whether masked bins came out as exact zeros, and whether the
+    finals of both modes of each kernel agree bit for bit."""
+    a = pscan_inputs(case, device, C)
+    fwd = (a["w"], a["tlat"], a["tdyn"], a["ins"], a["tc"], a["flags"])
+    post_p, norm_p, fin_p = ps.pfilter_pass_plain(*fwd, emit=True)
+    _, _, fin_k0 = ps.pfilter_pass(*fwd, emit=False)
+    post_k, norm_k, fin_k = ps.pfilter_pass(*fwd, emit=True)
+    lr_p = float((torch.log(norm_p) + a["m"]).double().sum())
+    lr_k = float((torch.log(norm_k) + a["m"]).double().sum())
+
+    C = a["ins"].shape[0]
+    bwd = (post_p, a["tlat"], a["tlat_t"], a["tdyn"],
+           bwd_guess(post_p, a["tc"], C), a["tc"], a["flags"])
+    sm_p, r_p, bfin_p = ps.psmooth_pass_plain(*bwd, emit=True)
+    _, _, bfin_k0 = ps.psmooth_pass(*bwd, emit=False)
+    sm_k, r_k, bfin_k = ps.psmooth_pass(*bwd, emit=True)
+    prior = ps._matvec(torch.einsum("tpl,pd->tdl", post_p, a["tdyn"]),
+                       a["tlat"], a["flags"])
+    where = (prior > 1e-30) & ((r_p * prior) > 1e-30)
+    masked = torch.as_tensor(case["masked"], device=device)
+    outs_k = (post_k, norm_k, fin_k, sm_k, r_k, bfin_k)
+    return {
+        "fwd_finals_abs": float((fin_k - fin_p).abs().max()),
+        "post_abs": float((post_k - post_p).abs().max()),
+        "log_norm_sum_rel": abs(lr_k - lr_p) / abs(lr_p),
+        "bwd_finals_abs": float((bfin_k - bfin_p).abs().max()),
+        "smooth_abs": float((sm_k - sm_p).abs().max()),
+        "r_rel": _max_rel(r_k, r_p, where),
+        "finite": all(bool(torch.isfinite(x).all()) for x in outs_k),
+        "masked_exact_zero": bool(
+            (post_k[..., masked] == 0).all() and (sm_k[..., masked] == 0).all()
+        ),
+        "modes_agree": bool(torch.equal(fin_k0, fin_k)
+                            and torch.equal(bfin_k0, bfin_k)),
     }

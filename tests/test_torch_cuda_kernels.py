@@ -1,4 +1,5 @@
-"""Card tests: the CUDA scan kernels K1/K2 against their plain versions.
+"""Card tests: the CUDA scan kernels K1/K2 (sequential) and K3/K4
+(parallel-in-time passes) against their plain versions.
 
 Imports no jax, so it runs on a machine with a card and no JAX:
 
@@ -7,18 +8,23 @@ Imports no jax, so it runs on a machine with a card and no JAX:
 (``--noconftest`` skips ``tests/conftest.py``, which configures JAX.)
 Without a CUDA card every test here skips: the kernels have no interpret
 mode, and their plain versions are held against JAX in
-``test_torch_scan_kernels.py``.
+``test_torch_scan_kernels.py`` and ``test_torch_parallel_scan.py``.
 """
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from poor_man_gplvm_tpu_torch.ops import hmm  # noqa: E402
+from poor_man_gplvm_tpu_torch.ops import parallel_scan as ps  # noqa: E402
 from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk  # noqa: E402
 from poor_man_gplvm_tpu_torch.testing import (  # noqa: E402
+    PSCAN_TOLERANCES,
     SCAN_CASES,
     SCAN_TOLERANCES,
     kernel_vs_plain,
+    pscan_inputs,
+    pscan_vs_plain,
     scan_case,
 )
 
@@ -77,3 +83,66 @@ def test_wrappers_reject_bad_inputs(cuda):
     with pytest.raises(ValueError):
         sk.filter_scan(big, torch.rand(1, 1100, 1100, device=cuda), tdyn,
                        torch.rand(1, 1100, device=cuda), (False,))
+
+
+def _assert_pscan(err):
+    for key, tol in PSCAN_TOLERANCES.items():
+        assert err[key] <= tol, (key, err)
+    assert err["finite"] and err["masked_exact_zero"], err
+    assert err["modes_agree"], err
+
+
+@pytest.mark.parametrize("case", SCAN_CASES)
+@pytest.mark.parametrize("n_dyn", [1, 2])
+@pytest.mark.parametrize("L", [100, 500])
+def test_pscan_kernels_match_plain(cuda, L, n_dyn, case):
+    # odd T: the last chunk is ragged and T-1 falls inside it
+    err = pscan_vs_plain(scan_case(L + n_dyn, 4001, L, n_dyn, case), cuda)
+    torch.cuda.synchronize()
+    _assert_pscan(err)
+
+
+def test_pscan_kernels_empty_chunks(cuda):
+    # 64 chunks of 2 rows over T=101: chunks 51..63 hold no row at all
+    err = pscan_vs_plain(scan_case(5, 101, 40, 2, "masked"), cuda, C=64)
+    torch.cuda.synchronize()
+    _assert_pscan(err)
+
+
+def test_pscan_launch_counts_and_bad_inputs(cuda):
+    a = pscan_inputs(scan_case(0, 301, 40, 2, "jump"), cuda)
+    args = (a["w"], a["tlat"], a["tdyn"], a["ins"], a["tc"], a["flags"])
+    f0, s0 = ps.pfilter_pass.launches, ps.psmooth_pass.launches
+    post, _, _ = ps.pfilter_pass(*args, emit=True)
+    ps.psmooth_pass(post, a["tlat"], a["tlat_t"], a["tdyn"], a["ins"],
+                    a["tc"], a["flags"], emit=False)
+    torch.cuda.synchronize()
+    assert ps.pfilter_pass.launches == f0 + 1
+    assert ps.psmooth_pass.launches == s0 + 1
+    with pytest.raises(ValueError):  # chunks do not cover T
+        ps.pfilter_pass(*args[:4], 1, a["flags"], emit=False)
+    with pytest.raises(ValueError):
+        ps.pfilter_pass(a["w"], a["tlat"], a["tdyn"], a["ins"][:, :1],
+                        a["tc"], a["flags"], emit=False)
+    with pytest.raises(TypeError):
+        ps.psmooth_pass(post.double(), a["tlat"], a["tlat_t"], a["tdyn"],
+                        a["ins"], a["tc"], a["flags"], emit=True)
+
+
+@pytest.mark.parametrize("L", [100, 500])
+def test_parallel_engine_matches_sequential(cuda, L):
+    case = scan_case(L, 20_001, L, 2, "jump")
+    t = {k: torch.as_tensor(v, device=cuda) for k, v in case.items()
+         if k != "masked"}
+    trans = hmm.JointTransition(Tdyn=t["tdyn"], Tlat=t["tlat"],
+                                logTdyn=t["tdyn"].log(),
+                                logTlat=t["tlat"].log())
+    par = ps.smooth_parallel(t["ll"], t["tlat"], t["tdyn"], t["p_init"],
+                             1.0, uniform_rows=trans.uniform_rows)
+    post, prior, ratios = trans.cuda_filter(t["ll"], t["p_init"], 1.0)
+    smooth, _ = trans.cuda_smooth(post[:-1], prior[1:], post[-1])
+    torch.cuda.synchronize()
+    lml, lml_seq = float(par[1]), float(ratios.double().sum())
+    assert abs(lml - lml_seq) <= 1e-5 * abs(lml_seq)
+    assert float((par[2] - post).abs().max()) <= 1e-4
+    assert float((par[0][:-1] - smooth).abs().max()) <= 1e-4

@@ -185,11 +185,13 @@ def test_predict_expected_rate(models, jax_decode):
 def test_engines_and_modes():
     m = PoissonGPLVMJump1D(4, n_latent_bin=6)
     assert m.inference_engine == "prob"  # 'auto' on a CPU device
-    for engine in ("log", "pallas_parallel"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    assert PoissonGPLVMJump1D(4, n_latent_bin=6, inference_engine=(
+        "cuda_parallel")).inference_engine == "cuda_parallel"
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        PoissonGPLVMJump1D(4, n_latent_bin=6, inference_engine="log")
+    for engine in ("pallas", "pallas_parallel"):  # the JAX package's names
+        with pytest.raises(ValueError, match="cuda_parallel"):
             PoissonGPLVMJump1D(4, n_latent_bin=6, inference_engine=engine)
-    with pytest.raises(ValueError):
-        PoissonGPLVMJump1D(4, n_latent_bin=6, inference_engine="pallas")
     y = np.ones((5, 4), np.float32)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         m._smooth(y, m.tuning, {}, m._make_transition({})[0],
@@ -225,6 +227,13 @@ def test_port_imports_and_decodes_without_jax():
         y = np.random.default_rng(0).poisson(1.0, (30, 5)).astype("f4")
         res = m.decode_latent(y)
         assert len(res) == 19 and np.isfinite(res["log_marginal_final"])
+        m.inference_engine = "cuda_parallel"
+        y = np.random.default_rng(1).poisson(1.0, (300, 5)).astype("f4")
+        res = m.decode_latent(y)
+        assert len(res) == 19 and np.isfinite(res["log_marginal_final"])
+        em = m.fit_em(y, n_iter=2, verboase=False, m_step_maxiter=10)
+        assert len(em["log_marginal_l"]) == 2
+        assert np.isfinite(float(em["log_marginal_l"][-1]))
         assert not any(k == "jax" or k.startswith(("jax.", "jaxlib"))
                        for k in sys.modules if sys.modules[k] is not None)
         print("ok")
