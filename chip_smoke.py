@@ -13,10 +13,17 @@ Phases, each of which checks its results (any failure exits non-zero):
    versions on the same inputs on the card, at L in {100, 500}, n_dyn in
    {1, 2}, three cases (constant channel, identical non-constant rows,
    masked bins) and at the decode shape, with the per-step times;
-4. parallel kernels: K3 (filter pass, finals-only and emit) and K4
-   (smoother pass, finals-only and full) against their plain versions over
-   the same grid at an odd T (ragged last chunk, T-1 mid-chunk), with the
-   pass times at T=100,000;
+4. parallel kernels: K3 (filter pass: finals-only, emit) and K4 (smoother
+   pass: finals-only, full, marginal, marginal+acc) against their plain
+   versions over the same grid at an odd T (ragged last chunk, T-1
+   mid-chunk), in "highest" and, with masked bins, in the K5 precisions
+   "bf16x3" and "bf16", over whole passes and by the one-step check
+   (``testing.pfilter_step_check``), with controls that the check fails
+   a kernel held against another precision; ``joint_acc`` against its
+   plain version; then
+   every kernel and mode held against its plain version and timed at
+   T=100,000 for L in {100, 500} (CUDA events), beside its bound and, for
+   ``joint_acc``, the one PyTorch call that computes the same sum;
 5. slice: ``PoissonGPLVMJump1D.decode_latent`` at T=10,000 for (N, L) =
    (100, 100) and (500, 500) through the engine 'auto' resolves to (the
    parallel one above its threshold), held against the plain ``'prob'``
@@ -27,15 +34,31 @@ Phases, each of which checks its results (any failure exits non-zero):
    500;
 7. long decode: ``decode_latent`` at T=100,000 for both shapes through the
    engine 'auto' resolves to (the parallel one), held against the
-   sequential engine on the card;
+   sequential engine on the card; and at N = L = 500 in the "bf16" and
+   "bf16x3" scan precisions, held against "highest";
 8. fit: ``fit_em`` at T=100,000, L = N = 100 (the repo's headline fit
-   cell), its s/EM-iteration with the M-step/E-step split, and its first
-   iterations held against a sequential-engine fit.
+   cell): the profiled host loop (s/EM-iteration, M-step/E-step split),
+   the unprofiled fused schedule that ``bench.py``'s fit cell runs, the
+   device's busy share in a fused fit (``torch.profiler``), the warm-start
+   gate measurement (fused fit and mid-iteration E-step with and without
+   warm-started fixed points), and the first iterations held against a
+   sequential-engine fit;
+9. north-star: ``fit_em(output_mode='lean')`` at T=1,000,000, L = N = 500
+   (``bench.py``'s north-star cell), a warm-up fit and timed fits in the
+   "highest" and "bf16x3" scan precisions (the bench's certificate: final
+   log-marginals within 1e-5 relative), a capped fused vs ``fused=False``
+   pair (the latter profiled: M-step / E-step seconds per iteration), a
+   middle E-step cold and warm-started, K3 emit and K4 marginal held
+   against their plain versions at this shape, and
+   ``smooth_combined_chunked(marginal_smooth=True)`` at T=100,000, with
+   and without the pairwise joint, held against the full mode in each
+   scan precision.
 
-Each main path (phases 5, 7, 8) runs with the kernels' launch counts set to
-0 just before it and read just after; comparison runs are not counted.
-The line before the last is a JSON summary of the kernels; the last line is
-``{"ok": true, "device": {...}}``.  Imports torch, numpy and the port only.
+Each main path (phases 5, 7, 8, 9) runs with the kernels' launch counts,
+by mode and precision, set to 0 just before it and read just after;
+comparison runs are not counted.  The line before the last is a JSON
+summary of the kernels; the last line is ``{"ok": true, "device":
+{...}}``.  Imports torch, numpy and the port only.
 """
 
 import contextlib
@@ -56,6 +79,7 @@ CROSSOVER_T = {100: (1000, 2000, 5000, 10_000, 20_000, 50_000, 100_000),
                500: (1000, 2000, 5000, 10_000)}  # L = N: decode lengths
 FIT_ITERS = 10
 FIT_CMP_ITERS = 3
+GATE_PAIRS = 5  # fused fits with and without warm start, in turns
 # the engine comparison fits cap the Adam loop: its relative-change stop
 # flips under 1-ulp loss differences, which would compare stopping
 # iterations rather than engines
@@ -63,15 +87,48 @@ FIT_CMP_MAXITER = 20
 DECODE_LMF_RTOL = 1e-5
 DECODE_POST_ATOL = 1e-4
 FIT_LML_RTOL = 1e-5
-KERNELS = {  # wrapper name: (source, the TPU kernel it replaces)
-    "filter_scan": ("poor_man_gplvm_tpu_torch/csrc/scan_kernels.cu",
+# "bf16" scan precision against "highest": its dots round the vector
+# operand to bf16 (~1e-3 on the posteriors, the JAX package's own figure)
+BF16_POST_ATOL = 1e-2
+BF16_LMF_RTOL = 1e-4
+# "bf16x3" against "highest": ~2^-17 per dot (the log-marginal is the
+# bench's certificate, 1e-5)
+BF16X3_POST_ATOL = 1e-3
+# the north-star cell (bench.py:_run_northstar)
+NS_T, NS_N, NS_L = 1_000_000, 500, 500
+NS_ITERS = 12  # the bench's n_iter
+NS_WARMUP_ITERS = 3
+NS_CMP_ITERS = 4
+NS_CMP_MAXITER = 20
+NS_CERT_RTOL = 1e-5  # the bench's bf16x3-vs-strict-f32 certificate
+T_ACC = 100_000  # the marginal+acc check of the north-star model
+# the card's peaks (NVIDIA's data sheet, H100 SXM, 700 W): device memory
+# rate, float32 outside the tensor cores, dense bf16 in the tensor cores
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+BF16_FLOP_PER_S = 989e12
+
+PS_SRC = "poor_man_gplvm_tpu_torch/csrc/parallel_scan.cu"
+JPS = "poor_man_gplvm_tpu/ops/pallas/parallel_scan.py"
+K5 = f" with K5 {JPS}:126-150"
+#: every kernel and mode of the main paths: (wrapper, mode/precision key or
+#: None, source, the TPU kernel it replaces)
+KERNELS = {
+    "filter_scan": ("filter_scan", None,
+                    "poor_man_gplvm_tpu_torch/csrc/scan_kernels.cu",
                     "poor_man_gplvm_tpu/ops/pallas/scan_kernels.py:80"),
-    "smoother_scan": ("poor_man_gplvm_tpu_torch/csrc/scan_kernels.cu",
+    "smoother_scan": ("smoother_scan", None,
+                      "poor_man_gplvm_tpu_torch/csrc/scan_kernels.cu",
                       "poor_man_gplvm_tpu/ops/pallas/scan_kernels.py:200"),
-    "pfilter_pass": ("poor_man_gplvm_tpu_torch/csrc/parallel_scan.cu",
-                     "poor_man_gplvm_tpu/ops/pallas/parallel_scan.py:334"),
-    "psmooth_pass": ("poor_man_gplvm_tpu_torch/csrc/parallel_scan.cu",
-                     "poor_man_gplvm_tpu/ops/pallas/parallel_scan.py:474"),
+    **{f"{fn}[{mode}/{prec}]": (fn, f"{mode}/{prec}", PS_SRC, f"{JPS}:{line}"
+                                + ("" if prec == "highest" else K5))
+       for prec in ("highest", "bf16x3", "bf16")
+       for fn, line, modes in (
+           ("pfilter_pass", 334, ("finals", "emit")),
+           ("psmooth_pass", 474, ("finals", "full", "marginal",
+                                  "marginal_acc")))
+       for mode in modes},
+    "joint_acc": ("joint_acc", "acc/highest", PS_SRC, f"{JPS}:600"),
 }
 
 
@@ -108,25 +165,114 @@ def cuda_ms(fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def timed_once(fn):
+    """(result, milliseconds on the card) of one call, no warm-up (the
+    plain versions compile nothing)."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(stop)
+
+
+def wall_s(fn):
+    """Host seconds of one call that ends in a device synchronise."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
 def _wrappers():
     from poor_man_gplvm_tpu_torch.ops import parallel_scan as ps
     from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk
 
     return {"filter_scan": sk.filter_scan, "smoother_scan": sk.smoother_scan,
-            "pfilter_pass": ps.pfilter_pass, "psmooth_pass": ps.psmooth_pass}
+            "pfilter_pass": ps.pfilter_pass, "psmooth_pass": ps.psmooth_pass,
+            "joint_acc": ps.joint_acc}
 
 
 @contextlib.contextmanager
 def counted(launches):
     """Run a main path with every launch count set to 0 just before it;
-    add the counts read just after it to ``launches``."""
+    add the counts read just after it to ``launches`` (by wrapper, and by
+    wrapper[mode/precision])."""
+    from poor_man_gplvm_tpu_torch.ops import parallel_scan as ps
+
     wrappers = _wrappers()
     for fn in wrappers.values():
         fn.launches = 0
+    ps.reset_launches()
     yield
     torch.cuda.synchronize()
     for name, fn in wrappers.items():
-        launches[name] += fn.launches
+        launches[name] = launches.get(name, 0) + fn.launches
+        for key, n in getattr(fn, "launches_by_mode", {}).items():
+            launches[f"{name}[{key}]"] = launches.get(f"{name}[{key}]", 0) + n
+
+
+def _path_launches(launches, name):
+    wrapper, key = KERNELS[name][:2]
+    return launches.get(wrapper if key is None else f"{wrapper}[{key}]", 0)
+
+
+def bound(nbytes, op_seconds):
+    """(ms, 'bytes' or 'operations'): the least time the card could take,
+    the larger of moving ``nbytes`` (each input read once, each output
+    written once) and doing the operations (``op_seconds`` at peak)."""
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_bytes, op_seconds), ("bytes" if t_bytes >= op_seconds
+                                            else "operations")
+
+
+def kernel_bound(name, T, L, n_dyn, n_mat):
+    """The bound of one call of a kernel (name as in KERNELS) over T rows,
+    L latent bins and n_dyn channels, of which n_mat take a dense matvec
+    (a constant channel takes a row sum).  A dense recursion dot is 2 L^2
+    operations per step: f32 in "highest", bf16 products on the tensor
+    cores in "bf16x3" (3 passes) and "bf16" (1 pass); K4 does two per step
+    (push and pull).  Inputs are the weights or posteriors and the
+    transition matrices; outputs what the mode stores."""
+    f4 = 4.0
+    mats = n_dyn * L * L * f4
+    state = T * n_dyn * L * f4
+    key = name[name.index("[") + 1:-1] if "[" in name else ""
+    mode, _, prec = key.partition("/")
+    prec = prec or "highest"
+    passes = {"highest": 1, "bf16x3": 3, "bf16": 1}[prec]
+    rate = F32_FLOP_PER_S if prec == "highest" else BF16_FLOP_PER_S
+    dot_s = T * n_mat * 2.0 * L * L * passes / rate
+    joint_s = 2.0 * T * (n_dyn * L) ** 2 / F32_FLOP_PER_S
+    if name == "filter_scan":
+        return bound(T * L * f4 + mats + 2 * state + T * f4, dot_s)
+    if name == "smoother_scan":
+        return bound(4 * state + mats, dot_s)
+    if name == "joint_acc":
+        return bound(2 * state + n_dyn * mats, joint_s)
+    if name.startswith("pfilter_pass"):
+        out = state + T * f4 if mode == "emit" else 0.0
+        return bound(T * L * f4 + mats + out, dot_s)
+    out = {"finals": 0.0, "full": 2 * state,
+           "marginal": T * (L + n_dyn) * f4,
+           "marginal_acc": T * (L + n_dyn) * f4 + n_dyn * mats}[mode]
+    return bound(state + 2 * mats + out,
+                 2 * dot_s + (joint_s if mode == "marginal_acc" else 0.0))
+
+
+@contextlib.contextmanager
+def scan_precision(mode):
+    """Run with the parallel scans' recursion dots in ``mode``."""
+    from poor_man_gplvm_tpu_torch.ops import parallel_scan as ps
+
+    ps.set_scan_precision(mode)
+    try:
+        yield
+    finally:
+        ps.set_scan_precision("highest")
 
 
 @contextlib.contextmanager
@@ -175,9 +321,10 @@ def phase_build():
         "resident in shared memory, n_dyn=2: K1/K2 L=100 "
         f"{bool(seq.pmg_scan_tlat_resident(2, 100))}, L=500 "
         f"{bool(seq.pmg_scan_tlat_resident(2, 500))}; K3 L=100 "
-        f"{bool(par.pmg_pscan_tlat_resident(0, 2, 100))}; K4 L=100 "
-        f"{bool(par.pmg_pscan_tlat_resident(1, 2, 100))}, L=500 "
-        f"{bool(par.pmg_pscan_tlat_resident(1, 2, 500))})")
+        f"{bool(par.pmg_pscan_tlat_resident(0, 2, 100, 0))}; K4 L=100 "
+        f"{bool(par.pmg_pscan_tlat_resident(1, 2, 100, 0))}, L=500 "
+        f"{bool(par.pmg_pscan_tlat_resident(1, 2, 500, 0))}; K4 bf16x3 "
+        f"L=100 {bool(par.pmg_pscan_tlat_resident(1, 2, 100, 1))})")
 
 
 def _fmt(err):
@@ -237,61 +384,143 @@ def phase_kernels():
     return worst, times
 
 
-def phase_pscan_kernels():
+#: the output of each K3/K4 mode that ``_pscan_timed`` holds against the
+#: plain version: (index in the returned tuple, tolerance key)
+TIMED_OUTPUT = {"emit": (0, "post_abs"), "full": (0, "smooth_abs"),
+                "marginal": (0, "lat_abs"), "marginal_acc": (2, "acc_rel"),
+                "acc": (0, "acc_rel")}
+
+
+def _pscan_timed(L, dev):
+    """Every K3/K4 mode and precision, and joint_acc, at the fit cell's
+    length T=100,000, n_dyn=2 with the jump channel: each kernel call held
+    against its plain version on the same inputs (its main output, by the
+    whole-pass tolerance of its precision), K3 emit and K4 full by the
+    one-step check, both versions timed, with the bound and, for
+    joint_acc, the PyTorch call for the same sum."""
     from poor_man_gplvm_tpu_torch.ops import parallel_scan as ps
     from poor_man_gplvm_tpu_torch.testing import (
-        PSCAN_TOLERANCES, SCAN_CASES, bwd_guess, pscan_inputs,
+        bwd_guess, pfilter_step_check, pscan_inputs, pscan_tolerances,
+        psmooth_step_check, scan_case,
+    )
+
+    case = scan_case(L, T_LONG, L, 2, "jump")
+    rows = {}
+    for prec in ps.SCAN_PRECISIONS:
+        tols = pscan_tolerances(prec)
+        a = pscan_inputs(case, dev, scan_prec=prec)
+        C = a["ins"].shape[0]
+        n_mat = sum(not f for f in a["flags"])
+        fwd = (a["w"], a["tlat"], a["tdyn"], a["ins"], a["tc"], a["flags"])
+        post = ps.pfilter_pass_plain(*fwd, True, prec)[0]
+        ins_b = bwd_guess(post, a["tc"], C)
+        bwd = (post, a["tlat"], a["tlat_t"], a["tdyn"], ins_b, a["tc"],
+               a["flags"])
+        # (kernel, plain, the output compared and its tolerance key)
+        calls = {f"pfilter_pass[{m}/{prec}]": (
+            lambda e=(m == "emit"): ps.pfilter_pass(*fwd, e, prec),
+            lambda e=(m == "emit"): ps.pfilter_pass_plain(*fwd, e, prec),
+            TIMED_OUTPUT.get(m, (2, "fwd_finals_abs")))
+            for m in ("finals", "emit")}
+        for m in ps.PSMOOTH_MODES:
+            calls[f"psmooth_pass[{m}/{prec}]"] = (
+                lambda m=m: ps.psmooth_pass(*bwd, m, prec),
+                lambda m=m: ps.psmooth_pass_plain(*bwd, m, prec),
+                TIMED_OUTPUT.get(m, (2, "bwd_finals_abs")))
+        if prec == "highest":
+            r = ps.psmooth_pass_plain(*bwd, "full", prec)[1]
+            calls["joint_acc"] = (lambda: ps.joint_acc(post, r),
+                                  lambda: ps.joint_acc_plain(post, r),
+                                  TIMED_OUTPUT["acc"])
+        # every mode in every precision is held and timed (KERNELS)
+        for name, (kern, plain, (idx, key)) in calls.items():
+            want, plain_ms = timed_once(plain)
+            got = kern()
+            got = got if torch.is_tensor(got) else got[idx]
+            want = want if torch.is_tensor(want) else want[idx]
+            err = float((got - want).abs().max())
+            rel = err / float(want.abs().max())
+            ms = cuda_ms(kern, 3)
+            bound_ms, bound_by = kernel_bound(name, T_LONG, L, 2, n_mat)
+            lib_ms = None
+            if name == "joint_acc":
+                lib_ms = cuda_ms(lambda: torch.einsum("tdi,tej->deij", post,
+                                                      r), 3)
+            rows[name] = dict(err=err, ms=ms, plain_ms=plain_ms,
+                              bound_ms=bound_ms, bound_by=bound_by,
+                              library_ms=lib_ms, C=C, tc=a["tc"])
+            log(f"time {name} L={L} T={T_LONG} C={C} tc={a['tc']}: kernel "
+                f"{ms:.3f} ms ({1e3 * ms / a['tc']:.3f} us/step), plain "
+                f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by})"
+                + ("" if lib_ms is None else f", einsum {lib_ms:.3f} ms")
+                + f"; max |kernel - plain| {err:.3e} ({rel:.2e} of max)")
+            held = rel if key == "acc_rel" else err
+            check(held <= tols[key], (name, key, held, tols[key]))
+        step = pfilter_step_check(a, ps.pfilter_pass(*fwd, True, prec)[0],
+                                  prec)
+        sm_k, r_k, _ = ps.psmooth_pass(*bwd, "full", prec)
+        step.update(psmooth_step_check(a, post, ins_b, sm_k, r_k, prec))
+        log(f"one-step check K3 emit, K4 full L={L} T={T_LONG} {prec}: "
+            f"{_fmt(step)}")
+        for key, v in step.items():
+            check(v <= tols[key], (L, prec, key, v, tols[key]))
+    return rows
+
+
+#: controls of the K3/K4 check: (kernel precision, plain precision) pairs
+#: that it must reject, a kernel run in another precision than asked.  On
+#: the H100 the one-step share past 1e-5 was 0.42-0.85 with a bf16 side and
+#: 2.5e-2 (posteriors, r) for bf16x3 against f32, against a limit of 1e-3.
+CONTROLS = (("bf16", "highest"), ("bf16", "bf16x3"), ("highest", "bf16"),
+            ("bf16x3", "bf16"), ("bf16x3", "highest"))
+
+
+def phase_pscan_kernels():
+    from poor_man_gplvm_tpu_torch.testing import (
+        PSCAN_TOLERANCES, SCAN_CASES, joint_acc_vs_plain, pscan_failures,
         pscan_vs_plain, scan_case,
     )
 
     dev = torch.device("cuda")
-    worst = {"pfilter_pass": 0.0, "psmooth_pass": 0.0}
+    worst = {}
+
+    def hold(err, prec, what):
+        torch.cuda.synchronize()
+        log(f"K3/K4 vs plain {what} {prec}: {_fmt(err)}")
+        check(not pscan_failures(err, prec),
+              f"{pscan_failures(err, prec)} ({what}, {prec}): {err}")
+        for key in PSCAN_TOLERANCES:
+            if key in err:
+                worst[(prec, key)] = max(worst.get((prec, key), 0.0), err[key])
+
     for L in (100, 500):
         for n_dyn in (1, 2):
             for case in SCAN_CASES:
-                err = pscan_vs_plain(
-                    scan_case(L * 10 + n_dyn, T_PSCAN, L, n_dyn, case), dev)
-                torch.cuda.synchronize()
-                log(f"K3/K4 vs plain T={T_PSCAN} L={L} n_dyn={n_dyn} {case}: "
-                    f"{_fmt(err)}")
-                for key, tol in PSCAN_TOLERANCES.items():
-                    check(err[key] <= tol,
-                          f"{key}={err[key]} > {tol} ({L}, {n_dyn}, {case})")
-                check(err["finite"] and err["masked_exact_zero"]
-                      and err["modes_agree"], err)
-                worst["pfilter_pass"] = max(worst["pfilter_pass"],
-                                            err["post_abs"],
-                                            err["fwd_finals_abs"])
-                worst["psmooth_pass"] = max(worst["psmooth_pass"],
-                                            err["smooth_abs"],
-                                            err["bwd_finals_abs"])
-
-    # one pass of each kernel at the long shape (n_dyn=2, jump channel)
-    times = {}
-    for L in (100, 500):
-        a = pscan_inputs(scan_case(L, T_LONG, L, 2, "jump"), dev)
-        fwd = (a["w"], a["tlat"], a["tdyn"], a["ins"], a["tc"], a["flags"])
-        post = ps.pfilter_pass(*fwd, emit=True)[0]
-        C = a["ins"].shape[0]
-        bwd = (post, a["tlat"], a["tlat_t"], a["tdyn"],
-               bwd_guess(post, a["tc"], C), a["tc"], a["flags"])
-        times[L] = {
-            "pfilter_pass": (
-                cuda_ms(lambda: ps.pfilter_pass(*fwd, emit=True), 5),
-                cuda_ms(lambda: ps.pfilter_pass_plain(*fwd, emit=True), 1)),
-            "psmooth_pass": (
-                cuda_ms(lambda: ps.psmooth_pass(*bwd, emit=True), 5),
-                cuda_ms(lambda: ps.psmooth_pass_plain(*bwd, emit=True), 1)),
-        }
-        fin_ms = (cuda_ms(lambda: ps.pfilter_pass(*fwd, emit=False), 5),
-                  cuda_ms(lambda: ps.psmooth_pass(*bwd, emit=False), 5))
-        for name, (ms, plain_ms) in times[L].items():
-            log(f"time {name} (emit) L={L} T={T_LONG} C={C} tc={a['tc']}: "
-                f"kernel {ms:.3f} ms ({1e3 * ms / a['tc']:.3f} us/step), "
-                f"plain {plain_ms:.1f} ms")
-        log(f"time finals-only L={L}: pfilter_pass {fin_ms[0]:.3f} ms, "
-            f"psmooth_pass {fin_ms[1]:.3f} ms")
-    return worst, times
+                hold(pscan_vs_plain(scan_case(L * 10 + n_dyn, T_PSCAN, L,
+                                              n_dyn, case), dev),
+                     "highest", f"T={T_PSCAN} L={L} n_dyn={n_dyn} {case}")
+            for prec in ("bf16x3", "bf16"):
+                hold(pscan_vs_plain(scan_case(L * 10 + n_dyn, T_PSCAN, L,
+                                              n_dyn, "masked"), dev,
+                                    scan_prec=prec),
+                     prec, f"T={T_PSCAN} L={L} n_dyn={n_dyn} masked")
+            err = joint_acc_vs_plain(L + n_dyn, T_PSCAN, L, n_dyn, dev)
+            log(f"joint_acc vs plain T={T_PSCAN} L={L} n_dyn={n_dyn}: "
+                f"{_fmt(err)}")
+            check(err["acc_rel"] <= 1e-4 and err["repeatable"], err)
+        # controls: the same check fails a kernel held against the plain
+        # version of another precision
+        case = scan_case(L * 10 + 2, T_PSCAN, L, 2, "masked")
+        for kern_prec, plain_prec in CONTROLS:
+            err = pscan_vs_plain(case, dev, scan_prec=kern_prec,
+                                 plain_prec=plain_prec, lean=True)
+            bad = pscan_failures(err, kern_prec)
+            log(f"control T={T_PSCAN} L={L} n_dyn=2 masked: kernel "
+                f"{kern_prec} against plain {plain_prec} fails on {bad}: "
+                f"{_fmt({k: v for k, v in err.items() if 'step' in k})}")
+            check(any(k.startswith("step") for k in bad),
+                  f"control passed: kernel {kern_prec}, plain {plain_prec}")
+    return worst, {L: _pscan_timed(L, dev) for L in (100, 500)}
 
 
 def _spikes(seed, tuning, T):
@@ -450,16 +679,41 @@ def phase_long_decode(launches):
             f"sequential {seq_ms:.1f} ms/call "
             f"({T_LONG / (seq_ms / 1e3):.0f} timesteps/s)")
 
+    # the same decode (N = L = 500) with the recursion dots in one bf16
+    # pass and in the 3-pass split
+    for prec, post_atol, lmf_rtol in (("bf16", BF16_POST_ATOL, BF16_LMF_RTOL),
+                                      ("bf16x3", BF16X3_POST_ATOL,
+                                       NS_CERT_RTOL)):
+        with scan_precision(prec):
+            with counted(launches):
+                res_p = m.decode_latent(y)
+            prec_ms = cuda_ms(lambda: m.decode_latent(y)["posterior_all"], 3)
+        _check_decode(res_p, T_LONG, L)
+        rel_p = abs(res_p["log_marginal_final"] - lmf) / abs(lmf)
+        err_p = float((res_p["posterior_all"]
+                       - res["posterior_all"]).abs().max())
+        log(f"decode T={T_LONG} N=L={L} scan precision {prec}: {prec_ms:.1f} "
+            f"ms/call (highest {par_ms:.1f}), log_marginal_final rel "
+            f"{rel_p:.2e}, max |post - highest| {err_p:.2e}; launches so far "
+            f"{launches}")
+        check(rel_p <= lmf_rtol and err_p <= post_atol, (prec, rel_p, err_p))
+
+
+def _fit_data(N, L):
+    """The fit cell's spikes (Poisson(1), on the card) and initial log
+    posterior, from numpy seed 0."""
+    rng = np.random.default_rng(0)
+    y = torch.as_tensor(rng.poisson(1.0, size=(T_LONG, N)).astype(np.float32),
+                        device="cuda")
+    init = rng.random((T_LONG, L)) * 0.1
+    return y, np.log(init / init.sum(axis=1, keepdims=True)).astype(np.float32)
+
 
 def phase_fit(launches):
     """fit_em on the bench model: Poisson(1) spikes and the initial log
     posterior from numpy seeds, random weights from the model's seed."""
     N = L = 100
-    rng = np.random.default_rng(0)
-    y = torch.as_tensor(rng.poisson(1.0, size=(T_LONG, N)).astype(np.float32),
-                        device="cuda")
-    init = rng.random((T_LONG, L)) * 0.1
-    lpi = np.log(init / init.sum(axis=1, keepdims=True)).astype(np.float32)
+    y, lpi = _fit_data(N, L)
 
     def fit(n_iter, **kw):
         em = _model(N, L, "auto").fit_em(y, n_iter=n_iter,
@@ -468,9 +722,11 @@ def phase_fit(launches):
         torch.cuda.synchronize()
         return em
 
+    # the warm-up runs both schedules: the host loop and a fused segment
     t0 = time.perf_counter()
     fit(2)
-    log(f"fit warm-up (2 EM iterations): {time.perf_counter() - t0:.2f} s")
+    fit(3)
+    log(f"fit warm-up (2 + 3 EM iterations): {time.perf_counter() - t0:.2f} s")
     with counted(launches):
         t0 = time.perf_counter()
         em = fit(FIT_ITERS, profile=True)
@@ -493,6 +749,21 @@ def phase_fit(launches):
         f"fixed-point passes (fwd, bwd) {prof['scan_passes']}")
     log(f"fit log_marginal_l {lml}")
 
+    # the schedule bench.py's fit cell times: no profile, verboase=False,
+    # so iterations 1..8 run as the fused segment
+    with counted(launches):
+        fused_wall, em_f = wall_s(lambda: fit(FIT_ITERS))
+    lml_f = [float(v) for v in em_f["log_marginal_l"]]
+    check(all(np.isfinite(lml_f)) and all(
+        (a - b) / abs(a) <= 1e-6 for a, b in zip(lml_f, lml_f[1:])), lml_f)
+    log(f"fit_em T={T_LONG} L={L} N={N} fused schedule (unprofiled): "
+        f"{fused_wall / FIT_ITERS:.4f} s/EM-iter over {FIT_ITERS} "
+        f"iterations (profiled host loop {wall / FIT_ITERS:.4f}); Adam "
+        f"iterations {em_f['m_step_res_l']['n_iter']}; final "
+        f"log_marginal {lml_f[-1]!r} (host loop {lml[-1]!r})")
+    log_busy("fused fit (5 iterations)", device_busy(lambda: fit(5)))
+    _warm_start_gate(y, lpi)
+
     par = fit(FIT_CMP_ITERS, m_step_maxiter=FIT_CMP_MAXITER)
     with sequential_engine():
         seq = fit(FIT_CMP_ITERS, m_step_maxiter=FIT_CMP_MAXITER)
@@ -504,38 +775,309 @@ def phase_fit(launches):
         f"m_step_maxiter={FIT_CMP_MAXITER}: log_marginal_l rel {rel.tolist()}, "
         f"max |posterior diff| {post_err:.2e}")
     check(float(rel.max()) <= FIT_LML_RTOL, rel)
-    return wall / FIT_ITERS, m_s, e_s
+
+
+def device_busy(fn, top=6):
+    """(wall s, device busy s, the ``top`` kernels by device time as (name,
+    ms, calls)) of ``fn`` under torch.profiler: the sum of the CUDA
+    kernels' times against the host clock around the call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        wall, _ = wall_s(fn)
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy_us = sum(e.self_device_time_total for e in kernels)
+    kernels.sort(key=lambda e: -e.self_device_time_total)
+    return wall, busy_us / 1e6, [
+        (e.key[:48], round(e.self_device_time_total / 1e3, 1), e.count)
+        for e in kernels[:top]]
+
+
+def log_busy(what, busy):
+    wall, dev = busy[:2]
+    log(f"{what} under torch.profiler: wall {wall:.3f} s, device busy "
+        f"{dev:.3f} s ({100 * dev / wall:.1f} %), idle "
+        f"{100 - 100 * dev / wall:.1f} % (the host gap between launches and "
+        f"reads); top kernels (name, ms, calls) {busy[2]}")
+
+
+@contextlib.contextmanager
+def warm_start(on):
+    """Run the fused fits of engine 'auto' with warm-started fixed points
+    forced (``on``) or without them, whatever the work gate says."""
+    from poor_man_gplvm_tpu_torch.models import base
+
+    saved = base.WARM_START_MIN_WORK
+    base.WARM_START_MIN_WORK = 0.0 if on else float("inf")
+    try:
+        yield
+    finally:
+        base.WARM_START_MIN_WORK = saved
+
+
+def _warm_start_gate(y, lpi, pairs=GATE_PAIRS):
+    """The warm-start work gate at T=1e5, L=N=100 (T n_dyn L^2 = 2e9):
+    ``pairs`` pairs of fused fits of engine 'auto' without warm start and
+    with it forced, the order alternating from pair to pair
+    (medians, the pairs warm start wins, the spread between the quartiles
+    of the fits without it, and the Adam iterations per fit), and one
+    mid-iteration E-step at the third iteration's tuning, cold (strict)
+    against warm (fast, seeded from the second iteration's solve)."""
+    from poor_man_gplvm_tpu_torch.models import base
+
+    N = L = 100
+    work = float(y.shape[0]) * 2 * L * L
+    per_iter = {"off": [], "on": []}
+    adam = {"off": set(), "on": set()}
+    for k in range(pairs):
+        for ws in ("off", "on") if k % 2 == 0 else ("on", "off"):
+            m = _model(N, L, "auto")
+            with warm_start(ws == "on"):
+                sec, em = wall_s(lambda: m.fit_em(y, n_iter=FIT_ITERS,
+                                                  log_posterior_init=lpi,
+                                                  verboase=False))
+            per_iter[ws].append(sec / FIT_ITERS)
+            adam[ws].add(int(sum(em["m_step_res_l"]["n_iter"])))
+    wins = sum(a < b for a, b in zip(per_iter["on"], per_iter["off"]))
+    q75, q25 = np.percentile(per_iter["off"], [75, 25])
+    log(f"warm-start gate, fused fits T={y.shape[0]} L=N={L}, {pairs} pairs: "
+        f"s/EM-iter median without warm start "
+        f"{np.median(per_iter['off']):.4f}, with it "
+        f"{np.median(per_iter['on']):.4f}; warm start faster in {wins} of "
+        f"{pairs} pairs; quartile spread without it {q75 - q25:.4f}; Adam "
+        f"iterations per fit {adam}; all: {per_iter}")
+    m = _model(N, L, "cuda_parallel")
+    em = m.fit_em(y, n_iter=3, log_posterior_init=lpi, verboase=False,
+                  save_every=1)
+    log(f"warm-start gate T={y.shape[0]} L=N={L} (work {work:.1e}, gate "
+        f"{base.WARM_START_MIN_WORK:.0e}): "
+        + _mid_e_step(m, y, em["tuning_saved"][1:3], reps=3))
+
+
+def _mid_e_step(m, y, tunings, reps, **kw):
+    """One middle E-step of a fit (engine 'cuda_parallel', marginal
+    smoothing, no joint; ``kw`` e.g. the memory mode) at the tuning
+    ``tunings[1]``, cold (strict fixed points) and warm (fast, seeded from
+    the solve at ``tunings[0]``, the iteration before): the host medians
+    of ``reps`` calls, the passes, and the log-marginals' gap, which must
+    be within 1e-5 relative."""
+    from poor_man_gplvm_tpu_torch.ops import hmm
+
+    trans = m._make_transition({})[0]
+
+    def e_step(tuning, **more):
+        return hmm.smooth_combined_chunked(
+            y, tuning, {}, trans, m.ma_neuron_default, m.ma_latent_default,
+            engine="cuda_parallel", marginal_smooth=True, want_acc=False,
+            want_scan_carry=True, **kw, **more)
+
+    seed = e_step(tunings[0])[6]
+    cold = [wall_s(lambda: e_step(tunings[1])) for _ in range(reps)]
+    warm = [wall_s(lambda: e_step(tunings[1], scan_carry_in=seed[:3] + (True,),
+                                  scan_fast=True)) for _ in range(reps)]
+    cold_ms = 1e3 * float(np.median([c[0] for c in cold]))
+    warm_ms = 1e3 * float(np.median([w[0] for w in warm]))
+    rel = abs(float(warm[0][1][1]) - float(cold[0][1][1])) / abs(
+        float(cold[0][1][1]))
+    check(rel <= FIT_LML_RTOL, rel)
+    return (f"mid-iteration E-step cold {cold_ms:.2f} ms (passes "
+            f"{cold[0][1][6][3][:2]}), warm fast {warm_ms:.2f} ms (passes "
+            f"{warm[0][1][6][3][:2]}), medians of {reps}, log-marginal rel "
+            f"{rel:.1e}")
+
+
+def phase_northstar(launches):
+    """bench.py's north-star cell through the port: T=1e6, L = N = 500,
+    Poisson(0.5) spikes from np.random.default_rng(7), lean output."""
+    from poor_man_gplvm_tpu_torch import PoissonGPLVMJump1D
+    from poor_man_gplvm_tpu_torch.ops import hmm
+
+    sec, y = wall_s(lambda: torch.as_tensor(
+        np.random.default_rng(7).poisson(0.5, size=(NS_T, NS_N))
+        .astype(np.float32), device="cuda"))
+    log(f"north-star spikes ({NS_T}, {NS_N}) Poisson(0.5): {sec:.1f} s")
+    kw = dict(output_mode="lean", save_every=10**9, verboase=False)
+
+    def model():
+        return PoissonGPLVMJump1D(NS_N, n_latent_bin=NS_L, movement_variance=1,
+                                  tuning_lengthscale=10.0, device="cuda")
+
+    sec, _ = wall_s(lambda: model().fit_em(y, n_iter=NS_WARMUP_ITERS, **kw))
+    log(f"north-star warm-up fit ({NS_WARMUP_ITERS} iterations): {sec:.1f} s")
+    final = {}
+    for prec in ("highest", "bf16x3"):
+        m = model()
+        torch.cuda.reset_peak_memory_stats()
+        before = dict(launches)
+        with scan_precision(prec), counted(launches):
+            sec, em = wall_s(lambda: m.fit_em(y, n_iter=NS_ITERS, **kw))
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        lml = [float(v) for v in em["log_marginal_l"]]
+        check(all(np.isfinite(lml)), lml)
+        check(all((a - b) / abs(a) <= 1e-6 for a, b in zip(lml, lml[1:])),
+              f"log_marginal_l decreased: {lml}")
+        post = em["posterior"]
+        row_err = float((post.sum(dim=1) - 1).abs().max())
+        check(post.shape == (NS_T, NS_L) and em["log_posterior_final"] is None
+              and em["posterior_dynamics_marg"].shape == (NS_T, 2)
+              and row_err <= 1e-4, (post.shape, row_err))
+        modes = {k: launches.get(k, 0) - before.get(k, 0) for k in launches
+                 if "[" in k and launches.get(k, 0) > before.get(k, 0)}
+        check(modes.get(f"psmooth_pass[marginal/{prec}]", 0) > 0
+              and modes.get(f"pfilter_pass[emit/{prec}]", 0) > 0, modes)
+        log(f"north-star fit_em T={NS_T} L=N={NS_L} lean, scan precision "
+            f"{prec}: {sec / NS_ITERS:.3f} s/EM-iter over {NS_ITERS} "
+            f"iterations ({sec:.1f} s); Adam iterations "
+            f"{em['m_step_res_l']['n_iter']}; fixed-point passes per middle "
+            f"iteration (fwd, bwd) {m._scan_passes_mid.tolist()}; drift "
+            f"{m._scan_drift_mid.tolist()}; emit residuals "
+            f"{m._scan_emit_delta_mid.tolist()}; peak memory {peak:.2f} GB; "
+            f"row-sum err {row_err:.1e}; launches by mode {modes}")
+        log(f"north-star log_marginal_l ({prec}) {lml}")
+        final[prec] = (lml[-1], sec / NS_ITERS, peak)
+    cert = abs(final["bf16x3"][0] - final["highest"][0]) / abs(
+        final["highest"][0])
+    log(f"north-star certificate: bf16x3 final log-marginal "
+        f"{final['bf16x3'][0]!r} vs highest {final['highest'][0]!r}, rel "
+        f"{cert:.2e} (limit {NS_CERT_RTOL:.0e})")
+    check(cert <= NS_CERT_RTOL, cert)
+
+    kw_c = dict(kw, n_iter=NS_CMP_ITERS, m_step_maxiter=NS_CMP_MAXITER)
+    fused = model().fit_em(y, fused=True, **kw_c)
+    # the host loop, profiled: the per-iteration M-step / E-step split
+    # (every E-step cold, strict fixed points)
+    loop = model().fit_em(y, fused=False, profile=True, **kw_c)
+    a = np.array([float(v) for v in fused["log_marginal_l"]])
+    b = np.array([float(v) for v in loop["log_marginal_l"]])
+    rel = np.abs(a - b) / np.abs(b)
+    prof = loop["profile"]
+    log(f"north-star fused vs fused=False, {NS_CMP_ITERS} iterations, "
+        f"m_step_maxiter={NS_CMP_MAXITER}: log_marginal_l rel {rel.tolist()}; "
+        f"host loop (profile on) M-step s {prof['m_step']}, E-step s "
+        f"{prof['e_step']}, Adam iterations {loop['m_step_res_l']['n_iter']}, "
+        f"fixed-point passes {prof['scan_passes']}")
+    check(float(rel.max()) <= FIT_LML_RTOL, rel)
+    log_busy(f"north-star fused lean fit ({NS_CMP_ITERS} iterations)",
+             device_busy(lambda: model().fit_em(y, n_iter=NS_CMP_ITERS,
+                                                **kw)))
+    del fused, loop, em
+    em3 = model().fit_em(y, n_iter=3, **dict(kw, save_every=1))
+    log(f"north-star T={NS_T} L=N={NS_L} lean: "
+        + _mid_e_step(m, y, em3["tuning_saved"][1:3], reps=2,
+                      memory_mode="checkpoint"))
+    del em3
+    _northstar_kernels(m, y)
+
+    # marginal smoothing, with the pairwise joint (K4 marginal+acc and
+    # joint_acc) and without it, against the full mode in the same scan
+    # precision, on the fitted north-star model, in every precision
+    trans = m._make_transition({})[0]
+    args = (y[:T_ACC], m.tuning, {}, trans, m.ma_neuron_default,
+            m.ma_latent_default)
+    for prec in ("highest", "bf16x3", "bf16"):
+        with scan_precision(prec):
+            full = hmm.smooth_combined_chunked(*args, engine="cuda_parallel",
+                                               memory_mode="full")
+        with scan_precision(prec), counted(launches):
+            marg = hmm.smooth_combined_chunked(
+                *args, engine="cuda_parallel", memory_mode="checkpoint",
+                marginal_smooth=True, want_acc=True)
+            lean = hmm.smooth_combined_chunked(
+                *args, engine="cuda_parallel", memory_mode="checkpoint",
+                marginal_smooth=True, want_acc=False)
+        p_full = torch.exp(full[0])
+        lat_err = float((torch.exp(marg[0][0])
+                         - p_full.sum(dim=1)).abs().max())
+        dyn_err = float((torch.exp(marg[0][1])
+                         - p_full.sum(dim=2)).abs().max())
+        acc_f, acc_m = torch.exp(full[4]), torch.exp(marg[4])
+        acc_rel = float((acc_m - acc_f).abs().max() / acc_f.abs().max())
+        lml_rel = abs(float(marg[1]) - float(full[1])) / abs(float(full[1]))
+        same = all(torch.equal(a, b) for a, b in zip(lean[0], marg[0])) \
+            and lean[4] is None
+        log(f"smooth_combined_chunked T={T_ACC} L={NS_L} {prec}: marginal+acc "
+            f"vs full: latent marginal {lat_err:.2e}, dynamics marginal "
+            f"{dyn_err:.2e}, joint {acc_rel:.2e} of max, log-marginal rel "
+            f"{lml_rel:.1e}; want_acc=False marginals bit-equal {same}; "
+            f"launches so far {launches}")
+        check(lat_err <= DECODE_POST_ATOL and dyn_err <= DECODE_POST_ATOL
+              and acc_rel <= DECODE_POST_ATOL and lml_rel <= DECODE_LMF_RTOL
+              and same, (prec, lat_err, dyn_err, acc_rel, lml_rel, same))
+    del y
+
+
+def _northstar_kernels(m, y):
+    """K3 emit and K4 marginal, the modes of every lean E-step, held
+    against their plain versions at the north-star's own shape (T = 1e6,
+    L = 500, C = 128 chunks of 7,813 rows) in "highest" and "bf16x3", on
+    the fitted model's log-likelihood: posteriors, marginals, finals and
+    the one-step check (not counted: a comparison)."""
+    from poor_man_gplvm_tpu_torch.ops.emissions import get_loglikelihood_ma_all
+    from poor_man_gplvm_tpu_torch.testing import pscan_failures, pscan_vs_plain
+
+    trans = m._make_transition({})[0]
+    ll = get_loglikelihood_ma_all(
+        y, m.tuning, {}, torch.broadcast_to(m.ma_neuron_default, y.shape),
+        m.ma_latent_default, observation_model="poisson")
+    case = {"ll": ll, "tlat": trans.Tlat, "tdyn": trans.Tdyn,
+            "p_init": torch.exp(trans.uniform_log_init()),
+            "masked": np.array([], dtype=np.int64)}
+    for prec in ("highest", "bf16x3"):
+        sec, err = wall_s(lambda: pscan_vs_plain(case, y.device,
+                                                 scan_prec=prec, lean=True))
+        log(f"K3 emit / K4 marginal vs plain at the north-star shape T={NS_T} "
+            f"L={NS_L} C=128 {prec} ({sec:.1f} s): {_fmt(err)}")
+        check(not pscan_failures(err, prec), (prec, pscan_failures(err, prec)))
+    del case, ll
 
 
 def main():
+    t_start = time.perf_counter()
     phase_preamble()
     phase_build()
     worst, times = phase_kernels()
-    pworst, ptimes = phase_pscan_kernels()
-    worst.update(pworst)
-    for L in times:
-        times[L].update(ptimes[L])
-    launches = dict.fromkeys(KERNELS, 0)
+    pworst, rows = phase_pscan_kernels()
+    launches = {}
     phase_slice(launches)
     phase_crossover()
     phase_long_decode(launches)
     phase_fit(launches)
+    phase_northstar(launches)
     log(f"main-path launches: {launches}")
-    check(all(n > 0 for n in launches.values()), launches)
+    path = {name: _path_launches(launches, name) for name in KERNELS}
+    check(all(n > 0 for n in path.values()), path)
     card = card_line()
     kernels = []
-    for name, (source, replaces) in KERNELS.items():
-        shape_T = T_DECODE if name in ("filter_scan", "smoother_scan") \
-            else T_LONG
-        kernels.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": worst[name],
-            "ms": times[100][name][0], "plain_ms": times[100][name][1],
-            "shape": f"T={shape_T} n_dyn=2 L=100",
-            "ms_L500": times[500][name][0],
-            "plain_ms_L500": times[500][name][1],
-        })
+    for name, (_, _, source, replaces) in KERNELS.items():
+        entry = {"name": name, "route": "cuda", "source": source,
+                 "replaces": replaces, "launches": path[name]}
+        for L in (100, 500):
+            sfx = "" if L == 100 else "_L500"
+            if name in ("filter_scan", "smoother_scan"):
+                ms, plain_ms = times[L][name]
+                b_ms, b_by = kernel_bound(name, T_DECODE, L, 2, 1)
+                row = dict(err=worst[name], ms=ms, plain_ms=plain_ms,
+                           bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                shape_T = T_DECODE
+            else:
+                row = rows[L][name]
+                shape_T = T_LONG
+            entry.update({
+                f"max_abs_err{sfx}": row["err"], f"ms{sfx}": row["ms"],
+                f"plain_ms{sfx}": row["plain_ms"],
+                f"bound_ms{sfx}": row["bound_ms"],
+                f"bound_by{sfx}": row["bound_by"],
+                f"library_ms{sfx}": row["library_ms"],
+            })
+        entry["shape"] = f"T={shape_T} n_dyn=2 (one dense channel) L=100; " \
+            "*_L500 at L=500"
+        kernels.append(entry)
+    log(f"K3/K4 grid, worst kernel-vs-plain by precision: "
+        f"{ {f'{p}/{k}': v for (p, k), v in pworst.items()} }")
+    log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -71,12 +71,15 @@ def _find_adam_state(opt_state):
     return None
 
 
-def adam_state_from_jax(opt_state, device="cpu"):
+def adam_state_from_jax(opt_state, device="cuda"):
     """The port's ``AdamState`` from an optax ``optax.adam`` state (or its
     ``ScaleByAdamState``): count as int32, mu and nu as float32, on
-    ``device``."""
+    ``device`` (the card by default; without one that raises, and
+    ``device='cpu'`` keeps it on the CPU)."""
+    from poor_man_gplvm_tpu_torch.models.base import resolve_device
     from poor_man_gplvm_tpu_torch.ops.mstep import AdamState
 
+    device = resolve_device(device)
     adam = _find_adam_state(opt_state)
     if adam is None:
         raise ValueError("no ScaleByAdamState (count, mu, nu) in opt_state")

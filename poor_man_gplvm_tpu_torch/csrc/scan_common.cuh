@@ -3,6 +3,7 @@
 // shared library; this header holds what both need.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
 
@@ -13,6 +14,8 @@ constexpr int kMaxDyn = 2;
 // keep transition matrices resident in shared memory up to this many bytes
 // of dynamic shared memory (the card allows 227 KB per block)
 constexpr size_t kResidentCap = 200 * 1024;
+
+using bf16 = __nv_bfloat16;
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -28,6 +31,77 @@ __device__ __forceinline__ float col_matvec(const float* __restrict__ vec,
 #pragma unroll 4
   for (int i = 0; i < L; ++i) a = fmaf(vec[i], mat[(size_t)i * L + j], a);
   return a;
+}
+
+// ---------------------------------------------------------------------------
+// K5: the recursion dot in reduced precision
+// (poor_man_gplvm_tpu/ops/pallas/parallel_scan.py::_split_bf16 / _scan_dot)
+//
+//   HIGHEST  f32 FMAs (the dot above)
+//   BF16X3   a_hi.b_hi + a_lo.b_hi + a_hi.b_lo, each an f32-accumulated dot
+//            of bf16 operands (x = hi + lo, hi = bf16(x), lo = bf16(x - hi))
+//   BF16     bf16(a).b_hi
+//
+// A product of two bf16 values is exact in f32, so each partial dot rounds
+// only in its f32 sum, as the TPU's f32-accumulated bf16 dots do.  The
+// matrix operand's split is loop-invariant and made once per solve (the
+// wrapper's setup); the vector operand is split per step by the thread
+// that owns its column, and stored as the float values of its bf16 parts.
+// ---------------------------------------------------------------------------
+
+enum Prec { kHighest = 0, kBf16x3 = 1, kBf16 = 2 };
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// the matrix operand of a recursion dot: f32 (HIGHEST) or its bf16 split
+struct MatOperand {
+  const float* f;
+  const bf16* hi;
+  const bf16* lo;
+};
+
+// store element j of a vector operand: x[j] = the value (HIGHEST) or its
+// bf16 rounding, lo[j] = the bf16 rounding of the residual (BF16X3)
+template <int PREC>
+__device__ __forceinline__ void store_operand(float* x, float* lo, int j,
+                                              float v) {
+  if (PREC == kHighest) {
+    x[j] = v;
+  } else {
+    const float h = bf16_round(v);
+    x[j] = h;
+    if (PREC == kBf16x3) lo[j] = bf16_round(v - h);
+  }
+}
+
+// one column of the row-vector @ matrix product of channel offset `off`
+template <int PREC>
+__device__ __forceinline__ float col_matvec_p(const float* __restrict__ x,
+                                              const float* __restrict__ lo,
+                                              const MatOperand& m, size_t off,
+                                              int L, int j) {
+  if (PREC == kHighest) return col_matvec(x, m.f + off, L, j);
+  const bf16* __restrict__ mh = m.hi + off;
+  if (PREC == kBf16) {
+    float a = 0.f;
+#pragma unroll 4
+    for (int i = 0; i < L; ++i)
+      a = fmaf(x[i], __bfloat162float(mh[(size_t)i * L + j]), a);
+    return a;
+  }
+  const bf16* __restrict__ ml = m.lo + off;
+  float hh = 0.f, lh = 0.f, hl = 0.f;
+#pragma unroll 4
+  for (int i = 0; i < L; ++i) {
+    const float bh = __bfloat162float(mh[(size_t)i * L + j]);
+    const float bl = __bfloat162float(ml[(size_t)i * L + j]);
+    hh = fmaf(x[i], bh, hh);
+    lh = fmaf(lo[i], bh, lh);
+    hl = fmaf(x[i], bl, hl);
+  }
+  return (hh + lh) + hl;
 }
 
 // thread j owns latent column j: L rounded up to whole warps

@@ -3,14 +3,16 @@
 Counterpart of the parts of ``poor_man_gplvm_tpu/models/base.py`` that
 ``decode_latent`` and ``fit_em`` need: construction, parameter
 initialisation, the memoised transition build, the smoother call, the
-decode driver, naive-Bayes decoding and the EM host loop.  The classes hold
-a handful of scalars plus ``params`` (n_basis, N), ``tuning_basis``
-(L, n_basis) and ``tuning`` (L, N), all on the model's ``device``.
+decode driver, naive-Bayes decoding, and the EM schedule (host loop,
+fused middle iterations, lean output).  The classes hold a handful of
+scalars plus ``params`` (n_basis, N), ``tuning_basis`` (L, n_basis) and
+``tuning`` (L, N), all on the model's ``device``.
 """
 
 from __future__ import annotations
 
 import time
+import warnings
 from abc import ABC, abstractmethod
 
 import numpy as np
@@ -18,6 +20,41 @@ import torch
 
 from poor_man_gplvm_tpu_torch.ops import emissions, hmm, mstep
 from poor_man_gplvm_tpu_torch.ops.basis import generate_basis
+
+#: the fused middle EM iterations warm-start the parallel scans' fixed
+#: points only from this much per-pass matvec work, T * n_dyn * L^2, on
+#: (an explicit engine='cuda_parallel' warm-starts at every size), as in
+#: the JAX package.  On the H100 at 2e9 (T = 1e5, L = 100, n_dyn = 2) warm
+#: start halves a middle E-step, but the fit's time did not resolve the
+#: gain from the host's spread (PERF.md), so the gate stays here.
+WARM_START_MIN_WORK = 5e10
+
+
+def resolve_device(device):
+    """``torch.device(device)``; a CUDA device needs a card, and without
+    one this raises rather than running on the CPU."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device={str(device)!r} needs a CUDA card and "
+            "torch.cuda.is_available() is False; pass device='cpu' to run "
+            "on the CPU"
+        )
+    return device
+
+
+def _first_failed_certificate(diag_mid):
+    """(iteration, residuals) of the first fused iteration whose post-hoc
+    emit residual breaks the 1e-3 certificate, or None.  Written as
+    ~(x <= tol), so that NaN residuals (a diverged solve) FAIL it."""
+    if "scan_emit_delta" not in diag_mid:
+        return None
+    emit_delta = np.asarray(diag_mid["scan_emit_delta"])
+    bad_mask = ~(emit_delta <= 1e-3)
+    if np.any(bad_mask):
+        bad = int(np.argmax(bad_mask.any(axis=1)))
+        return bad, emit_delta[bad]
+    return None
 
 
 def resolve_engine(inference_engine, device):
@@ -29,6 +66,45 @@ def resolve_engine(inference_engine, device):
         inference_engine = "cuda" if device.type == "cuda" else "prob"
     hmm.check_engine(inference_engine)
     return inference_engine
+
+
+class _FusedSegment:
+    """A running fused segment of ``fit_em``: the state it started from
+    (params, Adam state, log posterior, iterations done), its E-step
+    settings, the warm-start carries it threads from iteration to
+    iteration, and what it reads only at its end (log-marginals, and with
+    warm start the fixed-point passes, emit residuals and drifts)."""
+
+    def __init__(self, start, smooth_kw, ws, strict):
+        self.start, self.smooth_kw, self.ws = start, smooth_kw, ws
+        self.strict = strict
+        self.lml, self.passes, self.emit_delta, self.drift = [], [], [], []
+
+    def e_step(self, model, y_, tuning, smooth_args):
+        """(log latent marginal, log-marginal) of one fused E-step."""
+        if self.ws is None:
+            out = model._smooth(y_, tuning, *smooth_args, **self.smooth_kw)
+        else:
+            out = model._smooth(
+                y_, tuning, *smooth_args, scan_carry_in=self.ws,
+                want_scan_carry=True, scan_fast=not self.strict,
+                **self.smooth_kw)
+            f_new, b_new, pred, (fp, bp, ef, eb) = out[6]
+            self.ws = (f_new, b_new, pred, True)
+            self.passes.append((fp, bp))
+            self.emit_delta.append(torch.stack([ef, eb]))
+            self.drift.append(pred[:2])
+        self.lml.append(out[1])
+        return out[0][0], out[1]
+
+    def diag(self):
+        """``scan_passes``, ``scan_emit_delta`` and ``scan_drift`` ((n, 2)
+        numpy arrays) when the segment was warm-started, else {}."""
+        if not self.passes:
+            return {}
+        return {"scan_passes": np.asarray(self.passes, dtype=np.int64),
+                "scan_emit_delta": torch.stack(self.emit_delta).cpu().numpy(),
+                "scan_drift": torch.stack(self.drift).cpu().numpy()}
 
 
 class _GPLVMCommon(ABC):
@@ -58,7 +134,7 @@ class _GPLVMCommon(ABC):
         inference_engine,
         device,
     ):
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.n_latent_bin = n_latent_bin
         self.tuning_lengthscale = tuning_lengthscale
         self.param_prior_std = param_prior_std
@@ -244,6 +320,67 @@ class _GPLVMCommon(ABC):
     # ------------------------------------------------------------------
     # EM template
     # ------------------------------------------------------------------
+    def _fused_segment(self, y_, trans, ma_neuron, output_mode, memory_mode,
+                       start, strict=False):
+        """Open the fused segment of a fit (its iterations [1, n_iter-1))
+        with the E-step of the JAX package's fused program: marginal
+        smoothing without the pairwise joint, memory mode 'checkpoint' in
+        lean output ('auto' otherwise), the Poisson lgamma term formed once
+        where the parallel engine runs, and warm-started fixed points where
+        ``hmm.parallel_scan_carry_spec`` gives a spec and the per-pass
+        matvec work T * n_dyn * L^2 reaches ``WARM_START_MIN_WORK`` (always
+        for an explicit 'cuda_parallel').  ``start`` is the state to redo
+        it from; ``strict`` exits the fixed points strictly (the redo)."""
+        mm = memory_mode or (
+            "checkpoint" if output_mode == "lean" else "auto"
+        )
+        engine = self.inference_engine
+        T = y_.shape[0]
+        ws_spec = hmm.parallel_scan_carry_spec(T, trans, engine,
+                                               memory_mode=mm)
+        if ws_spec is not None and engine != "cuda_parallel":
+            work = float(T) * getattr(trans, "n_dyn", 1) * trans.n_latent ** 2
+            if work < WARM_START_MIN_WORK:
+                ws_spec = None
+        ws = None
+        if ws_spec is not None:
+            ws = (torch.zeros(ws_spec, device=self.device),
+                  torch.zeros(ws_spec, device=self.device),
+                  torch.full((4,), float("inf"), device=self.device), False)
+        lg = None
+        if self.observation_model == "poisson" and \
+                hmm.engine_resolves_parallel(T, trans, engine, self.device):
+            lg = emissions.poisson_lgamma_term(y_, ma_neuron)
+        return _FusedSegment(start, dict(memory_mode=mm, marginal_smooth=True,
+                                         lgamma_term=lg, want_acc=False),
+                             ws, strict)
+
+    def _e_step(self, y_, tuning, hyperparam, trans, ma_neuron, ma_latent,
+                likelihood_scale, n_time_per_chunk, output_mode, memory_mode,
+                diag):
+        """One host-loop E-step: ``(log_posterior_all, log_posterior_curr,
+        log_marginal_final, lean dynamics marginal or None)``.  Lean: the
+        marginal smoother in 'checkpoint' memory mode unless told
+        otherwise, and log_posterior_all is the (T, L) latent marginal."""
+        if output_mode == "lean":
+            smooth_out, log_marginal_final = self._smooth(
+                y_, tuning, hyperparam, trans, ma_neuron, ma_latent,
+                likelihood_scale, n_time_per_chunk, want_acc=False,
+                diag_out=diag, memory_mode=memory_mode or "checkpoint",
+                marginal_smooth=True,
+            )[:2]
+            lat, dyn = smooth_out
+            return lat, lat, log_marginal_final, dyn
+        log_posterior_all, log_marginal_final = self._smooth(
+            y_, tuning, hyperparam, trans, ma_neuron, ma_latent,
+            likelihood_scale, n_time_per_chunk, want_acc=False,
+            diag_out=diag,
+            **({"memory_mode": memory_mode} if memory_mode else {}),
+        )[:2]
+        curr = torch.logsumexp(log_posterior_all, dim=1) \
+            if self.has_dynamics else log_posterior_all
+        return log_posterior_all, curr, log_marginal_final, None
+
     def fit_em(
         self, y, hyperparam=None, generator=None, n_iter=20,
         log_posterior_init=None, opt_state_curr=None, ma_neuron=None,
@@ -256,34 +393,50 @@ class _GPLVMCommon(ABC):
         """EM: alternate the M-step (Adam on the grouped Poisson objective)
         and the E-step (the forward-backward smoother), ``n_iter`` times.
 
-        The JAX package's host loop with its ``em_res`` keys, for
-        ``output_mode='full'``.  ``generator`` (a CPU ``torch.Generator``)
-        takes the place of the JAX ``key`` for the random initial posterior;
-        pass ``log_posterior_init`` to start from a given one (a float64
-        numpy array is clamped to ``JOINT_ACC_INIT`` first).  ``dt`` is
-        accepted and unused, as in the reference.  ``profile=True`` syncs
-        the device after each phase and adds ``em_res['profile']`` with the
-        per-iteration ``m_step`` / ``e_step`` / ``collect`` seconds and the
-        parallel engine's fixed-point diagnostics (``scan_passes``).
+        The JAX package's schedule with its ``em_res`` keys.  ``generator``
+        (a CPU ``torch.Generator``) takes the place of the JAX ``key`` for
+        the random initial posterior; pass ``log_posterior_init`` to start
+        from a given one (a float64 numpy array is clamped to
+        ``JOINT_ACC_INIT`` first).  ``dt`` is accepted and unused, as in the
+        reference.
 
-        The port has no fused program: ``fused=`` is accepted and the host
-        loop always runs (a CUDA-graph counterpart waits for evidence on the
-        card, ROADMAP queue 1, item 10).  ``checkpoint_dir``/``resume``,
-        ``output_mode='lean'`` and ``mesh`` are not ported."""
+        Schedule: with ``fused`` (default ``not verboase``), no profile,
+        ``save_every >= n_iter`` and ``n_iter >= 3``, iterations
+        [1, n_iter-1) run as the fused segment (``_fused_segment``): the
+        same M-step and tuning link, then marginal smoothing with the
+        parallel scans' boundary carries threaded from iteration to
+        iteration (warm start, fast predicted-residual exits), and nothing
+        read until the segment's end.  The JAX package runs the segment as
+        one ``lax.scan`` program; the port keeps the host loop.  A segment
+        whose warm-started solves fail their post-hoc certificate is
+        replayed with strict fixed-point exits (with a warning); a second
+        failure raises ``FloatingPointError``.
+
+        ``output_mode='lean'``: every E-step emits only the latent and
+        dynamics marginals (memory mode 'checkpoint' unless given);
+        ``log_posterior_final`` and ``log_posterior_init`` are None,
+        ``posterior`` is the (T, L) latent marginal, and no posterior
+        snapshots are kept.  ``nan_guard`` (default: on in lean mode)
+        raises ``FloatingPointError`` on a non-finite log marginal, fused
+        iterations included.  ``profile=True`` syncs the device after each
+        phase and adds ``em_res['profile']`` with the per-iteration
+        ``m_step`` / ``e_step`` / ``collect`` seconds and the parallel
+        engine's fixed-point pass counts (``scan_passes``).
+
+        ``checkpoint_dir``/``resume`` and ``mesh`` are not ported."""
         del dt  # unused, as in the reference
         if checkpoint_dir is not None or resume:
             raise NotImplementedError(
                 "checkpoint_dir/resume are not ported yet (ROADMAP queue 1, "
                 "item 15)")
-        if output_mode != "full":
-            raise NotImplementedError(
-                f"output_mode={output_mode!r} is not ported yet (ROADMAP "
-                "queue 1, item 12); use 'full'")
+        if output_mode not in ("full", "lean"):
+            raise ValueError(
+                f"output_mode must be 'full' or 'lean', got {output_mode!r}")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh is not ported yet (ROADMAP queue 1, item 14)")
         del checkpoint_every
-        kwargs.pop("fused", None)  # always the host loop (see docstring)
+        fused = kwargs.pop("fused", None)
         verboase = kwargs.pop("verbose", verboase)
         if kwargs:
             raise TypeError(f"unexpected keyword arguments {sorted(kwargs)}")
@@ -291,6 +444,7 @@ class _GPLVMCommon(ABC):
             raise ValueError(
                 f"n_iter={n_iter} requests no EM iterations; n_iter must be "
                 ">= 1.")
+        lean = output_mode == "lean"
         hyperparam = {} if hyperparam is None else hyperparam
         generator = torch.Generator().manual_seed(0) if generator is None \
             else generator
@@ -350,12 +504,30 @@ class _GPLVMCommon(ABC):
         tuning_saved, iter_saved, log_marginal_saved = [], [], []
         phase_times = {"m_step": [], "e_step": [], "collect": [],
                        "scan_passes": []}
+        check_nan = nan_guard if nan_guard is not None else lean
+        smooth_args = (hyperparam, trans, ma_neuron, ma_latent,
+                       likelihood_scale, n_time_per_chunk)
+
+        # the fused schedule: iterations [1, n_iter-1) as one segment that
+        # reads nothing per iteration, when nothing per iteration is
+        # observed.  The segment runs the same loop body with its own
+        # E-step; a failed warm-start certificate at its end replays it
+        # from its start with strict fixed-point exits.
+        can_fuse = not profile and save_every >= n_iter and n_iter >= 3
+        use_fused = (fused if fused is not None else not verboase) \
+            and can_fuse
+        seg = None
 
         def sync():
             if profile and self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
 
-        for i in range(n_iter):
+        i = 0
+        while i < n_iter:
+            if use_fused and i == 1 and seg is None:
+                seg = self._fused_segment(
+                    y_, trans, ma_neuron, output_mode, memory_mode,
+                    (params, opt_state_curr, log_posterior_curr, 1))
             t0 = time.perf_counter()
             m_res = self.m_step(
                 params, y_, log_posterior_curr, tuning_basis, hyperparam,
@@ -365,21 +537,23 @@ class _GPLVMCommon(ABC):
             t1 = time.perf_counter()
             params = m_res["params"]
             opt_state_curr = m_res.get("opt_state", None)
+            if lean:
+                # consumed by iteration 0's M-step; lean em_res drops it
+                log_posterior_init = None
             tuning = self.get_tuning(params, hyperparam, tuning_basis)
             diag = []
-            (
-                log_posterior_all, log_marginal_final, _log_causal,
-                _log_pred, _log_acc, _ll,
-            ) = self._smooth(
-                y_, tuning, hyperparam, trans, ma_neuron, ma_latent,
-                likelihood_scale, n_time_per_chunk, want_acc=False,
-                diag_out=diag,
-                **({"memory_mode": memory_mode} if memory_mode else {}),
-            )
-            if self.has_dynamics:
-                log_posterior_curr = torch.logsumexp(log_posterior_all, dim=1)
+            # release the previous posteriors before the E-step allocates
+            # the new ones (matters at T ~ 1e6 x L ~ 500)
+            if i > 0 and i % save_every != 0:
+                log_posterior_all = None
+            log_posterior_curr = None
+            if seg is None:
+                (log_posterior_all, log_posterior_curr, log_marginal_final,
+                 lean_dyn_marg) = self._e_step(
+                    y_, tuning, *smooth_args, output_mode, memory_mode, diag)
             else:
-                log_posterior_curr = log_posterior_all
+                log_posterior_curr, log_marginal_final = seg.e_step(
+                    self, y_, tuning, smooth_args)
             sync()
             t2 = time.perf_counter()
 
@@ -390,7 +564,8 @@ class _GPLVMCommon(ABC):
                     m_step_res_l[k].append(m_res[k])
             log_marginal_l.append(log_marginal_final)
             if i % save_every == 0:
-                log_posterior_all_saved.append(log_posterior_all)
+                if not lean:  # lean keeps no posterior snapshot
+                    log_posterior_all_saved.append(log_posterior_all)
                 params_saved.append(params)
                 tuning_saved.append(tuning)
                 log_marginal_saved.append(log_marginal_final)
@@ -400,18 +575,67 @@ class _GPLVMCommon(ABC):
             phase_times["e_step"].append(t2 - t1)
             phase_times["collect"].append(t3 - t2)
             phase_times["scan_passes"].extend(d[:2] for d in diag)
-            if verboase:
-                print(f"EM iteration {i + 1}/{n_iter}", flush=True)
 
-            # a non-finite log marginal means the fit diverged; the check
-            # costs one host read, so it is off unless nan_guard=True
-            if nan_guard and not np.isfinite(float(log_marginal_final)):
-                raise FloatingPointError(
-                    f"EM diverged: log marginal is "
-                    f"{float(log_marginal_final)} at iteration {i} "
-                    f"(T={y_.shape[0]}, n_latent_bin={self.n_latent_bin}). "
-                    "Check hyperparam values and neuron/latent masks."
-                )
+            if seg is None:
+                if verboase:
+                    print(f"EM iteration {i + 1}/{n_iter}", flush=True)
+                # a non-finite log marginal means the fit diverged; the
+                # check costs one host read (default: on in lean mode)
+                if check_nan and not np.isfinite(float(log_marginal_final)):
+                    raise FloatingPointError(
+                        f"EM diverged: log marginal is "
+                        f"{float(log_marginal_final)} at iteration {i} "
+                        f"(T={y_.shape[0]}, n_latent_bin={self.n_latent_bin})"
+                        ". Check hyperparam values and neuron/latent masks."
+                    )
+            elif i == n_iter - 2:  # the segment's end: its deferred reads
+                seg_diag = seg.diag()
+                bad_cert = _first_failed_certificate(seg_diag)
+                if bad_cert is not None and seg.strict:
+                    raise FloatingPointError(
+                        "parallel-scan certificate failed even with strict "
+                        f"fixed-point exits at fused iteration {bad_cert[0]}"
+                        f": emit residual {bad_cert[1]} > 1e-3. The solve "
+                        "did not converge; rerun with fused=False or "
+                        "inference_engine='cuda'."
+                    )
+                if bad_cert is not None:
+                    warnings.warn(
+                        "parallel-scan warm-start certificate failed at "
+                        f"fused iteration {bad_cert[0]} (emit residual "
+                        f"{bad_cert[1]}); re-running the fused segment with "
+                        "strict fixed-point exits."
+                    )
+                    # nothing was donated: replay from the segment's start
+                    params, opt_state_curr, log_posterior_curr, n_done = \
+                        seg.start
+                    del log_marginal_l[n_done:]
+                    for v in m_step_res_l.values():
+                        del v[n_done:]
+                    seg = self._fused_segment(
+                        y_, trans, ma_neuron, output_mode, memory_mode,
+                        seg.start, strict=True)
+                    i = 1
+                    continue
+                for key, attr in (("scan_passes", "_scan_passes_mid"),
+                                  ("scan_drift", "_scan_drift_mid"),
+                                  ("scan_emit_delta", "_scan_emit_delta_mid")):
+                    if key in seg_diag:
+                        setattr(self, attr, seg_diag[key])
+                # divergence over the fused iterations, in one transfer
+                if check_nan:
+                    lml_host = torch.stack(seg.lml).cpu().numpy()
+                    if not np.all(np.isfinite(lml_host)):
+                        bad = int(np.argmax(~np.isfinite(lml_host)))
+                        raise FloatingPointError(
+                            "EM diverged: log marginal is "
+                            f"{lml_host[bad]} at iteration {1 + bad} "
+                            f"(fused segment; T={y_.shape[0]}, "
+                            f"n_latent_bin={self.n_latent_bin}). Check "
+                            "hyperparam values and masks."
+                        )
+                seg = None
+            i += 1
 
         mstep.batch_trim_m_step_histories(m_step_res_l)
 
@@ -431,7 +655,7 @@ class _GPLVMCommon(ABC):
             "iter_saved": iter_saved,
             "params": params,
             "tuning": tuning,
-            "log_posterior_final": log_posterior_all,
+            "log_posterior_final": None if lean else log_posterior_all,
             "log_marginal": log_marginal_final,
             "log_marginal_l": log_marginal_l,
             "log_marginal_saved": log_marginal_saved,
@@ -440,7 +664,10 @@ class _GPLVMCommon(ABC):
         }
         if profile:
             em_res["profile"] = phase_times
-        if self.has_dynamics:
+        if self.has_dynamics and lean:
+            em_res["posterior_latent_marg"] = posterior
+            em_res["posterior_dynamics_marg"] = torch.exp(lean_dyn_marg)
+        elif self.has_dynamics:
             em_res["posterior_latent_marg"] = posterior.sum(dim=1)
             em_res["posterior_dynamics_marg"] = posterior.sum(dim=2)
         return em_res

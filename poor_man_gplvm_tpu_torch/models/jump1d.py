@@ -31,7 +31,9 @@ class AbstractGPLVMJump1D(_GPLVMCommon):
     """GPLVM with smooth 1d latent + jumps.
 
     The latent governs firing rate; the 2-state dynamics governs the latent
-    transition law (RBF-smooth when 'continuous', uniform when 'jump')."""
+    transition law (RBF-smooth when 'continuous', uniform when 'jump').
+    The model lives on ``device``, the card by default; without a card
+    that raises, and ``device='cpu'`` runs on the CPU."""
 
     has_dynamics = True
 
@@ -53,7 +55,7 @@ class AbstractGPLVMJump1D(_GPLVMCommon):
         custom_transition_kernel=None,
         smoothness_penalty=0.0,
         inference_engine="auto",
-        device="cpu",
+        device="cuda",
     ):
         self.p_move_to_jump = p_move_to_jump
         self.p_jump_to_move = p_jump_to_move

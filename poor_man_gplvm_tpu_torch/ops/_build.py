@@ -13,7 +13,8 @@ time the build).
 Libraries:
 
 * ``scan_kernels``: K1/K2, the sequential filter and smoother;
-* ``parallel_scan``: K3/K4, the parallel-in-time filter and smoother passes.
+* ``parallel_scan``: K3/K4, the parallel-in-time filter and smoother passes
+  in the three recursion-dot precisions (K5), and ``joint_acc``.
 """
 
 from __future__ import annotations
@@ -57,9 +58,10 @@ _SIGNATURES = {
         "pmg_scan_tlat_resident": [_ci, _ci],
     },
     "parallel_scan": {
-        "pmg_pfilter_pass": [_vp] * 7 + [_ci] * 7 + [_vp],
-        "pmg_psmooth_pass": [_vp] * 8 + [_ci] * 7 + [_vp],
-        "pmg_pscan_tlat_resident": [_ci, _ci, _ci],
+        "pmg_pfilter_pass": [_vp] * 9 + [_ci] * 8 + [_vp],
+        "pmg_psmooth_pass": [_vp] * 13 + [_ci] * 8 + [_vp],
+        "pmg_pscan_tlat_resident": [_ci] * 4,
+        "pmg_joint_acc": [_vp] * 4 + [_ci] * 5 + [_vp],
     },
 }
 
@@ -147,5 +149,5 @@ def load_scan_kernels():
 
 
 def load_parallel_scan():
-    """The K3/K4 library."""
+    """The K3/K4/K5 and joint_acc library."""
     return load("parallel_scan")

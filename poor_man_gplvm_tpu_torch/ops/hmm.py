@@ -41,6 +41,7 @@ from poor_man_gplvm_tpu_torch.ops.emissions import get_loglikelihood_ma_all
 JOINT_ACC_INIT = -3.0e38
 
 ENGINES = ("prob", "cuda", "cuda_parallel")
+MEMORY_MODES = ("auto", "full", "checkpoint", "filter", "filter_bf16")
 _NOT_PORTED = {
     "log": "engine='log' is not ported yet (ROADMAP queue 1, item 4b)",
 }
@@ -53,6 +54,7 @@ __all__ = [
     "auto_chunk_size",
     "smooth_combined_chunked",
     "engine_resolves_parallel",
+    "parallel_scan_carry_spec",
     "compute_transition_posterior_prob",
     "compute_transition_posterior_prob_latent",
 ]
@@ -337,6 +339,11 @@ def smooth_combined_chunked(
     observation_model="poisson",
     engine="prob",
     memory_mode="auto",
+    marginal_smooth=False,
+    scan_carry_in=None,
+    want_scan_carry=False,
+    scan_fast=False,
+    lgamma_term=None,
     want_acc=True,
     diag_out=None,
 ):
@@ -344,25 +351,43 @@ def smooth_combined_chunked(
 
     Returns ``(log_acausal_posterior_all, log_marginal_final,
     log_causal_posterior_all, log_one_step_predictive_marginals,
-    log_accumulated_joint, log_likelihood_all)``.
+    log_accumulated_joint, log_likelihood_all)``, and with
+    ``want_scan_carry`` a seventh entry ``(fwd, bwd, pred, (fwd_passes,
+    bwd_passes, emit_delta_f, emit_delta_b))`` that warm-starts the next
+    same-shape solve (``scan_carry_in``).
 
     The backward pass consumes the +1-shifted causal prior: chunk [a, b)
     pairs with priors [a+1, b+1), and the final timestep's smoothed
-    posterior equals its filter posterior.  Chunking is exact.  Only the
-    'full' memory mode is ported ('auto' resolves to it; on an 80 GB card
-    the full working set of the north-star shape fits).
+    posterior equals its filter posterior.  Chunking is exact.
+
+    ``marginal_smooth``: the first entry is the pair (latent marginal (T,
+    L), dynamics marginal (T, n_dyn) or None for a latent-only model), in
+    log space.  The parallel engine forms it in its smoother kernel (K4's
+    marginal modes); the sequential engines run full mode and marginalise
+    at return (logsumexp of the log posterior, as the JAX package's
+    full-mode path does).
+
+    ``memory_mode``: every JAX mode is accepted.  On an 80 GB card the
+    full working set of the north-star shape fits, so the sequential
+    engines run full mode in every memory mode ('checkpoint', 'filter' and
+    'filter_bf16' return None for the causal posteriors and the
+    log-likelihoods, as the JAX package's drivers do; the port's
+    'filter_bf16' keeps the filter in f32, more exact than the JAX bf16
+    store).  On the parallel engine only ``want_post`` depends on it.
 
     ``want_acc=False``: the caller discards ``log_accumulated_joint``
-    (``fit_em`` does).  The parallel engine then skips the pairwise-joint
-    contraction and returns None in that slot; the sequential engines
-    ignore the hint, as in the JAX package.  ``diag_out``: a list to which
-    the parallel engine appends its fixed-point diagnostics
-    ``(fwd_passes, bwd_passes, fwd_delta, bwd_delta)``."""
+    (``fit_em`` does).  The parallel engine then skips the pairwise joint
+    and returns None in that slot; the sequential engines ignore the hint,
+    as in the JAX package.  ``scan_fast``: the warm-started fixed points
+    exit on the predicted residual (tol 1e-4; strict: 1e-6).
+    ``lgamma_term``: the precomputed ``emissions.poisson_lgamma_term``,
+    consumed by the parallel engine.  ``diag_out``: a list to which the
+    parallel engine appends its fixed-point diagnostics ``(fwd_passes,
+    bwd_passes, fwd_delta, bwd_delta[, emit_delta_f, emit_delta_b])``."""
     check_engine(engine)
-    if memory_mode not in ("auto", "full"):
-        raise NotImplementedError(
-            f"memory_mode={memory_mode!r} is not ported yet (ROADMAP queue "
-            "1, item 12); use 'full' or 'auto'"
+    if memory_mode not in MEMORY_MODES:
+        raise ValueError(
+            f"memory_mode must be one of {MEMORY_MODES}, got {memory_mode!r}"
         )
     device = tuning.device
     y = torch.as_tensor(y, dtype=torch.float32, device=device)
@@ -371,7 +396,13 @@ def smooth_combined_chunked(
         return _smooth_parallel_driver(
             y, tuning, hyperparam, trans, ma_neuron, ma_latent,
             likelihood_scale, observation_model, memory_mode,
-            n_time_per_chunk, want_acc, diag_out,
+            marginal_smooth, n_time_per_chunk, scan_carry_in,
+            want_scan_carry, scan_fast, lgamma_term, want_acc, diag_out,
+        )
+    if want_scan_carry:
+        raise ValueError(
+            "want_scan_carry requires the parallel-in-time engine "
+            "(use parallel_scan_carry_spec to gate the request)"
         )
     if n_time_per_chunk is None:
         n_time_per_chunk = auto_chunk_size(
@@ -425,14 +456,27 @@ def smooth_combined_chunked(
             )
         smooth_chunks[n] = smooth
 
+    smooth_log = prob_to_log(torch.cat(smooth_chunks, dim=0))
+    if marginal_smooth:
+        smooth_log = _marginalize_log(smooth_log)
+    full_store = memory_mode in ("auto", "full")
     return (
-        prob_to_log(torch.cat(smooth_chunks, dim=0)),
+        smooth_log,
         log_marginal_final,
-        prob_to_log(torch.cat(post_chunks, dim=0)),
+        prob_to_log(torch.cat(post_chunks, dim=0)) if full_store else None,
         torch.cat(ratio_chunks, dim=0),
         prob_to_log(bwd_carry[1]),
-        torch.cat(ll_chunks, dim=0),
+        torch.cat(ll_chunks, dim=0) if full_store else None,
     )
+
+
+def _marginalize_log(smooth_log):
+    """(latent marginal, dynamics marginal or None) of a log posterior,
+    by logsumexp (the JAX package's full-mode ``_full_out``)."""
+    if smooth_log.ndim == 3:
+        return (torch.logsumexp(smooth_log, dim=1),
+                torch.logsumexp(smooth_log, dim=2))
+    return (smooth_log, None)
 
 
 # ---------------------------------------------------------------------------
@@ -478,9 +522,30 @@ def engine_resolves_parallel(n_time, trans, engine, device):
     )
 
 
+def parallel_scan_carry_spec(n_time, trans, engine, force=False,
+                             memory_mode="auto"):
+    """Warm-start carry spec, (C, n_dyn, L), when ``smooth_combined_chunked``
+    with this engine would run the parallel-in-time engine for ``n_time``
+    steps on the transition's device, else None.  ``force=True`` skips the
+    engine check (for tests).  The same predicate as the engine choice, so
+    no carries are requested for a solve that will not upgrade."""
+    del memory_mode  # the buffer bound applies to every mode
+    device = _trans_device(trans)
+    if not (force or engine_resolves_parallel(n_time, trans, engine,
+                                              device)):
+        return None
+    return ps.carry_spec(n_time, trans.n_latent, getattr(trans, "n_dyn", 1))
+
+
+def _trans_device(trans):
+    return (trans.Tlat if hasattr(trans, "Tdyn") else trans.T).device
+
+
 def _smooth_parallel_driver(
     y, tuning, hyperparam, trans, ma_neuron, ma_latent, likelihood_scale,
-    observation_model, memory_mode, n_time_per_chunk, want_acc, diag_out,
+    observation_model, memory_mode, marginal_smooth, n_time_per_chunk,
+    scan_carry_in, want_scan_carry, scan_fast, lgamma_term, want_acc,
+    diag_out,
 ):
     """engine='cuda_parallel': the fixed-point parallel-in-time scans
     (``ops/parallel_scan.py``).  Falls back to the sequential 'cuda' engine
@@ -492,12 +557,17 @@ def _smooth_parallel_driver(
     L = trans.n_latent
     cfg = ps.choose_parallel_config(T, L, n_dyn)
     if cfg is None:
+        if want_scan_carry:
+            raise ValueError(
+                "want_scan_carry requested but the problem is too small "
+                "for the parallel engine"
+            )
         return smooth_combined_chunked(
             y, tuning, hyperparam, trans, ma_neuron, ma_latent,
             likelihood_scale=likelihood_scale,
             n_time_per_chunk=n_time_per_chunk,
             observation_model=observation_model, engine="cuda",
-            memory_mode=memory_mode,
+            memory_mode=memory_mode, marginal_smooth=marginal_smooth,
         )
     device = tuning.device
     if ma_latent is None:
@@ -506,35 +576,54 @@ def _smooth_parallel_driver(
     # them (a 1-D neuron mask broadcast to (T, N)), so that the two engines
     # differ only in the scan.  (The JAX package folds a 1-D mask into one
     # matmul instead; the per-bin rounding of that fold moved sharp L=500
-    # posteriors by 3e-4 against the sequential engine on the H100.)
+    # posteriors by 3e-4 against the sequential engine on the H100.)  A
+    # precomputed lgamma term gives the same values as the one formed here.
     y, ma_t = _chunk_inputs(
         y, torch.as_tensor(ma_neuron, dtype=torch.float32, device=device),
         0, T)
     ll = get_loglikelihood_ma_all(y, tuning, hyperparam, ma_t, ma_latent,
-                                  observation_model=observation_model)
+                                  observation_model=observation_model,
+                                  lgamma_term=lgamma_term)
     tlat = trans.Tlat if is_joint else trans.T[None]
     tdyn = trans.Tdyn if is_joint else torch.ones(
         (1, 1), dtype=torch.float32, device=device)
     p_init = torch.exp(trans.uniform_log_init())
     if not is_joint:
         p_init = p_init[None]
-    smooth, log_marginal, post, ratios, acc, diag = ps.smooth_parallel(
-        ll, tlat, tdyn, p_init, likelihood_scale,
-        uniform_rows=trans.uniform_rows, config=cfg, want_acc=want_acc,
-    )
+    est_bytes = T * (3 * n_dyn * L + L) * 4
+    want_post = memory_mode == "full" or (
+        memory_mode == "auto" and est_bytes <= 4e9)
+    # fast mode (fused mid-EM iterations): a 1e-4 boundary-carry tolerance
+    # bounds the posterior error at chunk-start bins by 1e-4 and the
+    # log-marginal error far below the fit's needs; strict mode keeps 1e-6
+    smooth, log_marginal, post, ratios, acc, diag, carries = (
+        ps.smooth_parallel(
+            ll, tlat, tdyn, p_init, likelihood_scale,
+            uniform_rows=trans.uniform_rows, marginal=marginal_smooth,
+            want_post=want_post, config=cfg, warm_start=scan_carry_in,
+            fast=scan_fast, tol=1e-4 if scan_fast else 1e-6,
+            want_carry=want_scan_carry, want_acc=want_acc,
+        ))
     if diag_out is not None:
         diag_out.append(diag)
-    if not is_joint:
-        smooth, post = smooth[:, 0], post[:, 0]
-        acc = None if acc is None else acc[0, 0]
-    return (
-        prob_to_log(smooth),
-        log_marginal,
-        prob_to_log(post),
-        ratios,
-        None if acc is None else prob_to_log(acc),
-        ll,
-    )
+    if marginal_smooth:
+        lat_m, dyn_m = smooth
+        smooth_all = (prob_to_log(lat_m),
+                      prob_to_log(dyn_m) if is_joint else None)
+    else:
+        smooth_all = prob_to_log(smooth if is_joint else smooth[:, 0])
+    post_all = None
+    if want_post:
+        post_all = prob_to_log(post if is_joint else post[:, 0])
+    acc_log = None
+    if acc is not None:
+        acc_log = prob_to_log(acc if is_joint else acc[0, 0])
+    out = (smooth_all, log_marginal, post_all, ratios, acc_log,
+           ll if want_post else None)
+    if want_scan_carry:
+        return out + ((carries[0], carries[1], carries[2],
+                       (diag[0], diag[1], diag[4], diag[5])),)
+    return out
 
 
 # ---------------------------------------------------------------------------

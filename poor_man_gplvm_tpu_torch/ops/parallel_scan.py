@@ -13,29 +13,36 @@ solved by fixed-point iteration over whole passes:
 The fixed point is the exact sequential recursion, and C passes make it
 exact by induction, so the answer carries a convergence certificate.
 
-The two Pallas TPU kernels become hand-written CUDA kernels for Hopper
+The Pallas TPU kernels become hand-written CUDA kernels for Hopper
 (``csrc/parallel_scan.cu``; its header says what bounds them on the card):
 
 * K3 ``pfilter_pass``  <- ``_pfilter_kernel`` / ``_pfilter_pass``
+  (finals-only and emit)
 * K4 ``psmooth_pass``  <- ``_psmooth_kernel`` / ``_psmooth_pass``
-  (finals-only and full modes; the two marginal modes are not ported)
+  (finals-only, full, marginal, and marginal with the pairwise joint)
+* K5, inside K3/K4: the recursion dot in ``"highest"``, ``"bf16x3"`` or
+  ``"bf16"`` precision (``_split_bf16`` / ``_scan_dot``), selected by
+  ``set_scan_precision``
+* ``joint_acc`` <- the pairwise-joint epilogue of ``_psmooth_kernel``'s
+  marginal mode, as a kernel of its own over the ratios K4 writes
 
 Each wrapper checks its inputs, allocates its outputs with ``torch.empty``
 and launches on the current stream without synchronising.  On a CPU tensor
 it runs its plain PyTorch version instead (``*_plain``: batched torch ops
 over the C chunks, one Python step per row); on a CUDA tensor it launches
 the kernel or raises.  Each wrapper counts its launches in
-``<wrapper>.launches``.
+``<wrapper>.launches`` and, per mode and precision, in
+``<wrapper>.launches_by_mode`` (keys ``"<mode>/<precision>"``).
 
 Layout: Hopper needs no 128-lane padding and the kernels need no
 chunk-major copy: the weights w (T, L) and the posteriors (T, n_dyn, L) are
 read and written in global time order, and the boundary carries are
-(C, n_dyn, L).  The recursion dots are plain f32 FMAs (the JAX package's
-default ``"highest"`` scan precision; ``bf16x3``/``bf16`` are not ported).
+(C, n_dyn, L).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from poor_man_gplvm_tpu_torch.ops.scan_kernels import (
@@ -48,14 +55,97 @@ from poor_man_gplvm_tpu_torch.ops.scan_kernels import (
 )
 
 __all__ = [
+    "SCAN_PRECISIONS",
+    "PSMOOTH_MODES",
+    "set_scan_precision",
+    "scan_mode_key",
+    "set_config_override",
+    "split_bf16",
+    "scan_dot",
     "choose_parallel_config",
     "carry_spec",
     "pfilter_pass",
     "pfilter_pass_plain",
     "psmooth_pass",
     "psmooth_pass_plain",
+    "joint_acc",
+    "joint_acc_plain",
     "smooth_parallel",
 ]
+
+SCAN_PRECISIONS = ("highest", "bf16x3", "bf16")
+_PREC_CODE = {p: i for i, p in enumerate(SCAN_PRECISIONS)}
+#: K4 output modes: boundary carries only; smooth and r (T, n_dyn, L); the
+#: latent (T, L) and dynamics (T, n_dyn) marginals; the marginals and the
+#: raw pairwise joint sum_t post[t, d]^T r[t, e] (n_dyn, n_dyn, L, L)
+PSMOOTH_MODES = ("finals", "full", "marginal", "marginal_acc")
+
+# ---------------------------------------------------------------------------
+# configuration knobs (module state, as in the JAX package)
+# ---------------------------------------------------------------------------
+
+#: manual (C, block_t_fwd, block_t_bwd) override of the launch config
+_CONFIG_OVERRIDE = None
+#: precision of the fixed-point recursion dots
+_SCAN_PRECISION = "highest"
+
+
+def set_scan_precision(mode):
+    """Set the precision of the parallel-scan recursion dots (K5).
+
+    - ``"highest"`` (default): f32 FMAs, the reference-parity numerics;
+    - ``"bf16x3"``: the 3-pass hi/lo bf16 split, a_hi.b_hi + a_lo.b_hi +
+      a_hi.b_lo with f32 sums (~5e-7 element error on the dots; the
+      per-step normalisation keeps it from accumulating);
+    - ``"bf16"``: one bf16 pass, bf16(a).b_hi (~1e-3 posterior error).
+
+    Read by ``smooth_parallel`` at each call; the port caches no program,
+    so a flip takes effect at the next solve."""
+    global _SCAN_PRECISION
+    if mode not in SCAN_PRECISIONS:
+        raise ValueError(f"unknown scan precision {mode!r}")
+    _SCAN_PRECISION = mode
+
+
+def scan_mode_key():
+    """(config override, scan precision): the module state a caller that
+    caches per-shape decisions keys on."""
+    return (_CONFIG_OVERRIDE, _SCAN_PRECISION)
+
+
+def set_config_override(cfg):
+    """Force the launch config to ``cfg = (C, block_t_fwd, block_t_bwd)``,
+    or restore the automatic choice with ``None``.  As in the JAX package
+    the override replaces the chunk count before the rule that shrinks C
+    for short sequences; the JAX package's VMEM clamps are a TPU fact and
+    are not ported."""
+    global _CONFIG_OVERRIDE
+    _CONFIG_OVERRIDE = None if cfg is None else tuple(int(v) for v in cfg)
+
+
+def split_bf16(x):
+    """x (f32) -> (hi, lo) bf16 pair with hi + lo ~ x: hi the bf16
+    rounding, lo the bf16 rounding of the residual."""
+    hi = x.to(torch.bfloat16)
+    lo = (x - hi.float()).to(torch.bfloat16)
+    return hi, lo
+
+
+def scan_dot(a, b, mode, b_hilo=None):
+    """One recursion dot ``a @ b`` under scan precision ``mode``, as the
+    JAX package's ``_scan_dot``: bf16 operands enter f32 products with f32
+    sums (a product of two bf16 values is exact in f32).  ``b_hilo`` is
+    the weight operand's precomputed ``split_bf16``."""
+    if mode == "highest":
+        return a @ b
+    b_hi, b_lo = b_hilo if b_hilo is not None else split_bf16(b)
+    b_hi = b_hi.float()
+    if mode == "bf16":
+        return a.to(torch.bfloat16).float() @ b_hi
+    if mode != "bf16x3":
+        raise ValueError(f"unknown scan precision {mode!r}")
+    a_hi, a_lo = (v.float() for v in split_bf16(a))
+    return a_hi @ b_hi + a_lo @ b_hi + a_hi @ b_lo.float()
 
 
 def choose_parallel_config(T, L, n_dyn):
@@ -63,16 +153,20 @@ def choose_parallel_config(T, L, n_dyn):
     the sequence is too short to chunk (the caller then runs the sequential
     engine).
 
-    The JAX package's chunk-count rule: C starts at 128 and halves while
-    T < C * bt_f * 8 (each chunk amortises its boundary solve over >= 8
-    blocks of bt_f rows), with bt_f = 16 up to L = 256 and 8 above.  Its
-    VMEM budget clamps are a TPU fact and are not ported (they do not bind
-    at L <= 500).  The port's kernels do not block time, so bt_f and bt_b
-    enter only this rule; they are returned so the tuple equals JAX's."""
+    The JAX package's chunk-count rule: C starts at 128 (or at the
+    override's C) and halves while T < C * bt_f * 8 (each chunk amortises
+    its boundary solve over >= 8 blocks of bt_f rows), with bt_f = 16 up to
+    L = 256 and 8 above.  Its VMEM budget clamps are a TPU fact and are not
+    ported (they do not bind at L <= 500).  The port's kernels do not block
+    time, so bt_f and bt_b enter only this rule; they are returned so the
+    tuple equals JAX's."""
     del n_dyn  # the rule depends on it only through the TPU VMEM clamps
-    C = 128
-    bt_f = 16 if L <= 256 else 8
-    bt_b = bt_f if L <= 256 else 2
+    if _CONFIG_OVERRIDE is not None:
+        C, bt_f, bt_b = _CONFIG_OVERRIDE
+    else:
+        C = 128
+        bt_f = 16 if L <= 256 else 8
+        bt_b = bt_f if L <= 256 else 2
     while C > 2 and T < C * bt_f * 8:
         C //= 2
     if C < 2 or T < 4 * bt_f:
@@ -101,12 +195,41 @@ def _check_chunks(T, C, tc):
         raise ValueError(f"C={C} chunks of tc={tc} rows must cover T={T}")
 
 
-def _matvec(v, mats, uniform_rows):
+def _check_prec(scan_prec):
+    if scan_prec not in SCAN_PRECISIONS:
+        raise ValueError(f"unknown scan precision {scan_prec!r}")
+
+
+def _splits(mats, scan_prec, splits):
+    """Per-channel bf16 splits of ``mats`` (n_dyn, L, L): None in
+    "highest", else ``splits`` if given (hi, lo), or made here."""
+    if scan_prec == "highest":
+        return None
+    return split_bf16(mats) if splits is None else splits
+
+
+def _count(fn, mode, scan_prec):
+    fn.launches += 1
+    key = f"{mode}/{scan_prec}"
+    fn.launches_by_mode[key] = fn.launches_by_mode.get(key, 0) + 1
+
+
+def reset_launches():
+    """Set every launch count of this module's wrappers to 0."""
+    for fn in (pfilter_pass, psmooth_pass, joint_acc):
+        fn.launches = 0
+        fn.launches_by_mode = {}
+
+
+def _matvec(v, mats, uniform_rows, scan_prec="highest", splits=None):
     """(C, n_dyn, L) rows times one (L, L) matrix per channel:
-    out[:, d] = v[:, d] @ mats[d]; a constant channel takes sum(v) * row."""
+    out[:, d] = v[:, d] @ mats[d] under ``scan_prec`` (``splits``: the
+    matrices' (hi, lo)); a constant channel takes sum(v) * row, in f32."""
     return torch.stack([
         v[:, d].sum(dim=-1, keepdim=True) * mats[d, 0] if flag
-        else v[:, d] @ mats[d]
+        else scan_dot(v[:, d], mats[d], scan_prec,
+                      None if splits is None else (splits[0][d],
+                                                   splits[1][d]))
         for d, flag in enumerate(uniform_rows)
     ], dim=1)
 
@@ -118,20 +241,28 @@ def _chunked(x, C, tc):
     return pad.view((C, tc) + tuple(x.shape[1:]))
 
 
+def _unchunked(xc, T):
+    """(C, tc, ...) -> (T, ...) global rows."""
+    return xc.reshape((-1,) + tuple(xc.shape[2:]))[:T]
+
+
 # ---------------------------------------------------------------------------
 # K3: filter pass
 # ---------------------------------------------------------------------------
 
 
-def pfilter_pass_plain(w, tlat, tdyn, ins, tc, uniform_rows, emit):
+def pfilter_pass_plain(w, tlat, tdyn, ins, tc, uniform_rows, emit,
+                       scan_prec="highest", splits=None):
     """Plain version of K3.  w: (T, L) likelihood weights; tlat (n_dyn, L,
     L); tdyn (n_dyn, n_dyn); ins (C, n_dyn, L) boundary carries; tc rows
-    per chunk.  Row tau of chunk c (global row c*tc + tau) is a step when
-    it is < T.  Returns (post (T, n_dyn, L), norm (T,), finals (C, n_dyn,
-    L)) with norm_t = max(s_t, 1e-38); post and norm are None unless
-    ``emit``."""
+    per chunk; ``scan_prec`` the recursion-dot precision and ``splits``
+    tlat's ``split_bf16`` (made here when None).  Row tau of chunk c
+    (global row c*tc + tau) is a step when it is < T.  Returns (post (T,
+    n_dyn, L), norm (T,), finals (C, n_dyn, L)) with norm_t = max(s_t,
+    1e-38); post and norm are None unless ``emit``."""
     T = w.shape[0]
     C = ins.shape[0]
+    splits = _splits(tlat, scan_prec, splits)
     w_c = _chunked(w, C, tc)
     off = torch.arange(C, device=w.device) * tc
     carry = ins
@@ -141,7 +272,8 @@ def pfilter_pass_plain(w, tlat, tdyn, ins, tc, uniform_rows, emit):
     for tau in range(tc):
         valid = (off + tau) < T
         q = torch.einsum("cpl,pd->cdl", carry, tdyn)
-        u = _matvec(q, tlat, uniform_rows) * w_c[:, tau, None, :]
+        u = _matvec(q, tlat, uniform_rows, scan_prec, splits) \
+            * w_c[:, tau, None, :]
         s = torch.clamp(u.sum(dim=(1, 2)), min=NORM_FLOOR)
         carry = torch.where(valid[:, None, None], u / s[:, None, None], carry)
         if emit:
@@ -149,25 +281,28 @@ def pfilter_pass_plain(w, tlat, tdyn, ins, tc, uniform_rows, emit):
             norm_c[:, tau] = torch.where(valid, s, norm_c[:, tau])
     if not emit:
         return None, None, carry
-    return (post_c.reshape((C * tc,) + tuple(ins.shape[1:]))[:T],
-            norm_c.reshape(-1)[:T], carry)
+    return _unchunked(post_c, T), _unchunked(norm_c, T), carry
 
 
-def pfilter_pass(w, tlat, tdyn, ins, tc, uniform_rows, emit):
+def pfilter_pass(w, tlat, tdyn, ins, tc, uniform_rows, emit,
+                 scan_prec="highest", splits=None):
     """K3 wrapper: same arguments and outputs as ``pfilter_pass_plain``."""
     T, L = w.shape
     C, n_dyn = ins.shape[:2]
     _check_dims(n_dyn, L, uniform_rows)
     _check_chunks(T, C, tc)
+    _check_prec(scan_prec)
     dev = w.device
     _check("w", w, (T, L), dev)
     _check("tlat", tlat, (n_dyn, L, L), dev)
     _check("tdyn", tdyn, (n_dyn, n_dyn), dev)
     _check("ins", ins, (C, n_dyn, L), dev)
     if dev.type == "cpu":
-        return pfilter_pass_plain(w, tlat, tdyn, ins, tc, uniform_rows, emit)
+        return pfilter_pass_plain(w, tlat, tdyn, ins, tc, uniform_rows, emit,
+                                  scan_prec, splits)
     if dev.type != "cuda":
         raise ValueError(f"pfilter_pass runs on cpu or cuda, not {dev.type}")
+    hi, lo = _splits(tlat, scan_prec, splits) or (None, None)
     finals = torch.empty_like(ins)
     post = norm = None
     if emit:
@@ -175,17 +310,18 @@ def pfilter_pass(w, tlat, tdyn, ins, tc, uniform_rows, emit):
         norm = torch.empty((T,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):  # the launch goes to the current device
         err = _lib().pmg_pfilter_pass(
-            w.data_ptr(), tlat.data_ptr(), tdyn.data_ptr(), ins.data_ptr(),
-            finals.data_ptr(), post.data_ptr() if emit else None,
-            norm.data_ptr() if emit else None, T, C, tc, n_dyn, L,
-            _mask(uniform_rows), int(emit), _stream_ptr(dev),
+            w.data_ptr(), tlat.data_ptr(), _ptr(hi), _ptr(lo),
+            tdyn.data_ptr(), ins.data_ptr(), finals.data_ptr(), _ptr(post),
+            _ptr(norm), T, C, tc, n_dyn, L, _mask(uniform_rows), int(emit),
+            _PREC_CODE[scan_prec], _stream_ptr(dev),
         )
-    pfilter_pass.launches += 1
+    _count(pfilter_pass, "emit" if emit else "finals", scan_prec)
     _raise_on(err, "pfilter_pass")
     return post, norm, finals
 
 
-pfilter_pass.launches = 0
+def _ptr(x):
+    return None if x is None else x.data_ptr()
 
 
 # ---------------------------------------------------------------------------
@@ -194,51 +330,84 @@ pfilter_pass.launches = 0
 
 
 def psmooth_pass_plain(post, tlat, tlat_t, tdyn, ins, tc, uniform_rows,
-                       emit):
+                       mode, scan_prec="highest", splits=None):
     """Plain version of K4.  post: (T, n_dyn, L) filter posteriors; tlat
     and tlat_t (n_dyn, L, L) the latent kernels and their transposes; tdyn
     (n_dyn, n_dyn); ins (C, n_dyn, L) smoothed posteriors after each
-    chunk's last row.  Per row, backward: prior = push(post_t), r =
-    carry / prior (0 where the prior is 0), pull, normalise.  A row is a
-    step when its global index is < T - 1; the others pass the carry
-    through (and store r = 0).  Returns (smooth (T, n_dyn, L), r (T, n_dyn,
-    L), finals (C, n_dyn, L)); smooth and r are None unless ``emit``."""
+    chunk's last row; ``splits`` the ``split_bf16`` of (tlat, tlat_t) when
+    ``scan_prec`` is not "highest" (made here when None).  Per row,
+    backward: prior = push(post_t) (K3's arithmetic), r = carry / prior (0
+    where the prior is 0), pull, normalise.  A row is a step when its
+    global index is < T - 1; the others pass the carry through (and store
+    r = 0).  Returns, by ``mode`` (see ``PSMOOTH_MODES``):
+
+    * "finals": (None, None, finals (C, n_dyn, L));
+    * "full": (smooth (T, n_dyn, L), r (T, n_dyn, L), finals);
+    * "marginal": (lat (T, L), dyn (T, n_dyn), finals) with lat = sum_d
+      smooth and dyn = sum_l smooth;
+    * "marginal_acc": (lat, dyn, acc, finals) with the raw pairwise joint
+      acc[d, e] = sum_t post[t, d]^T r[t, e] (``joint_acc_plain``)."""
+    if mode not in PSMOOTH_MODES:
+        raise ValueError(f"mode must be one of {PSMOOTH_MODES}, got {mode!r}")
     T = post.shape[0]
     C = ins.shape[0]
+    if splits is None and scan_prec != "highest":
+        splits = (split_bf16(tlat), split_bf16(tlat_t))
+    sp_f, sp_b = splits if splits is not None else (None, None)
     post_c = _chunked(post, C, tc)
     off = torch.arange(C, device=post.device) * tc
     carry = ins
-    if emit:
+    keep_r = mode in ("full", "marginal_acc")
+    if mode == "full":
         smooth_c = torch.empty_like(post_c)
+    elif mode != "finals":
+        lat_c = post_c.new_empty(post_c.shape[:2] + post_c.shape[3:])
+        dyn_c = post_c.new_empty(post_c.shape[:3])
+    if keep_r:
         r_c = torch.empty_like(post_c)
     for tau in range(tc - 1, -1, -1):
         valid = ((off + tau) < T - 1)[:, None, None]
         filt = post_c[:, tau]
         prior = _matvec(torch.einsum("cpl,pd->cdl", filt, tdyn), tlat,
-                        uniform_rows)
+                        uniform_rows, scan_prec, sp_f)
         pos = prior > 0
         r = torch.where(pos & valid, carry / torch.where(pos, prior, 1.0),
                         torch.zeros_like(prior))
         out = torch.einsum("de,cel->cdl", tdyn,
-                           _matvec(r, tlat_t, uniform_rows))
+                           _matvec(r, tlat_t, uniform_rows, scan_prec, sp_b))
         sm = filt * out
         norm = torch.clamp(sm.sum(dim=(1, 2), keepdim=True), min=NORM_FLOOR)
         carry = torch.where(valid, sm / norm, carry)
-        if emit:
-            smooth_c[:, tau] = carry
+        if keep_r:
             r_c[:, tau] = r
-    if not emit:
+        if mode == "full":
+            smooth_c[:, tau] = carry
+        elif mode != "finals":
+            lat_c[:, tau] = carry.sum(dim=1)
+            dyn_c[:, tau] = carry.sum(dim=2)
+    if mode == "finals":
         return None, None, carry
-    shape = (C * tc,) + tuple(post.shape[1:])
-    return (smooth_c.reshape(shape)[:T], r_c.reshape(shape)[:T], carry)
+    if mode == "full":
+        return _unchunked(smooth_c, T), _unchunked(r_c, T), carry
+    lat, dyn = _unchunked(lat_c, T), _unchunked(dyn_c, T)
+    if mode == "marginal":
+        return lat, dyn, carry
+    return lat, dyn, joint_acc_plain(post, _unchunked(r_c, T)), carry
 
 
-def psmooth_pass(post, tlat, tlat_t, tdyn, ins, tc, uniform_rows, emit):
-    """K4 wrapper: same arguments and outputs as ``psmooth_pass_plain``."""
+def psmooth_pass(post, tlat, tlat_t, tdyn, ins, tc, uniform_rows, mode,
+                 scan_prec="highest", splits=None):
+    """K4 wrapper: same arguments and outputs as ``psmooth_pass_plain``.
+    In "marginal_acc" mode K4 writes r to a (T, n_dyn, L) scratch that
+    ``joint_acc`` then reduces (the TPU kernel's on-chip accumulator, 4 MB
+    at L = 500, fits no SM's shared memory)."""
     T, n_dyn, L = post.shape
     C = ins.shape[0]
     _check_dims(n_dyn, L, uniform_rows)
     _check_chunks(T, C, tc)
+    _check_prec(scan_prec)
+    if mode not in PSMOOTH_MODES:
+        raise ValueError(f"mode must be one of {PSMOOTH_MODES}, got {mode!r}")
     dev = post.device
     _check("post", post, (T, n_dyn, L), dev)
     _check("tlat", tlat, (n_dyn, L, L), dev)
@@ -247,28 +416,97 @@ def psmooth_pass(post, tlat, tlat_t, tdyn, ins, tc, uniform_rows, emit):
     _check("ins", ins, (C, n_dyn, L), dev)
     if dev.type == "cpu":
         return psmooth_pass_plain(post, tlat, tlat_t, tdyn, ins, tc,
-                                  uniform_rows, emit)
+                                  uniform_rows, mode, scan_prec, splits)
     if dev.type != "cuda":
         raise ValueError(f"psmooth_pass runs on cpu or cuda, not {dev.type}")
+    if splits is None and scan_prec != "highest":
+        splits = (split_bf16(tlat), split_bf16(tlat_t))
+    (hi, lo), (hi_t, lo_t) = splits or ((None, None), (None, None))
     finals = torch.empty_like(ins)
-    smooth = r = None
-    if emit:
-        smooth = torch.empty_like(post)
-        r = torch.empty_like(post)
+    out = out2 = out3 = None
+    if mode == "full":
+        out = torch.empty_like(post)
+    elif mode != "finals":
+        out = torch.empty((T, L), dtype=torch.float32, device=dev)
+        out3 = torch.empty((T, n_dyn), dtype=torch.float32, device=dev)
+    if mode in ("full", "marginal_acc"):
+        out2 = torch.empty_like(post)
     with torch.cuda.device(dev):
         err = _lib().pmg_psmooth_pass(
-            post.data_ptr(), tlat.data_ptr(), tlat_t.data_ptr(),
-            tdyn.data_ptr(), ins.data_ptr(), finals.data_ptr(),
-            smooth.data_ptr() if emit else None,
-            r.data_ptr() if emit else None, T, C, tc, n_dyn, L,
-            _mask(uniform_rows), int(emit), _stream_ptr(dev),
+            post.data_ptr(), tlat.data_ptr(), tlat_t.data_ptr(), _ptr(hi),
+            _ptr(lo), _ptr(hi_t), _ptr(lo_t), tdyn.data_ptr(),
+            ins.data_ptr(), finals.data_ptr(), _ptr(out), _ptr(out2),
+            _ptr(out3), T, C, tc, n_dyn, L, _mask(uniform_rows),
+            PSMOOTH_MODES.index(mode), _PREC_CODE[scan_prec],
+            _stream_ptr(dev),
         )
-    psmooth_pass.launches += 1
+    _count(psmooth_pass, mode, scan_prec)
     _raise_on(err, "psmooth_pass")
-    return smooth, r, finals
+    if mode == "finals":
+        return None, None, finals
+    if mode == "full":
+        return out, out2, finals
+    if mode == "marginal":
+        return out, out3, finals
+    return out, out3, joint_acc(post, out2), finals
 
 
-psmooth_pass.launches = 0
+# ---------------------------------------------------------------------------
+# joint_acc: the pairwise-joint reduction of K4's marginal+acc mode
+# ---------------------------------------------------------------------------
+
+#: joint_acc's output tile (csrc/parallel_scan.cu::kTile) and the blocks it
+#: aims for (two per SM of the H100)
+_ACC_TILE = 64
+_ACC_TARGET_BLOCKS = 264
+#: at most this many time rows per split-K slice (rounding of long f32 sums)
+_ACC_MAX_ROWS = 131_072
+
+
+def joint_acc_plain(post, r):
+    """Plain version of ``joint_acc``: acc[d, e, i, j] = sum_t post[t, d,
+    i] * r[t, e, j] over (T, n_dyn, L) inputs, f32."""
+    return torch.einsum("tdi,tej->deij", post, r)
+
+
+def _acc_slices(T, M):
+    """(S, rows per slice) of joint_acc's split over time: enough slices
+    to give the card ~2 blocks per SM, and at most ``_ACC_MAX_ROWS`` rows
+    each."""
+    tiles = (-(-M // _ACC_TILE)) ** 2
+    S = max(-(-_ACC_TARGET_BLOCKS // tiles), -(-T // _ACC_MAX_ROWS))
+    S = max(1, min(S, -(-T // 16)))
+    return S, -(-T // S)
+
+
+def joint_acc(post, r):
+    """``joint_acc`` wrapper: same arguments and output as
+    ``joint_acc_plain``.  On the card: a split-K kernel over S slices of
+    time into an (S, n_dyn*L, n_dyn*L) partial buffer, then a second
+    kernel that adds the partials in slice order (deterministic)."""
+    T, n_dyn, L = post.shape
+    dev = post.device
+    _check("post", post, (T, n_dyn, L), dev)
+    _check("r", r, (T, n_dyn, L), dev)
+    if dev.type == "cpu":
+        return joint_acc_plain(post, r)
+    if dev.type != "cuda":
+        raise ValueError(f"joint_acc runs on cpu or cuda, not {dev.type}")
+    _check_dims(n_dyn, L, (False,) * n_dyn)
+    M = n_dyn * L
+    S, rows = _acc_slices(T, M)
+    partial = torch.empty((S, M, M), dtype=torch.float32, device=dev)
+    acc = torch.empty((n_dyn, n_dyn, L, L), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _lib().pmg_joint_acc(post.data_ptr(), r.data_ptr(),
+                                   partial.data_ptr(), acc.data_ptr(), T,
+                                   n_dyn, L, S, rows, _stream_ptr(dev))
+    _count(joint_acc, "acc", "highest")
+    _raise_on(err, "joint_acc")
+    return acc
+
+
+reset_launches()
 
 
 # ---------------------------------------------------------------------------
@@ -276,33 +514,84 @@ psmooth_pass.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def _solve(run_pass, shift, ins, tol, max_passes):
-    """Peeled first pass, then passes while the carries move by more than
-    ``tol`` (one host read of the movement per pass), at most
-    ``max_passes`` in all.  Returns (ins, passes, last movement)."""
-    new = shift(run_pass(ins))
-    delta, passes = float((new - ins).abs().max()), 1
-    while delta > tol and passes < max_passes:
+def _max_abs(a, b):
+    return (a - b).abs().max()
+
+
+def _solve(run_pass, shift, ins, tol, max_passes, pred=None, lam=None):
+    """Fixed-point loop over whole passes, one host read of the movement
+    per pass; returns (ins, passes, last movement).
+
+    Strict (``pred`` None): a peeled first pass, then passes while the
+    carries move by more than ``tol``, at most ``max_passes`` in all.
+    Fast (``pred``, ``lam`` float32 scalars, the warm-started solve): the
+    loop enters with delta = ``pred`` (which may already pass, i.e. no
+    pass at all) and runs while ``delta * lam > tol``."""
+    if pred is None:
+        new = shift(run_pass(ins))
+        delta, passes = float(_max_abs(new, ins)), 1
+        lam = np.float32(1.0)
+    else:
+        new, delta, passes = ins, float(pred), 0
+    tol = np.float32(tol)
+    while np.float32(delta) * lam > tol and passes < max_passes:
         ins, new = new, shift(run_pass(new))
-        delta, passes = float((new - ins).abs().max()), passes + 1
+        delta, passes = float(_max_abs(new, ins)), passes + 1
     return new, passes, delta
 
 
+def _fast_terms(pred, valid, drift_i, resid_i):
+    """(lam, predicted movement) of a fast warm-started solve, in float32
+    as the JAX driver computes them: lam = clip(resid / drift, 1e-12, 1)
+    from the previous solve, entry movement 4 * drift / lam; (1, inf)
+    without a valid seed."""
+    if not valid:
+        return np.float32(1.0), np.float32(np.inf)
+    drift, resid = np.float32(pred[drift_i]), np.float32(pred[resid_i])
+    lam = np.float32(np.clip(resid / np.maximum(drift, np.float32(1e-30)),
+                             np.float32(1e-12), np.float32(1.0)))
+    return lam, np.float32(4.0) * drift / lam
+
+
 def smooth_parallel(ll, tlat, tdyn, p_init, likelihood_scale, *,
-                    uniform_rows, config=None, max_passes=None, tol=1e-6,
+                    uniform_rows, marginal=False, want_post=False,
+                    config=None, max_passes=None, tol=1e-6,
+                    warm_start=None, fast=False, want_carry=False,
                     want_acc=True):
-    """Fixed-point parallel-in-time forward-backward smoother (strict mode).
+    """Fixed-point parallel-in-time forward-backward smoother.
 
     ll: (T, L) log-likelihood; tlat (n_dyn, L, L); tdyn (n_dyn, n_dyn);
-    p_init (n_dyn, L) probability-space initial carry.
+    p_init (n_dyn, L) probability-space initial carry.  The recursion dots
+    run in the precision ``set_scan_precision`` set.
 
-    Returns ``(smooth, log_marginal, post, ratios, acc, diag)`` in
-    PROBABILITY space: smooth and post (T, n_dyn, L), the per-step log
-    ratios (T,), acc the accumulated pairwise joint (n_dyn, n_dyn, L, L)
-    (None when ``want_acc`` is False) and diag = (fwd_passes, bwd_passes,
-    fwd_delta, bwd_delta).  The warm start, fast mode and carry export of
-    the JAX ``smooth_parallel`` belong to the fused mid-EM iterations and
-    are not ported."""
+    Returns ``(smooth, log_marginal, post, ratios, acc, diag, carries)`` in
+    PROBABILITY space:
+
+    * smooth: (T, n_dyn, L), or the pair (latent marginal (T, L), dynamics
+      marginal (T, n_dyn)) when ``marginal`` (K4's marginal modes);
+    * post: the (T, n_dyn, L) filter posteriors when ``want_post``, else
+      None; ratios: the per-step log ratios (T,);
+    * acc: the pairwise joint (n_dyn, n_dyn, L, L), None unless
+      ``want_acc`` (in marginal mode it comes from K4's ratios through
+      ``joint_acc``, in full mode from an einsum outside the kernel);
+    * diag = (fwd_passes, bwd_passes, fwd_delta, bwd_delta), followed by
+      the emit passes' post-hoc residuals (emit_delta_f, emit_delta_b)
+      when ``want_carry``;
+    * carries: with ``want_carry``, (fwd, bwd, pred) -- the freshest
+      boundary carries ((C, n_dyn, L) each, see ``carry_spec``) and pred =
+      [drift_f, drift_b, emit_resid_f, emit_resid_b] (4,) -- else None.
+
+    ``warm_start``: optional ``(fwd, bwd, pred, valid)``, the ``carries``
+    of a previous same-shape solve and a bool.  Chunk 0's forward input and
+    the backward inputs from the chunk holding row T-1 on stay exact.  In
+    strict mode (``fast=False``) a seed still passes the delta <= tol
+    certificate.  With ``fast=True`` the loops exit on the PREDICTED
+    residual delta * lam (lam = previous emit residual / previous drift),
+    enter with 4 * drift / lam (a seed already within tol skips every
+    finals-only pass), and run no peeled pass; every fast solve is
+    certified post-hoc by the emit passes' residuals (diag[4:6]), which
+    the caller checks.  ``tol``: 1e-6 strict, 1e-4 for the fast mode's
+    callers."""
     T, L = ll.shape
     n_dyn = tlat.shape[0]
     if config is None:
@@ -313,28 +602,49 @@ def smooth_parallel(ll, tlat, tdyn, p_init, likelihood_scale, *,
     tc = -(-T // C)
     if max_passes is None:
         max_passes = C
+    prec = _SCAN_PRECISION
     tlat = tlat.to(torch.float32).contiguous()
     tdyn = tdyn.to(torch.float32).contiguous()
     tlat_t = tlat.transpose(-1, -2).contiguous()
+    # the weight operands' bf16 splits, once per solve
+    sp_f = _splits(tlat, prec, None)
+    sp_b = None if sp_f is None else (sp_f, split_bf16(tlat_t))
+    has_ws = warm_start is not None
+    if has_ws:
+        fwd_ws, bwd_ws, ws_pred, ws_valid = warm_start
+        ws_valid = bool(ws_valid)
+        ws_pred = (np.asarray(ws_pred.cpu() if torch.is_tensor(ws_pred)
+                              else ws_pred, dtype=np.float32)
+                   if fast and ws_valid else None)
+    else:
+        ws_valid = False
+    use_fast = fast and has_ws
 
     # ---- forward fixed point (finals-only passes + one emitting pass) ----
     m = ll.amax(dim=1)
     w = torch.exp(likelihood_scale * (ll - m[:, None])).contiguous()
     ins0 = torch.full((C, n_dyn, L), 1.0 / (n_dyn * L), dtype=torch.float32,
                       device=ll.device)
+    if ws_valid:
+        ins0 = fwd_ws.to(torch.float32).clone()
     ins0[0] = p_init
 
     def fwd(ins):
-        return pfilter_pass(w, tlat, tdyn, ins, tc, uniform_rows,
-                            emit=False)[2]
+        return pfilter_pass(w, tlat, tdyn, ins, tc, uniform_rows, False,
+                            prec, sp_f)[2]
 
     def fwd_shift(fin):
         return torch.cat([ins0[:1], fin[:-1]])
 
-    ins_f, fwd_passes, fwd_delta = _solve(fwd, fwd_shift, ins0, tol,
-                                          max_passes)
-    post, norm, _ = pfilter_pass(w, tlat, tdyn, ins_f, tc, uniform_rows,
-                                 emit=True)
+    lam_f, pred_f = _fast_terms(ws_pred, ws_valid, 0, 2) if use_fast \
+        else (None, None)
+    ins_f, fwd_passes, fwd_delta = _solve(
+        fwd, fwd_shift, ins0, tol, max_passes,
+        pred=(pred_f if use_fast else (np.inf if has_ws else None)),
+        lam=(lam_f if use_fast else np.float32(1.0)))
+    post, norm, fin_emit = pfilter_pass(w, tlat, tdyn, ins_f, tc,
+                                        uniform_rows, True, prec, sp_f)
+    del w
     ratios = torch.log(norm) + likelihood_scale * m
     log_marginal = ratios.sum()
 
@@ -344,28 +654,58 @@ def smooth_parallel(ll, tlat, tdyn, p_init, likelihood_scale, *,
     # exact, and the filter posterior of each boundary row is the guess
     c_star = (T - 1) // tc
     post_T1 = post[T - 1]
-    rows = torch.arange(1, C + 1, device=ll.device) * tc
-    guess = post[torch.clamp(rows, max=T - 1)].contiguous()
+    if ws_valid:
+        guess = bwd_ws.to(torch.float32).clone()
+    else:
+        rows = torch.arange(1, C + 1, device=ll.device) * tc
+        guess = post[torch.clamp(rows, max=T - 1)].contiguous()
     guess[c_star:] = post_T1
 
     def bwd(ins):
         return psmooth_pass(post, tlat, tlat_t, tdyn, ins, tc, uniform_rows,
-                            emit=False)[2]
+                            "finals", prec, sp_b)[2]
 
     def bwd_shift(fin):
         new = torch.cat([fin[1:], post_T1[None]])
         new[c_star:] = post_T1
         return new
 
-    ins_b, bwd_passes, bwd_delta = _solve(bwd, bwd_shift, guess, tol,
-                                          max_passes)
-    smooth, r, _ = psmooth_pass(post, tlat, tlat_t, tdyn, ins_b, tc,
-                                uniform_rows, emit=True)
+    lam_b, pred_b = _fast_terms(ws_pred, ws_valid, 1, 3) if use_fast \
+        else (None, None)
+    ins_b, bwd_passes, bwd_delta = _solve(
+        bwd, bwd_shift, guess, tol, max_passes,
+        pred=(pred_b if use_fast else (np.inf if has_ws else None)),
+        lam=(lam_b if use_fast else np.float32(1.0)))
+    mode = ("marginal_acc" if want_acc else "marginal") if marginal \
+        else "full"
+    emit = psmooth_pass(post, tlat, tlat_t, tdyn, ins_b, tc, uniform_rows,
+                        mode, prec, sp_b)
+    fin_b = emit[-1]
     acc = None
-    if want_acc:
-        # the pairwise-joint contraction runs outside the kernel, as in the
-        # JAX package's full mode (rows that are not steps carry r = 0)
-        acc = (torch.einsum("tdi,tej->deij", post, r)
-               * tdyn[:, :, None, None] * tlat[None])
+    if marginal:
+        smooth = (emit[0], emit[1])
+        if want_acc:
+            acc = emit[2]
+    else:
+        smooth = emit[0]
+        if want_acc:
+            # the pairwise-joint contraction runs outside the kernel, as in
+            # the JAX package's full mode (rows that are not steps carry
+            # r = 0)
+            acc = torch.einsum("tdi,tej->deij", post, emit[1])
+    if acc is not None:
+        acc = acc * tdyn[:, :, None, None] * tlat[None]
+
     diag = (fwd_passes, bwd_passes, fwd_delta, bwd_delta)
-    return smooth, log_marginal, post, ratios, acc, diag
+    carries = None
+    if want_carry:
+        emit_ins_f = fwd_shift(fin_emit)
+        emit_ins_b = bwd_shift(fin_b)
+        resid_f = _max_abs(emit_ins_f, ins_f)
+        resid_b = _max_abs(emit_ins_b, ins_b)
+        pred = torch.stack([_max_abs(emit_ins_f, ins0),
+                            _max_abs(emit_ins_b, guess), resid_f, resid_b])
+        diag = diag + (resid_f, resid_b)
+        carries = (emit_ins_f, emit_ins_b, pred)
+    return (smooth, log_marginal, post if want_post else None, ratios, acc,
+            diag, carries)

@@ -1,7 +1,10 @@
 """Seeded inputs for holding the scan kernels against their plain versions.
 
 K1/K2 (sequential) are compared by ``kernel_vs_plain``, K3/K4
-(parallel-in-time passes) by ``pscan_vs_plain``.
+(parallel-in-time passes, every mode, each scan precision) by
+``pscan_vs_plain`` (whole passes and the one-step check
+``pfilter_step_check``/``psmooth_step_check``), ``joint_acc`` by
+``joint_acc_vs_plain``.
 
 Shared by the CPU tests, the card tests and ``chip_smoke.py``.  Everything
 is built with numpy from a seed, so the same case can be fed to the JAX
@@ -18,8 +21,12 @@ from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk
 from poor_man_gplvm_tpu_torch.ops.emissions import MASK_NEG
 
 __all__ = [
-    "SCAN_CASES", "SCAN_TOLERANCES", "PSCAN_TOLERANCES", "scan_case",
+    "SCAN_CASES", "SCAN_TOLERANCES", "PSCAN_TOLERANCES",
+    "PSCAN_TOLERANCES_BF16X3", "PSCAN_TOLERANCES_BF16", "pscan_tolerances",
+    "scan_case",
     "kernel_vs_plain", "pscan_inputs", "pscan_vs_plain", "bwd_guess",
+    "joint_acc_vs_plain", "STEP_RTOL", "STEP_TOLERANCES",
+    "pfilter_step_check", "psmooth_step_check", "pscan_failures",
 ]
 
 #: kernel vs plain version (and port vs JAX): posteriors/priors/smoothed
@@ -134,22 +141,66 @@ def kernel_vs_plain(case, device):
     }
 
 
-#: K3/K4 vs their plain versions: posteriors, smoothed values and boundary
-#: carries absolute; r relative where the prior and the numerator r*prior
-#: are > 1e-30 (as for K2); summed log normalisers relative
+#: the one-step check (``pfilter_step_check``, ``psmooth_step_check``):
+#: each row of a kernel's output recomputed by the plain arithmetic from
+#: the kernel's own state of the step before, so that no difference is
+#: carried from step to step.  ``step_*_frac`` is the share of entries more
+#: than STEP_RTOL apart (relative): f32 sums in another order stay far
+#: below it, while a dot in another precision moves nearly every entry
+#: past it (bf16 against f32: ~2^-9).  ``step_*_rel`` is the largest
+#: relative gap.
+STEP_RTOL = 1e-5
+STEP_TOLERANCES = {
+    "step_post_frac": 1e-3, "step_r_frac": 1e-3, "step_smooth_frac": 1e-3,
+    "step_post_rel": 1e-4, "step_r_rel": 1e-4, "step_smooth_rel": 1e-4,
+}
+#: K3/K4 vs their plain versions over whole passes: posteriors, smoothed
+#: values, marginals and boundary carries absolute; r relative where the
+#: prior and the numerator r*prior are > 1e-30 (as for K2); summed log
+#: normalisers relative; the pairwise joint relative to its largest entry;
+#: and the one-step check.
 PSCAN_TOLERANCES = {
     "fwd_finals_abs": 1e-4, "post_abs": 1e-4, "log_norm_sum_rel": 1e-5,
     "bwd_finals_abs": 1e-4, "smooth_abs": 1e-4, "r_rel": 1e-4,
+    "lat_abs": 1e-4, "dyn_abs": 1e-4, "acc_rel": 1e-4, **STEP_TOLERANCES,
 }
+#: "bf16x3": a dot is exact to the hi + lo split of its operands, 2^-17 of
+#: each, not to f32 rounding.  The two versions form a vector operand in
+#: another f32 order; 1 ulp apart, its lo part rounds to another bf16 about
+#: once in 2^7, which moves that element by 2^-17 relative, and the
+#: recursion carries such steps into the tails of r and of the smoothed
+#: posterior (1.6e-4 relative at worst on the H100, where f32 gives 3e-6)
+PSCAN_TOLERANCES_BF16X3 = dict(PSCAN_TOLERANCES, r_rel=1e-3, acc_rel=5e-4)
+#: "bf16": one flipped rounding of a vector operand (an f32 sum in another
+#: order, 1 ulp apart) moves that element by one bf16 ulp, 2^-8, and from
+#: there the two versions round independently, so over a whole pass they
+#: differ by the mode's own error wherever the chain mixes slowly (on the
+#: H100 at T = 20,001: smoothed posterior 2.1e-3 and r 6.1e-2 for one
+#: RBF channel at L = 100, 4e-6 with the jump channel; posterior 4.5e-4 at
+#: T = 1e5).  Those whole-pass limits hold the kernel only to the mode's
+#: error.  The one-step check holds its arithmetic: a step differs only
+#: where its own operand's rounding flips (at most 2^-7 of the row; none
+#: in the H100 runs), so the share limit stays and the largest gap of the
+#: push rows (post, r) is 1e-2; the pull takes the kernel's own r, so it
+#: keeps 1e-4.
+PSCAN_TOLERANCES_BF16 = dict(
+    PSCAN_TOLERANCES, post_abs=2e-3, smooth_abs=5e-3, lat_abs=5e-3,
+    r_rel=1e-1, step_post_rel=1e-2, step_r_rel=1e-2)
 
 
-def pscan_inputs(case, device, C=None):
+def pscan_tolerances(scan_prec):
+    """The kernel-vs-plain tolerances of K3/K4 in ``scan_prec``."""
+    return {"highest": PSCAN_TOLERANCES, "bf16x3": PSCAN_TOLERANCES_BF16X3,
+            "bf16": PSCAN_TOLERANCES_BF16}[scan_prec]
+
+
+def pscan_inputs(case, device, C=None, scan_prec="highest"):
     """K3/K4 inputs of a ``scan_case`` on ``device``: C chunks (default:
     ``choose_parallel_config``'s), the likelihood weights, the transition
     stacks, and forward boundary carries converged by the plain K3 passes
-    as ``smooth_parallel`` converges them.  (Emitting from unconverged
-    carries would hand K4 chunk-first posteriors inconsistent with its
-    recomputed priors, whose subnormal tails then overflow r.)"""
+    in ``scan_prec`` as ``smooth_parallel`` converges them.  (Emitting from
+    unconverged carries would hand K4 chunk-first posteriors inconsistent
+    with its recomputed priors, whose subnormal tails then overflow r.)"""
     t = {k: torch.as_tensor(v, device=device) for k, v in case.items()
          if k != "masked"}
     T, L = t["ll"].shape
@@ -164,7 +215,7 @@ def pscan_inputs(case, device, C=None):
     ins0[0] = t["p_init"]
     ins, _, _ = ps._solve(
         lambda ins: ps.pfilter_pass_plain(w, t["tlat"], t["tdyn"], ins, tc,
-                                          flags, emit=False)[2],
+                                          flags, False, scan_prec)[2],
         lambda fin: torch.cat([ins0[:1], fin[:-1]]), ins0, 1e-6, C)
     return {
         "w": w, "m": m, "tlat": t["tlat"],
@@ -182,43 +233,200 @@ def bwd_guess(post, tc, C):
     return guess
 
 
-def pscan_vs_plain(case, device, C=None):
-    """Run K3 (finals-only and emit) and K4 (finals-only and full) and
-    their plain versions on the same inputs on ``device`` (C chunks, see
-    ``pscan_inputs``), K4 on the plain K3's posteriors, and return their
-    largest disagreements (see ``PSCAN_TOLERANCES``), whether every output
-    is finite, whether masked bins came out as exact zeros, and whether the
-    finals of both modes of each kernel agree bit for bit."""
-    a = pscan_inputs(case, device, C)
+class _StepStats:
+    """Largest relative gap and count of entries more than STEP_RTOL
+    apart, summed over slices of rows."""
+
+    def __init__(self):
+        self.rel, self.over, self.n = 0.0, 0, 0
+
+    def add(self, got, want, where):
+        a, b = got[where], want[where]
+        if b.numel():
+            rel = (a - b).abs() / b.abs()
+            self.rel = max(self.rel, float(rel.max()))
+            self.over += int((rel > STEP_RTOL).sum())
+            self.n += b.numel()
+
+    def out(self, name):
+        return {f"step_{name}_rel": self.rel,
+                f"step_{name}_frac": self.over / max(self.n, 1)}
+
+
+def _slices(T, rows):
+    for lo in range(0, T, rows):
+        yield torch.arange(lo, min(T, lo + rows))
+
+
+def pfilter_step_check(a, post, scan_prec, rows=1 << 16):
+    """The one-step check of K3's emitted posteriors ``post`` (T, n_dyn,
+    L) on the inputs ``a`` of ``pscan_inputs``: row t recomputed by the
+    plain arithmetic in ``scan_prec`` from the kernel's own row t-1 (the
+    boundary carry at a chunk's first row), over entries > 1e-30.  Returns
+    ``step_post_rel`` and ``step_post_frac`` (see ``STEP_TOLERANCES``)."""
+    tc, tdyn, flags = a["tc"], a["tdyn"], a["flags"]
+    splits = ps._splits(a["tlat"], scan_prec, None)
+    stats = _StepStats()
+    for idx in _slices(post.shape[0], rows):
+        idx = idx.to(post.device)
+        prev = torch.where((idx % tc == 0)[:, None, None], a["ins"][idx // tc],
+                           post[(idx - 1).clamp(min=0)])
+        u = ps._matvec(torch.einsum("tpl,pd->tdl", prev, tdyn), a["tlat"],
+                       flags, scan_prec, splits) * a["w"][idx][:, None, :]
+        want = u / torch.clamp(u.sum(dim=(1, 2), keepdim=True),
+                               min=ps.NORM_FLOOR)
+        stats.add(post[idx], want, want > 1e-30)
+    return stats.out("post")
+
+
+def psmooth_step_check(a, post, ins_b, smooth, r, scan_prec, rows=1 << 16):
+    """The one-step check of K4's full-mode outputs ``smooth`` and ``r``
+    (T, n_dyn, L), run on the filter posteriors ``post`` from the boundary
+    carries ``ins_b`` (``a`` as in ``pfilter_step_check``), in
+    ``scan_prec``: at each step row t (< T-1), r recomputed from the
+    kernel's smoothed posterior of row t+1 (the carry at a chunk's last
+    row), and the smoothed posterior of row t pulled from the kernel's own
+    r, so that no operand rounds differently in the pull.  r is compared
+    where the prior and the numerator are > 1e-30, smooth where > 1e-30.
+    Returns ``step_{r,smooth}_{rel,frac}``."""
+    T = post.shape[0]
+    tc, tdyn, flags = a["tc"], a["tdyn"], a["flags"]
+    sp_f = ps._splits(a["tlat"], scan_prec, None)
+    sp_b = ps._splits(a["tlat_t"], scan_prec, None)
+    st_r, st_s = _StepStats(), _StepStats()
+    for idx in _slices(T, rows):
+        idx = idx.to(post.device)
+        step = (idx < T - 1)[:, None, None]
+        carry = torch.where((idx % tc == tc - 1)[:, None, None],
+                            ins_b[idx // tc], smooth[(idx + 1).clamp(max=T - 1)])
+        filt = post[idx]
+        prior = ps._matvec(torch.einsum("tpl,pd->tdl", filt, tdyn),
+                           a["tlat"], flags, scan_prec, sp_f)
+        pos = prior > 0
+        r_want = torch.where(pos, carry / torch.where(pos, prior, 1.0),
+                             torch.zeros_like(prior))
+        st_r.add(r[idx], r_want, step & (prior > 1e-30)
+                 & (r_want * prior > 1e-30))
+        sm = filt * torch.einsum("de,tel->tdl", tdyn, ps._matvec(
+            r[idx], a["tlat_t"], flags, scan_prec, sp_b))
+        want = sm / torch.clamp(sm.sum(dim=(1, 2), keepdim=True),
+                                min=ps.NORM_FLOOR)
+        st_s.add(smooth[idx], want, step & (want > 1e-30))
+    return {**st_r.out("r"), **st_s.out("smooth")}
+
+
+def pscan_vs_plain(case, device, C=None, scan_prec="highest",
+                   plain_prec=None, lean=False):
+    """Run K3 (finals-only and emit) and K4 (finals-only, full, marginal
+    and marginal+acc, the last through ``joint_acc``) in ``scan_prec`` and
+    their plain versions in ``plain_prec`` (default: the same) on the same
+    inputs on ``device`` (C chunks, see ``pscan_inputs``), K4 on the plain
+    K3's posteriors, and return their largest disagreements (see
+    ``pscan_tolerances``) with the one-step check of K3 emit and K4 full,
+    whether every output is finite, whether masked bins came out as exact
+    zeros, whether the finals of every mode of each kernel agree bit for
+    bit, and whether the kernel's latent marginal equals the sum of its
+    full-mode smoothed posterior bit for bit (the same recursion, other
+    stores).  ``lean``: K3 emit and K4 full and marginal only (the modes
+    of the fits' E-steps), held on the posteriors, marginals, finals and
+    the one-step check, for the longest shapes."""
+    plain_prec = plain_prec or scan_prec
+    a = pscan_inputs(case, device, C, scan_prec)
     fwd = (a["w"], a["tlat"], a["tdyn"], a["ins"], a["tc"], a["flags"])
-    post_p, norm_p, fin_p = ps.pfilter_pass_plain(*fwd, emit=True)
-    _, _, fin_k0 = ps.pfilter_pass(*fwd, emit=False)
-    post_k, norm_k, fin_k = ps.pfilter_pass(*fwd, emit=True)
+    post_p, norm_p, fin_p = ps.pfilter_pass_plain(*fwd, True, plain_prec)
+    post_k, norm_k, fin_k = ps.pfilter_pass(*fwd, True, scan_prec)
     lr_p = float((torch.log(norm_p) + a["m"]).double().sum())
     lr_k = float((torch.log(norm_k) + a["m"]).double().sum())
-
-    C = a["ins"].shape[0]
-    bwd = (post_p, a["tlat"], a["tlat_t"], a["tdyn"],
-           bwd_guess(post_p, a["tc"], C), a["tc"], a["flags"])
-    sm_p, r_p, bfin_p = ps.psmooth_pass_plain(*bwd, emit=True)
-    _, _, bfin_k0 = ps.psmooth_pass(*bwd, emit=False)
-    sm_k, r_k, bfin_k = ps.psmooth_pass(*bwd, emit=True)
-    prior = ps._matvec(torch.einsum("tpl,pd->tdl", post_p, a["tdyn"]),
-                       a["tlat"], a["flags"])
-    where = (prior > 1e-30) & ((r_p * prior) > 1e-30)
-    masked = torch.as_tensor(case["masked"], device=device)
-    outs_k = (post_k, norm_k, fin_k, sm_k, r_k, bfin_k)
-    return {
+    del norm_p, norm_k
+    err = {
         "fwd_finals_abs": float((fin_k - fin_p).abs().max()),
         "post_abs": float((post_k - post_p).abs().max()),
         "log_norm_sum_rel": abs(lr_k - lr_p) / abs(lr_p),
+        **pfilter_step_check(a, post_k, plain_prec),
+    }
+    finite = bool(torch.isfinite(post_k).all() and torch.isfinite(fin_k).all())
+    masked = torch.as_tensor(case["masked"], device=device)
+    zeros = bool((post_k[..., masked] == 0).all())
+    del post_k
+
+    C = a["ins"].shape[0]
+    ins_b = bwd_guess(post_p, a["tc"], C)
+    bwd = (post_p, a["tlat"], a["tlat_t"], a["tdyn"], ins_b, a["tc"],
+           a["flags"])
+    sm_k, r_k, bfin_k = ps.psmooth_pass(*bwd, "full", scan_prec)
+    err.update(psmooth_step_check(a, post_p, ins_b, sm_k, r_k, plain_prec))
+    lat_k, dyn_k, bfin_km = ps.psmooth_pass(*bwd, "marginal", scan_prec)
+    finite &= all(bool(torch.isfinite(x).all())
+                  for x in (sm_k, r_k, bfin_k, lat_k, dyn_k))
+    zeros &= bool((sm_k[..., masked] == 0).all()
+                  and (lat_k[..., masked] == 0).all())
+    exact = torch.equal(lat_k, sm_k.sum(dim=1))
+    agree = torch.equal(bfin_km, bfin_k)
+    if lean:
+        del r_k, sm_k
+        lat_p, dyn_p, bfin_p = ps.psmooth_pass_plain(*bwd, "marginal",
+                                                     plain_prec)
+    else:
+        sm_p, r_p, bfin_p = ps.psmooth_pass_plain(*bwd, "full", plain_prec)
+        lat_p, dyn_p, acc_p, _ = ps.psmooth_pass_plain(*bwd, "marginal_acc",
+                                                       plain_prec)
+        _, _, fin_k0 = ps.pfilter_pass(*fwd, False, scan_prec)
+        _, _, bfin_k0 = ps.psmooth_pass(*bwd, "finals", scan_prec)
+        lat_ka, dyn_ka, acc_k, bfin_ka = ps.psmooth_pass(
+            *bwd, "marginal_acc", scan_prec)
+        prior = ps._matvec(torch.einsum("tpl,pd->tdl", post_p, a["tdyn"]),
+                           a["tlat"], a["flags"], plain_prec)
+        where = (prior > 1e-30) & ((r_p * prior) > 1e-30)
+        err.update({
+            "smooth_abs": float((sm_k - sm_p).abs().max()),
+            "r_rel": _max_rel(r_k, r_p, where),
+            "acc_rel": float((acc_k - acc_p).abs().max()
+                             / acc_p.abs().max()),
+        })
+        finite &= bool(torch.isfinite(acc_k).all())
+        agree &= bool(torch.equal(fin_k0, fin_k) and torch.equal(bfin_k0,
+                                                                 bfin_k)
+                      and torch.equal(bfin_ka, bfin_k))
+        exact &= bool(torch.equal(lat_ka, lat_k) and torch.equal(dyn_ka,
+                                                                 dyn_k))
+        # the marginals of both marginal modes are held below
+        lat_k = torch.stack([lat_k, lat_ka])
+        dyn_k = torch.stack([dyn_k, dyn_ka])
+    err.update({
         "bwd_finals_abs": float((bfin_k - bfin_p).abs().max()),
-        "smooth_abs": float((sm_k - sm_p).abs().max()),
-        "r_rel": _max_rel(r_k, r_p, where),
-        "finite": all(bool(torch.isfinite(x).all()) for x in outs_k),
-        "masked_exact_zero": bool(
-            (post_k[..., masked] == 0).all() and (sm_k[..., masked] == 0).all()
-        ),
-        "modes_agree": bool(torch.equal(fin_k0, fin_k)
-                            and torch.equal(bfin_k0, bfin_k)),
+        "lat_abs": float((lat_k - lat_p).abs().max()),
+        "dyn_abs": float((dyn_k - dyn_p).abs().max()),
+        "finite": finite, "masked_exact_zero": zeros,
+        "modes_agree": bool(agree), "marginal_exact": bool(exact),
+    })
+    return err
+
+
+def pscan_failures(err, scan_prec):
+    """The keys of ``pscan_vs_plain``'s result that break the tolerances
+    of ``scan_prec`` (keys a lean run does not report are skipped) or its
+    boolean checks."""
+    bad = [k for k, tol in pscan_tolerances(scan_prec).items()
+           if k in err and not err[k] <= tol]
+    return bad + [k for k in ("finite", "masked_exact_zero", "modes_agree",
+                              "marginal_exact") if not err[k]]
+
+
+def joint_acc_vs_plain(seed, T, L, n_dyn, device):
+    """``joint_acc`` and its plain version on seeded (T, n_dyn, L) inputs
+    shaped like K4's (posterior rows summing to 1, ratios around 1 with
+    exact zeros): the largest difference relative to the largest entry,
+    and whether two runs agree bit for bit (no atomics)."""
+    rng = np.random.default_rng(seed)
+    post = rng.dirichlet(np.ones(n_dyn * L), T).reshape(T, n_dyn, L)
+    r = rng.gamma(2.0, 0.5, size=(T, n_dyn, L)) * (rng.random(
+        (T, n_dyn, L)) > 0.1)
+    post = torch.as_tensor(post.astype(np.float32), device=device)
+    r = torch.as_tensor(r.astype(np.float32), device=device)
+    want = ps.joint_acc_plain(post, r)
+    got = ps.joint_acc(post, r)
+    again = ps.joint_acc(post, r)
+    return {
+        "acc_rel": float((got - want).abs().max() / want.abs().max()),
+        "repeatable": bool(torch.equal(got, again)),
     }

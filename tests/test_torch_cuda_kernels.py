@@ -1,5 +1,6 @@
-"""Card tests: the CUDA scan kernels K1/K2 (sequential) and K3/K4
-(parallel-in-time passes) against their plain versions.
+"""Card tests: the CUDA scan kernels K1/K2 (sequential), K3/K4
+(parallel-in-time passes, every mode, with the K5 dots in each precision)
+and joint_acc against their plain versions.
 
 Imports no jax, so it runs on a machine with a card and no JAX:
 
@@ -19,10 +20,11 @@ from poor_man_gplvm_tpu_torch.ops import hmm  # noqa: E402
 from poor_man_gplvm_tpu_torch.ops import parallel_scan as ps  # noqa: E402
 from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk  # noqa: E402
 from poor_man_gplvm_tpu_torch.testing import (  # noqa: E402
-    PSCAN_TOLERANCES,
     SCAN_CASES,
     SCAN_TOLERANCES,
+    joint_acc_vs_plain,
     kernel_vs_plain,
+    pscan_failures,
     pscan_inputs,
     pscan_vs_plain,
     scan_case,
@@ -85,11 +87,9 @@ def test_wrappers_reject_bad_inputs(cuda):
                        torch.rand(1, 1100, device=cuda), (False,))
 
 
-def _assert_pscan(err):
-    for key, tol in PSCAN_TOLERANCES.items():
-        assert err[key] <= tol, (key, err)
-    assert err["finite"] and err["masked_exact_zero"], err
-    assert err["modes_agree"], err
+def _assert_pscan(err, scan_prec="highest"):
+    # whole passes, the one-step check and the boolean checks
+    assert pscan_failures(err, scan_prec) == [], err
 
 
 @pytest.mark.parametrize("case", SCAN_CASES)
@@ -102,6 +102,41 @@ def test_pscan_kernels_match_plain(cuda, L, n_dyn, case):
     _assert_pscan(err)
 
 
+@pytest.mark.parametrize("scan_prec", ["bf16x3", "bf16"])
+@pytest.mark.parametrize("n_dyn", [1, 2])
+@pytest.mark.parametrize("L", [100, 500])
+def test_pscan_precisions_match_plain(cuda, L, n_dyn, scan_prec):
+    # K3/K4 in every mode with the K5 dots, masked bins, odd T
+    err = pscan_vs_plain(scan_case(L + n_dyn, 4001, L, n_dyn, "masked"), cuda,
+                         scan_prec=scan_prec)
+    torch.cuda.synchronize()
+    _assert_pscan(err, scan_prec)
+
+
+@pytest.mark.parametrize("kern_prec, plain_prec", [
+    ("bf16", "highest"), ("bf16", "bf16x3"), ("highest", "bf16"),
+    ("bf16x3", "bf16"), ("bf16x3", "highest"),
+])
+@pytest.mark.parametrize("L", [100, 500])
+def test_pscan_check_rejects_other_precision(cuda, L, kern_prec, plain_prec):
+    # control: K3/K4 run in one precision fail the one-step check against
+    # the plain versions in another
+    err = pscan_vs_plain(scan_case(L + 2, 4001, L, 2, "masked"), cuda,
+                         scan_prec=kern_prec, plain_prec=plain_prec, lean=True)
+    torch.cuda.synchronize()
+    bad = pscan_failures(err, kern_prec)
+    assert any(k.startswith("step_") for k in bad), err
+
+
+@pytest.mark.parametrize("n_dyn", [1, 2])
+@pytest.mark.parametrize("L", [100, 500])
+def test_joint_acc_matches_plain(cuda, L, n_dyn):
+    err = joint_acc_vs_plain(L + n_dyn, 20_001, L, n_dyn, cuda)
+    torch.cuda.synchronize()
+    assert err["acc_rel"] <= 1e-4, err
+    assert err["repeatable"], err
+
+
 def test_pscan_kernels_empty_chunks(cuda):
     # 64 chunks of 2 rows over T=101: chunks 51..63 hold no row at all
     err = pscan_vs_plain(scan_case(5, 101, 40, 2, "masked"), cuda, C=64)
@@ -112,13 +147,18 @@ def test_pscan_kernels_empty_chunks(cuda):
 def test_pscan_launch_counts_and_bad_inputs(cuda):
     a = pscan_inputs(scan_case(0, 301, 40, 2, "jump"), cuda)
     args = (a["w"], a["tlat"], a["tdyn"], a["ins"], a["tc"], a["flags"])
-    f0, s0 = ps.pfilter_pass.launches, ps.psmooth_pass.launches
+    ps.reset_launches()
     post, _, _ = ps.pfilter_pass(*args, emit=True)
     ps.psmooth_pass(post, a["tlat"], a["tlat_t"], a["tdyn"], a["ins"],
-                    a["tc"], a["flags"], emit=False)
+                    a["tc"], a["flags"], "finals")
+    ps.psmooth_pass(post, a["tlat"], a["tlat_t"], a["tdyn"], a["ins"],
+                    a["tc"], a["flags"], "marginal_acc", "bf16x3")
     torch.cuda.synchronize()
-    assert ps.pfilter_pass.launches == f0 + 1
-    assert ps.psmooth_pass.launches == s0 + 1
+    assert ps.pfilter_pass.launches_by_mode == {"emit/highest": 1}
+    assert ps.psmooth_pass.launches == 2
+    assert ps.psmooth_pass.launches_by_mode == {
+        "finals/highest": 1, "marginal_acc/bf16x3": 1}
+    assert ps.joint_acc.launches == 1
     with pytest.raises(ValueError):  # chunks do not cover T
         ps.pfilter_pass(*args[:4], 1, a["flags"], emit=False)
     with pytest.raises(ValueError):
@@ -126,7 +166,7 @@ def test_pscan_launch_counts_and_bad_inputs(cuda):
                         a["tc"], a["flags"], emit=False)
     with pytest.raises(TypeError):
         ps.psmooth_pass(post.double(), a["tlat"], a["tlat_t"], a["tdyn"],
-                        a["ins"], a["tc"], a["flags"], emit=True)
+                        a["ins"], a["tc"], a["flags"], "full")
 
 
 @pytest.mark.parametrize("L", [100, 500])
@@ -138,7 +178,8 @@ def test_parallel_engine_matches_sequential(cuda, L):
                                 logTdyn=t["tdyn"].log(),
                                 logTlat=t["tlat"].log())
     par = ps.smooth_parallel(t["ll"], t["tlat"], t["tdyn"], t["p_init"],
-                             1.0, uniform_rows=trans.uniform_rows)
+                             1.0, uniform_rows=trans.uniform_rows,
+                             want_post=True)
     post, prior, ratios = trans.cuda_filter(t["ll"], t["p_init"], 1.0)
     smooth, _ = trans.cuda_smooth(post[:-1], prior[1:], post[-1])
     torch.cuda.synchronize()

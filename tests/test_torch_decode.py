@@ -93,7 +93,8 @@ def _jax_model(engine):
 
 def _port_model(jax_model, engine):
     m = PoissonGPLVMJump1D(N, n_latent_bin=L, movement_variance=1,
-                           tuning_lengthscale=5.0, inference_engine=engine)
+                           tuning_lengthscale=5.0, inference_engine=engine,
+                           device="cpu")
     state = convert.state_from_model(jax_model)
     return convert.load_jax_state(m, state["params"], state["tuning_basis"])
 
@@ -183,26 +184,36 @@ def test_predict_expected_rate(models, jax_decode):
 
 
 def test_engines_and_modes():
-    m = PoissonGPLVMJump1D(4, n_latent_bin=6)
+    m = PoissonGPLVMJump1D(4, n_latent_bin=6, device="cpu")
     assert m.inference_engine == "prob"  # 'auto' on a CPU device
-    assert PoissonGPLVMJump1D(4, n_latent_bin=6, inference_engine=(
-        "cuda_parallel")).inference_engine == "cuda_parallel"
+    assert PoissonGPLVMJump1D(4, n_latent_bin=6, device="cpu",
+                              inference_engine="cuda_parallel"
+                              ).inference_engine == "cuda_parallel"
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PoissonGPLVMJump1D(4, n_latent_bin=6, inference_engine="log")
+        PoissonGPLVMJump1D(4, n_latent_bin=6, device="cpu",
+                           inference_engine="log")
     for engine in ("pallas", "pallas_parallel"):  # the JAX package's names
         with pytest.raises(ValueError, match="cuda_parallel"):
-            PoissonGPLVMJump1D(4, n_latent_bin=6, inference_engine=engine)
+            PoissonGPLVMJump1D(4, n_latent_bin=6, device="cpu",
+                               inference_engine=engine)
     y = np.ones((5, 4), np.float32)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        m._smooth(y, m.tuning, {}, m._make_transition({})[0],
-                  m.ma_neuron_default, m.ma_latent_default, 1.0, None,
-                  memory_mode="checkpoint")
+    args = (y, m.tuning, {}, m._make_transition({})[0], m.ma_neuron_default,
+            m.ma_latent_default, 1.0, None)
+    with pytest.raises(ValueError, match="memory_mode"):
+        m._smooth(*args, memory_mode="no_such_mode")
+    # every JAX memory mode runs; the stored-filter modes drop the causal
+    # posteriors and the log-likelihoods, as in the JAX package
+    full = m._smooth(*args)
+    ckpt = m._smooth(*args, memory_mode="checkpoint")
+    assert ckpt[2] is None and ckpt[5] is None
+    assert torch.equal(ckpt[0], full[0]) and float(ckpt[1]) == float(full[1])
     with pytest.raises(ValueError):
         convert.load_jax_state(m, np.zeros((3, 5)), np.zeros((6, 3)))
 
 
 def test_single_step_and_sampling():
-    m = PoissonGPLVMJump1D(6, n_latent_bin=9, inference_engine="cuda")
+    m = PoissonGPLVMJump1D(6, n_latent_bin=9, inference_engine="cuda",
+                           device="cpu")
     lat, y = m.sample(40, generator=torch.Generator().manual_seed(1))
     lat2, y2 = m.sample(40, generator=torch.Generator().manual_seed(1))
     assert lat.shape == (40, 2) and y.shape == (40, 6)
@@ -233,6 +244,16 @@ def test_port_imports_and_decodes_without_jax():
         assert len(res) == 19 and np.isfinite(res["log_marginal_final"])
         em = m.fit_em(y, n_iter=2, verboase=False, m_step_maxiter=10)
         assert len(em["log_marginal_l"]) == 2
+        assert np.isfinite(float(em["log_marginal_l"][-1]))
+        # the fused schedule, lean output, and the bf16x3 scan precision
+        from poor_man_gplvm_tpu_torch.ops import parallel_scan as ps
+        ps.set_scan_precision("bf16x3")
+        em = m.fit_em(y, n_iter=4, verboase=False, m_step_maxiter=10,
+                      output_mode="lean")
+        ps.set_scan_precision("highest")
+        assert em["posterior"].shape == (300, 8)
+        assert em["log_posterior_final"] is None
+        assert m._scan_passes_mid.shape == (2, 2)
         assert np.isfinite(float(em["log_marginal_l"][-1]))
         assert not any(k == "jax" or k.startswith(("jax.", "jaxlib"))
                        for k in sys.modules if sys.modules[k] is not None)

@@ -62,7 +62,8 @@ def setup():
 
 def _port_model(state, engine):
     m = PoissonGPLVMJump1D(N, n_latent_bin=L, movement_variance=1,
-                           tuning_lengthscale=5.0, inference_engine=engine)
+                           tuning_lengthscale=5.0, inference_engine=engine,
+                           device="cpu")
     return convert.load_jax_state(m, state["params"], state["tuning_basis"])
 
 
@@ -157,7 +158,7 @@ def test_adam_resumes_from_jax_state(setup):
                                    maxiter=40)
     want = jms.package_adam_result(run2(first["params"], first["opt_state"],
                                         *j_args))
-    carried = convert.adam_state_from_jax(first["opt_state"])
+    carried = convert.adam_state_from_jax(first["opt_state"], device="cpu")
     assert int(carried.count) == 29 and carried.mu.dtype == torch.float32
     prun, _ = ms.make_adam_runner(ms.poisson_m_step_objective, 0.01,
                                   maxiter=40)
@@ -168,7 +169,7 @@ def test_adam_resumes_from_jax_state(setup):
                         - np.asarray(want["params"])).max()) <= TOL_PARAMS
     assert int(got["opt_state"].count) == int(want["opt_state"][0].count)
     with pytest.raises(ValueError):
-        convert.adam_state_from_jax((1, 2))
+        convert.adam_state_from_jax((1, 2), device="cpu")
 
 
 def test_batch_trim_m_step_histories():
@@ -191,7 +192,8 @@ def _fits(setup, jax_engine, port_engine, n_iter, **kw):
     want = jmod.fit_em(y, n_iter=n_iter, log_posterior_init=lpi,
                        verboase=False, fused=False, **kw)
     got = _port_model(state, port_engine).fit_em(
-        y, n_iter=n_iter, log_posterior_init=lpi, verboase=False, **kw)
+        y, n_iter=n_iter, log_posterior_init=lpi, verboase=False,
+        fused=False, **kw)
     return got, want
 
 
@@ -248,10 +250,11 @@ def test_fit_em_options_and_profile(setup):
     assert all(len(h) == 8 for h in res["m_step_res_l"]["loss_history"])
     assert torch.equal(m.params, res["params"])
     assert np.isfinite(float(m.log_marginal_final))
-    for kw in ({"checkpoint_dir": "ckpt"}, {"output_mode": "lean"},
-               {"mesh": object()}):
+    for kw in ({"checkpoint_dir": "ckpt"}, {"mesh": object()}):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             m.fit_em(y, n_iter=1, verboase=False, **kw)
+    with pytest.raises(ValueError, match="output_mode"):
+        m.fit_em(y, n_iter=1, verboase=False, output_mode="no_such_mode")
     with pytest.raises(ValueError):
         m.fit_em(y, n_iter=0, verboase=False)
     with pytest.raises(TypeError):

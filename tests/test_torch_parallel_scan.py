@@ -109,7 +109,7 @@ def test_pass_plain_versions_match_jax_refs(n_dyn):
         :, :, None], T)[:, 0], rtol=1e-5)
 
     sm, r, bfin = ps.psmooth_pass(post, tlat, tlat.transpose(1, 2)
-                                  .contiguous(), tdyn, fin, tc, flags, True)
+                                  .contiguous(), tdyn, fin, tc, flags, "full")
     jsm, jr, jbfin = jps._psmooth_pass_ref(
         jnp.asarray(_chunk_major(post, C, tc)), jnp.asarray(tlat.numpy()),
         jnp.asarray(tlat.transpose(1, 2).numpy()), jnp.asarray(tdyn.numpy()),
@@ -147,12 +147,13 @@ def test_smooth_parallel_matches_jax(name):
     p_init = torch.full((n_dyn, L), 1.0 / (n_dyn * L))
     cfg = ps.choose_parallel_config(T, L, n_dyn)
     got = ps.smooth_parallel(torch.as_tensor(ll), tlat, tdyn, p_init, 1.0,
-                             uniform_rows=flags, config=cfg)
+                             uniform_rows=flags, config=cfg, want_post=True)
     want = jps.smooth_parallel(
         jnp.asarray(ll), jnp.asarray(tlat.numpy()), jnp.asarray(tdyn.numpy()),
         jnp.asarray(p_init.numpy()), 1.0, uniform_rows=flags, config=cfg,
         want_post=True)
-    smooth, lml, post, ratios, acc, diag = got
+    smooth, lml, post, ratios, acc, diag, carries = got
+    assert carries is None
     assert _rel(lml, want[1]) <= TOL_LML
     assert _max_abs(smooth, want[0]) <= TOL_POST
     assert _max_abs(post, want[2]) <= TOL_POST
@@ -249,7 +250,7 @@ def test_engine_resolution_and_cpu_wrappers():
                                  trans.uniform_rows, True)
     ps.psmooth_pass(post, trans.Tlat, trans.Tlat.transpose(1, 2)
                     .contiguous(), trans.Tdyn, ins, 13, trans.uniform_rows,
-                    False)
+                    "finals")
     assert (ps.pfilter_pass.launches, ps.psmooth_pass.launches) == (f0, s0)
     with pytest.raises(ValueError):  # 4 chunks of 12 rows miss row 49
         ps.pfilter_pass(w, trans.Tlat, trans.Tdyn, ins, 12,
