@@ -19,11 +19,15 @@ Phases, each of which checks its results (any failure exits non-zero):
    mid-chunk), in "highest" and, with masked bins, in the K5 precisions
    "bf16x3" and "bf16", over whole passes and by the one-step check
    (``testing.pfilter_step_check``), with controls that the check fails
-   a kernel held against another precision; ``joint_acc`` against its
-   plain version; then
+   a kernel held against another precision; K4 on its band against K4
+   forced dense (bit for bit, every mode and precision); ``joint_acc``
+   against its plain version per entry, with its one-pass control that
+   must fail; then
    every kernel and mode held against its plain version and timed at
-   T=100,000 for L in {100, 500} (CUDA events), beside its bound and, for
-   ``joint_acc``, the one PyTorch call that computes the same sum;
+   T=100,000 for L in {100, 500} (CUDA events), beside its bound (the
+   nonzeros these inputs need) and, for ``joint_acc``, the one PyTorch call
+   that computes the same sum; and K4 finals-only on a dense channel at
+   L=500;
 5. slice: ``PoissonGPLVMJump1D.decode_latent`` at T=10,000 for (N, L) =
    (100, 100) and (500, 500) through the engine 'auto' resolves to (the
    parallel one above its threshold), held against the plain ``'prob'``
@@ -103,10 +107,12 @@ NS_CMP_MAXITER = 20
 NS_CERT_RTOL = 1e-5  # the bench's bf16x3-vs-strict-f32 certificate
 T_ACC = 100_000  # the marginal+acc check of the north-star model
 # the card's peaks (NVIDIA's data sheet, H100 SXM, 700 W): device memory
-# rate, float32 outside the tensor cores, dense bf16 in the tensor cores
+# rate, float32 outside the tensor cores, dense bf16 and TF32 in the tensor
+# cores
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 BF16_FLOP_PER_S = 989e12
+TF32_FLOP_PER_S = 495e12
 
 PS_SRC = "poor_man_gplvm_tpu_torch/csrc/parallel_scan.cu"
 JPS = "poor_man_gplvm_tpu/ops/pallas/parallel_scan.py"
@@ -229,14 +235,17 @@ def bound(nbytes, op_seconds):
                                             else "operations")
 
 
-def kernel_bound(name, T, L, n_dyn, n_mat):
+def kernel_bound(name, T, L, n_dyn, nnz):
     """The bound of one call of a kernel (name as in KERNELS) over T rows,
-    L latent bins and n_dyn channels, of which n_mat take a dense matvec
-    (a constant channel takes a row sum).  A dense recursion dot is 2 L^2
-    operations per step: f32 in "highest", bf16 products on the tensor
-    cores in "bf16x3" (3 passes) and "bf16" (1 pass); K4 does two per step
-    (push and pull).  Inputs are the weights or posteriors and the
-    transition matrices; outputs what the mode stores."""
+    L latent bins and n_dyn channels, whose non-constant channels hold
+    ``nnz`` nonzeros in all (a constant channel takes a row sum).  A
+    recursion dot needs 2 nnz operations per step, whatever the kernel
+    computes (the exact zeros add nothing): f32 in "highest", bf16
+    products on the tensor cores in "bf16x3" (3 passes) and "bf16" (1
+    pass); K4 does two per step (push and pull).  ``joint_acc`` is three
+    TF32 products of 2 T (n_dyn L)^2 operations.  Inputs are the weights
+    or posteriors and the transition matrices; outputs what the mode
+    stores."""
     f4 = 4.0
     mats = n_dyn * L * L * f4
     state = T * n_dyn * L * f4
@@ -245,8 +254,8 @@ def kernel_bound(name, T, L, n_dyn, n_mat):
     prec = prec or "highest"
     passes = {"highest": 1, "bf16x3": 3, "bf16": 1}[prec]
     rate = F32_FLOP_PER_S if prec == "highest" else BF16_FLOP_PER_S
-    dot_s = T * n_mat * 2.0 * L * L * passes / rate
-    joint_s = 2.0 * T * (n_dyn * L) ** 2 / F32_FLOP_PER_S
+    dot_s = T * 2.0 * nnz * passes / rate
+    joint_s = 3 * 2.0 * T * (n_dyn * L) ** 2 / TF32_FLOP_PER_S
     if name == "filter_scan":
         return bound(T * L * f4 + mats + 2 * state + T * f4, dot_s)
     if name == "smoother_scan":
@@ -321,10 +330,13 @@ def phase_build():
         "resident in shared memory, n_dyn=2: K1/K2 L=100 "
         f"{bool(seq.pmg_scan_tlat_resident(2, 100))}, L=500 "
         f"{bool(seq.pmg_scan_tlat_resident(2, 500))}; K3 L=100 "
-        f"{bool(par.pmg_pscan_tlat_resident(0, 2, 100, 0))}; K4 L=100 "
-        f"{bool(par.pmg_pscan_tlat_resident(1, 2, 100, 0))}, L=500 "
-        f"{bool(par.pmg_pscan_tlat_resident(1, 2, 500, 0))}; K4 bf16x3 "
-        f"L=100 {bool(par.pmg_pscan_tlat_resident(1, 2, 100, 1))})")
+        f"{bool(par.pmg_pscan_resident(0, 2, 1, 100, 100, 0))}; K4 band "
+        "of one RBF channel (W=21) L=100 "
+        f"{bool(par.pmg_pscan_resident(1, 2, 1, 100, 21, 0))}, L=500 "
+        f"{bool(par.pmg_pscan_resident(1, 2, 1, 500, 21, 0))}, bf16x3 L=500 "
+        f"{bool(par.pmg_pscan_resident(1, 2, 1, 500, 21, 1))}, dense L=100 "
+        f"{bool(par.pmg_pscan_resident(1, 2, 1, 100, 100, 0))}, dense L=500 "
+        f"{bool(par.pmg_pscan_resident(1, 2, 1, 500, 500, 0))})")
 
 
 def _fmt(err):
@@ -410,12 +422,14 @@ def _pscan_timed(L, dev):
         tols = pscan_tolerances(prec)
         a = pscan_inputs(case, dev, scan_prec=prec)
         C = a["ins"].shape[0]
-        n_mat = sum(not f for f in a["flags"])
+        nnz = _nnz(a["tlat"], a["flags"])
         fwd = (a["w"], a["tlat"], a["tdyn"], a["ins"], a["tc"], a["flags"])
         post = ps.pfilter_pass_plain(*fwd, True, prec)[0]
         ins_b = bwd_guess(post, a["tc"], C)
         bwd = (post, a["tlat"], a["tlat_t"], a["tdyn"], ins_b, a["tc"],
                a["flags"])
+        # K4's band, made once per solve as smooth_parallel makes it
+        band = ps.transition_band(a["tlat"], a["tlat_t"], a["flags"], prec)
         # (kernel, plain, the output compared and its tolerance key)
         calls = {f"pfilter_pass[{m}/{prec}]": (
             lambda e=(m == "emit"): ps.pfilter_pass(*fwd, e, prec),
@@ -424,7 +438,7 @@ def _pscan_timed(L, dev):
             for m in ("finals", "emit")}
         for m in ps.PSMOOTH_MODES:
             calls[f"psmooth_pass[{m}/{prec}]"] = (
-                lambda m=m: ps.psmooth_pass(*bwd, m, prec),
+                lambda m=m: ps.psmooth_pass(*bwd, m, prec, band=band),
                 lambda m=m: ps.psmooth_pass_plain(*bwd, m, prec),
                 TIMED_OUTPUT.get(m, (2, "bwd_finals_abs")))
         if prec == "highest":
@@ -441,7 +455,7 @@ def _pscan_timed(L, dev):
             err = float((got - want).abs().max())
             rel = err / float(want.abs().max())
             ms = cuda_ms(kern, 3)
-            bound_ms, bound_by = kernel_bound(name, T_LONG, L, 2, n_mat)
+            bound_ms, bound_by = kernel_bound(name, T_LONG, L, 2, nnz)
             lib_ms = None
             if name == "joint_acc":
                 lib_ms = cuda_ms(lambda: torch.einsum("tdi,tej->deij", post,
@@ -453,18 +467,80 @@ def _pscan_timed(L, dev):
                 f"{ms:.3f} ms ({1e3 * ms / a['tc']:.3f} us/step), plain "
                 f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by})"
                 + ("" if lib_ms is None else f", einsum {lib_ms:.3f} ms")
-                + f"; max |kernel - plain| {err:.3e} ({rel:.2e} of max)")
+                + f"; max |kernel - plain| {err:.3e} ({rel:.2e} of max)"
+                + _probe(name, prec, bwd, band, post, r if prec == "highest"
+                         else None))
             held = rel if key == "acc_rel" else err
             check(held <= tols[key], (name, key, held, tols[key]))
         step = pfilter_step_check(a, ps.pfilter_pass(*fwd, True, prec)[0],
                                   prec)
-        sm_k, r_k, _ = ps.psmooth_pass(*bwd, "full", prec)
+        sm_k, r_k, _ = ps.psmooth_pass(*bwd, "full", prec, band=band)
         step.update(psmooth_step_check(a, post, ins_b, sm_k, r_k, prec))
         log(f"one-step check K3 emit, K4 full L={L} T={T_LONG} {prec}: "
             f"{_fmt(step)}")
         for key, v in step.items():
             check(v <= tols[key], (L, prec, key, v, tols[key]))
+    if L == 500:
+        rows["psmooth_pass[finals/highest]"].update(_dense_k4_row(L, dev))
     return rows
+
+
+def _probe(name, prec, bwd, band, post, r):
+    """What bounds two of the redesigned kernels, as a log suffix: K4
+    finals-only with its band cut to one row (the step's fixed cost:
+    barriers, block sums, stores), and joint_acc's one-product control
+    (the cost of the tensor-core products against the rest)."""
+    from poor_man_gplvm_tpu_torch.ops import parallel_scan as ps
+
+    if name == "psmooth_pass[finals/highest]":
+        cut = band._replace(W=1, mats=band.mats[:, :, :1].contiguous())
+        ms = cuda_ms(lambda: ps.psmooth_pass(*bwd, "finals", prec, band=cut),
+                     3)
+        return f"; band cut to one row {ms:.3f} ms"
+    if name == "joint_acc":
+        ms = cuda_ms(lambda: ps._joint_acc_run(post, r, 1), 3)
+        return f"; one TF32 product (the control) {ms:.3f} ms"
+    return ""
+
+
+def _nnz(tlat, flags):
+    """Nonzeros of the channels of ``tlat`` that take a matvec."""
+    return sum(int(torch.count_nonzero(tlat[d]))
+               for d, flag in enumerate(flags) if not flag)
+
+
+def _dense_k4_row(L, dev):
+    """K4 finals-only in "highest" on a dense channel (the 'identical'
+    case: channel 0's rows all equal and nonzero, so its band is W = L) at
+    T=100,000: held against its plain version and timed; the ``*_dense``
+    keys of the kernels line."""
+    from poor_man_gplvm_tpu_torch.ops import parallel_scan as ps
+    from poor_man_gplvm_tpu_torch.testing import (
+        bwd_guess, pscan_inputs, pscan_tolerances, scan_case,
+    )
+
+    a = pscan_inputs(scan_case(L + 7, T_LONG, L, 2, "identical"), dev)
+    C = a["ins"].shape[0]
+    post = ps.pfilter_pass_plain(a["w"], a["tlat"], a["tdyn"], a["ins"],
+                                 a["tc"], a["flags"], True)[0]
+    bwd = (post, a["tlat"], a["tlat_t"], a["tdyn"],
+           bwd_guess(post, a["tc"], C), a["tc"], a["flags"])
+    band = ps.transition_band(a["tlat"], a["tlat_t"], a["flags"])
+    want, plain_ms = timed_once(
+        lambda: ps.psmooth_pass_plain(*bwd, "finals"))
+    got = ps.psmooth_pass(*bwd, "finals", band=band)
+    err = float((got[2] - want[2]).abs().max())
+    ms = cuda_ms(lambda: ps.psmooth_pass(*bwd, "finals", band=band), 3)
+    bound_ms, bound_by = kernel_bound("psmooth_pass[finals/highest]", T_LONG,
+                                      L, 2, _nnz(a["tlat"], a["flags"]))
+    log(f"time psmooth_pass[finals/highest] dense channel (W={band.W}) L={L} "
+        f"T={T_LONG}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+        f"{bound_ms:.4f} ms ({bound_by}); max |kernel - plain| {err:.3e}")
+    check(band.W == L and err <= pscan_tolerances("highest")["bwd_finals_abs"],
+          (band.W, err))
+    return {"max_abs_err_L500_dense": err, "ms_L500_dense": ms,
+            "plain_ms_L500_dense": plain_ms, "bound_ms_L500_dense": bound_ms,
+            "bound_by_L500_dense": bound_by}
 
 
 #: controls of the K3/K4 check: (kernel precision, plain precision) pairs
@@ -476,9 +552,10 @@ CONTROLS = (("bf16", "highest"), ("bf16", "bf16x3"), ("highest", "bf16"),
 
 
 def phase_pscan_kernels():
+    from poor_man_gplvm_tpu_torch.ops import parallel_scan as ps
     from poor_man_gplvm_tpu_torch.testing import (
-        PSCAN_TOLERANCES, SCAN_CASES, joint_acc_vs_plain, pscan_failures,
-        pscan_vs_plain, scan_case,
+        JOINT_ACC_ENTRY_RTOL, PSCAN_TOLERANCES, SCAN_CASES, band_vs_dense,
+        joint_acc_vs_plain, pscan_failures, pscan_vs_plain, scan_case,
     )
 
     dev = torch.device("cuda")
@@ -504,10 +581,27 @@ def phase_pscan_kernels():
                                               n_dyn, "masked"), dev,
                                     scan_prec=prec),
                      prec, f"T={T_PSCAN} L={L} n_dyn={n_dyn} masked")
+            # K4 on its band gives K4 forced dense bit for bit
+            for prec in ps.SCAN_PRECISIONS:
+                eq = band_vs_dense(scan_case(L * 10 + n_dyn, T_PSCAN, L,
+                                             n_dyn, "masked"), dev, prec)
+                torch.cuda.synchronize()
+                log(f"K4 band vs dense T={T_PSCAN} L={L} n_dyn={n_dyn} "
+                    f"masked {prec}: {eq}")
+                check(eq["band_equal_dense"] and eq["finite"]
+                      and eq["masked_exact_zero"] and eq["W"] < L
+                      and eq["W_dense"] == L, eq)
+            # joint_acc per entry, and its one-pass control, which must fail
             err = joint_acc_vs_plain(L + n_dyn, T_PSCAN, L, n_dyn, dev)
+            ctl = joint_acc_vs_plain(L + n_dyn, T_PSCAN, L, n_dyn, dev,
+                                     passes=1)
             log(f"joint_acc vs plain T={T_PSCAN} L={L} n_dyn={n_dyn}: "
-                f"{_fmt(err)}")
-            check(err["acc_rel"] <= 1e-4 and err["repeatable"], err)
+                f"{_fmt(err)}; one-pass control {_fmt(ctl)} (limit "
+                f"{JOINT_ACC_ENTRY_RTOL:.0e} per entry)")
+            check(err["acc_entry_rel"] <= JOINT_ACC_ENTRY_RTOL
+                  and err["repeatable"], err)
+            check(ctl["acc_entry_rel"] > JOINT_ACC_ENTRY_RTOL,
+                  f"one-pass control passed: {ctl}")
         # controls: the same check fails a kernel held against the plain
         # version of another precision
         case = scan_case(L * 10 + 2, T_PSCAN, L, 2, "masked")
@@ -1037,6 +1131,8 @@ def _northstar_kernels(m, y):
 def main():
     t_start = time.perf_counter()
     phase_preamble()
+    from poor_man_gplvm_tpu_torch.testing import scan_case
+
     phase_build()
     worst, times = phase_kernels()
     pworst, rows = phase_pscan_kernels()
@@ -1058,7 +1154,8 @@ def main():
             sfx = "" if L == 100 else "_L500"
             if name in ("filter_scan", "smoother_scan"):
                 ms, plain_ms = times[L][name]
-                b_ms, b_by = kernel_bound(name, T_DECODE, L, 2, 1)
+                b_ms, b_by = kernel_bound(name, T_DECODE, L, 2, int(
+                    np.count_nonzero(scan_case(L, 2, L, 2, "jump")["tlat"][0])))
                 row = dict(err=worst[name], ms=ms, plain_ms=plain_ms,
                            bound_ms=b_ms, bound_by=b_by, library_ms=None)
                 shape_T = T_DECODE
@@ -1072,8 +1169,12 @@ def main():
                 f"bound_by{sfx}": row["bound_by"],
                 f"library_ms{sfx}": row["library_ms"],
             })
-        entry["shape"] = f"T={shape_T} n_dyn=2 (one dense channel) L=100; " \
-            "*_L500 at L=500"
+        for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"):
+            if f"{key}_L500_dense" in row:
+                entry[f"{key}_L500_dense"] = row[f"{key}_L500_dense"]
+        entry["shape"] = f"T={shape_T} n_dyn=2 (one RBF channel, ls=1, and " \
+            "the jump channel) L=100; *_L500 at L=500; *_L500_dense on a " \
+            "dense channel"
         kernels.append(entry)
     log(f"K3/K4 grid, worst kernel-vs-plain by precision: "
         f"{ {f'{p}/{k}': v for (p, k), v in pworst.items()} }")

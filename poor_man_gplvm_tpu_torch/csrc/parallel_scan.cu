@@ -32,14 +32,14 @@
 // What bounds it on this card: each block is a dependent chain of tc steps
 // of one or two (1, L) @ (L, L) matvecs per channel plus block-wide sums,
 // i.e. latency, as for K1/K2, now on C SMs at once.
-//   * L=100: the latent transitions fit in shared memory (K3: 80 KB for
-//     two channels; K4 keeps Tlat and its transpose, 160 KB) and are copied
-//     in once per block.  In BF16X3/BF16 the resident copy is the bf16
-//     hi/lo split, the same bytes as the f32 matrix.
-//   * L=500: one channel is 1 MB; every block streams it from the 50 MB L2
-//     each step.  With C blocks doing so at once, L2 bandwidth rather than
-//     one SM's load latency sets the pace (PERF.md); BF16 streams half the
-//     bytes (the hi part only).
+//   * K3 (dense): at L=100 Tlat fits in shared memory (80 KB for two
+//     channels) and is copied in once per block; at L=500 one channel is
+//     1 MB and every block streams it from the 50 MB L2 each step, bound by
+//     load instructions per step (PERF.md).  In BF16X3/BF16 the resident
+//     copy is the bf16 hi/lo split, the same bytes as the f32 matrix.
+//   * K4 (banded): reads only each column's window of nonzero rows, W of
+//     L, from a band made once per solve and kept in shared memory when it
+//     fits (psmooth_kernel's note).
 //   * A constant (jump) channel takes the sum(v) * row shortcut of K1/K2,
 //     in f32 in every precision (the TPU kernels never split it either).
 //
@@ -60,9 +60,11 @@
 // which no SM's shared memory holds: here K4 writes r to a (T, ND, L)
 // scratch and joint_acc reduces it (below).
 //
-// Numerics: f32 with FMA, no tensor cores, in HIGHEST (the JAX package's
+// Numerics of K3/K4: f32 with FMA, no tensor cores, in HIGHEST (the JAX package's
 // default scan precision); normalisers clamped at 1e-38; r = 0 where the
 // prior is 0, so latent bins masked to zero weight stay exact zeros.
+
+#include <stdint.h>
 
 #include "scan_common.cuh"
 
@@ -88,7 +90,15 @@ struct PassArgs {
   float* out2;          // K3 EMIT: norm (T,); K4 full, marginal+acc: r
                         // (T, ND, L)
   float* out3;          // K4 marginal: dyn (T, ND)
+  // K4: the band of the non-constant channels, (2, n_mat, W, L): the push
+  // windows (of tlat) then the pull windows (of tlatT); band[k, j] is
+  // row win0[j] + k of column j.  bf16 split in BF16X3/BF16.
+  const float* band;
+  const bf16* band_hi;
+  const bf16* band_lo;
+  const int* win0;      // (2, n_mat, L) first row of each column's window
   int T, L, tc, mask;
+  int W, n_mat;         // K4: window height (L for a dense channel), count
 };
 
 // vector operands per (ND, L) slot: the value, plus its bf16 residual
@@ -96,9 +106,9 @@ __host__ __device__ constexpr int vec_slots(int prec) {
   return prec == kHighest ? 1 : 2;
 }
 
-// copy one (ND, L, L) matrix operand into shared memory at `smem` when the
-// pass keeps it resident (n elements, 4 bytes each in every precision: f32,
-// or the bf16 hi and lo halves)
+// copy one matrix operand (K3's (ND, L, L) Tlat, K4's band) into shared
+// memory at `smem` when the pass keeps it resident (n elements, 4 bytes
+// each in every precision: f32, or the bf16 hi and lo halves)
 template <int PREC, bool RES>
 __device__ MatOperand stage(const float* f, const bf16* hi, const bf16* lo,
                             size_t n, void* smem) {
@@ -176,8 +186,8 @@ __global__ void __launch_bounds__(kMaxThreads) pfilter_kernel(PassArgs a) {
         for (int k = 0; k < nwarp; ++k) s += red_q[k][d];
         pr[d] = s * row0[d];
       } else {
-        pr[d] = live ? col_matvec_p<PREC>(qx + d * L, ql + d * L, tl,
-                                          d * LL, L, j)
+        pr[d] = live ? col_matvec_p<PREC, matvec_unroll(RESIDENT)>(
+                           qx + d * L, ql + d * L, tl, d * LL, L, j)
                      : 0.f;
       }
       usum = fmaf(pr[d], wt, usum);
@@ -201,16 +211,16 @@ __global__ void __launch_bounds__(kMaxThreads) pfilter_kernel(PassArgs a) {
     if (live) a.finals[((size_t)c * ND + d) * L + j] = carry[d];
 }
 
-// K4 marginal modes: lat[t, j] = sum_d carry[d] (thread j), dyn[t, d] =
-// sum_j carry[d] (warp sums, one barrier, threads d < ND sum the warps).
-// Every thread of the block calls it.  The next write to red_m comes after
-// the next step's three barriers, so the reads here cannot race it.
+// K4 marginal modes, in two halves around a block barrier: the latent
+// marginal lat[t, j] = sum_d carry[d] (thread j) and the warp partials of
+// the dynamics marginal; then, after the barrier, dyn[t, d] = sum_j
+// carry[d] (threads d < ND sum the warps, in warp order).
 template <int ND>
-__device__ __forceinline__ void store_marginals(const PassArgs& a,
-                                                const float (&carry)[ND],
-                                                size_t t, float (*red_m)[ND]) {
+__device__ __forceinline__ void marginal_partials(const PassArgs& a,
+                                                  const float (&carry)[ND],
+                                                  size_t t,
+                                                  float (*red_m)[ND]) {
   const int j = threadIdx.x, lane = j & 31, warp = j >> 5;
-  const int nwarp = blockDim.x >> 5;
   float lat = carry[0];
 #pragma unroll
   for (int d = 1; d < ND; ++d) lat += carry[d];
@@ -220,7 +230,12 @@ __device__ __forceinline__ void store_marginals(const PassArgs& a,
     const float s = warp_sum(carry[d]);
     if (lane == 0) red_m[warp][d] = s;
   }
-  __syncthreads();  // (m) marginal partials complete
+}
+
+template <int ND>
+__device__ __forceinline__ void marginal_finish(const PassArgs& a, size_t t,
+                                                float (*red_m)[ND]) {
+  const int j = threadIdx.x, nwarp = blockDim.x >> 5;
   if (j < ND) {
     float s = 0.f;
     for (int k = 0; k < nwarp; ++k) s += red_m[k][j];
@@ -234,6 +249,28 @@ __device__ __forceinline__ void store_marginals(const PassArgs& a,
 //   carry = post_t * out, normalised.
 // MODE full stores smooth and r (T, ND, L); marginal stores lat (T, L) and
 // dyn (T, ND); marginal+acc also stores r.  On row T-1 smooth = carry, r = 0.
+//
+// Design for the H100 (PERF.md §5-6).  The movement channel of every
+// configuration the repo runs is an RBF of integer positions, exactly 0 in
+// f32 from |i - j| >= 11 at lengthscale 1: the dense pass fetched ~96 %
+// zeros from L2 each step at L = 500.  Here each non-constant channel's
+// push (tlat) and pull (tlatT) is a band of W rows per column, made once
+// per solve by the wrapper (ops/parallel_scan.py::transition_band), and
+// both bands sit in shared memory (L = 500, W = 21: 42 KB each) or, when
+// they do not fit, are read from L2 (W / L of the dense loads).  Each
+// column's sum runs over its window in ascending row order, K3's order, so
+// the recomputed prior keeps K3's bits (window_matvec_p; the window's extra
+// entries are exact zeros).  A dense channel is the band W = L, win0 = 0:
+// the same code and arithmetic.
+//
+// Two block barriers per step instead of three or four: the normaliser of
+// step t is summed after the next step's first barrier (its partials stay
+// in red_s until then), and with it the stores of row t and the dynamics
+// marginal's partials, whose sums wait for the second barrier.  The filter
+// posterior of the next row, which does not depend on the recursion, is
+// loaded a step ahead into registers (each thread reads only its own
+// column, so no shared ring is needed).  Thread j keeps column j: the
+// warp-order block sums of a constant channel stay K3's.
 template <int ND, bool RESIDENT, int MODE, int PREC>
 __global__ void __launch_bounds__(kMaxThreads) psmooth_kernel(PassArgs a) {
   extern __shared__ __align__(16) float smem[];
@@ -249,23 +286,24 @@ __global__ void __launch_bounds__(kMaxThreads) psmooth_kernel(PassArgs a) {
   __shared__ float red_s[32];
   __shared__ float red_m[32][ND];
 
-  const int L = a.L, j = threadIdx.x;
+  const int L = a.L, W = a.W, j = threadIdx.x;
   const int lane = j & 31, warp = j >> 5, nwarp = blockDim.x >> 5;
   const bool live = j < L;
-  const size_t LL = (size_t)L * L;
+  const size_t LL = (size_t)L * L, WL = (size_t)W * L;
   const int c = blockIdx.x;
   const int t0 = c * a.tc;
   const int t_end = min(t0 + a.tc, a.T);
   // rows [t0, t0 + n) are steps; row T-1, if this chunk holds it, is not
   const int n = max(0, min(t_end, a.T - 1) - t0);
 
-  float* mats = smem + 2 * NV * ND * L;
-  const MatOperand tl = stage<PREC, RESIDENT>(a.tlat, a.tl_hi, a.tl_lo,
-                                              ND * LL, mats);
-  const MatOperand tlT = stage<PREC, RESIDENT>(a.tlatT, a.tlT_hi, a.tlT_lo,
-                                               ND * LL, mats + ND * LL);
+  const MatOperand band = stage<PREC, RESIDENT>(
+      a.band, a.band_hi, a.band_lo, 2 * a.n_mat * WL,
+      smem + 2 * NV * ND * L);
 
   float tdyn[ND][ND], carry[ND], row0[ND], row0T[ND];
+  size_t off_f[ND], off_b[ND];  // each channel's push and pull band
+  int i0_f[ND], i0_b[ND];       // first row of column j's windows
+  int slot = 0;
 #pragma unroll
   for (int p = 0; p < ND; ++p)
 #pragma unroll
@@ -275,7 +313,20 @@ __global__ void __launch_bounds__(kMaxThreads) psmooth_kernel(PassArgs a) {
     carry[d] = live ? a.ins[((size_t)c * ND + d) * L + j] : 0.f;
     row0[d] = live ? a.tlat[d * LL + j] : 0.f;
     row0T[d] = live ? a.tlatT[d * LL + j] : 0.f;
+    off_f[d] = off_b[d] = 0;
+    i0_f[d] = i0_b[d] = 0;
+    if (!((a.mask >> d) & 1)) {
+      off_f[d] = slot * WL;
+      off_b[d] = (a.n_mat + slot) * WL;
+      if (live) {
+        i0_f[d] = a.win0[slot * L + j];
+        i0_b[d] = a.win0[(a.n_mat + slot) * L + j];
+      }
+      ++slot;
+    }
   }
+  bool dyn_pending = false;  // a row's dyn partials wait in red_m
+  size_t dyn_row = 0;
   if (MODE != kFinals && t0 <= a.T - 1 && a.T - 1 < t_end) {
     const size_t last = (size_t)(a.T - 1);
     const size_t base = last * ND * L;
@@ -284,29 +335,66 @@ __global__ void __launch_bounds__(kMaxThreads) psmooth_kernel(PassArgs a) {
       if (live && MODE == kFull) a.out[base + d * L + j] = carry[d];
       if (live && STORE_R) a.out2[base + d * L + j] = 0.f;
     }
-    if (MARG) store_marginals<ND>(a, carry, last, red_m);
+    if (MARG) {
+      marginal_partials<ND>(a, carry, last, red_m);
+      dyn_pending = true;
+      dyn_row = last;
+    }
   }
-  __syncthreads();  // resident matrices complete
+  // the filter posterior of the next row, a step ahead
+  float f_next[ND];
+#pragma unroll
+  for (int p = 0; p < ND; ++p)
+    f_next[p] = (live && n > 0)
+                    ? a.x[((size_t)(t0 + n - 1) * ND + p) * L + j] : 0.f;
+  __syncthreads();  // resident band complete; row T-1's dyn partials
+  if (MARG && dyn_pending) marginal_finish<ND>(a, dyn_row, red_m);
+  dyn_pending = false;
 
+  float v[ND];  // the unnormalised smoothed posterior of the last step
+#pragma unroll
+  for (int d = 0; d < ND; ++d) v[d] = 0.f;
   for (int tau = n - 1; tau >= 0; --tau) {
     const size_t t = (size_t)t0 + tau;
     const size_t base = t * ND * L;
+    const bool pending = tau < n - 1;  // step t+1 awaits its normaliser
     // (1) filter posterior of row t and its dynamics mix for the push
     float f[ND];
 #pragma unroll
-    for (int p = 0; p < ND; ++p) f[p] = live ? a.x[base + p * L + j] : 0.f;
+    for (int p = 0; p < ND; ++p) {
+      f[p] = f_next[p];
+      if (live && tau > 0) f_next[p] = a.x[base - ND * L + p * L + j];
+    }
 #pragma unroll
     for (int d = 0; d < ND; ++d) {
-      float v = tdyn[0][d] * f[0];
+      float q = tdyn[0][d] * f[0];
 #pragma unroll
-      for (int p = 1; p < ND; ++p) v = fmaf(tdyn[p][d], f[p], v);
-      if (live) store_operand<PREC>(qx + d * L, ql + d * L, j, v);
+      for (int p = 1; p < ND; ++p) q = fmaf(tdyn[p][d], f[p], q);
+      if (live) store_operand<PREC>(qx + d * L, ql + d * L, j, q);
       if ((a.mask >> d) & 1) {
-        const float s = warp_sum(v);
+        const float s = warp_sum(q);
         if (lane == 0) red_q[warp][d] = s;
       }
     }
-    __syncthreads();  // (a) q complete
+    __syncthreads();  // (a) q complete; step t+1's normaliser partials
+
+    // (1') step t+1: normalise, store its row, its dyn partials
+    if (pending) {
+      float s = 0.f;
+      for (int k = 0; k < nwarp; ++k) s += red_s[k];
+      const float den = fmaxf(s, 1e-38f);
+      const size_t nb = base + ND * L;
+#pragma unroll
+      for (int d = 0; d < ND; ++d) {
+        carry[d] = v[d] / den;
+        if (MODE == kFull && live) a.out[nb + d * L + j] = carry[d];
+      }
+      if (MARG) {
+        marginal_partials<ND>(a, carry, t + 1, red_m);
+        dyn_pending = true;
+        dyn_row = t + 1;
+      }
+    }
 
     // (2) prior_{t+1} of the own column, and the ratio r
 #pragma unroll
@@ -317,8 +405,9 @@ __global__ void __launch_bounds__(kMaxThreads) psmooth_kernel(PassArgs a) {
         for (int k = 0; k < nwarp; ++k) s += red_q[k][e];
         pr = s * row0[e];
       } else {
-        pr = live ? col_matvec_p<PREC>(qx + e * L, ql + e * L, tl, e * LL,
-                                       L, j)
+        pr = live ? window_matvec_p<PREC, matvec_unroll(RESIDENT)>(
+                        qx + e * L, ql + e * L, band, off_f[e], i0_f[e], W, L,
+                        j)
                   : 0.f;
       }
       const float r = pr > 0.f ? carry[e] / pr : 0.f;
@@ -331,7 +420,10 @@ __global__ void __launch_bounds__(kMaxThreads) psmooth_kernel(PassArgs a) {
         if (lane == 0) red_r[warp][e] = s;
       }
     }
-    __syncthreads();  // (b) r complete; q reads done
+    __syncthreads();  // (b) r complete; q reads done; dyn partials
+
+    if (MARG && dyn_pending) marginal_finish<ND>(a, dyn_row, red_m);
+    dyn_pending = false;
 
     // (3) pull, dynamics mix, unnormalised smoothed posterior
     float pull[ND];
@@ -342,12 +434,13 @@ __global__ void __launch_bounds__(kMaxThreads) psmooth_kernel(PassArgs a) {
         for (int k = 0; k < nwarp; ++k) s += red_r[k][e];
         pull[e] = s * row0T[e];
       } else {
-        pull[e] = live ? col_matvec_p<PREC>(rx + e * L, rl + e * L, tlT,
-                                            e * LL, L, j)
+        pull[e] = live ? window_matvec_p<PREC, matvec_unroll(RESIDENT)>(
+                             rx + e * L, rl + e * L, band, off_b[e], i0_b[e],
+                             W, L, j)
                        : 0.f;
       }
     }
-    float v[ND], vsum = 0.f;
+    float vsum = 0.f;
 #pragma unroll
     for (int d = 0; d < ND; ++d) {
       float o = tdyn[d][0] * pull[0];
@@ -358,17 +451,25 @@ __global__ void __launch_bounds__(kMaxThreads) psmooth_kernel(PassArgs a) {
     }
     vsum = warp_sum(vsum);
     if (lane == 0) red_s[warp] = vsum;
-    __syncthreads();  // (c) normaliser partials complete; r reads done
-
+    // no barrier: the next step reads red_s after its barrier (a), and the
+    // shared q and r it writes were last read before (b)
+  }
+  if (n > 0) {  // the chunk's first row: normalise, store
+    __syncthreads();  // its normaliser partials
     float s = 0.f;
     for (int k = 0; k < nwarp; ++k) s += red_s[k];
     const float den = fmaxf(s, 1e-38f);
+    const size_t base = (size_t)t0 * ND * L;
 #pragma unroll
     for (int d = 0; d < ND; ++d) {
       carry[d] = v[d] / den;
       if (MODE == kFull && live) a.out[base + d * L + j] = carry[d];
     }
-    if (MARG) store_marginals<ND>(a, carry, t, red_m);
+    if (MARG) {
+      marginal_partials<ND>(a, carry, t0, red_m);
+      __syncthreads();  // its dyn partials
+      marginal_finish<ND>(a, t0, red_m);
+    }
   }
 #pragma unroll
   for (int d = 0; d < ND; ++d)
@@ -380,88 +481,243 @@ __global__ void __launch_bounds__(kMaxThreads) psmooth_kernel(PassArgs a) {
 //
 // The TPU kernel's marginal+acc epilogue (_psmooth_kernel, the block
 // epilogue folding post^T @ r into an on-chip accumulator).  With M = ND*L
-// it is the product A^T B of two (T, M) matrices, K = T: 2 T M^2 f32
-// operations (2e12 at T = 1e6, M = 1000: about 30 ms at the card's 67
-// TFLOP/s without tensor cores, against 2.4 ms for reading A and B once),
-// so it is bound by operations.  Each block owns one 64 x 64 output tile
-// over one slice of t (split-K: S slices, so that the few tiles of a small
-// M still fill the SMs) and walks it in 16-row steps through shared memory,
-// 256 threads each holding a 4 x 4 tile of sums.  Sums run in two levels
-// (256 rows, then the slice) to keep f32 rounding down over long slices.
-// Each slice's partial goes to an (S, M, M) buffer; a second kernel adds the
-// S partials in slice order into the (ND, ND, L, L) result.  No atomics:
-// runs repeat bit for bit.
+// it is the product A^T B of two (T, M) matrices, K = T, owed at f32
+// accuracy (the JAX kernel runs it at Precision.HIGHEST).
+//
+// On the tensor cores in 3xTF32: each operand a = hi + lo with hi =
+// tf32(a), lo = tf32(a - hi), and a.b ~ hi.hi + hi.lo + lo.hi (the lo.lo
+// term is 2^-22 of the product), each product an f32-accumulated
+// mma.sync.m16n8k8 TF32 product.  Three TF32 products of 2 T M^2 operations
+// at the card's 495 TFLOP/s: 1.2 ms at T = 1e5, M = 1000, against 6 ms for
+// one f32 product without tensor cores (67 TFLOP/s), and 0.24 ms for
+// reading A and B once, so it is bound by operations.
+//
+// Why mma.sync and not wgmma: TF32 wgmma takes only K-major operands, and
+// here both are M-contiguous (T, M) rows; mma.sync loads its fragments from
+// registers filled from any shared-memory layout.  A later kernel can
+// transpose tiles into wgmma's layout.
+//
+// Each block owns one 128 x 128 output tile over one slice of t (split-K:
+// S slices, as many as fill one wave of the card; at M = 200 there are 4
+// tiles and 33 slices).  Per stage it loads 32 time rows of the A and
+// B column tiles with cp.async (16-byte copies when M % 4 == 0),
+// double-buffered, zero-filled past the slice and past M.  Rows are padded
+// by 8 floats: the fragment reads (k = lane % 4, m = lane / 4) then fall
+// on 32 banks.  Each warp splits the raw values of its fragments in
+// registers (hi = tf32(a) rounded as cvt.rna.tf32.f32 does, lo = tf32(a -
+// hi)) and issues the
+// three products per k-step.  That beat splitting each tile once in shared
+// memory, hi in place and lo beside it, on the H100: the split tile
+// doubles the bytes of every fragment read and adds a pass over the tile,
+// while the conversions repeated per warp take ALU slots the mma.sync loop
+// leaves free.  What bounds it then is mma.sync's TF32 rate, below
+// wgmma's (PERF.md times the one-product control beside it).  Sums run in
+// two levels: each 32-row stage in a fresh mma
+// accumulator (the tensor cores' f32 adds truncate, and a bias over 96
+// accumulations per 256 rows reached 3e-6 of an entry), then the stage
+// sums in f32 with rounding to nearest over the slice.  Each slice's
+// partial goes to an (S, M, M) buffer; a second kernel adds the S
+// partials in slice order into the (ND, ND, L, L) result.  No atomics:
+// runs repeat bit for bit.  PASSES = 1 (hi.hi only, one TF32 product)
+// exists for the tests' control and is not reachable from the public
+// wrapper.
 // ---------------------------------------------------------------------------
 
-constexpr int kTile = 64, kStepT = 16, kInnerSteps = 16;
+constexpr int kAccBK = 32;    // time rows per shared-memory stage
+constexpr int kAccPad = 8;    // floats of padding per shared row
 
-__global__ void __launch_bounds__(256)
+// tf32(x): the rounding of cvt.rna.tf32.f32 (to nearest, ties away from
+// zero, onto the top 10 mantissa bits) in two integer operations; for
+// finite x the bits are cvt's (post and r are finite).  On the H100 the
+// cvt form made joint_acc slower, with bit-equal output.
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x -> (hi, lo) TF32 pair, hi = tf32(x), lo = tf32(x - hi)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(x - __uint_as_float(hi));
+}
+
+// d += a (16 x 8, row) @ b (8 x 8, col), TF32 operands, f32 sums
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// copy `BYTES` (16 or 4) to shared memory, zero-filled past `src_bytes`
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src,
+                                         int src_bytes) {
+  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
+  if (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
+                 "l"(src), "r"(src_bytes));
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
+                 "l"(src), "r"(src_bytes));
+  }
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
+}
+
+// the block's copies of one stage of one operand: rows [t, t + kAccBK) of
+// columns [col0, col0 + TILE) of X (T, M) into xs (kAccBK, TILE + pad).
+// Chunk k of the stage is 4 columns of one row; each thread takes every
+// NTH-th chunk.
+template <int TILE, int NTH, bool VEC>
+__device__ __forceinline__ void load_stage(const float* X, float* xs, int t,
+                                           int tb, int col0, int M) {
+  constexpr int S = TILE + kAccPad;
+  for (int k = threadIdx.x; k < kAccBK * TILE / 4; k += NTH) {
+    const int row = k / (TILE / 4), col = (k % (TILE / 4)) * 4;
+    const int tt = t + row, gc = col0 + col;
+    float* dst = xs + row * S + col;
+    const float* src = X + (size_t)tt * M + gc;
+    if (VEC) {
+      const bool ok = tt < tb && gc < M;
+      cp_async<16>(dst, ok ? src : X, ok ? 16 : 0);
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const bool ok = tt < tb && gc + u < M;
+        cp_async<4>(dst + u, ok ? src + u : X, ok ? 4 : 0);
+      }
+    }
+  }
+}
+
+// the block tile: WM x WN warps, each MT x NT_ mma tiles of 16 x 8, so
+// 128 x 128 in 8 warps of 64 x 32 (on the H100 at T = 1e5 this beat 16
+// warps of 32 x 32 and, at M = 200, 64 x 64 tiles of 4 warps)
+constexpr int kAccWM = 2, kAccWN = 4, kAccMT = 4, kAccNT = 4;
+constexpr int kAccTile = kAccWM * kAccMT * 16;
+static_assert(kAccTile == kAccWN * kAccNT * 8, "square block tile");
+constexpr int kAccThreads = kAccWM * kAccWN * 32;
+
+template <int PASSES, bool VEC>
+__global__ void __launch_bounds__(kAccThreads)
     joint_acc_partial_kernel(const float* __restrict__ A,
                              const float* __restrict__ B, float* partial,
                              int T, int M, int rows_per_slice) {
-  __shared__ float As[kStepT][kTile];
-  __shared__ float Bs[kStepT][kTile];
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-  const int p0 = blockIdx.y * kTile, q0 = blockIdx.x * kTile;
-  const int s = blockIdx.z;
-  const int ta = s * rows_per_slice;
+  constexpr int WN = kAccWN, MT = kAccMT, NT_ = kAccNT;
+  constexpr int TILE = kAccTile, NTH = kAccThreads;
+  constexpr int S = TILE + kAccPad;
+  constexpr int STAGE = kAccBK * S;  // floats of one operand stage
+  extern __shared__ __align__(16) float smem[];
+  float* as = smem;                  // [2][kAccBK][S]
+  float* bs = smem + 2 * STAGE;      // [2][kAccBK][S]
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, tig = lane & 3;
+  const int wm = warp / WN, wn = warp % WN;
+  const int p0 = blockIdx.y * TILE, q0 = blockIdx.x * TILE;
+  const int ta = blockIdx.z * rows_per_slice;
   const int tb = min(T, ta + rows_per_slice);
+  const int stages = tb > ta ? (tb - ta + kAccBK - 1) / kAccBK : 0;
 
-  float acc[4][4], part[4][4];
+  float acc[MT][NT_][4];
 #pragma unroll
-  for (int u = 0; u < 4; ++u)
+  for (int m = 0; m < MT; ++m)
 #pragma unroll
-    for (int v = 0; v < 4; ++v) acc[u][v] = part[u][v] = 0.f;
+    for (int n = 0; n < NT_; ++n)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[m][n][u] = 0.f;
 
-  int steps = 0;
-  for (int t = ta; t < tb; t += kStepT) {
-    // load 16 rows of the A and B column tiles (neighbouring threads on
-    // neighbouring columns), zero past T and past M
-    for (int k = threadIdx.x; k < kStepT * kTile; k += 256) {
-      const int row = k / kTile, col = k % kTile;
-      const int tt = t + row;
-      const bool in_t = tt < tb;
-      As[row][col] = (in_t && p0 + col < M) ? A[(size_t)tt * M + p0 + col]
-                                            : 0.f;
-      Bs[row][col] = (in_t && q0 + col < M) ? B[(size_t)tt * M + q0 + col]
-                                            : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int kk = 0; kk < kStepT; ++kk) {
-      float av[4], bv[4];
-#pragma unroll
-      for (int u = 0; u < 4; ++u) av[u] = As[kk][ty + 16 * u];
-#pragma unroll
-      for (int v = 0; v < 4; ++v) bv[v] = Bs[kk][tx + 16 * v];
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) part[u][v] = fmaf(av[u], bv[v], part[u][v]);
-    }
-    __syncthreads();
-    if (++steps == kInnerSteps) {
-      steps = 0;
-#pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int v = 0; v < 4; ++v) {
-          acc[u][v] += part[u][v];
-          part[u][v] = 0.f;
-        }
-    }
+  if (stages > 0) {
+    load_stage<TILE, NTH, VEC>(A, as, ta, tb, p0, M);
+    load_stage<TILE, NTH, VEC>(B, bs, ta, tb, q0, M);
+    cp_async_commit();
   }
-  float* out = partial + (size_t)s * M * M;
-#pragma unroll
-  for (int u = 0; u < 4; ++u) {
-    const int p = p0 + ty + 16 * u;
-    if (p >= M) continue;
-#pragma unroll
-    for (int v = 0; v < 4; ++v) {
-      const int q = q0 + tx + 16 * v;
-      if (q < M) out[(size_t)p * M + q] = acc[u][v] + part[u][v];
+  for (int st = 0; st < stages; ++st) {
+    const float* ah = as + (st & 1) * STAGE;
+    const float* bh = bs + (st & 1) * STAGE;
+    cp_async_wait_all();  // this thread's copies of stage st landed
+    __syncthreads();      // all of stage st; every warp done with st - 1
+    if (st + 1 < stages) {
+      const int t = ta + (st + 1) * kAccBK;
+      load_stage<TILE, NTH, VEC>(A, as + ((st + 1) & 1) * STAGE, t, tb, p0,
+                                 M);
+      load_stage<TILE, NTH, VEC>(B, bs + ((st + 1) & 1) * STAGE, t, tb, q0,
+                                 M);
+      cp_async_commit();
     }
+    float part[MT][NT_][4];
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int n = 0; n < NT_; ++n)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) part[m][n][u] = 0.f;
+#pragma unroll
+    for (int k0 = 0; k0 < kAccBK; k0 += 8) {
+      const float* a0 = ah + (k0 + tig) * S + wm * MT * 16 + g;
+      const float* b0 = bh + (k0 + tig) * S + wn * NT_ * 8 + g;
+      uint32_t ahi[MT][4], alo[MT][4], bhi[NT_][2], blo[NT_][2];
+#pragma unroll
+      for (int m = 0; m < MT; ++m) {
+        // element i: row g (+8 for odd i), column tig (+4 for i >= 2)
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          split_tf32(a0[(i >> 1) * 4 * S + m * 16 + (i & 1) * 8], ahi[m][i],
+                     alo[m][i]);
+      }
+#pragma unroll
+      for (int n = 0; n < NT_; ++n) {
+        // element i: row (k) tig (+4 for i = 1), column g
+#pragma unroll
+        for (int i = 0; i < 2; ++i)
+          split_tf32(b0[i * 4 * S + n * 8], bhi[n][i], blo[n][i]);
+      }
+      // small terms first; each product over all tiles before the next,
+      // so that neighbouring mma.sync write different accumulators
+      if (PASSES == 3) {
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int n = 0; n < NT_; ++n) mma_tf32(part[m][n], alo[m], bhi[n]);
+#pragma unroll
+        for (int m = 0; m < MT; ++m)
+#pragma unroll
+          for (int n = 0; n < NT_; ++n) mma_tf32(part[m][n], ahi[m], blo[n]);
+      }
+#pragma unroll
+      for (int m = 0; m < MT; ++m)
+#pragma unroll
+        for (int n = 0; n < NT_; ++n) mma_tf32(part[m][n], ahi[m], bhi[n]);
+    }
+#pragma unroll
+    for (int m = 0; m < MT; ++m)
+#pragma unroll
+      for (int n = 0; n < NT_; ++n)
+#pragma unroll
+        for (int u = 0; u < 4; ++u) acc[m][n][u] += part[m][n][u];
   }
+  // accumulator element u of tile (m, n): row g (+8 for u >= 2), column
+  // 2 * tig (+1 for odd u)
+  float* out = partial + (size_t)blockIdx.z * M * M;
+#pragma unroll
+  for (int m = 0; m < MT; ++m)
+#pragma unroll
+    for (int n = 0; n < NT_; ++n)
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int p = p0 + wm * MT * 16 + m * 16 + g + (u >= 2 ? 8 : 0);
+        const int q = q0 + wn * NT_ * 8 + n * 8 + 2 * tig + (u & 1);
+        if (p < M && q < M) out[(size_t)p * M + q] = acc[m][n][u];
+      }
 }
 
 // acc[d, e, i, j] = sum over slices, in slice order, of partial[s, d*L+i,
@@ -483,24 +739,33 @@ __global__ void joint_acc_reduce_kernel(const float* __restrict__ partial,
   }
 }
 
-// shared memory of a pass: its vector operands, plus `mats` (ND, L, L)
-// matrices when they are kept resident (4 bytes an element in every
-// precision)
+// shared memory of a pass: its vector operands, plus its matrices when
+// they are kept resident (4 bytes an element in every precision: f32, or
+// the bf16 hi and lo halves).  K3 keeps its dense (ND, L, L) Tlat, K4 the
+// (2, n_mat, W, L) band.
 size_t vec_bytes(int vecs, int prec, int n_dyn, int L) {
   return (size_t)vecs * vec_slots(prec) * n_dyn * L * sizeof(float);
 }
 
-size_t mat_bytes(int mats, int n_dyn, int L) {
-  return (size_t)mats * n_dyn * L * (size_t)L * sizeof(float);
+constexpr int kFilterVecs = 1, kSmoothVecs = 2;
+
+size_t filter_mat_bytes(int n_dyn, int L) {
+  return (size_t)n_dyn * L * (size_t)L * sizeof(float);
 }
 
-bool resident(int vecs, int mats, int prec, int n_dyn, int L) {
-  return vec_bytes(vecs, prec, n_dyn, L) + mat_bytes(mats, n_dyn, L) <=
+size_t band_bytes(int n_mat, int W, int L) {
+  return (size_t)2 * n_mat * W * (size_t)L * sizeof(float);
+}
+
+bool filter_resident(int prec, int n_dyn, int L) {
+  return vec_bytes(kFilterVecs, prec, n_dyn, L) + filter_mat_bytes(n_dyn, L) <=
          kResidentCap;
 }
 
-constexpr int kFilterVecs = 1, kFilterMats = 1;
-constexpr int kSmoothVecs = 2, kSmoothMats = 2;
+bool band_resident(int prec, int n_dyn, int n_mat, int W, int L) {
+  return vec_bytes(kSmoothVecs, prec, n_dyn, L) + band_bytes(n_mat, W, L) <=
+         kResidentCap;
+}
 
 template <typename Kernel>
 cudaError_t launch(Kernel kernel, const PassArgs& a, int C, size_t smem,
@@ -516,7 +781,7 @@ struct FilterRun {
   static cudaError_t go(const PassArgs& a, int C, cudaStream_t s) {
     return launch(pfilter_kernel<ND, RES, MODE != 0, PREC>, a, C,
                   vec_bytes(kFilterVecs, PREC, ND, a.L) +
-                      (RES ? mat_bytes(kFilterMats, ND, a.L) : 0),
+                      (RES ? filter_mat_bytes(ND, a.L) : 0),
                   s);
   }
 };
@@ -526,7 +791,7 @@ struct SmoothRun {
   static cudaError_t go(const PassArgs& a, int C, cudaStream_t s) {
     return launch(psmooth_kernel<ND, RES, MODE, PREC>, a, C,
                   vec_bytes(kSmoothVecs, PREC, ND, a.L) +
-                      (RES ? mat_bytes(kSmoothMats, ND, a.L) : 0),
+                      (RES ? band_bytes(a.n_mat, a.W, a.L) : 0),
                   s);
   }
 };
@@ -578,15 +843,36 @@ bool bad_prec(int prec, const void* hi, const void* lo) {
   return hi == nullptr || (prec == kBf16x3 && lo == nullptr);
 }
 
+int count_matrices(int n_dyn, int mask) {
+  int n = 0;
+  for (int d = 0; d < n_dyn; ++d) n += !((mask >> d) & 1);
+  return n;
+}
+
+template <int PASSES, bool VEC>
+cudaError_t acc_partial(const float* A, const float* B, float* partial,
+                        int T, int M, int S, int rows, cudaStream_t s) {
+  const size_t smem = (size_t)4 * kAccBK * (kAccTile + kAccPad) * sizeof(float);
+  auto kernel = joint_acc_partial_kernel<PASSES, VEC>;
+  cudaError_t err = launch_prep(kernel, smem);
+  if (err != cudaSuccess) return err;
+  const int tiles = (M + kAccTile - 1) / kAccTile;
+  kernel<<<dim3(tiles, tiles, S), kAccThreads, smem, s>>>(
+      A, B, partial, T, M, rows);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// 1 when the pass keeps its (ND, L, L) transition matrices in shared memory
-// (kind 0: the filter pass K3, kind 1: the smoother pass K4).
-int pmg_pscan_tlat_resident(int kind, int n_dyn, int L, int prec) {
-  return kind == 0 ? resident(kFilterVecs, kFilterMats, prec, n_dyn, L)
-                   : resident(kSmoothVecs, kSmoothMats, prec, n_dyn, L);
+// 1 when a pass keeps its matrices in shared memory: kind 0 the filter pass
+// K3 (dense (n_dyn, L, L) Tlat; n_mat and W unused), kind 1 the smoother
+// pass K4 (the (2, n_mat, W, L) band).
+int pmg_pscan_resident(int kind, int n_dyn, int n_mat, int L, int W,
+                       int prec) {
+  return kind == 0 ? filter_resident(prec, n_dyn, L)
+                   : band_resident(prec, n_dyn, n_mat, W, L);
 }
 
 // K3.  Returns a cudaError_t (0 on success); the launch is asynchronous.
@@ -614,32 +900,39 @@ int pmg_pfilter_pass(const void* w, const void* tlat, const void* tl_hi,
   a.L = L;
   a.tc = tc;
   a.mask = uniform_mask;
-  return (int)dispatch<FilterRun>(
-      a, C, n_dyn, resident(kFilterVecs, kFilterMats, prec, n_dyn, L),
-      emit != 0, 2, prec, static_cast<cudaStream_t>(stream));
+  return (int)dispatch<FilterRun>(a, C, n_dyn,
+                                  filter_resident(prec, n_dyn, L), emit != 0,
+                                  2, prec, static_cast<cudaStream_t>(stream));
 }
 
 // K4.  mode 0 finals only; 1 full (out = smooth, out2 = r); 2 marginal
 // (out = lat (T, L), out3 = dyn (T, ND)); 3 marginal + r (out2 = r, the
 // scratch joint_acc reduces).  Outputs a mode does not write may be null.
+// tlat/tlatT are read for the constant channels' first rows; the other
+// channels' push and pull go through `band` (2, n_mat, W, L) with window
+// rows `win0` (2, n_mat, L), n_mat the channels not flagged constant in
+// uniform_mask; band_hi/band_lo (its bf16 split) are read when prec != 0.
 int pmg_psmooth_pass(const void* post, const void* tlat, const void* tlatT,
-                     const void* tl_hi, const void* tl_lo,
-                     const void* tlT_hi, const void* tlT_lo,
-                     const void* tdyn, const void* ins, void* finals,
-                     void* out, void* out2, void* out3, int T, int C, int tc,
-                     int n_dyn, int L, int uniform_mask, int mode, int prec,
+                     const void* band, const void* band_hi,
+                     const void* band_lo, const void* win0, const void* tdyn,
+                     const void* ins, void* finals, void* out, void* out2,
+                     void* out3, int T, int C, int tc, int n_dyn, int L,
+                     int W, int uniform_mask, int mode, int prec,
                      void* stream) {
+  const int n_mat = count_matrices(n_dyn, uniform_mask);
   if (bad_shape(n_dyn, L) || bad_chunks(T, C, tc) ||
-      bad_prec(prec, tl_hi, tl_lo) || bad_prec(prec, tlT_hi, tlT_lo))
+      (prec != kHighest && prec != kBf16x3 && prec != kBf16) ||
+      (n_mat > 0 && (W < 1 || W > L || band == nullptr || win0 == nullptr ||
+                     bad_prec(prec, band_hi, band_lo))))
     return (int)cudaErrorInvalidValue;
   PassArgs a{};
   a.x = static_cast<const float*>(post);
   a.tlat = static_cast<const float*>(tlat);
   a.tlatT = static_cast<const float*>(tlatT);
-  a.tl_hi = static_cast<const bf16*>(tl_hi);
-  a.tl_lo = static_cast<const bf16*>(tl_lo);
-  a.tlT_hi = static_cast<const bf16*>(tlT_hi);
-  a.tlT_lo = static_cast<const bf16*>(tlT_lo);
+  a.band = static_cast<const float*>(band);
+  a.band_hi = static_cast<const bf16*>(band_hi);
+  a.band_lo = static_cast<const bf16*>(band_lo);
+  a.win0 = static_cast<const int*>(win0);
   a.tdyn = static_cast<const float*>(tdyn);
   a.ins = static_cast<const float*>(ins);
   a.finals = static_cast<float*>(finals);
@@ -650,33 +943,45 @@ int pmg_psmooth_pass(const void* post, const void* tlat, const void* tlatT,
   a.L = L;
   a.tc = tc;
   a.mask = uniform_mask;
+  a.W = n_mat > 0 ? W : 0;
+  a.n_mat = n_mat;
   return (int)dispatch<SmoothRun>(
-      a, C, n_dyn, resident(kSmoothVecs, kSmoothMats, prec, n_dyn, L), mode,
-      4, prec, static_cast<cudaStream_t>(stream));
+      a, C, n_dyn, band_resident(prec, n_dyn, n_mat, a.W, L), mode, 4, prec,
+      static_cast<cudaStream_t>(stream));
 }
 
-// joint_acc over post, r (T, ND, L): S slices of `rows_per_slice` rows into
-// `partial` (S, ND*L, ND*L), then their sum into acc (ND, ND, L, L).
+// joint_acc over post, r (T, ND, L): S slices of `rows_per_slice` rows of
+// 128 x 128 output tiles into `partial` (S, ND*L, ND*L), then their sum
+// into acc (ND, ND, L, L).  passes 3: 3xTF32; 1: the one-pass control
+// (hi.hi only).
 int pmg_joint_acc(const void* post, const void* r, void* partial, void* acc,
                   int T, int n_dyn, int L, int S, int rows_per_slice,
-                  void* stream) {
+                  int passes, void* stream) {
   if (bad_shape(n_dyn, L) || T < 1 || S < 1 || rows_per_slice < 1 ||
-      (long long)S * rows_per_slice < T)
+      (long long)S * rows_per_slice < T || (passes != 1 && passes != 3))
     return (int)cudaErrorInvalidValue;
   const int M = n_dyn * L;
-  const int tiles = (M + kTile - 1) / kTile;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  joint_acc_partial_kernel<<<dim3(tiles, tiles, S), 256, 0, s>>>(
-      static_cast<const float*>(post), static_cast<const float*>(r),
-      static_cast<float*>(partial), T, M, rows_per_slice);
-  cudaError_t err = cudaGetLastError();
+  const float* A = static_cast<const float*>(post);
+  const float* B = static_cast<const float*>(r);
+  float* part = static_cast<float*>(partial);
+  // 16-byte copies when every row of the tiles starts 16-byte aligned
+  const bool vec = M % 4 == 0;
+  cudaError_t err =
+      passes == 3
+          ? (vec ? acc_partial<3, true>(A, B, part, T, M, S, rows_per_slice, s)
+                 : acc_partial<3, false>(A, B, part, T, M, S, rows_per_slice,
+                                         s))
+          : (vec ? acc_partial<1, true>(A, B, part, T, M, S, rows_per_slice, s)
+                 : acc_partial<1, false>(A, B, part, T, M, S, rows_per_slice,
+                                         s));
   if (err != cudaSuccess) return (int)err;
   const size_t total = (size_t)M * M;
   const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256
                                                       : 4096);
-  joint_acc_reduce_kernel<<<blocks, 256, 0, s>>>(
-      static_cast<const float*>(partial), static_cast<float*>(acc), S,
-      n_dyn, L);
+  joint_acc_reduce_kernel<<<blocks, 256, 0, s>>>(part,
+                                                 static_cast<float*>(acc), S,
+                                                 n_dyn, L);
   return (int)cudaGetLastError();
 }
 

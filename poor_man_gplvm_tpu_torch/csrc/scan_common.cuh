@@ -23,14 +23,30 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// one column of a row-vector @ matrix product: sum_i vec[i] * mat[i, j]
+// one column of a row-vector @ matrix product over a window of W rows:
+// sum_{k < W} vec[i0 + k] * mat[k, j], mat (W, L) row-major.  With i0 = 0
+// and W = L it is the dense column sum_i vec[i] * mat[i, j].  The sum runs
+// over k ascending with fmaf, so a window that covers every nonzero of the
+// column gives the dense sum's bits when vec >= 0 is finite: fmaf(x, +0, a)
+// returns a unchanged.  UNROLL sets how many of the matrix loads are in
+// flight at once: 4 where the matrix sits in shared memory; a matrix
+// streamed from L2 takes 16, which is what hides L2's latency (K3 at
+// L = 500 on the H100: 33 ms per pass at 4, 19 at 16; PERF.md).
+template <int UNROLL = 4>
+__device__ __forceinline__ float window_matvec(const float* __restrict__ vec,
+                                               const float* __restrict__ mat,
+                                               int i0, int W, int L, int j) {
+  const float* __restrict__ v = vec + i0;
+  float a = 0.f;
+#pragma unroll (UNROLL)
+  for (int k = 0; k < W; ++k) a = fmaf(v[k], mat[(size_t)k * L + j], a);
+  return a;
+}
+
 __device__ __forceinline__ float col_matvec(const float* __restrict__ vec,
                                             const float* __restrict__ mat,
                                             int L, int j) {
-  float a = 0.f;
-#pragma unroll 4
-  for (int i = 0; i < L; ++i) a = fmaf(vec[i], mat[(size_t)i * L + j], a);
-  return a;
+  return window_matvec<>(vec, mat, 0, L, L, j);
 }
 
 // ---------------------------------------------------------------------------
@@ -76,32 +92,52 @@ __device__ __forceinline__ void store_operand(float* x, float* lo, int j,
   }
 }
 
-// one column of the row-vector @ matrix product of channel offset `off`
-template <int PREC>
+// one column of the row-vector @ matrix product of the (W, L) window at
+// offset `off` of the matrix operand, rows i0 .. i0 + W - 1 of the vector
+// (window_matvec's order in every precision; bf16 hi and lo of 0 are 0)
+template <int PREC, int UNROLL>
+__device__ __forceinline__ float window_matvec_p(const float* __restrict__ x,
+                                                 const float* __restrict__ lo,
+                                                 const MatOperand& m,
+                                                 size_t off, int i0, int W,
+                                                 int L, int j) {
+  if (PREC == kHighest)
+    return window_matvec<UNROLL>(x, m.f + off, i0, W, L, j);
+  const float* __restrict__ xv = x + i0;
+  const bf16* __restrict__ mh = m.hi + off;
+  if (PREC == kBf16) {
+    float a = 0.f;
+#pragma unroll (UNROLL)
+    for (int k = 0; k < W; ++k)
+      a = fmaf(xv[k], __bfloat162float(mh[(size_t)k * L + j]), a);
+    return a;
+  }
+  const float* __restrict__ lv = lo + i0;
+  const bf16* __restrict__ ml = m.lo + off;
+  float hh = 0.f, lh = 0.f, hl = 0.f;
+#pragma unroll (UNROLL)
+  for (int k = 0; k < W; ++k) {
+    const float bh = __bfloat162float(mh[(size_t)k * L + j]);
+    const float bl = __bfloat162float(ml[(size_t)k * L + j]);
+    hh = fmaf(xv[k], bh, hh);
+    lh = fmaf(lv[k], bh, lh);
+    hl = fmaf(xv[k], bl, hl);
+  }
+  return (hh + lh) + hl;
+}
+
+// the dense column: the window of all L rows
+template <int PREC, int UNROLL>
 __device__ __forceinline__ float col_matvec_p(const float* __restrict__ x,
                                               const float* __restrict__ lo,
                                               const MatOperand& m, size_t off,
                                               int L, int j) {
-  if (PREC == kHighest) return col_matvec(x, m.f + off, L, j);
-  const bf16* __restrict__ mh = m.hi + off;
-  if (PREC == kBf16) {
-    float a = 0.f;
-#pragma unroll 4
-    for (int i = 0; i < L; ++i)
-      a = fmaf(x[i], __bfloat162float(mh[(size_t)i * L + j]), a);
-    return a;
-  }
-  const bf16* __restrict__ ml = m.lo + off;
-  float hh = 0.f, lh = 0.f, hl = 0.f;
-#pragma unroll 4
-  for (int i = 0; i < L; ++i) {
-    const float bh = __bfloat162float(mh[(size_t)i * L + j]);
-    const float bl = __bfloat162float(ml[(size_t)i * L + j]);
-    hh = fmaf(x[i], bh, hh);
-    lh = fmaf(lo[i], bh, lh);
-    hl = fmaf(x[i], bl, hl);
-  }
-  return (hh + lh) + hl;
+  return window_matvec_p<PREC, UNROLL>(x, lo, m, off, 0, L, L, j);
+}
+
+// loads in flight of a matrix read from shared memory or streamed from L2
+__host__ __device__ constexpr int matvec_unroll(bool resident) {
+  return resident ? 4 : 16;
 }
 
 // thread j owns latent column j: L rounded up to whole warps

@@ -14,7 +14,8 @@ Libraries:
 
 * ``scan_kernels``: K1/K2, the sequential filter and smoother;
 * ``parallel_scan``: K3/K4, the parallel-in-time filter and smoother passes
-  in the three recursion-dot precisions (K5), and ``joint_acc``.
+  in the three recursion-dot precisions (K5), and ``joint_acc`` (3xTF32 on
+  the tensor cores).
 """
 
 from __future__ import annotations
@@ -59,9 +60,9 @@ _SIGNATURES = {
     },
     "parallel_scan": {
         "pmg_pfilter_pass": [_vp] * 9 + [_ci] * 8 + [_vp],
-        "pmg_psmooth_pass": [_vp] * 13 + [_ci] * 8 + [_vp],
-        "pmg_pscan_tlat_resident": [_ci] * 4,
-        "pmg_joint_acc": [_vp] * 4 + [_ci] * 5 + [_vp],
+        "pmg_psmooth_pass": [_vp] * 13 + [_ci] * 9 + [_vp],
+        "pmg_pscan_resident": [_ci] * 6,
+        "pmg_joint_acc": [_vp] * 4 + [_ci] * 6 + [_vp],
     },
 }
 

@@ -19,12 +19,14 @@ The Pallas TPU kernels become hand-written CUDA kernels for Hopper
 * K3 ``pfilter_pass``  <- ``_pfilter_kernel`` / ``_pfilter_pass``
   (finals-only and emit)
 * K4 ``psmooth_pass``  <- ``_psmooth_kernel`` / ``_psmooth_pass``
-  (finals-only, full, marginal, and marginal with the pairwise joint)
+  (finals-only, full, marginal, and marginal with the pairwise joint), on
+  the band of each channel's nonzeros (``transition_band``)
 * K5, inside K3/K4: the recursion dot in ``"highest"``, ``"bf16x3"`` or
   ``"bf16"`` precision (``_split_bf16`` / ``_scan_dot``), selected by
   ``set_scan_precision``
 * ``joint_acc`` <- the pairwise-joint epilogue of ``_psmooth_kernel``'s
-  marginal mode, as a kernel of its own over the ratios K4 writes
+  marginal mode, as a kernel of its own over the ratios K4 writes, on the
+  tensor cores in 3xTF32
 
 Each wrapper checks its inputs, allocates its outputs with ``torch.empty``
 and launches on the current stream without synchronising.  On a CPU tensor
@@ -41,6 +43,8 @@ read and written in global time order, and the boundary carries are
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -60,6 +64,10 @@ __all__ = [
     "set_scan_precision",
     "scan_mode_key",
     "set_config_override",
+    "set_band_override",
+    "Band",
+    "band_windows",
+    "transition_band",
     "split_bf16",
     "scan_dot",
     "choose_parallel_config",
@@ -88,6 +96,8 @@ PSMOOTH_MODES = ("finals", "full", "marginal", "marginal_acc")
 _CONFIG_OVERRIDE = None
 #: precision of the fixed-point recursion dots
 _SCAN_PRECISION = "highest"
+#: test hook: K4 reads every channel as a dense band (W = L, windows at 0)
+_BAND_DENSE = False
 
 
 def set_scan_precision(mode):
@@ -121,6 +131,15 @@ def set_config_override(cfg):
     are not ported."""
     global _CONFIG_OVERRIDE
     _CONFIG_OVERRIDE = None if cfg is None else tuple(int(v) for v in cfg)
+
+
+def set_band_override(dense):
+    """Test hook: with ``dense=True`` every band ``transition_band`` makes
+    is the whole matrix (W = L, every window from row 0), K4's dense path;
+    ``False`` restores the narrowest band.  Both give the same bits (the
+    band leaves out only exact zeros), which the card tests hold."""
+    global _BAND_DENSE
+    _BAND_DENSE = bool(dense)
 
 
 def split_bf16(x):
@@ -182,6 +201,72 @@ def carry_spec(T, L, n_dyn, config=None):
     if config is None:
         return None
     return (config[0], max(1, n_dyn), L)
+
+
+# ---------------------------------------------------------------------------
+# K4's band: each column's window of nonzero rows
+# ---------------------------------------------------------------------------
+
+
+class Band(NamedTuple):
+    """The band K4 reads in place of the non-constant channels of tlat (the
+    push) and tlat_t (the pull): ``mats[0, m]`` and ``mats[1, m]`` (W, L)
+    hold rows ``start[., m, j] + k`` of column j of the m-th non-constant
+    channel's tlat and tlat_t, k < W.  ``hi``/``lo``: its ``split_bf16``
+    outside "highest"."""
+
+    W: int
+    start: torch.Tensor          # (2, n_mat, L) int32
+    mats: torch.Tensor           # (2, n_mat, W, L) float32
+    hi: Optional[torch.Tensor]   # (2, n_mat, W, L) bfloat16
+    lo: Optional[torch.Tensor]
+
+
+def band_windows(mats):
+    """The windows of rows that hold every nonzero of each column of
+    ``mats`` (n, L, L): returns (start (n, L) int32, W).  W is the largest
+    last - first + 1 over all columns (L for an all-zero column), the same
+    for all; column j's window starts at min(first_j, L - W), so that it
+    stays inside [0, L) and its extra rows are exact zeros.  With
+    ``set_band_override(True)``: W = L, every start 0.  Reads W to the
+    host (one sync)."""
+    n, L = mats.shape[0], mats.shape[-1]
+    if n == 0:
+        return torch.zeros((0, L), dtype=torch.int32, device=mats.device), 0
+    if _BAND_DENSE:
+        return torch.zeros((n, L), dtype=torch.int32, device=mats.device), L
+    nz = mats != 0
+    rows = torch.arange(L, device=mats.device)[:, None]
+    first = torch.where(nz, rows, L).amin(dim=1)
+    last = torch.where(nz, rows, -1).amax(dim=1)
+    W = int(torch.where(last >= first, last - first + 1, L).max())
+    return torch.clamp(first, max=L - W).to(torch.int32), W
+
+
+def _gather_band(mats, start, W):
+    """(n, W, L) band of ``mats`` (n, L, L): band[m, k, j] = mats[m,
+    start[m, j] + k, j]."""
+    idx = start.long()[:, None, :] + torch.arange(
+        W, device=mats.device)[None, :, None]
+    return mats.gather(1, idx)
+
+
+def transition_band(tlat, tlat_t, uniform_rows, scan_prec="highest"):
+    """K4's ``Band`` of ``tlat`` and ``tlat_t`` (n_dyn, L, L): the push and
+    pull windows of every channel not flagged constant in
+    ``uniform_rows`` (a constant channel takes the row-sum shortcut and has
+    no band), with its bf16 split outside "highest".  Made once per solve
+    by ``smooth_parallel``; W, which sizes K4's shared memory, is one host
+    read per solve, not per pass.  A dense channel gives W = L: the dense
+    matvec."""
+    L = tlat.shape[-1]
+    keep = [d for d, flag in enumerate(uniform_rows) if not flag]
+    mats = torch.stack([tlat[keep], tlat_t[keep]]).reshape(-1, L, L)
+    start, W = band_windows(mats)
+    band = _gather_band(mats, start, W).view(2, len(keep), W, L)
+    hi, lo = (None, None) if scan_prec == "highest" else split_bf16(band)
+    return Band(W, start.view(2, len(keep), L).contiguous(),
+                band.contiguous(), hi, lo)
 
 
 def _lib():
@@ -396,8 +481,11 @@ def psmooth_pass_plain(post, tlat, tlat_t, tdyn, ins, tc, uniform_rows,
 
 
 def psmooth_pass(post, tlat, tlat_t, tdyn, ins, tc, uniform_rows, mode,
-                 scan_prec="highest", splits=None):
+                 scan_prec="highest", splits=None, band=None):
     """K4 wrapper: same arguments and outputs as ``psmooth_pass_plain``.
+    On the card the kernel reads the non-constant channels through
+    ``band``, their ``transition_band`` in ``scan_prec`` (made here when
+    None; ``splits`` is then unused), and gives the dense product's bits.
     In "marginal_acc" mode K4 writes r to a (T, n_dyn, L) scratch that
     ``joint_acc`` then reduces (the TPU kernel's on-chip accumulator, 4 MB
     at L = 500, fits no SM's shared memory)."""
@@ -419,9 +507,13 @@ def psmooth_pass(post, tlat, tlat_t, tdyn, ins, tc, uniform_rows, mode,
                                   uniform_rows, mode, scan_prec, splits)
     if dev.type != "cuda":
         raise ValueError(f"psmooth_pass runs on cpu or cuda, not {dev.type}")
-    if splits is None and scan_prec != "highest":
-        splits = (split_bf16(tlat), split_bf16(tlat_t))
-    (hi, lo), (hi_t, lo_t) = splits or ((None, None), (None, None))
+    if band is None:
+        band = transition_band(tlat, tlat_t, uniform_rows, scan_prec)
+    n_mat = sum(not f for f in uniform_rows)
+    if band.mats.shape != (2, n_mat, band.W, L) or band.mats.device != dev \
+            or (scan_prec != "highest" and band.hi is None):
+        raise ValueError("band does not match the channels, device or "
+                         "precision of this pass")
     finals = torch.empty_like(ins)
     out = out2 = out3 = None
     if mode == "full":
@@ -433,10 +525,11 @@ def psmooth_pass(post, tlat, tlat_t, tdyn, ins, tc, uniform_rows, mode,
         out2 = torch.empty_like(post)
     with torch.cuda.device(dev):
         err = _lib().pmg_psmooth_pass(
-            post.data_ptr(), tlat.data_ptr(), tlat_t.data_ptr(), _ptr(hi),
-            _ptr(lo), _ptr(hi_t), _ptr(lo_t), tdyn.data_ptr(),
-            ins.data_ptr(), finals.data_ptr(), _ptr(out), _ptr(out2),
-            _ptr(out3), T, C, tc, n_dyn, L, _mask(uniform_rows),
+            post.data_ptr(), tlat.data_ptr(), tlat_t.data_ptr(),
+            _ptr(band.mats), _ptr(band.hi), _ptr(band.lo),
+            _ptr(band.start), tdyn.data_ptr(), ins.data_ptr(),
+            finals.data_ptr(), _ptr(out), _ptr(out2), _ptr(out3), T, C, tc,
+            n_dyn, L, band.W, _mask(uniform_rows),
             PSMOOTH_MODES.index(mode), _PREC_CODE[scan_prec],
             _stream_ptr(dev),
         )
@@ -455,12 +548,13 @@ def psmooth_pass(post, tlat, tlat_t, tdyn, ins, tc, uniform_rows, mode,
 # joint_acc: the pairwise-joint reduction of K4's marginal+acc mode
 # ---------------------------------------------------------------------------
 
-#: joint_acc's output tile (csrc/parallel_scan.cu::kTile) and the blocks it
-#: aims for (two per SM of the H100)
-_ACC_TILE = 64
-_ACC_TARGET_BLOCKS = 264
-#: at most this many time rows per split-K slice (rounding of long f32 sums)
+#: joint_acc's output tile (128 x 128, one block of 8 warps and 70 KB of
+#: shared memory in flight per SM), the H100's SMs, and at most this many
+#: time rows per split-K slice (rounding of long f32 sums)
+_ACC_TILE = 128
+_ACC_SMS = 132
 _ACC_MAX_ROWS = 131_072
+_ACC_STAGE_ROWS = 32
 
 
 def joint_acc_plain(post, r):
@@ -470,28 +564,21 @@ def joint_acc_plain(post, r):
 
 
 def _acc_slices(T, M):
-    """(S, rows per slice) of joint_acc's split over time: enough slices
-    to give the card ~2 blocks per SM, and at most ``_ACC_MAX_ROWS`` rows
-    each."""
+    """(S, rows per slice) of joint_acc's split over time: as many slices
+    as keep the tiles x S blocks within one wave of the card (at least
+    one, at least T / ``_ACC_MAX_ROWS``, at most one per 32-row stage)."""
     tiles = (-(-M // _ACC_TILE)) ** 2
-    S = max(-(-_ACC_TARGET_BLOCKS // tiles), -(-T // _ACC_MAX_ROWS))
-    S = max(1, min(S, -(-T // 16)))
+    S = max(1, _ACC_SMS // tiles, -(-T // _ACC_MAX_ROWS))
+    S = max(1, min(S, -(-T // _ACC_STAGE_ROWS)))
     return S, -(-T // S)
 
 
-def joint_acc(post, r):
-    """``joint_acc`` wrapper: same arguments and output as
-    ``joint_acc_plain``.  On the card: a split-K kernel over S slices of
-    time into an (S, n_dyn*L, n_dyn*L) partial buffer, then a second
-    kernel that adds the partials in slice order (deterministic)."""
+def _joint_acc_run(post, r, passes):
+    """Launch joint_acc's kernels on (T, n_dyn, L) CUDA tensors: ``passes``
+    3 is the 3xTF32 product, 1 the one-pass (hi.hi) control the tests hold
+    against the limit."""
     T, n_dyn, L = post.shape
     dev = post.device
-    _check("post", post, (T, n_dyn, L), dev)
-    _check("r", r, (T, n_dyn, L), dev)
-    if dev.type == "cpu":
-        return joint_acc_plain(post, r)
-    if dev.type != "cuda":
-        raise ValueError(f"joint_acc runs on cpu or cuda, not {dev.type}")
     _check_dims(n_dyn, L, (False,) * n_dyn)
     M = n_dyn * L
     S, rows = _acc_slices(T, M)
@@ -500,10 +587,28 @@ def joint_acc(post, r):
     with torch.cuda.device(dev):
         err = _lib().pmg_joint_acc(post.data_ptr(), r.data_ptr(),
                                    partial.data_ptr(), acc.data_ptr(), T,
-                                   n_dyn, L, S, rows, _stream_ptr(dev))
-    _count(joint_acc, "acc", "highest")
+                                   n_dyn, L, S, rows, passes,
+                                   _stream_ptr(dev))
     _raise_on(err, "joint_acc")
     return acc
+
+
+def joint_acc(post, r):
+    """``joint_acc`` wrapper: same arguments and output as
+    ``joint_acc_plain``.  On the card: the product on the tensor cores in
+    3xTF32 (f32 accuracy), split-K over S slices of time into an (S,
+    n_dyn*L, n_dyn*L) partial buffer, then a second kernel that adds the
+    partials in slice order (deterministic)."""
+    T, n_dyn, L = post.shape
+    dev = post.device
+    _check("post", post, (T, n_dyn, L), dev)
+    _check("r", r, (T, n_dyn, L), dev)
+    if dev.type == "cpu":
+        return joint_acc_plain(post, r)
+    if dev.type != "cuda":
+        raise ValueError(f"joint_acc runs on cpu or cuda, not {dev.type}")
+    _count(joint_acc, "acc", "highest")
+    return _joint_acc_run(post, r, 3)
 
 
 reset_launches()
@@ -606,9 +711,10 @@ def smooth_parallel(ll, tlat, tdyn, p_init, likelihood_scale, *,
     tlat = tlat.to(torch.float32).contiguous()
     tdyn = tdyn.to(torch.float32).contiguous()
     tlat_t = tlat.transpose(-1, -2).contiguous()
-    # the weight operands' bf16 splits, once per solve
+    # the weight operands' bf16 splits, and K4's band, once per solve
     sp_f = _splits(tlat, prec, None)
     sp_b = None if sp_f is None else (sp_f, split_bf16(tlat_t))
+    band = transition_band(tlat, tlat_t, uniform_rows, prec)
     has_ws = warm_start is not None
     if has_ws:
         fwd_ws, bwd_ws, ws_pred, ws_valid = warm_start
@@ -663,7 +769,7 @@ def smooth_parallel(ll, tlat, tdyn, p_init, likelihood_scale, *,
 
     def bwd(ins):
         return psmooth_pass(post, tlat, tlat_t, tdyn, ins, tc, uniform_rows,
-                            "finals", prec, sp_b)[2]
+                            "finals", prec, sp_b, band)[2]
 
     def bwd_shift(fin):
         new = torch.cat([fin[1:], post_T1[None]])
@@ -679,7 +785,7 @@ def smooth_parallel(ll, tlat, tdyn, p_init, likelihood_scale, *,
     mode = ("marginal_acc" if want_acc else "marginal") if marginal \
         else "full"
     emit = psmooth_pass(post, tlat, tlat_t, tdyn, ins_b, tc, uniform_rows,
-                        mode, prec, sp_b)
+                        mode, prec, sp_b, band)
     fin_b = emit[-1]
     acc = None
     if marginal:

@@ -1,6 +1,7 @@
 """Card tests: the CUDA scan kernels K1/K2 (sequential), K3/K4
 (parallel-in-time passes, every mode, with the K5 dots in each precision)
-and joint_acc against their plain versions.
+and joint_acc against their plain versions; K4 on its band against K4
+forced dense, bit for bit.
 
 Imports no jax, so it runs on a machine with a card and no JAX:
 
@@ -20,8 +21,10 @@ from poor_man_gplvm_tpu_torch.ops import hmm  # noqa: E402
 from poor_man_gplvm_tpu_torch.ops import parallel_scan as ps  # noqa: E402
 from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk  # noqa: E402
 from poor_man_gplvm_tpu_torch.testing import (  # noqa: E402
+    JOINT_ACC_ENTRY_RTOL,
     SCAN_CASES,
     SCAN_TOLERANCES,
+    band_vs_dense,
     joint_acc_vs_plain,
     kernel_vs_plain,
     pscan_failures,
@@ -133,8 +136,30 @@ def test_pscan_check_rejects_other_precision(cuda, L, kern_prec, plain_prec):
 def test_joint_acc_matches_plain(cuda, L, n_dyn):
     err = joint_acc_vs_plain(L + n_dyn, 20_001, L, n_dyn, cuda)
     torch.cuda.synchronize()
-    assert err["acc_rel"] <= 1e-4, err
+    assert err["acc_entry_rel"] <= JOINT_ACC_ENTRY_RTOL, err
     assert err["repeatable"], err
+
+
+@pytest.mark.parametrize("L", [100, 500])
+def test_joint_acc_one_pass_control_fails(cuda, L):
+    # control: the kernel's hi.hi-only instantiation (one TF32 product)
+    # breaks the per-entry limit that 3xTF32 keeps
+    err = joint_acc_vs_plain(L + 2, 20_001, L, 2, cuda, passes=1)
+    torch.cuda.synchronize()
+    assert err["acc_entry_rel"] > JOINT_ACC_ENTRY_RTOL, err
+
+
+@pytest.mark.parametrize("scan_prec", ["highest", "bf16x3", "bf16"])
+@pytest.mark.parametrize("n_dyn", [1, 2])
+@pytest.mark.parametrize("L", [100, 500])
+def test_k4_band_equals_dense(cuda, L, n_dyn, scan_prec):
+    # every mode on the band of the RBF channel (W = 21) and forced dense
+    eq = band_vs_dense(scan_case(L + n_dyn, 4001, L, n_dyn, "masked"), cuda,
+                       scan_prec)
+    torch.cuda.synchronize()
+    assert eq["band_equal_dense"], eq
+    assert eq["finite"] and eq["masked_exact_zero"], eq
+    assert eq["W"] == 21 and eq["W_dense"] == L, eq
 
 
 def test_pscan_kernels_empty_chunks(cuda):

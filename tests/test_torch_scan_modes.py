@@ -156,9 +156,10 @@ def test_joint_acc_plain_matches_einsum():
     assert _max_abs(got, want) / np.abs(want).max() <= TOL_DOT
     with pytest.raises(ValueError):
         ps.joint_acc(torch.zeros(3, 2, 4), torch.zeros(3, 2, 5))
-    # the split over time: enough slices to fill the card, bounded rows
+    # the split over time: enough slices to fill one wave of the card
+    # (132 blocks of 128 x 128 tiles), bounded rows
     assert ps._acc_slices(1_000_000, 1000) == (8, 125_000)
-    assert ps._acc_slices(100_000, 200)[0] == 17
+    assert ps._acc_slices(100_000, 200)[0] == 33
 
 
 @pytest.mark.parametrize("mode", ["highest", "bf16x3", "bf16"])
