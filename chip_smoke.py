@@ -12,22 +12,24 @@ Phases, each of which checks its results (any failure exits non-zero):
 3. kernels: K1 (filter) and K2 (smoother) against their plain PyTorch
    versions on the same inputs on the card, at L in {100, 500}, n_dyn in
    {1, 2}, three cases (constant channel, identical non-constant rows,
-   masked bins) and at the decode shape, with the per-step times;
+   masked bins) and at the decode shape, with the per-step times (K2 on
+   the band of nonzeros and, at L=500, forced dense);
 4. parallel kernels: K3 (filter pass: finals-only, emit) and K4 (smoother
    pass: finals-only, full, marginal, marginal+acc) against their plain
    versions over the same grid at an odd T (ragged last chunk, T-1
    mid-chunk), in "highest" and, with masked bins, in the K5 precisions
    "bf16x3" and "bf16", over whole passes and by the one-step check
    (``testing.pfilter_step_check``), with controls that the check fails
-   a kernel held against another precision; K4 on its band against K4
-   forced dense (bit for bit, every mode and precision); ``joint_acc``
+   a kernel held against another precision; K2, K3 and K4 on the band
+   against the same kernel forced dense (bit for bit, every mode and
+   precision, all three cases); ``joint_acc``
    against its plain version per entry, with its one-pass control that
    must fail; then
    every kernel and mode held against its plain version and timed at
    T=100,000 for L in {100, 500} (CUDA events), beside its bound (the
    nonzeros these inputs need) and, for ``joint_acc``, the one PyTorch call
-   that computes the same sum; and K4 finals-only on a dense channel at
-   L=500;
+   that computes the same sum; K3 and K4 finals-only with the band cut to
+   one row (the step's fixed cost) and on a dense channel at L=500;
 5. slice: ``PoissonGPLVMJump1D.decode_latent`` at T=10,000 for (N, L) =
    (100, 100) and (500, 500) through the engine 'auto' resolves to (the
    parallel one above its threshold), held against the plain ``'prob'``
@@ -67,6 +69,7 @@ summary of the kernels; the last line is ``{"ok": true, "device":
 
 import contextlib
 import json
+import re
 import subprocess
 import sys
 import time
@@ -314,6 +317,27 @@ def phase_preamble():
         f"float32_matmul_precision={torch.get_float32_matmul_precision()}")
 
 
+def _ptxas_report(text):
+    """(kernel and its template arguments as mangled, registers, spill
+    stores/loads in bytes) of each entry function in ``nvcc -Xptxas -v``
+    output."""
+    out, kernel, spill = [], None, "?"
+    for line in text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            k = re.findall(r"\d([a-z][a-z_]*_kernel(?:I\w*?EE)?)", m.group(1))
+            kernel = k[-1] if k else m.group(1)
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            spill = f"{m.group(1)}/{m.group(2)}"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and kernel:
+            out.append((kernel, int(m.group(1)), spill))
+            kernel = None
+    return out
+
+
 def phase_build():
     from poor_man_gplvm_tpu_torch.ops import _build
 
@@ -321,22 +345,26 @@ def phase_build():
     _build.build_all()
     sec = time.perf_counter() - t0
     for name, text in _build.build_log.items():
-        for line in text.splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas {name}: {line.strip()}")
+        for kernel, regs, spill in _ptxas_report(text):
+            log(f"  ptxas {name}: {kernel}: {regs} registers, spill {spill}")
     seq = _build.load_scan_kernels()
     par = _build.load_parallel_scan()
-    log(f"build: {sec:.2f} s, one nvcc per source in parallel (transitions "
-        "resident in shared memory, n_dyn=2: K1/K2 L=100 "
+    def res(kind, L, W, prec=0):
+        return bool(par.pmg_pscan_resident(kind, 2, 1, L, W, prec))
+
+    log(f"build: {sec:.2f} s, one nvcc per source in parallel (resident in "
+        f"shared memory, n_dyn=2: K1 dense L=100 "
         f"{bool(seq.pmg_scan_tlat_resident(2, 100))}, L=500 "
-        f"{bool(seq.pmg_scan_tlat_resident(2, 500))}; K3 L=100 "
-        f"{bool(par.pmg_pscan_resident(0, 2, 1, 100, 100, 0))}; K4 band "
-        "of one RBF channel (W=21) L=100 "
-        f"{bool(par.pmg_pscan_resident(1, 2, 1, 100, 21, 0))}, L=500 "
-        f"{bool(par.pmg_pscan_resident(1, 2, 1, 500, 21, 0))}, bf16x3 L=500 "
-        f"{bool(par.pmg_pscan_resident(1, 2, 1, 500, 21, 1))}, dense L=100 "
-        f"{bool(par.pmg_pscan_resident(1, 2, 1, 100, 100, 0))}, dense L=500 "
-        f"{bool(par.pmg_pscan_resident(1, 2, 1, 500, 500, 0))})")
+        f"{bool(seq.pmg_scan_tlat_resident(2, 500))}; K2 pull band of one "
+        f"RBF channel (W=21) L=500 "
+        f"{bool(seq.pmg_smoother_resident(2, 1, 500, 21))}, dense L=500 "
+        f"{bool(seq.pmg_smoother_resident(2, 1, 500, 500))}; K3 push band "
+        f"W=21 L=500 {res(0, 500, 21)}, bf16x3 {res(0, 500, 21, 1)}, W=81 "
+        f"{res(0, 500, 81)}, dense L=100 {res(0, 100, 100)}, dense L=500 "
+        f"{res(0, 500, 500)}; K4 both bands W=21 L=100 {res(1, 100, 21)}, "
+        f"L=500 {res(1, 500, 21)}, bf16x3 L=500 {res(1, 500, 21, 1)}, W=81 "
+        f"{res(1, 500, 81)}, dense L=100 {res(1, 100, 100)}, dense L=500 "
+        f"{res(1, 500, 500)})")
 
 
 def _fmt(err):
@@ -346,6 +374,9 @@ def _fmt(err):
 
 def phase_kernels():
     from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk
+    from poor_man_gplvm_tpu_torch.ops.band import (
+        set_band_override, transition_band,
+    )
     from poor_man_gplvm_tpu_torch.testing import (
         SCAN_CASES, SCAN_TOLERANCES, kernel_vs_plain, scan_case,
     )
@@ -369,7 +400,10 @@ def phase_kernels():
         worst["smoother_scan"] = max(worst["smoother_scan"],
                                      err["smooth_abs"])
 
-    # per-step times at the decode shape (n_dyn=2 with the jump channel)
+    # per-step times at the decode shape (n_dyn=2 with the jump channel);
+    # K2 on its band, made once as a decode makes it, and at L=500 also
+    # forced dense (every window the whole column: the design before the
+    # band, in the same run)
     times = {}
     for L in (100, 500):
         c = scan_case(L, T_DECODE, L, 2, "jump")
@@ -379,20 +413,38 @@ def phase_kernels():
         w = torch.exp(t["ll"] - t["ll"].amax(dim=1, keepdim=True)).contiguous()
         args_f = (w, t["tlat"], t["tdyn"], t["p_init"], flags)
         post, prior, _ = sk.filter_scan(*args_f)
-        args_s = (post[:-1].contiguous(), prior[1:].contiguous(),
-                  t["tlat"].transpose(-1, -2).contiguous(), t["tdyn"],
-                  post[-1].contiguous(), flags)
+        tlat_t = t["tlat"].transpose(-1, -2).contiguous()
+        args_s = (post[:-1].contiguous(), prior[1:].contiguous(), tlat_t,
+                  t["tdyn"], post[-1].contiguous(), flags)
+        band = transition_band(t["tlat"], tlat_t, flags)
         times[L] = {
             "filter_scan": (cuda_ms(lambda: sk.filter_scan(*args_f), 5),
                             cuda_ms(lambda: sk.filter_scan_plain(*args_f), 1)),
             "smoother_scan": (
-                cuda_ms(lambda: sk.smoother_scan(*args_s), 5),
+                cuda_ms(lambda: sk.smoother_scan(*args_s, band=band), 5),
                 cuda_ms(lambda: sk.smoother_scan_plain(*args_s), 1)),
         }
         for name, (ms, plain_ms) in times[L].items():
             log(f"time {name} L={L} T={T_DECODE}: kernel {ms:.3f} ms "
                 f"({1e3 * ms / T_DECODE:.3f} us/step), plain {plain_ms:.1f} ms "
-                f"({1e3 * plain_ms / T_DECODE:.2f} us/step)")
+                f"({1e3 * plain_ms / T_DECODE:.2f} us/step)"
+                + (f", band W={band.W}" if name == "smoother_scan" else ""))
+        if L == 500:
+            set_band_override(True)
+            try:
+                dense = transition_band(t["tlat"], tlat_t, flags)
+            finally:
+                set_band_override(False)
+            got = sk.smoother_scan(*args_s, band=band)
+            want = sk.smoother_scan(*args_s, band=dense)
+            check(dense.W == L and all(torch.equal(g, x)
+                                       for g, x in zip(got, want)),
+                  "K2 on the band differs from K2 forced dense")
+            ms = cuda_ms(lambda: sk.smoother_scan(*args_s, band=dense), 3)
+            times[L]["smoother_scan_dense"] = ms
+            log(f"time smoother_scan L={L} T={T_DECODE} forced dense "
+                f"(W={dense.W}): kernel {ms:.3f} ms "
+                f"({1e3 * ms / T_DECODE:.3f} us/step); bit-equal to the band")
     return worst, times
 
 
@@ -428,11 +480,11 @@ def _pscan_timed(L, dev):
         ins_b = bwd_guess(post, a["tc"], C)
         bwd = (post, a["tlat"], a["tlat_t"], a["tdyn"], ins_b, a["tc"],
                a["flags"])
-        # K4's band, made once per solve as smooth_parallel makes it
+        # the band, made once per solve as smooth_parallel makes it
         band = ps.transition_band(a["tlat"], a["tlat_t"], a["flags"], prec)
         # (kernel, plain, the output compared and its tolerance key)
         calls = {f"pfilter_pass[{m}/{prec}]": (
-            lambda e=(m == "emit"): ps.pfilter_pass(*fwd, e, prec),
+            lambda e=(m == "emit"): ps.pfilter_pass(*fwd, e, prec, band=band),
             lambda e=(m == "emit"): ps.pfilter_pass_plain(*fwd, e, prec),
             TIMED_OUTPUT.get(m, (2, "fwd_finals_abs")))
             for m in ("finals", "emit")}
@@ -456,24 +508,26 @@ def _pscan_timed(L, dev):
             rel = err / float(want.abs().max())
             ms = cuda_ms(kern, 3)
             bound_ms, bound_by = kernel_bound(name, T_LONG, L, 2, nnz)
+            probe_ms, probe_txt = _probe(name, prec, fwd, bwd, band, post,
+                                         r if prec == "highest" else None)
             lib_ms = None
             if name == "joint_acc":
                 lib_ms = cuda_ms(lambda: torch.einsum("tdi,tej->deij", post,
                                                       r), 3)
             rows[name] = dict(err=err, ms=ms, plain_ms=plain_ms,
                               bound_ms=bound_ms, bound_by=bound_by,
-                              library_ms=lib_ms, C=C, tc=a["tc"])
+                              library_ms=lib_ms, probe_ms=probe_ms, C=C,
+                              tc=a["tc"])
             log(f"time {name} L={L} T={T_LONG} C={C} tc={a['tc']}: kernel "
                 f"{ms:.3f} ms ({1e3 * ms / a['tc']:.3f} us/step), plain "
                 f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by})"
                 + ("" if lib_ms is None else f", einsum {lib_ms:.3f} ms")
                 + f"; max |kernel - plain| {err:.3e} ({rel:.2e} of max)"
-                + _probe(name, prec, bwd, band, post, r if prec == "highest"
-                         else None))
+                + probe_txt)
             held = rel if key == "acc_rel" else err
             check(held <= tols[key], (name, key, held, tols[key]))
-        step = pfilter_step_check(a, ps.pfilter_pass(*fwd, True, prec)[0],
-                                  prec)
+        step = pfilter_step_check(
+            a, ps.pfilter_pass(*fwd, True, prec, band=band)[0], prec)
         sm_k, r_k, _ = ps.psmooth_pass(*bwd, "full", prec, band=band)
         step.update(psmooth_step_check(a, post, ins_b, sm_k, r_k, prec))
         log(f"one-step check K3 emit, K4 full L={L} T={T_LONG} {prec}: "
@@ -481,26 +535,35 @@ def _pscan_timed(L, dev):
         for key, v in step.items():
             check(v <= tols[key], (L, prec, key, v, tols[key]))
     if L == 500:
-        rows["psmooth_pass[finals/highest]"].update(_dense_k4_row(L, dev))
+        for name, row in _dense_rows(L, dev).items():
+            rows[name].update(row)
     return rows
 
 
-def _probe(name, prec, bwd, band, post, r):
-    """What bounds two of the redesigned kernels, as a log suffix: K4
-    finals-only with its band cut to one row (the step's fixed cost:
-    barriers, block sums, stores), and joint_acc's one-product control
-    (the cost of the tensor-core products against the rest)."""
+def _probe(name, prec, fwd, bwd, band, post, r):
+    """What bounds the redesigned kernels, as (ms or None, log suffix): K3
+    and K4 finals-only with the band cut to one row (the step's fixed
+    cost: barriers, block sums, divisions, stores), and joint_acc's
+    one-product control (the cost of the tensor-core products against the
+    rest)."""
     from poor_man_gplvm_tpu_torch.ops import parallel_scan as ps
 
+    def cut():
+        return band._replace(W=1, mats=band.mats[:, :, :1].contiguous())
+
+    if name == "pfilter_pass[finals/highest]":
+        one = cut()
+        ms = cuda_ms(lambda: ps.pfilter_pass(*fwd, False, prec, band=one), 3)
+        return ms, f"; band cut to one row {ms:.3f} ms"
     if name == "psmooth_pass[finals/highest]":
-        cut = band._replace(W=1, mats=band.mats[:, :, :1].contiguous())
-        ms = cuda_ms(lambda: ps.psmooth_pass(*bwd, "finals", prec, band=cut),
+        one = cut()
+        ms = cuda_ms(lambda: ps.psmooth_pass(*bwd, "finals", prec, band=one),
                      3)
-        return f"; band cut to one row {ms:.3f} ms"
+        return ms, f"; band cut to one row {ms:.3f} ms"
     if name == "joint_acc":
         ms = cuda_ms(lambda: ps._joint_acc_run(post, r, 1), 3)
-        return f"; one TF32 product (the control) {ms:.3f} ms"
-    return ""
+        return ms, f"; one TF32 product (the control) {ms:.3f} ms"
+    return None, ""
 
 
 def _nnz(tlat, flags):
@@ -509,11 +572,12 @@ def _nnz(tlat, flags):
                for d, flag in enumerate(flags) if not flag)
 
 
-def _dense_k4_row(L, dev):
-    """K4 finals-only in "highest" on a dense channel (the 'identical'
-    case: channel 0's rows all equal and nonzero, so its band is W = L) at
-    T=100,000: held against its plain version and timed; the ``*_dense``
-    keys of the kernels line."""
+def _dense_rows(L, dev):
+    """K3 and K4 finals-only in "highest" on a dense channel (the
+    'identical' case: channel 0's rows all equal and nonzero, so the band
+    is W = L, what a custom kernel gives) at T=100,000: each held against
+    its plain version and timed; the ``*_dense`` keys of the kernels
+    line, by kernel name."""
     from poor_man_gplvm_tpu_torch.ops import parallel_scan as ps
     from poor_man_gplvm_tpu_torch.testing import (
         bwd_guess, pscan_inputs, pscan_tolerances, scan_case,
@@ -521,26 +585,36 @@ def _dense_k4_row(L, dev):
 
     a = pscan_inputs(scan_case(L + 7, T_LONG, L, 2, "identical"), dev)
     C = a["ins"].shape[0]
-    post = ps.pfilter_pass_plain(a["w"], a["tlat"], a["tdyn"], a["ins"],
-                                 a["tc"], a["flags"], True)[0]
+    fwd = (a["w"], a["tlat"], a["tdyn"], a["ins"], a["tc"], a["flags"])
+    post = ps.pfilter_pass_plain(*fwd, True)[0]
     bwd = (post, a["tlat"], a["tlat_t"], a["tdyn"],
            bwd_guess(post, a["tc"], C), a["tc"], a["flags"])
     band = ps.transition_band(a["tlat"], a["tlat_t"], a["flags"])
-    want, plain_ms = timed_once(
-        lambda: ps.psmooth_pass_plain(*bwd, "finals"))
-    got = ps.psmooth_pass(*bwd, "finals", band=band)
-    err = float((got[2] - want[2]).abs().max())
-    ms = cuda_ms(lambda: ps.psmooth_pass(*bwd, "finals", band=band), 3)
-    bound_ms, bound_by = kernel_bound("psmooth_pass[finals/highest]", T_LONG,
-                                      L, 2, _nnz(a["tlat"], a["flags"]))
-    log(f"time psmooth_pass[finals/highest] dense channel (W={band.W}) L={L} "
-        f"T={T_LONG}: kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
-        f"{bound_ms:.4f} ms ({bound_by}); max |kernel - plain| {err:.3e}")
-    check(band.W == L and err <= pscan_tolerances("highest")["bwd_finals_abs"],
-          (band.W, err))
-    return {"max_abs_err_L500_dense": err, "ms_L500_dense": ms,
-            "plain_ms_L500_dense": plain_ms, "bound_ms_L500_dense": bound_ms,
-            "bound_by_L500_dense": bound_by}
+    check(band.W == L, band.W)
+    nnz = _nnz(a["tlat"], a["flags"])
+    tols = pscan_tolerances("highest")
+    out = {}
+    for name, kern, plain, key in (
+            ("pfilter_pass[finals/highest]",
+             lambda: ps.pfilter_pass(*fwd, False, band=band),
+             lambda: ps.pfilter_pass_plain(*fwd, False), "fwd_finals_abs"),
+            ("psmooth_pass[finals/highest]",
+             lambda: ps.psmooth_pass(*bwd, "finals", band=band),
+             lambda: ps.psmooth_pass_plain(*bwd, "finals"),
+             "bwd_finals_abs")):
+        want, plain_ms = timed_once(plain)
+        err = float((kern()[2] - want[2]).abs().max())
+        ms = cuda_ms(kern, 3)
+        bound_ms, bound_by = kernel_bound(name, T_LONG, L, 2, nnz)
+        log(f"time {name} dense channel (W={band.W}) L={L} T={T_LONG}: "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}); max |kernel - plain| {err:.3e}")
+        check(err <= tols[key], (name, err))
+        out[name] = {"max_abs_err_L500_dense": err, "ms_L500_dense": ms,
+                     "plain_ms_L500_dense": plain_ms,
+                     "bound_ms_L500_dense": bound_ms,
+                     "bound_by_L500_dense": bound_by}
+    return out
 
 
 #: controls of the K3/K4 check: (kernel precision, plain precision) pairs
@@ -581,16 +655,24 @@ def phase_pscan_kernels():
                                               n_dyn, "masked"), dev,
                                     scan_prec=prec),
                      prec, f"T={T_PSCAN} L={L} n_dyn={n_dyn} masked")
-            # K4 on its band gives K4 forced dense bit for bit
-            for prec in ps.SCAN_PRECISIONS:
-                eq = band_vs_dense(scan_case(L * 10 + n_dyn, T_PSCAN, L,
-                                             n_dyn, "masked"), dev, prec)
-                torch.cuda.synchronize()
-                log(f"K4 band vs dense T={T_PSCAN} L={L} n_dyn={n_dyn} "
-                    f"masked {prec}: {eq}")
-                check(eq["band_equal_dense"] and eq["finite"]
-                      and eq["masked_exact_zero"] and eq["W"] < L
-                      and eq["W_dense"] == L, eq)
+            # K2, K3 and K4 on the band give the same kernel forced dense
+            # bit for bit: W = 21 for the RBF channel, W = L where a
+            # channel is dense ('identical'), no band for a lone constant
+            # channel
+            for case in SCAN_CASES:
+                want_W = L if case == "identical" else (
+                    0 if (n_dyn, case) == (1, "jump") else 21)
+                for prec in ps.SCAN_PRECISIONS:
+                    eq = band_vs_dense(scan_case(L * 10 + n_dyn, T_PSCAN, L,
+                                                 n_dyn, case), dev, prec)
+                    torch.cuda.synchronize()
+                    log(f"K2/K3/K4 band vs dense T={T_PSCAN} L={L} "
+                        f"n_dyn={n_dyn} {case} {prec}: {eq}")
+                    check(eq["band_equal_dense"] and eq["finite"]
+                          and eq["masked_exact_zero"] and eq["W"] == want_W
+                          and eq["W_dense"] == (L if want_W else 0)
+                          and ("k2" in eq["equal_by_mode"])
+                          == (prec == "highest"), eq)
             # joint_acc per entry, and its one-pass control, which must fail
             err = joint_acc_vs_plain(L + n_dyn, T_PSCAN, L, n_dyn, dev)
             ctl = joint_acc_vs_plain(L + n_dyn, T_PSCAN, L, n_dyn, dev,
@@ -1158,10 +1240,14 @@ def main():
                     np.count_nonzero(scan_case(L, 2, L, 2, "jump")["tlat"][0])))
                 row = dict(err=worst[name], ms=ms, plain_ms=plain_ms,
                            bound_ms=b_ms, bound_by=b_by, library_ms=None)
+                if f"{name}_dense" in times[L]:
+                    row["ms_L500_dense"] = times[L][f"{name}_dense"]
                 shape_T = T_DECODE
             else:
                 row = rows[L][name]
                 shape_T = T_LONG
+            if row.get("probe_ms") is not None:
+                entry[f"probe_ms{sfx}"] = row["probe_ms"]
             entry.update({
                 f"max_abs_err{sfx}": row["err"], f"ms{sfx}": row["ms"],
                 f"plain_ms{sfx}": row["plain_ms"],
@@ -1174,7 +1260,8 @@ def main():
                 entry[f"{key}_L500_dense"] = row[f"{key}_L500_dense"]
         entry["shape"] = f"T={shape_T} n_dyn=2 (one RBF channel, ls=1, and " \
             "the jump channel) L=100; *_L500 at L=500; *_L500_dense on a " \
-            "dense channel"
+            "dense channel (K2: the band forced dense); probe_ms* with " \
+            "the band cut to one row (joint_acc: one TF32 product)"
         kernels.append(entry)
     log(f"K3/K4 grid, worst kernel-vs-plain by precision: "
         f"{ {f'{p}/{k}': v for (p, k), v in pworst.items()} }")

@@ -11,7 +11,7 @@
 //       with the pairwise-joint epilogue)
 //   K5  poor_man_gplvm_tpu/ops/pallas/parallel_scan.py::_split_bf16 /
 //       _scan_dot, the recursion dot inside K3/K4 ("highest", "bf16x3",
-//       "bf16"; scan_common.cuh::col_matvec_p)
+//       "bf16"; scan_common.cuh::window_matvec_p)
 //
 // The sequence of T steps is cut into C chunks of tc = ceil(T / C) rows;
 // chunk c owns global rows [c*tc, (c+1)*tc) clipped to T and runs the
@@ -32,14 +32,17 @@
 // What bounds it on this card: each block is a dependent chain of tc steps
 // of one or two (1, L) @ (L, L) matvecs per channel plus block-wide sums,
 // i.e. latency, as for K1/K2, now on C SMs at once.
-//   * K3 (dense): at L=100 Tlat fits in shared memory (80 KB for two
-//     channels) and is copied in once per block; at L=500 one channel is
-//     1 MB and every block streams it from the 50 MB L2 each step, bound by
-//     load instructions per step (PERF.md).  In BF16X3/BF16 the resident
-//     copy is the bf16 hi/lo split, the same bytes as the f32 matrix.
-//   * K4 (banded): reads only each column's window of nonzero rows, W of
-//     L, from a band made once per solve and kept in shared memory when it
-//     fits (psmooth_kernel's note).
+//   * Both passes read only each column's window of nonzero rows, W of L,
+//     from a band made once per solve (ops/band.py::transition_band) and
+//     kept in shared memory when it fits: K3 its push half (L = 500,
+//     W = 21: 42 KB), K4 both halves (pfilter_kernel's and psmooth_kernel's
+//     notes).  In BF16X3/BF16 the resident copy is the bf16 hi/lo split,
+//     the same bytes as the f32 band.  A dense channel is the band W = L:
+//     resident at L = 100, streamed from the 50 MB L2 each step at L = 500.
+//   * With the band resident a step's FMAs are few (W per thread); what is
+//     left is the step's fixed cost: two block barriers, the block sums in
+//     warp order, the divisions (PERF.md times both passes with the band
+//     cut to one row).
 //   * A constant (jump) channel takes the sum(v) * row shortcut of K1/K2,
 //     in f32 in every precision (the TPU kernels never split it either).
 //
@@ -62,7 +65,9 @@
 //
 // Numerics of K3/K4: f32 with FMA, no tensor cores, in HIGHEST (the JAX package's
 // default scan precision); normalisers clamped at 1e-38; r = 0 where the
-// prior is 0, so latent bins masked to zero weight stay exact zeros.
+// prior is 0, so latent bins masked to zero weight stay exact zeros.  K3
+// divides through an f64 reciprocal, K4 in f32: the same bits
+// (scan_common.cuh::div_by_rcp).
 
 #include <stdint.h>
 
@@ -76,12 +81,8 @@ enum SmoothMode { kFinals = 0, kFull = 1, kMarginal = 2, kMarginalAcc = 3 };
 
 struct PassArgs {
   const float* x;       // K3: w (T, L); K4: post (T, ND, L)
-  const float* tlat;    // (ND, L, L)
+  const float* tlat;    // (ND, L, L): the constant channels' first rows
   const float* tlatT;   // (ND, L, L) transposed per channel (K4 only)
-  const bf16* tl_hi;    // (ND, L, L) bf16 split of tlat (BF16X3/BF16)
-  const bf16* tl_lo;
-  const bf16* tlT_hi;   // (ND, L, L) bf16 split of tlatT (K4, BF16X3/BF16)
-  const bf16* tlT_lo;
   const float* tdyn;    // (ND, ND)
   const float* ins;     // (C, ND, L) boundary carries in
   float* finals;        // (C, ND, L) carries after each chunk's last row
@@ -90,15 +91,16 @@ struct PassArgs {
   float* out2;          // K3 EMIT: norm (T,); K4 full, marginal+acc: r
                         // (T, ND, L)
   float* out3;          // K4 marginal: dyn (T, ND)
-  // K4: the band of the non-constant channels, (2, n_mat, W, L): the push
+  // the band of the non-constant channels, (2, n_mat, W, L): the push
   // windows (of tlat) then the pull windows (of tlatT); band[k, j] is
-  // row win0[j] + k of column j.  bf16 split in BF16X3/BF16.
+  // row win0[j] + k of column j.  bf16 split in BF16X3/BF16.  K3 reads
+  // the push half only, which leads each tensor.
   const float* band;
   const bf16* band_hi;
   const bf16* band_lo;
   const int* win0;      // (2, n_mat, L) first row of each column's window
   int T, L, tc, mask;
-  int W, n_mat;         // K4: window height (L for a dense channel), count
+  int W, n_mat;         // window height (L for a dense channel), count
 };
 
 // vector operands per (ND, L) slot: the value, plus its bf16 residual
@@ -106,9 +108,10 @@ __host__ __device__ constexpr int vec_slots(int prec) {
   return prec == kHighest ? 1 : 2;
 }
 
-// copy one matrix operand (K3's (ND, L, L) Tlat, K4's band) into shared
-// memory at `smem` when the pass keeps it resident (n elements, 4 bytes
-// each in every precision: f32, or the bf16 hi and lo halves)
+// copy one matrix operand (the push half of the band for K3, both halves
+// for K4) into shared memory at `smem` when the pass keeps it resident (n
+// elements, 4 bytes each in every precision: f32, or the bf16 hi and lo
+// halves)
 template <int PREC, bool RES>
 __device__ MatOperand stage(const float* f, const bf16* hi, const bf16* lo,
                             size_t n, void* smem) {
@@ -127,8 +130,46 @@ __device__ MatOperand stage(const float* f, const bf16* hi, const bf16* lo,
   return {nullptr, sh, sl};
 }
 
-// K3: filter pass.  EMIT stores post (T, ND, L) and norm[t] = max(s_t,
-// 1e-38), the normaliser the step divided by.
+// K3 EMIT: store row t of post (thread j its column) and norm[t]
+template <int ND>
+__device__ __forceinline__ void store_row(const PassArgs& a, size_t t,
+                                          const float (&carry)[ND],
+                                          float den) {
+  const int j = threadIdx.x;
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+    if (j < a.L) a.out[(t * ND + d) * a.L + j] = carry[d];
+  if (j == 0) a.out2[t] = den;
+}
+
+// K3: filter pass.  Per step, forward over the chunk's rows t < T:
+//   q_d = sum_p Tdyn[p,d] carry_p; prior_d = q_d @ Tlat[d];
+//   carry = prior * w_t, normalised.
+// EMIT stores post (T, ND, L) and norm[t] = max(s_t, 1e-38), the
+// normaliser the step divided by.
+//
+// Design for the H100 (PERF.md §5-6).  The dense pass streamed each
+// non-constant channel's whole (L, L) matrix from L2 every step at L = 500
+// (1 MB, ~96 % exact zeros for the RBF movement channel), and that load
+// stream bounded the step.  Here the push of each such channel reads its
+// band: W rows per column (21 at lengthscale 1), the push half of the band
+// K4 reads, resident in shared memory whenever W * L * 4 bytes fit beside
+// the vectors (W up to ~100 at L = 500), else streamed from L2 with 16
+// loads in flight.  The sum runs over the window ascending with fmaf, the
+// dense loop's order, and fmaf(x, +0, a) = a, so the bits are the dense
+// pass's: K4's recomputed priors and the sequential K1 stay equal to it.
+// The weight row w[t+1, j], which does not depend on the recursion, is
+// loaded a step ahead into a register, so no global-memory latency sits on
+// the chain.  A store placed just before a block barrier holds the barrier
+// up, so EMIT stores row t after the next step's barrier (a), ahead of the
+// window dot (row t is still in the carry registers then), as K4 does.
+// The division by the normaliser is one f64 reciprocal shared by the
+// channels and an f64 product each, which gives the f32 quotient's bits
+// (scan_common.cuh::div_by_rcp) without the f32 division's slow path.
+// What is left is the chain's fixed cost: two block barriers per step ((a)
+// q complete, (b) the normaliser's partials), the block sums in warp order
+// and the reciprocal.  Pushing the unnormalised carry would save barrier
+// (b) but round differently; it is not done here.
 template <int ND, bool RESIDENT, bool EMIT, int PREC>
 __global__ void __launch_bounds__(kMaxThreads) pfilter_kernel(PassArgs a) {
   extern __shared__ __align__(16) float smem[];
@@ -138,18 +179,21 @@ __global__ void __launch_bounds__(kMaxThreads) pfilter_kernel(PassArgs a) {
   __shared__ float red_q[32][ND];
   __shared__ float red_u[32];
 
-  const int L = a.L, j = threadIdx.x;
+  const int L = a.L, W = a.W, j = threadIdx.x;
   const int lane = j & 31, warp = j >> 5, nwarp = blockDim.x >> 5;
   const bool live = j < L;
-  const size_t LL = (size_t)L * L;
+  const size_t LL = (size_t)L * L, WL = (size_t)W * L;
   const int c = blockIdx.x;
   const int t0 = c * a.tc;
   const int n = max(0, min(a.tc, a.T - t0));
 
-  const MatOperand tl = stage<PREC, RESIDENT>(
-      a.tlat, a.tl_hi, a.tl_lo, ND * LL, smem + NV * ND * L);
+  const MatOperand band = stage<PREC, RESIDENT>(
+      a.band, a.band_hi, a.band_lo, a.n_mat * WL, smem + NV * ND * L);
 
   float tdyn[ND][ND], carry[ND], row0[ND];
+  size_t off_f[ND];  // each channel's push band
+  int i0_f[ND];      // first row of column j's window
+  int slot = 0;
 #pragma unroll
   for (int p = 0; p < ND; ++p)
 #pragma unroll
@@ -158,12 +202,23 @@ __global__ void __launch_bounds__(kMaxThreads) pfilter_kernel(PassArgs a) {
   for (int d = 0; d < ND; ++d) {
     carry[d] = live ? a.ins[((size_t)c * ND + d) * L + j] : 0.f;
     row0[d] = live ? a.tlat[d * LL + j] : 0.f;
+    off_f[d] = 0;
+    i0_f[d] = 0;
+    if (!((a.mask >> d) & 1)) {
+      off_f[d] = slot * WL;
+      if (live) i0_f[d] = a.win0[slot * L + j];
+      ++slot;
+    }
   }
-  __syncthreads();  // resident Tlat complete
+  // the weight of the next row, a step ahead
+  float w_next = (live && n > 0) ? a.x[(size_t)t0 * L + j] : 0.f;
+  float den_prev = 1.f;  // EMIT: the normaliser of the row not yet stored
+  __syncthreads();  // resident band complete
 
   for (int tau = 0; tau < n; ++tau) {
     const size_t t = (size_t)t0 + tau;
-    const float wt = live ? a.x[t * L + j] : 0.f;
+    const float wt = w_next;
+    if (live && tau + 1 < n) w_next = a.x[(t + 1) * L + j];
     // dynamics mix of the own column: q_d = sum_p Tdyn[p,d] * carry_p
 #pragma unroll
     for (int d = 0; d < ND; ++d) {
@@ -178,6 +233,10 @@ __global__ void __launch_bounds__(kMaxThreads) pfilter_kernel(PassArgs a) {
     }
     __syncthreads();  // (a) q and its partial sums complete
 
+    // EMIT: row t-1 (still in carry) goes out here, where the window dot
+    // that follows hides the stores
+    if (EMIT && tau > 0) store_row<ND>(a, t - 1, carry, den_prev);
+
     float pr[ND], usum = 0.f;
 #pragma unroll
     for (int d = 0; d < ND; ++d) {
@@ -186,8 +245,9 @@ __global__ void __launch_bounds__(kMaxThreads) pfilter_kernel(PassArgs a) {
         for (int k = 0; k < nwarp; ++k) s += red_q[k][d];
         pr[d] = s * row0[d];
       } else {
-        pr[d] = live ? col_matvec_p<PREC, matvec_unroll(RESIDENT)>(
-                           qx + d * L, ql + d * L, tl, d * LL, L, j)
+        pr[d] = live ? window_matvec_p<PREC, matvec_unroll(RESIDENT)>(
+                           qx + d * L, ql + d * L, band, off_f[d], i0_f[d], W,
+                           L, j)
                      : 0.f;
       }
       usum = fmaf(pr[d], wt, usum);
@@ -200,12 +260,18 @@ __global__ void __launch_bounds__(kMaxThreads) pfilter_kernel(PassArgs a) {
     for (int k = 0; k < nwarp; ++k) s += red_u[k];
     const float den = fmaxf(s, 1e-38f);
 #pragma unroll
-    for (int d = 0; d < ND; ++d) {
-      carry[d] = (pr[d] * wt) / den;
-      if (EMIT && live) a.out[(t * ND + d) * L + j] = carry[d];
+    for (int d = 0; d < ND; ++d) carry[d] = pr[d] * wt;
+    if (den < kRcpDivisorMax) {  // the same for the whole block
+      const double rden = rcp_f64(den);
+#pragma unroll
+      for (int d = 0; d < ND; ++d) carry[d] = div_by_rcp(carry[d], rden);
+    } else {
+#pragma unroll
+      for (int d = 0; d < ND; ++d) carry[d] = carry[d] / den;
     }
-    if (EMIT && j == 0) a.out2[t] = den;
+    den_prev = den;
   }
+  if (EMIT && n > 0) store_row<ND>(a, (size_t)t0 + n - 1, carry, den_prev);
 #pragma unroll
   for (int d = 0; d < ND; ++d)
     if (live) a.finals[((size_t)c * ND + d) * L + j] = carry[d];
@@ -255,7 +321,7 @@ __device__ __forceinline__ void marginal_finish(const PassArgs& a, size_t t,
 // f32 from |i - j| >= 11 at lengthscale 1: the dense pass fetched ~96 %
 // zeros from L2 each step at L = 500.  Here each non-constant channel's
 // push (tlat) and pull (tlatT) is a band of W rows per column, made once
-// per solve by the wrapper (ops/parallel_scan.py::transition_band), and
+// per solve by the wrapper (ops/band.py::transition_band), and
 // both bands sit in shared memory (L = 500, W = 21: 42 KB each) or, when
 // they do not fit, are read from L2 (W / L of the dense loads).  Each
 // column's sum runs over its window in ascending row order, K3's order, so
@@ -741,29 +807,22 @@ __global__ void joint_acc_reduce_kernel(const float* __restrict__ partial,
 
 // shared memory of a pass: its vector operands, plus its matrices when
 // they are kept resident (4 bytes an element in every precision: f32, or
-// the bf16 hi and lo halves).  K3 keeps its dense (ND, L, L) Tlat, K4 the
-// (2, n_mat, W, L) band.
+// the bf16 hi and lo halves).  K3 keeps the push half of the (2, n_mat, W,
+// L) band, K4 both halves.
 size_t vec_bytes(int vecs, int prec, int n_dyn, int L) {
   return (size_t)vecs * vec_slots(prec) * n_dyn * L * sizeof(float);
 }
 
 constexpr int kFilterVecs = 1, kSmoothVecs = 2;
+constexpr int kFilterHalves = 1, kSmoothHalves = 2;
 
-size_t filter_mat_bytes(int n_dyn, int L) {
-  return (size_t)n_dyn * L * (size_t)L * sizeof(float);
+size_t band_bytes(int halves, int n_mat, int W, int L) {
+  return (size_t)halves * n_mat * W * (size_t)L * sizeof(float);
 }
 
-size_t band_bytes(int n_mat, int W, int L) {
-  return (size_t)2 * n_mat * W * (size_t)L * sizeof(float);
-}
-
-bool filter_resident(int prec, int n_dyn, int L) {
-  return vec_bytes(kFilterVecs, prec, n_dyn, L) + filter_mat_bytes(n_dyn, L) <=
-         kResidentCap;
-}
-
-bool band_resident(int prec, int n_dyn, int n_mat, int W, int L) {
-  return vec_bytes(kSmoothVecs, prec, n_dyn, L) + band_bytes(n_mat, W, L) <=
+bool band_resident(int vecs, int halves, int prec, int n_dyn, int n_mat,
+                   int W, int L) {
+  return vec_bytes(vecs, prec, n_dyn, L) + band_bytes(halves, n_mat, W, L) <=
          kResidentCap;
 }
 
@@ -781,7 +840,7 @@ struct FilterRun {
   static cudaError_t go(const PassArgs& a, int C, cudaStream_t s) {
     return launch(pfilter_kernel<ND, RES, MODE != 0, PREC>, a, C,
                   vec_bytes(kFilterVecs, PREC, ND, a.L) +
-                      (RES ? filter_mat_bytes(ND, a.L) : 0),
+                      (RES ? band_bytes(kFilterHalves, a.n_mat, a.W, a.L) : 0),
                   s);
   }
 };
@@ -791,7 +850,7 @@ struct SmoothRun {
   static cudaError_t go(const PassArgs& a, int C, cudaStream_t s) {
     return launch(psmooth_kernel<ND, RES, MODE, PREC>, a, C,
                   vec_bytes(kSmoothVecs, PREC, ND, a.L) +
-                      (RES ? band_bytes(a.n_mat, a.W, a.L) : 0),
+                      (RES ? band_bytes(kSmoothHalves, a.n_mat, a.W, a.L) : 0),
                   s);
   }
 };
@@ -862,35 +921,61 @@ cudaError_t acc_partial(const float* A, const float* B, float* partial,
   return cudaGetLastError();
 }
 
+// a pass's band arguments are usable: n_mat channels of W rows
+bool bad_band(int prec, int n_mat, int W, int L, const void* band,
+              const void* hi, const void* lo, const void* win0) {
+  if (prec != kHighest && prec != kBf16x3 && prec != kBf16) return true;
+  if (n_mat == 0) return false;
+  return W < 1 || W > L || win0 == nullptr ||
+         (prec == kHighest ? band == nullptr : bad_prec(prec, hi, lo));
+}
+
+// the band's arguments into a PassArgs
+void set_band(PassArgs& a, const void* band, const void* hi, const void* lo,
+              const void* win0, int n_mat, int W) {
+  a.band = static_cast<const float*>(band);
+  a.band_hi = static_cast<const bf16*>(hi);
+  a.band_lo = static_cast<const bf16*>(lo);
+  a.win0 = static_cast<const int*>(win0);
+  a.W = n_mat > 0 ? W : 0;
+  a.n_mat = n_mat;
+}
+
 }  // namespace
 
 extern "C" {
 
-// 1 when a pass keeps its matrices in shared memory: kind 0 the filter pass
-// K3 (dense (n_dyn, L, L) Tlat; n_mat and W unused), kind 1 the smoother
-// pass K4 (the (2, n_mat, W, L) band).
+// 1 when a pass keeps its band in shared memory: kind 0 the filter pass K3
+// (the push half of the (2, n_mat, W, L) band), kind 1 the smoother pass
+// K4 (both halves).
 int pmg_pscan_resident(int kind, int n_dyn, int n_mat, int L, int W,
                        int prec) {
-  return kind == 0 ? filter_resident(prec, n_dyn, L)
-                   : band_resident(prec, n_dyn, n_mat, W, L);
+  return kind == 0 ? band_resident(kFilterVecs, kFilterHalves, prec, n_dyn,
+                                   n_mat, W, L)
+                   : band_resident(kSmoothVecs, kSmoothHalves, prec, n_dyn,
+                                   n_mat, W, L);
 }
 
 // K3.  Returns a cudaError_t (0 on success); the launch is asynchronous.
-// post and norm are written only when emit != 0 (they may be null then);
-// tl_hi/tl_lo (the bf16 split of tlat) are read only when prec != 0.
-int pmg_pfilter_pass(const void* w, const void* tlat, const void* tl_hi,
-                     const void* tl_lo, const void* tdyn, const void* ins,
+// post and norm are written only when emit != 0 (they may be null then).
+// tlat is read for the constant channels' first rows; the other channels'
+// push goes through the push half of `band` (2, n_mat, W, L) with window
+// rows `win0` (2, n_mat, L), n_mat the channels not flagged constant in
+// uniform_mask; band_hi/band_lo (its bf16 split) are read when prec != 0.
+int pmg_pfilter_pass(const void* w, const void* tlat, const void* band,
+                     const void* band_hi, const void* band_lo,
+                     const void* win0, const void* tdyn, const void* ins,
                      void* finals, void* post, void* norm, int T, int C,
-                     int tc, int n_dyn, int L, int uniform_mask, int emit,
-                     int prec, void* stream) {
+                     int tc, int n_dyn, int L, int W, int uniform_mask,
+                     int emit, int prec, void* stream) {
+  const int n_mat = count_matrices(n_dyn, uniform_mask);
   if (bad_shape(n_dyn, L) || bad_chunks(T, C, tc) ||
-      bad_prec(prec, tl_hi, tl_lo))
+      bad_band(prec, n_mat, W, L, band, band_hi, band_lo, win0))
     return (int)cudaErrorInvalidValue;
   PassArgs a{};
   a.x = static_cast<const float*>(w);
   a.tlat = static_cast<const float*>(tlat);
-  a.tl_hi = static_cast<const bf16*>(tl_hi);
-  a.tl_lo = static_cast<const bf16*>(tl_lo);
+  set_band(a, band, band_hi, band_lo, win0, n_mat, W);
   a.tdyn = static_cast<const float*>(tdyn);
   a.ins = static_cast<const float*>(ins);
   a.finals = static_cast<float*>(finals);
@@ -900,9 +985,10 @@ int pmg_pfilter_pass(const void* w, const void* tlat, const void* tl_hi,
   a.L = L;
   a.tc = tc;
   a.mask = uniform_mask;
-  return (int)dispatch<FilterRun>(a, C, n_dyn,
-                                  filter_resident(prec, n_dyn, L), emit != 0,
-                                  2, prec, static_cast<cudaStream_t>(stream));
+  return (int)dispatch<FilterRun>(
+      a, C, n_dyn,
+      band_resident(kFilterVecs, kFilterHalves, prec, n_dyn, n_mat, a.W, L),
+      emit != 0, 2, prec, static_cast<cudaStream_t>(stream));
 }
 
 // K4.  mode 0 finals only; 1 full (out = smooth, out2 = r); 2 marginal
@@ -921,18 +1007,13 @@ int pmg_psmooth_pass(const void* post, const void* tlat, const void* tlatT,
                      void* stream) {
   const int n_mat = count_matrices(n_dyn, uniform_mask);
   if (bad_shape(n_dyn, L) || bad_chunks(T, C, tc) ||
-      (prec != kHighest && prec != kBf16x3 && prec != kBf16) ||
-      (n_mat > 0 && (W < 1 || W > L || band == nullptr || win0 == nullptr ||
-                     bad_prec(prec, band_hi, band_lo))))
+      bad_band(prec, n_mat, W, L, band, band_hi, band_lo, win0))
     return (int)cudaErrorInvalidValue;
   PassArgs a{};
   a.x = static_cast<const float*>(post);
   a.tlat = static_cast<const float*>(tlat);
   a.tlatT = static_cast<const float*>(tlatT);
-  a.band = static_cast<const float*>(band);
-  a.band_hi = static_cast<const bf16*>(band_hi);
-  a.band_lo = static_cast<const bf16*>(band_lo);
-  a.win0 = static_cast<const int*>(win0);
+  set_band(a, band, band_hi, band_lo, win0, n_mat, W);
   a.tdyn = static_cast<const float*>(tdyn);
   a.ins = static_cast<const float*>(ins);
   a.finals = static_cast<float*>(finals);
@@ -943,11 +1024,10 @@ int pmg_psmooth_pass(const void* post, const void* tlat, const void* tlatT,
   a.L = L;
   a.tc = tc;
   a.mask = uniform_mask;
-  a.W = n_mat > 0 ? W : 0;
-  a.n_mat = n_mat;
   return (int)dispatch<SmoothRun>(
-      a, C, n_dyn, band_resident(prec, n_dyn, n_mat, a.W, L), mode, 4, prec,
-      static_cast<cudaStream_t>(stream));
+      a, C, n_dyn,
+      band_resident(kSmoothVecs, kSmoothHalves, prec, n_dyn, n_mat, a.W, L),
+      mode, 4, prec, static_cast<cudaStream_t>(stream));
 }
 
 // joint_acc over post, r (T, ND, L): S slices of `rows_per_slice` rows of

@@ -126,14 +126,45 @@ __device__ __forceinline__ float window_matvec_p(const float* __restrict__ x,
   return (hh + lh) + hl;
 }
 
-// the dense column: the window of all L rows
-template <int PREC, int UNROLL>
-__device__ __forceinline__ float col_matvec_p(const float* __restrict__ x,
-                                              const float* __restrict__ lo,
-                                              const MatOperand& m, size_t off,
-                                              int L, int j) {
-  return window_matvec_p<PREC, UNROLL>(x, lo, m, off, 0, L, L, j);
+// ---------------------------------------------------------------------------
+// x / y through a reciprocal, with the bits of the f32 division
+//
+// Each scan step divides by a normaliser every thread shares, or by a prior
+// that does not depend on the recursion.  The f32 division is a long
+// dependent sequence with a slow path for tiny operands (posterior tails
+// are full of them); on the H100 two of them were ~0.3 us of a 1.5 us
+// step.  Here the divisor's reciprocal is made once in f64, rcp_f64(y) =
+// (1 / y)(1 + e) with |e| <= 2^-52 (the hardware's approximation and three
+// Newton steps, no branch), and each quotient is one f64 product rounded
+// to f32: div_by_rcp(x, r) = RN32(RN64(x * r)), within 2^-51 of x / y.
+//
+// That IS the correctly rounded f32 quotient, so kernels that use it and
+// kernels that divide agree bit for bit.  For f32 x >= 0 and 0 < y < 2
+// (normal or subnormal): a rounding boundary of the f32 result is B = M *
+// 2^c with M odd, M < 2^25.  If x / y != B, then |x / y - B| >= 2^-49 B
+// (x = X 2^a, y = Y 2^b with X, Y < 2^24: the numerator X 2^a - M Y 2^(b+c)
+// is a nonzero multiple of 2^min(a, b+c)), 4x the error above, so the
+// product rounds as the quotient does.  And x / y = B cannot happen: in the
+// normal range M Y has an odd part of 25 bits or more and x has 24; in the
+// subnormal range (c = -150) x = M Y 2^(b-150) is a multiple of 2^-149 only
+// if y >= 2.  Callers fall back to the plain division when y >= 2 (never,
+// for normalisers and priors of probabilities).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ double rcp_f64(float y) {
+  const double d = (double)y;
+  double r;
+  asm("rcp.approx.ftz.f64 %0, %1;" : "=d"(r) : "d"(d));
+#pragma unroll
+  for (int i = 0; i < 3; ++i) r = fma(r, fma(-d, r, 1.0), r);
+  return r;
 }
+
+__device__ __forceinline__ float div_by_rcp(float x, double r) {
+  return (float)((double)x * r);
+}
+
+constexpr float kRcpDivisorMax = 2.f;
 
 // loads in flight of a matrix read from shared memory or streamed from L2
 __host__ __device__ constexpr int matvec_unroll(bool resident) {

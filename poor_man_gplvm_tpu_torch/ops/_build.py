@@ -55,11 +55,12 @@ _vp, _ci = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "scan_kernels": {
         "pmg_filter_scan": [_vp] * 7 + [_ci] * 4 + [_vp],
-        "pmg_smoother_scan": [_vp] * 7 + [_ci] * 4 + [_vp],
+        "pmg_smoother_scan": [_vp] * 9 + [_ci] * 5 + [_vp],
         "pmg_scan_tlat_resident": [_ci, _ci],
+        "pmg_smoother_resident": [_ci] * 4,
     },
     "parallel_scan": {
-        "pmg_pfilter_pass": [_vp] * 9 + [_ci] * 8 + [_vp],
+        "pmg_pfilter_pass": [_vp] * 11 + [_ci] * 9 + [_vp],
         "pmg_psmooth_pass": [_vp] * 13 + [_ci] * 9 + [_vp],
         "pmg_pscan_resident": [_ci] * 6,
         "pmg_joint_acc": [_vp] * 4 + [_ci] * 6 + [_vp],

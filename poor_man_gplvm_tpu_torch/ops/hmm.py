@@ -32,6 +32,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from poor_man_gplvm_tpu_torch.ops import band as bd
 from poor_man_gplvm_tpu_torch.ops import parallel_scan as ps
 from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk
 from poor_man_gplvm_tpu_torch.ops.emissions import get_loglikelihood_ma_all
@@ -86,6 +87,26 @@ def _tiny(x):
 # ---------------------------------------------------------------------------
 
 
+def _wants_band(tlat):
+    """Whether the sequential smoother reads ``tlat`` through its band:
+    only the CUDA kernel does (the plain version on the CPU is dense)."""
+    return tlat.device.type == "cuda"
+
+
+def _cached_band(trans, tlat):
+    """The ``Band`` of the transition stack ``tlat`` (n_dyn, L, L) for the
+    sequential smoother K2, made at the first chunk that needs it and kept
+    on the (frozen) transition object, so that a decode over several host
+    chunks reads W to the host once; None where no kernel reads a band."""
+    if not _wants_band(tlat):
+        return None
+    if trans._band is None:
+        tlat = tlat.contiguous()
+        object.__setattr__(trans, "_band", bd.transition_band(
+            tlat, tlat.transpose(-1, -2).contiguous(), trans.uniform_rows))
+    return trans._band
+
+
 @dataclasses.dataclass(frozen=True)
 class LatentTransition:
     """Latent-only (L, L) transition; T[i, j] = p(j | i)."""
@@ -93,6 +114,8 @@ class LatentTransition:
     T: torch.Tensor
     logT: torch.Tensor
     uniform_rows: tuple = None
+    _band: object = dataclasses.field(default=None, repr=False,
+                                      compare=False)
 
     def __post_init__(self):
         if self.uniform_rows is None:
@@ -140,6 +163,7 @@ class LatentTransition:
         smooth, r = sk.smoother_chunk(
             filt_xs[:, None], prior_xs[:, None], self.T[None], ones,
             smooth_init[None], uniform_rows=self.uniform_rows,
+            band=_cached_band(self, self.T[None]),
         )
         return smooth[:, 0], r[:, 0]
 
@@ -155,6 +179,8 @@ class JointTransition:
     logTdyn: torch.Tensor
     logTlat: torch.Tensor
     uniform_rows: tuple = None
+    _band: object = dataclasses.field(default=None, repr=False,
+                                      compare=False)
 
     def __post_init__(self):
         if self.uniform_rows is None:
@@ -204,7 +230,8 @@ class JointTransition:
 
     def cuda_smooth(self, filt_xs, prior_xs, smooth_init):
         return sk.smoother_chunk(filt_xs, prior_xs, self.Tlat, self.Tdyn,
-                                 smooth_init, uniform_rows=self.uniform_rows)
+                                 smooth_init, uniform_rows=self.uniform_rows,
+                                 band=_cached_band(self, self.Tlat))
 
 
 # ---------------------------------------------------------------------------

@@ -17,10 +17,11 @@ The Pallas TPU kernels become hand-written CUDA kernels for Hopper
 (``csrc/parallel_scan.cu``; its header says what bounds them on the card):
 
 * K3 ``pfilter_pass``  <- ``_pfilter_kernel`` / ``_pfilter_pass``
-  (finals-only and emit)
+  (finals-only and emit), on the push half of the band of each channel's
+  nonzeros (``ops/band.py::transition_band``)
 * K4 ``psmooth_pass``  <- ``_psmooth_kernel`` / ``_psmooth_pass``
   (finals-only, full, marginal, and marginal with the pairwise joint), on
-  the band of each channel's nonzeros (``transition_band``)
+  both halves of the band
 * K5, inside K3/K4: the recursion dot in ``"highest"``, ``"bf16x3"`` or
   ``"bf16"`` precision (``_split_bf16`` / ``_scan_dot``), selected by
   ``set_scan_precision``
@@ -44,11 +45,18 @@ read and written in global time order, and the boundary carries are
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
-
 import numpy as np
 import torch
 
+from poor_man_gplvm_tpu_torch.ops.band import (  # noqa: F401 (re-exported)
+    Band,
+    _gather_band,
+    band_windows,
+    check_band,
+    set_band_override,
+    split_bf16,
+    transition_band,
+)
 from poor_man_gplvm_tpu_torch.ops.scan_kernels import (
     NORM_FLOOR,
     _check,
@@ -96,8 +104,6 @@ PSMOOTH_MODES = ("finals", "full", "marginal", "marginal_acc")
 _CONFIG_OVERRIDE = None
 #: precision of the fixed-point recursion dots
 _SCAN_PRECISION = "highest"
-#: test hook: K4 reads every channel as a dense band (W = L, windows at 0)
-_BAND_DENSE = False
 
 
 def set_scan_precision(mode):
@@ -131,23 +137,6 @@ def set_config_override(cfg):
     are not ported."""
     global _CONFIG_OVERRIDE
     _CONFIG_OVERRIDE = None if cfg is None else tuple(int(v) for v in cfg)
-
-
-def set_band_override(dense):
-    """Test hook: with ``dense=True`` every band ``transition_band`` makes
-    is the whole matrix (W = L, every window from row 0), K4's dense path;
-    ``False`` restores the narrowest band.  Both give the same bits (the
-    band leaves out only exact zeros), which the card tests hold."""
-    global _BAND_DENSE
-    _BAND_DENSE = bool(dense)
-
-
-def split_bf16(x):
-    """x (f32) -> (hi, lo) bf16 pair with hi + lo ~ x: hi the bf16
-    rounding, lo the bf16 rounding of the residual."""
-    hi = x.to(torch.bfloat16)
-    lo = (x - hi.float()).to(torch.bfloat16)
-    return hi, lo
 
 
 def scan_dot(a, b, mode, b_hilo=None):
@@ -201,72 +190,6 @@ def carry_spec(T, L, n_dyn, config=None):
     if config is None:
         return None
     return (config[0], max(1, n_dyn), L)
-
-
-# ---------------------------------------------------------------------------
-# K4's band: each column's window of nonzero rows
-# ---------------------------------------------------------------------------
-
-
-class Band(NamedTuple):
-    """The band K4 reads in place of the non-constant channels of tlat (the
-    push) and tlat_t (the pull): ``mats[0, m]`` and ``mats[1, m]`` (W, L)
-    hold rows ``start[., m, j] + k`` of column j of the m-th non-constant
-    channel's tlat and tlat_t, k < W.  ``hi``/``lo``: its ``split_bf16``
-    outside "highest"."""
-
-    W: int
-    start: torch.Tensor          # (2, n_mat, L) int32
-    mats: torch.Tensor           # (2, n_mat, W, L) float32
-    hi: Optional[torch.Tensor]   # (2, n_mat, W, L) bfloat16
-    lo: Optional[torch.Tensor]
-
-
-def band_windows(mats):
-    """The windows of rows that hold every nonzero of each column of
-    ``mats`` (n, L, L): returns (start (n, L) int32, W).  W is the largest
-    last - first + 1 over all columns (L for an all-zero column), the same
-    for all; column j's window starts at min(first_j, L - W), so that it
-    stays inside [0, L) and its extra rows are exact zeros.  With
-    ``set_band_override(True)``: W = L, every start 0.  Reads W to the
-    host (one sync)."""
-    n, L = mats.shape[0], mats.shape[-1]
-    if n == 0:
-        return torch.zeros((0, L), dtype=torch.int32, device=mats.device), 0
-    if _BAND_DENSE:
-        return torch.zeros((n, L), dtype=torch.int32, device=mats.device), L
-    nz = mats != 0
-    rows = torch.arange(L, device=mats.device)[:, None]
-    first = torch.where(nz, rows, L).amin(dim=1)
-    last = torch.where(nz, rows, -1).amax(dim=1)
-    W = int(torch.where(last >= first, last - first + 1, L).max())
-    return torch.clamp(first, max=L - W).to(torch.int32), W
-
-
-def _gather_band(mats, start, W):
-    """(n, W, L) band of ``mats`` (n, L, L): band[m, k, j] = mats[m,
-    start[m, j] + k, j]."""
-    idx = start.long()[:, None, :] + torch.arange(
-        W, device=mats.device)[None, :, None]
-    return mats.gather(1, idx)
-
-
-def transition_band(tlat, tlat_t, uniform_rows, scan_prec="highest"):
-    """K4's ``Band`` of ``tlat`` and ``tlat_t`` (n_dyn, L, L): the push and
-    pull windows of every channel not flagged constant in
-    ``uniform_rows`` (a constant channel takes the row-sum shortcut and has
-    no band), with its bf16 split outside "highest".  Made once per solve
-    by ``smooth_parallel``; W, which sizes K4's shared memory, is one host
-    read per solve, not per pass.  A dense channel gives W = L: the dense
-    matvec."""
-    L = tlat.shape[-1]
-    keep = [d for d, flag in enumerate(uniform_rows) if not flag]
-    mats = torch.stack([tlat[keep], tlat_t[keep]]).reshape(-1, L, L)
-    start, W = band_windows(mats)
-    band = _gather_band(mats, start, W).view(2, len(keep), W, L)
-    hi, lo = (None, None) if scan_prec == "highest" else split_bf16(band)
-    return Band(W, start.view(2, len(keep), L).contiguous(),
-                band.contiguous(), hi, lo)
 
 
 def _lib():
@@ -370,8 +293,12 @@ def pfilter_pass_plain(w, tlat, tdyn, ins, tc, uniform_rows, emit,
 
 
 def pfilter_pass(w, tlat, tdyn, ins, tc, uniform_rows, emit,
-                 scan_prec="highest", splits=None):
-    """K3 wrapper: same arguments and outputs as ``pfilter_pass_plain``."""
+                 scan_prec="highest", splits=None, band=None):
+    """K3 wrapper: same arguments and outputs as ``pfilter_pass_plain``.
+    On the card the kernel reads the non-constant channels through the
+    push half of ``band``, their ``transition_band`` in ``scan_prec`` (made
+    here when None; ``splits`` is then unused), and gives the dense
+    product's bits."""
     T, L = w.shape
     C, n_dyn = ins.shape[:2]
     _check_dims(n_dyn, L, uniform_rows)
@@ -382,23 +309,29 @@ def pfilter_pass(w, tlat, tdyn, ins, tc, uniform_rows, emit,
     _check("tlat", tlat, (n_dyn, L, L), dev)
     _check("tdyn", tdyn, (n_dyn, n_dyn), dev)
     _check("ins", ins, (C, n_dyn, L), dev)
+    if band is not None:
+        check_band(band, uniform_rows, L, dev, scan_prec)
     if dev.type == "cpu":
         return pfilter_pass_plain(w, tlat, tdyn, ins, tc, uniform_rows, emit,
                                   scan_prec, splits)
     if dev.type != "cuda":
         raise ValueError(f"pfilter_pass runs on cpu or cuda, not {dev.type}")
-    hi, lo = _splits(tlat, scan_prec, splits) or (None, None)
+    if band is None:
+        band = transition_band(tlat, tlat.transpose(-1, -2).contiguous(),
+                               uniform_rows, scan_prec)
     finals = torch.empty_like(ins)
     post = norm = None
     if emit:
         post = torch.empty((T, n_dyn, L), dtype=torch.float32, device=dev)
         norm = torch.empty((T,), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):  # the launch goes to the current device
+        # the push half leads each of the band's tensors
         err = _lib().pmg_pfilter_pass(
-            w.data_ptr(), tlat.data_ptr(), _ptr(hi), _ptr(lo),
-            tdyn.data_ptr(), ins.data_ptr(), finals.data_ptr(), _ptr(post),
-            _ptr(norm), T, C, tc, n_dyn, L, _mask(uniform_rows), int(emit),
-            _PREC_CODE[scan_prec], _stream_ptr(dev),
+            w.data_ptr(), tlat.data_ptr(), _ptr(band.mats), _ptr(band.hi),
+            _ptr(band.lo), _ptr(band.start), tdyn.data_ptr(), ins.data_ptr(),
+            finals.data_ptr(), _ptr(post), _ptr(norm), T, C, tc, n_dyn, L,
+            band.W, _mask(uniform_rows), int(emit), _PREC_CODE[scan_prec],
+            _stream_ptr(dev),
         )
     _count(pfilter_pass, "emit" if emit else "finals", scan_prec)
     _raise_on(err, "pfilter_pass")
@@ -502,6 +435,8 @@ def psmooth_pass(post, tlat, tlat_t, tdyn, ins, tc, uniform_rows, mode,
     _check("tlat_t", tlat_t, (n_dyn, L, L), dev)
     _check("tdyn", tdyn, (n_dyn, n_dyn), dev)
     _check("ins", ins, (C, n_dyn, L), dev)
+    if band is not None:
+        check_band(band, uniform_rows, L, dev, scan_prec)
     if dev.type == "cpu":
         return psmooth_pass_plain(post, tlat, tlat_t, tdyn, ins, tc,
                                   uniform_rows, mode, scan_prec, splits)
@@ -509,11 +444,6 @@ def psmooth_pass(post, tlat, tlat_t, tdyn, ins, tc, uniform_rows, mode,
         raise ValueError(f"psmooth_pass runs on cpu or cuda, not {dev.type}")
     if band is None:
         band = transition_band(tlat, tlat_t, uniform_rows, scan_prec)
-    n_mat = sum(not f for f in uniform_rows)
-    if band.mats.shape != (2, n_mat, band.W, L) or band.mats.device != dev \
-            or (scan_prec != "highest" and band.hi is None):
-        raise ValueError("band does not match the channels, device or "
-                         "precision of this pass")
     finals = torch.empty_like(ins)
     out = out2 = out3 = None
     if mode == "full":
@@ -711,10 +641,13 @@ def smooth_parallel(ll, tlat, tdyn, p_init, likelihood_scale, *,
     tlat = tlat.to(torch.float32).contiguous()
     tdyn = tdyn.to(torch.float32).contiguous()
     tlat_t = tlat.transpose(-1, -2).contiguous()
-    # the weight operands' bf16 splits, and K4's band, once per solve
-    sp_f = _splits(tlat, prec, None)
-    sp_b = None if sp_f is None else (sp_f, split_bf16(tlat_t))
+    # once per solve: the band K3 and K4 read on the card, and the dense
+    # bf16 splits that only the plain versions read, on the CPU
     band = transition_band(tlat, tlat_t, uniform_rows, prec)
+    sp_f = sp_b = None
+    if ll.device.type == "cpu" and prec != "highest":
+        sp_f = split_bf16(tlat)
+        sp_b = (sp_f, split_bf16(tlat_t))
     has_ws = warm_start is not None
     if has_ws:
         fwd_ws, bwd_ws, ws_pred, ws_valid = warm_start
@@ -737,7 +670,7 @@ def smooth_parallel(ll, tlat, tdyn, p_init, likelihood_scale, *,
 
     def fwd(ins):
         return pfilter_pass(w, tlat, tdyn, ins, tc, uniform_rows, False,
-                            prec, sp_f)[2]
+                            prec, sp_f, band)[2]
 
     def fwd_shift(fin):
         return torch.cat([ins0[:1], fin[:-1]])
@@ -749,7 +682,7 @@ def smooth_parallel(ll, tlat, tdyn, p_init, likelihood_scale, *,
         pred=(pred_f if use_fast else (np.inf if has_ws else None)),
         lam=(lam_f if use_fast else np.float32(1.0)))
     post, norm, fin_emit = pfilter_pass(w, tlat, tdyn, ins_f, tc,
-                                        uniform_rows, True, prec, sp_f)
+                                        uniform_rows, True, prec, sp_f, band)
     del w
     ratios = torch.log(norm) + likelihood_scale * m
     log_marginal = ratios.sum()

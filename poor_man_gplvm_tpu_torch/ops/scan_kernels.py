@@ -5,7 +5,9 @@ Pallas TPU kernels become hand-written CUDA C++ kernels for Hopper
 (``csrc/scan_kernels.cu``; its header says what bounds them on the card):
 
 * K1 ``filter_scan``  <- ``_filter_kernel`` / ``filter_chunk_pallas``
-* K2 ``smoother_scan`` <- ``_smoother_kernel`` / ``smoother_chunk_pallas``
+* K2 ``smoother_scan`` <- ``_smoother_kernel`` / ``smoother_chunk_pallas``,
+  on the pull half of the band of each channel's nonzeros
+  (``ops/band.py::transition_band``)
 
 Each wrapper checks its inputs, allocates the outputs with ``torch.empty``
 and launches on the current stream without synchronising.  On a CPU tensor
@@ -24,6 +26,8 @@ formed outside the sequential loop, and the per-step log ratios are
 from __future__ import annotations
 
 import torch
+
+from poor_man_gplvm_tpu_torch.ops.band import check_band, transition_band
 
 __all__ = [
     "filter_chunk",
@@ -203,8 +207,12 @@ def smoother_scan_plain(filt, prior, tlat_t, tdyn, init, uniform_rows):
     return smooth, rout
 
 
-def smoother_scan(filt, prior, tlat_t, tdyn, init, uniform_rows):
-    """K2 wrapper: same arguments and outputs as ``smoother_scan_plain``."""
+def smoother_scan(filt, prior, tlat_t, tdyn, init, uniform_rows, band=None):
+    """K2 wrapper: same arguments and outputs as ``smoother_scan_plain``.
+    On the card the kernel reads the non-constant channels through the
+    pull half of ``band``, the ``transition_band`` of tlat_t's stack (made
+    here when None: one host read; a caller with several chunks makes it
+    once), and gives the dense product's bits."""
     T, n_dyn, L = filt.shape
     _check_dims(n_dyn, L, uniform_rows)
     dev = filt.device
@@ -213,6 +221,8 @@ def smoother_scan(filt, prior, tlat_t, tdyn, init, uniform_rows):
     _check("tlat_t", tlat_t, (n_dyn, L, L), dev)
     _check("tdyn", tdyn, (n_dyn, n_dyn), dev)
     _check("init", init, (n_dyn, L), dev)
+    if band is not None:
+        check_band(band, uniform_rows, L, dev)
     if dev.type == "cpu":
         return smoother_scan_plain(filt, prior, tlat_t, tdyn, init,
                                    uniform_rows)
@@ -222,11 +232,16 @@ def smoother_scan(filt, prior, tlat_t, tdyn, init, uniform_rows):
     rout = torch.empty_like(smooth)
     if T == 0:  # nothing to smooth over (a T=1 sequence): launch nothing
         return smooth, rout
+    if band is None:
+        band = transition_band(tlat_t.transpose(-1, -2).contiguous(), tlat_t,
+                               uniform_rows)
     with torch.cuda.device(dev):
+        # the pull half is the second, contiguous half of the band
         err = _lib().pmg_smoother_scan(
             filt.data_ptr(), prior.data_ptr(), tlat_t.data_ptr(),
+            band.mats[1].data_ptr(), band.start[1].data_ptr(),
             tdyn.data_ptr(), init.data_ptr(), smooth.data_ptr(),
-            rout.data_ptr(), T, n_dyn, L, _mask(uniform_rows),
+            rout.data_ptr(), T, n_dyn, L, band.W, _mask(uniform_rows),
             _stream_ptr(dev),
         )
     smoother_scan.launches += 1
@@ -238,9 +253,10 @@ smoother_scan.launches = 0
 
 
 def smoother_chunk(filt_xs, prior_xs, tlat, tdyn, smooth_init,
-                   uniform_rows=None):
+                   uniform_rows=None, band=None):
     """Backward smoother over (T', n_dyn, L) filter posteriors and
-    +1-shifted priors (``smoother_chunk_pallas``).
+    +1-shifted priors (``smoother_chunk_pallas``); ``band``: the
+    ``transition_band`` of tlat, see ``smoother_scan``.
     Returns (smooth (T', n_dyn, L), ratios (T', n_dyn, L))."""
     if uniform_rows is None:
         uniform_rows = _detect_uniform_rows(tlat)
@@ -250,5 +266,5 @@ def smoother_chunk(filt_xs, prior_xs, tlat, tdyn, smooth_init,
     tlat_t = tlat.transpose(-1, -2).contiguous()
     return smoother_scan(
         filt_xs.contiguous(), prior_xs.contiguous(), tlat_t,
-        tdyn.contiguous(), smooth_init.contiguous(), uniform_rows,
+        tdyn.contiguous(), smooth_init.contiguous(), uniform_rows, band,
     )

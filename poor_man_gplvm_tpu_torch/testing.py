@@ -3,8 +3,8 @@
 K1/K2 (sequential) are compared by ``kernel_vs_plain``, K3/K4
 (parallel-in-time passes, every mode, each scan precision) by
 ``pscan_vs_plain`` (whole passes and the one-step check
-``pfilter_step_check``/``psmooth_step_check``), K4 on its band against K4
-forced dense by ``band_vs_dense``, ``joint_acc`` by
+``pfilter_step_check``/``psmooth_step_check``), K2, K3 and K4 on the band
+against the same kernel forced dense by ``band_vs_dense``, ``joint_acc`` by
 ``joint_acc_vs_plain``.
 
 Shared by the CPU tests, the card tests and ``chip_smoke.py``.  Everything
@@ -27,7 +27,7 @@ __all__ = [
     "scan_case",
     "kernel_vs_plain", "pscan_inputs", "pscan_vs_plain", "bwd_guess",
     "joint_acc_vs_plain", "JOINT_ACC_ENTRY_RTOL", "JOINT_ACC_FLOOR",
-    "band_vs_dense", "STEP_RTOL", "STEP_TOLERANCES",
+    "band_vs_dense", "BAND_K2_ROWS", "STEP_RTOL", "STEP_TOLERANCES",
     "pfilter_step_check", "psmooth_step_check", "pscan_failures",
 ]
 
@@ -456,12 +456,31 @@ def joint_acc_vs_plain(seed, T, L, n_dyn, device, passes=3):
     }
 
 
+def _present(outs):
+    return [x for x in outs if x is not None]
+
+
+def _all_equal(got, want):
+    return len(got) == len(want) and all(
+        torch.equal(g, w) for g, w in zip(got, want))
+
+
+#: rows of the sequential smoother's band-vs-dense run (forced dense it
+#: streams a whole channel per step at L = 500)
+BAND_K2_ROWS = 4000
+
+
 def band_vs_dense(case, device, scan_prec="highest"):
-    """K4 in every mode on its band and forced dense
-    (``set_band_override(True)``), on the same inputs (K3's plain
-    posteriors of ``case`` and ``smooth_parallel``'s first backward
-    guess): whether every output is bit-equal, whether every output is
-    finite and masked bins exact zeros, and the band's W."""
+    """K3 (finals-only, emit), K4 (every mode) and, in "highest" (its only
+    precision), K2, each on the band and forced dense
+    (``set_band_override(True)``), on the same inputs (the converged
+    forward carries of ``case``, K3's plain posteriors,
+    ``smooth_parallel``'s first backward guess; K2 on the first
+    ``BAND_K2_ROWS`` posteriors and their pushed priors): whether every
+    output is bit-equal (``equal_by_mode``: "k3_finals", "k3_emit", K4's
+    modes, "k2"), whether every output is finite, masked bins exact zeros
+    and K2's r zero where the prior is 0, and the heights W of the two
+    bands."""
     a = pscan_inputs(case, device, None, scan_prec)
     fwd = (a["w"], a["tlat"], a["tdyn"], a["ins"], a["tc"], a["flags"])
     post = ps.pfilter_pass_plain(*fwd, True, scan_prec)[0]
@@ -469,22 +488,41 @@ def band_vs_dense(case, device, scan_prec="highest"):
            bwd_guess(post, a["tc"], a["ins"].shape[0]), a["tc"], a["flags"])
     masked = torch.as_tensor(case["masked"], device=device)
     band = ps.transition_band(a["tlat"], a["tlat_t"], a["flags"], scan_prec)
+    ps.set_band_override(True)
+    try:
+        dense = ps.transition_band(a["tlat"], a["tlat_t"], a["flags"],
+                                   scan_prec)
+    finally:
+        ps.set_band_override(False)
     equal, finite, zeros = {}, True, True
-    for mode in ps.PSMOOTH_MODES:
-        got = [x for x in ps.psmooth_pass(*bwd, mode, scan_prec, band=band)
-               if x is not None]
-        ps.set_band_override(True)
-        try:
-            dense = ps.transition_band(a["tlat"], a["tlat_t"], a["flags"],
-                                       scan_prec)
-            want = [x for x in ps.psmooth_pass(*bwd, mode, scan_prec,
-                                               band=dense) if x is not None]
-        finally:
-            ps.set_band_override(False)
-        equal[mode] = all(torch.equal(g, w) for g, w in zip(got, want))
+
+    def hold(name, run, zero_in=None):
+        nonlocal finite, zeros
+        got, want = _present(run(band)), _present(run(dense))
+        equal[name] = _all_equal(got, want)
         finite &= all(bool(torch.isfinite(g).all()) for g in got)
-        if mode in ("full", "marginal"):
-            zeros &= bool((got[0][..., masked] == 0).all())
+        if zero_in is not None:
+            zeros &= bool((got[zero_in][..., masked] == 0).all())
+        return got
+
+    hold("k3_finals", lambda b: ps.pfilter_pass(*fwd, False, scan_prec,
+                                                band=b))
+    hold("k3_emit", lambda b: ps.pfilter_pass(*fwd, True, scan_prec, band=b),
+         zero_in=0)
+    for mode in ps.PSMOOTH_MODES:
+        hold(mode, lambda b, mode=mode: ps.psmooth_pass(*bwd, mode,
+                                                        scan_prec, band=b),
+             zero_in=0 if mode in ("full", "marginal") else None)
+    if scan_prec == "highest":
+        n = min(BAND_K2_ROWS, post.shape[0] - 1)
+        filt = post[:n].contiguous()
+        prior = ps._matvec(torch.einsum("tpl,pd->tdl", filt, a["tdyn"]),
+                           a["tlat"], a["flags"]).contiguous()
+        init = post[n].contiguous()
+        _, r = hold("k2", lambda b: sk.smoother_scan(
+            filt, prior, a["tlat_t"], a["tdyn"], init, a["flags"], band=b),
+            zero_in=0)
+        zeros &= bool((r[prior == 0] == 0).all())
     return {"band_equal_dense": all(equal.values()), "equal_by_mode": equal,
             "finite": finite, "masked_exact_zero": zeros, "W": band.W,
             "W_dense": dense.W}

@@ -1,7 +1,8 @@
 """Card tests: the CUDA scan kernels K1/K2 (sequential), K3/K4
 (parallel-in-time passes, every mode, with the K5 dots in each precision)
-and joint_acc against their plain versions; K4 on its band against K4
-forced dense, bit for bit.
+and joint_acc against their plain versions; K2, K3 and K4 on the band of
+nonzeros against the same kernel forced dense, bit for bit; and the
+parallel kernels against the sequential ones, bit for bit.
 
 Imports no jax, so it runs on a machine with a card and no JAX:
 
@@ -17,6 +18,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from poor_man_gplvm_tpu_torch.ops import band as bd  # noqa: E402
 from poor_man_gplvm_tpu_torch.ops import hmm  # noqa: E402
 from poor_man_gplvm_tpu_torch.ops import parallel_scan as ps  # noqa: E402
 from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk  # noqa: E402
@@ -160,6 +162,105 @@ def test_k4_band_equals_dense(cuda, L, n_dyn, scan_prec):
     assert eq["band_equal_dense"], eq
     assert eq["finite"] and eq["masked_exact_zero"], eq
     assert eq["W"] == 21 and eq["W_dense"] == L, eq
+
+
+@pytest.mark.parametrize("scan_prec", ["highest", "bf16x3", "bf16"])
+@pytest.mark.parametrize("case", SCAN_CASES)
+@pytest.mark.parametrize("n_dyn", [1, 2])
+@pytest.mark.parametrize("L", [100, 500])
+def test_k3_k2_band_equals_dense(cuda, L, n_dyn, case, scan_prec):
+    # K3 finals-only and emit in every precision, K2 (f32 only) and K4 on
+    # the band and forced dense: the RBF channel (W = 21), a dense channel
+    # ('identical': W = L, the same code) and a lone constant channel (no
+    # band at all)
+    eq = band_vs_dense(scan_case(L + n_dyn, 4001, L, n_dyn, case), cuda,
+                       scan_prec)
+    torch.cuda.synchronize()
+    by_mode = eq["equal_by_mode"]
+    assert by_mode["k3_finals"] and by_mode["k3_emit"], eq
+    assert by_mode.get("k2", scan_prec != "highest"), eq
+    assert eq["band_equal_dense"], eq
+    assert eq["finite"] and eq["masked_exact_zero"], eq
+    want_W = L if case == "identical" else (
+        0 if (n_dyn, case) == (1, "jump") else 21)
+    assert (eq["W"], eq["W_dense"]) == (want_W, L if want_W else 0), eq
+
+
+def _tensors(case, dev):
+    t = {k: torch.as_tensor(v, device=dev) for k, v in case.items()
+         if k != "masked"}
+    t["flags"] = sk._detect_uniform_rows(t["tlat"])
+    t["tlat_t"] = t["tlat"].transpose(-1, -2).contiguous()
+    t["w"] = torch.exp(t["ll"] - t["ll"].amax(dim=1, keepdim=True)
+                       ).contiguous()
+    return t
+
+
+@pytest.mark.parametrize("case", ["jump", "masked"])
+@pytest.mark.parametrize("L", [100, 500])
+def test_parallel_kernels_bit_identical_to_sequential(cuda, L, case):
+    # from the sequential kernels' own rows as boundary carries, K3 gives
+    # K1's posteriors and normalisers and K4 gives K2's smoothed posteriors
+    # and ratios, bit for bit: K3's step is K1's, K4's recomputed prior is
+    # K1's (r = carry / prior), K4's pull is K2's
+    T, C = 5001, 16
+    tc = -(-T // C)
+    t = _tensors(scan_case(L, T, L, 2, case), cuda)
+    post, prior, s = sk.filter_scan(t["w"], t["tlat"], t["tdyn"],
+                                    t["p_init"], t["flags"])
+    sm_seq, r_seq = sk.smoother_scan(
+        post[:-1].contiguous(), prior[1:].contiguous(), t["tlat_t"],
+        t["tdyn"], post[-1].contiguous(), t["flags"])
+    ins = torch.cat([t["p_init"][None],
+                     post[torch.arange(1, C, device=cuda) * tc - 1]])
+    post_k, norm_k, _ = ps.pfilter_pass(t["w"], t["tlat"], t["tdyn"],
+                                        ins.contiguous(), tc, t["flags"],
+                                        True)
+    assert torch.equal(post_k, post)
+    assert torch.equal(norm_k, s.clamp_min(1e-38))
+    sm_full = torch.cat([sm_seq, post[-1:]])
+    rows = (torch.arange(1, C + 1, device=cuda) * tc).clamp(max=T - 1)
+    sm_k, r_k, _ = ps.psmooth_pass(post, t["tlat"], t["tlat_t"], t["tdyn"],
+                                   sm_full[rows].contiguous(), tc,
+                                   t["flags"], "full")
+    torch.cuda.synchronize()
+    assert torch.equal(sm_k, sm_full)
+    assert torch.equal(r_k[:-1], r_seq) and bool((r_k[-1] == 0).all())
+
+
+def test_k2_band_raises_on_the_card_and_is_made_once(cuda, monkeypatch):
+    t = _tensors(scan_case(3, 230, 40, 2, "jump"), cuda)
+    post, prior, _ = sk.filter_scan(t["w"], t["tlat"], t["tdyn"],
+                                    t["p_init"], t["flags"])
+    args = (post[:-1].contiguous(), prior[1:].contiguous(), t["tlat_t"],
+            t["tdyn"], post[-1].contiguous(), t["flags"])
+    band = bd.transition_band(t["tlat"], t["tlat_t"], t["flags"])
+    want = sk.smoother_scan(*args)
+    got = sk.smoother_scan(*args, band=band)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    with pytest.raises(ValueError, match="band does not match"):
+        sk.smoother_scan(*args, band=band._replace(W=band.W - 1))
+    cpu_band = bd.transition_band(t["tlat"].cpu(), t["tlat_t"].cpu(),
+                                  t["flags"])
+    with pytest.raises(ValueError, match="band does not match"):
+        sk.smoother_scan(*args, band=cpu_band)
+    # a sequential decode over 7 host chunks: one band, 7 launches of K2
+    calls = []
+    real = bd.band_windows
+    monkeypatch.setattr(bd, "band_windows",
+                        lambda mats: calls.append(1) or real(mats))
+    trans = hmm.JointTransition(Tdyn=t["tdyn"], Tlat=t["tlat"],
+                                logTdyn=t["tdyn"].log(),
+                                logTlat=t["tlat"].log())
+    y = torch.poisson(torch.full((230, 5), 1.5, device=cuda))
+    tuning = torch.rand(40, 5, device=cuda) + 0.5
+    s0 = sk.smoother_scan.launches
+    out = hmm.smooth_combined_chunked(
+        y, tuning, {}, trans, torch.ones(5, device=cuda),
+        torch.ones(40, device=cuda), engine="cuda", n_time_per_chunk=37)
+    torch.cuda.synchronize()
+    assert len(calls) == 1 and sk.smoother_scan.launches == s0 + 7
+    assert bool(torch.isfinite(out[0]).all())
 
 
 def test_pscan_kernels_empty_chunks(cuda):

@@ -165,3 +165,51 @@ def test_wrappers_check_inputs():
         sk.smoother_scan(torch.rand(4, 3, 8), torch.rand(4, 3, 8),
                          torch.rand(3, 8, 8), torch.ones(3, 3),
                          torch.rand(3, 8), (False,) * 3)
+
+
+def _division_operands(kind, n=1_000_000):
+    """(x, y) float32 operands of the kernels' divisions: x >= 0 and 0 < y
+    < 2, with tails down to the subnormals and exact zeros."""
+    rng = np.random.default_rng({"normaliser": 1, "ratio": 2,
+                                 "subnormal": 3, "tie_prone": 4}[kind])
+    if kind == "normaliser":  # one term of a sum over the sum
+        y = np.exp(rng.uniform(np.log(1e-38), np.log(1.9), n))
+        x = y * rng.random(n) ** 8
+    elif kind == "ratio":  # smoothed posterior over prior, both anywhere
+        y = np.exp(rng.uniform(np.log(1e-45), np.log(1.9), n))
+        x = np.exp(rng.uniform(np.log(1e-45), np.log(1.0), n))
+    elif kind == "subnormal":  # quotients in the subnormal range
+        y = np.exp(rng.uniform(np.log(1e-3), np.log(1.9), n))
+        x = y * np.exp(rng.uniform(np.log(1e-45), np.log(1e-37), n))
+    else:  # few-bit operands, whose quotients sit closest to boundaries
+        y = rng.integers(1, 1 << 12, n) * 2.0 ** rng.integers(-40, -11, n)
+        x = rng.integers(0, 1 << 12, n) * 2.0 ** rng.integers(-149, -11, n)
+    x, y = x.astype(np.float32), y.astype(np.float32)
+    keep = (y > 0) & (y < 2)
+    x[::97] = 0.0
+    return x[keep], y[keep]
+
+
+@pytest.mark.parametrize("kind", ["normaliser", "ratio", "subnormal",
+                                  "tie_prone"])
+def test_division_by_reciprocal_gives_the_f32_quotient(kind):
+    """A numpy model of ``scan_common.cuh::div_by_rcp``: for f32 x >= 0 and
+    0 < y < 2, the f64 product of x with a reciprocal of y good to 2^-52,
+    rounded to f32, equals the correctly rounded f32 quotient bit for bit,
+    whichever way the reciprocal errs.  K2 and K3 divide this way; K1 and
+    K4 divide in f32, and the engines stay bit-identical."""
+    x, y = _division_operands(kind)
+    assert x.size > 900_000
+    with np.errstate(under="ignore", over="ignore"):
+        want = x / y  # IEEE f32 division
+        r = 1.0 / y.astype(np.float64)
+        assert np.isfinite(r).all()
+        for ulps in (-2, -1, 0, 1, 2):  # |e| <= 2^-52 and a little more
+            rr = r.copy()
+            for _ in range(abs(ulps)):
+                rr = np.nextafter(rr, np.inf if ulps > 0 else 0.0)
+            got = (x.astype(np.float64) * rr).astype(np.float32)
+            assert np.array_equal(got.view(np.int32), want.view(np.int32))
+    if kind == "subnormal":
+        tiny = np.float32(np.finfo(np.float32).tiny)
+        assert ((want > 0) & (want < tiny)).mean() > 0.5
