@@ -12,8 +12,13 @@ Phases, each of which checks its results (any failure exits non-zero):
 3. kernels: K1 (filter) and K2 (smoother) against their plain PyTorch
    versions on the same inputs on the card, at L in {100, 500}, n_dyn in
    {1, 2}, three cases (constant channel, identical non-constant rows,
-   masked bins) and at the decode shape, with the per-step times (K2 on
-   the band of nonzeros and, at L=500, forced dense);
+   masked bins) and at the decode shape, with the per-step times (both on
+   the band of nonzeros and, at L=500, forced dense, bit for bit); their
+   batched launches (one thread block per sequence, ragged lengths with a
+   1-bin sequence and an odd longest one) against ``*_batch_plain`` and,
+   bit for bit, against the unbatched kernel on each sequence alone, and
+   held against ``*_batch_plain`` and timed at every batch the epochs
+   phase launches (all 1,000 epochs at L=500, and its 256-epoch batch);
 4. parallel kernels: K3 (filter pass: finals-only, emit) and K4 (smoother
    pass: finals-only, full, marginal, marginal+acc) against their plain
    versions over the same grid at an odd T (ragged last chunk, T-1
@@ -22,7 +27,7 @@ Phases, each of which checks its results (any failure exits non-zero):
    (``testing.pfilter_step_check``), with controls that the check fails
    a kernel held against another precision; K2, K3 and K4 on the band
    against the same kernel forced dense (bit for bit, every mode and
-   precision, all three cases); ``joint_acc``
+   precision, all three cases; K1 with them); ``joint_acc``
    against its plain version per entry, with its one-pass control that
    must fail; then
    every kernel and mode held against its plain version and timed at
@@ -35,6 +40,14 @@ Phases, each of which checks its results (any failure exits non-zero):
    parallel one above its threshold), held against the plain ``'prob'``
    engine on the card, chunk invariance, naive Bayes, and the decode rate;
    and a decode below the threshold, through K1/K2;
+   epochs: ``decode_latent_epochs`` on 100 epochs of 100 bins from a
+   T=10,000, N = L = 100 recording (``bench.py``'s epoch cell) and on 1,000
+   ragged epochs of 50-400 bins from a T=100,000, N = L = 500 recording,
+   through one launch of K1 and one of K2 per batch, every epoch held
+   against ``decode_latent`` on that epoch alone and against the unbatched
+   kernels on the batch's own log-likelihood rows, a sample against the
+   ``'prob'`` engine, with ``batch_size`` invariance, and all epochs
+   timed, batched against the per-epoch loop;
 6. crossover: decode time of the sequential ('cuda', K1/K2) and the
    parallel ('cuda_parallel', K3/K4) engine over T, at N = L = 100 and
    500;
@@ -54,13 +67,16 @@ Phases, each of which checks its results (any failure exits non-zero):
    "highest" and "bf16x3" scan precisions (the bench's certificate: final
    log-marginals within 1e-5 relative), a capped fused vs ``fused=False``
    pair (the latter profiled: M-step / E-step seconds per iteration), a
+   fused fit under ``torch.profiler`` (device busy share, the count of
+   host-to-device copies), a
    middle E-step cold and warm-started, K3 emit and K4 marginal held
    against their plain versions at this shape, and
    ``smooth_combined_chunked(marginal_smooth=True)`` at T=100,000, with
    and without the pairwise joint, held against the full mode in each
    scan precision.
 
-Each main path (phases 5, 7, 8, 9) runs with the kernels' launch counts,
+Each main path (phases 5 with the epochs, 7, 8, 9) runs with the kernels'
+launch counts,
 by mode and precision, set to 0 just before it and read just after;
 comparison runs are not counted.  The line before the last is a JSON
 summary of the kernels; the last line is ``{"ok": true, "device":
@@ -84,6 +100,29 @@ T_LONG = 100_000  # the repo's headline fit cell (bench.py fit cell)
 SLICE_SHAPES = ((100, 100), (500, 500))  # (N, L)
 CROSSOVER_T = {100: (1000, 2000, 5000, 10_000, 20_000, 50_000, 100_000),
                500: (1000, 2000, 5000, 10_000)}  # L = N: decode lengths
+# the epochs phase: (N = L, recording length, epochs, (fewest, most) bins,
+# batch_size of the second run or None)
+EPOCH_CELLS = ((100, 10_000, 100, (100, 100), None),
+               (500, 100_000, 1000, (50, 400), 256))
+EPOCH_PROB_SAMPLE = 5  # epochs also held against the 'prob' engine
+EPOCH_ONE_SAMPLE = 50  # epochs also decoded as a batch of one
+# The batched decode of every epoch is held against two references.
+# (1) The unbatched kernels on the batch's own log-likelihood rows: the
+# same recursion on the same inputs, to EPOCH_SAME_LL_ATOL and
+# EPOCH_SAME_LL_LML_RTOL (the marginal over the dynamics and the sum of
+# the log ratios are the only operations in another order).
+# (2) decode_latent on the epoch alone, whose emission product, (bins, N)
+# @ (N, L), sums its N terms in another order than the batch's (E * Tmax,
+# N) @ (N, L): the log-likelihoods (~5e2 in size at N = 500) then differ by
+# f32 rounding, held to EPOCH_LL_ATOL, and sharp posteriors carry that
+# (3.1e-4 on the H100 at N = L = 500; the parallel engine's folded
+# emissions moved them by as much).  At N = L = 100 (2) keeps
+# DECODE_POST_ATOL.
+EPOCH_POST_ATOL = {100: 1e-4, 500: 1e-3}
+EPOCH_LL_ATOL = 1e-3
+EPOCH_SAME_LL_ATOL = 1e-5
+EPOCH_SAME_LL_LML_RTOL = 1e-6
+EPOCH_ALONE_ATOL = 1e-5  # a batch of ONE epoch against decode_latent
 FIT_ITERS = 10
 FIT_CMP_ITERS = 3
 GATE_PAIRS = 5  # fused fits with and without warm start, in turns
@@ -129,6 +168,13 @@ KERNELS = {
     "smoother_scan": ("smoother_scan", None,
                       "poor_man_gplvm_tpu_torch/csrc/scan_kernels.cu",
                       "poor_man_gplvm_tpu/ops/pallas/scan_kernels.py:200"),
+    "filter_scan_batch": ("filter_scan_batch", None,
+                          "poor_man_gplvm_tpu_torch/csrc/scan_kernels.cu",
+                          "poor_man_gplvm_tpu/ops/pallas/scan_kernels.py:80"),
+    "smoother_scan_batch": (
+        "smoother_scan_batch", None,
+        "poor_man_gplvm_tpu_torch/csrc/scan_kernels.cu",
+        "poor_man_gplvm_tpu/ops/pallas/scan_kernels.py:200"),
     **{f"{fn}[{mode}/{prec}]": (fn, f"{mode}/{prec}", PS_SRC, f"{JPS}:{line}"
                                 + ("" if prec == "highest" else K5))
        for prec in ("highest", "bf16x3", "bf16")
@@ -201,6 +247,8 @@ def _wrappers():
     from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk
 
     return {"filter_scan": sk.filter_scan, "smoother_scan": sk.smoother_scan,
+            "filter_scan_batch": sk.filter_scan_batch,
+            "smoother_scan_batch": sk.smoother_scan_batch,
             "pfilter_pass": ps.pfilter_pass, "psmooth_pass": ps.psmooth_pass,
             "joint_acc": ps.joint_acc}
 
@@ -259,9 +307,9 @@ def kernel_bound(name, T, L, n_dyn, nnz):
     rate = F32_FLOP_PER_S if prec == "highest" else BF16_FLOP_PER_S
     dot_s = T * 2.0 * nnz * passes / rate
     joint_s = 3 * 2.0 * T * (n_dyn * L) ** 2 / TF32_FLOP_PER_S
-    if name == "filter_scan":
+    if name.startswith("filter_scan"):  # a batch: T rows in all
         return bound(T * L * f4 + mats + 2 * state + T * f4, dot_s)
-    if name == "smoother_scan":
+    if name.startswith("smoother_scan"):
         return bound(4 * state + mats, dot_s)
     if name == "joint_acc":
         return bound(2 * state + n_dyn * mats, joint_s)
@@ -353,12 +401,11 @@ def phase_build():
         return bool(par.pmg_pscan_resident(kind, 2, 1, L, W, prec))
 
     log(f"build: {sec:.2f} s, one nvcc per source in parallel (resident in "
-        f"shared memory, n_dyn=2: K1 dense L=100 "
-        f"{bool(seq.pmg_scan_tlat_resident(2, 100))}, L=500 "
-        f"{bool(seq.pmg_scan_tlat_resident(2, 500))}; K2 pull band of one "
+        f"shared memory, n_dyn=2: K1/K2, each its half of the band of one "
         f"RBF channel (W=21) L=500 "
-        f"{bool(seq.pmg_smoother_resident(2, 1, 500, 21))}, dense L=500 "
-        f"{bool(seq.pmg_smoother_resident(2, 1, 500, 500))}; K3 push band "
+        f"{bool(seq.pmg_scan_band_resident(2, 1, 500, 21))}, dense L=100 "
+        f"{bool(seq.pmg_scan_band_resident(2, 1, 100, 100))}, dense L=500 "
+        f"{bool(seq.pmg_scan_band_resident(2, 1, 500, 500))}; K3 push band "
         f"W=21 L=500 {res(0, 500, 21)}, bf16x3 {res(0, 500, 21, 1)}, W=81 "
         f"{res(0, 500, 81)}, dense L=100 {res(0, 100, 100)}, dense L=500 "
         f"{res(0, 500, 500)}; K4 both bands W=21 L=100 {res(1, 100, 21)}, "
@@ -372,17 +419,30 @@ def _fmt(err):
                      for k, v in err.items())
 
 
-def phase_kernels():
-    from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk
+def _forced_dense_band(tlat, tlat_t, flags):
     from poor_man_gplvm_tpu_torch.ops.band import (
         set_band_override, transition_band,
     )
+
+    set_band_override(True)
+    try:
+        return transition_band(tlat, tlat_t, flags)
+    finally:
+        set_band_override(False)
+
+
+def phase_kernels():
+    from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk
+    from poor_man_gplvm_tpu_torch.ops.band import transition_band
     from poor_man_gplvm_tpu_torch.testing import (
-        SCAN_CASES, SCAN_TOLERANCES, kernel_vs_plain, scan_case,
+        BATCH_LENGTHS, SCAN_CASES, SCAN_TOLERANCES, batch_vs_single,
+        kernel_vs_plain, scan_case,
     )
 
     dev = torch.device("cuda")
-    worst = {"filter_scan": 0.0, "smoother_scan": 0.0}
+    worst = {name: 0.0 for name in ("filter_scan", "smoother_scan",
+                                    "filter_scan_batch",
+                                    "smoother_scan_batch")}
     grid = [(L, nd, c, T_GRID) for L in (100, 500) for nd in (1, 2)
             for c in SCAN_CASES]
     grid += [(L, 2, "jump", T_DECODE) for L in (100, 500)]
@@ -400,10 +460,31 @@ def phase_kernels():
         worst["smoother_scan"] = max(worst["smoother_scan"],
                                      err["smooth_abs"])
 
-    # per-step times at the decode shape (n_dyn=2 with the jump channel);
-    # K2 on its band, made once as a decode makes it, and at L=500 also
-    # forced dense (every window the whole column: the design before the
-    # band, in the same run)
+    # the batched launches, one thread block per sequence: ragged lengths
+    # with a 1-bin sequence and an odd longest one, against *_batch_plain
+    # and, bit for bit, against the unbatched kernel on each sequence alone
+    # (the normalisers to 1e-5 relative: a block sum in another order)
+    for L, n_dyn, case in [g[:3] for g in grid[:-2]]:
+        err = batch_vs_single(scan_case(L * 10 + n_dyn, sum(BATCH_LENGTHS), L,
+                                        n_dyn, case), dev)
+        torch.cuda.synchronize()
+        log(f"K1/K2 batch of {len(BATCH_LENGTHS)} (lengths {BATCH_LENGTHS}) "
+            f"vs plain and vs unbatched L={L} n_dyn={n_dyn} {case}: "
+            f"{_fmt(err)}")
+        for key in ("post_abs", "prior_abs", "smooth_abs", "r_rel"):
+            check(err[key] <= SCAN_TOLERANCES[key], (key, err))
+        check(err["norm_rel"] <= 1e-5 and err["equal_single"]
+              and err["finite"] and err["masked_exact_zero"], err)
+        worst["filter_scan_batch"] = max(worst["filter_scan_batch"],
+                                         err["post_abs"], err["prior_abs"])
+        worst["smoother_scan_batch"] = max(worst["smoother_scan_batch"],
+                                           err["smooth_abs"])
+
+    # per-step times at the decode shape (n_dyn=2 with the jump channel),
+    # each kernel on its half of the band, made once as a decode makes it,
+    # and at L=500 also forced dense (every window the whole column: the
+    # design before the band, in the same run), which must give the band's
+    # bits
     times = {}
     for L in (100, 500):
         c = scan_case(L, T_DECODE, L, 2, "jump")
@@ -411,41 +492,141 @@ def phase_kernels():
              if k != "masked"}
         flags = sk._detect_uniform_rows(t["tlat"])
         w = torch.exp(t["ll"] - t["ll"].amax(dim=1, keepdim=True)).contiguous()
-        args_f = (w, t["tlat"], t["tdyn"], t["p_init"], flags)
-        post, prior, _ = sk.filter_scan(*args_f)
         tlat_t = t["tlat"].transpose(-1, -2).contiguous()
+        band = transition_band(t["tlat"], tlat_t, flags)
+        args_f = (w, t["tlat"], t["tdyn"], t["p_init"], flags)
+        post, prior, _ = sk.filter_scan(*args_f, band=band)
         args_s = (post[:-1].contiguous(), prior[1:].contiguous(), tlat_t,
                   t["tdyn"], post[-1].contiguous(), flags)
-        band = transition_band(t["tlat"], tlat_t, flags)
-        times[L] = {
-            "filter_scan": (cuda_ms(lambda: sk.filter_scan(*args_f), 5),
-                            cuda_ms(lambda: sk.filter_scan_plain(*args_f), 1)),
-            "smoother_scan": (
-                cuda_ms(lambda: sk.smoother_scan(*args_s, band=band), 5),
-                cuda_ms(lambda: sk.smoother_scan_plain(*args_s), 1)),
-        }
-        for name, (ms, plain_ms) in times[L].items():
+        runs = {"filter_scan": (sk.filter_scan, sk.filter_scan_plain, args_f),
+                "smoother_scan": (sk.smoother_scan, sk.smoother_scan_plain,
+                                  args_s)}
+        times[L] = {}
+        for name, (kern, plain, args) in runs.items():
+            ms = cuda_ms(lambda: kern(*args, band=band), 5)
+            plain_ms = cuda_ms(lambda: plain(*args), 1)
+            times[L][name] = (ms, plain_ms)
             log(f"time {name} L={L} T={T_DECODE}: kernel {ms:.3f} ms "
-                f"({1e3 * ms / T_DECODE:.3f} us/step), plain {plain_ms:.1f} ms "
-                f"({1e3 * plain_ms / T_DECODE:.2f} us/step)"
-                + (f", band W={band.W}" if name == "smoother_scan" else ""))
+                f"({1e3 * ms / T_DECODE:.3f} us/step), plain {plain_ms:.1f} "
+                f"ms ({1e3 * plain_ms / T_DECODE:.2f} us/step), band "
+                f"W={band.W}")
         if L == 500:
-            set_band_override(True)
-            try:
-                dense = transition_band(t["tlat"], tlat_t, flags)
-            finally:
-                set_band_override(False)
-            got = sk.smoother_scan(*args_s, band=band)
-            want = sk.smoother_scan(*args_s, band=dense)
-            check(dense.W == L and all(torch.equal(g, x)
-                                       for g, x in zip(got, want)),
-                  "K2 on the band differs from K2 forced dense")
-            ms = cuda_ms(lambda: sk.smoother_scan(*args_s, band=dense), 3)
-            times[L]["smoother_scan_dense"] = ms
-            log(f"time smoother_scan L={L} T={T_DECODE} forced dense "
-                f"(W={dense.W}): kernel {ms:.3f} ms "
-                f"({1e3 * ms / T_DECODE:.3f} us/step); bit-equal to the band")
-    return worst, times
+            dense = _forced_dense_band(t["tlat"], tlat_t, flags)
+            check(dense.W == L, dense.W)
+            for name, (kern, _, args) in runs.items():
+                got = kern(*args, band=band)
+                want = kern(*args, band=dense)
+                check(all(torch.equal(g, x) for g, x in zip(got, want)),
+                      f"{name} on the band differs from {name} forced dense")
+                ms = cuda_ms(lambda: kern(*args, band=dense), 3)
+                times[L][f"{name}_dense"] = ms
+                log(f"time {name} L={L} T={T_DECODE} forced dense "
+                    f"(W={dense.W}): kernel {ms:.3f} ms "
+                    f"({1e3 * ms / T_DECODE:.3f} us/step); bit-equal to the "
+                    "band")
+    return worst, times, {cell[0]: _batch_timed(cell, dev)
+                          for cell in EPOCH_CELLS}
+
+
+def _epoch_lengths(seed, E, bins):
+    """E epoch lengths, uniform over [fewest, most] bins, from a seed."""
+    return np.random.default_rng(seed).integers(bins[0], bins[1] + 1, size=E)
+
+
+def _batch_timed(cell, dev):
+    """K1 and K2 batched at the batches a cell of the epochs phase
+    launches (its L, its epochs and their lengths, padded to the cell's
+    longest; n_dyn=2 with the jump channel): all E epochs, and where the
+    cell also runs with ``batch_size`` the first batch of that run (the
+    row's ``bs`` entry).  Each is held against ``*_batch_plain`` over every
+    row of every sequence (posteriors and priors; the smoothed posterior,
+    and r relative where prior and numerator are > 1e-30) and both are
+    timed; K2 in place on K1's outputs.  The plain loop over all epochs
+    runs as that first batch and the rest, so its time over all of them is
+    the sum of the two.  The bound takes a batch as the sum of its rows."""
+    from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk
+    from poor_man_gplvm_tpu_torch.ops.band import transition_band
+    from poor_man_gplvm_tpu_torch.testing import (
+        SCAN_TOLERANCES, _max_rel, scan_case,
+    )
+
+    L, _, E, bins, bs = cell
+    lengths = _epoch_lengths(L, E, bins)
+    Tmax = int(lengths.max())
+    c = scan_case(L + 1, 64 * Tmax, L, 2, "jump")
+    t = {k: torch.as_tensor(v, device=dev) for k, v in c.items()
+         if k != "masked"}
+    flags = sk._detect_uniform_rows(t["tlat"])
+    tlat_t = t["tlat"].transpose(-1, -2).contiguous()
+    band = transition_band(t["tlat"], tlat_t, flags)
+    nnz = _nnz(t["tlat"], flags)
+    w = torch.exp(t["ll"] - t["ll"].amax(dim=1, keepdim=True))
+    starts = (torch.arange(E, device=dev) * 7919) % (63 * Tmax)
+    w_all = w[starts[:, None] + torch.arange(Tmax, device=dev)[None, :]]
+    init_all = t["p_init"].expand(E, 2, L).contiguous()
+    len_all = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+    valid = torch.arange(Tmax, device=dev)[None, :] < len_all[:, None]
+    post, prior, _ = sk.filter_scan_batch(
+        w_all, t["tlat"], t["tdyn"], init_all, len_all, flags, band=band)
+    last = post[torch.arange(E, device=dev), (len_all - 1).long()].contiguous()
+    runs = {"filter_scan_batch": (
+                sk.filter_scan_batch, sk.filter_scan_batch_plain,
+                lambda sl: (w_all[sl], t["tlat"], t["tdyn"], init_all[sl],
+                            len_all[sl].contiguous(), flags)),
+            "smoother_scan_batch": (
+                sk.smoother_scan_batch, sk.smoother_scan_batch_plain,
+                lambda sl: (post[sl, :-1], prior[sl, 1:], tlat_t, t["tdyn"],
+                            last[sl], len_all[sl] - 1, flags))}
+
+    def held(name, sl, want, plain_ms):
+        """The kernel on the epochs ``sl`` against ``want``, and timed."""
+        kern, _, args = runs[name]
+        is_k1 = name == "filter_scan_batch"
+        n = sl.stop - sl.start
+        got = kern(*args(sl), band=band)
+        # K1 over a sequence's rows, K2 over one row fewer
+        own = valid[sl] if is_k1 else valid[sl, 1:]
+        err = max(float((g - x).abs()[own].max())
+                  for g, x in zip(got[:2 if is_k1 else 1], want))
+        check(err <= SCAN_TOLERANCES["post_abs" if is_k1 else "smooth_abs"],
+              (name, n, err))
+        r_rel = None
+        if not is_k1:
+            # r[t] = smooth[t + 1] / prior[t + 1], the last row's
+            # numerator being the filter's last posterior
+            nxt = torch.cat([want[0][:, 1:],
+                             torch.zeros_like(last[sl, None])], dim=1)
+            nxt[torch.arange(n, device=dev),
+                (len_all[sl] - 2).long()] = last[sl]
+            where = (own[:, :, None, None] & (prior[sl, 1:] > 1e-30)
+                     & (nxt > 1e-30))
+            r_rel = _max_rel(got[1], want[1], where)
+            check(r_rel <= SCAN_TOLERANCES["r_rel"], (name, n, r_rel))
+            del nxt, where
+        del got
+        steps = int(lengths[sl].sum()) - (0 if is_k1 else n)
+        b_ms, b_by = kernel_bound(name, steps, L, 2, nnz)
+        ms = cuda_ms(lambda: kern(*args(sl), band=band), 5)
+        log(f"time {name} L={L} E={n} epochs of {bins[0]}-{bins[1]} bins "
+            f"padded to {Tmax} ({steps} steps in all): kernel {ms:.3f} ms "
+            f"({1e3 * ms / steps:.4f} us per step of the batch), plain "
+            f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}); max |kernel - "
+            f"plain| {err:.3e}"
+            + ("" if r_rel is None else f", r rel {r_rel:.2e}"))
+        return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                    bound_by=b_by, library_ms=None, E=n, steps=steps)
+
+    parts = [slice(0, bs), slice(bs, E)] if bs else [slice(0, E)]
+    rows = {}
+    for name, (_, plain, args) in runs.items():
+        wants, plain_ms = zip(*(timed_once(lambda: plain(*args(sl)))
+                                for sl in parts))
+        whole = tuple(torch.cat(x) for x in zip(*wants))
+        rows[name] = held(name, slice(0, E), whole, sum(plain_ms))
+        del whole
+        if bs:
+            rows[name]["bs"] = held(name, parts[0], wants[0], plain_ms[0])
+    return rows
 
 
 #: the output of each K3/K4 mode that ``_pscan_timed`` holds against the
@@ -805,6 +986,165 @@ def phase_slice(launches):
     check(rel <= DECODE_LMF_RTOL, rel)
 
 
+def _epochs_on_batch_ll(m, y, intervals, post, lml):
+    """Hold the batched decode (``post`` (E, Tmax, L), ``lml`` (E,), numpy)
+    against the unbatched K1/K2 on each epoch's rows of the batch's own
+    log-likelihoods (the one (E * Tmax, N) @ (N, L) product of
+    ``hmm.smooth_epochs``): the same recursion on the same inputs.  Returns
+    (max |posterior diff|, max relative log-marginal diff, max |batch's
+    log-likelihoods - those of the epoch's own (bins, N) @ (N, L)
+    product|) over all epochs."""
+    from poor_man_gplvm_tpu_torch.ops import hmm
+    from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk
+    from poor_man_gplvm_tpu_torch.ops.emissions import get_loglikelihood_ma_all
+
+    dev = y.device
+    lengths = intervals[:, 1] - intervals[:, 0]
+    lens = torch.as_tensor(lengths, device=dev)
+    steps = torch.arange(int(lengths.max()), device=dev)
+    valid = steps[None, :] < lens[:, None]
+    rows = (torch.as_tensor(intervals[:, 0], device=dev)[:, None]
+            + steps[None, :]).clamp(max=y.shape[0] - 1)
+    ll = hmm.epoch_loglikelihoods(
+        y[rows] * valid[:, :, None], lens, m.tuning, {}, m.ma_neuron_default,
+        m.ma_latent_default, m.observation_model)
+    trans, _ = m._make_transition({})
+    tlat, tdyn = hmm._transition_stack(trans)
+    band = hmm._cached_band(trans, tlat)
+    p_init = torch.exp(trans.uniform_log_init()).reshape(tlat.shape[0], -1)
+    post_err = lml_rel = ll_gap = 0.0
+    for e, (a, b) in enumerate(intervals):
+        n = b - a
+        f_post, f_prior, ratios = sk.filter_chunk(
+            ll[e, :n], tlat, tdyn, p_init, 1.0,
+            uniform_rows=trans.uniform_rows, band=band)
+        smooth, _ = sk.smoother_chunk(
+            f_post[:-1], f_prior[1:], tlat, tdyn, f_post[-1],
+            uniform_rows=trans.uniform_rows, band=band)
+        lat = torch.cat([smooth.sum(dim=1), f_post[-1].sum(dim=0)[None]])
+        post_err = max(post_err, float(
+            (lat - torch.as_tensor(post[e, :n], device=dev)).abs().max()))
+        want = float(ratios.sum())
+        lml_rel = max(lml_rel, abs(want - lml[e]) / abs(want))
+        alone = get_loglikelihood_ma_all(
+            y[a:b], m.tuning, {}, m.ma_neuron_default, m.ma_latent_default,
+            observation_model=m.observation_model)
+        ll_gap = max(ll_gap, float((alone - ll[e, :n]).abs().max()))
+    return post_err, lml_rel, ll_gap
+
+
+def phase_epochs(launches):
+    """``decode_latent_epochs`` at full width (EPOCH_CELLS): the batched
+    decode through K1/K2 batch, every epoch held against ``decode_latent``
+    on that epoch alone (the per-epoch loop of the reference workflow) and
+    against the unbatched kernels on the batch's own log-likelihood rows, a
+    sample against the 'prob' engine; all epochs timed on both sides, after
+    a warm-up."""
+    for L, T, E, bins, bs in EPOCH_CELLS:
+        m, params, y = _decode_setup(L, L, T)
+        m_prob = _model(L, L, "prob", params)
+        rng = np.random.default_rng(L + E)
+        lengths = _epoch_lengths(L, E, bins)
+        starts = rng.integers(0, T - lengths)
+        intervals = np.stack([starts, starts + lengths], axis=1)
+        Tmax = int(lengths.max())
+
+        def batch_launches(run):
+            before = dict(launches)
+            with counted(launches):
+                sec, res = wall_s(run)
+            return sec, res, tuple(
+                launches[k] - before.get(k, 0)
+                for k in ("filter_scan_batch", "smoother_scan_batch"))
+
+        m.decode_latent_epochs(y, intervals)  # warm-up
+        sec, res, n_launch = batch_launches(
+            lambda: m.decode_latent_epochs(y, intervals))
+        check(n_launch == (1, 1), f"K1/K2 batch launches {n_launch}")
+        post, lml = res["posterior_latent_marg"], res["log_marginal_per_epoch"]
+        valid = np.arange(Tmax)[None, :] < lengths[:, None]
+        check(post.shape == (E, Tmax, L) and lml.shape == (E,)
+              and res["posterior_mean"].shape == (E, L)
+              and np.array_equal(res["lengths"], lengths)
+              and np.array_equal(res["valid"], valid), "epochs result shapes")
+        check(np.array_equal(np.isnan(post),
+                             np.broadcast_to(~valid[:, :, None], post.shape)),
+              "NaN exactly past each epoch's end")
+        row_err = float(np.abs(post.sum(axis=2)[valid] - 1).max())
+        check(row_err <= 1e-4 and np.isfinite(lml).all()
+              and np.isfinite(res["posterior_mean"]).all(), row_err)
+        if bs:
+            sec_bs, res_bs, n_launch = batch_launches(
+                lambda: m.decode_latent_epochs(y, intervals, batch_size=bs))
+            n_batch = -(-E // bs)
+            check(n_launch == (n_batch, n_batch), n_launch)
+            check(all(np.array_equal(res[k], res_bs[k], equal_nan=True)
+                      for k in res), f"batch_size={bs} changed the result")
+            log(f"epochs N=L={L}: batch_size={bs} ({n_batch} batches, "
+                f"{n_launch} launches of K1/K2 batch) equals one batch bit "
+                f"for bit; {sec_bs:.3f} s")
+
+        # the per-epoch loop, every epoch, through K1/K2 unbatched
+        m.decode_latent(y[intervals[0, 0]:intervals[0, 1]])  # warm-up
+        kept = []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a, b in intervals:
+            d = m.decode_latent(y[a:b])
+            kept.append((d["posterior_latent_marg"], d["log_marginal_final"]))
+        torch.cuda.synchronize()
+        loop_sec = time.perf_counter() - t0
+        alone = [k[0].cpu().numpy() for k in kept]
+        post_err = max(float(np.abs(alone[e] - post[e, :lengths[e]]).max())
+                       for e in range(E))
+        lml_rel = max(abs(kept[e][1] - lml[e]) / abs(kept[e][1])
+                      for e in range(E))
+        same_err, same_rel, ll_gap = _epochs_on_batch_ll(m, y, intervals,
+                                                         post, lml)
+        # a batch of one epoch: the same kernels on the epoch's own
+        # emission product
+        one_err = 0.0
+        pick = np.sort(rng.choice(E, min(E, EPOCH_ONE_SAMPLE), replace=False))
+        for e in pick:
+            one = m.decode_latent_epochs(y, intervals[e:e + 1])
+            one_err = max(one_err, float(np.abs(
+                one["posterior_latent_marg"][0] - alone[e]).max()))
+        prob_post, prob_rel = 0.0, 0.0
+        for e in pick[:EPOCH_PROB_SAMPLE]:
+            a, b = intervals[e]
+            ref = m_prob.decode_latent(y[a:b])
+            prob_post = max(prob_post, float(np.abs(
+                ref["posterior_latent_marg"].cpu().numpy()
+                - post[e, :lengths[e]]).max()))
+            prob_rel = max(prob_rel, abs(ref["log_marginal_final"] - lml[e])
+                           / abs(ref["log_marginal_final"]))
+        log(f"decode_latent_epochs N=L={L} E={E} epochs of {bins[0]}-{bins[1]}"
+            f" bins (Tmax={Tmax}, {int(lengths.sum())} bins in all) from a "
+            f"T={T} recording: batched {sec:.4f} s (one launch each of K1 and "
+            f"K2 batch), per-epoch decode_latent loop over all {E} epochs "
+            f"{loop_sec:.4f} s ({loop_sec / sec:.1f}x); all {E} epochs vs the "
+            f"unbatched kernels on the batch's own log-likelihood rows: max "
+            f"|post diff| {same_err:.2e} (limit {EPOCH_SAME_LL_ATOL:.0e}), "
+            f"log-marginal rel {same_rel:.2e}; the batch's log-likelihoods vs "
+            f"each epoch's own product: max |diff| {ll_gap:.2e} (limit "
+            f"{EPOCH_LL_ATOL:.0e}); all {E} epochs vs decode_latent alone: "
+            f"max |post diff| {post_err:.2e} (limit "
+            f"{EPOCH_POST_ATOL[L]:.0e}), log-marginal rel {lml_rel:.2e}; a "
+            f"batch of one epoch vs that epoch alone on {len(pick)}: "
+            f"{one_err:.2e}; vs the prob engine on "
+            f"{min(len(pick), EPOCH_PROB_SAMPLE)}: {prob_post:.2e}, "
+            f"{prob_rel:.2e}; row-sum err {row_err:.1e}")
+        check(same_err <= EPOCH_SAME_LL_ATOL
+              and same_rel <= EPOCH_SAME_LL_LML_RTOL, (same_err, same_rel))
+        check(ll_gap <= EPOCH_LL_ATOL, ll_gap)
+        check(post_err <= EPOCH_POST_ATOL[L] and lml_rel <= DECODE_LMF_RTOL,
+              (post_err, lml_rel))
+        check(one_err <= EPOCH_ALONE_ATOL, one_err)
+        check(prob_post <= EPOCH_POST_ATOL[L] and prob_rel <= DECODE_LMF_RTOL,
+              (prob_post, prob_rel))
+        del res, post, kept, alone, y
+
+
 def phase_crossover():
     """Decode time of the two engines over T at N = L (the measurement
     behind hmm._PARALLEL_UPGRADE_MIN_T)."""
@@ -955,8 +1295,9 @@ def phase_fit(launches):
 
 def device_busy(fn, top=6):
     """(wall s, device busy s, the ``top`` kernels by device time as (name,
-    ms, calls)) of ``fn`` under torch.profiler: the sum of the CUDA
-    kernels' times against the host clock around the call."""
+    ms, calls), the count of host-to-device copies) of ``fn`` under
+    torch.profiler: the sum of the CUDA kernels' times against the host
+    clock around the call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -967,9 +1308,10 @@ def device_busy(fn, top=6):
                if e.device_type == DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
     kernels.sort(key=lambda e: -e.self_device_time_total)
+    h2d = sum(e.count for e in kernels if "memcpy htod" in e.key.lower())
     return wall, busy_us / 1e6, [
         (e.key[:48], round(e.self_device_time_total / 1e3, 1), e.count)
-        for e in kernels[:top]]
+        for e in kernels[:top]], h2d
 
 
 def log_busy(what, busy):
@@ -977,7 +1319,8 @@ def log_busy(what, busy):
     log(f"{what} under torch.profiler: wall {wall:.3f} s, device busy "
         f"{dev:.3f} s ({100 * dev / wall:.1f} %), idle "
         f"{100 - 100 * dev / wall:.1f} % (the host gap between launches and "
-        f"reads); top kernels (name, ms, calls) {busy[2]}")
+        f"reads); host-to-device copies {busy[3]}; top kernels (name, ms, "
+        f"calls) {busy[2]}")
 
 
 @contextlib.contextmanager
@@ -1216,10 +1559,11 @@ def main():
     from poor_man_gplvm_tpu_torch.testing import scan_case
 
     phase_build()
-    worst, times = phase_kernels()
+    worst, times, batch_rows = phase_kernels()
     pworst, rows = phase_pscan_kernels()
     launches = {}
     phase_slice(launches)
+    phase_epochs(launches)
     phase_crossover()
     phase_long_decode(launches)
     phase_fit(launches)
@@ -1234,7 +1578,16 @@ def main():
                  "replaces": replaces, "launches": path[name]}
         for L in (100, 500):
             sfx = "" if L == 100 else "_L500"
-            if name in ("filter_scan", "smoother_scan"):
+            if name in batch_rows[L]:
+                row = dict(batch_rows[L][name], err=max(
+                    worst[name], batch_rows[L][name]["err"]))
+                for key in ("E", "steps"):
+                    entry[f"{key}{sfx}"] = row[key]
+                for key, v in row.get("bs", {}).items():
+                    key = "max_abs_err" if key == "err" else key
+                    entry[f"{key}_bs{sfx}"] = v
+                shape_T = None
+            elif name in ("filter_scan", "smoother_scan"):
                 ms, plain_ms = times[L][name]
                 b_ms, b_by = kernel_bound(name, T_DECODE, L, 2, int(
                     np.count_nonzero(scan_case(L, 2, L, 2, "jump")["tlat"][0])))
@@ -1258,10 +1611,17 @@ def main():
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"):
             if f"{key}_L500_dense" in row:
                 entry[f"{key}_L500_dense"] = row[f"{key}_L500_dense"]
-        entry["shape"] = f"T={shape_T} n_dyn=2 (one RBF channel, ls=1, and " \
-            "the jump channel) L=100; *_L500 at L=500; *_L500_dense on a " \
-            "dense channel (K2: the band forced dense); probe_ms* with " \
-            "the band cut to one row (joint_acc: one TF32 product)"
+        entry["shape"] = (
+            "a batch of E sequences of `steps` rows in all, one thread "
+            "block each, n_dyn=2 (one RBF channel, ls=1, and the jump "
+            "channel): every batch the epochs phase launches, all E epochs "
+            "of its cell at L=100 and, *_L500, at L=500, and *_bs_L500 the "
+            "first batch of its batch_size run; each held against plain"
+            if shape_T is None else
+            f"T={shape_T} n_dyn=2 (one RBF channel, ls=1, and "
+            "the jump channel) L=100; *_L500 at L=500; *_L500_dense on a "
+            "dense channel (K1, K2: the band forced dense); probe_ms* with "
+            "the band cut to one row (joint_acc: one TF32 product)")
         kernels.append(entry)
     log(f"K3/K4 grid, worst kernel-vs-plain by precision: "
         f"{ {f'{p}/{k}': v for (p, k), v in pworst.items()} }")

@@ -43,12 +43,6 @@ __device__ __forceinline__ float window_matvec(const float* __restrict__ vec,
   return a;
 }
 
-__device__ __forceinline__ float col_matvec(const float* __restrict__ vec,
-                                            const float* __restrict__ mat,
-                                            int L, int j) {
-  return window_matvec<>(vec, mat, 0, L, L, j);
-}
-
 // ---------------------------------------------------------------------------
 // K5: the recursion dot in reduced precision
 // (poor_man_gplvm_tpu/ops/pallas/parallel_scan.py::_split_bf16 / _scan_dot)

@@ -14,11 +14,16 @@
 // between blocks.  There is no 128-lane or block_t padding: the loop runs
 // to exactly T and threads j >= L are masked.
 //
-// Layout: thread j owns latent column j (blockDim = L rounded up to 32,
-// at most 1024).  Its carry (n_dyn values) lives in its registers, since
-// step t+1 needs only column j of step t's posterior.  The vector that
-// every thread reads in the matvec (the dynamics-mixed carry q in K1, the
-// ratio r in K2) goes to shared memory.  Each step has two barriers:
+// Layout: one thread block per sequence (blockIdx.x = sequence index; a
+// single sequence is a batch of one), thread j owns latent column j
+// (blockDim = L rounded up to 32, at most 1024).  A block runs exactly its
+// own length, lengths[e] <= Tmax, and writes nothing past it.  The
+// transition stack, tdyn and the band are shared by all blocks; each block
+// keeps its own copy of the band in shared memory.  Thread j's carry (n_dyn
+// values) lives in its registers, since step t+1 needs only column j of
+// step t's posterior.  The vector that every thread reads in the matvec
+// (the dynamics-mixed carry q in K1, the ratio r in K2) goes to shared
+// memory.  Each step has two barriers:
 //   (a) after q (or r) and the warp partials of the constant-channel sums
 //       are written, so that the matvec sees the whole vector;
 //   (b) after the warp partials of the normaliser are written.
@@ -26,21 +31,15 @@
 // t+1's writes of q, so one buffer suffices: no thread can overwrite the
 // shared vector (or a partials array) while another still reads step t's.
 //
-// What bounds it on this card: the scan is one dependent chain of T steps,
+// What bounds it on this card: a scan is one dependent chain of T steps,
 // each a (1,L)@(L,L) matvec per dynamics channel plus a block-wide sum, so
-// it is latency-bound and uses 1 of the H100's 132 SMs.
-//   * K1 (dense), L=100: both (L,L) f32 channels are 80 KB, so Tlat is
-//     copied once into shared memory (dynamic shared memory, opted in above
-//     48 KB) and every step reads it from there; neighbouring threads read
-//     neighbouring addresses (no bank conflicts) and q[i] is a broadcast.
-//   * K1 (dense), L=500: one channel is 1 MB and does not fit in 227 KB of
-//     shared memory.  Tlat is then read from global memory with coalesced
-//     loads; it stays resident in the 50 MB L2, and each step streams the
-//     full matrix from L2 into the one SM, which bounds the step time.
-//   * K2 (banded): reads only each column's window of nonzero rows, W of
-//     L, from the pull half of a band made once per decode
-//     (ops/band.py::transition_band) and kept in shared memory when it
-//     fits (smoother_kernel's note).
+// one sequence is latency-bound on 1 of the H100's 132 SMs; a batch of
+// short sequences (decode_latent_epochs) fills the card with one block
+// each.
+//   * Both kernels read only each column's window of nonzero rows, W of L,
+//     from a band made once per decode (ops/band.py::transition_band): K1
+//     the push half, K2 the pull half, kept in shared memory when it fits
+//     (the kernels' notes).  A dense channel is the band W = L.
 //   * The constant (jump) channel has every entry equal, so its matvec is
 //     sum(q) * row: no matrix traffic at all (detected on the host exactly
 //     as _detect_uniform_rows does; identical but non-constant rows take
@@ -48,13 +47,13 @@
 // Long sequences fill the card through the parallel-in-time kernels K3/K4
 // (parallel_scan.cu), which run this step on one block per chunk.
 //
-// Numerics: f32 with FMA; the normaliser is clamped at 1e-38 as in K1/K2;
-// r = 0 where the prior is 0 (never 0/0), so latent bins masked to zero
-// weight give exact zeros, not NaNs.  K1 writes each step's normaliser s_t
+// Numerics: f32 with FMA; the normaliser is clamped at 1e-38 as in the TPU
+// kernels; r = 0 where the prior is 0 (never 0/0), so latent bins masked to
+// zero weight give exact zeros, not NaNs.  K1 writes each step's normaliser s_t
 // itself (Mosaic could not store a dynamic 1-D slice, so JAX recomputed it
-// outside the kernel); the caller forms log(s_t) + scale * m_t.  K1 divides
-// in f32, K2 through an f64 reciprocal: the same bits
-// (scan_common.cuh::div_by_rcp).
+// outside the kernel); the caller forms log(s_t) + scale * m_t.  Both
+// kernels divide through an f64 reciprocal, which gives the f32 quotient's
+// bits (scan_common.cuh::div_by_rcp).
 
 #include "scan_common.cuh"
 
@@ -62,100 +61,192 @@ namespace {
 
 using namespace pmg;
 
+// One launch of K1 or K2 over a batch of E sequences.  Every sequence has
+// Tmax rows of storage and runs lengths[e] of them (Tmax when lengths is
+// null).  `x`/`x2` are the per-row inputs (K1: w; K2: filt and prior) with
+// their own strides between sequences, in elements, so that K2 can read the
+// filter's outputs in place (filt = post[:, :-1], prior = prior[:, 1:]);
+// the outputs are contiguous.
+struct SeqArgs {
+  const float* x;      // K1: w (E, Tmax, L); K2: filt (E, Tmax, ND, L)
+  const float* x2;     // K2: prior (E, Tmax, ND, L), +1-shifted
+  const float* tlat;   // (ND, L, L), K2: transposed per channel; read for
+                       // the constant channels' first rows
+  const float* band;   // (n_mat, W, L): K1 the push windows, K2 the pull
+                       // windows of the n_mat non-constant channels;
+                       // band[m][k][j] = row win0[m][j] + k of column j
+  const int* win0;     // (n_mat, L)
+  const float* tdyn;   // (ND, ND)
+  const float* init;   // (E, ND, L)
+  const int* lengths;  // (E,) or null
+  float* out;          // K1: post; K2: smooth (E, Tmax, ND, L)
+  float* out2;         // K1: prior; K2: r (E, Tmax, ND, L)
+  float* norm;         // K1: (E, Tmax) sum of the unnormalised u_t
+  long long x_stride, x2_stride;
+  int Tmax, L, W, n_mat, mask;
+};
+
+__device__ __forceinline__ int seq_length(const SeqArgs& a, int e) {
+  return a.lengths ? min(max(a.lengths[e], 0), a.Tmax) : a.Tmax;
+}
+
 // K1: causal filter over pre-computed weights w = exp(scale*(ll - rowmax)).
-// w (T, L); tlat (ND, L, L) with tlat[d][i][j] = p(j | i, dyn=d);
-// tdyn (ND, ND) with tdyn[p][d] = p(d | p); init (ND, L).
-// Out: post and prior (T, ND, L), norm (T,) = sum of unnormalised u_t.
+// Per sequence: w (T, L); tlat[d][i][j] = p(j | i, dyn=d); tdyn[p][d] =
+// p(d | p); init (ND, L).  Out: post and prior (T, ND, L), norm (T,) = sum
+// of the unnormalised u_t.
+//
+// Design for the H100 (PERF.md §5-6), K2's and K3's.  The dense kernel
+// streamed each non-constant channel's whole 1 MB matrix from L2 into its
+// SM every step at L = 500 (22 us a step), ~96 % of it exact zeros for the
+// RBF movement channel.  Here the push reads the channel's band: W rows per
+// column (21 at lengthscale 1), resident in shared memory whenever W * L *
+// 4 bytes fit beside q (42 KB at L = 500), else streamed from L2 with 16
+// loads in flight.  The sum runs over the window ascending with fmaf, the
+// dense loop's order, and fmaf(x, +0, a) = a, so the bits are the dense
+// kernel's; a dense channel is the band W = L, win0 = 0: the same code.
+// The weight row w[t+1], which does not depend on the recursion, is loaded
+// into a register while step t computes.  A store placed just before a
+// block barrier holds the barrier up, so post[t], prior[t] and norm[t]
+// (still in registers) go out right after the next step's barrier (a),
+// ahead of the window dot, and the last row after the loop.  The division
+// by the normaliser is one f64 reciprocal shared by the channels and an
+// f64 product each, which has the f32 quotient's bits
+// (scan_common.cuh::div_by_rcp): this step is K3's, bit for bit.
 template <int ND, bool RESIDENT>
-__global__ void __launch_bounds__(kMaxThreads)
-filter_kernel(const float* __restrict__ w, const float* __restrict__ tlat_g,
-              const float* __restrict__ tdyn_g,
-              const float* __restrict__ init, float* __restrict__ post,
-              float* __restrict__ prior_out, float* __restrict__ norm, int T,
-              int L, int uniform_mask) {
+__global__ void __launch_bounds__(kMaxThreads) filter_kernel(SeqArgs a) {
   extern __shared__ float smem[];
-  float* q = smem;            // (ND, L) dynamics-mixed carry
-  float* tl_s = smem + ND * L;  // (ND, L, L) when RESIDENT
+  float* q = smem;                  // (ND, L) dynamics-mixed carry
+  float* band_s = smem + ND * a.L;  // (n_mat, W, L) when RESIDENT
   __shared__ float red_q[32][ND];
   __shared__ float red_u[32];
 
-  const int j = threadIdx.x;
+  const int L = a.L, W = a.W, j = threadIdx.x;
   const int lane = j & 31, warp = j >> 5, nwarp = blockDim.x >> 5;
   const bool live = j < L;
-  const size_t LL = (size_t)L * L;
+  const size_t LL = (size_t)L * L, WL = (size_t)W * L;
+  const int e = blockIdx.x;
+  const int T = seq_length(a, e);
+  if (T <= 0) return;  // the whole block
+  const float* __restrict__ w = a.x + (size_t)e * a.x_stride;
+  const size_t row = (size_t)ND * L;
+  float* __restrict__ post = a.out + (size_t)e * a.Tmax * row;
+  float* __restrict__ prior_out = a.out2 + (size_t)e * a.Tmax * row;
+  float* __restrict__ norm = a.norm + (size_t)e * a.Tmax;
 
   if (RESIDENT) {
-    for (size_t k = j; k < ND * LL; k += blockDim.x) tl_s[k] = tlat_g[k];
+    for (size_t k = j; k < a.n_mat * WL; k += blockDim.x) band_s[k] = a.band[k];
   }
-  const float* tlat = RESIDENT ? tl_s : tlat_g;
+  const float* band = RESIDENT ? band_s : a.band;
 
-  float tdyn[ND][ND], carry[ND], row0[ND];
+  float tdyn[ND][ND], carry[ND], row0[ND], pr[ND];
+  size_t off_f[ND];  // each channel's push band
+  int i0_f[ND];      // first row of column j's window
+  int slot = 0;
 #pragma unroll
   for (int p = 0; p < ND; ++p)
 #pragma unroll
-    for (int d = 0; d < ND; ++d) tdyn[p][d] = tdyn_g[p * ND + d];
+    for (int d = 0; d < ND; ++d) tdyn[p][d] = a.tdyn[p * ND + d];
 #pragma unroll
   for (int d = 0; d < ND; ++d) {
-    carry[d] = live ? init[d * L + j] : 0.f;
-    row0[d] = live ? tlat_g[d * LL + j] : 0.f;
+    carry[d] = live ? a.init[(size_t)e * row + d * L + j] : 0.f;
+    row0[d] = live ? a.tlat[d * LL + j] : 0.f;
+    pr[d] = 0.f;
+    off_f[d] = 0;
+    i0_f[d] = 0;
+    if (!((a.mask >> d) & 1)) {
+      off_f[d] = slot * WL;
+      if (live) i0_f[d] = a.win0[slot * L + j];
+      ++slot;
+    }
   }
-  __syncthreads();  // resident Tlat complete
+  // the weight of the next row, a step ahead
+  float w_next = live ? w[j] : 0.f;
+  float s_prev = 0.f;  // the normaliser of the row not yet stored
+  __syncthreads();     // resident band complete
 
   for (int t = 0; t < T; ++t) {
-    const float wt = live ? w[(size_t)t * L + j] : 0.f;
+    const float wt = w_next;
+    if (live && t + 1 < T) w_next = w[(size_t)(t + 1) * L + j];
     // dynamics mix of the own column: q_d = sum_p Tdyn[p,d] * carry_p
 #pragma unroll
     for (int d = 0; d < ND; ++d) {
-      float a = tdyn[0][d] * carry[0];
+      float v = tdyn[0][d] * carry[0];
 #pragma unroll
-      for (int p = 1; p < ND; ++p) a = fmaf(tdyn[p][d], carry[p], a);
-      if (live) q[d * L + j] = a;
-      if ((uniform_mask >> d) & 1) {
-        const float s = warp_sum(a);
+      for (int p = 1; p < ND; ++p) v = fmaf(tdyn[p][d], carry[p], v);
+      if (live) q[d * L + j] = v;
+      if ((a.mask >> d) & 1) {
+        const float s = warp_sum(v);
         if (lane == 0) red_q[warp][d] = s;
       }
     }
-    __syncthreads();  // (a)
+    __syncthreads();  // (a) q and its partial sums complete
 
-    float pr[ND], usum = 0.f;
+    // row t-1 (post in carry, prior in pr) goes out here, where the window
+    // dot that follows hides the stores
+    if (t > 0) {
+      const size_t base = (size_t)(t - 1) * row;
+      if (live) {
+#pragma unroll
+        for (int d = 0; d < ND; ++d) {
+          post[base + d * L + j] = carry[d];
+          prior_out[base + d * L + j] = pr[d];
+        }
+      }
+      if (j == 0) norm[t - 1] = s_prev;
+    }
+
+    float usum = 0.f;
 #pragma unroll
     for (int d = 0; d < ND; ++d) {
-      if ((uniform_mask >> d) & 1) {
+      if ((a.mask >> d) & 1) {
         float s = 0.f;
         for (int k = 0; k < nwarp; ++k) s += red_q[k][d];
         pr[d] = s * row0[d];
       } else {
-        pr[d] = live ? col_matvec(q + d * L, tlat + d * LL, L, j) : 0.f;
+        pr[d] = live ? window_matvec<matvec_unroll(RESIDENT)>(
+                           q + d * L, band + off_f[d], i0_f[d], W, L, j)
+                     : 0.f;
       }
       usum = fmaf(pr[d], wt, usum);
     }
     usum = warp_sum(usum);
     if (lane == 0) red_u[warp] = usum;
-    __syncthreads();  // (b)
+    __syncthreads();  // (b) normaliser partials complete; q reads done
 
     float s = 0.f;
     for (int k = 0; k < nwarp; ++k) s += red_u[k];
     const float den = fmaxf(s, 1e-38f);
-    const size_t base = (size_t)t * ND * L;
+#pragma unroll
+    for (int d = 0; d < ND; ++d) carry[d] = pr[d] * wt;
+    if (den < kRcpDivisorMax) {  // the same for the whole block
+      const double rden = rcp_f64(den);
+#pragma unroll
+      for (int d = 0; d < ND; ++d) carry[d] = div_by_rcp(carry[d], rden);
+    } else {
+#pragma unroll
+      for (int d = 0; d < ND; ++d) carry[d] = carry[d] / den;
+    }
+    s_prev = s;
+  }
+  const size_t base = (size_t)(T - 1) * row;  // the last row
+  if (live) {
 #pragma unroll
     for (int d = 0; d < ND; ++d) {
-      carry[d] = (pr[d] * wt) / den;
-      if (live) {
-        post[base + d * L + j] = carry[d];
-        prior_out[base + d * L + j] = pr[d];
-      }
+      post[base + d * L + j] = carry[d];
+      prior_out[base + d * L + j] = pr[d];
     }
-    if (j == 0) norm[t] = s;
   }
+  if (j == 0) norm[T - 1] = s_prev;
 }
 
 // K2: backward smoother over filter posteriors and +1-shifted priors.
-// filt, prior (T, ND, L); tlatT (ND, L, L) = Tlat transposed per channel,
-// tlatT[e][i][j] = Tlat[e][j][i] (read for the constant channels' first
-// rows); band (n_mat, W, L) the pull windows of the n_mat non-constant
-// channels, band[m][k][j] = row win0[m][j] + k of column j of that
-// channel's tlatT, win0 (n_mat, L); tdyn (ND, ND); init (ND, L) = smoothed
-// posterior of the step after the last row.  Out: smooth and r (T, ND, L).
+// Per sequence: filt, prior (T, ND, L); tlat (ND, L, L) = Tlat transposed
+// per channel, tlatT[e][i][j] = Tlat[e][j][i] (read for the constant
+// channels' first rows); band (n_mat, W, L) the pull windows of the n_mat
+// non-constant channels, band[m][k][j] = row win0[m][j] + k of column j of
+// that channel's tlatT, win0 (n_mat, L); tdyn (ND, ND); init (ND, L) =
+// smoothed posterior of the step after the last row.  Out: smooth and r
+// (T, ND, L).
 //
 // Design for the H100 (PERF.md §5-6).  The dense kernel streamed each
 // non-constant channel's whole 1 MB matrix from L2 into its one SM every
@@ -180,30 +271,30 @@ filter_kernel(const float* __restrict__ w, const float* __restrict__ tlat_g,
 // left is the chain's fixed cost: two block barriers per step, the block
 // sums in warp order and the normaliser's reciprocal.
 template <int ND, bool RESIDENT>
-__global__ void __launch_bounds__(kMaxThreads)
-smoother_kernel(const float* __restrict__ filt,
-                const float* __restrict__ prior,
-                const float* __restrict__ tlatT_g,
-                const float* __restrict__ band_g,
-                const int* __restrict__ win0, const float* __restrict__ tdyn_g,
-                const float* __restrict__ init, float* __restrict__ smooth,
-                float* __restrict__ rout, int T, int L, int W, int n_mat,
-                int uniform_mask) {
+__global__ void __launch_bounds__(kMaxThreads) smoother_kernel(SeqArgs a) {
   extern __shared__ float smem[];
-  float* r_s = smem;             // (ND, L) ratios
-  float* band_s = smem + ND * L;  // (n_mat, W, L) when RESIDENT
+  float* r_s = smem;                // (ND, L) ratios
+  float* band_s = smem + ND * a.L;  // (n_mat, W, L) when RESIDENT
   __shared__ float red_r[32][ND];
   __shared__ float red_s[32];
 
-  const int j = threadIdx.x;
+  const int L = a.L, W = a.W, j = threadIdx.x;
   const int lane = j & 31, warp = j >> 5, nwarp = blockDim.x >> 5;
   const bool live = j < L;
   const size_t LL = (size_t)L * L, WL = (size_t)W * L;
+  const int b = blockIdx.x;
+  const int T = seq_length(a, b);
+  if (T <= 0) return;  // the whole block
+  const size_t row = (size_t)ND * L;
+  const float* __restrict__ filt = a.x + (size_t)b * a.x_stride;
+  const float* __restrict__ prior = a.x2 + (size_t)b * a.x2_stride;
+  float* __restrict__ smooth = a.out + (size_t)b * a.Tmax * row;
+  float* __restrict__ rout = a.out2 + (size_t)b * a.Tmax * row;
 
   if (RESIDENT) {
-    for (size_t k = j; k < n_mat * WL; k += blockDim.x) band_s[k] = band_g[k];
+    for (size_t k = j; k < a.n_mat * WL; k += blockDim.x) band_s[k] = a.band[k];
   }
-  const float* band = RESIDENT ? band_s : band_g;
+  const float* band = RESIDENT ? band_s : a.band;
 
   float tdyn[ND][ND], carry[ND], row0[ND];
   size_t off_b[ND];  // each channel's pull band
@@ -212,16 +303,16 @@ smoother_kernel(const float* __restrict__ filt,
 #pragma unroll
   for (int d = 0; d < ND; ++d)
 #pragma unroll
-    for (int e = 0; e < ND; ++e) tdyn[d][e] = tdyn_g[d * ND + e];
+    for (int e = 0; e < ND; ++e) tdyn[d][e] = a.tdyn[d * ND + e];
 #pragma unroll
   for (int d = 0; d < ND; ++d) {
-    carry[d] = live ? init[d * L + j] : 0.f;
-    row0[d] = live ? tlatT_g[d * LL + j] : 0.f;
+    carry[d] = live ? a.init[(size_t)b * row + d * L + j] : 0.f;
+    row0[d] = live ? a.tlat[d * LL + j] : 0.f;
     off_b[d] = 0;
     i0_b[d] = 0;
-    if (!((uniform_mask >> d) & 1)) {
+    if (!((a.mask >> d) & 1)) {
       off_b[d] = slot * WL;
-      if (live) i0_b[d] = win0[slot * L + j];
+      if (live) i0_b[d] = a.win0[slot * L + j];
       ++slot;
     }
   }
@@ -236,15 +327,15 @@ smoother_kernel(const float* __restrict__ filt,
   __syncthreads();  // resident band complete
 
   for (int t = T - 1; t >= 0; --t) {
-    const size_t base = (size_t)t * ND * L;
+    const size_t base = (size_t)t * row;
     float f[ND], r[ND];
 #pragma unroll
     for (int e = 0; e < ND; ++e) {
       f[e] = f_next[e];
       const float pn = p_next[e];
       if (live && t > 0) {
-        f_next[e] = filt[base - ND * L + e * L + j];
-        p_next[e] = prior[base - ND * L + e * L + j];
+        f_next[e] = filt[base - row + e * L + j];
+        p_next[e] = prior[base - row + e * L + j];
       }
       // carry / pn: the reciprocal does not wait for the carry
       r[e] = pn > 0.f ? (pn < kRcpDivisorMax
@@ -252,7 +343,7 @@ smoother_kernel(const float* __restrict__ filt,
                              : carry[e] / pn)
                       : 0.f;
       if (live) r_s[e * L + j] = r[e];
-      if ((uniform_mask >> e) & 1) {
+      if ((a.mask >> e) & 1) {
         const float s = warp_sum(r[e]);
         if (lane == 0) red_r[warp][e] = s;
       }
@@ -273,7 +364,7 @@ smoother_kernel(const float* __restrict__ filt,
     float pull[ND];
 #pragma unroll
     for (int e = 0; e < ND; ++e) {
-      if ((uniform_mask >> e) & 1) {
+      if ((a.mask >> e) & 1) {
         float s = 0.f;
         for (int k = 0; k < nwarp; ++k) s += red_r[k][e];
         pull[e] = s * row0[e];
@@ -313,131 +404,132 @@ smoother_kernel(const float* __restrict__ filt,
     if (live) smooth[d * L + j] = carry[d];  // row 0
 }
 
-size_t resident_bytes(int n_dyn, int L) {
-  return (size_t)n_dyn * L * (size_t)(L + 1) * sizeof(float);
-}
-
-bool is_resident(int n_dyn, int L) {
-  return resident_bytes(n_dyn, L) <= kResidentCap;
-}
-
-template <int ND, bool RESIDENT>
-cudaError_t run_filter(const float* w, const float* tlat, const float* tdyn,
-                       const float* init, float* post, float* prior,
-                       float* norm, int T, int L, int mask,
-                       cudaStream_t stream) {
-  const size_t smem =
-      RESIDENT ? resident_bytes(ND, L) : (size_t)ND * L * sizeof(float);
-  auto kernel = filter_kernel<ND, RESIDENT>;
-  cudaError_t err = launch_prep(kernel, smem);
-  if (err != cudaSuccess) return err;
-  kernel<<<1, block_threads(L), smem, stream>>>(w, tlat, tdyn, init, post,
-                                                prior, norm, T, L, mask);
-  return cudaGetLastError();
-}
-
-// K2's shared memory: r, plus the pull band when it is kept resident
-size_t smoother_vec_bytes(int n_dyn, int L) {
+// shared memory of either kernel: the (ND, L) vector, plus its half of the
+// band when that is kept resident
+size_t vec_bytes(int n_dyn, int L) {
   return (size_t)n_dyn * L * sizeof(float);
 }
 
-size_t pull_band_bytes(int n_mat, int W, int L) {
+size_t band_bytes(int n_mat, int W, int L) {
   return (size_t)n_mat * W * (size_t)L * sizeof(float);
 }
 
-bool smoother_resident(int n_dyn, int n_mat, int W, int L) {
-  return smoother_vec_bytes(n_dyn, L) + pull_band_bytes(n_mat, W, L) <=
-         kResidentCap;
+bool band_resident(int n_dyn, int n_mat, int W, int L) {
+  return vec_bytes(n_dyn, L) + band_bytes(n_mat, W, L) <= kResidentCap;
 }
 
-template <int ND, bool RESIDENT>
-cudaError_t run_smoother(const float* filt, const float* prior,
-                         const float* tlatT, const float* band,
-                         const int* win0, const float* tdyn,
-                         const float* init, float* smooth, float* rout, int T,
-                         int L, int W, int n_mat, int mask,
-                         cudaStream_t stream) {
-  const size_t smem = smoother_vec_bytes(ND, L) +
-                      (RESIDENT ? pull_band_bytes(n_mat, W, L) : 0);
-  auto kernel = smoother_kernel<ND, RESIDENT>;
+template <typename Kernel>
+cudaError_t run(Kernel kernel, const SeqArgs& a, int E, int n_dyn,
+                bool resident, cudaStream_t stream) {
+  const size_t smem =
+      vec_bytes(n_dyn, a.L) + (resident ? band_bytes(a.n_mat, a.W, a.L) : 0);
   cudaError_t err = launch_prep(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<1, block_threads(L), smem, stream>>>(filt, prior, tlatT, band,
-                                                win0, tdyn, init, smooth,
-                                                rout, T, L, W, n_mat, mask);
+  kernel<<<E, block_threads(a.L), smem, stream>>>(a);
   return cudaGetLastError();
+}
+
+// check the shapes, count the non-constant channels and fill what both
+// kernels share; false on a shape the kernels do not take
+bool prepare(SeqArgs& a, int E, int Tmax, int n_dyn, int L, int W, int mask,
+             const void* band, const void* win0) {
+  if (bad_shape(n_dyn, L) || E < 1 || Tmax < 1) return false;
+  int n_mat = 0;
+  for (int d = 0; d < n_dyn; ++d) n_mat += !((mask >> d) & 1);
+  if (n_mat == 0) W = 0;
+  if (n_mat > 0 && (W < 1 || W > L || band == nullptr || win0 == nullptr))
+    return false;
+  a.band = static_cast<const float*>(band);
+  a.win0 = static_cast<const int*>(win0);
+  a.Tmax = Tmax;
+  a.L = L;
+  a.W = W;
+  a.n_mat = n_mat;
+  a.mask = mask;
+  return true;
 }
 
 }  // namespace
 
 extern "C" {
 
-// 1 when K1 keeps the (n_dyn, L, L) transition stack in shared memory.
-int pmg_scan_tlat_resident(int n_dyn, int L) { return is_resident(n_dyn, L); }
+// 1 when K1 or K2 keeps its (n_mat, W, L) half of the band in shared
+// memory beside the (n_dyn, L) vector.
+int pmg_scan_band_resident(int n_dyn, int n_mat, int L, int W) {
+  return band_resident(n_dyn, n_mat, W, L);
+}
 
+// K1 over E sequences, one thread block each.  w (E, Tmax, L) with
+// w_stride elements between sequences; tlat is read for the constant
+// channels' first rows; the other channels' push goes through `band`
+// (n_mat, W, L), the push half of the transition band, with window rows
+// `win0` (n_mat, L); n_mat counts the channels not flagged constant in
+// uniform_mask; lengths (E,) int32 on the device, or null for Tmax each.
 // Returns a cudaError_t (0 on success); the launch is asynchronous.
-int pmg_filter_scan(const void* w, const void* tlat, const void* tdyn,
-                    const void* init, void* post, void* prior, void* norm,
-                    int T, int n_dyn, int L, int uniform_mask, void* stream) {
-  if (bad_shape(n_dyn, L) || T < 1) return (int)cudaErrorInvalidValue;
+int pmg_filter_scan(const void* w, const void* tlat, const void* band,
+                    const void* win0, const void* tdyn, const void* init,
+                    const void* lengths, void* post, void* prior, void* norm,
+                    long long w_stride, int E, int Tmax, int n_dyn, int L,
+                    int W, int uniform_mask, void* stream) {
+  SeqArgs a{};
+  if (!prepare(a, E, Tmax, n_dyn, L, W, uniform_mask, band, win0))
+    return (int)cudaErrorInvalidValue;
+  a.x = static_cast<const float*>(w);
+  a.tlat = static_cast<const float*>(tlat);
+  a.tdyn = static_cast<const float*>(tdyn);
+  a.init = static_cast<const float*>(init);
+  a.lengths = static_cast<const int*>(lengths);
+  a.out = static_cast<float*>(post);
+  a.out2 = static_cast<float*>(prior);
+  a.norm = static_cast<float*>(norm);
+  a.x_stride = w_stride;
   auto s = static_cast<cudaStream_t>(stream);
-  auto a = static_cast<const float*>(w);
-  auto b = static_cast<const float*>(tlat);
-  auto c = static_cast<const float*>(tdyn);
-  auto d = static_cast<const float*>(init);
-  auto o1 = static_cast<float*>(post);
-  auto o2 = static_cast<float*>(prior);
-  auto o3 = static_cast<float*>(norm);
-  const bool res = is_resident(n_dyn, L);
+  const bool res = band_resident(n_dyn, a.n_mat, a.W, L);
   cudaError_t err;
   if (n_dyn == 1) {
-    err = res ? run_filter<1, true>(a, b, c, d, o1, o2, o3, T, L, uniform_mask, s)
-              : run_filter<1, false>(a, b, c, d, o1, o2, o3, T, L, uniform_mask, s);
+    err = res ? run(filter_kernel<1, true>, a, E, 1, true, s)
+              : run(filter_kernel<1, false>, a, E, 1, false, s);
   } else {
-    err = res ? run_filter<2, true>(a, b, c, d, o1, o2, o3, T, L, uniform_mask, s)
-              : run_filter<2, false>(a, b, c, d, o1, o2, o3, T, L, uniform_mask, s);
+    err = res ? run(filter_kernel<2, true>, a, E, 2, true, s)
+              : run(filter_kernel<2, false>, a, E, 2, false, s);
   }
   return (int)err;
 }
 
-// 1 when K2 keeps the (n_mat, W, L) pull band in shared memory.
-int pmg_smoother_resident(int n_dyn, int n_mat, int L, int W) {
-  return smoother_resident(n_dyn, n_mat, W, L);
-}
-
-// K2.  tlatT is read for the constant channels' first rows; the other
-// channels' pull goes through `band` (n_mat, W, L), the pull half of the
-// transition band, with window rows `win0` (n_mat, L); n_mat counts the
-// channels not flagged constant in uniform_mask.
+// K2 over E sequences, one thread block each.  filt and prior (E, Tmax,
+// n_dyn, L) with their strides between sequences, in elements; tlatT is
+// read for the constant channels' first rows; the other channels' pull
+// goes through `band` (n_mat, W, L), the pull half of the transition band,
+// with window rows `win0` (n_mat, L); lengths as for K1 (a length of 0
+// leaves that sequence's outputs untouched).
 int pmg_smoother_scan(const void* filt, const void* prior, const void* tlatT,
                       const void* band, const void* win0, const void* tdyn,
-                      const void* init, void* smooth, void* rout, int T,
-                      int n_dyn, int L, int W, int uniform_mask,
-                      void* stream) {
-  if (bad_shape(n_dyn, L) || T < 1) return (int)cudaErrorInvalidValue;
-  int n_mat = 0;
-  for (int d = 0; d < n_dyn; ++d) n_mat += !((uniform_mask >> d) & 1);
-  if (n_mat == 0) W = 0;
-  if (n_mat > 0 && (W < 1 || W > L || band == nullptr || win0 == nullptr))
+                      const void* init, const void* lengths, void* smooth,
+                      void* rout, long long filt_stride,
+                      long long prior_stride, int E, int Tmax, int n_dyn,
+                      int L, int W, int uniform_mask, void* stream) {
+  SeqArgs a{};
+  if (!prepare(a, E, Tmax, n_dyn, L, W, uniform_mask, band, win0))
     return (int)cudaErrorInvalidValue;
+  a.x = static_cast<const float*>(filt);
+  a.x2 = static_cast<const float*>(prior);
+  a.tlat = static_cast<const float*>(tlatT);
+  a.tdyn = static_cast<const float*>(tdyn);
+  a.init = static_cast<const float*>(init);
+  a.lengths = static_cast<const int*>(lengths);
+  a.out = static_cast<float*>(smooth);
+  a.out2 = static_cast<float*>(rout);
+  a.x_stride = filt_stride;
+  a.x2_stride = prior_stride;
   auto s = static_cast<cudaStream_t>(stream);
-  auto a = static_cast<const float*>(filt);
-  auto b = static_cast<const float*>(prior);
-  auto c = static_cast<const float*>(tlatT);
-  auto m = static_cast<const float*>(band);
-  auto w0 = static_cast<const int*>(win0);
-  auto d = static_cast<const float*>(tdyn);
-  auto e = static_cast<const float*>(init);
-  auto o1 = static_cast<float*>(smooth);
-  auto o2 = static_cast<float*>(rout);
-  const bool res = smoother_resident(n_dyn, n_mat, W, L);
+  const bool res = band_resident(n_dyn, a.n_mat, a.W, L);
   cudaError_t err;
   if (n_dyn == 1) {
-    err = res ? run_smoother<1, true>(a, b, c, m, w0, d, e, o1, o2, T, L, W, n_mat, uniform_mask, s)
-              : run_smoother<1, false>(a, b, c, m, w0, d, e, o1, o2, T, L, W, n_mat, uniform_mask, s);
+    err = res ? run(smoother_kernel<1, true>, a, E, 1, true, s)
+              : run(smoother_kernel<1, false>, a, E, 1, false, s);
   } else {
-    err = res ? run_smoother<2, true>(a, b, c, m, w0, d, e, o1, o2, T, L, W, n_mat, uniform_mask, s)
-              : run_smoother<2, false>(a, b, c, m, w0, d, e, o1, o2, T, L, W, n_mat, uniform_mask, s);
+    err = res ? run(smoother_kernel<2, true>, a, E, 2, true, s)
+              : run(smoother_kernel<2, false>, a, E, 2, false, s);
   }
   return (int)err;
 }

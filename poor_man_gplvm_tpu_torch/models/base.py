@@ -1,16 +1,18 @@
 """Shared model machinery (PyTorch).
 
 Counterpart of the parts of ``poor_man_gplvm_tpu/models/base.py`` that
-``decode_latent`` and ``fit_em`` need: construction, parameter
-initialisation, the memoised transition build, the smoother call, the
-decode driver, naive-Bayes decoding, and the EM schedule (host loop,
-fused middle iterations, lean output).  The classes hold a handful of
-scalars plus ``params`` (n_basis, N), ``tuning_basis`` (L, n_basis) and
-``tuning`` (L, N), all on the model's ``device``.
+``decode_latent``, ``decode_latent_epochs`` and ``fit_em`` need:
+construction, parameter initialisation, the memoised transition build, the
+smoother call, the shared decode routine, naive-Bayes decoding, the batched
+decode of short epochs, and the EM schedule (host loop, fused middle
+iterations, lean output).  The classes hold a handful of scalars plus
+``params`` (n_basis, N), ``tuning_basis`` (L, n_basis) and ``tuning``
+(L, N), all on the model's ``device``.
 """
 
 from __future__ import annotations
 
+import numbers
 import time
 import warnings
 from abc import ABC, abstractmethod
@@ -41,6 +43,50 @@ def resolve_device(device):
             "on the CPU"
         )
     return device
+
+
+def _epoch_intervals(intervals, t_l, n_time):
+    """(E, 2) int64 ``[start, end)`` bin indices of the epochs: integer
+    intervals as given, time-valued ones (a float array, or a
+    pynapple-style IntervalSet, duck-typed by ``.values``/``.loc``)
+    converted with the bin times ``t_l``.  Raises on a wrong shape, an
+    empty interval, or a bound outside [0, n_time]."""
+    if hasattr(intervals, "values") and hasattr(intervals, "loc"):
+        intervals = intervals.values
+    intervals = np.asarray(intervals)
+    if intervals.ndim != 2 or intervals.shape[1] != 2:
+        raise ValueError(f"intervals must be (E, 2); got {intervals.shape}")
+    if not np.issubdtype(intervals.dtype, np.integer):
+        if t_l is None:
+            raise ValueError(
+                "float (time-valued) intervals need t_l (or a TsdFrame y) "
+                "to convert to bin indices")
+        t_l = np.asarray(t_l)
+        starts = np.searchsorted(t_l, intervals[:, 0], side="left")
+        ends = np.searchsorted(t_l, intervals[:, 1], side="right")
+        intervals = np.stack([starts, ends], axis=1)
+    intervals = intervals.astype(np.int64)
+    if np.any(intervals[:, 1] - intervals[:, 0] <= 0):
+        raise ValueError("every interval must contain >= 1 bin")
+    if np.any(intervals[:, 0] < 0) or np.any(intervals[:, 1] > n_time):
+        raise ValueError(
+            f"interval bounds must lie in [0, {n_time}] (the bins of y); got "
+            f"{int(intervals[:, 0].min())} to {int(intervals[:, 1].max())}")
+    return intervals
+
+
+def _check_numeric_hyperparam(hyperparam):
+    """Raise on a hyperparameter value that is not a number or a numeric
+    array (it could only be dropped silently)."""
+    for key, v in hyperparam.items():
+        if isinstance(v, np.ndarray):
+            ok = np.issubdtype(v.dtype, np.number)
+        else:
+            ok = isinstance(v, (numbers.Number, np.number, torch.Tensor))
+        if not ok:
+            raise TypeError(
+                f"hyperparam[{key!r}] must be a number or a numeric array, "
+                f"got {type(v).__name__}")
 
 
 def _first_failed_certificate(diag_mid):
@@ -315,6 +361,104 @@ class _GPLVMCommon(ABC):
             "log_marginal_total": float(log_marginal_total),
             "posterior_latent": torch.exp(log_post),
             "ll_per_pos_l": ll_per_pos_l,
+        }
+
+    # ------------------------------------------------------------------
+    # batched short-epoch decoding (reactivation/ripple workloads)
+    # ------------------------------------------------------------------
+    def decode_latent_epochs(
+        self, y, intervals, hyperparam=None, ma_neuron=None, ma_latent=None,
+        likelihood_scale=1.0, t_l=None, batch_size=None,
+    ):
+        """Smoother-decode many short epochs as one batch.
+
+        The epochs are cut from ``y``, right-padded to the longest and
+        stacked to (E, Tmax, N) on the device, and each is smoothed on its
+        own (``hmm.smooth_epochs``).  On a card the model's engine,
+        ``'cuda'`` or ``'cuda_parallel'`` alike, runs the sequential
+        kernels K1 and K2 once per batch, one thread block per epoch, each
+        block over exactly its epoch's bins; ``'prob'`` loops over the
+        epochs.  Epochs are short by construction and are never handed to
+        the parallel-in-time engine, whatever their length: decode a long
+        sequence with ``decode_latent``.  A batch that runs out of the
+        card's memory raises ``MemoryError``; pass ``batch_size``.
+
+        Parameters
+        ----------
+        y : (T, N) array, tensor or TsdFrame-like (``.d``, ``.t``): the
+            full binned spike matrix.
+        intervals : (E, 2) int array of ``[start, end)`` bin indices, or
+            time-valued floats / a pynapple-style IntervalSet (needs
+            ``t_l`` or a TsdFrame-like ``y`` to convert times to bins).
+            Bounds outside [0, T] raise.
+        hyperparam : per-call overrides; a value that is not a number or a
+            numeric array raises.
+        batch_size : decode the epochs in batches of this size (one launch
+            of each kernel per batch) to bound device memory; default: all
+            epochs in one batch.
+
+        Returns a dict of numpy arrays: ``posterior_latent_marg`` (E,
+        Tmax, L), NaN past each epoch's end, ``posterior_mean`` (E, L) mean
+        over an epoch's bins, ``log_marginal_per_epoch`` (E,), ``lengths``
+        (E,) and ``valid`` (E, Tmax)."""
+        hyperparam = {} if hyperparam is None else hyperparam
+        _check_numeric_hyperparam(hyperparam)
+        if not torch.is_tensor(y) and hasattr(y, "d") and hasattr(y, "t"):
+            t_l = y.t if t_l is None else t_l
+            y = y.d
+        y = self._as_device(y)
+        intervals = _epoch_intervals(intervals, t_l, y.shape[0])
+        lengths = intervals[:, 1] - intervals[:, 0]
+        E, Tmax = len(intervals), int(lengths.max())
+        L = self.n_latent_bin
+
+        ma_neuron = self.ma_neuron_default if ma_neuron is None \
+            else self._as_device(ma_neuron)
+        if ma_neuron.ndim != 1:
+            raise ValueError(
+                "decode_latent_epochs supports 1-D ma_neuron only (the 2-D "
+                "slot carries the epoch padding mask)")
+        ma_latent = self.ma_latent_default if ma_latent is None \
+            else self._as_device(ma_latent)
+        trans, _ = self._make_transition(hyperparam)
+        bs = E if batch_size is None else int(batch_size)
+        if bs < 1:
+            raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+        starts = torch.as_tensor(intervals[:, 0], device=self.device)
+        lens = torch.as_tensor(lengths, device=self.device)
+        steps = torch.arange(Tmax, device=self.device)
+        post = torch.empty((E, Tmax, L), dtype=torch.float32,
+                           device=self.device)
+        lml = torch.empty((E,), dtype=torch.float32, device=self.device)
+        for s0 in range(0, E, bs):
+            sl = slice(s0, s0 + bs)
+            valid_b = steps[None, :] < lens[sl, None]
+            rows = (starts[sl, None] + steps[None, :]).clamp(
+                max=y.shape[0] - 1)
+            y_b = y[rows] * valid_b[:, :, None]  # stack + zero padding
+            try:
+                post[sl], lml[sl] = hmm.smooth_epochs(
+                    y_b, lens[sl], self.tuning, hyperparam, trans, ma_neuron,
+                    ma_latent, likelihood_scale=likelihood_scale,
+                    observation_model=self.observation_model,
+                    engine=self.inference_engine)
+            except torch.cuda.OutOfMemoryError as exc:
+                raise MemoryError(
+                    f"decode_latent_epochs: a batch of {min(bs, E)} epochs of "
+                    f"up to {Tmax} bins does not fit the card; pass a smaller "
+                    "batch_size (or decode long sequences with "
+                    "decode_latent)") from exc
+            del y_b
+        valid = steps[None, :] < lens[:, None]
+        post = torch.where(valid[:, :, None], post, 0.0)
+        mean = post.sum(dim=1).double() / lens[:, None].double()
+        post = torch.where(valid[:, :, None], post, float("nan"))
+        return {
+            "posterior_latent_marg": post.cpu().numpy(),
+            "posterior_mean": mean.cpu().numpy(),
+            "log_marginal_per_epoch": lml.cpu().numpy(),
+            "lengths": lengths,
+            "valid": valid.cpu().numpy(),
         }
 
     # ------------------------------------------------------------------

@@ -30,6 +30,7 @@ from poor_man_gplvm_tpu_torch.ops.hmm import (
     compute_transition_posterior_prob_latent,
     prob_to_log,
     smooth_combined_chunked,
+    smooth_epochs,
 )
 from poor_man_gplvm_tpu_torch.ops.kernels import (
     create_transition_prob_1d,
@@ -52,9 +53,13 @@ from poor_man_gplvm_tpu_torch.ops.parallel_scan import (
 )
 from poor_man_gplvm_tpu_torch.ops.scan_kernels import (
     filter_chunk,
+    filter_chunk_batch,
     filter_scan,
+    filter_scan_batch,
     smoother_chunk,
+    smoother_chunk_batch,
     smoother_scan,
+    smoother_scan_batch,
 )
 
 __all__ = [
@@ -66,10 +71,11 @@ __all__ = [
     "auto_chunk_size", "engine_resolves_parallel",
     "compute_transition_posterior_prob",
     "compute_transition_posterior_prob_latent", "prob_to_log",
-    "smooth_combined_chunked", "create_transition_prob_1d", "rbf_gram",
+    "smooth_combined_chunked", "smooth_epochs", "create_transition_prob_1d", "rbf_gram",
     "uniform_gram", "AdamState", "get_statistics", "get_tuning_linear",
     "get_tuning_softplus", "make_adam_runner", "poisson_m_step_objective",
     "choose_parallel_config", "pfilter_pass", "psmooth_pass",
-    "smooth_parallel", "filter_chunk", "filter_scan", "smoother_chunk",
-    "smoother_scan",
+    "smooth_parallel", "filter_chunk", "filter_chunk_batch", "filter_scan",
+    "filter_scan_batch", "smoother_chunk", "smoother_chunk_batch",
+    "smoother_scan", "smoother_scan_batch",
 ]

@@ -12,7 +12,8 @@ time the build).
 
 Libraries:
 
-* ``scan_kernels``: K1/K2, the sequential filter and smoother;
+* ``scan_kernels``: K1/K2, the sequential filter and smoother, one thread
+  block per sequence of a batch;
 * ``parallel_scan``: K3/K4, the parallel-in-time filter and smoother passes
   in the three recursion-dot precisions (K5), and ``joint_acc`` (3xTF32 on
   the tensor cores).
@@ -50,14 +51,13 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_vp, _ci = ctypes.c_void_p, ctypes.c_int
+_vp, _ci, _cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: (restype, argtypes) of every exported function, per library
 _SIGNATURES = {
     "scan_kernels": {
-        "pmg_filter_scan": [_vp] * 7 + [_ci] * 4 + [_vp],
-        "pmg_smoother_scan": [_vp] * 9 + [_ci] * 5 + [_vp],
-        "pmg_scan_tlat_resident": [_ci, _ci],
-        "pmg_smoother_resident": [_ci] * 4,
+        "pmg_filter_scan": [_vp] * 10 + [_cl] + [_ci] * 6 + [_vp],
+        "pmg_smoother_scan": [_vp] * 10 + [_cl] * 2 + [_ci] * 6 + [_vp],
+        "pmg_scan_band_resident": [_ci] * 4,
     },
     "parallel_scan": {
         "pmg_pfilter_pass": [_vp] * 11 + [_ci] * 9 + [_vp],

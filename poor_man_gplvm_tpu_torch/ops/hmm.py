@@ -17,6 +17,10 @@ Engines:
   (``ops/parallel_scan.py``), the counterpart of ``'pallas_parallel'``.
 On CPU tensors the kernels' wrappers run their plain versions.
 
+``smooth_epochs`` smooths a batch of short sequences (the epochs of
+``decode_latent_epochs``): on both CUDA engines through one launch of K1
+and one of K2 for the whole batch, one thread block per epoch.
+
 As in the JAX package the pairwise-joint accumulation is not carried
 through the scan; in probability space it factorizes,
 
@@ -54,6 +58,8 @@ __all__ = [
     "prob_to_log",
     "auto_chunk_size",
     "smooth_combined_chunked",
+    "epoch_loglikelihoods",
+    "smooth_epochs",
     "engine_resolves_parallel",
     "parallel_scan_carry_spec",
     "compute_transition_posterior_prob",
@@ -88,16 +94,17 @@ def _tiny(x):
 
 
 def _wants_band(tlat):
-    """Whether the sequential smoother reads ``tlat`` through its band:
-    only the CUDA kernel does (the plain version on the CPU is dense)."""
+    """Whether the sequential kernels read ``tlat`` through its band: only
+    the CUDA kernels do (the plain versions on the CPU are dense)."""
     return tlat.device.type == "cuda"
 
 
 def _cached_band(trans, tlat):
     """The ``Band`` of the transition stack ``tlat`` (n_dyn, L, L) for the
-    sequential smoother K2, made at the first chunk that needs it and kept
-    on the (frozen) transition object, so that a decode over several host
-    chunks reads W to the host once; None where no kernel reads a band."""
+    sequential kernels (K1 reads its push half, K2 its pull half), made at
+    the first chunk that needs it and kept on the (frozen) transition
+    object, so that a decode over several host chunks reads W to the host
+    once; None where no kernel reads a band."""
     if not _wants_band(tlat):
         return None
     if trans._band is None:
@@ -155,6 +162,7 @@ class LatentTransition:
         post, prior, ratios = sk.filter_chunk(
             ll, self.T[None], ones, p_init[None], likelihood_scale,
             uniform_rows=self.uniform_rows,
+            band=_cached_band(self, self.T[None]),
         )
         return post[:, 0], prior[:, 0], ratios
 
@@ -226,7 +234,8 @@ class JointTransition:
     def cuda_filter(self, ll, p_init, likelihood_scale):
         return sk.filter_chunk(ll, self.Tlat, self.Tdyn, p_init,
                                likelihood_scale,
-                               uniform_rows=self.uniform_rows)
+                               uniform_rows=self.uniform_rows,
+                               band=_cached_band(self, self.Tlat))
 
     def cuda_smooth(self, filt_xs, prior_xs, smooth_init):
         return sk.smoother_chunk(filt_xs, prior_xs, self.Tlat, self.Tdyn,
@@ -497,6 +506,102 @@ def smooth_combined_chunked(
     )
 
 
+def _transition_stack(trans):
+    """(tlat (n_dyn, L, L), tdyn (n_dyn, n_dyn)) of either transition; a
+    latent-only one is the n_dyn = 1 stack."""
+    if hasattr(trans, "Tdyn"):
+        return trans.Tlat, trans.Tdyn
+    return trans.T[None], torch.ones((1, 1), dtype=trans.T.dtype,
+                                     device=trans.T.device)
+
+
+def epoch_loglikelihoods(y_b, lengths, tuning, hyperparam, ma_neuron,
+                         ma_latent, observation_model="poisson"):
+    """Log-likelihoods (E, Tmax, L) of a batch of right-padded epochs y_b
+    (E, Tmax, N) as one (E * Tmax, N) @ (N, L) product; the rows past an
+    epoch's length carry an all-zero neuron mask."""
+    E, Tmax, N = y_b.shape
+    valid = sk._valid_rows(lengths, Tmax)
+    ma_b = valid[:, :, None].to(torch.float32) * ma_neuron
+    return get_loglikelihood_ma_all(
+        y_b.reshape(E * Tmax, N), tuning, hyperparam,
+        ma_b.reshape(E * Tmax, N), ma_latent,
+        observation_model=observation_model,
+    ).view(E, Tmax, tuning.shape[0])
+
+
+def smooth_epochs(y_b, lengths, tuning, hyperparam, trans, ma_neuron,
+                  ma_latent=None, likelihood_scale=1.0,
+                  observation_model="poisson", engine="prob"):
+    """Smooth a batch of short sequences, each on its own.
+
+    y_b (E, Tmax, N): the epochs' spikes, right-padded to the longest;
+    lengths (E,): each epoch's number of bins (an int32 tensor on the
+    tuning's device, or anything ``torch.as_tensor`` takes), every entry in
+    [1, Tmax]; ma_neuron (N,).  Returns ``(latent marginal (E, Tmax, L) of
+    the smoothed posterior, log marginal (E,))`` in probability space; the
+    rows past an epoch's length are unspecified.
+
+    ``'cuda'`` and ``'cuda_parallel'``: the sequential kernels over the
+    whole batch, whatever the epochs' lengths (no upgrade to the parallel
+    engine: epochs are short, and a batch fills the card with one thread
+    block per epoch).  The emissions of all epochs are one (E * Tmax, N) @
+    (N, L) product with the padding mask (padded rows carry an all-zero
+    neuron mask); then one launch of K1 (``filter_chunk_batch``), each
+    epoch's +1-shifted priors and its last filter posterior read in place,
+    one launch of K2 (``smoother_chunk_batch``), and the sum over the
+    dynamics.  On CPU tensors the wrappers run their plain versions.
+    ``'prob'``: the per-epoch loop of ``smooth_combined_chunked``."""
+    check_engine(engine)
+    device = tuning.device
+    y_b = torch.as_tensor(y_b, dtype=torch.float32, device=device)
+    E, Tmax = y_b.shape[:2]
+    L = tuning.shape[0]
+    lengths = torch.as_tensor(lengths, device=device).to(torch.int32)
+    ma_neuron = torch.as_tensor(ma_neuron, dtype=torch.float32, device=device)
+    if ma_neuron.ndim != 1:
+        raise ValueError("smooth_epochs takes a 1-D ma_neuron (the 2-D slot "
+                         "carries the padding mask)")
+    if ma_latent is None:
+        ma_latent = torch.ones(L, dtype=torch.float32, device=device)
+    if engine == "prob":
+        lat = torch.zeros((E, Tmax, L), dtype=torch.float32, device=device)
+        lml = torch.zeros((E,), dtype=torch.float32, device=device)
+        for e, n in enumerate(lengths.tolist()):
+            if not 1 <= n <= Tmax:
+                raise ValueError(f"every length must be in [1, {Tmax}], got "
+                                 f"{n}")
+            (lat_e, _), lml[e] = smooth_combined_chunked(
+                y_b[e, :n], tuning, hyperparam, trans, ma_neuron, ma_latent,
+                likelihood_scale=likelihood_scale,
+                observation_model=observation_model, engine="prob",
+                marginal_smooth=True, want_acc=False)[:2]
+            lat[e, :n] = torch.exp(lat_e)
+        return lat, lml
+
+    ll = epoch_loglikelihoods(y_b, lengths, tuning, hyperparam, ma_neuron,
+                              ma_latent, observation_model)
+    tlat, tdyn = _transition_stack(trans)
+    n_dyn = tlat.shape[0]
+    band = _cached_band(trans, tlat)
+    p_init = torch.exp(trans.uniform_log_init()).reshape(1, n_dyn, L)
+    post, prior, ratios = sk.filter_chunk_batch(
+        ll, tlat, tdyn, p_init.expand(E, n_dyn, L), lengths, likelihood_scale,
+        uniform_rows=trans.uniform_rows, band=band)
+    del ll
+    # the last step's smoothed posterior is its filter posterior; the
+    # smoother runs over the rows before it against the +1-shifted priors
+    each = torch.arange(E, device=device)
+    last = post[each, (lengths - 1).long()]
+    smooth, _ = sk.smoother_chunk_batch(
+        post[:, :-1], prior[:, 1:], tlat, tdyn, last, lengths - 1,
+        uniform_rows=trans.uniform_rows, band=band)
+    lat = torch.empty((E, Tmax, L), dtype=torch.float32, device=device)
+    torch.sum(smooth, dim=2, out=lat[:, :-1])
+    lat[each, (lengths - 1).long()] = last.sum(dim=1)
+    return lat, ratios.sum(dim=1)
+
+
 def _marginalize_log(smooth_log):
     """(latent marginal, dynamics marginal or None) of a log posterior,
     by logsumexp (the JAX package's full-mode ``_full_out``)."""
@@ -511,9 +616,10 @@ def _marginalize_log(smooth_log):
 # ---------------------------------------------------------------------------
 
 #: 'cuda' -> 'cuda_parallel' auto-upgrade floor on a CUDA device.  Decode
-#: at N = L = 100 on an H100 (700 W): T=1,000 sequential 5.87 ms vs
-#: parallel 6.78 ms; T=2,000 10.14 vs 5.89 ms; T=10,000 43.2 vs 4.8 ms
-#: (PERF.md).  The JAX package's 20,000 was measured on a TPU v5e.
+#: on an H100 (700 W), sequential vs parallel: N = L = 100, T=1,000 3.46 vs
+#: 4.46 ms, T=2,000 5.79 vs 4.89 ms, T=10,000 23.7 vs 4.1 ms; N = L = 500,
+#: T=1,000 4.60 vs 4.87 ms, T=2,000 7.90 vs 4.98 ms (PERF.md).  The JAX
+#: package's 20,000 was measured on a TPU v5e.
 _PARALLEL_UPGRADE_MIN_T = 2_000
 
 
@@ -611,9 +717,7 @@ def _smooth_parallel_driver(
     ll = get_loglikelihood_ma_all(y, tuning, hyperparam, ma_t, ma_latent,
                                   observation_model=observation_model,
                                   lgamma_term=lgamma_term)
-    tlat = trans.Tlat if is_joint else trans.T[None]
-    tdyn = trans.Tdyn if is_joint else torch.ones(
-        (1, 1), dtype=torch.float32, device=device)
+    tlat, tdyn = _transition_stack(trans)
     p_init = torch.exp(trans.uniform_log_init())
     if not is_joint:
         p_init = p_init[None]

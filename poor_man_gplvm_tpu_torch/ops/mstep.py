@@ -11,12 +11,17 @@ with b1 = 0.9, b2 = 0.999, eps = 1e-8, eps_root = 0), with an explicit state
 ``AdamState(count, mu, nu)``, so that a fit resumed from a JAX optimizer
 state (``convert.adam_state_from_jax``) computes the same thing.  The
 runner keeps the JAX package's stopping rule; its loop reads the stopping
-test on the host once per iteration after the first five.
+test on the host once per iteration after the first five.  The scalar
+constants of the loop (Adam's decay rates, the prior's scale) are made on
+the device once and reused (``_const``), so an iteration copies nothing
+from the host.
 """
 
 from __future__ import annotations
 
+import functools
 import math
+import numbers
 from typing import NamedTuple
 
 import torch
@@ -39,6 +44,14 @@ __all__ = [
 ADAM_B1 = 0.9
 ADAM_B2 = 0.999
 ADAM_EPS = 1e-8
+
+@functools.lru_cache(maxsize=64)  # swept hyperparameters: stay bounded
+def _const(value, device, dtype=torch.float32):
+    """0-dim tensor of a Python scalar on ``device``, made once per (value,
+    device, dtype) by a fill on the device: the bits of
+    ``torch.tensor(value, dtype=dtype)`` without its host-to-device copy at
+    every use."""
+    return torch.full((), float(value), dtype=dtype, device=device)
 
 
 def get_tuning_linear(params, basis):
@@ -83,7 +96,10 @@ def get_statistics(log_posterior_probs, y, n_time_per_chunk=200_000):
 def _norm_logpdf(x, scale):
     """``jax.scipy.stats.norm.logpdf(x, 0, scale)`` in its order of
     operations: (log(2 pi scale^2) + x^2 / scale^2) / -2."""
-    scale = torch.as_tensor(scale, dtype=x.dtype, device=x.device)
+    if isinstance(scale, numbers.Real):
+        scale = _const(float(scale), x.device, x.dtype)
+    else:
+        scale = torch.as_tensor(scale, dtype=x.dtype, device=x.device)
     log_normalizer = torch.log(2 * math.pi * scale**2)
     return (log_normalizer + x**2 / scale**2) / -2
 
@@ -137,8 +153,8 @@ def adam_update(grads, state, step_size):
     mu = (1 - ADAM_B1) * grads + ADAM_B1 * state.mu
     nu = (1 - ADAM_B2) * grads**2 + ADAM_B2 * state.nu
     count = state.count + 1
-    b1 = torch.tensor(ADAM_B1, dtype=torch.float32, device=grads.device)
-    b2 = torch.tensor(ADAM_B2, dtype=torch.float32, device=grads.device)
+    b1 = _const(ADAM_B1, grads.device)  # 0-dim f32, as optax's b**count
+    b2 = _const(ADAM_B2, grads.device)
     mu_hat = mu / (1 - b1**count)
     nu_hat = nu / (1 - b2**count)
     updates = mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS)
@@ -190,7 +206,8 @@ def make_adam_runner(fun, step_size, maxiter=1000, tol=1e-6):
         return {
             "params": params,
             "opt_state": opt_state,
-            "n_iter": torch.tensor(i + 1, device=params.device),
+            "n_iter": torch.full((), i + 1, dtype=torch.int64,
+                                 device=params.device),
             "final_loss": loss,
             "final_error": error,
             "loss_history": loss_history,

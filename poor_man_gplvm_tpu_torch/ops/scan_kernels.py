@@ -2,25 +2,36 @@
 
 Counterpart of ``poor_man_gplvm_tpu/ops/pallas/scan_kernels.py``.  The two
 Pallas TPU kernels become hand-written CUDA C++ kernels for Hopper
-(``csrc/scan_kernels.cu``; its header says what bounds them on the card):
+(``csrc/scan_kernels.cu``; its header says what bounds them on the card),
+each on its half of the band of every channel's nonzeros
+(``ops/band.py::transition_band``) and with a batch axis, one thread block
+per sequence:
 
-* K1 ``filter_scan``  <- ``_filter_kernel`` / ``filter_chunk_pallas``
-* K2 ``smoother_scan`` <- ``_smoother_kernel`` / ``smoother_chunk_pallas``,
-  on the pull half of the band of each channel's nonzeros
-  (``ops/band.py::transition_band``)
+* K1 ``filter_scan`` / ``filter_scan_batch``  <- ``_filter_kernel`` /
+  ``filter_chunk_pallas``, on the push half;
+* K2 ``smoother_scan`` / ``smoother_scan_batch`` <- ``_smoother_kernel`` /
+  ``smoother_chunk_pallas``, on the pull half.
+
+The unbatched wrappers launch the same kernel on a batch of one.  The
+batched ones take (E, Tmax, ...) arrays and a device int32 array of
+lengths; a sequence runs exactly its own length, and the rows past it are
+left as allocated (unspecified).
 
 Each wrapper checks its inputs, allocates the outputs with ``torch.empty``
-and launches on the current stream without synchronising.  On a CPU tensor
-it runs the plain PyTorch version of the same function instead (a Python
-loop over time, as ``hmm._forward_scan_prob`` / ``_backward_scan_prob``);
-on a CUDA tensor it launches the kernel or raises.  Each wrapper counts its
+and launches on the current stream without synchronising (the batched
+wrappers read the smallest and largest length to the host to check them).
+On a CPU tensor it runs the plain PyTorch version of the same function
+instead (a Python loop over time, as ``hmm._forward_scan_prob`` /
+``_backward_scan_prob``; ``*_batch_plain`` loop over the sequences); on a
+CUDA tensor it launches the kernel or raises.  Each wrapper counts its
 launches in ``<wrapper>.launches`` so a run can show that it went through
 the kernel.
 
 ``filter_chunk`` and ``smoother_chunk`` keep the JAX wrappers' signatures
 and outputs: the likelihood weights ``w = exp(scale*(ll - rowmax))`` are
 formed outside the sequential loop, and the per-step log ratios are
-``log(s_t) + scale * m_t`` with s_t the normaliser the filter wrote.
+``log(s_t) + scale * m_t`` with s_t the normaliser the filter wrote;
+``*_chunk_batch`` do the same for a batch.
 """
 
 from __future__ import annotations
@@ -36,6 +47,12 @@ __all__ = [
     "filter_scan_plain",
     "smoother_scan",
     "smoother_scan_plain",
+    "filter_chunk_batch",
+    "smoother_chunk_batch",
+    "filter_scan_batch",
+    "filter_scan_batch_plain",
+    "smoother_scan_batch",
+    "smoother_scan_batch_plain",
 ]
 
 #: normaliser clamp of both kernels (as in the TPU kernels)
@@ -57,7 +74,10 @@ def _mask(uniform_rows):
     return sum(1 << d for d, f in enumerate(uniform_rows) if f)
 
 
-def _check(name, x, shape, device):
+def _check(name, x, shape, device, batch=False):
+    """Raise unless ``x`` is a float32 tensor of ``shape`` on ``device``,
+    contiguous; with ``batch`` the stride between sequences (dim 0) is
+    free, so that a slice along time of a batched array passes."""
     if x.dtype != torch.float32:
         raise TypeError(f"{name} must be float32, got {x.dtype}")
     if tuple(x.shape) != tuple(shape):
@@ -65,8 +85,20 @@ def _check(name, x, shape, device):
                          f"{tuple(x.shape)}")
     if x.device != device:
         raise ValueError(f"{name} is on {x.device}, expected {device}")
-    if not x.is_contiguous():
+    if not (_rows_contiguous(x) if batch else x.is_contiguous()):
         raise ValueError(f"{name} must be contiguous")
+
+
+def _rows_contiguous(x):
+    """Whether each x[e] is contiguous and the sequences do not overlap."""
+    if x.numel() == 0 or x.is_contiguous():
+        return True
+    return x[0].is_contiguous() and (
+        x.shape[0] == 1 or x.stride(0) >= x[0].numel())
+
+
+def _as_rows(x):
+    return x if _rows_contiguous(x) else x.contiguous()
 
 
 def _check_dims(n_dyn, L, uniform_rows):
@@ -76,6 +108,32 @@ def _check_dims(n_dyn, L, uniform_rows):
         raise ValueError(f"L must be in [1, {MAX_LATENT}], got {L}")
     if len(uniform_rows) != n_dyn:
         raise ValueError("uniform_rows needs one flag per dynamics channel")
+
+
+def _check_lengths(lengths, E, Tmax, device, shortest):
+    """Raise unless ``lengths`` is an int32 (E,) tensor on ``device`` with
+    every entry in [shortest, Tmax] (one host read)."""
+    if not torch.is_tensor(lengths) or lengths.dtype != torch.int32:
+        raise TypeError("lengths must be an int32 tensor, got "
+                        f"{getattr(lengths, 'dtype', type(lengths))}")
+    if tuple(lengths.shape) != (E,):
+        raise ValueError(f"lengths must have shape ({E},), got "
+                         f"{tuple(lengths.shape)}")
+    if lengths.device != device:
+        raise ValueError(f"lengths is on {lengths.device}, expected {device}")
+    if not lengths.is_contiguous():
+        raise ValueError("lengths must be contiguous")
+    if E:
+        lo, hi = (int(v) for v in torch.aminmax(lengths))
+        if lo < shortest or hi > Tmax:
+            raise ValueError(f"every length must be in [{shortest}, {Tmax}], "
+                             f"got {lo} to {hi}")
+
+
+def _valid_rows(lengths, Tmax):
+    """(E, Tmax) bool: row t of sequence e is one of its own."""
+    steps = torch.arange(Tmax, device=lengths.device)
+    return steps[None, :] < lengths[:, None]
 
 
 def _stream_ptr(device):
@@ -91,6 +149,22 @@ def _lib():
 def _raise_on(err, name):
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def _band_for(band, tlat, tlat_t, uniform_rows):
+    """``band``, or the ``transition_band`` of the stack when None (one host
+    read; a caller with several calls makes it once)."""
+    if band is not None:
+        return band
+    if tlat_t is None:
+        tlat_t = tlat.transpose(-1, -2).contiguous()
+    if tlat is None:
+        tlat = tlat_t.transpose(-1, -2).contiguous()
+    return transition_band(tlat, tlat_t, uniform_rows)
+
+
+def _ptr(x):
+    return 0 if x is None else x.data_ptr()
 
 
 # ---------------------------------------------------------------------------
@@ -124,8 +198,50 @@ def filter_scan_plain(w, tlat, tdyn, p_init, uniform_rows):
     return post, prior, norm
 
 
-def filter_scan(w, tlat, tdyn, p_init, uniform_rows):
-    """K1 wrapper: same arguments and outputs as ``filter_scan_plain``."""
+def filter_scan_batch_plain(w, tlat, tdyn, p_init, lengths, uniform_rows):
+    """Plain version of K1 over a batch: ``filter_scan_plain`` on each
+    sequence's own rows.  w (E, Tmax, L); p_init (E, n_dyn, L); lengths
+    (E,).  Returns post and prior (E, Tmax, n_dyn, L) and the normalisers
+    (E, Tmax), zero past each sequence's length."""
+    E, Tmax, L = w.shape
+    n_dyn = p_init.shape[1]
+    post = torch.zeros((E, Tmax, n_dyn, L), dtype=w.dtype, device=w.device)
+    prior = torch.zeros_like(post)
+    norm = torch.zeros((E, Tmax), dtype=w.dtype, device=w.device)
+    for e, n in enumerate(lengths.tolist()):
+        post[e, :n], prior[e, :n], norm[e, :n] = filter_scan_plain(
+            w[e, :n], tlat, tdyn, p_init[e], uniform_rows)
+    return post, prior, norm
+
+
+def _launch_filter(w, tlat, tdyn, p_init, lengths, uniform_rows, band):
+    """One K1 launch over the batch w (E, Tmax, L), E and Tmax >= 1;
+    ``lengths`` None runs Tmax rows of every sequence."""
+    E, Tmax, L = w.shape
+    n_dyn = tlat.shape[0]
+    dev = w.device
+    post = torch.empty((E, Tmax, n_dyn, L), dtype=torch.float32, device=dev)
+    prior = torch.empty_like(post)
+    norm = torch.empty((E, Tmax), dtype=torch.float32, device=dev)
+    band = _band_for(band, tlat, None, uniform_rows)
+    with torch.cuda.device(dev):  # the launch goes to the current device
+        # the push half is the first, contiguous half of the band
+        err = _lib().pmg_filter_scan(
+            w.data_ptr(), tlat.data_ptr(), band.mats[0].data_ptr(),
+            band.start[0].data_ptr(), tdyn.data_ptr(), p_init.data_ptr(),
+            _ptr(lengths), post.data_ptr(), prior.data_ptr(),
+            norm.data_ptr(), w.stride(0), E, Tmax, n_dyn, L, band.W,
+            _mask(uniform_rows), _stream_ptr(dev),
+        )
+    return err, (post, prior, norm)
+
+
+def filter_scan(w, tlat, tdyn, p_init, uniform_rows, band=None):
+    """K1 wrapper: same arguments and outputs as ``filter_scan_plain``.
+    On the card the kernel reads the non-constant channels through the
+    push half of ``band``, the ``transition_band`` of tlat's stack (made
+    here when None: one host read; a caller with several chunks makes it
+    once), and gives the dense product's bits."""
     T, L = w.shape
     n_dyn = tlat.shape[0]
     _check_dims(n_dyn, L, uniform_rows)
@@ -134,45 +250,104 @@ def filter_scan(w, tlat, tdyn, p_init, uniform_rows):
     _check("tlat", tlat, (n_dyn, L, L), dev)
     _check("tdyn", tdyn, (n_dyn, n_dyn), dev)
     _check("p_init", p_init, (n_dyn, L), dev)
+    if band is not None:
+        check_band(band, uniform_rows, L, dev)
     if dev.type == "cpu":
         return filter_scan_plain(w, tlat, tdyn, p_init, uniform_rows)
     if dev.type != "cuda":
         raise ValueError(f"filter_scan runs on cpu or cuda, not {dev.type}")
-    post = torch.empty((T, n_dyn, L), dtype=torch.float32, device=dev)
-    prior = torch.empty_like(post)
-    norm = torch.empty((T,), dtype=torch.float32, device=dev)
     if T == 0:
-        return post, prior, norm
-    with torch.cuda.device(dev):  # the launch goes to the current device
-        err = _lib().pmg_filter_scan(
-            w.data_ptr(), tlat.data_ptr(), tdyn.data_ptr(),
-            p_init.data_ptr(), post.data_ptr(), prior.data_ptr(),
-            norm.data_ptr(), T, n_dyn, L, _mask(uniform_rows),
-            _stream_ptr(dev),
-        )
+        return (torch.empty((0, n_dyn, L), dtype=torch.float32, device=dev),
+                torch.empty((0, n_dyn, L), dtype=torch.float32, device=dev),
+                torch.empty((0,), dtype=torch.float32, device=dev))
+    err, out = _launch_filter(w[None], tlat, tdyn, p_init[None], None,
+                              uniform_rows, band)
     filter_scan.launches += 1
     _raise_on(err, "filter_scan")
-    return post, prior, norm
+    return tuple(x[0] for x in out)
 
 
 filter_scan.launches = 0
 
 
-def filter_chunk(ll, tlat, tdyn, p_init, likelihood_scale, uniform_rows=None):
+def filter_scan_batch(w, tlat, tdyn, p_init, lengths, uniform_rows,
+                      band=None):
+    """K1 over a batch of sequences, one thread block each, in one launch:
+    same arguments and outputs as ``filter_scan_batch_plain`` (lengths: an
+    int32 tensor on w's device, every entry in [1, Tmax]), but the rows
+    past a sequence's length are left unwritten.  Each sequence's rows are
+    bit-equal to ``filter_scan`` on that sequence alone."""
+    E, Tmax, L = w.shape
+    n_dyn = tlat.shape[0]
+    _check_dims(n_dyn, L, uniform_rows)
+    dev = w.device
+    _check("w", w, (E, Tmax, L), dev, batch=True)
+    _check("tlat", tlat, (n_dyn, L, L), dev)
+    _check("tdyn", tdyn, (n_dyn, n_dyn), dev)
+    _check("p_init", p_init, (E, n_dyn, L), dev)
+    _check_lengths(lengths, E, Tmax, dev, shortest=1)
+    if band is not None:
+        check_band(band, uniform_rows, L, dev)
+    if dev.type == "cpu":
+        return filter_scan_batch_plain(w, tlat, tdyn, p_init, lengths,
+                                       uniform_rows)
+    if dev.type != "cuda":
+        raise ValueError(
+            f"filter_scan_batch runs on cpu or cuda, not {dev.type}")
+    if E == 0:
+        return (torch.empty((0, Tmax, n_dyn, L), device=dev),
+                torch.empty((0, Tmax, n_dyn, L), device=dev),
+                torch.empty((0, Tmax), device=dev))
+    err, out = _launch_filter(w, tlat, tdyn, p_init, lengths, uniform_rows,
+                              band)
+    filter_scan_batch.launches += 1
+    _raise_on(err, "filter_scan_batch")
+    return out
+
+
+filter_scan_batch.launches = 0
+
+
+def _weights(ll, likelihood_scale):
+    """(w, m): the max-shifted likelihood weights of the last axis."""
+    m = ll.amax(dim=-1)
+    return torch.exp(likelihood_scale * (ll - m[..., None])).contiguous(), m
+
+
+def filter_chunk(ll, tlat, tdyn, p_init, likelihood_scale, uniform_rows=None,
+                 band=None):
     """Causal filter over (T, L) log-likelihoods (``filter_chunk_pallas``).
 
     ll: (T, L); tlat: (n_dyn, L, L) row-stochastic; tdyn: (n_dyn, n_dyn);
-    p_init: (n_dyn, L) probability-space carry.
+    p_init: (n_dyn, L) probability-space carry; ``band``: the
+    ``transition_band`` of tlat, see ``filter_scan``.
     Returns (post (T, n_dyn, L), prior (T, n_dyn, L), ratios (T,))."""
     if uniform_rows is None:
         uniform_rows = _detect_uniform_rows(tlat)
-    m = ll.amax(dim=1)
-    w = torch.exp(likelihood_scale * (ll - m[:, None])).contiguous()
+    w, m = _weights(ll, likelihood_scale)
     post, prior, norm = filter_scan(
         w, tlat.contiguous(), tdyn.contiguous(), p_init.contiguous(),
-        uniform_rows,
+        uniform_rows, band,
     )
     return post, prior, torch.log(norm) + likelihood_scale * m
+
+
+def filter_chunk_batch(ll, tlat, tdyn, p_init, lengths, likelihood_scale,
+                       uniform_rows=None, band=None):
+    """``filter_chunk`` over a batch: ll (E, Tmax, L), p_init (E, n_dyn,
+    L), lengths (E,) int32.  Returns (post, prior (E, Tmax, n_dyn, L),
+    ratios (E, Tmax)); the ratios are 0 past each sequence's length, so
+    their sum over time is the sequence's log marginal."""
+    if uniform_rows is None:
+        uniform_rows = _detect_uniform_rows(tlat)
+    w, m = _weights(ll, likelihood_scale)
+    post, prior, norm = filter_scan_batch(
+        w, tlat.contiguous(), tdyn.contiguous(), p_init.contiguous(),
+        lengths, uniform_rows, band,
+    )
+    valid = _valid_rows(lengths, ll.shape[1])
+    ratios = torch.log(torch.where(valid, norm, 1.0)) + likelihood_scale * m
+    return post, prior, torch.where(valid, ratios, 0.0)
 
 
 # ---------------------------------------------------------------------------
@@ -207,6 +382,44 @@ def smoother_scan_plain(filt, prior, tlat_t, tdyn, init, uniform_rows):
     return smooth, rout
 
 
+def smoother_scan_batch_plain(filt, prior, tlat_t, tdyn, init, lengths,
+                              uniform_rows):
+    """Plain version of K2 over a batch: ``smoother_scan_plain`` on each
+    sequence's own rows.  filt, prior (E, Tmax, n_dyn, L); init (E, n_dyn,
+    L); lengths (E,), 0 for a sequence with nothing to smooth over.
+    Returns smooth and r (E, Tmax, n_dyn, L), zero past each length."""
+    smooth = torch.zeros(filt.shape, dtype=filt.dtype, device=filt.device)
+    rout = torch.zeros_like(smooth)
+    for e, n in enumerate(lengths.tolist()):
+        if n:
+            smooth[e, :n], rout[e, :n] = smoother_scan_plain(
+                filt[e, :n], prior[e, :n], tlat_t, tdyn, init[e],
+                uniform_rows)
+    return smooth, rout
+
+
+def _launch_smoother(filt, prior, tlat_t, tdyn, init, lengths, uniform_rows,
+                     band):
+    """One K2 launch over the batch filt, prior (E, Tmax, n_dyn, L), E and
+    Tmax >= 1; ``lengths`` None runs Tmax rows of every sequence."""
+    E, Tmax, n_dyn, L = filt.shape
+    dev = filt.device
+    smooth = torch.empty((E, Tmax, n_dyn, L), dtype=torch.float32, device=dev)
+    rout = torch.empty_like(smooth)
+    band = _band_for(band, None, tlat_t, uniform_rows)
+    with torch.cuda.device(dev):
+        # the pull half is the second, contiguous half of the band
+        err = _lib().pmg_smoother_scan(
+            filt.data_ptr(), prior.data_ptr(), tlat_t.data_ptr(),
+            band.mats[1].data_ptr(), band.start[1].data_ptr(),
+            tdyn.data_ptr(), init.data_ptr(), _ptr(lengths),
+            smooth.data_ptr(), rout.data_ptr(), filt.stride(0),
+            prior.stride(0), E, Tmax, n_dyn, L, band.W, _mask(uniform_rows),
+            _stream_ptr(dev),
+        )
+    return err, (smooth, rout)
+
+
 def smoother_scan(filt, prior, tlat_t, tdyn, init, uniform_rows, band=None):
     """K2 wrapper: same arguments and outputs as ``smoother_scan_plain``.
     On the card the kernel reads the non-constant channels through the
@@ -228,28 +441,57 @@ def smoother_scan(filt, prior, tlat_t, tdyn, init, uniform_rows, band=None):
                                    uniform_rows)
     if dev.type != "cuda":
         raise ValueError(f"smoother_scan runs on cpu or cuda, not {dev.type}")
-    smooth = torch.empty((T, n_dyn, L), dtype=torch.float32, device=dev)
-    rout = torch.empty_like(smooth)
     if T == 0:  # nothing to smooth over (a T=1 sequence): launch nothing
-        return smooth, rout
-    if band is None:
-        band = transition_band(tlat_t.transpose(-1, -2).contiguous(), tlat_t,
-                               uniform_rows)
-    with torch.cuda.device(dev):
-        # the pull half is the second, contiguous half of the band
-        err = _lib().pmg_smoother_scan(
-            filt.data_ptr(), prior.data_ptr(), tlat_t.data_ptr(),
-            band.mats[1].data_ptr(), band.start[1].data_ptr(),
-            tdyn.data_ptr(), init.data_ptr(), smooth.data_ptr(),
-            rout.data_ptr(), T, n_dyn, L, band.W, _mask(uniform_rows),
-            _stream_ptr(dev),
-        )
+        return (torch.empty((0, n_dyn, L), dtype=torch.float32, device=dev),
+                torch.empty((0, n_dyn, L), dtype=torch.float32, device=dev))
+    err, out = _launch_smoother(filt[None], prior[None], tlat_t, tdyn,
+                                init[None], None, uniform_rows, band)
     smoother_scan.launches += 1
     _raise_on(err, "smoother_scan")
-    return smooth, rout
+    return tuple(x[0] for x in out)
 
 
 smoother_scan.launches = 0
+
+
+def smoother_scan_batch(filt, prior, tlat_t, tdyn, init, lengths,
+                        uniform_rows, band=None):
+    """K2 over a batch of sequences, one thread block each, in one launch:
+    same arguments and outputs as ``smoother_scan_batch_plain`` (lengths:
+    an int32 tensor on filt's device, every entry in [0, Tmax]), but the
+    rows past a sequence's length are left unwritten.  filt and prior may
+    be slices along time of larger batched arrays (the filter's outputs:
+    ``post[:, :-1]``, ``prior[:, 1:]``): the kernel takes their stride
+    between sequences.  Each sequence's rows are bit-equal to
+    ``smoother_scan`` on that sequence alone."""
+    E, Tmax, n_dyn, L = filt.shape
+    _check_dims(n_dyn, L, uniform_rows)
+    dev = filt.device
+    _check("filt", filt, (E, Tmax, n_dyn, L), dev, batch=True)
+    _check("prior", prior, (E, Tmax, n_dyn, L), dev, batch=True)
+    _check("tlat_t", tlat_t, (n_dyn, L, L), dev)
+    _check("tdyn", tdyn, (n_dyn, n_dyn), dev)
+    _check("init", init, (E, n_dyn, L), dev)
+    _check_lengths(lengths, E, Tmax, dev, shortest=0)
+    if band is not None:
+        check_band(band, uniform_rows, L, dev)
+    if dev.type == "cpu":
+        return smoother_scan_batch_plain(filt, prior, tlat_t, tdyn, init,
+                                         lengths, uniform_rows)
+    if dev.type != "cuda":
+        raise ValueError(
+            f"smoother_scan_batch runs on cpu or cuda, not {dev.type}")
+    if E == 0 or Tmax == 0:  # nothing to smooth over: launch nothing
+        return (torch.empty((E, Tmax, n_dyn, L), device=dev),
+                torch.empty((E, Tmax, n_dyn, L), device=dev))
+    err, out = _launch_smoother(filt, prior, tlat_t, tdyn, init, lengths,
+                                uniform_rows, band)
+    smoother_scan_batch.launches += 1
+    _raise_on(err, "smoother_scan_batch")
+    return out
+
+
+smoother_scan_batch.launches = 0
 
 
 def smoother_chunk(filt_xs, prior_xs, tlat, tdyn, smooth_init,
@@ -267,4 +509,19 @@ def smoother_chunk(filt_xs, prior_xs, tlat, tdyn, smooth_init,
     return smoother_scan(
         filt_xs.contiguous(), prior_xs.contiguous(), tlat_t,
         tdyn.contiguous(), smooth_init.contiguous(), uniform_rows, band,
+    )
+
+
+def smoother_chunk_batch(filt_xs, prior_xs, tlat, tdyn, smooth_init, lengths,
+                         uniform_rows=None, band=None):
+    """``smoother_chunk`` over a batch: filt_xs, prior_xs (E, T', n_dyn,
+    L) (slices along time of the filter's outputs are read in place),
+    smooth_init (E, n_dyn, L), lengths (E,) int32 rows to smooth over.
+    Returns (smooth, ratios) (E, T', n_dyn, L)."""
+    if uniform_rows is None:
+        uniform_rows = _detect_uniform_rows(tlat)
+    tlat_t = tlat.transpose(-1, -2).contiguous()
+    return smoother_scan_batch(
+        _as_rows(filt_xs), _as_rows(prior_xs), tlat_t, tdyn.contiguous(),
+        smooth_init.contiguous(), lengths, uniform_rows, band,
     )

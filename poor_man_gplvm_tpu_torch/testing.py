@@ -25,7 +25,8 @@ __all__ = [
     "SCAN_CASES", "SCAN_TOLERANCES", "PSCAN_TOLERANCES",
     "PSCAN_TOLERANCES_BF16X3", "PSCAN_TOLERANCES_BF16", "pscan_tolerances",
     "scan_case",
-    "kernel_vs_plain", "pscan_inputs", "pscan_vs_plain", "bwd_guess",
+    "kernel_vs_plain", "batch_vs_single", "BATCH_LENGTHS", "pscan_inputs",
+    "pscan_vs_plain", "bwd_guess",
     "joint_acc_vs_plain", "JOINT_ACC_ENTRY_RTOL", "JOINT_ACC_FLOOR",
     "band_vs_dense", "BAND_K2_ROWS", "STEP_RTOL", "STEP_TOLERANCES",
     "pfilter_step_check", "psmooth_step_check", "pscan_failures",
@@ -141,6 +142,81 @@ def kernel_vs_plain(case, device):
             (post_k[..., masked] == 0).all() and (sm_k[..., masked] == 0).all()
         ),
     }
+
+
+#: ragged lengths of a batch: a 1-bin sequence, a 2-bin one (one row to
+#: smooth over), an odd longest length, and two sequences of equal length
+BATCH_LENGTHS = (37, 1, 64, 2, 101, 64, 5)
+
+
+def batch_vs_single(case, device, lengths=BATCH_LENGTHS):
+    """Run K1 and K2 over a batch of sequences cut from ``case`` (sequence
+    e takes the next ``lengths[e]`` rows of its log-likelihoods, and its
+    own initial state) on ``device``, K2 in place on the slices of the
+    plain filter's outputs, as ``hmm.smooth_epochs`` calls it.  Returns the
+    largest disagreements with ``*_batch_plain`` over each sequence's own
+    rows (as ``kernel_vs_plain``), whether each sequence's rows equal the
+    unbatched wrapper's on that sequence alone bit for bit
+    (``equal_single``), whether the own rows are finite, and whether the
+    masked bins came out as exact zeros."""
+    t = {k: torch.as_tensor(v, device=device) for k, v in case.items()
+         if k != "masked"}
+    flags = sk._detect_uniform_rows(t["tlat"])
+    tlat_t = t["tlat"].transpose(-1, -2).contiguous()
+    n_dyn, L = t["p_init"].shape
+    E, Tmax = len(lengths), max(lengths)
+    m = t["ll"].amax(dim=1)
+    w = torch.exp(t["ll"] - m[:, None])
+    w_b = torch.zeros((E, Tmax, L), device=device)
+    init_b = torch.empty((E, n_dyn, L), device=device)
+    off = 0
+    for e, n in enumerate(lengths):
+        w_b[e, :n] = w[off:off + n]
+        head = w[off] + 1e-3  # an initial state of its own per sequence
+        init_b[e] = (head / (n_dyn * head.sum())).expand(n_dyn, L)
+        off += n
+    init_b[:, :, torch.as_tensor(case["masked"], device=device)] = 0.0
+    len_t = torch.as_tensor(lengths, dtype=torch.int32, device=device)
+    args_f = (w_b, t["tlat"], t["tdyn"], init_b, len_t, flags)
+    post_p, prior_p, s_p = sk.filter_scan_batch_plain(*args_f)
+    post_k, prior_k, s_k = sk.filter_scan_batch(*args_f)
+
+    each = torch.arange(E, device=device)
+    last = post_p[each, (len_t - 1).long()].contiguous()
+    args_s = (post_p[:, :-1], prior_p[:, 1:], tlat_t, t["tdyn"], last,
+              len_t - 1, flags)
+    sm_p, r_p = sk.smoother_scan_batch_plain(*args_s)
+    sm_k, r_k = sk.smoother_scan_batch(*args_s)
+
+    masked = torch.as_tensor(case["masked"], device=device)
+    err = {"post_abs": 0.0, "prior_abs": 0.0, "norm_rel": 0.0,
+           "smooth_abs": 0.0, "r_rel": 0.0}
+    equal = finite = zeros = True
+    for e, n in enumerate(lengths):
+        own = (post_k[e, :n], prior_k[e, :n], s_k[e, :n], sm_k[e, :n - 1],
+               r_k[e, :n - 1])
+        single = sk.filter_scan(w_b[e, :n].contiguous(), t["tlat"], t["tdyn"],
+                                init_b[e].contiguous(), flags)
+        single += sk.smoother_scan(
+            post_p[e, :n - 1].contiguous(), prior_p[e, 1:n].contiguous(),
+            tlat_t, t["tdyn"], last[e].contiguous(), flags)
+        equal &= _all_equal(own, single)
+        finite &= all(bool(torch.isfinite(x).all()) for x in own)
+        zeros &= bool((own[0][..., masked] == 0).all()
+                      and (own[3][..., masked] == 0).all())
+        nxt = torch.cat([sm_p[e, 1:n - 1], last[e][None]])[:n - 1]
+        prior_n = prior_p[e, 1:n]
+        for key, got, want in (("post_abs", own[0], post_p[e, :n]),
+                               ("prior_abs", own[1], prior_p[e, :n]),
+                               ("smooth_abs", own[3], sm_p[e, :n - 1])):
+            if want.numel():
+                err[key] = max(err[key], float((got - want).abs().max()))
+        err["norm_rel"] = max(err["norm_rel"], float(
+            ((own[2] - s_p[e, :n]).abs() / s_p[e, :n]).max()))
+        err["r_rel"] = max(err["r_rel"], _max_rel(
+            own[4], r_p[e, :n - 1], (prior_n > 1e-30) & (nxt > 1e-30)))
+    return {**err, "equal_single": bool(equal), "finite": bool(finite),
+            "masked_exact_zero": bool(zeros)}
 
 
 #: the one-step check (``pfilter_step_check``, ``psmooth_step_check``):
@@ -465,22 +541,22 @@ def _all_equal(got, want):
         torch.equal(g, w) for g, w in zip(got, want))
 
 
-#: rows of the sequential smoother's band-vs-dense run (forced dense it
-#: streams a whole channel per step at L = 500)
+#: rows of the sequential kernels' band-vs-dense runs (forced dense they
+#: stream a whole channel per step at L = 500)
 BAND_K2_ROWS = 4000
 
 
 def band_vs_dense(case, device, scan_prec="highest"):
-    """K3 (finals-only, emit), K4 (every mode) and, in "highest" (its only
-    precision), K2, each on the band and forced dense
+    """K3 (finals-only, emit), K4 (every mode) and, in "highest" (their only
+    precision), K1 and K2, each on the band and forced dense
     (``set_band_override(True)``), on the same inputs (the converged
     forward carries of ``case``, K3's plain posteriors,
-    ``smooth_parallel``'s first backward guess; K2 on the first
-    ``BAND_K2_ROWS`` posteriors and their pushed priors): whether every
-    output is bit-equal (``equal_by_mode``: "k3_finals", "k3_emit", K4's
-    modes, "k2"), whether every output is finite, masked bins exact zeros
-    and K2's r zero where the prior is 0, and the heights W of the two
-    bands."""
+    ``smooth_parallel``'s first backward guess; K1 on the first
+    ``BAND_K2_ROWS`` weight rows, K2 on the first ``BAND_K2_ROWS``
+    posteriors and their pushed priors): whether every output is bit-equal
+    (``equal_by_mode``: "k3_finals", "k3_emit", K4's modes, "k1", "k2"),
+    whether every output is finite, masked bins exact zeros and K2's r
+    zero where the prior is 0, and the heights W of the two bands."""
     a = pscan_inputs(case, device, None, scan_prec)
     fwd = (a["w"], a["tlat"], a["tdyn"], a["ins"], a["tc"], a["flags"])
     post = ps.pfilter_pass_plain(*fwd, True, scan_prec)[0]
@@ -515,6 +591,9 @@ def band_vs_dense(case, device, scan_prec="highest"):
              zero_in=0 if mode in ("full", "marginal") else None)
     if scan_prec == "highest":
         n = min(BAND_K2_ROWS, post.shape[0] - 1)
+        hold("k1", lambda b: sk.filter_scan(
+            a["w"][:n].contiguous(), a["tlat"], a["tdyn"],
+            a["ins"][0].contiguous(), a["flags"], band=b), zero_in=0)
         filt = post[:n].contiguous()
         prior = ps._matvec(torch.einsum("tpl,pd->tdl", filt, a["tdyn"]),
                            a["tlat"], a["flags"]).contiguous()

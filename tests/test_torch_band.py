@@ -253,7 +253,36 @@ def _k2(chunk):
                                          flags, band)
 
 
+def _k1(chunk):
+    t, flags, w, _, _, _ = _pass_inputs(T=61)
+    if chunk:
+        return lambda band: sk.filter_chunk(t["ll"], t["tlat"], t["tdyn"],
+                                            t["p_init"], 1.0, flags, band)
+    return lambda band: sk.filter_scan(w, t["tlat"], t["tdyn"], t["p_init"],
+                                       flags, band)
+
+
+def _batched(kernel):
+    """K1 or K2 over a batch of 3 ragged sequences of the same inputs."""
+    t, flags, w, _, _, tlat_t = _pass_inputs(T=61)
+    lengths = torch.tensor([20, 1, 17], dtype=torch.int32)
+    w_b = w[:60].view(3, 20, 40)
+    init = t["p_init"].expand(3, 2, 40).contiguous()
+    if kernel == "k1":
+        return lambda band: sk.filter_scan_batch(
+            w_b, t["tlat"], t["tdyn"], init, lengths, flags, band)
+    post, prior, _ = sk.filter_scan_batch(w_b, t["tlat"], t["tdyn"], init,
+                                          lengths, flags)
+    return lambda band: sk.smoother_scan_batch(
+        post[:, :-1], prior[:, 1:], tlat_t, t["tdyn"],
+        post[:, 0].contiguous(), lengths - 1, flags, band)
+
+
 WRAPPERS = {
+    "filter_scan": (lambda: _k1(False), "highest"),
+    "filter_chunk": (lambda: _k1(True), "highest"),
+    "filter_scan_batch": (lambda: _batched("k1"), "highest"),
+    "smoother_scan_batch": (lambda: _batched("k2"), "highest"),
     "pfilter_finals": (lambda: _k3(False), "highest"),
     "pfilter_emit": (lambda: _k3(True), "highest"),
     "pfilter_emit_bf16x3": (lambda: _k3(True, "bf16x3"), "bf16x3"),
@@ -307,13 +336,15 @@ BAD_BANDS = ("other_L", "other_channels", "W_mismatch", "start_shape",
              "not_contiguous", "float64")
 
 
-@pytest.mark.parametrize("kernel", ["k2", "k3", "k4"])
+@pytest.mark.parametrize("kernel", ["k1", "k2", "k3", "k4"])
 @pytest.mark.parametrize("fault", BAD_BANDS)
 def test_band_of_the_wrong_shape_raises(fault, kernel):
     band = _bad_bands()[fault]
     t, flags, w, ins, tc, tlat_t = _pass_inputs()
     with pytest.raises(ValueError, match="band does not match"):
-        if kernel == "k3":
+        if kernel == "k1":
+            sk.filter_scan(w, t["tlat"], t["tdyn"], t["p_init"], flags, band)
+        elif kernel == "k3":
             ps.pfilter_pass(w, t["tlat"], t["tdyn"], ins, tc, flags, False,
                             band=band)
         elif kernel == "k4":
@@ -403,8 +434,8 @@ def test_window_sum_gives_the_dense_sum_bit_for_bit(mv, half):
 def test_sequential_decode_over_host_chunks_makes_the_band_once(
         joint, monkeypatch):
     """``smooth_combined_chunked(engine='cuda')`` over several host chunks:
-    the transition object makes K2's band at its first backward chunk and
-    keeps it (``band_windows`` reads W to the host).  On CPU tensors no
+    the transition object makes the band of K1 and K2 at its first chunk
+    and keeps it (``band_windows`` reads W to the host).  On CPU tensors no
     band is made; with the device rule lifted, exactly one, and the
     results do not move."""
     L, T, N = 30, 230, 5

@@ -1,8 +1,10 @@
-"""Card tests: the CUDA scan kernels K1/K2 (sequential), K3/K4
-(parallel-in-time passes, every mode, with the K5 dots in each precision)
-and joint_acc against their plain versions; K2, K3 and K4 on the band of
-nonzeros against the same kernel forced dense, bit for bit; and the
-parallel kernels against the sequential ones, bit for bit.
+"""Card tests: the CUDA scan kernels K1/K2 (sequential, unbatched and one
+thread block per sequence of a batch), K3/K4 (parallel-in-time passes,
+every mode, with the K5 dots in each precision) and joint_acc against
+their plain versions; K1, K2, K3 and K4 on the band of nonzeros against
+the same kernel forced dense, bit for bit; the batched K1/K2 against the
+unbatched ones and the parallel kernels against the sequential ones, bit
+for bit.
 
 Imports no jax, so it runs on a machine with a card and no JAX:
 
@@ -27,6 +29,7 @@ from poor_man_gplvm_tpu_torch.testing import (  # noqa: E402
     SCAN_CASES,
     SCAN_TOLERANCES,
     band_vs_dense,
+    batch_vs_single,
     joint_acc_vs_plain,
     kernel_vs_plain,
     pscan_failures,
@@ -73,6 +76,75 @@ def test_launch_counts(cuda):
     sk.smoother_chunk(post[:-1], prior[1:], tlat, tdyn, post[-1])
     torch.cuda.synchronize()
     assert sk.smoother_scan.launches == s0 + 1
+
+
+@pytest.mark.parametrize("case", SCAN_CASES)
+@pytest.mark.parametrize("n_dyn", [1, 2])
+@pytest.mark.parametrize("L", [100, 500])
+def test_batched_kernels_equal_unbatched(cuda, L, n_dyn, case):
+    # one block per sequence, ragged lengths with a 1-bin sequence and an
+    # odd longest one: each sequence's rows equal the unbatched kernel's on
+    # that sequence alone bit for bit, and *_batch_plain to f32 rounding
+    err = batch_vs_single(scan_case(L + n_dyn, 300, L, n_dyn, case), cuda)
+    torch.cuda.synchronize()
+    assert err["equal_single"], err
+    for key in ("post_abs", "prior_abs", "smooth_abs", "r_rel"):
+        assert err[key] <= SCAN_TOLERANCES[key], (key, err)
+    assert err["norm_rel"] <= 1e-5, err
+    assert err["finite"] and err["masked_exact_zero"], err
+
+
+def test_batch_launch_counts_and_bad_inputs(cuda):
+    E, Tmax, L = 3, 6, 40
+    c = scan_case(1, E * Tmax, L, 2, "jump")
+    tlat = torch.as_tensor(c["tlat"], device=cuda)
+    tdyn = torch.as_tensor(c["tdyn"], device=cuda)
+    ll = torch.as_tensor(c["ll"], device=cuda).view(E, Tmax, L)
+    init = torch.as_tensor(c["p_init"], device=cuda).expand(E, 2, L)
+    lengths = torch.tensor([6, 1, 4], dtype=torch.int32, device=cuda)
+    f0, s0 = sk.filter_scan_batch.launches, sk.smoother_scan_batch.launches
+    u0 = sk.filter_scan.launches
+    post, prior, ratios = sk.filter_chunk_batch(ll, tlat, tdyn, init, lengths,
+                                                1.0)
+    last = post[torch.arange(E, device=cuda), (lengths - 1).long()]
+    smooth, r = sk.smoother_chunk_batch(post[:, :-1], prior[:, 1:], tlat,
+                                        tdyn, last, lengths - 1)
+    torch.cuda.synchronize()
+    assert sk.filter_scan_batch.launches == f0 + 1
+    assert sk.smoother_scan_batch.launches == s0 + 1
+    assert sk.filter_scan.launches == u0  # the batch is not the unbatched
+    assert smooth.shape == r.shape == (E, Tmax - 1, 2, L)
+    assert bool((ratios[1, 1:] == 0).all())  # past a sequence's length
+    # all sequences of one bin: nothing to smooth over, nothing launched
+    one = torch.ones(E, dtype=torch.int32, device=cuda)
+    sm, _ = sk.smoother_chunk_batch(post[:, :0], prior[:, :0], tlat, tdyn,
+                                    post[:, 0], one - 1)
+    assert sm.shape == (E, 0, 2, L)
+    assert sk.smoother_scan_batch.launches == s0 + 1
+
+    w = torch.rand(E, Tmax, L, device=cuda)
+    flags = (False, True)
+    args = (tlat, tdyn, init.contiguous())
+    with pytest.raises(TypeError, match="int32"):
+        sk.filter_scan_batch(w, *args, lengths.long(), flags)
+    with pytest.raises(ValueError, match="every length"):  # > Tmax
+        sk.filter_scan_batch(w, *args, lengths + 1, flags)
+    with pytest.raises(ValueError, match="every length"):  # length 0
+        sk.filter_scan_batch(w, *args, lengths - 1, flags)
+    with pytest.raises(ValueError, match="lengths is on"):
+        sk.filter_scan_batch(w, *args, lengths.cpu(), flags)
+    with pytest.raises(ValueError, match="shape"):
+        sk.filter_scan_batch(w, *args, lengths[:2].contiguous(), flags)
+    with pytest.raises(ValueError, match="contiguous"):
+        sk.filter_scan_batch(w.transpose(1, 2).contiguous().transpose(1, 2),
+                             *args, lengths, flags)
+    filt, pri = post[:, :-1], prior[:, 1:]
+    tlat_t = tlat.transpose(-1, -2).contiguous()
+    with pytest.raises(ValueError, match="every length"):  # negative
+        sk.smoother_scan_batch(filt, pri, tlat_t, tdyn, last, lengths - 2,
+                               flags)
+    with pytest.raises(ValueError, match="every length"):  # > Tmax - 1
+        sk.smoother_scan_batch(filt, pri, tlat_t, tdyn, last, lengths, flags)
 
 
 def test_wrappers_reject_bad_inputs(cuda):
@@ -168,9 +240,9 @@ def test_k4_band_equals_dense(cuda, L, n_dyn, scan_prec):
 @pytest.mark.parametrize("case", SCAN_CASES)
 @pytest.mark.parametrize("n_dyn", [1, 2])
 @pytest.mark.parametrize("L", [100, 500])
-def test_k3_k2_band_equals_dense(cuda, L, n_dyn, case, scan_prec):
-    # K3 finals-only and emit in every precision, K2 (f32 only) and K4 on
-    # the band and forced dense: the RBF channel (W = 21), a dense channel
+def test_k1_k3_k2_band_equals_dense(cuda, L, n_dyn, case, scan_prec):
+    # K3 finals-only and emit in every precision, K1 and K2 (f32 only) and
+    # K4 on the band and forced dense: the RBF channel (W = 21), a dense channel
     # ('identical': W = L, the same code) and a lone constant channel (no
     # band at all)
     eq = band_vs_dense(scan_case(L + n_dyn, 4001, L, n_dyn, case), cuda,
@@ -178,6 +250,7 @@ def test_k3_k2_band_equals_dense(cuda, L, n_dyn, case, scan_prec):
     torch.cuda.synchronize()
     by_mode = eq["equal_by_mode"]
     assert by_mode["k3_finals"] and by_mode["k3_emit"], eq
+    assert by_mode.get("k1", scan_prec != "highest"), eq
     assert by_mode.get("k2", scan_prec != "highest"), eq
     assert eq["band_equal_dense"], eq
     assert eq["finite"] and eq["masked_exact_zero"], eq
@@ -228,23 +301,25 @@ def test_parallel_kernels_bit_identical_to_sequential(cuda, L, case):
     assert torch.equal(r_k[:-1], r_seq) and bool((r_k[-1] == 0).all())
 
 
-def test_k2_band_raises_on_the_card_and_is_made_once(cuda, monkeypatch):
+def test_k1_k2_band_raises_on_the_card_and_is_made_once(cuda, monkeypatch):
     t = _tensors(scan_case(3, 230, 40, 2, "jump"), cuda)
-    post, prior, _ = sk.filter_scan(t["w"], t["tlat"], t["tdyn"],
-                                    t["p_init"], t["flags"])
+    args_f = (t["w"], t["tlat"], t["tdyn"], t["p_init"], t["flags"])
+    post, prior, _ = sk.filter_scan(*args_f)
     args = (post[:-1].contiguous(), prior[1:].contiguous(), t["tlat_t"],
             t["tdyn"], post[-1].contiguous(), t["flags"])
     band = bd.transition_band(t["tlat"], t["tlat_t"], t["flags"])
-    want = sk.smoother_scan(*args)
-    got = sk.smoother_scan(*args, band=band)
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
-    with pytest.raises(ValueError, match="band does not match"):
-        sk.smoother_scan(*args, band=band._replace(W=band.W - 1))
     cpu_band = bd.transition_band(t["tlat"].cpu(), t["tlat_t"].cpu(),
                                   t["flags"])
-    with pytest.raises(ValueError, match="band does not match"):
-        sk.smoother_scan(*args, band=cpu_band)
-    # a sequential decode over 7 host chunks: one band, 7 launches of K2
+    for kern, a in ((sk.filter_scan, args_f), (sk.smoother_scan, args)):
+        want = kern(*a)
+        got = kern(*a, band=band)
+        assert all(torch.equal(g, x) for g, x in zip(got, want))
+        with pytest.raises(ValueError, match="band does not match"):
+            kern(*a, band=band._replace(W=band.W - 1))
+        with pytest.raises(ValueError, match="band does not match"):
+            kern(*a, band=cpu_band)
+    # a sequential decode over 7 host chunks: one band for both kernels, 7
+    # launches of each
     calls = []
     real = bd.band_windows
     monkeypatch.setattr(bd, "band_windows",
@@ -254,13 +329,21 @@ def test_k2_band_raises_on_the_card_and_is_made_once(cuda, monkeypatch):
                                 logTlat=t["tlat"].log())
     y = torch.poisson(torch.full((230, 5), 1.5, device=cuda))
     tuning = torch.rand(40, 5, device=cuda) + 0.5
-    s0 = sk.smoother_scan.launches
+    f0, s0 = sk.filter_scan.launches, sk.smoother_scan.launches
     out = hmm.smooth_combined_chunked(
         y, tuning, {}, trans, torch.ones(5, device=cuda),
         torch.ones(40, device=cuda), engine="cuda", n_time_per_chunk=37)
     torch.cuda.synchronize()
     assert len(calls) == 1 and sk.smoother_scan.launches == s0 + 7
+    assert sk.filter_scan.launches == f0 + 7
     assert bool(torch.isfinite(out[0]).all())
+    # and a batch of epochs on the same transition object: no further band
+    lat, lml = hmm.smooth_epochs(
+        y.view(10, 23, 5), torch.full((10,), 23), tuning, {}, trans,
+        torch.ones(5, device=cuda), engine="cuda")
+    torch.cuda.synchronize()
+    assert len(calls) == 1
+    assert bool(torch.isfinite(lat).all() and torch.isfinite(lml).all())
 
 
 def test_pscan_kernels_empty_chunks(cuda):

@@ -245,6 +245,9 @@ def test_port_imports_and_decodes_without_jax():
         em = m.fit_em(y, n_iter=2, verboase=False, m_step_maxiter=10)
         assert len(em["log_marginal_l"]) == 2
         assert np.isfinite(float(em["log_marginal_l"][-1]))
+        ep = m.decode_latent_epochs(y, np.array([[0, 40], [100, 117]]))
+        assert ep["posterior_latent_marg"].shape == (2, 40, 8)
+        assert np.isfinite(ep["log_marginal_per_epoch"]).all()
         # the fused schedule, lean output, and the bf16x3 scan precision
         from poor_man_gplvm_tpu_torch.ops import parallel_scan as ps
         ps.set_scan_precision("bf16x3")
@@ -266,3 +269,21 @@ def test_port_imports_and_decodes_without_jax():
                          text=True, env=env, timeout=300, check=False)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+def test_port_sources_import_neither_jax_nor_the_jax_package():
+    """No source file of the port, and not ``chip_smoke.py``, imports
+    ``jax``, ``jaxlib`` or anything of ``poor_man_gplvm_tpu``."""
+    import pathlib
+    import re
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    files = sorted((root / "poor_man_gplvm_tpu_torch").rglob("*.py"))
+    files.append(root / "chip_smoke.py")
+    assert len(files) >= 15
+    banned = re.compile(
+        r"^\s*(?:import|from)\s+(?:jax|jaxlib|optax|poor_man_gplvm_tpu)"
+        r"(?![\w])", re.MULTILINE)
+    for path in files:
+        hits = banned.findall(path.read_text())
+        assert not hits, (path.name, hits)

@@ -119,6 +119,45 @@ def test_adam_update_matches_optax():
     assert float(np.abs(pp.numpy() - np.asarray(jp)).max()) <= 1e-6
 
 
+def test_adam_update_constants_made_once_keep_the_bits():
+    """``adam_update`` takes its decay rates from ``_const`` (made once per
+    device, no copy from the host per iteration); 50 steps equal the
+    formula that built both as fresh 0-dim f32 tensors every step, bit for
+    bit, and so does the prior's scale in the objective."""
+
+    def reference_update(grads, state, step_size):
+        mu = (1 - ms.ADAM_B1) * grads + ms.ADAM_B1 * state.mu
+        nu = (1 - ms.ADAM_B2) * grads**2 + ms.ADAM_B2 * state.nu
+        count = state.count + 1
+        b1 = torch.tensor(ms.ADAM_B1, dtype=torch.float32)
+        b2 = torch.tensor(ms.ADAM_B2, dtype=torch.float32)
+        updates = (mu / (1 - b1**count)) / (
+            torch.sqrt(nu / (1 - b2**count)) + ms.ADAM_EPS)
+        return -step_size * updates, ms.AdamState(count, mu, nu)
+
+    rng = np.random.default_rng(2)
+    params = torch.tensor(rng.normal(size=(6, 9)).astype(np.float32))
+    got = want = ms.adam_init(params)
+    p_got = p_want = params
+    for _ in range(50):
+        g = torch.tensor(rng.normal(size=(6, 9)).astype(np.float32))
+        u_got, got = ms.adam_update(g, got, 0.01)
+        u_want, want = reference_update(g, want, 0.01)
+        assert torch.equal(u_got, u_want)
+        p_got, p_want = p_got + u_got, p_want + u_want
+    assert torch.equal(p_got, p_want) and int(got.count) == 50
+    assert got.count.dtype == torch.int32
+    assert torch.equal(got.mu, want.mu) and torch.equal(got.nu, want.nu)
+    assert ms._const(ms.ADAM_B1, "cpu") is ms._const(ms.ADAM_B1, "cpu")
+    assert ms._const(0.9, "cpu").dtype == torch.float32
+    for scale in (1.0, 0.37, np.float32(2.5), 3):
+        want = (torch.log(2 * np.pi * torch.tensor(scale, dtype=torch.float32)
+                          ** 2) + params**2
+                / torch.tensor(scale, dtype=torch.float32)**2) / -2
+        assert torch.equal(ms._norm_logpdf(params, scale), want)
+        assert torch.equal(ms._norm_logpdf(params, torch.tensor(scale)), want)
+
+
 @pytest.mark.parametrize("maxiter,tol", [(20, 1e-6), (1000, 1e-3)])
 def test_adam_run_matches_jax(setup, maxiter, tol):
     """One Adam run from the same init: same n_iter (capped, or stopped

@@ -3,6 +3,10 @@ the JAX package: the Pallas kernels in interpret mode
 (``filter_chunk_pallas`` / ``smoother_chunk_pallas``) and the prob-engine
 scans (``_forward_scan_prob`` / ``_backward_scan_prob_ratios``).
 
+The batched wrappers' plain versions (``*_batch_plain``, one sequence per
+thread block on the card) are held to the unbatched plain scans on each
+sequence alone, bit for bit.
+
 Inputs are made with numpy from a seed (``poor_man_gplvm_tpu_torch.testing``)
 and fed to both packages in float32.  Tolerances: ``SCAN_TOLERANCES``
 (posteriors 1e-4 absolute, summed log ratios 1e-5 relative, as PARITY.json).
@@ -19,8 +23,11 @@ from poor_man_gplvm_tpu.ops import hmm as jhmm  # noqa: E402
 from poor_man_gplvm_tpu.ops.pallas import scan_kernels as jsk  # noqa: E402
 from poor_man_gplvm_tpu_torch.ops import hmm  # noqa: E402
 from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk  # noqa: E402
+from poor_man_gplvm_tpu_torch.ops import parallel_scan as ps  # noqa: E402
 from poor_man_gplvm_tpu_torch.testing import (  # noqa: E402
+    BATCH_LENGTHS,
     SCAN_TOLERANCES as TOL,
+    batch_vs_single,
     scan_case,
 )
 
@@ -167,6 +174,139 @@ def test_wrappers_check_inputs():
                          torch.rand(3, 8), (False,) * 3)
 
 
+@pytest.mark.parametrize("n_dyn,L,case", CASES)
+def test_batch_plain_equals_the_plain_scans_per_sequence(n_dyn, L, case):
+    """``filter_scan_batch`` / ``smoother_scan_batch`` on CPU tensors run
+    ``*_batch_plain``: each sequence's own rows equal the unbatched plain
+    scan on that sequence alone bit for bit (ragged lengths with a 1-bin
+    sequence; K2 on slices of the filter's outputs, read in place), and the
+    rows past a sequence's length are zero."""
+    c = scan_case(L + n_dyn, sum(BATCH_LENGTHS), L, n_dyn, case)
+    err = batch_vs_single(c, torch.device("cpu"))
+    assert err["equal_single"] and err["finite"], err
+    assert err["masked_exact_zero"], err
+    assert max(err[k] for k in ("post_abs", "prior_abs", "norm_rel",
+                                "smooth_abs", "r_rel")) == 0.0, err
+
+
+def _batch(seed=3, L=20, n_dyn=2, lengths=(7, 1, 12)):
+    c = scan_case(seed, sum(lengths), L, n_dyn, "masked")
+    E, Tmax = len(lengths), max(lengths)
+    ll = torch.full((E, Tmax, L), -7.0)
+    off = 0
+    for e, n in enumerate(lengths):
+        ll[e, :n] = _t(c["ll"][off:off + n])
+        off += n
+    init = _t(c["p_init"]).expand(E, n_dyn, L).contiguous()
+    return c, ll, init, torch.tensor(lengths, dtype=torch.int32)
+
+
+def test_chunk_batch_matches_chunk_per_sequence():
+    """``filter_chunk_batch`` / ``smoother_chunk_batch`` against
+    ``filter_chunk`` / ``smoother_chunk`` on each sequence alone; ratios
+    are 0 past a sequence's length, outputs zero there."""
+    c, ll, init, lengths = _batch()
+    tlat, tdyn = _t(c["tlat"]), _t(c["tdyn"])
+    post, prior, ratios = sk.filter_chunk_batch(ll, tlat, tdyn, init, lengths,
+                                                0.7)
+    last = post[torch.arange(3), (lengths - 1).long()]
+    smooth, r = sk.smoother_chunk_batch(post[:, :-1], prior[:, 1:], tlat,
+                                        tdyn, last, lengths - 1)
+    assert smooth.shape == r.shape == (3, 11, 2, 20)
+    for e, n in enumerate(lengths.tolist()):
+        p1, prior1, rat1 = sk.filter_chunk(ll[e, :n], tlat, tdyn, init[e],
+                                           0.7)
+        assert torch.equal(post[e, :n], p1)
+        assert torch.equal(prior[e, :n], prior1)
+        assert torch.equal(ratios[e, :n], rat1)
+        assert bool((ratios[e, n:] == 0).all() and (post[e, n:] == 0).all())
+        s1, r1 = sk.smoother_chunk(p1[:-1], prior1[1:], tlat, tdyn, p1[-1])
+        assert torch.equal(smooth[e, :n - 1], s1)
+        assert torch.equal(r[e, :n - 1], r1)
+        assert bool((smooth[e, max(n - 1, 0):] == 0).all())
+
+
+def test_batch_wrappers_check_inputs():
+    c, ll, init, lengths = _batch()
+    tlat, tdyn = _t(c["tlat"]), _t(c["tdyn"])
+    flags = sk._detect_uniform_rows(tlat)
+    w = torch.rand(3, 12, 20)
+    args = (tlat, tdyn, init)
+    with pytest.raises(TypeError, match="int32"):
+        sk.filter_scan_batch(w, *args, lengths.long(), flags)
+    with pytest.raises(TypeError, match="int32"):
+        sk.filter_scan_batch(w, *args, [7, 1, 12], flags)
+    with pytest.raises(ValueError, match="every length"):  # longer than Tmax
+        sk.filter_scan_batch(w, *args, lengths + 1, flags)
+    with pytest.raises(ValueError, match="every length"):  # an empty one
+        sk.filter_scan_batch(w, *args, lengths - 1, flags)
+    with pytest.raises(ValueError, match="shape"):
+        sk.filter_scan_batch(w, *args, lengths[:2].contiguous(), flags)
+    with pytest.raises(ValueError, match="shape"):
+        sk.filter_scan_batch(w, tlat, tdyn, init[:2], lengths, flags)
+    with pytest.raises(ValueError, match="contiguous"):
+        sk.filter_scan_batch(w.transpose(1, 2).contiguous().transpose(1, 2),
+                             *args, lengths, flags)
+    with pytest.raises(TypeError, match="float32"):
+        sk.filter_scan_batch(w.double(), *args, lengths, flags)
+    post, prior, _ = sk.filter_scan_batch(w, *args, lengths, flags)
+    tlat_t = tlat.transpose(-1, -2).contiguous()
+    last = post[:, 0].contiguous()
+    # slices along time pass (their stride between sequences is free) ...
+    sk.smoother_scan_batch(post[:, :-1], prior[:, 1:], tlat_t, tdyn, last,
+                           lengths - 1, flags)
+    # ... an empty sequence too, a negative or too long one does not
+    with pytest.raises(ValueError, match="every length"):
+        sk.smoother_scan_batch(post[:, :-1], prior[:, 1:], tlat_t, tdyn, last,
+                               lengths - 2, flags)
+    with pytest.raises(ValueError, match="every length"):
+        sk.smoother_scan_batch(post[:, :-1], prior[:, 1:], tlat_t, tdyn, last,
+                               lengths, flags)
+    with pytest.raises(ValueError, match="contiguous"):
+        sk.smoother_scan_batch(post[:, :-1, :, ::2], prior[:, 1:, :, ::2],
+                               tlat_t[:, :10, :10].contiguous(), tdyn,
+                               last[..., ::2], lengths - 1, flags)
+
+
+def test_latent_size_cap():
+    """The kernels give each latent bin a thread of one block: L <= 1024.
+    Every kernel wrapper raises past it (on CPU tensors too); the 'prob'
+    engine has no such limit."""
+    L = sk.MAX_LATENT + 1
+    w = torch.rand(3, L)
+    tlat = torch.full((1, L, L), 1.0 / L)
+    tdyn = torch.ones(1, 1)
+    init = torch.full((1, L), 1.0 / L)
+    state = torch.full((3, 1, L), 1.0 / L)
+    flags = (True,)
+    match = f"L must be in \\[1, {sk.MAX_LATENT}\\]"
+    with pytest.raises(ValueError, match=match):
+        sk.filter_scan(w, tlat, tdyn, init, flags)
+    with pytest.raises(ValueError, match=match):
+        sk.smoother_scan(state, state, tlat, tdyn, init, flags)
+    with pytest.raises(ValueError, match=match):
+        sk.filter_scan_batch(w[None], tlat, tdyn, init[None],
+                             torch.tensor([3], dtype=torch.int32), flags)
+    with pytest.raises(ValueError, match=match):
+        sk.smoother_scan_batch(state[None], state[None], tlat, tdyn,
+                               init[None],
+                               torch.tensor([3], dtype=torch.int32), flags)
+    with pytest.raises(ValueError, match=match):
+        ps.pfilter_pass(w, tlat, tdyn, init[None], 3, flags, True)
+    with pytest.raises(ValueError, match=match):
+        ps.psmooth_pass(state, tlat, tlat, tdyn, init[None], 3, flags, "full")
+    # the kernel engines raise through the model, 'prob' decodes
+    y = np.random.default_rng(0).poisson(1.0, (4, 3)).astype(np.float32)
+    tuning = torch.rand(L, 3) + 0.5
+    lat = hmm.LatentTransition(tlat[0], torch.log(tlat[0]))
+    args = (y, tuning, {}, lat, torch.ones(3))
+    with pytest.raises(ValueError, match=match):
+        hmm.smooth_combined_chunked(*args, engine="cuda")
+    out = hmm.smooth_combined_chunked(*args, engine="prob")
+    assert out[0].shape == (4, L) and bool(torch.isfinite(out[1]))
+    torch.testing.assert_close(torch.exp(out[0]).sum(dim=1), torch.ones(4))
+
+
 def _division_operands(kind, n=1_000_000):
     """(x, y) float32 operands of the kernels' divisions: x >= 0 and 0 < y
     < 2, with tails down to the subnormals and exact zeros."""
@@ -196,8 +336,8 @@ def test_division_by_reciprocal_gives_the_f32_quotient(kind):
     """A numpy model of ``scan_common.cuh::div_by_rcp``: for f32 x >= 0 and
     0 < y < 2, the f64 product of x with a reciprocal of y good to 2^-52,
     rounded to f32, equals the correctly rounded f32 quotient bit for bit,
-    whichever way the reciprocal errs.  K2 and K3 divide this way; K1 and
-    K4 divide in f32, and the engines stay bit-identical."""
+    whichever way the reciprocal errs.  K1, K2 and K3 divide this way; K4
+    divides in f32, and the engines stay bit-identical."""
     x, y = _division_operands(kind)
     assert x.size > 900_000
     with np.errstate(under="ignore", over="ignore"):
