@@ -84,6 +84,7 @@ summary of the kernels; the last line is ``{"ok": true, "device":
 """
 
 import contextlib
+import functools
 import json
 import re
 import subprocess
@@ -117,8 +118,12 @@ EPOCH_ONE_SAMPLE = 50  # epochs also decoded as a batch of one
 # f32 rounding, held to EPOCH_LL_ATOL, and sharp posteriors carry that
 # (3.1e-4 on the H100 at N = L = 500; the parallel engine's folded
 # emissions moved them by as much).  At N = L = 100 (2) keeps
-# DECODE_POST_ATOL.
-EPOCH_POST_ATOL = {100: 1e-4, 500: 1e-3}
+# DECODE_POST_ATOL.  A Gaussian model's log-likelihoods are quadratic in y
+# and sum three products (-1/2 (y^2 w - 2 y w mu + w mu^2)) of ~1e3 at
+# N = 100: their gap reached 5.8e-4 there on the H100 and the posteriors
+# 2.2e-4, so a Gaussian model is held to EPOCH_LL_ATOL at that width.
+EPOCH_POST_ATOL = {(100, "poisson"): 1e-4, (500, "poisson"): 1e-3,
+                   (100, "gaussian"): 1e-3}
 EPOCH_LL_ATOL = 1e-3
 EPOCH_SAME_LL_ATOL = 1e-5
 EPOCH_SAME_LL_LML_RTOL = 1e-6
@@ -148,6 +153,18 @@ NS_CMP_ITERS = 4
 NS_CMP_MAXITER = 20
 NS_CERT_RTOL = 1e-5  # the bench's bf16x3-vs-strict-f32 certificate
 T_ACC = 100_000  # the marginal+acc check of the north-star model
+# the families phase: the other three model classes
+FAMILIES = ("PoissonGPLVM1D", "GaussianGPLVM1D", "GaussianGPLVMJump1D")
+FAM_FIT_NL = 100  # N = L of the families' fits (the fit cell's width)
+FAM_LEAN_ITERS = 4  # PoissonGPLVM1D's lean fit at the north-star shape
+FAM_LOG_T = 2_000  # engine='log' against 'prob', N = L = 100
+FAM_LOG_CLASSES = ("PoissonGPLVM1D", "GaussianGPLVMJump1D")
+#: the n_dyn = 1 kernel rows of the kernels line: wrapper[mode] names
+NDYN1_KERNELS = ("filter_scan", "smoother_scan",
+                 "pfilter_pass[finals/highest]", "pfilter_pass[emit/highest]",
+                 "psmooth_pass[finals/highest]", "psmooth_pass[full/highest]",
+                 "psmooth_pass[marginal/highest]",
+                 "psmooth_pass[marginal_acc/highest]", "joint_acc")
 # the card's peaks (NVIDIA's data sheet, H100 SXM, 700 W): device memory
 # rate, float32 outside the tensor cores, dense bf16 and TF32 in the tensor
 # cores
@@ -636,22 +653,26 @@ TIMED_OUTPUT = {"emit": (0, "post_abs"), "full": (0, "smooth_abs"),
                 "acc": (0, "acc_rel")}
 
 
-def _pscan_timed(L, dev):
+def _pscan_timed(L, dev, case=None, precs=None, extras=True):
     """Every K3/K4 mode and precision, and joint_acc, at the fit cell's
-    length T=100,000, n_dyn=2 with the jump channel: each kernel call held
-    against its plain version on the same inputs (its main output, by the
-    whole-pass tolerance of its precision), K3 emit and K4 full by the
-    one-step check, both versions timed, with the bound and, for
-    joint_acc, the PyTorch call for the same sum."""
+    length T=100,000, n_dyn=2 with the jump channel (or on ``case``, in
+    ``precs``): each kernel call held against its plain version on the
+    same inputs (its main output, by the whole-pass tolerance of its
+    precision), K3 emit and K4 full by the one-step check, both versions
+    timed, with the bound and, for joint_acc, the PyTorch call for the same
+    sum; with ``extras`` the one-row probes and, at L=500, the dense
+    rows."""
     from poor_man_gplvm_tpu_torch.ops import parallel_scan as ps
     from poor_man_gplvm_tpu_torch.testing import (
         bwd_guess, pfilter_step_check, pscan_inputs, pscan_tolerances,
         psmooth_step_check, scan_case,
     )
 
-    case = scan_case(L, T_LONG, L, 2, "jump")
+    if case is None:
+        case = scan_case(L, T_LONG, L, 2, "jump")
+    T, n_dyn = case["ll"].shape[0], case["tlat"].shape[0]
     rows = {}
-    for prec in ps.SCAN_PRECISIONS:
+    for prec in precs or ps.SCAN_PRECISIONS:
         tols = pscan_tolerances(prec)
         a = pscan_inputs(case, dev, scan_prec=prec)
         C = a["ins"].shape[0]
@@ -688,9 +709,10 @@ def _pscan_timed(L, dev):
             err = float((got - want).abs().max())
             rel = err / float(want.abs().max())
             ms = cuda_ms(kern, 3)
-            bound_ms, bound_by = kernel_bound(name, T_LONG, L, 2, nnz)
+            bound_ms, bound_by = kernel_bound(name, T, L, n_dyn, nnz)
             probe_ms, probe_txt = _probe(name, prec, fwd, bwd, band, post,
-                                         r if prec == "highest" else None)
+                                         r if prec == "highest" else None) \
+                if extras else (None, "")
             lib_ms = None
             if name == "joint_acc":
                 lib_ms = cuda_ms(lambda: torch.einsum("tdi,tej->deij", post,
@@ -699,7 +721,8 @@ def _pscan_timed(L, dev):
                               bound_ms=bound_ms, bound_by=bound_by,
                               library_ms=lib_ms, probe_ms=probe_ms, C=C,
                               tc=a["tc"])
-            log(f"time {name} L={L} T={T_LONG} C={C} tc={a['tc']}: kernel "
+            log(f"time {name} L={L} T={T} n_dyn={n_dyn} C={C} tc={a['tc']} "
+                f"band W={band.W}: kernel "
                 f"{ms:.3f} ms ({1e3 * ms / a['tc']:.3f} us/step), plain "
                 f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({bound_by})"
                 + ("" if lib_ms is None else f", einsum {lib_ms:.3f} ms")
@@ -711,11 +734,11 @@ def _pscan_timed(L, dev):
             a, ps.pfilter_pass(*fwd, True, prec, band=band)[0], prec)
         sm_k, r_k, _ = ps.psmooth_pass(*bwd, "full", prec, band=band)
         step.update(psmooth_step_check(a, post, ins_b, sm_k, r_k, prec))
-        log(f"one-step check K3 emit, K4 full L={L} T={T_LONG} {prec}: "
-            f"{_fmt(step)}")
+        log(f"one-step check K3 emit, K4 full L={L} T={T} n_dyn={n_dyn} "
+            f"{prec}: {_fmt(step)}")
         for key, v in step.items():
             check(v <= tols[key], (L, prec, key, v, tols[key]))
-    if L == 500:
+    if L == 500 and extras:
         for name, row in _dense_rows(L, dev).items():
             rows[name].update(row)
     return rows
@@ -1005,9 +1028,10 @@ def _epochs_on_batch_ll(m, y, intervals, post, lml):
     valid = steps[None, :] < lens[:, None]
     rows = (torch.as_tensor(intervals[:, 0], device=dev)[:, None]
             + steps[None, :]).clamp(max=y.shape[0] - 1)
+    hyper = m._emission_hyper({})
     ll = hmm.epoch_loglikelihoods(
-        y[rows] * valid[:, :, None], lens, m.tuning, {}, m.ma_neuron_default,
-        m.ma_latent_default, m.observation_model)
+        y[rows] * valid[:, :, None], lens, m.tuning, hyper,
+        m.ma_neuron_default, m.ma_latent_default, m.observation_model)
     trans, _ = m._make_transition({})
     tlat, tdyn = hmm._transition_stack(trans)
     band = hmm._cached_band(trans, tlat)
@@ -1027,8 +1051,8 @@ def _epochs_on_batch_ll(m, y, intervals, post, lml):
         want = float(ratios.sum())
         lml_rel = max(lml_rel, abs(want - lml[e]) / abs(want))
         alone = get_loglikelihood_ma_all(
-            y[a:b], m.tuning, {}, m.ma_neuron_default, m.ma_latent_default,
-            observation_model=m.observation_model)
+            y[a:b], m.tuning, hyper, m.ma_neuron_default,
+            m.ma_latent_default, observation_model=m.observation_model)
         ll_gap = max(ll_gap, float((alone - ll[e, :n]).abs().max()))
     return post_err, lml_rel, ll_gap
 
@@ -1040,109 +1064,119 @@ def phase_epochs(launches):
     against the unbatched kernels on the batch's own log-likelihood rows, a
     sample against the 'prob' engine; all epochs timed on both sides, after
     a warm-up."""
-    for L, T, E, bins, bs in EPOCH_CELLS:
+    for cell in EPOCH_CELLS:
+        L, T = cell[:2]
         m, params, y = _decode_setup(L, L, T)
-        m_prob = _model(L, L, "prob", params)
-        rng = np.random.default_rng(L + E)
-        lengths = _epoch_lengths(L, E, bins)
-        starts = rng.integers(0, T - lengths)
-        intervals = np.stack([starts, starts + lengths], axis=1)
-        Tmax = int(lengths.max())
+        _epochs_cell(m, _model(L, L, "prob", params), y, cell, launches)
+        del y
 
-        def batch_launches(run):
-            before = dict(launches)
-            with counted(launches):
-                sec, res = wall_s(run)
-            return sec, res, tuple(
-                launches[k] - before.get(k, 0)
-                for k in ("filter_scan_batch", "smoother_scan_batch"))
 
-        m.decode_latent_epochs(y, intervals)  # warm-up
-        sec, res, n_launch = batch_launches(
-            lambda: m.decode_latent_epochs(y, intervals))
-        check(n_launch == (1, 1), f"K1/K2 batch launches {n_launch}")
-        post, lml = res["posterior_latent_marg"], res["log_marginal_per_epoch"]
-        valid = np.arange(Tmax)[None, :] < lengths[:, None]
-        check(post.shape == (E, Tmax, L) and lml.shape == (E,)
-              and res["posterior_mean"].shape == (E, L)
-              and np.array_equal(res["lengths"], lengths)
-              and np.array_equal(res["valid"], valid), "epochs result shapes")
-        check(np.array_equal(np.isnan(post),
-                             np.broadcast_to(~valid[:, :, None], post.shape)),
-              "NaN exactly past each epoch's end")
-        row_err = float(np.abs(post.sum(axis=2)[valid] - 1).max())
-        check(row_err <= 1e-4 and np.isfinite(lml).all()
-              and np.isfinite(res["posterior_mean"]).all(), row_err)
-        if bs:
-            sec_bs, res_bs, n_launch = batch_launches(
-                lambda: m.decode_latent_epochs(y, intervals, batch_size=bs))
-            n_batch = -(-E // bs)
-            check(n_launch == (n_batch, n_batch), n_launch)
-            check(all(np.array_equal(res[k], res_bs[k], equal_nan=True)
-                      for k in res), f"batch_size={bs} changed the result")
-            log(f"epochs N=L={L}: batch_size={bs} ({n_batch} batches, "
-                f"{n_launch} launches of K1/K2 batch) equals one batch bit "
-                f"for bit; {sec_bs:.3f} s")
+def _epochs_cell(m, m_prob, y, cell, launches):
+    """One cell of the epochs phase on the model ``m`` (``m_prob`` the same
+    weights on the 'prob' engine) and its recording ``y`` on the card,
+    under every gate of the phase."""
+    L, T, E, bins, bs = cell
+    post_atol = EPOCH_POST_ATOL[L, m.observation_model]
+    rng = np.random.default_rng(L + E)
+    lengths = _epoch_lengths(L, E, bins)
+    starts = rng.integers(0, T - lengths)
+    intervals = np.stack([starts, starts + lengths], axis=1)
+    Tmax = int(lengths.max())
 
-        # the per-epoch loop, every epoch, through K1/K2 unbatched
-        m.decode_latent(y[intervals[0, 0]:intervals[0, 1]])  # warm-up
-        kept = []
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for a, b in intervals:
-            d = m.decode_latent(y[a:b])
-            kept.append((d["posterior_latent_marg"], d["log_marginal_final"]))
-        torch.cuda.synchronize()
-        loop_sec = time.perf_counter() - t0
-        alone = [k[0].cpu().numpy() for k in kept]
-        post_err = max(float(np.abs(alone[e] - post[e, :lengths[e]]).max())
-                       for e in range(E))
-        lml_rel = max(abs(kept[e][1] - lml[e]) / abs(kept[e][1])
-                      for e in range(E))
-        same_err, same_rel, ll_gap = _epochs_on_batch_ll(m, y, intervals,
-                                                         post, lml)
-        # a batch of one epoch: the same kernels on the epoch's own
-        # emission product
-        one_err = 0.0
-        pick = np.sort(rng.choice(E, min(E, EPOCH_ONE_SAMPLE), replace=False))
-        for e in pick:
-            one = m.decode_latent_epochs(y, intervals[e:e + 1])
-            one_err = max(one_err, float(np.abs(
-                one["posterior_latent_marg"][0] - alone[e]).max()))
-        prob_post, prob_rel = 0.0, 0.0
-        for e in pick[:EPOCH_PROB_SAMPLE]:
-            a, b = intervals[e]
-            ref = m_prob.decode_latent(y[a:b])
-            prob_post = max(prob_post, float(np.abs(
-                ref["posterior_latent_marg"].cpu().numpy()
-                - post[e, :lengths[e]]).max()))
-            prob_rel = max(prob_rel, abs(ref["log_marginal_final"] - lml[e])
-                           / abs(ref["log_marginal_final"]))
-        log(f"decode_latent_epochs N=L={L} E={E} epochs of {bins[0]}-{bins[1]}"
-            f" bins (Tmax={Tmax}, {int(lengths.sum())} bins in all) from a "
-            f"T={T} recording: batched {sec:.4f} s (one launch each of K1 and "
-            f"K2 batch), per-epoch decode_latent loop over all {E} epochs "
-            f"{loop_sec:.4f} s ({loop_sec / sec:.1f}x); all {E} epochs vs the "
-            f"unbatched kernels on the batch's own log-likelihood rows: max "
-            f"|post diff| {same_err:.2e} (limit {EPOCH_SAME_LL_ATOL:.0e}), "
-            f"log-marginal rel {same_rel:.2e}; the batch's log-likelihoods vs "
-            f"each epoch's own product: max |diff| {ll_gap:.2e} (limit "
-            f"{EPOCH_LL_ATOL:.0e}); all {E} epochs vs decode_latent alone: "
-            f"max |post diff| {post_err:.2e} (limit "
-            f"{EPOCH_POST_ATOL[L]:.0e}), log-marginal rel {lml_rel:.2e}; a "
-            f"batch of one epoch vs that epoch alone on {len(pick)}: "
-            f"{one_err:.2e}; vs the prob engine on "
-            f"{min(len(pick), EPOCH_PROB_SAMPLE)}: {prob_post:.2e}, "
-            f"{prob_rel:.2e}; row-sum err {row_err:.1e}")
-        check(same_err <= EPOCH_SAME_LL_ATOL
-              and same_rel <= EPOCH_SAME_LL_LML_RTOL, (same_err, same_rel))
-        check(ll_gap <= EPOCH_LL_ATOL, ll_gap)
-        check(post_err <= EPOCH_POST_ATOL[L] and lml_rel <= DECODE_LMF_RTOL,
-              (post_err, lml_rel))
-        check(one_err <= EPOCH_ALONE_ATOL, one_err)
-        check(prob_post <= EPOCH_POST_ATOL[L] and prob_rel <= DECODE_LMF_RTOL,
-              (prob_post, prob_rel))
-        del res, post, kept, alone, y
+    def batch_launches(run):
+        before = dict(launches)
+        with counted(launches):
+            sec, res = wall_s(run)
+        return sec, res, tuple(
+            launches[k] - before.get(k, 0)
+            for k in ("filter_scan_batch", "smoother_scan_batch"))
+
+    m.decode_latent_epochs(y, intervals)  # warm-up
+    sec, res, n_launch = batch_launches(
+        lambda: m.decode_latent_epochs(y, intervals))
+    check(n_launch == (1, 1), f"K1/K2 batch launches {n_launch}")
+    post, lml = res["posterior_latent_marg"], res["log_marginal_per_epoch"]
+    valid = np.arange(Tmax)[None, :] < lengths[:, None]
+    check(post.shape == (E, Tmax, L) and lml.shape == (E,)
+          and res["posterior_mean"].shape == (E, L)
+          and np.array_equal(res["lengths"], lengths)
+          and np.array_equal(res["valid"], valid), "epochs result shapes")
+    check(np.array_equal(np.isnan(post),
+                         np.broadcast_to(~valid[:, :, None], post.shape)),
+          "NaN exactly past each epoch's end")
+    row_err = float(np.abs(post.sum(axis=2)[valid] - 1).max())
+    check(row_err <= 1e-4 and np.isfinite(lml).all()
+          and np.isfinite(res["posterior_mean"]).all(), row_err)
+    if bs:
+        sec_bs, res_bs, n_launch = batch_launches(
+            lambda: m.decode_latent_epochs(y, intervals, batch_size=bs))
+        n_batch = -(-E // bs)
+        check(n_launch == (n_batch, n_batch), n_launch)
+        check(all(np.array_equal(res[k], res_bs[k], equal_nan=True)
+                  for k in res), f"batch_size={bs} changed the result")
+        log(f"epochs N=L={L}: batch_size={bs} ({n_batch} batches, "
+            f"{n_launch} launches of K1/K2 batch) equals one batch bit "
+            f"for bit; {sec_bs:.3f} s")
+
+    # the per-epoch loop, every epoch, through K1/K2 unbatched
+    m.decode_latent(y[intervals[0, 0]:intervals[0, 1]])  # warm-up
+    kept = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for a, b in intervals:
+        d = m.decode_latent(y[a:b])
+        kept.append((d["posterior_latent_marg"], d["log_marginal_final"]))
+    torch.cuda.synchronize()
+    loop_sec = time.perf_counter() - t0
+    alone = [k[0].cpu().numpy() for k in kept]
+    post_err = max(float(np.abs(alone[e] - post[e, :lengths[e]]).max())
+                   for e in range(E))
+    lml_rel = max(abs(kept[e][1] - lml[e]) / abs(kept[e][1])
+                  for e in range(E))
+    same_err, same_rel, ll_gap = _epochs_on_batch_ll(m, y, intervals,
+                                                     post, lml)
+    # a batch of one epoch: the same kernels on the epoch's own
+    # emission product
+    one_err = 0.0
+    pick = np.sort(rng.choice(E, min(E, EPOCH_ONE_SAMPLE), replace=False))
+    for e in pick:
+        one = m.decode_latent_epochs(y, intervals[e:e + 1])
+        one_err = max(one_err, float(np.abs(
+            one["posterior_latent_marg"][0] - alone[e]).max()))
+    prob_post, prob_rel = 0.0, 0.0
+    for e in pick[:EPOCH_PROB_SAMPLE]:
+        a, b = intervals[e]
+        ref = m_prob.decode_latent(y[a:b])
+        prob_post = max(prob_post, float(np.abs(
+            ref["posterior_latent_marg"].cpu().numpy()
+            - post[e, :lengths[e]]).max()))
+        prob_rel = max(prob_rel, abs(ref["log_marginal_final"] - lml[e])
+                       / abs(ref["log_marginal_final"]))
+    log(f"decode_latent_epochs {type(m).__name__} N=L={L} E={E} epochs "
+        f"of {bins[0]}-{bins[1]}"
+        f" bins (Tmax={Tmax}, {int(lengths.sum())} bins in all) from a "
+        f"T={T} recording: batched {sec:.4f} s (one launch each of K1 and "
+        f"K2 batch), per-epoch decode_latent loop over all {E} epochs "
+        f"{loop_sec:.4f} s ({loop_sec / sec:.1f}x); all {E} epochs vs the "
+        f"unbatched kernels on the batch's own log-likelihood rows: max "
+        f"|post diff| {same_err:.2e} (limit {EPOCH_SAME_LL_ATOL:.0e}), "
+        f"log-marginal rel {same_rel:.2e}; the batch's log-likelihoods vs "
+        f"each epoch's own product: max |diff| {ll_gap:.2e} (limit "
+        f"{EPOCH_LL_ATOL:.0e}); all {E} epochs vs decode_latent alone: "
+        f"max |post diff| {post_err:.2e} (limit "
+        f"{post_atol:.0e}), log-marginal rel {lml_rel:.2e}; a "
+        f"batch of one epoch vs that epoch alone on {len(pick)}: "
+        f"{one_err:.2e}; vs the prob engine on "
+        f"{min(len(pick), EPOCH_PROB_SAMPLE)}: {prob_post:.2e}, "
+        f"{prob_rel:.2e}; row-sum err {row_err:.1e}")
+    check(same_err <= EPOCH_SAME_LL_ATOL
+          and same_rel <= EPOCH_SAME_LL_LML_RTOL, (same_err, same_rel))
+    check(ll_gap <= EPOCH_LL_ATOL, ll_gap)
+    check(post_err <= post_atol and lml_rel <= DECODE_LMF_RTOL,
+          (post_err, lml_rel))
+    check(one_err <= EPOCH_ALONE_ATOL, one_err)
+    check(prob_post <= post_atol and prob_rel <= DECODE_LMF_RTOL,
+          (prob_post, prob_rel))
 
 
 def phase_crossover():
@@ -1408,16 +1442,24 @@ def _mid_e_step(m, y, tunings, reps, **kw):
             f"{rel:.1e}")
 
 
+@functools.lru_cache(maxsize=1)
+def _ns_spikes():
+    """bench.py's north-star spikes on the card, Poisson(0.5) from
+    np.random.default_rng(7), made once for the script (~19 s)."""
+    sec, y = wall_s(lambda: torch.as_tensor(
+        np.random.default_rng(7).poisson(0.5, size=(NS_T, NS_N))
+        .astype(np.float32), device="cuda"))
+    log(f"north-star spikes ({NS_T}, {NS_N}) Poisson(0.5): {sec:.1f} s")
+    return y
+
+
 def phase_northstar(launches):
     """bench.py's north-star cell through the port: T=1e6, L = N = 500,
     Poisson(0.5) spikes from np.random.default_rng(7), lean output."""
     from poor_man_gplvm_tpu_torch import PoissonGPLVMJump1D
     from poor_man_gplvm_tpu_torch.ops import hmm
 
-    sec, y = wall_s(lambda: torch.as_tensor(
-        np.random.default_rng(7).poisson(0.5, size=(NS_T, NS_N))
-        .astype(np.float32), device="cuda"))
-    log(f"north-star spikes ({NS_T}, {NS_N}) Poisson(0.5): {sec:.1f} s")
+    y = _ns_spikes()
     kw = dict(output_mode="lean", save_every=10**9, verboase=False)
 
     def model():
@@ -1553,6 +1595,425 @@ def _northstar_kernels(m, y):
     del case, ll
 
 
+def _family_model(name, N, L, engine, seed=None, **kw):
+    """A model of class ``name`` on the card (the bench model's
+    lengthscales); ``seed``: random weights from numpy, carried in as a JAX
+    model's state would be."""
+    import poor_man_gplvm_tpu_torch as pmt
+    from poor_man_gplvm_tpu_torch import convert
+
+    m = getattr(pmt, name)(N, n_latent_bin=L, movement_variance=1,
+                           tuning_lengthscale=10.0, device="cuda",
+                           inference_engine=engine, **kw)
+    if seed is not None:
+        params = np.random.default_rng(seed).normal(
+            size=(m.n_basis, N)).astype(np.float32)
+        convert.load_jax_state(m, params, m.tuning_basis.cpu().numpy())
+    return m
+
+
+def _family_data(m, T, seed, lo=0):
+    """Observations of the model ``m`` along a numpy random walk over the
+    bins [lo, L) (with jumps at rate 0.01 where the model has a jump state;
+    a latent-only model follows steps only), on the card: Poisson counts
+    at its rates, or its means plus normal noise of ``noise_std``; and the
+    walk, (T,) int64 numpy."""
+    rng = np.random.default_rng(seed)
+    L = m.n_latent_bin
+    steps = rng.integers(-1, 2, size=T)
+    jumps = rng.random(T) < (0.01 if m.has_dynamics else 0.0)
+    targets = rng.integers(lo, L, size=T)
+    lat = np.empty(T, dtype=np.int64)
+    x = int(rng.integers(lo, L))
+    for t in range(T):
+        x = int(targets[t]) if jumps[t] else min(max(x + steps[t], lo), L - 1)
+        lat[t] = x
+    mean = m.tuning.cpu().numpy()[lat]
+    if m.observation_model == "gaussian":
+        y = mean + m.noise_std * rng.normal(size=mean.shape)
+    else:
+        y = rng.poisson(mean)
+    return torch.as_tensor(y.astype(np.float32), device="cuda"), lat
+
+
+def _row_sum_err(post):
+    return float((post.sum(dim=tuple(range(1, post.ndim))) - 1).abs().max())
+
+
+def _max_key_diff(res, ref):
+    """max |difference| per tensor key of two decode results."""
+    return {k: float((v - ref[k]).abs().max()) for k, v in res.items()
+            if torch.is_tensor(v)}
+
+
+@contextlib.contextmanager
+def counted_into(*targets):
+    """``counted`` into several launch dicts at once."""
+    got = {}
+    with counted(got):
+        yield
+    for target in targets:
+        for k, v in got.items():
+            target[k] = target.get(k, 0) + v
+
+
+def phase_families(launches):
+    """The other three model classes through their entry points on the
+    card (see ``_families_*``); returns the n_dyn = 1 launches and kernel
+    rows for the kernels line."""
+    ndyn1 = {}
+    _families_gaussian_ll()
+    _families_decode(launches, ndyn1)
+    _families_fit(launches, ndyn1)
+    _families_lean(launches, ndyn1)
+    _families_log()
+    _families_isolated(launches, ndyn1)
+    m = _family_model("GaussianGPLVMJump1D", 100, 100, "auto", seed=17)
+    y, _ = _family_data(m, EPOCH_CELLS[0][1], 18)
+    _epochs_cell(m, _family_model("GaussianGPLVMJump1D", 100, 100, "prob",
+                                  seed=17), y, EPOCH_CELLS[0], launches)
+    del y
+    rows = {}
+    for L in (100, 500):
+        m = _family_model("PoissonGPLVM1D", L, L, "auto", seed=900 + L)
+        y, _ = _family_data(m, T_LONG, 901 + L)
+        rows[L] = _ndyn1_kernel_rows(m, y)
+        del y
+    log(f"families: n_dyn=1 launches on the main paths {ndyn1}")
+    check(all(ndyn1.get(k, 0) > 0 for k in (
+        "filter_scan", "smoother_scan", "pfilter_pass", "psmooth_pass")),
+        f"K1-K4 not all launched at n_dyn=1 from a model: {ndyn1}")
+    return ndyn1, rows
+
+
+#: gaussian_loglik (f32, matmul form) against the float64 sum of the normal
+#: log-densities: max |difference| over max |log-likelihood|, the
+#: max-normalised relative error the CPU tests hold log keys to (1e-5)
+GAUSS_LL_RTOL = 1e-5
+
+
+def _families_gaussian_ll(T=2_000, N=500, L=500, rows=200):
+    """``gaussian_loglik`` on the card at N = L = 500 (scalar and
+    per-neuron ``noise_std``) against the float64 direct evaluation,
+    sum_n log N(y | mu, s), in blocks of ``rows`` bins; with TF32 on (the
+    control) the expansion's cancellation must break the limit."""
+    from poor_man_gplvm_tpu_torch.ops.emissions import gaussian_loglik
+
+    m = _family_model("GaussianGPLVM1D", N, L, "auto", seed=1000)
+    y, _ = _family_data(m, T, 1001)
+    ones_n, ones_l = m.ma_neuron_default, m.ma_latent_default
+    stds = {"scalar": m.noise_std, "per-neuron": torch.as_tensor(
+        np.random.default_rng(1002).uniform(0.3, 1.0, m.n_neuron).astype(
+            np.float32),
+        device=y.device)}
+    mu = m.tuning.double()
+    for kind, std in stds.items():
+        s64 = torch.as_tensor(std, dtype=torch.float64, device=y.device)
+        direct = torch.cat([
+            (-0.5 * ((y[a:a + rows, None, :].double() - mu) / s64) ** 2
+             - torch.log(s64) - 0.5 * np.log(2 * np.pi)).sum(-1)
+            for a in range(0, T, rows)])
+        errs = {}
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            try:
+                ll = gaussian_loglik(y, m.tuning, std, ones_n, ones_l)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            gap = (ll.double() - direct).abs()
+            top = direct.argmax(dim=1)
+            at_top = gap[torch.arange(T, device=y.device), top] / direct[
+                torch.arange(T, device=y.device), top].abs()
+            errs[tf32] = (float(gap.max()) / float(direct.abs().max()),
+                          float(gap.max()), float(at_top.max()))
+        log(f"families gaussian_loglik N=L={L} T={T} noise_std {kind}: vs "
+            f"float64 direct, max |diff| {errs[False][1]:.3e} "
+            f"({errs[False][0]:.2e} of max |ll|, limit {GAUSS_LL_RTOL:.0e}; "
+            f"{errs[False][2]:.2e} relative at each bin's most likely "
+            f"state); TF32 on (control) {errs[True][1]:.3e} "
+            f"({errs[True][0]:.2e}; {errs[True][2]:.2e})")
+        check(errs[False][0] <= GAUSS_LL_RTOL, (kind, errs[False]))
+        check(errs[True][0] > GAUSS_LL_RTOL,
+              f"TF32 control passed: {errs[True]}")
+    del y, direct
+
+
+def _families_decode(launches, ndyn1):
+    """Each class: decode_latent at T=1e5, N = L = 500 through 'auto' (the
+    parallel engine), bit for bit against the sequential engine (the
+    posteriors and the log marginal; every key's gap printed); at T=1e4,
+    N = L = 100 against 'prob'; a latent-only decode below the parallel
+    threshold (K1/K2 at n_dyn=1)."""
+    from poor_man_gplvm_tpu_torch.ops import hmm
+
+    for k, name in enumerate(FAMILIES):
+        into = (launches, ndyn1) if "Jump" not in name else (launches,)
+        for L, T in ((500, T_LONG), (100, T_DECODE)):
+            m = _family_model(name, L, L, "auto", seed=100 + k + L)
+            y, _ = _family_data(m, T, 200 + k + L)
+            m.decode_latent(y[:T_GRID])  # warm-up
+            with counted_into(*into):
+                sec, res = wall_s(lambda: m.decode_latent(y))
+            post = res["posterior_all"]
+            row_err = _row_sum_err(post)
+            check(all(bool(torch.isfinite(v).all()) for v in res.values()
+                      if torch.is_tensor(v)) and row_err <= 1e-4,
+                  (name, L, row_err))
+            if L == 500:
+                with sequential_engine():
+                    seq_sec, ref = wall_s(lambda: m.decode_latent(y))
+                gaps = _max_key_diff(res, ref)
+                lmf_gap = abs(res["log_marginal_final"]
+                              - ref["log_marginal_final"])
+                log(f"families decode {name} T={T} N=L={L}: 'auto' (parallel)"
+                    f" {1e3 * sec:.1f} ms, sequential {1e3 * seq_sec:.1f} ms;"
+                    f" log_marginal_final {res['log_marginal_final']!r}, gap "
+                    f"to sequential {lmf_gap!r}; max |diff| by key {gaps}; "
+                    f"row-sum err {row_err:.1e}")
+                check(lmf_gap == 0.0 and gaps["posterior_all"] == 0.0
+                      and gaps["log_posterior_all"] == 0.0,
+                      f"{name}: parallel and sequential engines differ")
+            else:
+                m_prob = _family_model(name, L, L, "prob", seed=100 + k + L)
+                prob_sec, ref = wall_s(lambda: m_prob.decode_latent(y))
+                rel = abs(res["log_marginal_final"]
+                          - ref["log_marginal_final"]) / abs(
+                              ref["log_marginal_final"])
+                post_err = float((post - ref["posterior_all"]).abs().max())
+                log(f"families decode {name} T={T} N=L={L}: 'auto' "
+                    f"{1e3 * sec:.1f} ms, 'prob' {1e3 * prob_sec:.1f} ms; "
+                    f"log_marginal_final rel {rel:.2e}, max |post - prob| "
+                    f"{post_err:.2e}; row-sum err {row_err:.1e}")
+                check(rel <= DECODE_LMF_RTOL and post_err <= DECODE_POST_ATOL,
+                      (name, rel, post_err))
+                if "Jump" not in name:  # below the threshold: K1/K2
+                    T_short = hmm._PARALLEL_UPGRADE_MIN_T - 1
+                    with counted_into(*into):
+                        short = m.decode_latent(y[:T_short])
+                    ref_s = m_prob.decode_latent(y[:T_short])
+                    rel_s = abs(short["log_marginal_final"]
+                                - ref_s["log_marginal_final"]) / abs(
+                                    ref_s["log_marginal_final"])
+                    log(f"families decode {name} T={T_short} N=L={L} "
+                        f"(K1/K2): log_marginal_final rel {rel_s:.2e} vs prob")
+                    check(rel_s <= DECODE_LMF_RTOL, rel_s)
+            del res, post, y
+
+
+def _fit_lml(em):
+    lml = [float(v) for v in em["log_marginal_l"]]
+    check(all(np.isfinite(lml)), lml)
+    return lml
+
+
+def _families_fit(launches, ndyn1):
+    """Each class: fit_em at T=1e5, N = L = 100, FIT_ITERS iterations on
+    the fused schedule ('auto'), log_marginal_l finite and non-decreasing
+    up to 1e-6, the saved first posterior readable; FIT_CMP_ITERS
+    iterations against a sequential-engine fit (the Poisson M-step capped
+    at FIT_CMP_MAXITER Adam iterations) within FIT_LML_RTOL.  The data
+    follow a random walk through another model's tuning curves, and each
+    fit starts from the walk's labels (``initializers.init_with_label_1D``):
+    from a random posterior a latent-only model's EM must find the walk
+    itself, and its probability-space posteriors then leave the exact
+    trajectory (ROADMAP section 3)."""
+    from poor_man_gplvm_tpu_torch.initializers import init_with_label_1D
+
+    N = L = FAM_FIT_NL
+    for k, name in enumerate(FAMILIES):
+        into = (launches, ndyn1) if "Jump" not in name else (launches,)
+        cap = {"m_step_maxiter": FIT_CMP_MAXITER} if "Poisson" in name else {}
+        gen = _family_model(name, N, L, "prob", seed=300 + k)
+        y, lat = _family_data(gen, T_LONG, 400 + k)
+        lpi = init_with_label_1D(lat, L)
+
+        def fit(n_iter, **kw):
+            return _family_model(name, N, L, "auto").fit_em(
+                y, n_iter=n_iter, verboase=False, log_posterior_init=lpi,
+                **kw)
+
+        fit(3, **cap)  # warm-up
+        with counted_into(*into):
+            sec, em = wall_s(lambda: fit(FIT_ITERS))
+        lml = _fit_lml(em)
+        drops = [(a - b) / abs(a) for a, b in zip(lml, lml[1:])]
+        adam = em["m_step_res_l"].get("n_iter", [])
+        # the first iteration's posterior stays readable after the fit (the
+        # JAX package guards a buffer-donation trap there)
+        saved = em["log_posterior_all_saved"][0]
+        check(saved.shape[0] == T_LONG and bool(torch.isfinite(saved).all())
+              and _row_sum_err(torch.exp(saved)) <= 1e-4, name)
+        par = fit(FIT_CMP_ITERS, **cap)
+        with sequential_engine():
+            seq_sec, seq = wall_s(lambda: fit(FIT_CMP_ITERS, **cap))
+        rel = np.abs(np.subtract(_fit_lml(par), _fit_lml(seq))) / np.abs(
+            _fit_lml(seq))
+        log(f"families fit {name} T={T_LONG} N=L={L}: {sec / FIT_ITERS:.4f} "
+            f"s/EM-iter over {FIT_ITERS} iterations (fused schedule); "
+            f"log_marginal_l {lml}; largest relative decrease "
+            f"{max(drops):.2e}; M-step "
+            f"Adam iterations {adam}; {FIT_CMP_ITERS} iterations vs the "
+            f"sequential engine ({seq_sec:.2f} s): rel {rel.tolist()}")
+        check(max(drops) <= 1e-6, f"{name}: log_marginal_l decreased {lml}")
+        check(float(rel.max()) <= FIT_LML_RTOL, (name, rel))
+        del y
+
+
+def _families_lean(launches, ndyn1):
+    """PoissonGPLVM1D lean at the north-star shape, T=1e6, L = N = 500,
+    FAM_LEAN_ITERS iterations: work T L^2 = 2.5e11 passes the warm-start
+    gate, so K3/K4 run warm at n_dyn=1; fused against fused=False (Adam
+    capped at NS_CMP_MAXITER) within FIT_LML_RTOL, lean rows summing to 1,
+    the peak memory."""
+    from poor_man_gplvm_tpu_torch import PoissonGPLVM1D
+
+    y = _ns_spikes()
+    kw = dict(output_mode="lean", save_every=10**9, verboase=False,
+              n_iter=FAM_LEAN_ITERS, m_step_maxiter=NS_CMP_MAXITER)
+
+    def model():
+        return PoissonGPLVM1D(NS_N, n_latent_bin=NS_L, movement_variance=1,
+                              tuning_lengthscale=10.0, device="cuda")
+
+    # fused=False first: the reference, and the warm-up of the timed fit
+    l_sec, loop = wall_s(lambda: model().fit_em(y, fused=False, **kw))
+    b = _fit_lml(loop)
+    del loop
+    torch.cuda.reset_peak_memory_stats()
+    m = model()
+    with counted_into(launches, ndyn1):
+        f_sec, fused = wall_s(lambda: m.fit_em(y, fused=True, **kw))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    a = _fit_lml(fused)
+    rel = np.abs(np.subtract(a, b)) / np.abs(b)
+    post = fused["posterior"]
+    row_err = float((post.sum(dim=1) - 1).abs().max())
+    passes = getattr(m, "_scan_passes_mid", None)
+    log(f"families lean PoissonGPLVM1D T={NS_T} L=N={NS_L}: fused {f_sec:.1f}"
+        f" s ({f_sec / FAM_LEAN_ITERS:.3f} s/EM-iter), fused=False (run "
+        f"first) {l_sec:.1f} s; log_marginal_l {a}; rel {rel.tolist()}; "
+        f"warm-started passes per middle iteration "
+        f"{None if passes is None else passes.tolist()}; peak memory "
+        f"{peak:.2f} GB (the spikes' 2 GB included); row-sum err "
+        f"{row_err:.1e}")
+    check(post.shape == (NS_T, NS_L) and fused["log_posterior_final"] is None
+          and row_err <= 1e-4 and float(rel.max()) <= FIT_LML_RTOL
+          and passes is not None, (post.shape, row_err, rel, passes))
+    del fused, post
+
+
+def _families_log():
+    """engine='log' (a plain loop, asked for by name) against 'prob' at
+    T = FAM_LOG_T, N = L = 100, for a latent-only and a jump class."""
+    N = L = 100
+    for k, name in enumerate(FAM_LOG_CLASSES):
+        m = _family_model(name, N, L, "log", seed=500 + k)
+        y, _ = _family_data(m, FAM_LOG_T, 600 + k)
+        sec, res = wall_s(lambda: m.decode_latent(y))
+        p_sec, ref = wall_s(lambda: _family_model(
+            name, N, L, "prob", seed=500 + k).decode_latent(y))
+        rel = abs(res["log_marginal_final"] - ref["log_marginal_final"]) / abs(
+            ref["log_marginal_final"])
+        post_err = float((res["posterior_all"]
+                          - ref["posterior_all"]).abs().max())
+        log(f"families engine='log' {name} T={FAM_LOG_T} N=L={L}: "
+            f"{sec:.2f} s ('prob' {p_sec:.2f} s); log_marginal_final rel "
+            f"{rel:.2e}, max |post - prob| {post_err:.2e}")
+        check(rel <= DECODE_LMF_RTOL and post_err <= DECODE_POST_ATOL,
+              (name, rel, post_err))
+
+
+def _families_isolated(launches, ndyn1):
+    """PoissonGPLVM1D with the rbf-plus-isolated tuning and transition
+    kernels (row 0 uniform, column 0 ``p_to_isolated``: no band narrower
+    than L) at T=1e5, N = L in {100, 500}: 'auto' bit for bit against the
+    sequential engine, with the band width and the times."""
+    from poor_man_gplvm_tpu_torch.ops import hmm
+    from poor_man_gplvm_tpu_torch.ops.band import transition_band
+    from poor_man_gplvm_tpu_torch.ops.kernels import (
+        get_custom_kernel_rbf_plus_isolated,
+    )
+
+    for L in (100, 500):
+        tun_k, tr_k = get_custom_kernel_rbf_plus_isolated(
+            torch.arange(L), 10.0, 1.0)
+        m = _family_model("PoissonGPLVM1D", L, L, "auto", seed=700 + L,
+                          custom_tuning_kernel=tun_k,
+                          custom_transition_kernel=tr_k)
+        y, _ = _family_data(m, T_LONG, 800 + L, lo=1)
+        trans = m._make_transition({})[0]
+        tlat = hmm._transition_stack(trans)[0].contiguous()
+        W = transition_band(tlat, tlat.transpose(-1, -2).contiguous(),
+                            trans.uniform_rows).W
+        m.decode_latent(y[:T_GRID])  # warm-up
+        with counted_into(launches, ndyn1):
+            sec, res = wall_s(lambda: m.decode_latent(y))
+        with sequential_engine():
+            seq_sec, ref = wall_s(lambda: m.decode_latent(y))
+        gaps = _max_key_diff(res, ref)
+        lmf_gap = abs(res["log_marginal_final"] - ref["log_marginal_final"])
+        row_err = _row_sum_err(res["posterior_all"])
+        log(f"families rbf-plus-isolated PoissonGPLVM1D T={T_LONG} N=L={L}: "
+            f"band W={W}; 'auto' (parallel) {1e3 * sec:.1f} ms, sequential "
+            f"{1e3 * seq_sec:.1f} ms; log_marginal_final gap {lmf_gap!r}; "
+            f"max |diff| by key {gaps}; row-sum err {row_err:.1e}")
+        check(W == m.n_latent_bin and lmf_gap == 0.0
+              and gaps["posterior_all"] == 0.0
+              and row_err <= 1e-4, (L, W, lmf_gap, gaps, row_err))
+        del y, res, ref
+
+
+def _ndyn1_kernel_rows(m, y):
+    """K1/K2 at T = T_DECODE and K3/K4 (every mode, "highest") and
+    joint_acc at T = T_LONG on a latent-only model's own inputs (its
+    log-likelihoods of ``y``, its one RBF channel, n_dyn = 1): each held
+    against its plain version (one call) and timed, with its bound."""
+    from poor_man_gplvm_tpu_torch.ops import hmm
+    from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk
+    from poor_man_gplvm_tpu_torch.ops.band import transition_band
+    from poor_man_gplvm_tpu_torch.ops.emissions import get_loglikelihood_ma_all
+    from poor_man_gplvm_tpu_torch.testing import SCAN_TOLERANCES
+
+    L = m.n_latent_bin
+    trans = m._make_transition({})[0]
+    tlat, tdyn = hmm._transition_stack(trans)
+    flags = trans.uniform_rows
+    ll = get_loglikelihood_ma_all(
+        y, m.tuning, {}, torch.broadcast_to(m.ma_neuron_default, y.shape),
+        m.ma_latent_default, observation_model=m.observation_model)
+    p_init = torch.exp(trans.uniform_log_init())[None]
+    tlat = tlat.contiguous()
+    band = transition_band(tlat, tlat.transpose(-1, -2).contiguous(), flags)
+    nnz = _nnz(tlat, flags)
+    w = torch.exp(ll[:T_DECODE] - ll[:T_DECODE].amax(dim=1, keepdim=True))
+    args_f = (w.contiguous(), tlat, tdyn, p_init, flags)
+    post, prior, _ = sk.filter_scan(*args_f, band=band)
+    args_s = (post[:-1].contiguous(), prior[1:].contiguous(),
+              tlat.transpose(-1, -2).contiguous(), tdyn,
+              post[-1].contiguous(), flags)
+    rows = {}
+    for name, kern, plain, args, key in (
+            ("filter_scan", sk.filter_scan, sk.filter_scan_plain, args_f,
+             "post_abs"),
+            ("smoother_scan", sk.smoother_scan, sk.smoother_scan_plain,
+             args_s, "smooth_abs")):
+        want, plain_ms = timed_once(lambda: plain(*args))
+        err = float((kern(*args, band=band)[0] - want[0]).abs().max())
+        ms = cuda_ms(lambda: kern(*args, band=band), 5)
+        b_ms, b_by = kernel_bound(name, T_DECODE, L, 1, nnz)
+        log(f"time {name} L={L} T={T_DECODE} n_dyn=1 (band W={band.W}): "
+            f"kernel {ms:.3f} ms ({1e3 * ms / T_DECODE:.3f} us/step), plain "
+            f"{plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}); max |kernel - "
+            f"plain| {err:.3e}")
+        check(err <= SCAN_TOLERANCES[key], (name, L, err))
+        rows[name] = dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                          bound_by=b_by, library_ms=None)
+    case = {"ll": ll, "tlat": tlat, "tdyn": tdyn, "p_init": p_init}
+    rows.update(_pscan_timed(L, y.device, case=case, precs=("highest",),
+                             extras=False))
+    return rows
+
+
 def main():
     t_start = time.perf_counter()
     phase_preamble()
@@ -1568,6 +2029,9 @@ def main():
     phase_long_decode(launches)
     phase_fit(launches)
     phase_northstar(launches)
+    t_fam = time.perf_counter()
+    ndyn1, ndyn1_rows = phase_families(launches)
+    log(f"families phase {time.perf_counter() - t_fam:.1f} s")
     log(f"main-path launches: {launches}")
     path = {name: _path_launches(launches, name) for name in KERNELS}
     check(all(n > 0 for n in path.values()), path)
@@ -1611,6 +2075,18 @@ def main():
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"):
             if f"{key}_L500_dense" in row:
                 entry[f"{key}_L500_dense"] = row[f"{key}_L500_dense"]
+        if name in NDYN1_KERNELS:
+            # the same kernel at n_dyn = 1, on a latent-only model's inputs
+            entry["launches_ndyn1"] = _path_launches(ndyn1, name)
+            for L in (100, 500):
+                sfx = "_ndyn1" + ("" if L == 100 else "_L500")
+                r1 = ndyn1_rows[L][name]
+                entry.update({
+                    f"max_abs_err{sfx}": r1["err"], f"ms{sfx}": r1["ms"],
+                    f"plain_ms{sfx}": r1["plain_ms"],
+                    f"bound_ms{sfx}": r1["bound_ms"],
+                    f"bound_by{sfx}": r1["bound_by"],
+                    f"library_ms{sfx}": r1["library_ms"]})
         entry["shape"] = (
             "a batch of E sequences of `steps` rows in all, one thread "
             "block each, n_dyn=2 (one RBF channel, ls=1, and the jump "

@@ -8,22 +8,38 @@ device, built with ``nvcc`` at first use: the sequential pair K1/K2
 (``csrc/scan_kernels.cu``) and the parallel-in-time pair K3/K4
 (``csrc/parallel_scan.cu``) for long sequences.
 
-Ported so far: ``PoissonGPLVMJump1D`` decoding (``decode_latent``,
-``decode_latent_naive_bayes``), sampling and fitting (``fit_em``).
+Ported: the four concrete model classes of the JAX package,
+``PoissonGPLVMJump1D``, ``GaussianGPLVMJump1D``, ``PoissonGPLVM1D`` and
+``GaussianGPLVM1D``, with their abstract bases: decoding
+(``decode_latent``, ``decode_latent_naive_bayes``,
+``decode_latent_epochs``), sampling and fitting (``fit_em``), on the
+engines ``'prob'``, ``'log'``, ``'cuda'`` and ``'cuda_parallel'``; and the
+initial posteriors of ``initializers``.
 """
 
-from poor_man_gplvm_tpu_torch import convert, models, ops
+from poor_man_gplvm_tpu_torch import convert, initializers, models, ops
 from poor_man_gplvm_tpu_torch.models.jump1d import (
     AbstractGPLVMJump1D,
+    GaussianGPLVMJump1D,
     PoissonGPLVMJump1D,
+)
+from poor_man_gplvm_tpu_torch.models.latent1d import (
+    AbstractGPLVM1D,
+    GaussianGPLVM1D,
+    PoissonGPLVM1D,
 )
 from poor_man_gplvm_tpu_torch.ops.basis import generate_basis
 
 __all__ = [
+    "AbstractGPLVM1D",
     "AbstractGPLVMJump1D",
+    "GaussianGPLVM1D",
+    "GaussianGPLVMJump1D",
+    "PoissonGPLVM1D",
     "PoissonGPLVMJump1D",
     "convert",
     "generate_basis",
+    "initializers",
     "models",
     "ops",
 ]

@@ -65,7 +65,8 @@
 //
 // Numerics of K3/K4: f32 with FMA, no tensor cores, in HIGHEST (the JAX package's
 // default scan precision); normalisers clamped at 1e-38; r = 0 where the
-// prior is 0, so latent bins masked to zero weight stay exact zeros.  K3
+// prior is 0 or subnormal (kPriorFloor), so latent bins masked to zero weight
+// stay exact zeros.  K3
 // divides through an f64 reciprocal, K4 in f32: the same bits
 // (scan_common.cuh::div_by_rcp).
 
@@ -476,7 +477,7 @@ __global__ void __launch_bounds__(kMaxThreads) psmooth_kernel(PassArgs a) {
                         j)
                   : 0.f;
       }
-      const float r = pr > 0.f ? carry[e] / pr : 0.f;
+      const float r = pr >= kPriorFloor ? carry[e] / pr : 0.f;
       if (live) {
         store_operand<PREC>(rx + e * L, rl + e * L, j, r);
         if (STORE_R) a.out2[base + e * L + j] = r;

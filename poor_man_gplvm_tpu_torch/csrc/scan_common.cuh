@@ -160,6 +160,13 @@ __device__ __forceinline__ float div_by_rcp(float x, double r) {
 
 constexpr float kRcpDivisorMax = 2.f;
 
+// The smoother's ratio r = carry / prior treats a prior below the smallest
+// normal float (FLT_MIN) as zero, as the JAX package does (XLA flushes
+// subnormals).  A subnormal prior under a carry of normal size would give
+// r = inf and a NaN row; with the floor r < 1 / FLT_MIN, and the pulled
+// vector, a row-stochastic average of the r, cannot overflow.
+constexpr float kPriorFloor = 1.17549435e-38f;
+
 // loads in flight of a matrix read from shared memory or streamed from L2
 __host__ __device__ constexpr int matvec_unroll(bool resident) {
   return resident ? 4 : 16;

@@ -48,8 +48,9 @@
 // (parallel_scan.cu), which run this step on one block per chunk.
 //
 // Numerics: f32 with FMA; the normaliser is clamped at 1e-38 as in the TPU
-// kernels; r = 0 where the prior is 0 (never 0/0), so latent bins masked to
-// zero weight give exact zeros, not NaNs.  K1 writes each step's normaliser s_t
+// kernels; r = 0 where the prior is 0 or subnormal (never 0/0, never inf:
+// scan_common.cuh::kPriorFloor), so latent bins masked to zero weight give
+// exact zeros, not NaNs.  K1 writes each step's normaliser s_t
 // itself (Mosaic could not store a dynamic 1-D slice, so JAX recomputed it
 // outside the kernel); the caller forms log(s_t) + scale * m_t.  Both
 // kernels divide through an f64 reciprocal, which gives the f32 quotient's
@@ -338,7 +339,7 @@ __global__ void __launch_bounds__(kMaxThreads) smoother_kernel(SeqArgs a) {
         p_next[e] = prior[base - row + e * L + j];
       }
       // carry / pn: the reciprocal does not wait for the carry
-      r[e] = pn > 0.f ? (pn < kRcpDivisorMax
+      r[e] = pn >= kPriorFloor ? (pn < kRcpDivisorMax
                              ? div_by_rcp(carry[e], rcp_f64(pn))
                              : carry[e] / pn)
                       : 0.f;

@@ -2,12 +2,18 @@
 
 Counterpart of the parts of ``poor_man_gplvm_tpu/models/base.py`` that
 ``decode_latent``, ``decode_latent_epochs`` and ``fit_em`` need:
-construction, parameter initialisation, the memoised transition build, the
-smoother call, the shared decode routine, naive-Bayes decoding, the batched
-decode of short epochs, and the EM schedule (host loop, fused middle
-iterations, lean output).  The classes hold a handful of scalars plus
-``params`` (n_basis, N), ``tuning_basis`` (L, n_basis) and ``tuning``
+construction, parameter initialisation, pickling, the memoised transition
+build, the smoother call, the shared decode routine, naive-Bayes decoding,
+the batched decode of short epochs, and the EM schedule (host loop, fused
+middle iterations, lean output).  The classes hold a handful of scalars
+plus ``params`` (n_basis, N), ``tuning_basis`` (L, n_basis) and ``tuning``
 (L, N), all on the model's ``device``.
+
+The two emission families are mixins that the concrete classes put before
+their dynamics family (``models/latent1d.py``, ``models/jump1d.py``):
+``_PoissonFamily`` (softplus link, Adam M-step on the grouped Poisson
+objective) and ``_GaussianFamily`` (linear link, ``noise_std``, the
+analytic ridge M-step).
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 
 from poor_man_gplvm_tpu_torch.ops import emissions, hmm, mstep
 from poor_man_gplvm_tpu_torch.ops.basis import generate_basis
+from poor_man_gplvm_tpu_torch.ops.hmm import JOINT_ACC_INIT
 
 #: the fused middle EM iterations warm-start the parallel scans' fixed
 #: points only from this much per-pass matvec work, T * n_dyn * L^2, on
@@ -43,6 +50,22 @@ def resolve_device(device):
             "on the CPU"
         )
     return device
+
+
+def _seeded(generator, seed):
+    """``generator``, or a CPU ``torch.Generator`` seeded with ``seed``."""
+    return torch.Generator().manual_seed(seed) if generator is None \
+        else generator
+
+
+def _log_posterior_init(post, device):
+    """(log_post, post) on ``device`` of a normalised (T, L) CPU posterior,
+    zeros floored at ``JOINT_ACC_INIT``."""
+    post = post.to(device)
+    log_post = torch.log(post)
+    log_post = torch.where(torch.isneginf(log_post),
+                           torch.full_like(log_post, JOINT_ACC_INIT), log_post)
+    return log_post, post
 
 
 def _epoch_intervals(intervals, t_l, n_time):
@@ -216,9 +239,31 @@ class _GPLVMCommon(ABC):
         self.opt_state_init_fun = None
         self.initialize_params(torch.Generator().manual_seed(rng_init_int))
 
+    # pickle support: the Adam closures, the memoised transitions and the
+    # band kept on them are dropped, and rebuilt at the next use
+    def __getstate__(self):
+        state = self.__dict__.copy()
+        state["adam_runner"] = None
+        state["opt_state_init_fun"] = None
+        state.pop("_trans_cache", None)
+        return state
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+
     @abstractmethod
     def get_tuning(self, params, hyperparam, tuning_basis):
         """Link function mapping basis weights to tuning curves."""
+
+    @abstractmethod
+    def loglikelihood(self, y, ypred, hyperparam):
+        """Elementwise log-likelihood of observations ``y`` at the
+        predicted means ``ypred``."""
+
+    def _emission_hyper(self, hyperparam):
+        """A copy of ``hyperparam`` with the emission hyperparameters the
+        family reads filled in from the model (none for Poisson)."""
+        return dict(hyperparam or {})
 
     @abstractmethod
     def sample_y(self, latent_l, hyperparam=None, tuning=None, dt=1.0,
@@ -337,7 +382,7 @@ class _GPLVMCommon(ABC):
         observation_model=None,
     ):
         """Per-time posterior without temporal smoothing."""
-        hyperparam = {} if hyperparam is None else hyperparam
+        hyperparam = self._emission_hyper(hyperparam)
         if ma_neuron is None:
             ma_neuron = self.ma_neuron_default
         if ma_latent is None:
@@ -401,7 +446,7 @@ class _GPLVMCommon(ABC):
         Tmax, L), NaN past each epoch's end, ``posterior_mean`` (E, L) mean
         over an epoch's bins, ``log_marginal_per_epoch`` (E,), ``lengths``
         (E,) and ``valid`` (E, Tmax)."""
-        hyperparam = {} if hyperparam is None else hyperparam
+        hyperparam = self._emission_hyper(hyperparam)
         _check_numeric_hyperparam(hyperparam)
         if not torch.is_tensor(y) and hasattr(y, "d") and hasattr(y, "t"):
             t_l = y.t if t_l is None else t_l
@@ -534,8 +579,11 @@ class _GPLVMCommon(ABC):
         resume=False, output_mode="full", memory_mode=None, nan_guard=None,
         mesh=None, **kwargs,
     ):
-        """EM: alternate the M-step (Adam on the grouped Poisson objective)
-        and the E-step (the forward-backward smoother), ``n_iter`` times.
+        """EM: alternate the M-step (Adam on the grouped Poisson objective,
+        or the Gaussian ridge solve, which has no optimizer state: its
+        ``m_step_res_l`` keeps the keys ``params`` and ``opt_state`` with
+        empty lists, as in the JAX package) and the E-step (the
+        forward-backward smoother), ``n_iter`` times.
 
         The JAX package's schedule with its ``em_res`` keys.  ``generator``
         (a CPU ``torch.Generator``) takes the place of the JAX ``key`` for
@@ -572,13 +620,13 @@ class _GPLVMCommon(ABC):
         if checkpoint_dir is not None or resume:
             raise NotImplementedError(
                 "checkpoint_dir/resume are not ported yet (ROADMAP queue 1, "
-                "item 15)")
+                "item H)")
         if output_mode not in ("full", "lean"):
             raise ValueError(
                 f"output_mode must be 'full' or 'lean', got {output_mode!r}")
         if mesh is not None:
             raise NotImplementedError(
-                "mesh is not ported yet (ROADMAP queue 1, item 14)")
+                "mesh is not ported yet (ROADMAP queue 1, item J)")
         del checkpoint_every
         fused = kwargs.pop("fused", None)
         verboase = kwargs.pop("verbose", verboase)
@@ -815,3 +863,138 @@ class _GPLVMCommon(ABC):
             em_res["posterior_latent_marg"] = posterior.sum(dim=1)
             em_res["posterior_dynamics_marg"] = posterior.sum(dim=2)
         return em_res
+
+
+# ----------------------------------------------------------------------
+# emission families (mixins placed before a dynamics family)
+# ----------------------------------------------------------------------
+class _PoissonFamily:
+    """Poisson counts: softplus link; the M-step runs Adam on the grouped
+    Poisson objective (with the roughness penalty on a B-spline basis),
+    its optimizer state threaded across EM iterations."""
+
+    observation_model = "poisson"
+
+    def loglikelihood(self, y, ypred, hyperparam):
+        """``scipy.stats.poisson.logpmf(y, ypred + 1e-40)`` elementwise."""
+        mu = ypred + 1e-40
+        logp = torch.xlogy(y, mu) - torch.lgamma(y + 1.0) - mu
+        return torch.where((y < 0) | (y != torch.round(y)),
+                           torch.full_like(logp, -float("inf")), logp)
+
+    def get_tuning(self, params, hyperparam, tuning_basis):
+        return mstep.get_tuning_softplus(params, tuning_basis)
+
+    def sample_y(self, latent_l, hyperparam=None, tuning=None, dt=1.0,
+                 generator=None):
+        """Poisson counts (T, N) at the rates of the latent path."""
+        g = _seeded(generator, 10)
+        if tuning is None:
+            tuning = self.tuning
+        rate = tuning[torch.as_tensor(latent_l, device=tuning.device)] * dt
+        return torch.poisson(rate.cpu(), generator=g).to(self.device)
+
+    def m_step(self, param_curr, y, log_posterior_curr, tuning_basis,
+               hyperparam, opt_state_curr=None, host_trim=True):
+        """Adam M-step on the grouped statistics of ``log_posterior_curr``
+        (T, L), continuing from ``opt_state_curr`` (an ``AdamState``).
+        ``host_trim=False`` leaves the history trimming to the caller."""
+        y_weighted, t_weighted = mstep.get_statistics(log_posterior_curr, y)
+        adam_res = self.adam_runner(
+            param_curr, opt_state_curr, hyperparam, tuning_basis, y_weighted,
+            t_weighted,
+        )
+        return mstep.package_adam_result(adam_res, host_trim=host_trim)
+
+    def fit_em(self, y, hyperparam=None, generator=None, n_iter=20,
+               log_posterior_init=None, ma_neuron=None, ma_latent=None,
+               n_time_per_chunk=None, dt=1.0, likelihood_scale=1.0,
+               save_every=None, m_step_step_size=0.01, m_step_maxiter=1000,
+               m_step_tol=1e-6, **kwargs):
+        """EM fit (see ``_GPLVMCommon.fit_em``) with Adam M-steps of
+        ``m_step_step_size``, ``m_step_maxiter`` and ``m_step_tol``; the
+        optimizer state starts fresh and is threaded across iterations."""
+        hyperparam_ = dict(hyperparam or {})
+        hyperparam_["param_prior_std"] = hyperparam_.get(
+            "param_prior_std", self.param_prior_std)
+        hyperparam_["smoothness_penalty"] = hyperparam_.get(
+            "smoothness_penalty", self.smoothness_penalty)
+        self.adam_runner, self.opt_state_init_fun = mstep.make_adam_runner(
+            mstep.poisson_m_step_objective_smoothness
+            if self.basis_type == "bspline"
+            else mstep.poisson_m_step_objective,
+            m_step_step_size, maxiter=m_step_maxiter, tol=m_step_tol,
+        )
+        return super().fit_em(
+            y, hyperparam=hyperparam_, generator=generator, n_iter=n_iter,
+            log_posterior_init=log_posterior_init, ma_neuron=ma_neuron,
+            ma_latent=ma_latent, n_time_per_chunk=n_time_per_chunk, dt=dt,
+            likelihood_scale=likelihood_scale, save_every=save_every,
+            opt_state_curr=self.opt_state_init_fun(self.params), **kwargs,
+        )
+
+
+class _GaussianFamily:
+    """Gaussian observations with standard deviation ``noise_std`` (a
+    scalar): linear link; the M-step is the closed-form ridge solve (no
+    optimizer state).  ``noise_std`` fills the emission hyperparameters of
+    every decode and fit unless a call passes its own."""
+
+    observation_model = "gaussian"
+
+    def __init__(self, n_neuron, noise_std=0.5, **kwargs):
+        super().__init__(n_neuron, **kwargs)
+        self.noise_std = noise_std
+
+    def _emission_hyper(self, hyperparam):
+        hyperparam = dict(hyperparam or {})
+        hyperparam["noise_std"] = hyperparam.get("noise_std", self.noise_std)
+        return hyperparam
+
+    def loglikelihood(self, y, ypred, hyperparam):
+        """``scipy.stats.norm.logpdf(y, ypred, hyperparam['noise_std'])``
+        elementwise."""
+        return mstep._norm_logpdf(y - ypred, hyperparam["noise_std"])
+
+    def get_tuning(self, params, hyperparam, tuning_basis):
+        return mstep.get_tuning_linear(params, tuning_basis)
+
+    def sample_y(self, latent_l, hyperparam=None, tuning=None, dt=1.0,
+                 generator=None):
+        """Normal observations (T, N) around the means of the latent path,
+        with standard deviation ``noise_std * sqrt(dt)``."""
+        g = _seeded(generator, 10)
+        if tuning is None:
+            tuning = self.tuning
+        noise_std = (hyperparam or {}).get("noise_std", self.noise_std)
+        rate = (tuning[torch.as_tensor(latent_l, device=tuning.device)]
+                * dt).cpu()
+        noise = torch.randn(rate.shape, generator=g) * (
+            noise_std * float(np.sqrt(dt)))
+        return (noise + rate).to(self.device)
+
+    def m_step(self, param_curr, y, log_posterior_curr, tuning_basis,
+               hyperparam, opt_state_curr=None, host_trim=True):
+        """The ridge solve on the grouped statistics of
+        ``log_posterior_curr``; returns ``{'params', 'opt_state': None}``."""
+        del param_curr, opt_state_curr, host_trim
+        y_weighted, t_weighted = mstep.get_statistics(log_posterior_curr, y)
+        return {"params": mstep.gaussian_m_step_analytic(
+                    hyperparam, tuning_basis, y_weighted, t_weighted),
+                "opt_state": None}
+
+    def fit_em(self, y, hyperparam=None, generator=None, n_iter=20,
+               log_posterior_init=None, ma_neuron=None, ma_latent=None,
+               n_time_per_chunk=None, dt=1.0, likelihood_scale=1.0,
+               save_every=None, **kwargs):
+        """EM fit (see ``_GPLVMCommon.fit_em``) with ridge M-steps."""
+        hyperparam_ = self._emission_hyper(hyperparam)
+        hyperparam_["param_prior_std"] = hyperparam_.get(
+            "param_prior_std", self.param_prior_std)
+        return super().fit_em(
+            y, hyperparam=hyperparam_, generator=generator, n_iter=n_iter,
+            log_posterior_init=log_posterior_init, ma_neuron=ma_neuron,
+            ma_latent=ma_latent, n_time_per_chunk=n_time_per_chunk, dt=dt,
+            likelihood_scale=likelihood_scale, save_every=save_every,
+            **kwargs,
+        )

@@ -1,30 +1,28 @@
 """Jump models: smooth 1-D latent + 2-state (continuous/jump) dynamics HMM.
 
-Counterpart of ``AbstractGPLVMJump1D`` and ``PoissonGPLVMJump1D`` in
-``poor_man_gplvm_tpu/models/jump1d.py`` for decoding, sampling and
-fitting.  Random draws take an explicit ``torch.Generator`` (a CPU
-generator, so a seed gives the same draws on every device) in place of a
-``jax.random`` key; the two give different numbers from the same seed.
-``GaussianGPLVMJump1D`` comes with a later slice (ROADMAP queue 1, item
-11).
+Counterpart of ``AbstractGPLVMJump1D``, ``PoissonGPLVMJump1D`` and
+``GaussianGPLVMJump1D`` in ``poor_man_gplvm_tpu/models/jump1d.py`` for
+decoding, sampling and fitting.  Random draws take an explicit
+``torch.Generator`` (a CPU generator, so a seed gives the same draws on
+every device) in place of a ``jax.random`` key; the two give different
+numbers from the same seed.
 """
 
 from __future__ import annotations
 
 import torch
 
-from poor_man_gplvm_tpu_torch.models.base import _GPLVMCommon
+from poor_man_gplvm_tpu_torch.models.base import (
+    _GaussianFamily,
+    _GPLVMCommon,
+    _log_posterior_init,
+    _PoissonFamily,
+    _seeded,
+)
 from poor_man_gplvm_tpu_torch.ops import hmm
 from poor_man_gplvm_tpu_torch.ops import kernels as gpk
-from poor_man_gplvm_tpu_torch.ops import mstep as fth
-from poor_man_gplvm_tpu_torch.ops.hmm import JOINT_ACC_INIT
 
-__all__ = ["AbstractGPLVMJump1D", "PoissonGPLVMJump1D"]
-
-
-def _seeded(generator, seed):
-    return torch.Generator().manual_seed(seed) if generator is None \
-        else generator
+__all__ = ["AbstractGPLVMJump1D", "PoissonGPLVMJump1D", "GaussianGPLVMJump1D"]
 
 
 class AbstractGPLVMJump1D(_GPLVMCommon):
@@ -108,7 +106,7 @@ class AbstractGPLVMJump1D(_GPLVMCommon):
     ):
         """Full smoother decode: 7 base keys + 12 transition-posterior
         keys + ``log_marginal_final``, as the JAX ``decode_latent``."""
-        hyperparam = {} if hyperparam is None else hyperparam
+        hyperparam = self._emission_hyper(hyperparam)
         if tuning is None:
             tuning = self.tuning
         if ma_neuron is None:
@@ -189,87 +187,18 @@ class AbstractGPLVMJump1D(_GPLVMCommon):
         return latent_l, y_l
 
     def init_latent_posterior(self, T, generator, random_scale=0.1):
-        """Pure-random initial posterior (T, L); returns (log_post, post)."""
+        """Pure-random initial posterior (T, L), intentionally different
+        from the latent-only family's; returns (log_post, post)."""
         post = torch.rand((T, self.n_latent_bin), generator=generator) \
             * random_scale
-        post = (post / post.sum(dim=1, keepdim=True)).to(self.device)
-        log_post = torch.log(post)
-        log_post = torch.where(torch.isneginf(log_post),
-                               torch.full_like(log_post, JOINT_ACC_INIT),
-                               log_post)
-        return log_post, post
+        return _log_posterior_init(post / post.sum(dim=1, keepdim=True),
+                                   self.device)
 
 
-class PoissonGPLVMJump1D(AbstractGPLVMJump1D):
+class PoissonGPLVMJump1D(_PoissonFamily, AbstractGPLVMJump1D):
     """Poisson GPLVM with jumps: the flagship model."""
 
-    observation_model = "poisson"
 
-    def get_tuning(self, params, hyperparam, tuning_basis):
-        return fth.get_tuning_softplus(params, tuning_basis)
-
-    def decode_latent_naive_bayes(
-        self, y, tuning=None, hyperparam=None, ma_neuron=None, ma_latent=None,
-        likelihood_scale=1.0, n_time_per_chunk=10000, dt_l=1.0,
-    ):
-        return super().decode_latent_naive_bayes(
-            y, tuning=tuning, hyperparam=hyperparam, ma_neuron=ma_neuron,
-            ma_latent=ma_latent, likelihood_scale=likelihood_scale,
-            n_time_per_chunk=n_time_per_chunk, dt_l=dt_l,
-            observation_model="poisson",
-        )
-
-    def sample_y(self, latent_l, hyperparam=None, tuning=None, dt=1.0,
-                 generator=None):
-        """Poisson counts (T, N) at the rates of the latent path."""
-        g = _seeded(generator, 10)
-        if tuning is None:
-            tuning = self.tuning
-        rate = tuning[torch.as_tensor(latent_l, device=tuning.device)] * dt
-        return torch.poisson(rate.cpu(), generator=g).to(self.device)
-
-    def m_step(
-        self, param_curr, y, log_posterior_curr, tuning_basis, hyperparam,
-        opt_state_curr=None, host_trim=True,
-    ):
-        """Adam M-step on the grouped statistics of ``log_posterior_curr``
-        (T, L), continuing from ``opt_state_curr`` (an ``AdamState``).
-        ``host_trim=False`` leaves the history trimming to the caller."""
-        y_weighted, t_weighted = fth.get_statistics(log_posterior_curr, y)
-        adam_res = self.adam_runner(
-            param_curr, opt_state_curr, hyperparam, tuning_basis, y_weighted,
-            t_weighted,
-        )
-        return fth.package_adam_result(adam_res, host_trim=host_trim)
-
-    def fit_em(
-        self, y, hyperparam=None, generator=None, n_iter=20,
-        log_posterior_init=None, ma_neuron=None, ma_latent=None,
-        n_time_per_chunk=None, dt=1.0, likelihood_scale=1.0,
-        save_every=None, m_step_step_size=0.01, m_step_maxiter=1000,
-        m_step_tol=1e-6, **kwargs,
-    ):
-        """EM fit (see ``_GPLVMCommon.fit_em``) with Adam M-steps of
-        ``m_step_step_size``, ``m_step_maxiter`` and ``m_step_tol``; the
-        optimizer state starts fresh and is threaded across iterations."""
-        hyperparam_ = dict(hyperparam or {})
-        hyperparam_["param_prior_std"] = hyperparam_.get(
-            "param_prior_std", self.param_prior_std
-        )
-        hyperparam_["smoothness_penalty"] = hyperparam_.get(
-            "smoothness_penalty", self.smoothness_penalty
-        )
-        self.adam_runner, self.opt_state_init_fun = fth.make_adam_runner(
-            fth.poisson_m_step_objective_smoothness
-            if self.basis_type == "bspline"
-            else fth.poisson_m_step_objective,
-            m_step_step_size, maxiter=m_step_maxiter, tol=m_step_tol,
-        )
-        opt_state_curr = self.opt_state_init_fun(self.params)
-        return super().fit_em(
-            y, hyperparam=hyperparam_, generator=generator, n_iter=n_iter,
-            log_posterior_init=log_posterior_init, ma_neuron=ma_neuron,
-            ma_latent=ma_latent, n_time_per_chunk=n_time_per_chunk, dt=dt,
-            likelihood_scale=likelihood_scale, save_every=save_every,
-            opt_state_curr=opt_state_curr, **kwargs,
-        )
+class GaussianGPLVMJump1D(_GaussianFamily, AbstractGPLVMJump1D):
+    """Gaussian GPLVM with jumps: linear link and the analytic ridge
+    M-step; ``noise_std`` (default 0.5) is a constructor argument."""

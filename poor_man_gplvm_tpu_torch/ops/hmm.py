@@ -14,7 +14,11 @@ Engines:
   ``_PARALLEL_UPGRADE_MIN_T`` steps on, while the parallel engine's
   buffers fit the card (``engine_resolves_parallel``);
 * ``'cuda_parallel'``: the parallel-in-time kernels K3/K4
-  (``ops/parallel_scan.py``), the counterpart of ``'pallas_parallel'``.
+  (``ops/parallel_scan.py``), the counterpart of ``'pallas_parallel'``;
+* ``'log'``: a plain PyTorch loop in log space in the JAX package's
+  order of operations (``_forward_scan_log``, ``_backward_scan_log``), the
+  second oracle of the probability-space engines.  It runs only when asked
+  for by name: ``'auto'`` never resolves to it and it is never upgraded.
 On CPU tensors the kernels' wrappers run their plain versions.
 
 ``smooth_epochs`` smooths a batch of short sequences (the epochs of
@@ -45,11 +49,8 @@ from poor_man_gplvm_tpu_torch.ops.emissions import get_loglikelihood_ma_all
 # sentinel (the JAX package's JOINT_ACC_INIT).
 JOINT_ACC_INIT = -3.0e38
 
-ENGINES = ("prob", "cuda", "cuda_parallel")
+ENGINES = ("prob", "log", "cuda", "cuda_parallel")
 MEMORY_MODES = ("auto", "full", "checkpoint", "filter", "filter_bf16")
-_NOT_PORTED = {
-    "log": "engine='log' is not ported yet (ROADMAP queue 1, item 4b)",
-}
 
 __all__ = [
     "JOINT_ACC_INIT",
@@ -69,8 +70,6 @@ __all__ = [
 
 def check_engine(engine):
     """Raise unless ``engine`` is one the port runs."""
-    if engine in _NOT_PORTED:
-        raise NotImplementedError(_NOT_PORTED[engine])
     if engine not in ENGINES:
         raise ValueError(
             f"engine must be one of {ENGINES}, got {engine!r}"
@@ -156,6 +155,15 @@ class LatentTransition:
     def joint_shape(self):
         return (self.n_latent, self.n_latent)
 
+    # log-space engine (the JAX package's order of operations) ----------
+    def push_log(self, logp):
+        return torch.logsumexp(logp[:, None] + self.logT, dim=0)
+
+    def smooth_step_log(self, log_smooth_next, log_filt_curr, log_prior_next):
+        inside = (self.logT + (log_smooth_next - log_prior_next)[None, :]
+                  + log_filt_curr[:, None])
+        return torch.logsumexp(inside, dim=1), inside
+
     # kernel engine ----------------------------------------------------
     def cuda_filter(self, ll, p_init, likelihood_scale):
         ones = torch.ones((1, 1), dtype=self.T.dtype, device=self.T.device)
@@ -230,6 +238,21 @@ class JointTransition:
     def joint_shape(self):
         return (self.n_dyn, self.n_dyn, self.n_latent, self.n_latent)
 
+    # log-space engine (the JAX package's order of operations) ----------
+    def push_log(self, logp):
+        a = torch.logsumexp(logp[:, None, :] + self.logTdyn[:, :, None], dim=0)
+        return torch.logsumexp(a[:, :, None] + self.logTlat, dim=1)
+
+    def smooth_step_log(self, log_smooth_next, log_filt_curr, log_prior_next):
+        # broadcast to (dyn_curr, dyn_next, lat_curr, lat_next)
+        inside = (
+            self.logTlat[None, :, :, :]
+            + self.logTdyn[:, :, None, None]
+            + (log_smooth_next - log_prior_next)[None, :, None, :]
+            + log_filt_curr[:, None, :, None]
+        )
+        return torch.logsumexp(inside, dim=(1, 3)), inside
+
     # kernel engine ----------------------------------------------------
     def cuda_filter(self, ll, p_init, likelihood_scale):
         return sk.filter_chunk(ll, self.Tlat, self.Tdyn, p_init,
@@ -275,10 +298,7 @@ def _backward_scan_prob_ratios(p_filt_xs, p_prior_xs, trans, p_smooth_init):
     ratios = torch.empty_like(p_filt_xs)
     carry = p_smooth_init
     for t in range(p_filt_xs.shape[0] - 1, -1, -1):
-        pn = p_prior_xs[t]
-        pos = pn > 0
-        r = torch.where(pos, carry / torch.where(pos, pn, 1.0),
-                        torch.zeros_like(pn))
+        r = sk.smoother_ratio(carry, p_prior_xs[t])
         sm = p_filt_xs[t] * trans.pull(r)
         carry = sm / torch.clamp(sm.sum(), min=_tiny(sm))
         smooth[t], ratios[t] = carry, r
@@ -290,6 +310,41 @@ def _backward_scan_prob(p_filt_xs, p_prior_xs, trans, p_smooth_init):
         p_filt_xs, p_prior_xs, trans, p_smooth_init
     )
     return smooth, trans.outer_acc(p_filt_xs, ratios)
+
+
+# ---------------------------------------------------------------------------
+# log-space scans (plain PyTorch loops, the JAX package's order of operations)
+# ---------------------------------------------------------------------------
+
+
+def _forward_scan_log(ll, trans, carry, likelihood_scale):
+    """Log-space causal filter.  Returns (log post, log prior, ratios,
+    (logp_last, logz))."""
+    logp, logz = carry
+    T = ll.shape[0]
+    post = torch.empty((T, *logp.shape), dtype=logp.dtype, device=logp.device)
+    prior = torch.empty_like(post)
+    ratios = torch.empty((T,), dtype=logp.dtype, device=logp.device)
+    for t in range(T):
+        log_prior = trans.push_log(logp)
+        unnorm = log_prior + likelihood_scale * trans.bcast_ll(ll[t])
+        ratio = torch.logsumexp(unnorm.reshape(-1), dim=0)
+        logp = unnorm - ratio
+        post[t], prior[t], ratios[t] = logp, log_prior, ratio
+    return post, prior, ratios, (logp, logz + ratios.sum())
+
+
+def _backward_scan_log(log_filt_xs, log_prior_xs, trans, carry_init):
+    """Log-space reverse smoother; the log pairwise joint accumulates by
+    logaddexp.  Returns (log smooth, log joint)."""
+    log_smooth_next, acc = carry_init
+    smooth = torch.empty_like(log_filt_xs)
+    for t in range(log_filt_xs.shape[0] - 1, -1, -1):
+        log_smooth_next, inside = trans.smooth_step_log(
+            log_smooth_next, log_filt_xs[t], log_prior_xs[t])
+        acc = torch.logaddexp(acc, inside)
+        smooth[t] = log_smooth_next
+    return smooth, acc
 
 
 # ---------------------------------------------------------------------------
@@ -308,15 +363,18 @@ def _filter_chunk(y, tuning, hyperparam, trans, ma_neuron, ma_latent, carry,
                                                 likelihood_scale)
         carry_out = (post[-1], carry[1] + ratios.sum())
     else:
-        post, prior, ratios, carry_out = _forward_scan_prob(
-            ll, trans, carry, likelihood_scale
-        )
+        scan = _forward_scan_log if engine == "log" else _forward_scan_prob
+        post, prior, ratios, carry_out = scan(ll, trans, carry,
+                                              likelihood_scale)
     return post, prior, ratios, carry_out, ll
 
 
 def _backward_chunk(filt_xs, prior_xs, trans, carry, engine):
     if filt_xs.shape[0] == 0:  # T=1 sequence: nothing to smooth over
         return filt_xs, carry
+    if engine == "log":
+        smooth, acc = _backward_scan_log(filt_xs, prior_xs, trans, carry)
+        return smooth, (smooth[0], acc)
     smooth_init, acc_in = carry
     if engine == "cuda":
         smooth, r = trans.cuda_smooth(filt_xs, prior_xs, smooth_init)
@@ -409,7 +467,8 @@ def smooth_combined_chunked(
     'filter_bf16' return None for the causal posteriors and the
     log-likelihoods, as the JAX package's drivers do; the port's
     'filter_bf16' keeps the filter in f32, more exact than the JAX bf16
-    store).  On the parallel engine only ``want_post`` depends on it.
+    store).  On the parallel engine only ``want_post`` depends on it.  The
+    ``'log'`` engine takes 'auto' and 'full' only, as in the JAX package.
 
     ``want_acc=False``: the caller discards ``log_accumulated_joint``
     (``fit_em`` does).  The parallel engine then skips the pairwise joint
@@ -440,6 +499,10 @@ def smooth_combined_chunked(
             "want_scan_carry requires the parallel-in-time engine "
             "(use parallel_scan_carry_spec to gate the request)"
         )
+    in_log = engine == "log"
+    if in_log and memory_mode not in ("auto", "full"):
+        raise ValueError(
+            f"memory_mode={memory_mode!r} requires engine prob/cuda")
     if n_time_per_chunk is None:
         n_time_per_chunk = auto_chunk_size(
             n_time_tot, trans.uniform_log_init().numel(), tuning.shape[0],
@@ -452,7 +515,9 @@ def smooth_combined_chunked(
                                device=device)
 
     # ---- forward pass over chunks ----
-    carry = (torch.exp(trans.uniform_log_init()),
+    to_log = (lambda x: x) if in_log else prob_to_log
+    log_init = trans.uniform_log_init()
+    carry = (log_init if in_log else torch.exp(log_init),
              torch.zeros((), dtype=torch.float32, device=device))
     post_chunks, prior_chunks, ratio_chunks, ll_chunks = [], [], [], []
     for n in range(n_chunks):
@@ -479,8 +544,9 @@ def smooth_combined_chunked(
         if bwd_carry is None:  # last chunk: start from the last filter post
             bwd_carry = (
                 filt_chunk[-1],
-                torch.zeros(trans.joint_shape(), dtype=torch.float32,
-                            device=device),
+                torch.full(trans.joint_shape(),
+                           JOINT_ACC_INIT if in_log else 0.0,
+                           dtype=torch.float32, device=device),
             )
             smooth, bwd_carry = _backward_chunk(
                 filt_chunk[:-1], prior_shifted, trans, bwd_carry, engine
@@ -492,16 +558,16 @@ def smooth_combined_chunked(
             )
         smooth_chunks[n] = smooth
 
-    smooth_log = prob_to_log(torch.cat(smooth_chunks, dim=0))
+    smooth_log = to_log(torch.cat(smooth_chunks, dim=0))
     if marginal_smooth:
         smooth_log = _marginalize_log(smooth_log)
     full_store = memory_mode in ("auto", "full")
     return (
         smooth_log,
         log_marginal_final,
-        prob_to_log(torch.cat(post_chunks, dim=0)) if full_store else None,
+        to_log(torch.cat(post_chunks, dim=0)) if full_store else None,
         torch.cat(ratio_chunks, dim=0),
-        prob_to_log(bwd_carry[1]),
+        to_log(bwd_carry[1]),
         torch.cat(ll_chunks, dim=0) if full_store else None,
     )
 
@@ -551,7 +617,8 @@ def smooth_epochs(y_b, lengths, tuning, hyperparam, trans, ma_neuron,
     epoch's +1-shifted priors and its last filter posterior read in place,
     one launch of K2 (``smoother_chunk_batch``), and the sum over the
     dynamics.  On CPU tensors the wrappers run their plain versions.
-    ``'prob'``: the per-epoch loop of ``smooth_combined_chunked``."""
+    ``'prob'`` and ``'log'``: the per-epoch loop of
+    ``smooth_combined_chunked`` on that engine."""
     check_engine(engine)
     device = tuning.device
     y_b = torch.as_tensor(y_b, dtype=torch.float32, device=device)
@@ -564,7 +631,7 @@ def smooth_epochs(y_b, lengths, tuning, hyperparam, trans, ma_neuron,
                          "carries the padding mask)")
     if ma_latent is None:
         ma_latent = torch.ones(L, dtype=torch.float32, device=device)
-    if engine == "prob":
+    if engine in ("prob", "log"):
         lat = torch.zeros((E, Tmax, L), dtype=torch.float32, device=device)
         lml = torch.zeros((E,), dtype=torch.float32, device=device)
         for e, n in enumerate(lengths.tolist()):
@@ -574,7 +641,7 @@ def smooth_epochs(y_b, lengths, tuning, hyperparam, trans, ma_neuron,
             (lat_e, _), lml[e] = smooth_combined_chunked(
                 y_b[e, :n], tuning, hyperparam, trans, ma_neuron, ma_latent,
                 likelihood_scale=likelihood_scale,
-                observation_model=observation_model, engine="prob",
+                observation_model=observation_model, engine=engine,
                 marginal_smooth=True, want_acc=False)[:2]
             lat[e, :n] = torch.exp(lat_e)
         return lat, lml

@@ -1,7 +1,7 @@
-"""M-step: sufficient statistics, tuning links, the Poisson objective and
-its Adam runner (PyTorch).
+"""M-step: sufficient statistics, tuning links, the Poisson objectives and
+their Adam runner, and the Gaussian ridge solve (PyTorch).
 
-Counterpart of ``poor_man_gplvm_tpu/ops/mstep.py`` for the Poisson models.
+Counterpart of ``poor_man_gplvm_tpu/ops/mstep.py``.
 The EM M-step works on *grouped* statistics, the posterior-weighted counts
 ``y_weighted`` (L, N) and occupancy ``t_weighted`` (L,), so its cost does
 not depend on T; the statistics are one (T, L)^T @ (T, N) matmul.
@@ -31,6 +31,7 @@ __all__ = [
     "adam_init",
     "adam_update",
     "batch_trim_m_step_histories",
+    "gaussian_m_step_analytic",
     "get_statistics",
     "get_tuning_linear",
     "get_tuning_softplus",
@@ -118,11 +119,36 @@ def poisson_m_step_objective(param, hyperparam, basis_mat, y_weighted,
 
 def poisson_m_step_objective_smoothness(param, hyperparam, basis_mat,
                                         y_weighted, t_weighted):
-    """The bspline basis's roughness-penalised objective: not ported."""
-    raise NotImplementedError(
-        "the bspline basis and its smoothness objective are not ported yet "
-        "(ROADMAP queue 1, item 2)"
-    )
+    """The Poisson objective plus a roughness penalty on the tuning curves,
+    ``smoothness_penalty`` times the sum of their squared second finite
+    differences over the latent bins (the objective of the B-spline
+    basis)."""
+    tuning = get_tuning_softplus(param, basis_mat)
+    second_diff = tuning[2:] - 2.0 * tuning[1:-1] + tuning[:-2]
+    roughness_term = hyperparam["smoothness_penalty"] * torch.sum(
+        second_diff**2)
+    norm_term = tuning * t_weighted[:, None]
+    fit_term = torch.xlogy(y_weighted, tuning + 1e-20)
+    log_likelihood = torch.sum(fit_term - norm_term)
+    log_prior = _norm_logpdf(param, hyperparam["param_prior_std"]).sum()
+    return -log_likelihood - log_prior + roughness_term
+
+
+def gaussian_m_step_analytic(hyperparam, basis_mat, y_weighted, t_weighted):
+    """Closed-form ridge solve of the Gaussian M-step,
+    ``w = (B^T D B / s^2 + I / tau^2)^{-1} B^T y_w / s^2`` with D the
+    occupancy ``t_weighted``, s ``hyperparam['noise_std']`` (a scalar) and
+    tau ``hyperparam['param_prior_std']``: one (n_basis, n_basis) system,
+    ``torch.linalg.solve`` (the JAX package solves it outside any Pallas
+    kernel too).  Returns the (n_basis, N) weights."""
+    n_basis = basis_mat.shape[1]
+    noise_var = hyperparam["noise_std"] ** 2
+    param_prior_std = hyperparam["param_prior_std"]
+    gram = torch.einsum("qd,q,qb->db", basis_mat, t_weighted, basis_mat)
+    H = gram / noise_var + torch.eye(
+        n_basis, dtype=gram.dtype, device=gram.device) / (param_prior_std**2)
+    rhs = basis_mat.T @ y_weighted / noise_var
+    return torch.linalg.solve(H, rhs)
 
 
 def tree_l2_norm(x):

@@ -64,6 +64,7 @@ from poor_man_gplvm_tpu_torch.ops.scan_kernels import (
     _mask,
     _raise_on,
     _stream_ptr,
+    smoother_ratio,
 )
 
 __all__ = [
@@ -354,10 +355,10 @@ def psmooth_pass_plain(post, tlat, tlat_t, tdyn, ins, tc, uniform_rows,
     (n_dyn, n_dyn); ins (C, n_dyn, L) smoothed posteriors after each
     chunk's last row; ``splits`` the ``split_bf16`` of (tlat, tlat_t) when
     ``scan_prec`` is not "highest" (made here when None).  Per row,
-    backward: prior = push(post_t) (K3's arithmetic), r = carry / prior (0
-    where the prior is 0), pull, normalise.  A row is a step when its
-    global index is < T - 1; the others pass the carry through (and store
-    r = 0).  Returns, by ``mode`` (see ``PSMOOTH_MODES``):
+    backward: prior = push(post_t) (K3's arithmetic), r = carry / prior
+    (0 where the prior is below ``PRIOR_FLOOR``), pull, normalise.  A row
+    is a step when its global index is < T - 1; the others pass the carry
+    through (and store r = 0).  Returns, by ``mode`` (see ``PSMOOTH_MODES``):
 
     * "finals": (None, None, finals (C, n_dyn, L));
     * "full": (smooth (T, n_dyn, L), r (T, n_dyn, L), finals);
@@ -388,8 +389,7 @@ def psmooth_pass_plain(post, tlat, tlat_t, tdyn, ins, tc, uniform_rows,
         filt = post_c[:, tau]
         prior = _matvec(torch.einsum("cpl,pd->cdl", filt, tdyn), tlat,
                         uniform_rows, scan_prec, sp_f)
-        pos = prior > 0
-        r = torch.where(pos & valid, carry / torch.where(pos, prior, 1.0),
+        r = torch.where(valid, smoother_ratio(carry, prior),
                         torch.zeros_like(prior))
         out = torch.einsum("de,cel->cdl", tdyn,
                            _matvec(r, tlat_t, uniform_rows, scan_prec, sp_b))

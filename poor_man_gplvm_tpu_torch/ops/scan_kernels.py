@@ -57,8 +57,23 @@ __all__ = [
 
 #: normaliser clamp of both kernels (as in the TPU kernels)
 NORM_FLOOR = 1e-38
+#: the smoothers' ratio r = carry / prior treats a prior below the smallest
+#: normal float32 as zero, as the JAX package does (XLA flushes
+#: subnormals): a subnormal prior under a carry of normal size would give
+#: r = inf and a NaN row; with the floor the pulled vector, a row-stochastic
+#: average of the r, stays below 1 / PRIOR_FLOOR (``scan_common.cuh::
+#: kPriorFloor``)
+PRIOR_FLOOR = float(torch.finfo(torch.float32).tiny)
 MAX_DYN = 2
 MAX_LATENT = 1024
+
+
+def smoother_ratio(carry, prior):
+    """The smoother's ratio ``carry / prior``, 0 where ``prior`` is below
+    ``PRIOR_FLOOR`` (K2, K4 and the 'prob' engine)."""
+    pos = prior >= PRIOR_FLOOR
+    return torch.where(pos, carry / torch.where(pos, prior, 1.0),
+                       torch.zeros_like(prior))
 
 
 def _detect_uniform_rows(tlat):
@@ -364,11 +379,8 @@ def smoother_scan_plain(filt, prior, tlat_t, tdyn, init, uniform_rows):
     smooth = torch.empty_like(filt)
     rout = torch.empty_like(filt)
     carry = init
-    zero = torch.zeros((), dtype=filt.dtype, device=filt.device)
     for t in range(T - 1, -1, -1):
-        pn = prior[t]
-        pos = pn > 0
-        r = torch.where(pos, carry / torch.where(pos, pn, 1.0), zero)
+        r = smoother_ratio(carry, prior[t])
         rows = []
         for e in range(n_dyn):
             if uniform_rows[e]:

@@ -17,6 +17,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from poor_man_gplvm_tpu_torch.ops import hmm
 from poor_man_gplvm_tpu_torch.ops import parallel_scan as ps
 from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk
 from poor_man_gplvm_tpu_torch.ops.emissions import MASK_NEG
@@ -30,6 +31,7 @@ __all__ = [
     "joint_acc_vs_plain", "JOINT_ACC_ENTRY_RTOL", "JOINT_ACC_FLOOR",
     "band_vs_dense", "BAND_K2_ROWS", "STEP_RTOL", "STEP_TOLERANCES",
     "pfilter_step_check", "psmooth_step_check", "pscan_failures",
+    "subnormal_prior_smoothers",
 ]
 
 #: kernel vs plain version (and port vs JAX): posteriors/priors/smoothed
@@ -380,9 +382,7 @@ def psmooth_step_check(a, post, ins_b, smooth, r, scan_prec, rows=1 << 16):
         filt = post[idx]
         prior = ps._matvec(torch.einsum("tpl,pd->tdl", filt, tdyn),
                            a["tlat"], flags, scan_prec, sp_f)
-        pos = prior > 0
-        r_want = torch.where(pos, carry / torch.where(pos, prior, 1.0),
-                             torch.zeros_like(prior))
+        r_want = sk.smoother_ratio(carry, prior)
         st_r.add(r[idx], r_want, step & (prior > 1e-30)
                  & (r_want * prior > 1e-30))
         sm = filt * torch.einsum("de,tel->tdl", tdyn, ps._matvec(
@@ -556,7 +556,7 @@ def band_vs_dense(case, device, scan_prec="highest"):
     posteriors and their pushed priors): whether every output is bit-equal
     (``equal_by_mode``: "k3_finals", "k3_emit", K4's modes, "k1", "k2"),
     whether every output is finite, masked bins exact zeros and K2's r
-    zero where the prior is 0, and the heights W of the two bands."""
+    zero where the prior is below ``PRIOR_FLOOR``, and the heights W of the two bands."""
     a = pscan_inputs(case, device, None, scan_prec)
     fwd = (a["w"], a["tlat"], a["tdyn"], a["ins"], a["tc"], a["flags"])
     post = ps.pfilter_pass_plain(*fwd, True, scan_prec)[0]
@@ -601,7 +601,41 @@ def band_vs_dense(case, device, scan_prec="highest"):
         _, r = hold("k2", lambda b: sk.smoother_scan(
             filt, prior, a["tlat_t"], a["tdyn"], init, a["flags"], band=b),
             zero_in=0)
-        zeros &= bool((r[prior == 0] == 0).all())
+        zeros &= bool((r[prior < sk.PRIOR_FLOOR] == 0).all())
     return {"band_equal_dense": all(equal.values()), "equal_by_mode": equal,
             "finite": finite, "masked_exact_zero": zeros, "W": band.W,
             "W_dense": dense.W}
+
+
+def subnormal_prior_smoothers(device):
+    """One backward step whose prior has a subnormal entry under a carry of
+    normal size, through K2 (``smoother_scan``), K4 (``psmooth_pass``,
+    "full") and the 'prob' engine's scan, on ``device`` (on the CPU the
+    wrappers run their plain versions): L = 6, n_dyn = 1, the filter
+    posterior on bin 0, a transition from bin 0 to bin 5 of 1e-41 (so the
+    prior there is 1e-41), the carry 0.5 on bin 5.  Without
+    ``PRIOR_FLOOR`` the ratio there is inf and the row NaN; with it r = 0
+    there.  Returns {name: (smoothed row (L,), r (L,))} and the inputs
+    (filt (L,), prior (L,), carry (L,), tlat (L, L))."""
+    L = 6
+    tlat = torch.eye(L, device=device)
+    tlat[0] = torch.tensor([0.6, 0.4, 0.0, 0.0, 0.0, 1e-41], device=device)
+    filt = torch.zeros(L, device=device)
+    filt[0] = 1.0
+    carry = torch.tensor([0.2, 0.3, 0.0, 0.0, 0.0, 0.5], device=device)
+    prior = tlat[0].clone()  # push(filt) = row 0
+    tlat3, tlat_t = tlat[None], tlat.T.contiguous()[None]
+    tdyn, flags = torch.ones((1, 1), device=device), (False,)
+    sm2, r2 = sk.smoother_scan(filt[None, None], prior[None, None], tlat_t,
+                               tdyn, carry[None], flags)
+    # K4 on one chunk of two rows: row 0 is a step from the carry ins,
+    # row 1 (the last) passes it through
+    sm4, r4, _ = ps.psmooth_pass(torch.stack([filt, carry])[:, None],
+                                 tlat3, tlat_t, tdyn, carry[None, None], 2,
+                                 flags, "full")
+    trans = hmm.LatentTransition(T=tlat, logT=torch.log(tlat))
+    smp, rp = hmm._backward_scan_prob_ratios(filt[None], prior[None], trans,
+                                             carry)
+    outs = {"K2": (sm2[0, 0], r2[0, 0]), "K4": (sm4[0, 0], r4[0, 0]),
+            "prob": (smp[0], rp[0])}
+    return outs, (filt, prior, carry, tlat)

@@ -36,6 +36,7 @@ from poor_man_gplvm_tpu_torch.testing import (  # noqa: E402
     pscan_inputs,
     pscan_vs_plain,
     scan_case,
+    subnormal_prior_smoothers,
 )
 
 pytestmark = pytest.mark.cuda
@@ -396,3 +397,18 @@ def test_parallel_engine_matches_sequential(cuda, L):
     assert abs(lml - lml_seq) <= 1e-5 * abs(lml_seq)
     assert float((par[2] - post).abs().max()) <= 1e-4
     assert float((par[0][:-1] - smooth).abs().max()) <= 1e-4
+
+
+def test_subnormal_prior_gives_a_zero_ratio(cuda):
+    """K2 and K4 on a prior with a subnormal entry under a carry of normal
+    size: r = 0 there (``scan_common.cuh::kPriorFloor``), the row finite and
+    equal to the plain versions'."""
+    outs, _ = subnormal_prior_smoothers(cuda)
+    want, _ = subnormal_prior_smoothers("cpu")
+    torch.cuda.synchronize()
+    for name, (sm, r) in outs.items():
+        sm, r = sm.cpu(), r.cpu()
+        assert bool(torch.isfinite(sm).all() and torch.isfinite(r).all()), name
+        assert float(r[5]) == 0.0, name
+        torch.testing.assert_close(sm, want[name][0], rtol=0, atol=1e-6)
+        torch.testing.assert_close(r, want[name][1], rtol=1e-6, atol=0)

@@ -189,9 +189,9 @@ def test_engines_and_modes():
     assert PoissonGPLVMJump1D(4, n_latent_bin=6, device="cpu",
                               inference_engine="cuda_parallel"
                               ).inference_engine == "cuda_parallel"
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PoissonGPLVMJump1D(4, n_latent_bin=6, device="cpu",
-                           inference_engine="log")
+    assert PoissonGPLVMJump1D(4, n_latent_bin=6, device="cpu",
+                              inference_engine="log"
+                              ).inference_engine == "log"  # asked by name
     for engine in ("pallas", "pallas_parallel"):  # the JAX package's names
         with pytest.raises(ValueError, match="cuda_parallel"):
             PoissonGPLVMJump1D(4, n_latent_bin=6, device="cpu",
@@ -230,8 +230,9 @@ def test_single_step_and_sampling():
 def test_port_imports_and_decodes_without_jax():
     code = textwrap.dedent("""
         import sys
-        sys.modules["jax"] = None
-        sys.modules["poor_man_gplvm_tpu"] = None
+        for banned in ("jax", "poor_man_gplvm_tpu", "pandas", "sklearn",
+                       "pynapple"):
+            sys.modules[banned] = None
         import numpy as np
         import poor_man_gplvm_tpu_torch as pmt
         m = pmt.PoissonGPLVMJump1D(5, n_latent_bin=8, device="cpu")
@@ -258,6 +259,16 @@ def test_port_imports_and_decodes_without_jax():
         assert em["log_posterior_final"] is None
         assert m._scan_passes_mid.shape == (2, 2)
         assert np.isfinite(float(em["log_marginal_l"][-1]))
+        # the other families, the log engine and the initializers
+        g = pmt.GaussianGPLVM1D(5, n_latent_bin=8, device="cpu",
+                                inference_engine="log")
+        res = g.decode_latent(y[:50])
+        assert len(res) == 9 and np.isfinite(res["log_marginal_final"])
+        lpi = pmt.initializers.init_with_label_1D(np.arange(300.0), 8)
+        em = pmt.PoissonGPLVM1D(5, n_latent_bin=4, device="cpu").fit_em(
+            y, n_iter=2, verboase=False, m_step_maxiter=5,
+            log_posterior_init=pmt.initializers.init_with_pca(y, 4))
+        assert np.isfinite(float(em["log_marginal"])) and lpi.shape == (300, 8)
         assert not any(k == "jax" or k.startswith(("jax.", "jaxlib"))
                        for k in sys.modules if sys.modules[k] is not None)
         print("ok")
@@ -273,7 +284,8 @@ def test_port_imports_and_decodes_without_jax():
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():
     """No source file of the port, and not ``chip_smoke.py``, imports
-    ``jax``, ``jaxlib`` or anything of ``poor_man_gplvm_tpu``."""
+    ``jax``, ``jaxlib``, ``optax``, anything of ``poor_man_gplvm_tpu``, or
+    pandas, sklearn or pynapple (the card's machine has none of them)."""
     import pathlib
     import re
 
@@ -282,7 +294,8 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
     files.append(root / "chip_smoke.py")
     assert len(files) >= 15
     banned = re.compile(
-        r"^\s*(?:import|from)\s+(?:jax|jaxlib|optax|poor_man_gplvm_tpu)"
+        r"^\s*(?:import|from)\s+(?:jax|jaxlib|optax|poor_man_gplvm_tpu|"
+        r"pandas|sklearn|pynapple)"
         r"(?![\w])", re.MULTILINE)
     for path in files:
         hits = banned.findall(path.read_text())

@@ -298,8 +298,13 @@ def test_fit_em_options_and_profile(setup):
         m.fit_em(y, n_iter=0, verboase=False)
     with pytest.raises(TypeError):
         m.fit_em(y, n_iter=1, verboase=False, no_such_option=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ms.poisson_m_step_objective_smoothness(None, HP, None, None, None)
+    # the B-spline basis's objective, ported: no penalty, no difference
+    _, p_args = _stats(setup)
+    p = torch.tensor(state["params"])
+    assert torch.equal(
+        ms.poisson_m_step_objective_smoothness(
+            p, dict(HP, smoothness_penalty=0.0), *p_args[1:]),
+        ms.poisson_m_step_objective(p, *p_args))
 
 
 def test_fit_em_new_lengthscale_and_nan_guard(setup):

@@ -228,3 +228,226 @@ def test_transition_push_pull_outer(latent_only):
     np.testing.assert_allclose(p.uniform_log_init().numpy(),
                                np.asarray(j.uniform_log_init()), rtol=1e-6)
     assert p.joint_shape() == j.joint_shape()
+
+
+# --------------------------------------------------------------------------
+# the ops of the other model families: latent-only transitions, the
+# rbf-plus-isolated custom kernels, the small public kernels, the B-spline
+# basis, Gaussian emissions, per-bin dt, the ridge M-step and the
+# smoothness objective
+# --------------------------------------------------------------------------
+
+
+def _f32_equal(got, want):
+    """Equal to f32 rounding: a few ulp of the largest entry; -inf where
+    the JAX function gives -inf."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    fin = np.isfinite(want)
+    assert (fin == np.isfinite(got)).all()
+    assert (got[~fin] == want[~fin]).all()
+    scale = max(float(np.abs(want[fin]).max()), 1e-30)
+    assert float(np.abs(got[fin] - want[fin]).max()) <= 4 * 2.0**-23 * scale
+
+
+@pytest.mark.parametrize("mv,custom", [(1.0, False), (3.5, False),
+                                       (1.0, True)])
+def test_create_transition_prob_latent_1d(mv, custom):
+    L = 25
+    ck = None
+    if custom:
+        ck = np.random.default_rng(8).uniform(size=(L, L)).astype(np.float32)
+        ck[2, 5] = 0.0
+    want = jker.create_transition_prob_latent_1d(
+        jnp.arange(L), mv, custom_kernel=None if ck is None else jnp.asarray(ck))
+    got = kernels.create_transition_prob_latent_1d(torch.arange(L), mv,
+                                                   custom_kernel=ck)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        _f32_equal(g.numpy(), w)
+    np.testing.assert_allclose(got[0].sum(1).numpy(), 1.0, rtol=1e-6)
+    if not custom:  # movement_variance is the RBF lengthscale (the quirk)
+        raw = np.exp(-((np.arange(L)[:, None] - np.arange(L)) ** 2) / mv**2)
+        np.testing.assert_allclose(got[0].numpy(),
+                                   raw / raw.sum(1, keepdims=True), atol=1e-6)
+
+
+@pytest.mark.parametrize("L,ls_tun,ls_tr,var,p_iso", [
+    (40, 5.0, 1.0, 1.0, 0.001), (17, 2.0, 3.0, 2.5, 0.05)])
+def test_custom_kernel_rbf_plus_isolated(L, ls_tun, ls_tr, var, p_iso):
+    want = jker.get_custom_kernel_rbf_plus_isolated(jnp.arange(L), ls_tun,
+                                                    ls_tr, var, p_iso)
+    got = kernels.get_custom_kernel_rbf_plus_isolated(torch.arange(L), ls_tun,
+                                                      ls_tr, var, p_iso)
+    for g, w in zip(got, want):
+        _f32_equal(g.numpy(), w)
+    tun, tr = (g.numpy() for g in got)
+    # row 0 keeps the 1/n of the whole-matrix scale, the rest sum to 1
+    np.testing.assert_allclose(tr[0], 1.0 / L, rtol=1e-6)
+    np.testing.assert_allclose(tr[1:].sum(1), 1.0, rtol=1e-5)
+    assert (tr[1:, 0] == np.float32(p_iso)).all()
+    assert tun[0, 0] == var and (tun[0, 1:] == 0).all() and (tun[1:, 0] == 0).all()
+
+
+def test_small_public_kernels():
+    x, y = np.array([0.5, 2.0], np.float32), np.array([1.5, -1.0], np.float32)
+    for fn, args in ((kernels.rbf_kernel, (3.0, 2.0)),
+                     (kernels.rbf_kernel_multi_d,
+                      (np.array([1.5, 4.0], np.float32), 0.7))):
+        jfn = getattr(jker, fn.__name__)
+        want = jfn(jnp.asarray(x), jnp.asarray(y), *map(jnp.asarray, args))
+        got = fn(torch.tensor(x), torch.tensor(y), *args)
+        for g, w in zip(got, want):
+            _f32_equal(g.numpy(), w)
+    got, want = kernels.uniform_kernel(1, 2, 7), jker.uniform_kernel(1, 2, 7)
+    assert got[0] == want[0] and float(got[1]) == float(want[1])
+    mat = np.array([[0.2, 0.8], [0.0, 1.0]], np.float32)
+    for i, j in ((0, 1), (1, 0)):
+        got = kernels.discrete_transition_kernel(i, j, torch.tensor(mat))
+        want = jker.discrete_transition_kernel(i, j, jnp.asarray(mat))
+        for g, w in zip(got, want):
+            assert float(g) == float(w)
+
+
+@pytest.mark.parametrize("L,nb", [(30, None), (50, 7), (4, None)])
+def test_bspline_basis_exact(L, nb):
+    want = np.asarray(jbasis.generate_basis(1.0, L, basis_type="bspline",
+                                            n_basis_bspline=nb))
+    got = basis.generate_basis(1.0, L, basis_type="bspline",
+                               n_basis_bspline=nb).numpy()
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got[:, 0], 1.0)
+    np.testing.assert_allclose(got[:, 1:].sum(1), 1.0, rtol=1e-6)  # unity
+    with pytest.raises(ValueError, match="order"):
+        basis.generate_basis(1.0, L, basis_type="bspline", n_basis_bspline=3)
+    with pytest.raises(ValueError):
+        basis.generate_basis(1.0, L, basis_type="no_such_basis")
+
+
+def _gauss_inputs(T, N, L, seed):
+    rng = np.random.default_rng(seed)
+    tuning = rng.normal(size=(L, N)).astype(np.float32) * 2
+    y = (tuning[rng.integers(L, size=T)]
+         + rng.normal(size=(T, N)) * 0.5).astype(np.float32)
+    return y, tuning, rng
+
+
+@pytest.mark.parametrize("noise", ["scalar", "per_neuron"])
+@pytest.mark.parametrize("mask", ["1d", "2d"])
+def test_gaussian_loglik(noise, mask):
+    T, N, L = 40, 11, 19
+    y, tuning, rng = _gauss_inputs(T, N, L, 9)
+    ma_latent = np.ones(L, np.float32)
+    ma_latent[[3, 4]] = 0
+    ma = (rng.uniform(size=(N,) if mask == "1d" else (T, N)) > 0.2).astype(
+        np.float32)
+    std = 0.7 if noise == "scalar" else rng.uniform(0.3, 1.5, N).astype(
+        np.float32)
+    want = np.asarray(jem.gaussian_loglik(
+        jnp.asarray(y), jnp.asarray(tuning), jnp.asarray(std), jnp.asarray(ma),
+        jnp.asarray(ma_latent)))
+    got = emissions.gaussian_loglik(_t(y), _t(tuning), std if noise ==
+                                    "scalar" else _t(std), _t(ma),
+                                    _t(ma_latent)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    assert (got[:, [3, 4]] == emissions.MASK_NEG).all()
+    # the direct sum of the normal log-densities, in float64
+    ma2 = np.broadcast_to(ma, (T, N)).astype(np.float64)
+    resid = (y[:, None, :] - tuning[None].astype(np.float64)) / np.asarray(std)
+    direct = ((-0.5 * resid**2 - np.log(std) - 0.5 * np.log(2 * np.pi))
+              * ma2[:, None, :]).sum(-1)
+    keep = ma_latent > 0
+    np.testing.assert_allclose(got[:, keep], direct[:, keep], rtol=1e-5,
+                               atol=1e-4)
+    hp = {"noise_std": std}
+    np.testing.assert_allclose(
+        emissions.get_loglikelihood_ma_all(
+            _t(y), _t(tuning), hp, _t(ma), _t(ma_latent),
+            observation_model="gaussian", lgamma_term=torch.ones(T)).numpy(),
+        got, rtol=0, atol=0)  # the lgamma term is ignored
+
+
+@pytest.mark.parametrize("model", ["poisson", "gaussian"])
+def test_per_bin_dt(model):
+    T, N, L = 30, 7, 12
+    if model == "poisson":
+        y, tuning, rng = _spikes(10, T, N, L)
+        hp = {}
+    else:
+        y, tuning, rng = _gauss_inputs(T, N, L, 10)
+        hp = {"noise_std": 0.6}
+    dt = rng.uniform(0.5, 2.0, T).astype(np.float32)
+    ma, ma_latent = np.ones(N, np.float32), np.ones(L, np.float32)
+    ma_latent[0] = 0
+    want = np.asarray(jem.get_loglikelihood_ma_all_changing_dt(
+        jnp.asarray(y), jnp.asarray(tuning), hp, jnp.asarray(ma),
+        jnp.asarray(ma_latent), jnp.asarray(dt), observation_model=model))
+    got = emissions.get_loglikelihood_ma_all_changing_dt(
+        _t(y), _t(tuning), hp, _t(ma), _t(ma_latent), _t(dt),
+        observation_model=model).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+    # a constant per-bin dt equals the scalar matmul form
+    const = emissions.get_loglikelihood_ma_all_changing_dt(
+        _t(y), _t(tuning), hp, _t(ma), _t(ma_latent), torch.full((T,), 1.5),
+        observation_model=model).numpy()
+    scalar = emissions.get_naive_bayes_ma(
+        _t(y), _t(tuning), hp, _t(ma), _t(ma_latent), 1.5,
+        observation_model=model)[3].numpy()
+    np.testing.assert_allclose(const, scalar, rtol=1e-5)
+    # chunked naive Bayes with per-bin dt
+    want = jem.get_naive_bayes_ma_chunk(
+        jnp.asarray(y), jnp.asarray(tuning), hp, jnp.asarray(ma),
+        jnp.asarray(ma_latent), dt_l=jnp.asarray(dt), n_time_per_chunk=11,
+        observation_model=model)
+    got = emissions.get_naive_bayes_ma_chunk(
+        _t(y), _t(tuning), hp, _t(ma), _t(ma_latent), dt_l=dt,
+        n_time_per_chunk=11, observation_model=model)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), atol=1e-4)
+    np.testing.assert_allclose(float(got[2]), float(want[2]), rtol=1e-5)
+    with pytest.raises(ValueError, match="observation_model"):
+        emissions.get_loglikelihood_ma_all(_t(y), _t(tuning), hp, _t(ma),
+                                           _t(ma_latent), "no_such_model")
+
+
+def _grouped_stats(seed, T, L, N, nb):
+    rng = np.random.default_rng(seed)
+    lpi = np.log(rng.dirichlet(np.ones(L), T)).astype(np.float32)
+    y = rng.poisson(2.0, size=(T, N)).astype(np.float32)
+    b = rng.normal(size=(L, nb)).astype(np.float32)
+    yw, tw = jmstep.get_statistics(jnp.asarray(lpi), jnp.asarray(y))
+    return b, np.asarray(yw), np.asarray(tw), rng
+
+
+def test_gaussian_ridge_m_step():
+    L, N, nb = 30, 9, 8
+    b, yw, tw, _ = _grouped_stats(11, 300, L, N, nb)
+    hp = {"noise_std": 0.4, "param_prior_std": 2.0}
+    want = np.asarray(jmstep.gaussian_m_step_analytic(
+        hp, jnp.asarray(b), jnp.asarray(yw), jnp.asarray(tw)))
+    got = mstep.gaussian_m_step_analytic(hp, _t(b), _t(yw), _t(tw))
+    assert got.shape == (nb, N)
+    np.testing.assert_allclose(
+        mstep.get_tuning_linear(got, _t(b)).numpy(), b @ want,
+        rtol=1e-5, atol=1e-5 * float(np.abs(b @ want).max()))
+
+
+def test_smoothness_objective_and_gradient():
+    L, N, nb = 26, 6, 9
+    b, yw, tw, rng = _grouped_stats(12, 400, L, N, nb)
+    params = rng.normal(size=(nb, N)).astype(np.float32)
+    hp = {"param_prior_std": 1.3, "smoothness_penalty": 4.0}
+    jl, jg = jax.value_and_grad(jmstep.poisson_m_step_objective_smoothness)(
+        jnp.asarray(params), hp, jnp.asarray(b), jnp.asarray(yw),
+        jnp.asarray(tw))
+    p = _t(params).requires_grad_(True)
+    loss = mstep.poisson_m_step_objective_smoothness(p, hp, _t(b), _t(yw),
+                                                     _t(tw))
+    loss.backward()
+    loss = float(loss.detach())
+    assert abs(loss - float(jl)) <= 1e-5 * abs(float(jl))
+    g, jg = p.grad.numpy(), np.asarray(jg)
+    assert np.abs(g - jg).max() <= 1e-5 * np.abs(jg).max()
+    # the penalty adds to the plain objective
+    plain = mstep.poisson_m_step_objective(p.detach(), hp, _t(b), _t(yw),
+                                           _t(tw))
+    assert loss > float(plain)

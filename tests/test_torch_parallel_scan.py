@@ -24,6 +24,9 @@ from poor_man_gplvm_tpu_torch.ops import hmm, kernels  # noqa: E402
 from poor_man_gplvm_tpu_torch.ops import parallel_scan as ps  # noqa: E402
 from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk  # noqa: E402
 from poor_man_gplvm_tpu_torch.ops.emissions import MASK_NEG  # noqa: E402
+from poor_man_gplvm_tpu_torch.testing import (  # noqa: E402
+    subnormal_prior_smoothers,
+)
 
 torch.set_num_threads(1)
 
@@ -258,3 +261,20 @@ def test_engine_resolution_and_cpu_wrappers():
     with pytest.raises(ValueError):
         ps.smooth_parallel(torch.zeros(20, 9), trans.Tlat, trans.Tdyn,
                            ins[0], 1.0, uniform_rows=trans.uniform_rows)
+
+
+def test_subnormal_prior_in_the_smoothers_matches_jax():
+    """A subnormal prior under a carry of normal size: the smoother steps
+    of K2, K4 (plain versions) and the 'prob' engine give r = 0 there
+    (``scan_kernels.PRIOR_FLOOR``), as the JAX package does (XLA flushes
+    subnormals), where a plain division gives r = inf and a NaN row."""
+    outs, (filt, prior, carry, tlat) = subnormal_prior_smoothers("cpu")
+    tl = jnp.asarray(tlat.numpy())
+    sm_j, r_j = jhmm._backward_scan_prob_ratios(
+        jnp.asarray(filt.numpy())[None], jnp.asarray(prior.numpy())[None],
+        jhmm.LatentTransition(tl, jnp.log(tl)), jnp.asarray(carry.numpy()))
+    for name, (sm, r) in outs.items():
+        assert bool(torch.isfinite(sm).all() and torch.isfinite(r).all()), name
+        assert float(r[5]) == 0.0, name
+        np.testing.assert_allclose(sm.numpy(), np.asarray(sm_j[0]), atol=1e-6)
+        np.testing.assert_allclose(r.numpy(), np.asarray(r_j[0]), rtol=1e-6)
