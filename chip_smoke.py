@@ -75,8 +75,24 @@ Phases, each of which checks its results (any failure exits non-zero):
    and without the pairwise joint, held against the full mode in each
    scan precision.
 
-Each main path (phases 5 with the epochs, 7, 8, 9) runs with the kernels'
-launch counts,
+10. families: the other three model classes through their entry points
+    (``phase_families``);
+11. session: one sampled ``PoissonGPLVMJump1D`` recording at N = L = 500
+    in a ``TsdFrame``: ``decode_latent`` on it at T=100,000 (the wrapped
+    keys against the unwrapped decode, bit for bit, and timed with and
+    without bin times), naive Bayes with ``t_l``, ``_decode_latent`` from
+    the model's own and from a dense log transition; ``fit_em`` at
+    T=20,000 checkpointed every iteration, interrupted and resumed, held
+    against the uninterrupted fit, a save timed and sized; and
+    ``validation.test_one_model`` at T=10,000, the dynamics null (32
+    shuffles in its batches of 16, then ``shuffle_and_decode`` alone at
+    ``shuffle_batch_size`` 16 and 132, equal to it; one launch of K1 and
+    one of K2 per batch, no NaN, two shuffles bit for bit against
+    ``decode_latent`` of each alone, the first batch's K1/K2 against their
+    plain versions at T=10,000) and the naive-Bayes null (100 shuffles).
+
+Each main path (phases 5 with the epochs, 7, 8, 9, 10, 11) runs with the
+kernels' launch counts,
 by mode and precision, set to 0 just before it and read just after;
 comparison runs are not counted.  The line before the last is a JSON
 summary of the kernels; the last line is ``{"ok": true, "device":
@@ -159,6 +175,24 @@ FAM_FIT_NL = 100  # N = L of the families' fits (the fit cell's width)
 FAM_LEAN_ITERS = 4  # PoissonGPLVM1D's lean fit at the north-star shape
 FAM_LOG_T = 2_000  # engine='log' against 'prob', N = L = 100
 FAM_LOG_CLASSES = ("PoissonGPLVM1D", "GaussianGPLVMJump1D")
+# the session phase: one sampled PoissonGPLVMJump1D session at N = L = 500
+# in a TsdFrame, bins of SESSION_DT seconds
+SESSION_DT = 0.025
+SESSION_NL = 500  # N = L, the north-star width
+SESSION_T_FIT = 20_000  # the checkpointed fit
+SESSION_FIT_ITERS = 4
+SESSION_RESUME_AT = 2  # the fit interrupted after this many iterations
+SESSION_SAVES = 3  # timed saves of a checkpoint
+SESSION_T_DENSE = 20_000  # _decode_latent on a dense latent channel
+SESSION_T_NULL = 10_000  # the circular-shuffle nulls
+SESSION_N_SHUFFLE = 32  # the dynamics null
+SESSION_BATCHES = (16, 132)  # shuffle_batch_size: the default, the SMs
+SESSION_NB_SHUFFLE = 100  # the naive-Bayes null
+SESSION_ALONE = 2  # shuffles held against decode_latent alone
+# fit_em resumed from a checkpoint against the uninterrupted checkpointed
+# fit: the log-marginals within the certified fixed point of the parallel
+# engine's E-steps
+SESSION_RESUME_RTOL = 1e-5
 #: the n_dyn = 1 kernel rows of the kernels line: wrapper[mode] names
 NDYN1_KERNELS = ("filter_scan", "smoother_scan",
                  "pfilter_pass[finals/highest]", "pfilter_pass[emit/highest]",
@@ -2014,6 +2048,336 @@ def _ndyn1_kernel_rows(m, y):
     return rows
 
 
+def _session_model():
+    """The session's model (N = L = 500, random weights from numpy seed
+    1000 carried in as a JAX model's state would be), a sampled recording
+    of T_LONG bins as a TsdFrame on the bin times, and its spikes on the
+    card."""
+    from poor_man_gplvm_tpu_torch import TsdFrame
+
+    N = L = SESSION_NL
+    basis_rank = _model(N, L, "prob").tuning_basis.shape[1]
+    params = np.random.default_rng(1000).normal(
+        size=(basis_rank, N)).astype(np.float32)
+    m = _model(N, L, "auto", params)
+    _, y = m.sample(T_LONG, generator=torch.Generator().manual_seed(1001))
+    y_np = y.cpu().numpy()
+    return m, params, y, TsdFrame(d=y_np, t=np.arange(T_LONG) * SESSION_DT)
+
+
+def _session_decode(m, y, y_tsdf, launches):
+    """decode_latent on the TsdFrame (T_LONG bins through 'auto'),
+    naive Bayes with t_l, _decode_latent from the model's own log matrices
+    and from a dense latent channel."""
+    from poor_man_gplvm_tpu_torch import TsdFrame
+    from poor_man_gplvm_tpu_torch.ops import hmm
+
+    t = y_tsdf.t
+    L = m.n_latent_bin
+    with counted(launches):
+        res = m.decode_latent(y_tsdf)
+        nb = m.decode_latent_naive_bayes(y, t_l=t)
+    ref = m.decode_latent(y)
+    for k in ("posterior_latent_marg", "posterior_dynamics_marg"):
+        check(isinstance(res[k], TsdFrame) and np.array_equal(res[k].t, t)
+              and np.array_equal(res[k].d, ref[k].cpu().numpy()),
+              f"decode_latent(TsdFrame)[{k!r}] is not the unwrapped decode "
+              "on the input's times")
+    check(res["log_marginal_final"] == ref["log_marginal_final"]
+          and torch.equal(res["posterior_all"], ref["posterior_all"]),
+          "decode_latent(TsdFrame) differs from the unwrapped decode")
+    _check_decode(ref, T_LONG, m.n_latent_bin)
+    nb_post = nb["posterior_latent"]
+    check(isinstance(nb_post, TsdFrame) and np.array_equal(nb_post.t, t)
+          and np.array_equal(nb_post.d, torch.exp(
+              nb["log_posterior_latent"]).cpu().numpy()),
+          "decode_latent_naive_bayes(t_l=...)")
+    ms = {}
+    for _ in range(2):  # in turns: with bin times, without
+        for key, fn in (("t_l", lambda: m.decode_latent(y, t_l=t)),
+                        ("plain", lambda: m.decode_latent(y)[
+                            "posterior_latent_marg"])):
+            ms.setdefault(key, []).append(1e3 * wall_s(fn)[0])
+    log(f"session decode T={T_LONG} N=L={L} through 'auto': TsdFrame keys "
+        f"equal to the unwrapped decode on the input's times; "
+        f"{min(ms['t_l']):.1f} ms with t_l (wrapped keys copied to the "
+        f"host), {min(ms['plain']):.1f} ms without (best of 2, host clock); "
+        f"naive Bayes with t_l wrapped, bit-equal")
+
+    trans, attrs = m._make_transition({})
+    lat, dyn = (attrs["log_latent_transition_kernel_l"],
+                attrs["log_dynamics_transition_kernel"])
+    with counted(launches):
+        own = m._decode_latent(y, m.tuning, {}, lat, dyn, m.ma_neuron_default)
+    post_err = float((torch.exp(own[0]) - ref["posterior_all"]).abs().max())
+    lmf_rel = abs(float(own[1]) - ref["log_marginal_final"]) / abs(
+        ref["log_marginal_final"])
+    tlat_err = float((torch.exp(lat) - trans.Tlat).abs().max())
+    log(f"session _decode_latent from the model's own log matrices: max "
+        f"|post - decode_latent| {post_err:.3e}, log marginal rel "
+        f"{lmf_rel:.3e} (exp(log Tlat) differs from Tlat by up to "
+        f"{tlat_err:.3e}, so the bits differ; bit-equal: "
+        f"{post_err == 0.0})")
+    check(post_err <= DECODE_POST_ATOL and lmf_rel <= DECODE_LMF_RTOL,
+          (post_err, lmf_rel))
+
+    # a dense latent channel (not an RBF): the band is W = L
+    dense = np.random.default_rng(1002).random((L, L)) + 0.05
+    dense = np.log(dense / dense.sum(axis=1, keepdims=True))
+    lat_dense = lat.clone()
+    lat_dense[0] = torch.as_tensor(dense, dtype=torch.float32,
+                                   device=m.device)
+    y_d = y[:SESSION_T_DENSE]
+    t_par, par = wall_s(lambda: m._decode_latent(
+        y_d, m.tuning, {}, lat_dense, dyn, m.ma_neuron_default))
+    with counted(launches):
+        par = m._decode_latent(y_d, m.tuning, {}, lat_dense, dyn,
+                               m.ma_neuron_default)
+    with sequential_engine():
+        t_seq, seq = wall_s(lambda: m._decode_latent(
+            y_d, m.tuning, {}, lat_dense, dyn, m.ma_neuron_default))
+    dense_trans = hmm.JointTransition(
+        Tdyn=torch.exp(dyn), Tlat=torch.exp(lat_dense), logTdyn=dyn,
+        logTlat=lat_dense)
+    W = hmm._cached_band(dense_trans, dense_trans.Tlat).W
+    rel = abs(float(par[1]) - float(seq[1])) / abs(float(seq[1]))
+    log(f"session _decode_latent, dense latent channel (band W={W}), "
+        f"T={SESSION_T_DENSE} N=L={L}: parallel (K3/K4) {1e3 * t_par:.1f} ms, "
+        f"sequential (K1/K2) {1e3 * t_seq:.1f} ms (host clock); posteriors "
+        f"bit-equal {torch.equal(par[0], seq[0])}, log marginal rel "
+        f"{rel:.2e}")
+    check(W == L and torch.equal(par[0], seq[0]) and rel <= DECODE_LMF_RTOL,
+          ("dense _decode_latent", W, rel))
+
+
+def _session_fit(m_fresh, y, launches):
+    """fit_em at SESSION_T_FIT bins, checkpointed every iteration;
+    interrupted after SESSION_RESUME_AT iterations and resumed, held
+    against the uninterrupted checkpointed fit; a checkpoint's save timed
+    and sized."""
+    import os
+    import shutil
+
+    from poor_man_gplvm_tpu_torch.utils.checkpoint import EMCheckpointer
+
+    mf = m_fresh()
+    L = mf.n_latent_bin
+    y_fit = y[:SESSION_T_FIT]
+    init = np.random.default_rng(1003).random((SESSION_T_FIT, L)) * 0.1
+    lpi = np.log(init / init.sum(axis=1, keepdims=True)).astype(np.float32)
+    root = os.path.join("build", "session_checkpoints")
+    shutil.rmtree(root, ignore_errors=True)
+    kw = dict(log_posterior_init=lpi, verboase=False)
+    try:
+        with counted(launches):
+            sec, full = wall_s(lambda: mf.fit_em(
+                y_fit, n_iter=SESSION_FIT_ITERS,
+                checkpoint_dir=os.path.join(root, "full"), **kw))
+        m_fresh().fit_em(y_fit, n_iter=SESSION_RESUME_AT,
+                         checkpoint_dir=os.path.join(root, "cut"), **kw)
+        with counted(launches):
+            resumed = m_fresh().fit_em(
+                y_fit, n_iter=SESSION_FIT_ITERS,
+                checkpoint_dir=os.path.join(root, "cut"), resume=True, **kw)
+        steps = EMCheckpointer(os.path.join(root, "cut")).all_steps()
+        want = np.array([float(v) for v in
+                         full["log_marginal_l"][SESSION_RESUME_AT:]])
+        got = np.array([float(v) for v in resumed["log_marginal_l"]])
+        rel = float(np.abs(got - want).max() / np.abs(want).max())
+        bits = all(torch.equal(resumed[k], full[k])
+                   for k in ("params", "posterior"))
+        check(steps == list(range(SESSION_FIT_ITERS)), steps)
+        check(np.all(np.isfinite(got)) and rel <= SESSION_RESUME_RTOL,
+              ("resumed fit", got, want))
+        # one checkpoint's save: the state fit_em writes, from the card
+        state = EMCheckpointer(os.path.join(root, "full")).restore()
+        state = {k: (torch.as_tensor(v, device=mf.device)
+                     if isinstance(v, np.ndarray) and k != "rng" else v)
+                 for k, v in state.items()}
+        timing = EMCheckpointer(os.path.join(root, "timing"))
+        save_s = [wall_s(lambda: timing.save(i, state))[0]
+                  for i in range(SESSION_SAVES)]
+        mb = os.path.getsize(os.path.join(
+            timing._step_path(0), "state.pkl")) / 2**20
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    n_adam = full["m_step_res_l"]["n_iter"]
+    log(f"session fit T={SESSION_T_FIT} N=L={L}, checkpointed every "
+        f"iteration: {sec / SESSION_FIT_ITERS:.4f} s/EM-iter over "
+        f"{SESSION_FIT_ITERS} iterations (Adam iterations {list(n_adam)}); "
+        f"interrupted after {SESSION_RESUME_AT} and resumed to "
+        f"{SESSION_FIT_ITERS}: log_marginal_l {got.tolist()} vs "
+        f"uninterrupted {want.tolist()} (rel {rel:.2e}; params and "
+        f"posterior bit-equal: {bits}); a save {np.median(save_s):.4f} s "
+        f"(median of {SESSION_SAVES}: {[round(x, 4) for x in save_s]}), "
+        f"{mb:.1f} MB per save")
+
+
+def _session_null(m, y_tsdf, launches):
+    """The nulls at SESSION_T_NULL bins: test_one_model's dynamics null
+    (batches of 16, its default), then shuffle_and_decode alone at every
+    batch size of SESSION_BATCHES, equal to it; each dynamics batch one
+    launch of K1 and one of K2; SESSION_ALONE shuffles against
+    decode_latent alone; the first batch's K1/K2 against plain at the
+    null's own length; and test_one_model's naive-Bayes null.  Returns the
+    kernels line's session rows."""
+    import itertools
+
+    from poor_man_gplvm_tpu_torch import TsdFrame, Tsd, validation
+    from poor_man_gplvm_tpu_torch.ops import hmm
+    from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk
+    from poor_man_gplvm_tpu_torch.testing import SCAN_TOLERANCES, _max_rel
+
+    T, L = SESSION_T_NULL, m.n_latent_bin
+    y_null = TsdFrame(d=y_tsdf.d[:T], t=y_tsdf.t[:T])
+    seed = 1004
+
+    def check_null(null, got, bs, what):
+        n_batch = -(-SESSION_N_SHUFFLE // bs)
+        check(got.get("filter_scan_batch") == n_batch
+              and got.get("smoother_scan_batch") == n_batch,
+              f"{what} in batches of {bs}: {got}")
+        check(null["posterior_all"].shape == (SESSION_N_SHUFFLE, T, 2, L),
+              null["posterior_all"].shape)
+        nan = [k for k, v in null.items()
+               if v is not None and not np.all(np.isfinite(v))]
+        check(not nan, f"NaN or inf in the {what}: {nan}")
+        return n_batch
+
+    got = {}
+    with counted_into(got, launches):
+        sec, res = wall_s(lambda: validation.test_one_model(
+            y_null, m, n_shuffle=SESSION_N_SHUFFLE, decoder_type="dynamics",
+            seed=seed))
+    first = res["decode_res_shuffle"]
+    n_batch = check_null(first, got, 16, "test_one_model's dynamics null")
+    check(isinstance(res["is_sig_tsd"], Tsd), type(res["is_sig_tsd"]))
+    log(f"session null T={T} N=L={L}, {SESSION_N_SHUFFLE} shuffles: "
+        f"test_one_model(decoder_type='dynamics') {sec:.3f} s, "
+        f"{1e3 * sec / SESSION_N_SHUFFLE:.1f} ms per shuffle (the true "
+        f"decode included; {n_batch} batches of 16, one K1 and one K2 "
+        f"launch each: {got}); significant bins "
+        f"{float(np.mean(res['is_sig_tsd'].d)):.3f}; no NaN")
+    del res
+    for bs in SESSION_BATCHES:
+        got = {}
+        with counted_into(got, launches):
+            sec, null = wall_s(lambda: validation.shuffle_and_decode(
+                m, y_null, n_shuffle=SESSION_N_SHUFFLE,
+                decoder_type="dynamics", seed=seed, verbose=False,
+                shuffle_batch_size=bs))
+        n_batch = check_null(null, got, bs, "shuffle_and_decode")
+        same = all(np.array_equal(null[k], first[k]) for k in first
+                   if first[k] is not None)
+        log(f"session null T={T} N=L={L}, {SESSION_N_SHUFFLE} shuffles, "
+            f"shuffle_and_decode(shuffle_batch_size={bs}): {sec:.3f} s, "
+            f"{1e3 * sec / SESSION_N_SHUFFLE:.1f} ms per shuffle ({n_batch} "
+            f"batches, one K1 and one K2 launch each: {got}); every key "
+            f"equal to test_one_model's null: {same}; no NaN")
+        check(same, f"shuffle_batch_size={bs} changes the null")
+        del null
+
+    # SESSION_ALONE shuffles against decode_latent on each alone (K1/K2)
+    null = first
+    shuffles = list(itertools.islice(validation.circular_shuffle_data(
+        y_null, n_shuffle=SESSION_BATCHES[0], seed=seed),
+        SESSION_BATCHES[0]))
+    for s in range(SESSION_ALONE):
+        with sequential_engine():
+            alone = m.decode_latent(shuffles[s], n_time_per_chunk=10000)
+        diff = {k: float(np.abs(null[k][s] - (
+            v.cpu().numpy() if torch.is_tensor(v) else np.float32(v))).max())
+                for k, v in alone.items()}
+        log(f"session null shuffle {s} against decode_latent alone "
+            f"(K1/K2): max |difference| per key {diff}")
+        check(all(v == 0.0 for v in diff.values()),
+              f"shuffle {s} differs from decode_latent alone: {diff}")
+    del first, null
+
+    # the first batch's K1/K2 held against their plain versions on the
+    # null's own log-likelihood rows, at its full length
+    trans, _ = m._make_transition({})
+    E = SESSION_BATCHES[0]
+    y_b = torch.as_tensor(np.stack(shuffles), device=m.device)
+    ll = hmm.sequence_loglikelihoods(
+        y_b, m.tuning, {}, m.ma_neuron_default, m.ma_latent_default, 10000)
+    del y_b
+    w, _ = sk._weights(ll, 1.0)
+    band = hmm._cached_band(trans, trans.Tlat)
+    tlat_t = trans.Tlat.transpose(-1, -2).contiguous()
+    flags = trans.uniform_rows
+    p_init = torch.exp(trans.uniform_log_init())[None].expand(
+        E, 2, L).contiguous()
+    lengths = torch.full((E,), T, dtype=torch.int32, device=m.device)
+    nnz = _nnz(trans.Tlat, flags)
+    k1 = lambda: sk.filter_scan_batch(  # noqa: E731
+        w, trans.Tlat, trans.Tdyn, p_init, lengths, flags, band=band)
+    post, prior, norm = k1()
+    want, plain1 = timed_once(lambda: sk.filter_scan_batch_plain(
+        w, trans.Tlat, trans.Tdyn, p_init, lengths, flags))
+    err1 = max(float((a - b).abs().max())
+               for a, b in zip((post, prior), want[:2]))
+    last = post[:, -1].contiguous()
+    k2 = lambda: sk.smoother_scan_batch(  # noqa: E731
+        post[:, :-1], prior[:, 1:], tlat_t, trans.Tdyn, last, lengths - 1,
+        flags, band=band)
+    smooth, r = k2()
+    want2, plain2 = timed_once(lambda: sk.smoother_scan_batch_plain(
+        want[0][:, :-1], want[1][:, 1:], tlat_t, trans.Tdyn,
+        want[0][:, -1].contiguous(), lengths - 1, flags))
+    err2 = float((smooth - want2[0]).abs().max())
+    nxt = torch.cat([smooth[:, 1:], last[:, None]], dim=1)
+    where = (prior[:, 1:] > 1e-30) & (nxt > 1e-30)
+    r_rel = _max_rel(r, want2[1], where)
+    finite = all(bool(torch.isfinite(x).all())
+                 for x in (post, prior, norm, smooth, r))
+    check(err1 <= SCAN_TOLERANCES["post_abs"]
+          and err2 <= SCAN_TOLERANCES["smooth_abs"]
+          and r_rel <= SCAN_TOLERANCES["r_rel"] and finite,
+          ("the null's first batch against plain", err1, err2, r_rel))
+    rows = {}
+    for name, kern, err, plain_ms, steps in (
+            ("filter_scan_batch", k1, err1, plain1, E * T),
+            ("smoother_scan_batch", k2, err2, plain2, E * (T - 1))):
+        ms = cuda_ms(kern, 5)
+        b_ms, b_by = kernel_bound(name, steps, L, 2, nnz)
+        rows[name] = dict(E=E, steps=steps, max_abs_err=err, ms=ms,
+                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                          library_ms=None)
+        log(f"time {name} on the null's first batch (E={E} shuffles of "
+            f"{T} bins, L={L}, {steps} steps in all): kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}); max |kernel - plain| {err:.3e}"
+            + (f", r rel {r_rel:.2e}" if name.startswith("smoother") else ""))
+    del w, post, prior, smooth, r, want, want2, nxt, where, ll
+
+    with counted(launches):
+        sec, nb = wall_s(lambda: validation.test_one_model(
+            y_null, m, n_shuffle=SESSION_NB_SHUFFLE,
+            decoder_type="naive_bayes", seed=seed + 1))
+    nb_null = nb["decode_res_shuffle"]
+    nan = [k for k, v in nb_null.items() if not np.all(np.isfinite(v))]
+    check(not nan and nb_null["posterior_latent"].shape == (
+        SESSION_NB_SHUFFLE, T, L), ("naive-Bayes null", nan))
+    log(f"session naive-Bayes null T={T} N=L={L}, {SESSION_NB_SHUFFLE} "
+        f"shuffles in batches of 16: test_one_model {sec:.3f} s, "
+        f"{1e3 * sec / SESSION_NB_SHUFFLE:.1f} ms per shuffle; significant "
+        f"bins {float(np.mean(nb['is_sig_tsd'].d)):.3f}; no NaN")
+    return rows
+
+
+def phase_session(launches):
+    """The session workflow at N = L = 500 on a sampled recording in a
+    TsdFrame: decode with bin times, a checkpointed fit resumed, and the
+    circular-shuffle nulls (see ``_session_*``).  Returns the kernels
+    line's rows of the batched K1/K2 on the null's first batch."""
+    m, params, y, y_tsdf = _session_model()
+    _session_decode(m, y, y_tsdf, launches)
+    _session_fit(lambda: _model(m.n_neuron, m.n_latent_bin, "auto", params),
+                 y, launches)
+    return _session_null(m, y_tsdf, launches)
+
+
 def main():
     t_start = time.perf_counter()
     phase_preamble()
@@ -2032,6 +2396,9 @@ def main():
     t_fam = time.perf_counter()
     ndyn1, ndyn1_rows = phase_families(launches)
     log(f"families phase {time.perf_counter() - t_fam:.1f} s")
+    t_ses = time.perf_counter()
+    session_rows = phase_session(launches)
+    log(f"session phase {time.perf_counter() - t_ses:.1f} s")
     log(f"main-path launches: {launches}")
     path = {name: _path_launches(launches, name) for name in KERNELS}
     check(all(n > 0 for n in path.values()), path)
@@ -2075,6 +2442,10 @@ def main():
         for key in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by"):
             if f"{key}_L500_dense" in row:
                 entry[f"{key}_L500_dense"] = row[f"{key}_L500_dense"]
+        if name in session_rows:
+            # on the circular-shuffle null's first batch
+            entry.update({f"{k}_session": v
+                          for k, v in session_rows[name].items()})
         if name in NDYN1_KERNELS:
             # the same kernel at n_dyn = 1, on a latent-only model's inputs
             entry["launches_ndyn1"] = _path_launches(ndyn1, name)
@@ -2092,7 +2463,10 @@ def main():
             "block each, n_dyn=2 (one RBF channel, ls=1, and the jump "
             "channel): every batch the epochs phase launches, all E epochs "
             "of its cell at L=100 and, *_L500, at L=500, and *_bs_L500 the "
-            "first batch of its batch_size run; each held against plain"
+            "first batch of its batch_size run; *_session the first batch "
+            "of the session's dynamics null (E shuffles of "
+            f"{SESSION_T_NULL} bins, L={SESSION_NL}); each held against "
+            "plain"
             if shape_T is None else
             f"T={shape_T} n_dyn=2 (one RBF channel, ls=1, and "
             "the jump channel) L=100; *_L500 at L=500; *_L500_dense on a "

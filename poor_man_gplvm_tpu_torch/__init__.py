@@ -12,12 +12,22 @@ Ported: the four concrete model classes of the JAX package,
 ``PoissonGPLVMJump1D``, ``GaussianGPLVMJump1D``, ``PoissonGPLVM1D`` and
 ``GaussianGPLVM1D``, with their abstract bases: decoding
 (``decode_latent``, ``decode_latent_naive_bayes``,
-``decode_latent_epochs``), sampling and fitting (``fit_em``), on the
-engines ``'prob'``, ``'log'``, ``'cuda'`` and ``'cuda_parallel'``; and the
-initial posteriors of ``initializers``.
+``decode_latent_epochs``), sampling and fitting (``fit_em``, with
+checkpoint/resume), on the engines ``'prob'``, ``'log'``, ``'cuda'`` and
+``'cuda_parallel'``; the initial posteriors of ``initializers``; the
+circular-shuffle validation of ``validation``; and the time-series
+containers (``utils.timeseries``, or pynapple's where it is installed)
+that ``t_l``/TsdFrame inputs and results use.
 """
 
-from poor_man_gplvm_tpu_torch import convert, initializers, models, ops
+from poor_man_gplvm_tpu_torch import (
+    convert,
+    initializers,
+    models,
+    ops,
+    utils,
+    validation,
+)
 from poor_man_gplvm_tpu_torch.models.jump1d import (
     AbstractGPLVMJump1D,
     GaussianGPLVMJump1D,
@@ -29,17 +39,31 @@ from poor_man_gplvm_tpu_torch.models.latent1d import (
     PoissonGPLVM1D,
 )
 from poor_man_gplvm_tpu_torch.ops.basis import generate_basis
+from poor_man_gplvm_tpu_torch.utils.timeseries import (
+    IntervalSet,
+    Ts,
+    Tsd,
+    TsdFrame,
+    TsGroup,
+)
 
 __all__ = [
     "AbstractGPLVM1D",
     "AbstractGPLVMJump1D",
     "GaussianGPLVM1D",
     "GaussianGPLVMJump1D",
+    "IntervalSet",
     "PoissonGPLVM1D",
     "PoissonGPLVMJump1D",
+    "Ts",
+    "Tsd",
+    "TsdFrame",
+    "TsGroup",
     "convert",
     "generate_basis",
     "initializers",
     "models",
     "ops",
+    "utils",
+    "validation",
 ]

@@ -5,9 +5,12 @@ singular vectors are defined only up to sign (and order, for equal
 singular values).  Loading the JAX model's ``tuning_basis`` together with
 its ``params`` makes both packages compute the same tuning curves, and so
 the same decode.  An optax Adam state carried across with
-``adam_state_from_jax`` lets a fit continue from where the JAX one stopped.
-Everything crosses as numpy arrays: this module imports neither jax, optax
-nor the JAX package.
+``adam_state_from_jax`` lets a fit continue from where the JAX one stopped,
+and ``checkpoint_state_from_jax`` turns a whole EM checkpoint of the JAX
+package into the port's, so that ``fit_em(resume=True)`` continues a fit
+the JAX package checkpointed.  Everything crosses as numpy arrays: this
+module imports neither jax, optax nor the JAX package (unpickling a JAX
+checkpoint needs optax, where the caller has it).
 """
 
 from __future__ import annotations
@@ -15,7 +18,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["state_from_model", "load_jax_state", "adam_state_from_jax"]
+__all__ = ["state_from_model", "load_jax_state", "adam_state_from_jax",
+           "checkpoint_state_from_jax"]
 
 
 def state_from_model(model):
@@ -89,3 +93,31 @@ def adam_state_from_jax(opt_state, device="cuda"):
         mu=torch.tensor(np.asarray(adam.mu, dtype=np.float32), device=device),
         nu=torch.tensor(np.asarray(adam.nu, dtype=np.float32), device=device),
     )
+
+
+def checkpoint_state_from_jax(state, device="cuda"):
+    """The port's EM checkpoint state from the JAX package's (the dict its
+    ``EMCheckpointer.restore`` returns): ``step`` as an int, ``params`` and
+    ``log_posterior`` as float32 tensors on ``device``, ``opt_state``
+    through ``adam_state_from_jax`` (None stays None: a ridge M-step has no
+    optimizer state) and ``rng``, the JAX key, as a numpy array (neither
+    package restores it).  Save it with the port's
+    ``utils.checkpoint.EMCheckpointer`` and resume with ``fit_em(
+    checkpoint_dir=..., resume=True)``; load the JAX model's
+    ``tuning_basis`` first (``load_jax_state``), since ``params`` are
+    weights on that basis."""
+    from poor_man_gplvm_tpu_torch.models.base import resolve_device
+
+    device = resolve_device(device)
+    opt_state = state.get("opt_state")
+    return {
+        "step": int(state["step"]),
+        "params": torch.tensor(np.asarray(state["params"], dtype=np.float32),
+                               device=device),
+        "opt_state": None if opt_state is None
+        else adam_state_from_jax(opt_state, device=device),
+        "log_posterior": torch.tensor(
+            np.asarray(state["log_posterior"], dtype=np.float32),
+            device=device),
+        "rng": np.asarray(state.get("rng")),
+    }

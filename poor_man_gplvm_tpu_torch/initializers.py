@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from poor_man_gplvm_tpu_torch.utils import compat
+
 __all__ = ["init_with_pca", "init_with_label_1D"]
 
 
@@ -82,18 +84,32 @@ def init_with_label_1D(label_tsd, n_latent_bin=100, t_l=None, seed=0,
     the label binned into ``n_latent_bin`` equal-width bins, probability ~1
     on each step's bin, plus uniform noise of ``noise_scale`` from
     ``np.random.default_rng(seed)``, rows normalised; zeros floored at
-    -1e20.  ``label_tsd``: the label values, one per time bin, as an array
-    (or anything ``numpy.asarray`` takes).  Aligning a label to other bin
-    times ``t_l`` needs the time-series classes and is not ported."""
-    if t_l is not None:
-        raise NotImplementedError(
-            "init_with_label_1D with t_l (aligning the label to bin times) "
-            "is not ported yet (ROADMAP queue 1, item K)")
-    label = np.asarray(label_tsd)
-    T = len(label)
-    posterior = np.zeros((T, n_latent_bin))
-    posterior[np.arange(T), _cut_codes(label, n_latent_bin)] = 1.0
+    -1e20.  ``label_tsd``: the label values, one per time bin, as a Tsd or
+    an array (anything ``numpy.asarray`` takes).
+
+    With bin times ``t_l`` (a numpy array or a ``Ts``) the posterior has
+    one row per bin time: the label is aligned to them by
+    ``Ts.value_from`` (the nearest label sample inside the label's time
+    support); bins outside that support start uniform.  ``label_tsd`` is
+    then a Tsd, assumed contiguous in time."""
     rng = np.random.default_rng(seed)
+    if t_l is not None:
+        T = len(t_l)
+        if isinstance(t_l, np.ndarray):
+            t_l = compat.timeseries_module().Ts(t_l)
+        label_aligned = t_l.value_from(label_tsd)
+        codes = _cut_codes(np.asarray(label_aligned.d), n_latent_bin)
+        posterior = np.ones((T, n_latent_bin)) / n_latent_bin
+        sl = t_l.get_slice(label_tsd.time_support.start[0],
+                           label_tsd.time_support.end[0])
+        sl = np.arange(sl.start, sl.stop, sl.step or 1)
+        posterior[sl, :] = 0.0
+        posterior[sl, codes] = 1.0
+    else:
+        label = np.asarray(label_tsd)
+        T = len(label)
+        posterior = np.zeros((T, n_latent_bin))
+        posterior[np.arange(T), _cut_codes(label, n_latent_bin)] = 1.0
     posterior = posterior + rng.random(posterior.shape) * noise_scale
     posterior = posterior / posterior.sum(axis=1, keepdims=True)
     return np.where(posterior > 0, np.log(posterior), -1e20)

@@ -3,9 +3,10 @@
 Counterpart of the parts of ``poor_man_gplvm_tpu/models/base.py`` that
 ``decode_latent``, ``decode_latent_epochs`` and ``fit_em`` need:
 construction, parameter initialisation, pickling, the memoised transition
-build, the smoother call, the shared decode routine, naive-Bayes decoding,
-the batched decode of short epochs, and the EM schedule (host loop, fused
-middle iterations, lean output).  The classes hold a handful of scalars
+build, the smoother call, the shared decode routine (with ``t_l`` /
+TsdFrame results), naive-Bayes decoding, the batched decode of short
+epochs, and the EM schedule (host loop, fused middle iterations, lean
+output, checkpoint/resume).  The classes hold a handful of scalars
 plus ``params`` (n_basis, N), ``tuning_basis`` (L, n_basis) and ``tuning``
 (L, N), all on the model's ``device``.
 
@@ -29,6 +30,8 @@ import torch
 from poor_man_gplvm_tpu_torch.ops import emissions, hmm, mstep
 from poor_man_gplvm_tpu_torch.ops.basis import generate_basis
 from poor_man_gplvm_tpu_torch.ops.hmm import JOINT_ACC_INIT
+from poor_man_gplvm_tpu_torch.utils import compat
+from poor_man_gplvm_tpu_torch.utils.checkpoint import EMCheckpointer
 
 #: the fused middle EM iterations warm-start the parallel scans' fixed
 #: points only from this much per-pass matvec work, T * n_dyn * L^2, on
@@ -50,6 +53,23 @@ def resolve_device(device):
             "on the CPU"
         )
     return device
+
+
+def check_no_mesh(mesh):
+    """Raise unless ``mesh`` is None: sharding over several cards is not
+    ported."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh is not ported yet (ROADMAP queue 1, item J)")
+
+
+def _check_t_l(t_l, n_time):
+    """Raise unless the bin times ``t_l`` have one entry per time bin (the
+    JAX package builds a TsdFrame whose times and rows disagree, and fails
+    later, at the first use of that frame)."""
+    if t_l is not None and len(t_l) != n_time:
+        raise ValueError(
+            f"t_l has {len(t_l)} bin times, but y has {n_time} time bins")
 
 
 def _seeded(generator, seed):
@@ -351,37 +371,55 @@ class _GPLVMCommon(ABC):
         )
 
     def _decode_dispatch(self, y, tuning, hyperparam, trans, ma_neuron,
-                         ma_latent, likelihood_scale, n_time_per_chunk,
-                         build_res):
-        """Shared decode driver: smoother, then the family's result dict.
-        The ``float()`` host sync of the log-marginal comes LAST, after all
-        device work is enqueued."""
+                         ma_latent, likelihood_scale, n_time_per_chunk, t_l,
+                         mesh, tsd_wrap_keys, build_res):
+        """Shared decode driver: smoother, then the family's result dict
+        (``build_res``).  With bin times ``t_l`` the keys
+        ``tsd_wrap_keys`` are wrapped as TsdFrames (numpy, on the host), as
+        in the JAX package.  The ``float()`` host sync of the log-marginal
+        comes LAST, after all device work is enqueued."""
+        check_no_mesh(mesh)
+        y = self._as_device(y)
+        _check_t_l(t_l, y.shape[0])
         (
             log_posterior_all, log_marginal_final, _log_causal,
             log_one_step_pred, log_acc, log_likelihood_all,
         ) = self._smooth(
-            self._as_device(y), tuning, hyperparam, trans, ma_neuron,
-            ma_latent, likelihood_scale, n_time_per_chunk,
+            y, tuning, hyperparam, trans, ma_neuron, ma_latent,
+            likelihood_scale, n_time_per_chunk,
         )
         decoding_res = build_res(
             log_posterior_all, log_one_step_pred, log_acc, log_likelihood_all
         )
+        if t_l is not None:
+            for k in tsd_wrap_keys:
+                decoding_res[k] = compat.tsdframe(d=decoding_res[k], t=t_l)
         decoding_res["log_marginal_final"] = float(log_marginal_final)
         return decoding_res
 
     def predict_expected_rate(self, post_latent_marg, tuning=None):
-        """Expected firing rate (T, N) under the latent posterior (T, L)."""
+        """Expected firing rate (T, N) under the latent posterior (T, L); a
+        TsdFrame posterior gives a TsdFrame rate on its times."""
         if tuning is None:
             tuning = self.tuning
+        if compat.is_tsdframe(post_latent_marg):
+            rate = torch.einsum("pn,tp->tn", tuning,
+                                self._as_device(post_latent_marg.d))
+            return compat.tsdframe(d=rate, t=post_latent_marg.t)
         return torch.einsum("pn,tp->tn", tuning,
                             self._as_device(post_latent_marg))
 
     def decode_latent_naive_bayes(
         self, y, tuning=None, hyperparam=None, ma_neuron=None, ma_latent=None,
         likelihood_scale=1.0, n_time_per_chunk=10000, dt_l=1.0,
-        observation_model=None,
+        observation_model=None, t_l=None,
     ):
-        """Per-time posterior without temporal smoothing."""
+        """Per-time posterior without temporal smoothing.  With bin times
+        ``t_l`` (or a TsdFrame ``y``, whose times win)
+        ``posterior_latent`` is a TsdFrame."""
+        if compat.is_tsdframe(y):
+            t_l = y.t
+            y = y.d
         hyperparam = self._emission_hyper(hyperparam)
         if ma_neuron is None:
             ma_neuron = self.ma_neuron_default
@@ -393,18 +431,23 @@ class _GPLVMCommon(ABC):
             observation_model = self.observation_model
         del likelihood_scale  # unused by the reference NB path too
 
+        y = self._as_device(y)
+        _check_t_l(t_l, y.shape[0])
         log_post, log_marginal_l, log_marginal_total, ll_per_pos_l = (
             emissions.get_naive_bayes_ma_chunk(
-                self._as_device(y), tuning, hyperparam, ma_neuron, ma_latent,
+                y, tuning, hyperparam, ma_neuron, ma_latent,
                 dt_l=dt_l, n_time_per_chunk=n_time_per_chunk,
                 observation_model=observation_model,
             )
         )
+        posterior_latent = torch.exp(log_post)
+        if t_l is not None:
+            posterior_latent = compat.tsdframe(d=posterior_latent, t=t_l)
         return {
             "log_posterior_latent": log_post,
             "log_marginal_l": log_marginal_l,
             "log_marginal_total": float(log_marginal_total),
-            "posterior_latent": torch.exp(log_post),
+            "posterior_latent": posterior_latent,
             "ll_per_pos_l": ll_per_pos_l,
         }
 
@@ -615,19 +658,29 @@ class _GPLVMCommon(ABC):
         ``m_step`` / ``e_step`` / ``collect`` seconds and the parallel
         engine's fixed-point pass counts (``scan_passes``).
 
-        ``checkpoint_dir``/``resume`` and ``mesh`` are not ported."""
+        ``checkpoint_dir``: save ``{step, params, opt_state,
+        log_posterior, rng}`` every ``checkpoint_every`` iterations
+        (default 1) through ``utils.checkpoint.EMCheckpointer``;
+        ``log_posterior`` is the (T, L) posterior the next M-step reads
+        (the latent marginal for a jump model), ``rng`` the state of
+        ``generator``.  ``resume=True`` restores params, optimizer state
+        and posterior from the latest checkpoint and continues at its step
+        + 1 (``log_marginal_l`` and ``m_step_res_l`` then hold the resumed
+        iterations only; no initial posterior is drawn, and
+        ``em_res['log_posterior_init']`` is the restored one); a checkpoint
+        at or past ``n_iter - 1`` raises ``ValueError``.  As in the JAX package the rng state is saved but
+        not restored (the restored posterior makes it unneeded), and a
+        checkpointed fit runs the host loop, not the fused schedule.
+
+        A TsdFrame ``y`` (full output) gives ``posterior_latent_marg`` and
+        ``posterior_dynamics_marg`` (jump models) or ``posterior``
+        (latent-only models) as TsdFrames on its times, as in the JAX
+        package.  ``mesh`` is not ported."""
         del dt  # unused, as in the reference
-        if checkpoint_dir is not None or resume:
-            raise NotImplementedError(
-                "checkpoint_dir/resume are not ported yet (ROADMAP queue 1, "
-                "item H)")
         if output_mode not in ("full", "lean"):
             raise ValueError(
                 f"output_mode must be 'full' or 'lean', got {output_mode!r}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh is not ported yet (ROADMAP queue 1, item J)")
-        del checkpoint_every
+        check_no_mesh(mesh)
         fused = kwargs.pop("fused", None)
         verboase = kwargs.pop("verbose", verboase)
         if kwargs:
@@ -644,7 +697,8 @@ class _GPLVMCommon(ABC):
             {"random_scale": 0.1} if posterior_init_kwargs is None
             else posterior_init_kwargs
         )
-        y_ = self._as_device(y)
+        y_tsd = y if compat.is_tsdframe(y) else None
+        y_ = self._as_device(y.d if y_tsd is not None else y)
         self._adopt_hyperparam(hyperparam)
         if save_every is None:
             save_every = n_iter
@@ -673,6 +727,30 @@ class _GPLVMCommon(ABC):
         else:
             tuning_basis = self.tuning_basis
 
+        params = self.params
+        start_iter = 0
+        checkpointer = None
+        if checkpoint_dir is not None:
+            checkpointer = EMCheckpointer(checkpoint_dir)
+            checkpoint_every = checkpoint_every or 1
+            state = checkpointer.restore() if resume else None
+            if state is not None:
+                start_iter = int(state["step"]) + 1
+                if start_iter >= n_iter:
+                    raise ValueError(
+                        f"resume: checkpoint step {start_iter - 1} >= "
+                        f"n_iter - 1 = {n_iter - 1}; nothing to do. Pass a "
+                        "larger n_iter to continue training, or load the "
+                        "checkpoint state directly.")
+                params = self._as_device(state["params"])
+                if state.get("opt_state") is not None:
+                    opt_state_curr = mstep.AdamState(**{
+                        k: torch.as_tensor(v, device=self.device)
+                        for k, v in state["opt_state"].items()})
+                # the restored posterior is where the fit starts: no
+                # initial posterior is drawn
+                log_posterior_init = state["log_posterior"]
+
         if log_posterior_init is None:
             log_posterior_init, _ = self.init_latent_posterior(
                 y_.shape[0], generator, **posterior_init_kwargs
@@ -691,7 +769,6 @@ class _GPLVMCommon(ABC):
         log_posterior_curr = log_posterior_init
         log_marginal_l = []
         m_step_res_l = {}
-        params = self.params
         log_posterior_all_saved, params_saved = [], []
         tuning_saved, iter_saved, log_marginal_saved = [], [], []
         phase_times = {"m_step": [], "e_step": [], "collect": [],
@@ -705,7 +782,8 @@ class _GPLVMCommon(ABC):
         # observed.  The segment runs the same loop body with its own
         # E-step; a failed warm-start certificate at its end replays it
         # from its start with strict fixed-point exits.
-        can_fuse = not profile and save_every >= n_iter and n_iter >= 3
+        can_fuse = (checkpointer is None and not profile
+                    and save_every >= n_iter and n_iter >= 3)
         use_fused = (fused if fused is not None else not verboase) \
             and can_fuse
         seg = None
@@ -714,7 +792,7 @@ class _GPLVMCommon(ABC):
             if profile and self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
 
-        i = 0
+        i = start_iter
         while i < n_iter:
             if use_fused and i == 1 and seg is None:
                 seg = self._fused_segment(
@@ -736,7 +814,7 @@ class _GPLVMCommon(ABC):
             diag = []
             # release the previous posteriors before the E-step allocates
             # the new ones (matters at T ~ 1e6 x L ~ 500)
-            if i > 0 and i % save_every != 0:
+            if i > start_iter and i % save_every != 0:
                 log_posterior_all = None
             log_posterior_curr = None
             if seg is None:
@@ -762,6 +840,11 @@ class _GPLVMCommon(ABC):
                 tuning_saved.append(tuning)
                 log_marginal_saved.append(log_marginal_final)
                 iter_saved.append(i)
+            if checkpointer is not None and i % checkpoint_every == 0:
+                checkpointer.save(i, {
+                    "step": i, "params": params, "opt_state": opt_state_curr,
+                    "log_posterior": log_posterior_curr, "rng": generator,
+                })
             t3 = time.perf_counter()
             phase_times["m_step"].append(t1 - t0)
             phase_times["e_step"].append(t2 - t1)
@@ -862,6 +945,11 @@ class _GPLVMCommon(ABC):
         elif self.has_dynamics:
             em_res["posterior_latent_marg"] = posterior.sum(dim=1)
             em_res["posterior_dynamics_marg"] = posterior.sum(dim=2)
+            if y_tsd is not None:
+                for k in ("posterior_latent_marg", "posterior_dynamics_marg"):
+                    em_res[k] = compat.tsdframe(d=em_res[k], t=y_tsd.t)
+        elif y_tsd is not None:
+            em_res["posterior"] = compat.tsdframe(d=posterior, t=y_tsd.t)
         return em_res
 
 

@@ -21,6 +21,7 @@ from poor_man_gplvm_tpu_torch.models.base import (
 )
 from poor_man_gplvm_tpu_torch.ops import hmm
 from poor_man_gplvm_tpu_torch.ops import kernels as gpk
+from poor_man_gplvm_tpu_torch.utils import compat
 
 __all__ = ["AbstractGPLVM1D", "PoissonGPLVM1D", "GaussianGPLVM1D"]
 
@@ -78,14 +79,50 @@ class AbstractGPLVM1D(_GPLVMCommon):
         trans = hmm.LatentTransition(T=kernel, logT=log_kernel)
         return trans, {"log_latent_transition_kernel": log_kernel}
 
+    def _decode_latent(
+        self, y, tuning, hyperparam, log_latent_transition_kernel, ma_neuron,
+        ma_latent=None, likelihood_scale=1.0, n_time_per_chunk=None,
+    ):
+        """Smooth with an explicit log transition matrix (L, L) through the
+        model's engine (K1/K2 or K3/K4 on the card, reading the band of the
+        matrix's nonzeros: W = L for a dense matrix).  Returns
+        ``hmm.smooth_combined_chunked``'s tuple, as the JAX method does."""
+        log_kernel = self._as_device(log_latent_transition_kernel)
+        trans = hmm.LatentTransition(T=torch.exp(log_kernel), logT=log_kernel)
+        return self._smooth(
+            self._as_device(y), tuning, self._emission_hyper(hyperparam),
+            trans, ma_neuron, ma_latent, likelihood_scale, n_time_per_chunk,
+        )
+
+    #: the decode keys wrapped as TsdFrames when bin times are given
+    _TSD_WRAP_KEYS = ("posterior_all",)
+
+    def _decode_res(self, log_posterior_all, log_one_step_pred, log_acc,
+                    log_likelihood_all):
+        """The decode result dict (no ``log_marginal_final``) from the
+        smoother's outputs."""
+        res = {
+            "log_posterior_all": log_posterior_all,
+            "posterior_all": torch.exp(log_posterior_all),
+            "log_one_step_predictive_marginals_all": log_one_step_pred,
+            "log_likelihood_all": log_likelihood_all,
+        }
+        res.update(hmm.compute_transition_posterior_prob_latent(log_acc))
+        return res
+
     # ------------------------------------------------------------------
     def decode_latent(
         self, y, tuning=None, hyperparam=None, ma_neuron=None, ma_latent=None,
-        likelihood_scale=1.0, n_time_per_chunk=None,
+        likelihood_scale=1.0, n_time_per_chunk=None, t_l=None, mesh=None,
     ):
         """Full smoother decode: the 4 base keys, the 4 keys of
         ``hmm.compute_transition_posterior_prob_latent`` and
-        ``log_marginal_final``, as the JAX ``decode_latent``."""
+        ``log_marginal_final``, as the JAX ``decode_latent``.  With bin
+        times ``t_l`` (or a TsdFrame ``y``, whose times win)
+        ``posterior_all`` is a TsdFrame; ``mesh`` is not ported."""
+        if compat.is_tsdframe(y):
+            t_l = y.t
+            y = y.d
         hyperparam = self._emission_hyper(hyperparam)
         if tuning is None:
             tuning = self.tuning
@@ -95,21 +132,10 @@ class AbstractGPLVM1D(_GPLVMCommon):
             ma_latent = self.ma_latent_default
 
         trans, _ = self._make_transition(hyperparam)
-
-        def build_res(log_posterior_all, log_one_step_pred, log_acc,
-                      log_likelihood_all):
-            res = {
-                "log_posterior_all": log_posterior_all,
-                "posterior_all": torch.exp(log_posterior_all),
-                "log_one_step_predictive_marginals_all": log_one_step_pred,
-                "log_likelihood_all": log_likelihood_all,
-            }
-            res.update(hmm.compute_transition_posterior_prob_latent(log_acc))
-            return res
-
         return self._decode_dispatch(
             y, tuning, hyperparam, trans, ma_neuron, ma_latent,
-            likelihood_scale, n_time_per_chunk, build_res,
+            likelihood_scale, n_time_per_chunk, t_l, mesh,
+            self._TSD_WRAP_KEYS, self._decode_res,
         )
 
     # ------------------------------------------------------------------

@@ -29,6 +29,7 @@ from poor_man_gplvm_tpu_torch.ops.hmm import (
     compute_transition_posterior_prob,
     compute_transition_posterior_prob_latent,
     prob_to_log,
+    smooth_batch_full,
     smooth_combined_chunked,
     smooth_epochs,
 )
@@ -71,7 +72,8 @@ __all__ = [
     "auto_chunk_size", "engine_resolves_parallel",
     "compute_transition_posterior_prob",
     "compute_transition_posterior_prob_latent", "prob_to_log",
-    "smooth_combined_chunked", "smooth_epochs", "create_transition_prob_1d", "rbf_gram",
+    "smooth_batch_full", "smooth_combined_chunked", "smooth_epochs",
+    "create_transition_prob_1d", "rbf_gram",
     "uniform_gram", "AdamState", "get_statistics", "get_tuning_linear",
     "get_tuning_softplus", "make_adam_runner", "poisson_m_step_objective",
     "choose_parallel_config", "pfilter_pass", "psmooth_pass",

@@ -24,6 +24,9 @@ On CPU tensors the kernels' wrappers run their plain versions.
 ``smooth_epochs`` smooths a batch of short sequences (the epochs of
 ``decode_latent_epochs``): on both CUDA engines through one launch of K1
 and one of K2 for the whole batch, one thread block per epoch.
+``smooth_batch_full`` smooths a batch of equal-length sequences under one
+transition (the shuffles of ``validation.shuffle_and_decode``) with every
+output of ``smooth_combined_chunked``, the same way.
 
 As in the JAX package the pairwise-joint accumulation is not carried
 through the scan; in probability space it factorizes,
@@ -61,6 +64,8 @@ __all__ = [
     "smooth_combined_chunked",
     "epoch_loglikelihoods",
     "smooth_epochs",
+    "sequence_loglikelihoods",
+    "smooth_batch_full",
     "engine_resolves_parallel",
     "parallel_scan_carry_spec",
     "compute_transition_posterior_prob",
@@ -596,6 +601,31 @@ def epoch_loglikelihoods(y_b, lengths, tuning, hyperparam, ma_neuron,
     ).view(E, Tmax, tuning.shape[0])
 
 
+def _scan_batch(ll, trans, lengths, likelihood_scale):
+    """One launch of K1 (``filter_chunk_batch``) and one of K2
+    (``smoother_chunk_batch``) over a batch of log-likelihoods ll
+    (E, Tmax, L) under one transition, each sequence from the uniform
+    initial state.  Returns ``(filter posteriors, ratios, smoothed
+    posteriors of the steps before each sequence's last, K2's r, last
+    step's filter posterior (E, n_dyn, L))`` in probability space."""
+    tlat, tdyn = _transition_stack(trans)
+    E, _, L = ll.shape
+    n_dyn = tlat.shape[0]
+    band = _cached_band(trans, tlat)
+    p_init = torch.exp(trans.uniform_log_init()).reshape(1, n_dyn, L)
+    post, prior, ratios = sk.filter_chunk_batch(
+        ll, tlat, tdyn, p_init.expand(E, n_dyn, L), lengths, likelihood_scale,
+        uniform_rows=trans.uniform_rows, band=band)
+    # the last step's smoothed posterior is its filter posterior; the
+    # smoother runs over the rows before it against the +1-shifted priors
+    last = post[torch.arange(E, device=post.device),
+                (lengths - 1).long()]
+    smooth, r = sk.smoother_chunk_batch(
+        post[:, :-1], prior[:, 1:], tlat, tdyn, last, lengths - 1,
+        uniform_rows=trans.uniform_rows, band=band)
+    return post, ratios, smooth, r, last
+
+
 def smooth_epochs(y_b, lengths, tuning, hyperparam, trans, ma_neuron,
                   ma_latent=None, likelihood_scale=1.0,
                   observation_model="poisson", engine="prob"):
@@ -646,27 +676,127 @@ def smooth_epochs(y_b, lengths, tuning, hyperparam, trans, ma_neuron,
             lat[e, :n] = torch.exp(lat_e)
         return lat, lml
 
-    ll = epoch_loglikelihoods(y_b, lengths, tuning, hyperparam, ma_neuron,
-                              ma_latent, observation_model)
-    tlat, tdyn = _transition_stack(trans)
-    n_dyn = tlat.shape[0]
-    band = _cached_band(trans, tlat)
-    p_init = torch.exp(trans.uniform_log_init()).reshape(1, n_dyn, L)
-    post, prior, ratios = sk.filter_chunk_batch(
-        ll, tlat, tdyn, p_init.expand(E, n_dyn, L), lengths, likelihood_scale,
-        uniform_rows=trans.uniform_rows, band=band)
-    del ll
-    # the last step's smoothed posterior is its filter posterior; the
-    # smoother runs over the rows before it against the +1-shifted priors
+    _, ratios, smooth, _, last = _scan_batch(
+        epoch_loglikelihoods(y_b, lengths, tuning, hyperparam, ma_neuron,
+                             ma_latent, observation_model),
+        trans, lengths, likelihood_scale)
     each = torch.arange(E, device=device)
-    last = post[each, (lengths - 1).long()]
-    smooth, _ = sk.smoother_chunk_batch(
-        post[:, :-1], prior[:, 1:], tlat, tdyn, last, lengths - 1,
-        uniform_rows=trans.uniform_rows, band=band)
     lat = torch.empty((E, Tmax, L), dtype=torch.float32, device=device)
     torch.sum(smooth, dim=2, out=lat[:, :-1])
     lat[each, (lengths - 1).long()] = last.sum(dim=1)
     return lat, ratios.sum(dim=1)
+
+
+def _full_store(memory_mode, n_time, state_size, n_latent):
+    """Whether a decode in ``memory_mode`` keeps the log-likelihoods (and
+    the causal posteriors): 'full', or 'auto' while the full working set
+    of one sequence takes at most 4 GB (the JAX package's resolution of
+    'auto', and the parallel driver's ``want_post``)."""
+    est_bytes = n_time * (3 * state_size + n_latent) * 4
+    return memory_mode == "full" or (memory_mode == "auto"
+                                     and est_bytes <= 4e9)
+
+
+def sequence_loglikelihoods(y_b, tuning, hyperparam, ma_neuron, ma_latent,
+                            n_time_per_chunk, observation_model="poisson"):
+    """Log-likelihoods (E, T, L) of E sequences y_b (E, T, N), each formed
+    on its own in the chunks of ``n_time_per_chunk`` rows, with the (N,)
+    neuron mask broadcast to each chunk: the products
+    ``smooth_combined_chunked`` forms for one sequence, so each row has
+    their bits."""
+    E, T = y_b.shape[:2]
+    ll = torch.empty((E, T, tuning.shape[0]), dtype=torch.float32,
+                     device=tuning.device)
+    for e in range(E):
+        for n in range(-(-T // n_time_per_chunk)):
+            y_c, ma_c = _chunk_inputs(y_b[e], ma_neuron, n, n_time_per_chunk)
+            ll[e, n * n_time_per_chunk:(n + 1) * n_time_per_chunk] = \
+                get_loglikelihood_ma_all(
+                    y_c, tuning, hyperparam, ma_c, ma_latent,
+                    observation_model=observation_model)
+    return ll
+
+
+def smooth_batch_full(y_b, tuning, hyperparam, trans, ma_neuron,
+                      ma_latent=None, likelihood_scale=1.0,
+                      n_time_per_chunk=None, observation_model="poisson",
+                      engine="prob", memory_mode="auto"):
+    """Smooth a batch of E equal-length sequences y_b (E, T, N) that share
+    one transition, each on its own, with what ``smooth_combined_chunked``
+    returns for each: ``(log posterior (E, T, *state), log marginal (E,),
+    None, log one-step predictive marginals (E, T), log pairwise joint
+    (E, *joint), log-likelihoods (E, T, L) or None)``.  The causal
+    posteriors (third slot) are not formed: no decode reads them.  The
+    log-likelihoods are None where ``smooth_combined_chunked`` would
+    return None for one sequence ('checkpoint', 'filter' and
+    'filter_bf16'; 'auto' past 4 GB of working set); every memory mode is
+    computed exactly.
+
+    ``'cuda'`` and ``'cuda_parallel'``: one launch of K1
+    (``filter_chunk_batch``) and one of K2 (``smoother_chunk_batch``) for
+    the batch, one thread block per sequence, never the parallel-in-time
+    kernels.  Each sequence's emission product is formed on its own in
+    the chunks of ``n_time_per_chunk`` (None: ``auto_chunk_size`` of one
+    sequence) that ``smooth_combined_chunked`` forms
+    (``sequence_loglikelihoods``), and its pairwise
+    joint is its own ``trans.outer_acc`` over K2's ratios, so that where a
+    decode runs one chunk each sequence equals the sequential ``'cuda'``
+    decode of it alone bit for bit (a batched product would sum in another
+    order).  On CPU tensors the wrappers run their plain versions.
+    ``'prob'`` and ``'log'``: ``smooth_combined_chunked`` per sequence."""
+    check_engine(engine)
+    if memory_mode not in MEMORY_MODES:
+        raise ValueError(
+            f"memory_mode must be one of {MEMORY_MODES}, got {memory_mode!r}"
+        )
+    device = tuning.device
+    y_b = torch.as_tensor(y_b, dtype=torch.float32, device=device)
+    E, T = y_b.shape[:2]
+    L = tuning.shape[0]
+    ma_neuron = torch.as_tensor(ma_neuron, dtype=torch.float32, device=device)
+    if ma_latent is None:
+        ma_latent = torch.ones(L, dtype=torch.float32, device=device)
+    if engine in ("prob", "log"):
+        outs = [smooth_combined_chunked(
+            y_b[e], tuning, hyperparam, trans, ma_neuron, ma_latent,
+            likelihood_scale=likelihood_scale,
+            n_time_per_chunk=n_time_per_chunk,
+            observation_model=observation_model, engine=engine,
+            memory_mode=memory_mode) for e in range(E)]
+        return tuple(
+            None if j == 2 or outs[0][j] is None
+            else torch.stack([o[j] for o in outs]) for j in range(6))
+
+    state_size = trans.uniform_log_init().numel()
+    if n_time_per_chunk is None:
+        n_time_per_chunk = auto_chunk_size(T, state_size, L, device)
+    ll = sequence_loglikelihoods(y_b, tuning, hyperparam, ma_neuron,
+                                 ma_latent, n_time_per_chunk,
+                                 observation_model)
+    post, ratios, smooth, r, last = _scan_batch(
+        ll, trans, torch.full((E,), T, dtype=torch.int32, device=device),
+        likelihood_scale)
+    is_joint = hasattr(trans, "Tdyn")
+    acc = torch.stack([
+        trans.outer_acc(post[e, :-1], r[e]) if is_joint
+        else trans.outer_acc(post[e, :-1, 0], r[e, :, 0])
+        for e in range(E)])
+    del r
+    # the log marginal sums the ratios chunk by chunk, as the decode does,
+    # each chunk from a fresh copy: the reduction's order depends on the
+    # alignment of its input, and the decode sums a fresh tensor
+    lml = torch.zeros((E,), dtype=torch.float32, device=device)
+    for n in range(-(-T // n_time_per_chunk)):
+        lml = lml + torch.stack([
+            ratios[e, n * n_time_per_chunk:(n + 1) * n_time_per_chunk]
+            .clone().sum() for e in range(E)])
+    smooth = torch.cat([smooth, last[:, None]], dim=1)
+    del post, last
+    smooth_log = prob_to_log(smooth if is_joint else smooth[:, :, 0])
+    del smooth
+    keep_ll = _full_store(memory_mode, T, state_size, L)
+    return (smooth_log, lml, None, ratios, prob_to_log(acc),
+            ll if keep_ll else None)
 
 
 def _marginalize_log(smooth_log):
@@ -788,9 +918,7 @@ def _smooth_parallel_driver(
     p_init = torch.exp(trans.uniform_log_init())
     if not is_joint:
         p_init = p_init[None]
-    est_bytes = T * (3 * n_dyn * L + L) * 4
-    want_post = memory_mode == "full" or (
-        memory_mode == "auto" and est_bytes <= 4e9)
+    want_post = _full_store(memory_mode, T, n_dyn * L, L)
     # fast mode (fused mid-EM iterations): a 1e-4 boundary-carry tolerance
     # bounds the posterior error at chunk-start bins by 1e-4 and the
     # log-marginal error far below the fit's needs; strict mode keeps 1e-6

@@ -5,7 +5,9 @@ K1/K2 (sequential) are compared by ``kernel_vs_plain``, K3/K4
 ``pscan_vs_plain`` (whole passes and the one-step check
 ``pfilter_step_check``/``psmooth_step_check``), K2, K3 and K4 on the band
 against the same kernel forced dense by ``band_vs_dense``, ``joint_acc`` by
-``joint_acc_vs_plain``.
+``joint_acc_vs_plain``; the batched full decode of ``hmm.
+smooth_batch_full`` (K1/K2 batched) by ``batch_full_vs_plain`` and, bit
+for bit against each sequence alone, by ``batch_full_vs_single``.
 
 Shared by the CPU tests, the card tests and ``chip_smoke.py``.  Everything
 is built with numpy from a seed, so the same case can be fed to the JAX
@@ -13,6 +15,8 @@ package, the plain PyTorch versions and the CUDA kernels.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -27,6 +31,7 @@ __all__ = [
     "PSCAN_TOLERANCES_BF16X3", "PSCAN_TOLERANCES_BF16", "pscan_tolerances",
     "scan_case",
     "kernel_vs_plain", "batch_vs_single", "BATCH_LENGTHS", "pscan_inputs",
+    "BATCH_FULL_TOLERANCES", "batch_full_vs_plain", "batch_full_vs_single",
     "pscan_vs_plain", "bwd_guess",
     "joint_acc_vs_plain", "JOINT_ACC_ENTRY_RTOL", "JOINT_ACC_FLOOR",
     "band_vs_dense", "BAND_K2_ROWS", "STEP_RTOL", "STEP_TOLERANCES",
@@ -149,6 +154,73 @@ def kernel_vs_plain(case, device):
 #: ragged lengths of a batch: a 1-bin sequence, a 2-bin one (one row to
 #: smooth over), an odd longest length, and two sequences of equal length
 BATCH_LENGTHS = (37, 1, 64, 2, 101, 64, 5)
+
+#: ``hmm.smooth_batch_full`` through the kernels against the same through
+#: their plain versions: posteriors absolute, log marginals relative, the
+#: one-step log ratios, the pairwise joint and the log-likelihoods relative
+#: to their largest magnitude
+BATCH_FULL_TOLERANCES = {"post_abs": 1e-4, "lml_rel": 1e-5, "pred_rel": 1e-5,
+                         "acc_rel": 1e-4, "ll_rel": 1e-5}
+
+
+def _batch_full(model, y_b, device, trans):
+    hyper = model._emission_hyper({})
+    return hmm.smooth_batch_full(
+        torch.as_tensor(y_b, dtype=torch.float32, device=device),
+        model.tuning.to(device), hyper, trans,
+        model.ma_neuron_default.to(device), model.ma_latent_default.to(device),
+        observation_model=model.observation_model, engine="cuda")
+
+
+def batch_full_vs_plain(model, y_b):
+    """``hmm.smooth_batch_full`` of the sequences y_b (E, T, N) under the
+    model's transition on its device (the kernels K1/K2 batched) against
+    the same on CPU copies (their plain versions); the largest
+    disagreements, keyed as ``BATCH_FULL_TOLERANCES``."""
+    trans, _ = model._make_transition(model._emission_hyper({}))
+    cpu = torch.device("cpu")
+    trans_cpu = dataclasses.replace(trans, _band=None, **{
+        f.name: getattr(trans, f.name).to(cpu)
+        for f in dataclasses.fields(trans)
+        if torch.is_tensor(getattr(trans, f.name))})
+    got = [None if x is None else x.cpu()
+           for x in _batch_full(model, y_b, model.device, trans)]
+    want = _batch_full(model, y_b, cpu, trans_cpu)
+
+    def norm_rel(a, b):
+        return float((a - b).abs().max() / b.abs().max().clamp_min(1e-30))
+
+    return {
+        "post_abs": float((torch.exp(got[0]) - torch.exp(want[0]))
+                          .abs().max()),
+        "lml_rel": float(((got[1] - want[1]).abs() / want[1].abs()).max()),
+        "pred_rel": norm_rel(got[3], want[3]),
+        "acc_rel": norm_rel(torch.exp(got[4]), torch.exp(want[4])),
+        "ll_rel": norm_rel(got[5], want[5]),
+    }
+
+
+def batch_full_vs_single(model, y_b):
+    """The outputs of ``hmm.smooth_batch_full`` (slots 0, 1, 3, 4, 5) on the
+    model's device that differ from ``hmm.smooth_combined_chunked`` on each
+    sequence alone through the sequential engine ('cuda' below
+    ``hmm._PARALLEL_UPGRADE_MIN_T`` steps), as (sequence, slot, max
+    |difference|) triples; empty when every sequence's rows are
+    bit-equal."""
+    trans, _ = model._make_transition(model._emission_hyper({}))
+    dev = model.device
+    got = _batch_full(model, y_b, dev, trans)
+    diff = []
+    for e in range(len(y_b)):
+        alone = hmm.smooth_combined_chunked(
+            torch.as_tensor(y_b[e], dtype=torch.float32, device=dev),
+            model.tuning, model._emission_hyper({}), trans,
+            model.ma_neuron_default, model.ma_latent_default,
+            observation_model=model.observation_model, engine="cuda")
+        diff += [(e, j, float((got[j][e] - alone[j]).abs().max()))
+                 for j in (0, 1, 3, 4, 5)
+                 if not torch.equal(got[j][e], alone[j])]
+    return diff
 
 
 def batch_vs_single(case, device, lengths=BATCH_LENGTHS):

@@ -412,3 +412,33 @@ def test_subnormal_prior_gives_a_zero_ratio(cuda):
         assert float(r[5]) == 0.0, name
         torch.testing.assert_close(sm, want[name][0], rtol=0, atol=1e-6)
         torch.testing.assert_close(r, want[name][1], rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("name", ["PoissonGPLVMJump1D", "GaussianGPLVM1D"])
+def test_smooth_batch_full_matches_plain_and_each_sequence(cuda, name):
+    """``hmm.smooth_batch_full`` (one K1 and one K2 launch for the batch)
+    against its plain version, and each sequence bit for bit against the
+    sequential decode of it alone."""
+    import numpy as np
+
+    import poor_man_gplvm_tpu_torch as pmt
+    from poor_man_gplvm_tpu_torch.testing import (
+        BATCH_FULL_TOLERANCES, batch_full_vs_plain, batch_full_vs_single,
+    )
+
+    kw = {"noise_std": 1.0} if name.startswith("Gaussian") else {}
+    m = getattr(pmt, name)(30, n_latent_bin=60, tuning_lengthscale=5.0,
+                           device=cuda, inference_engine="cuda", **kw)
+    rng = np.random.default_rng(7)
+    lat = np.clip(np.cumsum(rng.integers(-1, 2, size=(3, 301)), axis=1)
+                  + 30, 0, 59)
+    mean = m.tuning.cpu().numpy()[lat]
+    y_b = rng.normal(mean, 1.0) if kw else rng.poisson(mean)
+    f0 = sk.filter_scan_batch.launches
+    s0 = sk.smoother_scan_batch.launches
+    err = batch_full_vs_plain(m, y_b.astype(np.float32))
+    assert sk.filter_scan_batch.launches == f0 + 1
+    assert sk.smoother_scan_batch.launches == s0 + 1
+    for key, tol in BATCH_FULL_TOLERANCES.items():
+        assert err[key] <= tol, (key, err)
+    assert batch_full_vs_single(m, y_b.astype(np.float32)) == []

@@ -284,8 +284,12 @@ def test_port_imports_and_decodes_without_jax():
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():
     """No source file of the port, and not ``chip_smoke.py``, imports
-    ``jax``, ``jaxlib``, ``optax``, anything of ``poor_man_gplvm_tpu``, or
-    pandas, sklearn or pynapple (the card's machine has none of them)."""
+    ``jax``, ``jaxlib``, ``optax``, sklearn or anything of
+    ``poor_man_gplvm_tpu``, nor pandas, pynapple, tqdm or orbax at module
+    level (the card's machine has none of them; pandas and pynapple are
+    imported inside the functions that use them where installed:
+    ``utils.timeseries._PeriEvent.as_dataframe``,
+    ``utils.compat.timeseries_module``)."""
     import pathlib
     import re
 
@@ -295,8 +299,11 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
     assert len(files) >= 15
     banned = re.compile(
         r"^\s*(?:import|from)\s+(?:jax|jaxlib|optax|poor_man_gplvm_tpu|"
-        r"pandas|sklearn|pynapple)"
-        r"(?![\w])", re.MULTILINE)
+        r"sklearn)(?![\w])", re.MULTILINE)
+    top_level = re.compile(
+        r"^(?:import|from)\s+(?:pandas|pynapple|tqdm|orbax)(?![\w])",
+        re.MULTILINE)
     for path in files:
         hits = banned.findall(path.read_text())
+        hits += top_level.findall(path.read_text())
         assert not hits, (path.name, hits)

@@ -289,9 +289,8 @@ def test_fit_em_options_and_profile(setup):
     assert all(len(h) == 8 for h in res["m_step_res_l"]["loss_history"])
     assert torch.equal(m.params, res["params"])
     assert np.isfinite(float(m.log_marginal_final))
-    for kw in ({"checkpoint_dir": "ckpt"}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            m.fit_em(y, n_iter=1, verboase=False, **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        m.fit_em(y, n_iter=1, verboase=False, mesh=object())
     with pytest.raises(ValueError, match="output_mode"):
         m.fit_em(y, n_iter=1, verboase=False, output_mode="no_such_mode")
     with pytest.raises(ValueError):

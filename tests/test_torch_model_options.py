@@ -52,8 +52,16 @@ def test_initializers_match_jax():
                                                       noise_scale=noise,
                                                       seed=3)
             np.testing.assert_array_equal(got, want)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        initializers.init_with_label_1D(np.zeros(5), 10, t_l=np.arange(5.0))
+    # aligned to other bin times (t_l): ported, equal to the JAX function
+    from poor_man_gplvm_tpu.utils.timeseries import Tsd as JTsd
+
+    t = np.arange(300) * 0.1
+    label = rng.uniform(-3.0, 7.0, 300)
+    t_l = np.arange(-30, 350) * 0.09
+    want = jinit.init_with_label_1D(JTsd(d=label, t=t), 40, t_l=t_l, seed=3)
+    got = initializers.init_with_label_1D(pmt.Tsd(d=label, t=t), 40,
+                                          t_l=t_l, seed=3)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_state_carries_for_every_class():
