@@ -89,9 +89,20 @@ Phases, each of which checks its results (any failure exits non-zero):
     ``shuffle_batch_size`` 16 and 132, equal to it; one launch of K1 and
     one of K2 per batch, no NaN, two shuffles bit for bit against
     ``decode_latent`` of each alone, the first batch's K1/K2 against their
-    plain versions at T=10,000) and the naive-Bayes null (100 shuffles).
+    plain versions at T=10,000) and the naive-Bayes null (100 shuffles);
+12. selection: on a sampled recording at N = L = 500, ``bench.py``'s sweep
+    fan-out (``sweep_fit_poisson_jump``, 64 runs of T=10,000: one K1 and
+    one K2 launch per EM iteration, each run under its own transition,
+    every run's E-step rows bit for bit against the unbatched kernels under
+    its own configuration and band, four runs against each alone, the
+    stages of a call), the config-indexed K1/K2 and the norm-only K1
+    against their plain versions and the cost of a padded band,
+    ``model_selection_one_split`` batched against serial, a realistic
+    batched selection (1,600 masked filters through the norm-only K1),
+    the gain model (its decode at T=100,000 bit for bit between the two
+    CUDA engines, 3 EM iterations) and the L-BFGS M-step.
 
-Each main path (phases 5 with the epochs, 7, 8, 9, 10, 11) runs with the
+Each main path (phases 5 with the epochs, 7, 8, 9, 10, 11, 12) runs with the
 kernels' launch counts,
 by mode and precision, set to 0 just before it and read just after;
 comparison runs are not counted.  The line before the last is a JSON
@@ -102,6 +113,8 @@ summary of the kernels; the last line is ``{"ok": true, "device":
 import contextlib
 import functools
 import json
+import os
+import platform
 import re
 import subprocess
 import sys
@@ -193,6 +206,43 @@ SESSION_ALONE = 2  # shuffles held against decode_latent alone
 # fit: the log-marginals within the certified fixed point of the parallel
 # engine's E-steps
 SESSION_RESUME_RTOL = 1e-5
+SEL_NL = 500  # N = L of the selection phase, the north-star width
+SEL_T = 20_000  # the sampled recording; (a) and (b) take its head
+SWEEP_T = 10_000
+SWEEP_GRID = {"movement_variance": [0.5, 1.0, 2.0, 4.0],
+              "p_move_to_jump": [0.005, 0.01, 0.02, 0.05]}
+SWEEP_KW = dict(n_repeat=4, n_iter=3, tuning_lengthscale=10.0,
+                m_maxiter=100)  # bench.py's sweep fan-out cell
+SWEEP_ALONE_MAXITER = 20  # four runs against each alone
+SWEEP_ALONE_RTOL = 1e-5
+# kernel rows vs plain: runs per band width, bins (the sweep's own length)
+SWEEP_PLAIN = (2, SWEEP_T)
+SPLIT_T = 5_000  # bench.py's model_selection_one_split cell
+SPLIT_KW = dict(
+    hyperparam_dict={"movement_variance": [0.5, 1.0, 2.0, 4.0],
+                     "tuning_lengthscale": [10.0]},
+    fit_kwargs={"n_iter": 3, "log_posterior_init": None,
+                "n_time_per_chunk": None, "dt": 1.0, "likelihood_scale": 1.0,
+                "save_every": None, "posterior_init_kwargs": {
+                    "random_scale": 0.1}, "verboase": False},
+    model_class_str="poisson", n_repeat=2, latent_downsample_frac=(0.5,),
+    downsample_n_repeat=3, verbose=False)
+SPLIT_RTOL, SPLIT_ATOL = 1e-4, 1e-6
+SPLIT_MAXITER = 25  # the JAX contract's Adam cap (tests/test_selection.py)
+GAIN_T = 100_000  # the gain decode and fit, N = L = 500
+GAIN_ITERS = 3
+GAIN_LML_RTOL = 1e-6  # EM log-marginals non-decreasing to this
+BASIS_SHAPE = (100_000, 100, 100)  # bench.py's L-BFGS cell: T, L, N
+BASIS_MAXITER = 50
+REAL_KW = dict(
+    hyperparam_dict={"movement_variance": [0.5, 1.0, 2.0, 4.0],
+                     "tuning_lengthscale": [5.0, 10.0]},
+    fit_kwargs={"n_iter": 5, "log_posterior_init": None,
+                "n_time_per_chunk": None, "dt": 1.0, "likelihood_scale": 1.0,
+                "save_every": None, "posterior_init_kwargs": {
+                    "random_scale": 0.1}, "verboase": False},
+    model_class_str="poisson", n_repeat=5, verbose=False,
+    backend="batched")  # default fractions (0.2 ... 0.8) x 10 masks
 #: the n_dyn = 1 kernel rows of the kernels line: wrapper[mode] names
 NDYN1_KERNELS = ("filter_scan", "smoother_scan",
                  "pfilter_pass[finals/highest]", "pfilter_pass[emit/highest]",
@@ -235,6 +285,20 @@ KERNELS = {
                                   "marginal_acc")))
        for mode in modes},
     "joint_acc": ("joint_acc", "acc/highest", PS_SRC, f"{JPS}:600"),
+    # K1/K2 with a transition configuration per sequence, and K1 without
+    # its row stores (the selection phase)
+    "filter_scan_batch[cfg]": (
+        "filter_scan_batch", "cfg",
+        "poor_man_gplvm_tpu_torch/csrc/scan_kernels.cu",
+        "poor_man_gplvm_tpu/ops/pallas/scan_kernels.py:80"),
+    "smoother_scan_batch[cfg]": (
+        "smoother_scan_batch", "cfg",
+        "poor_man_gplvm_tpu_torch/csrc/scan_kernels.cu",
+        "poor_man_gplvm_tpu/ops/pallas/scan_kernels.py:200"),
+    "filter_scan_batch[norm]": (
+        "filter_scan_batch", "norm",
+        "poor_man_gplvm_tpu_torch/csrc/scan_kernels.cu",
+        "poor_man_gplvm_tpu/ops/pallas/scan_kernels.py:80"),
 }
 
 
@@ -314,6 +378,8 @@ def counted(launches):
     wrappers = _wrappers()
     for fn in wrappers.values():
         fn.launches = 0
+        if hasattr(fn, "launches_by_mode"):
+            fn.launches_by_mode = {}
     ps.reset_launches()
     yield
     torch.cuda.synchronize()
@@ -400,12 +466,34 @@ def sequential_engine():
         hmm._PARALLEL_UPGRADE_MIN_T = saved
 
 
+def host_line():
+    """The host's CPU, the cores this process may use, and the best of
+    three timings of 1e7 numpy uniform draws: the host-bound timings move
+    with the host (the card's host is shared, and its load averages read
+    zero there)."""
+    model = platform.processor() or platform.machine()
+    try:
+        with open("/proc/cpuinfo") as f:
+            model = next((ln.split(":", 1)[1].strip() for ln in f
+                          if ln.lower().startswith("model name")), model)
+    except OSError:
+        pass
+    rng, probe = np.random.default_rng(0), float("inf")
+    for _ in range(3):
+        t0 = time.perf_counter()
+        rng.random(10_000_000)
+        probe = min(probe, time.perf_counter() - t0)
+    return (f"host: {model}, {len(os.sched_getaffinity(0))} cores for this "
+            f"process, 1e7 numpy draws {1e3 * probe:.1f} ms (best of 3)")
+
+
 def phase_preamble():
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False; "
                          "this script runs only on a CUDA card")
     card = card_line()
     log(f"card: {card}")
+    log(host_line())
     log(f"python {sys.version.split()[0]}, torch {torch.__version__}, "
         f"CUDA {torch.version.cuda}, compute capability "
         f"{torch.cuda.get_device_capability(0)}")
@@ -2378,6 +2466,527 @@ def phase_session(launches):
     return _session_null(m, y_tsdf, launches)
 
 
+# ---------------------------------------------------------------------------
+# selection: sweeps and model selection (parallel/sweep.py, selection.py)
+# ---------------------------------------------------------------------------
+
+
+def _sel_data():
+    """SEL_T bins sampled with the port's own sampler, on the card, from a
+    model at N = L = 500 with random weights (numpy seed 1100, carried in
+    as a JAX model's state would be)."""
+    N = L = SEL_NL
+    basis_rank = _model(N, L, "prob").tuning_basis.shape[1]
+    params = np.random.default_rng(1100).normal(
+        size=(basis_rank, N)).astype(np.float32)
+    m = _model(N, L, "auto", params)
+    return m.sample(SEL_T, generator=torch.Generator().manual_seed(1101))[1]
+
+
+@contextlib.contextmanager
+def stage_timer(times, *targets):
+    """Add the host seconds of every call of each (module, name) in
+    ``targets``, each ending in a device synchronise, to ``times[name]``
+    while the block runs."""
+    saved = [(mod, name, getattr(mod, name)) for mod, name in targets]
+
+    def wrap(name, fn):
+        def timed(*a, **kw):
+            sec, out = wall_s(lambda: fn(*a, **kw))
+            times[name] = times.get(name, 0.0) + sec
+            return out
+        return timed
+
+    for mod, name, fn in saved:
+        setattr(mod, name, wrap(name, fn))
+    try:
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def _cfg_bound(nnz_per_seq, cfg, band, n_dyn, T, L, rows):
+    """The bound of one config-indexed K1 (``rows``: "k1", "norm") or K2
+    ("k2") launch over sequences of T rows, sequence e under configuration
+    ``cfg[e]`` of ``band``, its non-constant channels holding
+    ``nnz_per_seq[e]`` nonzeros: the weights (or K2's posteriors and
+    priors) and the configuration index, what each configuration in use
+    gives the kernel (its band half, W x L values and L window starts for
+    each non-constant channel, the constant channels' first row, and
+    Tdyn), and what the launch stores; 2 nnz f32 operations per step of
+    each sequence."""
+    f4 = 4.0
+    E = len(nnz_per_seq)
+    G = int(torch.unique(cfg).numel())
+    n_mat = band.mats.shape[-3]
+    per_cfg = (n_mat * (band.W * L + L) + (n_dyn - n_mat) * L
+               + n_dyn * n_dyn) * f4
+    state = E * T * n_dyn * L * f4
+    ins = G * per_cfg + E * f4
+    ops = sum(T * 2.0 * n for n in nnz_per_seq) / F32_FLOP_PER_S
+    if rows == "k1":
+        return bound(E * T * L * f4 + ins + 2 * state + E * T * f4, ops)
+    if rows == "norm":
+        return bound(E * T * L * f4 + ins + E * T * f4, ops)
+    return bound(4 * state + ins, ops)
+
+
+def _sweep_rows_vs_single(y, res, launches):
+    """Every run of the sweep ``res``: its E-step on its final tuning, one
+    config-indexed K1 and K2 launch for all runs on the sweep's own
+    log-likelihoods (``sweep._runs_loglik``), against the unbatched
+    kernels under the run's own configuration and its own band, bit for
+    bit."""
+    from poor_man_gplvm_tpu_torch.ops import band as bd
+    from poor_man_gplvm_tpu_torch.ops import hmm
+    from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk
+    from poor_man_gplvm_tpu_torch.ops.emissions import poisson_lgamma_term
+    from poor_man_gplvm_tpu_torch.parallel import sweep
+
+    grid = res["grid"]
+    B = len(res["config_index"])
+    hps = [{k: float(v[i]) for k, v in grid.items()
+            if k != "tuning_lengthscale"} for i in range(B)]
+    stack, cfg = sweep._transition_stack("poisson", hps, SEL_NL, y.device)
+    ll = sweep._runs_loglik(y, res["tuning"], hps, "poisson",
+                            poisson_lgamma_term(y, torch.ones_like(y)))
+    T = y.shape[0]
+    lengths = torch.full((B,), T, dtype=torch.int32, device=y.device)
+    flags = stack.uniform_rows
+    band = hmm._cached_band(stack, stack.Tlat)
+    # the E-step's two launches (hmm._scan_batch), keeping the priors
+    post, prior, _ = sk.filter_chunk_batch(
+        ll, stack.Tlat, stack.Tdyn,
+        torch.exp(stack.uniform_log_init())[None].expand(B, 2, SEL_NL),
+        lengths, 1.0, uniform_rows=flags, band=band, cfg=cfg)
+    last = post[:, -1].contiguous()
+    smooth, r = sk.smoother_chunk_batch(
+        post[:, :-1], prior[:, 1:], stack.Tlat, stack.Tdyn, last,
+        lengths - 1, uniform_rows=flags, band=band, cfg=cfg)
+    equal = True
+    for b in range(B):
+        g = int(cfg[b])
+        tlat, tdyn = stack.Tlat[g], stack.Tdyn[g]
+        own = bd.transition_band(tlat, tlat.transpose(-1, -2).contiguous(),
+                                 flags)
+        p0 = torch.exp(stack.uniform_log_init())
+        f_post, f_prior, _ = sk.filter_chunk(ll[b], tlat, tdyn, p0, 1.0,
+                                             uniform_rows=flags, band=own)
+        s_sm, s_r = sk.smoother_chunk(post[b, :-1], prior[b, 1:], tlat, tdyn,
+                                      last[b], uniform_rows=flags, band=own)
+        equal &= (torch.equal(f_post, post[b]) and torch.equal(
+            f_prior, prior[b]) and torch.equal(s_sm, smooth[b])
+            and torch.equal(s_r, r[b]))
+    log(f"selection (a): all {B} runs' E-step rows (one config-indexed K1 "
+        f"and K2 launch, bands padded to W={getattr(band, 'W', None)}) "
+        f"against the unbatched kernels under each run's own configuration "
+        f"and band: bit-equal {equal}")
+    check(equal, "config-indexed K1/K2 rows differ from the run alone")
+    return ll, stack, cfg
+
+
+def _sel_kernel_rows(ll, stack, cfg):
+    """The config-indexed K1/K2 and the norm-only K1 against their plain
+    versions on the sweep's first batch cut to SWEEP_PLAIN (runs per band
+    width, at the sweep's full length); the kernels line's rows."""
+    from poor_man_gplvm_tpu_torch.ops import hmm
+    from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk
+    from poor_man_gplvm_tpu_torch.testing import SCAN_TOLERANCES, _max_rel
+
+    per_w, T = SWEEP_PLAIN
+    movement = SWEEP_GRID["movement_variance"]
+    n_pj = len(SWEEP_GRID["p_move_to_jump"]) * SWEEP_KW["n_repeat"]
+    pick = [i * n_pj + j for i in range(len(movement)) for j in range(per_w)]
+    idx = torch.as_tensor(pick, device=ll.device)
+    w, _ = sk._weights(ll[idx, :T].contiguous(), 1.0)
+    c = cfg[idx].contiguous()
+    E, L = len(pick), SEL_NL
+    flags = stack.uniform_rows
+    band = hmm._cached_band(stack, stack.Tlat)
+    tlat_t = stack.Tlat.transpose(-1, -2).contiguous()
+    p0 = torch.exp(stack.uniform_log_init())[None].expand(E, 2, L) \
+        .contiguous()
+    lengths = torch.full((E,), T, dtype=torch.int32, device=ll.device)
+    nnz = [_nnz(stack.Tlat[int(g)], flags) for g in c.tolist()]
+    k1 = lambda: sk.filter_scan_batch(  # noqa: E731
+        w, stack.Tlat, stack.Tdyn, p0, lengths, flags, band=band, cfg=c)
+    kn = lambda: sk.filter_scan_batch(  # noqa: E731
+        w, stack.Tlat, stack.Tdyn, p0, lengths, flags, band=band, cfg=c,
+        norm_only=True)
+    post, prior, norm = k1()
+    norm_only = kn()[2]
+    want, plain1 = timed_once(lambda: sk.filter_scan_batch_plain(
+        w, stack.Tlat, stack.Tdyn, p0, lengths, flags, cfg=c))
+    err1 = max(float((a - b).abs().max()) for a, b in zip((post, prior),
+                                                         want[:2]))
+    errn = float((norm_only - want[2]).abs().max())
+    reln = float(((norm_only - want[2]).abs() / want[2]).max())
+    last = post[:, -1].contiguous()
+    k2 = lambda: sk.smoother_scan_batch(  # noqa: E731
+        post[:, :-1], prior[:, 1:], tlat_t, stack.Tdyn, last, lengths - 1,
+        flags, band=band, cfg=c)
+    smooth, r = k2()
+    want2, plain2 = timed_once(lambda: sk.smoother_scan_batch_plain(
+        want[0][:, :-1], want[1][:, 1:], tlat_t, stack.Tdyn,
+        want[0][:, -1].contiguous(), lengths - 1, flags, cfg=c))
+    err2 = float((smooth - want2[0]).abs().max())
+    nxt = torch.cat([smooth[:, 1:], last[:, None]], dim=1)
+    r_rel = _max_rel(r, want2[1], (prior[:, 1:] > 1e-30) & (nxt > 1e-30))
+    same_norm = bool(torch.equal(norm_only, norm))
+    check(err1 <= SCAN_TOLERANCES["post_abs"]
+          and err2 <= SCAN_TOLERANCES["smooth_abs"]
+          and r_rel <= SCAN_TOLERANCES["r_rel"] and reln <= 1e-5
+          and same_norm, ("config-indexed kernels against plain", err1,
+                          err2, r_rel, reln, same_norm))
+    rows = {}
+    for name, kern, err, plain_ms, kind, steps in (
+            ("filter_scan_batch[cfg]", k1, err1, plain1, "k1", T),
+            ("filter_scan_batch[norm]", kn, errn, plain1, "norm", T),
+            ("smoother_scan_batch[cfg]", k2, err2, plain2, "k2", T - 1)):
+        ms = cuda_ms(kern, 5)
+        b_ms, b_by = _cfg_bound(nnz, c, band, len(flags), steps, L, kind)
+        rows[name] = dict(E=E, steps=E * steps, max_abs_err=err, ms=ms,
+                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                          library_ms=None)
+        log(f"time {name} on the sweep's first batch cut to {E} runs (two "
+            f"per band width) x {steps} bins, L={L}: kernel {ms:.3f} ms, "
+            f"plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}); max "
+            f"|kernel - plain| {err:.3e}"
+            + (f", rel {reln:.2e}, bit-equal to the full K1's normalisers "
+               f"{same_norm}" if kind == "norm" else "")
+            + (f", r rel {r_rel:.2e}" if kind == "k2" else ""))
+    # the cost of padding a narrow band: K1 at W = 21 alone against the
+    # same runs padded to the widest configuration's band (W = 81)
+    narrow = [i for i, mv in enumerate(movement) if mv == 1.0][0]
+    sel = torch.as_tensor([i for i, g in enumerate(c.tolist())
+                           if g == int(cfg[pick[narrow * per_w]])],
+                          device=ll.device)
+    g = int(c[sel[0]])
+    alone = hmm.stack_transitions([hmm.JointTransition(
+        stack.Tdyn[g], stack.Tlat[g], torch.log(stack.Tdyn[g]),
+        torch.log(stack.Tlat[g]))])
+    w1 = ll[torch.as_tensor([pick[i] for i in sel.tolist()],
+                            device=ll.device)].contiguous()
+    zero = torch.zeros(len(sel), dtype=torch.int32, device=ll.device)
+    l1 = torch.full((len(sel),), ll.shape[1], dtype=torch.int32,
+                    device=ll.device)
+    p1 = p0[:len(sel)].contiguous()
+    ww, _ = sk._weights(w1, 1.0)
+    band1 = hmm._cached_band(alone, alone.Tlat)
+    pad = lambda: sk.filter_scan_batch(  # noqa: E731
+        ww, stack.Tlat, stack.Tdyn, p1, l1, flags, band=band,
+        cfg=torch.full_like(zero, g))
+    own = lambda: sk.filter_scan_batch(  # noqa: E731
+        ww, alone.Tlat, alone.Tdyn, p1, l1, flags, band=band1, cfg=zero)
+    ms_own, ms_pad = cuda_ms(own, 5), cuda_ms(pad, 5)
+    check(all(torch.equal(a, b) for a, b in zip(own(), pad())),
+          "padded band changes K1's bits")
+    W_own, W_pad = getattr(band1, "W", None), getattr(band, "W", None)
+    log(f"band padding: K1 at W={W_own} alone {ms_own:.3f} ms against the "
+        f"same {len(sel)} runs padded to W={W_pad} {ms_pad:.3f} ms "
+        f"({ms_pad / ms_own:.2f}x), T={ll.shape[1]}, L={L}, bit-equal")
+    rows["filter_scan_batch[cfg]"].update(
+        ms_band_own=ms_own, ms_band_padded=ms_pad, W_own=W_own,
+        W_padded=W_pad)
+    return rows
+
+
+def _sel_sweep(y, launches):
+    """(a) the sweep fan-out: bench.py's grid at N = L = 500, T = 1e4."""
+    from poor_man_gplvm_tpu_torch.parallel import sweep
+
+    ys = y[:SWEEP_T].contiguous()
+    kw = dict(SWEEP_KW, n_latent_bin=SEL_NL, device="cuda")
+    sweep.sweep_fit_poisson_jump(ys, SWEEP_GRID, **kw)  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    got = {}
+    with counted_into(got, launches):
+        sec, res = wall_s(lambda: sweep.sweep_fit_poisson_jump(
+            ys, SWEEP_GRID, **kw))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    B = len(res["config_index"])
+    n_iter = SWEEP_KW["n_iter"]
+    lml = res["log_marginal_l"]
+    check(bool(torch.isfinite(lml).all()) and lml.shape == (B, n_iter),
+          ("sweep log-marginals", lml.shape))
+    check(got.get("filter_scan_batch[cfg]") == n_iter
+          and got.get("smoother_scan_batch[cfg]") == n_iter
+          and got.get("filter_scan_batch") == n_iter
+          and got.get("smoother_scan_batch") == n_iter,
+          f"one K1 and one K2 launch per EM iteration: {got}")
+    alone_kw = dict(kw, n_repeat=1)
+    sweep.sweep_fit_poisson_jump(ys, {"movement_variance": [1.0]},
+                                 **alone_kw)
+    sec1, _ = wall_s(lambda: sweep.sweep_fit_poisson_jump(
+        ys, {"movement_variance": [1.0]}, **alone_kw))
+    agg = B * SWEEP_T * n_iter / sec
+    log(f"selection (a) sweep fan-out ({B} runs x T={SWEEP_T} x {n_iter} EM "
+        f"iterations, N=L={SEL_NL}, m_maxiter={SWEEP_KW['m_maxiter']}): "
+        f"{sec:.3f} s per call -> {agg:.0f} aggregate EM timesteps/s; one "
+        f"run alone {sec1:.3f} s, x{B} = {B * sec1:.2f} s "
+        f"({B * sec1 / sec:.1f}x the batch); launches {got} (one K1 and one "
+        f"K2 per EM iteration); peak memory {peak:.2f} GB")
+    # where a call's time goes: one more call with its stages timed (each
+    # ends in a device synchronise)
+    from poor_man_gplvm_tpu_torch.ops import mstep
+
+    times = {}
+    with stage_timer(times, (sweep, "draw_poisson_jump_init"),
+                     (sweep, "_bucket_em"), (sweep, "_runs_loglik"),
+                     (sweep, "_e_step"), (mstep, "get_statistics_batch")):
+        sec_s, _ = wall_s(lambda: sweep.sweep_fit_poisson_jump(
+            ys, SWEEP_GRID, **kw))
+    em = times["_bucket_em"]
+    stages = {"initial draws": times["draw_poisson_jump_init"],
+              "emissions": times["_runs_loglik"],
+              "K1/K2 E-steps": times["_e_step"],
+              "statistics": times["get_statistics_batch"],
+              "Adam M-steps and the rest of the EM": em - times[
+                  "_runs_loglik"] - times["_e_step"] - times[
+                      "get_statistics_batch"],
+              "host before the EM": sec_s - em - times[
+                  "draw_poisson_jump_init"]}
+    log(f"selection (a) stages of one call ({sec_s:.3f} s with the stage "
+        f"syncs): " + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items()))
+    ll, stack, cfg = _sweep_rows_vs_single(ys, res, launches)
+    rows = _sel_kernel_rows(ll, stack, cfg)
+    del ll, res
+
+    # four runs, one per band width, against each alone, capped Adam
+    configs = [{"n_latent_bin": SEL_NL, "tuning_lengthscale": 10.0,
+                "movement_variance": mv} for mv in SWEEP_GRID[
+                    "movement_variance"]]
+    fit_kw = dict(n_iter=n_iter, m_maxiter=SWEEP_ALONE_MAXITER,
+                  device="cuda")
+    gens = sweep.split_generator(torch.Generator().manual_seed(5), 4)
+    states = [g.get_state() for g in gens]
+    batch = sweep.sweep_fit_model_class(ys, configs, gens, "poisson",
+                                        **fit_kw)
+    worst = 0.0
+    for i, cfg_i in enumerate(configs):
+        g = torch.Generator()
+        g.set_state(states[i])
+        one = sweep.sweep_fit_model_class(ys, [cfg_i], [g], "poisson",
+                                          **fit_kw)[0]
+        a, b = batch[i]["log_marginal_l"], one["log_marginal_l"]
+        worst = max(worst, float(((a - b).abs() / b.abs()).max()))
+    log(f"selection (a) four runs (W = 11 ... 81) in one batch against "
+        f"sweep_fit_model_class of each alone (m_maxiter="
+        f"{SWEEP_ALONE_MAXITER}): log_marginal_l max rel {worst:.2e}")
+    check(worst <= SWEEP_ALONE_RTOL, ("runs against alone", worst))
+    return rows
+
+
+def _split_columns(tb, ts):
+    """(worst scaled gap over the columns, its column, all columns within
+    rtol SPLIT_RTOL and atol SPLIT_ATOL) of two results tables."""
+    check(tb.columns == ts.columns, (tb.columns, ts.columns))
+    worst, ok = {}, True
+    for col in ts.columns:
+        a = np.asarray(tb[col], dtype=float)
+        b = np.asarray(ts[col], dtype=float)
+        worst[col] = float(np.nanmax(np.abs(a - b) / (
+            SPLIT_ATOL / SPLIT_RTOL + np.abs(b)), initial=0.0))
+        ok &= bool(np.allclose(a, b, rtol=SPLIT_RTOL, atol=SPLIT_ATOL,
+                               equal_nan=True))
+    col = max(worst, key=worst.get)
+    return worst[col], col, ok
+
+
+def _sel_one_split(y, launches):
+    """(b) model_selection_one_split, batched against serial: timed at
+    bench.py's settings (N = L = 500, Adam up to 1,000 iterations), then
+    held to every column within rtol 1e-4 / atol 1e-6 and the same
+    best_config with the Adam loop capped at SPLIT_MAXITER, the JAX
+    package's own contract (test_one_split_batched_equals_serial caps it:
+    the stop test flips under 1-ulp loss differences)."""
+    from poor_man_gplvm_tpu_torch import selection
+
+    ys = y[:SPLIT_T].cpu().numpy()
+
+    def run(backend, kw):
+        got = {}
+        with counted_into(got, launches):
+            sec, res = wall_s(lambda: selection.model_selection_one_split(
+                ys, backend=backend, device="cuda",
+                generator=torch.Generator().manual_seed(9), **kw))
+        if backend == "batched":
+            check(got.get("filter_scan_batch[norm]", 0) >= 1, got)
+        return sec, res
+
+    out, secs = {}, {}
+    for backend in ("batched", "serial", "batched", "serial"):
+        sec, out[backend] = run(backend, SPLIT_KW)
+        secs.setdefault(backend, []).append(sec)
+    gap, col, ok = _split_columns(
+        out["batched"]["model_eval_result_all_configs"],
+        out["serial"]["model_eval_result_all_configs"])
+    same = out["batched"]["best_config"] == out["serial"]["best_config"]
+    log(f"selection (b) model_selection_one_split (4 configs x 2 chains, "
+        f"T={SPLIT_T}, N=L={SEL_NL}, Adam up to 1,000 iterations): batched "
+        f"{secs['batched'][-1]:.3f} s vs serial {secs['serial'][-1]:.3f} s "
+        f"-> {secs['serial'][-1] / secs['batched'][-1]:.1f}x (warm-up calls "
+        f"{secs['batched'][0]:.3f} / {secs['serial'][0]:.3f} s); worst "
+        f"column gap {gap:.2e} ({col}), all within rtol {SPLIT_RTOL}: {ok}; "
+        f"best_config {out['batched']['best_config']} (same: {same})")
+    capped = dict(SPLIT_KW, fit_kwargs=dict(SPLIT_KW["fit_kwargs"],
+                                            m_step_maxiter=SPLIT_MAXITER))
+    cap = {b: run(b, capped)[1] for b in ("batched", "serial")}
+    gap, col, ok = _split_columns(
+        cap["batched"]["model_eval_result_all_configs"],
+        cap["serial"]["model_eval_result_all_configs"])
+    same = cap["batched"]["best_config"] == cap["serial"]["best_config"]
+    log(f"selection (b) with m_step_maxiter={SPLIT_MAXITER}: worst column "
+        f"gap {gap:.2e} ({col}), every column within rtol {SPLIT_RTOL} atol "
+        f"{SPLIT_ATOL}: {ok}; best_config {cap['batched']['best_config']} "
+        f"(same: {same})")
+    check(ok and same, ("batched against serial", gap, col, same))
+
+
+def _sel_realistic(y, launches):
+    """(c) a realistic selection, batched only: 8 configs (two basis
+    ranks) x 5 chains on T = 2e4, with the default downsampled LMLs
+    (4 fractions x 10 masks x 40 runs = 1,600 norm-only K1 filters)."""
+    from poor_man_gplvm_tpu_torch import selection
+    from poor_man_gplvm_tpu_torch.ops import hmm
+    from poor_man_gplvm_tpu_torch.parallel import sweep
+
+    ys = y.cpu().numpy()
+    times, got = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    with counted_into(got, launches), stage_timer(
+            times, (sweep, "sweep_fit_model_class"),
+            (sweep, "sweep_eval_model_class"), (hmm, "filter_lml_batch")):
+        sec, res = wall_s(lambda: selection.model_selection_one_split(
+            ys, device="cuda", generator=torch.Generator().manual_seed(11),
+            **REAL_KW))
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    table = res["model_eval_result_all_configs"]
+    n_masks = 4 * 10 * 40
+    # a chain that detects no jump has a NaN consensus (the reference's
+    # definition); every other column is finite
+    check(len(table) == 8 and all(np.all(np.isfinite(np.asarray(
+        table[c], dtype=float))) for c in table.columns
+        if not c.startswith("jump_consensus")), "realistic table")
+    check(got.get("filter_scan_batch[cfg]") == 2 * REAL_KW["fit_kwargs"][
+        "n_iter"] + 1 and got.get("smoother_scan_batch[cfg]") == 2 * REAL_KW[
+            "fit_kwargs"]["n_iter"] + 1, f"launches {got}")
+    decodes = times["sweep_eval_model_class"] - times["filter_lml_batch"]
+    log(f"selection (c) realistic: 8 configs (movement_variance x "
+        f"tuning_lengthscale 5, 10: two basis ranks) x 5 chains, T={SEL_T} "
+        f"(train {int(SEL_T * 0.8)}, test {int(SEL_T * 0.2)}), n_iter 5, "
+        f"{n_masks} masked filters: {sec:.3f} s in all; fit "
+        f"{times['sweep_fit_model_class']:.3f} s, test decodes "
+        f"{decodes:.3f} s, masked filters {times['filter_lml_batch']:.3f} s "
+        f"({got.get('filter_scan_batch[norm]')} norm-only K1 launches), "
+        f"table and host {sec - times['sweep_fit_model_class'] - times['sweep_eval_model_class']:.3f} s; "
+        f"peak memory {peak:.2f} GB; best_config {res['best_config']}")
+
+
+def _sel_gain(launches):
+    """The gain model at N = L = 500: its gain-aware decode (the gain in
+    the per-bin dt of the emissions) at T = 1e5 on the sequential kernels
+    and on the parallel ones, bit for bit, and GAIN_ITERS EM iterations."""
+    from poor_man_gplvm_tpu_torch import convert
+    from poor_man_gplvm_tpu_torch.experimental import (
+        PoissonGPLVMGain1D_gain,
+    )
+
+    N = L = SEL_NL
+
+    def model(engine):
+        m = PoissonGPLVMGain1D_gain(N, n_latent_bin=L, movement_variance=1,
+                                    tuning_lengthscale=10.0, device="cuda",
+                                    inference_engine=engine)
+        params = np.random.default_rng(1200).normal(
+            size=(m.n_basis, N)).astype(np.float32)
+        return convert.load_jax_state(m, params, m.tuning_basis.cpu().numpy())
+
+    m_seq, m_par = model("cuda"), model("cuda_parallel")
+    rng = np.random.default_rng(1201)
+    gain = torch.as_tensor(np.exp(np.convolve(
+        rng.normal(0, 0.5, GAIN_T), np.ones(200) / 200, "same")).astype(
+            np.float32), device="cuda")
+    _, y = m_seq.sample(GAIN_T, generator=torch.Generator().manual_seed(1202),
+                        gain=gain)
+    trans, _ = m_seq._make_transition({})
+    args = (y, m_seq.tuning, {}, trans.logTlat, trans.logTdyn,
+            m_seq.ma_neuron_default)
+    kw = dict(n_time_per_chunk=GAIN_T, gain=gain)
+    got = {}
+    with counted_into(got, launches):
+        with sequential_engine():
+            sec_seq, seq = wall_s(lambda: m_seq._decode_latent(*args, **kw))
+        sec_par, par = wall_s(lambda: m_par._decode_latent(*args, **kw))
+    same = torch.equal(seq[0], par[0]) and float(seq[1]) == float(par[1])
+    check(got.get("filter_scan", 0) >= 1 and got.get("pfilter_pass", 0) >= 1,
+          got)
+    log(f"gain decode T={GAIN_T} N=L={L} (the gain in the per-bin dt): "
+        f"sequential K1/K2 {sec_seq:.3f} s, parallel K3/K4 {sec_par:.3f} s, "
+        f"bit-identical {same}; log marginal {float(par[1])!r}")
+    check(same, "gain decode differs between 'cuda' and 'cuda_parallel'")
+    del seq, par
+    with counted_into(got, launches):
+        sec, em = wall_s(lambda: m_par.fit_em(y, n_iter=GAIN_ITERS,
+                                              verboase=False))
+    lml = np.array([float(v) for v in em["log_marginal_l"]])
+    up = bool(np.all(lml[1:] >= lml[:-1] - GAIN_LML_RTOL * np.abs(lml[:-1])))
+    log(f"gain fit T={GAIN_T} N=L={L}, {GAIN_ITERS} EM iterations: {sec:.3f} "
+        f"s; log_marginal_l {lml.tolist()} (finite, non-decreasing to "
+        f"{GAIN_LML_RTOL}: {up}); gain range "
+        f"[{float(em['gain'].min()):.3f}, {float(em['gain'].max()):.3f}]")
+    check(np.all(np.isfinite(lml)) and up, ("gain fit", lml))
+
+
+def _sel_basis():
+    """The legacy L-BFGS M-step at bench.py's shape: its time and its
+    objective against the initial point."""
+    from poor_man_gplvm_tpu_torch.ops import fit_tuning_with_basis as ftb
+    from poor_man_gplvm_tpu_torch.ops.basis import generate_basis
+
+    T, L, N = BASIS_SHAPE
+    basis = generate_basis(10.0, L).cuda()
+    rank = basis.shape[1]
+    post = torch.as_tensor(np.random.default_rng(1).dirichlet(
+        np.ones(L), size=T).astype(np.float32), device="cuda")
+    tuning = _model(N, L, "prob").tuning.cpu().numpy()
+    y = torch.as_tensor(_spikes(1300, tuning, T), device="cuda")
+    init = (torch.zeros((rank, N), device="cuda"),
+            torch.zeros(N, device="cuda"))
+    args = (init, y, basis, post, 1.0)
+    _, _, f0 = ftb.m_step_get_tuning_all_neuron_grouped(*args, maxiter=0)
+    ftb.m_step_get_tuning_all_neuron_grouped(*args, maxiter=BASIS_MAXITER)
+    sec, (_, tuning_fit, f) = wall_s(
+        lambda: ftb.m_step_get_tuning_all_neuron_grouped(
+            *args, maxiter=BASIS_MAXITER))
+    log(f"fit_tuning_with_basis (T={T}, L={L}, N={N}, rank {rank}, "
+        f"{BASIS_MAXITER} L-BFGS iterations, all neurons batched): "
+        f"{1e3 * sec:.1f} ms per M-step; summed objective {float(f):.6f} "
+        f"from {float(f0):.6f} at the start")
+    check(float(f) < float(f0) and bool(torch.isfinite(tuning_fit).all()),
+          ("L-BFGS did not improve", float(f), float(f0)))
+
+
+def phase_selection(launches):
+    """Sweeps and model selection at N = L = 500 on a sampled recording:
+    (a) the sweep fan-out, (b) model_selection_one_split batched against
+    serial, (c) a realistic batched selection; the config-indexed and
+    norm-only kernels held against plain; then the gain model and the
+    L-BFGS M-step.  Returns the kernels line's rows of the config-indexed
+    and norm-only kernels."""
+    log(f"selection phase starts; {host_line()}")
+    y = _sel_data()
+    rows = _sel_sweep(y, launches)
+    _sel_one_split(y, launches)
+    _sel_realistic(y, launches)
+    del y
+    _sel_gain(launches)
+    _sel_basis()
+    log(f"selection phase ends; {host_line()}")
+    return rows
+
+
 def main():
     t_start = time.perf_counter()
     phase_preamble()
@@ -2399,6 +3008,9 @@ def main():
     t_ses = time.perf_counter()
     session_rows = phase_session(launches)
     log(f"session phase {time.perf_counter() - t_ses:.1f} s")
+    t_sel = time.perf_counter()
+    selection_rows = phase_selection(launches)
+    log(f"selection phase {time.perf_counter() - t_sel:.1f} s")
     log(f"main-path launches: {launches}")
     path = {name: _path_launches(launches, name) for name in KERNELS}
     check(all(n > 0 for n in path.values()), path)
@@ -2407,6 +3019,15 @@ def main():
     for name, (_, _, source, replaces) in KERNELS.items():
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": path[name]}
+        if name in selection_rows:
+            entry.update(selection_rows[name])
+            entry["shape"] = (
+                "the sweep fan-out's first batch cut to E runs, two per "
+                "band width (W = 11, 21, 41, 81, padded to 81), of `steps` "
+                f"rows in all, n_dyn=2, L={SEL_NL}; ms_band_* K1 on the "
+                "W=21 runs alone and padded, at T=10,000")
+            kernels.append(entry)
+            continue
         for L in (100, 500):
             sfx = "" if L == 100 else "_L500"
             if name in batch_rows[L]:

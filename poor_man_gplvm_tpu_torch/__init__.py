@@ -15,16 +15,23 @@ Ported: the four concrete model classes of the JAX package,
 ``decode_latent_epochs``), sampling and fitting (``fit_em``, with
 checkpoint/resume), on the engines ``'prob'``, ``'log'``, ``'cuda'`` and
 ``'cuda_parallel'``; the initial posteriors of ``initializers``; the
-circular-shuffle validation of ``validation``; and the time-series
+circular-shuffle validation of ``validation``; the time-series
 containers (``utils.timeseries``, or pynapple's where it is installed)
-that ``t_l``/TsdFrame inputs and results use.
+that ``t_l``/TsdFrame inputs and results use; the batched sweeps of
+``parallel.sweep`` and the model selection of ``selection`` (K1/K2 with
+one transition configuration per sequence, the norm-only K1 for the
+downsampled log-marginals); the gain model of ``experimental``; and the
+legacy per-neuron L-BFGS M-step of ``ops.fit_tuning_with_basis``.
 """
 
 from poor_man_gplvm_tpu_torch import (
     convert,
+    experimental,
     initializers,
     models,
     ops,
+    parallel,
+    selection,
     utils,
     validation,
 )
@@ -60,10 +67,13 @@ __all__ = [
     "TsdFrame",
     "TsGroup",
     "convert",
+    "experimental",
     "generate_basis",
     "initializers",
     "models",
     "ops",
+    "parallel",
+    "selection",
     "utils",
     "validation",
 ]

@@ -17,9 +17,14 @@
 // Layout: one thread block per sequence (blockIdx.x = sequence index; a
 // single sequence is a batch of one), thread j owns latent column j
 // (blockDim = L rounded up to 32, at most 1024).  A block runs exactly its
-// own length, lengths[e] <= Tmax, and writes nothing past it.  The
-// transition stack, tdyn and the band are shared by all blocks; each block
-// keeps its own copy of the band in shared memory.  Thread j's carry (n_dyn
+// own length, lengths[e] <= Tmax, and writes nothing past it.  A launch
+// holds G transition configurations (G = 1 without a configuration index):
+// a stack of G transition stacks, tdyns and bands, all of one L, n_dyn,
+// constant-channel mask and band width W (a narrower band is padded with
+// exact zeros).  Block e runs under configuration cfg[e] (0 when cfg is
+// null): it moves its tlat, band, win0 and tdyn pointers to that
+// configuration once, before the loop, and keeps its own copy of the band
+// in shared memory.  Thread j's carry (n_dyn
 // values) lives in its registers, since step t+1 needs only column j of
 // step t's posterior.  The vector that every thread reads in the matvec
 // (the dynamics-mixed carry q in K1, the ratio r in K2) goes to shared
@@ -80,15 +85,43 @@ struct SeqArgs {
   const float* tdyn;   // (ND, ND)
   const float* init;   // (E, ND, L)
   const int* lengths;  // (E,) or null
-  float* out;          // K1: post; K2: smooth (E, Tmax, ND, L)
-  float* out2;         // K1: prior; K2: r (E, Tmax, ND, L)
+  float* out;          // K1: post (null: norm only); K2: smooth
+                       // (E, Tmax, ND, L)
+  float* out2;         // K1: prior (null with post); K2: r (E, Tmax, ND, L)
   float* norm;         // K1: (E, Tmax) sum of the unnormalised u_t
   long long x_stride, x2_stride;
   int Tmax, L, W, n_mat, mask;
 };
 
+// The configuration index of a launch, a kernel argument of its own so that
+// the launches without one take SeqArgs alone, as before it existed.
+struct CfgArgs {
+  const int* cfg;  // (E,) each sequence's configuration
+  // elements between two configurations of tlat, band, win0 and tdyn
+  long long tlat, band, win, tdyn;
+};
+
 __device__ __forceinline__ int seq_length(const SeqArgs& a, int e) {
   return a.lengths ? min(max(a.lengths[e], 0), a.Tmax) : a.Tmax;
+}
+
+// the transition of sequence e's configuration (CFG: a launch with a
+// configuration index; without one every block reads the launch's own)
+struct SeqTransition {
+  const float* tlat;
+  const float* band;
+  const int* win0;
+  const float* tdyn;
+};
+
+template <bool CFG>
+__device__ __forceinline__ SeqTransition seq_transition(const SeqArgs& a,
+                                                        const CfgArgs& c,
+                                                        int e) {
+  if (!CFG) return {a.tlat, a.band, a.win0, a.tdyn};
+  const long long g = c.cfg[e];
+  return {a.tlat + g * c.tlat, a.band + g * c.band, a.win0 + g * c.win,
+          a.tdyn + g * c.tdyn};
 }
 
 // K1: causal filter over pre-computed weights w = exp(scale*(ll - rowmax)).
@@ -113,8 +146,18 @@ __device__ __forceinline__ int seq_length(const SeqArgs& a, int e) {
 // by the normaliser is one f64 reciprocal shared by the channels and an
 // f64 product each, which has the f32 quotient's bits
 // (scan_common.cuh::div_by_rcp): this step is K3's, bit for bit.
-template <int ND, bool RESIDENT>
-__global__ void __launch_bounds__(kMaxThreads) filter_kernel(SeqArgs a) {
+// STORE = false is the norm-only filter: the same steps with the post and
+// prior row stores left out, for a caller that reads only the normalisers
+// (the masked log-marginals of model selection); they keep their bits.
+// CFG: each block under its own configuration (seq_transition).  The
+// launch without either is `filter_kernel`, the same code as before they
+// existed; the others are `filter_cfg_kernel`, whose launch bound of one
+// block per SM lets ptxas use 64 registers (one kernel holding all of them
+// got 32 registers with spills from ptxas, and 15 % more time at L = 500
+// on the H100, also without a configuration index).
+template <int ND, bool RESIDENT, bool STORE, bool CFG>
+__device__ __forceinline__ void filter_body(const SeqArgs& a,
+                                            const CfgArgs& c) {
   extern __shared__ float smem[];
   float* q = smem;                  // (ND, L) dynamics-mixed carry
   float* band_s = smem + ND * a.L;  // (n_mat, W, L) when RESIDENT
@@ -130,14 +173,17 @@ __global__ void __launch_bounds__(kMaxThreads) filter_kernel(SeqArgs a) {
   if (T <= 0) return;  // the whole block
   const float* __restrict__ w = a.x + (size_t)e * a.x_stride;
   const size_t row = (size_t)ND * L;
-  float* __restrict__ post = a.out + (size_t)e * a.Tmax * row;
-  float* __restrict__ prior_out = a.out2 + (size_t)e * a.Tmax * row;
+  float* __restrict__ post = STORE ? a.out + (size_t)e * a.Tmax * row
+                                   : nullptr;
+  float* __restrict__ prior_out = STORE ? a.out2 + (size_t)e * a.Tmax * row
+                                        : nullptr;
   float* __restrict__ norm = a.norm + (size_t)e * a.Tmax;
+  const SeqTransition tr = seq_transition<CFG>(a, c, e);
 
   if (RESIDENT) {
-    for (size_t k = j; k < a.n_mat * WL; k += blockDim.x) band_s[k] = a.band[k];
+    for (size_t k = j; k < a.n_mat * WL; k += blockDim.x) band_s[k] = tr.band[k];
   }
-  const float* band = RESIDENT ? band_s : a.band;
+  const float* band = RESIDENT ? band_s : tr.band;
 
   float tdyn[ND][ND], carry[ND], row0[ND], pr[ND];
   size_t off_f[ND];  // each channel's push band
@@ -146,17 +192,17 @@ __global__ void __launch_bounds__(kMaxThreads) filter_kernel(SeqArgs a) {
 #pragma unroll
   for (int p = 0; p < ND; ++p)
 #pragma unroll
-    for (int d = 0; d < ND; ++d) tdyn[p][d] = a.tdyn[p * ND + d];
+    for (int d = 0; d < ND; ++d) tdyn[p][d] = tr.tdyn[p * ND + d];
 #pragma unroll
   for (int d = 0; d < ND; ++d) {
     carry[d] = live ? a.init[(size_t)e * row + d * L + j] : 0.f;
-    row0[d] = live ? a.tlat[d * LL + j] : 0.f;
+    row0[d] = live ? tr.tlat[d * LL + j] : 0.f;
     pr[d] = 0.f;
     off_f[d] = 0;
     i0_f[d] = 0;
     if (!((a.mask >> d) & 1)) {
       off_f[d] = slot * WL;
-      if (live) i0_f[d] = a.win0[slot * L + j];
+      if (live) i0_f[d] = tr.win0[slot * L + j];
       ++slot;
     }
   }
@@ -186,7 +232,7 @@ __global__ void __launch_bounds__(kMaxThreads) filter_kernel(SeqArgs a) {
     // dot that follows hides the stores
     if (t > 0) {
       const size_t base = (size_t)(t - 1) * row;
-      if (live) {
+      if (STORE && live) {
 #pragma unroll
         for (int d = 0; d < ND; ++d) {
           post[base + d * L + j] = carry[d];
@@ -230,7 +276,7 @@ __global__ void __launch_bounds__(kMaxThreads) filter_kernel(SeqArgs a) {
     s_prev = s;
   }
   const size_t base = (size_t)(T - 1) * row;  // the last row
-  if (live) {
+  if (STORE && live) {
 #pragma unroll
     for (int d = 0; d < ND; ++d) {
       post[base + d * L + j] = carry[d];
@@ -238,6 +284,17 @@ __global__ void __launch_bounds__(kMaxThreads) filter_kernel(SeqArgs a) {
     }
   }
   if (j == 0) norm[T - 1] = s_prev;
+}
+
+template <int ND, bool RESIDENT>
+__global__ void __launch_bounds__(kMaxThreads) filter_kernel(SeqArgs a) {
+  filter_body<ND, RESIDENT, true, false>(a, CfgArgs{});
+}
+
+template <int ND, bool RESIDENT, bool STORE, bool CFG>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    filter_cfg_kernel(SeqArgs a, CfgArgs c) {
+  filter_body<ND, RESIDENT, STORE, CFG>(a, c);
 }
 
 // K2: backward smoother over filter posteriors and +1-shifted priors.
@@ -270,9 +327,11 @@ __global__ void __launch_bounds__(kMaxThreads) filter_kernel(SeqArgs a) {
 // next step's (a)), so the r of step t and the smoothed row of step t+1
 // are stored right after barrier (a), ahead of the window dot.  What is
 // left is the chain's fixed cost: two block barriers per step, the block
-// sums in warp order and the normaliser's reciprocal.
-template <int ND, bool RESIDENT>
-__global__ void __launch_bounds__(kMaxThreads) smoother_kernel(SeqArgs a) {
+// sums in warp order and the normaliser's reciprocal.  With a configuration
+// index it is `smoother_cfg_kernel` (as for K1).
+template <int ND, bool RESIDENT, bool CFG>
+__device__ __forceinline__ void smoother_body(const SeqArgs& a,
+                                              const CfgArgs& c) {
   extern __shared__ float smem[];
   float* r_s = smem;                // (ND, L) ratios
   float* band_s = smem + ND * a.L;  // (n_mat, W, L) when RESIDENT
@@ -291,11 +350,12 @@ __global__ void __launch_bounds__(kMaxThreads) smoother_kernel(SeqArgs a) {
   const float* __restrict__ prior = a.x2 + (size_t)b * a.x2_stride;
   float* __restrict__ smooth = a.out + (size_t)b * a.Tmax * row;
   float* __restrict__ rout = a.out2 + (size_t)b * a.Tmax * row;
+  const SeqTransition tr = seq_transition<CFG>(a, c, b);
 
   if (RESIDENT) {
-    for (size_t k = j; k < a.n_mat * WL; k += blockDim.x) band_s[k] = a.band[k];
+    for (size_t k = j; k < a.n_mat * WL; k += blockDim.x) band_s[k] = tr.band[k];
   }
-  const float* band = RESIDENT ? band_s : a.band;
+  const float* band = RESIDENT ? band_s : tr.band;
 
   float tdyn[ND][ND], carry[ND], row0[ND];
   size_t off_b[ND];  // each channel's pull band
@@ -304,16 +364,16 @@ __global__ void __launch_bounds__(kMaxThreads) smoother_kernel(SeqArgs a) {
 #pragma unroll
   for (int d = 0; d < ND; ++d)
 #pragma unroll
-    for (int e = 0; e < ND; ++e) tdyn[d][e] = a.tdyn[d * ND + e];
+    for (int e = 0; e < ND; ++e) tdyn[d][e] = tr.tdyn[d * ND + e];
 #pragma unroll
   for (int d = 0; d < ND; ++d) {
     carry[d] = live ? a.init[(size_t)b * row + d * L + j] : 0.f;
-    row0[d] = live ? a.tlat[d * LL + j] : 0.f;
+    row0[d] = live ? tr.tlat[d * LL + j] : 0.f;
     off_b[d] = 0;
     i0_b[d] = 0;
     if (!((a.mask >> d) & 1)) {
       off_b[d] = slot * WL;
-      if (live) i0_b[d] = a.win0[slot * L + j];
+      if (live) i0_b[d] = tr.win0[slot * L + j];
       ++slot;
     }
   }
@@ -405,6 +465,17 @@ __global__ void __launch_bounds__(kMaxThreads) smoother_kernel(SeqArgs a) {
     if (live) smooth[d * L + j] = carry[d];  // row 0
 }
 
+template <int ND, bool RESIDENT>
+__global__ void __launch_bounds__(kMaxThreads) smoother_kernel(SeqArgs a) {
+  smoother_body<ND, RESIDENT, false>(a, CfgArgs{});
+}
+
+template <int ND, bool RESIDENT>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    smoother_cfg_kernel(SeqArgs a, CfgArgs c) {
+  smoother_body<ND, RESIDENT, true>(a, c);
+}
+
 // shared memory of either kernel: the (ND, L) vector, plus its half of the
 // band when that is kept resident
 size_t vec_bytes(int n_dyn, int L) {
@@ -419,15 +490,34 @@ bool band_resident(int n_dyn, int n_mat, int W, int L) {
   return vec_bytes(n_dyn, L) + band_bytes(n_mat, W, L) <= kResidentCap;
 }
 
-template <typename Kernel>
+// launch `kernel` over E blocks with its arguments, SeqArgs first (and a
+// CfgArgs where the kernel takes one)
+template <typename Kernel, typename... More>
 cudaError_t run(Kernel kernel, const SeqArgs& a, int E, int n_dyn,
-                bool resident, cudaStream_t stream) {
+                bool resident, cudaStream_t stream, const More&... more) {
   const size_t smem =
       vec_bytes(n_dyn, a.L) + (resident ? band_bytes(a.n_mat, a.W, a.L) : 0);
   cudaError_t err = launch_prep(kernel, smem);
   if (err != cudaSuccess) return err;
-  kernel<<<E, block_threads(a.L), smem, stream>>>(a);
+  kernel<<<E, block_threads(a.L), smem, stream>>>(a, more...);
   return cudaGetLastError();
+}
+
+// one K1 launch: the kernel compiled as before the configuration index and
+// the norm-only mode existed when neither is asked for, else the one with
+// them
+template <int ND, bool STORE, bool CFG>
+cudaError_t launch_filter(const SeqArgs& a, const CfgArgs& c, int E,
+                          bool res, cudaStream_t s) {
+  if constexpr (STORE && !CFG) {
+    return res ? run(filter_kernel<ND, true>, a, E, ND, true, s)
+               : run(filter_kernel<ND, false>, a, E, ND, false, s);
+  } else {
+    return res ? run(filter_cfg_kernel<ND, true, STORE, CFG>, a, E, ND, true,
+                     s, c)
+               : run(filter_cfg_kernel<ND, false, STORE, CFG>, a, E, ND,
+                     false, s, c);
+  }
 }
 
 // check the shapes, count the non-constant channels and fill what both
@@ -466,14 +556,21 @@ int pmg_scan_band_resident(int n_dyn, int n_mat, int L, int W) {
 // (n_mat, W, L), the push half of the transition band, with window rows
 // `win0` (n_mat, L); n_mat counts the channels not flagged constant in
 // uniform_mask; lengths (E,) int32 on the device, or null for Tmax each.
+// cfg (E,) int32 on the device gives each sequence its configuration of G:
+// tlat, band, win0 and tdyn then hold G of each, cfg_tlat, cfg_band,
+// cfg_win and cfg_tdyn elements apart (null cfg: configuration 0 for all).
+// Null post and prior: the norm-only filter, which writes only norm.
 // Returns a cudaError_t (0 on success); the launch is asynchronous.
 int pmg_filter_scan(const void* w, const void* tlat, const void* band,
                     const void* win0, const void* tdyn, const void* init,
-                    const void* lengths, void* post, void* prior, void* norm,
-                    long long w_stride, int E, int Tmax, int n_dyn, int L,
+                    const void* lengths, const void* cfg, void* post,
+                    void* prior, void* norm, long long w_stride,
+                    long long cfg_tlat, long long cfg_band, long long cfg_win,
+                    long long cfg_tdyn, int E, int Tmax, int n_dyn, int L,
                     int W, int uniform_mask, void* stream) {
   SeqArgs a{};
-  if (!prepare(a, E, Tmax, n_dyn, L, W, uniform_mask, band, win0))
+  if (!prepare(a, E, Tmax, n_dyn, L, W, uniform_mask, band, win0) ||
+      (post == nullptr) != (prior == nullptr))
     return (int)cudaErrorInvalidValue;
   a.x = static_cast<const float*>(w);
   a.tlat = static_cast<const float*>(tlat);
@@ -484,15 +581,22 @@ int pmg_filter_scan(const void* w, const void* tlat, const void* band,
   a.out2 = static_cast<float*>(prior);
   a.norm = static_cast<float*>(norm);
   a.x_stride = w_stride;
+  const CfgArgs c{static_cast<const int*>(cfg), cfg_tlat, cfg_band, cfg_win,
+                  cfg_tdyn};
   auto s = static_cast<cudaStream_t>(stream);
   const bool res = band_resident(n_dyn, a.n_mat, a.W, L);
+  const bool store = post != nullptr, ix = cfg != nullptr;
   cudaError_t err;
   if (n_dyn == 1) {
-    err = res ? run(filter_kernel<1, true>, a, E, 1, true, s)
-              : run(filter_kernel<1, false>, a, E, 1, false, s);
+    err = store ? (ix ? launch_filter<1, true, true>(a, c, E, res, s)
+                      : launch_filter<1, true, false>(a, c, E, res, s))
+                : (ix ? launch_filter<1, false, true>(a, c, E, res, s)
+                      : launch_filter<1, false, false>(a, c, E, res, s));
   } else {
-    err = res ? run(filter_kernel<2, true>, a, E, 2, true, s)
-              : run(filter_kernel<2, false>, a, E, 2, false, s);
+    err = store ? (ix ? launch_filter<2, true, true>(a, c, E, res, s)
+                      : launch_filter<2, true, false>(a, c, E, res, s))
+                : (ix ? launch_filter<2, false, true>(a, c, E, res, s)
+                      : launch_filter<2, false, false>(a, c, E, res, s));
   }
   return (int)err;
 }
@@ -502,13 +606,16 @@ int pmg_filter_scan(const void* w, const void* tlat, const void* band,
 // read for the constant channels' first rows; the other channels' pull
 // goes through `band` (n_mat, W, L), the pull half of the transition band,
 // with window rows `win0` (n_mat, L); lengths as for K1 (a length of 0
-// leaves that sequence's outputs untouched).
+// leaves that sequence's outputs untouched); cfg and the configuration
+// strides as for K1.
 int pmg_smoother_scan(const void* filt, const void* prior, const void* tlatT,
                       const void* band, const void* win0, const void* tdyn,
-                      const void* init, const void* lengths, void* smooth,
-                      void* rout, long long filt_stride,
-                      long long prior_stride, int E, int Tmax, int n_dyn,
-                      int L, int W, int uniform_mask, void* stream) {
+                      const void* init, const void* lengths, const void* cfg,
+                      void* smooth, void* rout, long long filt_stride,
+                      long long prior_stride, long long cfg_tlat,
+                      long long cfg_band, long long cfg_win,
+                      long long cfg_tdyn, int E, int Tmax, int n_dyn, int L,
+                      int W, int uniform_mask, void* stream) {
   SeqArgs a{};
   if (!prepare(a, E, Tmax, n_dyn, L, W, uniform_mask, band, win0))
     return (int)cudaErrorInvalidValue;
@@ -522,15 +629,25 @@ int pmg_smoother_scan(const void* filt, const void* prior, const void* tlatT,
   a.out2 = static_cast<float*>(rout);
   a.x_stride = filt_stride;
   a.x2_stride = prior_stride;
+  const CfgArgs c{static_cast<const int*>(cfg), cfg_tlat, cfg_band, cfg_win,
+                  cfg_tdyn};
   auto s = static_cast<cudaStream_t>(stream);
   const bool res = band_resident(n_dyn, a.n_mat, a.W, L);
   cudaError_t err;
   if (n_dyn == 1) {
-    err = res ? run(smoother_kernel<1, true>, a, E, 1, true, s)
-              : run(smoother_kernel<1, false>, a, E, 1, false, s);
+    err = cfg == nullptr
+              ? (res ? run(smoother_kernel<1, true>, a, E, 1, true, s)
+                     : run(smoother_kernel<1, false>, a, E, 1, false, s))
+              : (res ? run(smoother_cfg_kernel<1, true>, a, E, 1, true, s, c)
+                     : run(smoother_cfg_kernel<1, false>, a, E, 1, false, s,
+                           c));
   } else {
-    err = res ? run(smoother_kernel<2, true>, a, E, 2, true, s)
-              : run(smoother_kernel<2, false>, a, E, 2, false, s);
+    err = cfg == nullptr
+              ? (res ? run(smoother_kernel<2, true>, a, E, 2, true, s)
+                     : run(smoother_kernel<2, false>, a, E, 2, false, s))
+              : (res ? run(smoother_cfg_kernel<2, true>, a, E, 2, true, s, c)
+                     : run(smoother_cfg_kernel<2, false>, a, E, 2, false, s,
+                           c));
   }
   return (int)err;
 }

@@ -55,8 +55,8 @@ _vp, _ci, _cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 #: (restype, argtypes) of every exported function, per library
 _SIGNATURES = {
     "scan_kernels": {
-        "pmg_filter_scan": [_vp] * 10 + [_cl] + [_ci] * 6 + [_vp],
-        "pmg_smoother_scan": [_vp] * 10 + [_cl] * 2 + [_ci] * 6 + [_vp],
+        "pmg_filter_scan": [_vp] * 11 + [_cl] * 5 + [_ci] * 6 + [_vp],
+        "pmg_smoother_scan": [_vp] * 11 + [_cl] * 6 + [_ci] * 6 + [_vp],
         "pmg_scan_band_resident": [_ci] * 4,
     },
     "parallel_scan": {

@@ -56,11 +56,14 @@ class Band(NamedTuple):
     tlat (the push) and tlat_t (the pull): ``mats[0, m]`` and ``mats[1,
     m]`` (W, L) hold rows ``start[., m, j] + k`` of column j of the m-th
     non-constant channel's tlat and tlat_t, k < W.  Each half is
-    contiguous.  ``hi``/``lo``: its ``split_bf16`` outside "highest"."""
+    contiguous.  ``hi``/``lo``: its ``split_bf16`` outside "highest".
+    The band of a stack of G configurations (K1/K2 with a configuration
+    index) has a leading G axis on ``start`` and ``mats``, one W for all:
+    the widest configuration's, the others padded with exact zeros."""
 
     W: int
-    start: torch.Tensor          # (2, n_mat, L) int32
-    mats: torch.Tensor           # (2, n_mat, W, L) float32
+    start: torch.Tensor          # ([G,] 2, n_mat, L) int32
+    mats: torch.Tensor           # ([G,] 2, n_mat, W, L) float32
     hi: Optional[torch.Tensor]   # (2, n_mat, W, L) bfloat16
     lo: Optional[torch.Tensor]
 
@@ -100,25 +103,39 @@ def transition_band(tlat, tlat_t, uniform_rows, scan_prec="highest"):
     (a constant channel takes the row-sum shortcut and has no band), with
     its bf16 split outside "highest".  Made once per solve; W, which sizes
     the kernels' shared memory, is one host read per solve, not per pass.
-    A dense channel gives W = L: the dense matvec."""
+    A dense channel gives W = L: the dense matvec.
+
+    A stack of G configurations, tlat and tlat_t (G, n_dyn, L, L) with one
+    ``uniform_rows`` for all, gives the stacked band of K1/K2 with a
+    configuration index ("highest" only): every window is as wide as the
+    widest configuration's, so a narrower configuration's window covers
+    its nonzeros and the rows it adds are exact zeros."""
     L = tlat.shape[-1]
+    lead = tuple(tlat.shape[:-3])
+    if len(lead) > 1 or (lead and scan_prec != "highest"):
+        raise ValueError("a band stacks configurations along one axis, "
+                         "in 'highest' only")
     keep = [d for d, flag in enumerate(uniform_rows) if not flag]
-    mats = torch.stack([tlat[keep], tlat_t[keep]]).reshape(-1, L, L)
+    mats = torch.stack([tlat[..., keep, :, :], tlat_t[..., keep, :, :]],
+                       dim=len(lead)).reshape(-1, L, L)
     start, W = band_windows(mats)
-    band = _gather_band(mats, start, W).view(2, len(keep), W, L)
+    band = _gather_band(mats, start, W).view(*lead, 2, len(keep), W, L)
     hi, lo = (None, None) if scan_prec == "highest" else split_bf16(band)
-    return Band(W, start.view(2, len(keep), L).contiguous(),
+    return Band(W, start.view(*lead, 2, len(keep), L).contiguous(),
                 band.contiguous(), hi, lo)
 
 
-def check_band(band, uniform_rows, L, device, scan_prec="highest"):
+def check_band(band, uniform_rows, L, device, scan_prec="highest",
+               n_config=None):
     """Raise unless ``band`` is a ``Band`` of the non-constant channels of
     ``uniform_rows`` over L latent bins, on ``device``, with the bf16 split
-    that ``scan_prec`` reads."""
+    that ``scan_prec`` reads; with ``n_config`` the stacked band of that
+    many configurations."""
     n_mat = sum(not f for f in uniform_rows)
-    shape = (2, n_mat, band.W, L)
+    lead = () if n_config is None else (n_config,)
+    shape = (*lead, 2, n_mat, band.W, L)
     ok = (tuple(band.mats.shape) == shape
-          and tuple(band.start.shape) == (2, n_mat, L)
+          and tuple(band.start.shape) == (*lead, 2, n_mat, L)
           and band.mats.dtype == torch.float32
           and band.start.dtype == torch.int32
           and band.mats.device == device and band.start.device == device

@@ -26,7 +26,12 @@ On CPU tensors the kernels' wrappers run their plain versions.
 and one of K2 for the whole batch, one thread block per epoch.
 ``smooth_batch_full`` smooths a batch of equal-length sequences under one
 transition (the shuffles of ``validation.shuffle_and_decode``) with every
-output of ``smooth_combined_chunked``, the same way.
+output of ``smooth_combined_chunked``, the same way.  ``TransitionStack``
+holds G transitions of one shape, and ``_scan_batch`` runs a batch in which
+each sequence has its own (the runs of a sweep, ``parallel/sweep.py``).
+``forward_filter_lml``, ``filter_lmls`` and ``filter_lml_batch`` give only
+log-marginals, through the norm-only K1 (the downsampled-LML metric of
+model selection).
 
 As in the JAX package the pairwise-joint accumulation is not carried
 through the scan; in probability space it factorizes,
@@ -46,7 +51,11 @@ import torch
 from poor_man_gplvm_tpu_torch.ops import band as bd
 from poor_man_gplvm_tpu_torch.ops import parallel_scan as ps
 from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk
-from poor_man_gplvm_tpu_torch.ops.emissions import get_loglikelihood_ma_all
+from poor_man_gplvm_tpu_torch.ops.emissions import (
+    MASK_NEG,
+    get_loglikelihood_ma_all,
+    get_loglikelihood_ma_all_changing_dt,
+)
 
 # The f32-representable stand-in for the reference's -1e40 zero-probability
 # sentinel (the JAX package's JOINT_ACC_INIT).
@@ -66,6 +75,11 @@ __all__ = [
     "smooth_epochs",
     "sequence_loglikelihoods",
     "smooth_batch_full",
+    "TransitionStack",
+    "stack_transitions",
+    "forward_filter_lml",
+    "filter_lmls",
+    "filter_lml_batch",
     "engine_resolves_parallel",
     "parallel_scan_carry_spec",
     "compute_transition_posterior_prob",
@@ -271,6 +285,52 @@ class JointTransition:
                                  band=_cached_band(self, self.Tlat))
 
 
+@dataclasses.dataclass(frozen=True)
+class TransitionStack:
+    """G transitions of one shape and one set of constant-channel flags,
+    stacked for the sequential kernels with a configuration index:
+    ``Tlat`` (G, n_dyn, L, L), ``Tdyn`` (G, n_dyn, n_dyn); a latent-only
+    transition is the n_dyn = 1 stack (``is_joint`` False).  Made by
+    ``stack_transitions``."""
+
+    Tlat: torch.Tensor
+    Tdyn: torch.Tensor
+    uniform_rows: tuple
+    is_joint: bool
+    _band: object = dataclasses.field(default=None, repr=False,
+                                      compare=False)
+
+    @property
+    def n_latent(self):
+        return self.Tlat.shape[-1]
+
+    @property
+    def n_dyn(self):
+        return self.Tlat.shape[1]
+
+    def uniform_log_init(self):
+        """The shared uniform initial state: (n_dyn, L), or (L,) for a
+        latent-only stack, as each transition's own."""
+        n_dyn, L = self.n_dyn, self.n_latent
+        shape = (n_dyn, L) if self.is_joint else (L,)
+        return torch.log(torch.ones(shape, dtype=self.Tlat.dtype,
+                                    device=self.Tlat.device) / (n_dyn * L))
+
+
+def stack_transitions(trans_l):
+    """The ``TransitionStack`` of a list of transitions of one class, L
+    and constant-channel flags (raises otherwise)."""
+    is_joint = hasattr(trans_l[0], "Tdyn")
+    flags = trans_l[0].uniform_rows
+    if any(hasattr(t, "Tdyn") != is_joint or t.uniform_rows != flags
+           for t in trans_l):
+        raise ValueError("stacked transitions must share their class and "
+                         "constant-channel flags")
+    tlat, tdyn = zip(*(_transition_stack(t) for t in trans_l))
+    return TransitionStack(torch.stack(tlat).contiguous(),
+                           torch.stack(tdyn).contiguous(), flags, is_joint)
+
+
 # ---------------------------------------------------------------------------
 # probability-space scans (plain PyTorch loops)
 # ---------------------------------------------------------------------------
@@ -357,12 +417,35 @@ def _backward_scan_log(log_filt_xs, log_prior_xs, trans, carry_init):
 # ---------------------------------------------------------------------------
 
 
+#: bytes of each (rows, L, N) temporary of the per-bin dt emissions
+DT_BLOCK_BYTES = 2e9
+
+
+def _loglik(y, tuning, hyperparam, ma_neuron, ma_latent, observation_model,
+            dt_l=None, lgamma_term=None):
+    """(T, L) log-likelihoods of a chunk; with a per-bin ``dt_l`` (T,) the
+    elementwise (rows, L, N) form, in blocks of rows that keep each
+    temporary within ``DT_BLOCK_BYTES`` (every row is computed on its own,
+    so the blocks do not change its bits)."""
+    if dt_l is None:
+        return get_loglikelihood_ma_all(
+            y, tuning, hyperparam, ma_neuron, ma_latent,
+            observation_model=observation_model, lgamma_term=lgamma_term)
+    T = y.shape[0]
+    rows = max(1, int(DT_BLOCK_BYTES // (4 * tuning.numel())))
+    ll = torch.empty((T, tuning.shape[0]), dtype=torch.float32,
+                     device=tuning.device)
+    for a in range(0, T, rows):
+        ll[a:a + rows] = get_loglikelihood_ma_all_changing_dt(
+            y[a:a + rows], tuning, hyperparam, ma_neuron[a:a + rows],
+            ma_latent, dt_l[a:a + rows], observation_model=observation_model)
+    return ll
+
+
 def _filter_chunk(y, tuning, hyperparam, trans, ma_neuron, ma_latent, carry,
-                  likelihood_scale, observation_model, engine):
-    ll = get_loglikelihood_ma_all(
-        y, tuning, hyperparam, ma_neuron, ma_latent,
-        observation_model=observation_model,
-    )
+                  likelihood_scale, observation_model, engine, dt_l=None):
+    ll = _loglik(y, tuning, hyperparam, ma_neuron, ma_latent,
+                 observation_model, dt_l)
     if engine == "cuda":
         post, prior, ratios = trans.cuda_filter(ll, carry[0],
                                                 likelihood_scale)
@@ -398,6 +481,12 @@ def _chunk_inputs(y, ma_neuron, n, n_time_per_chunk):
     if ma_neuron.ndim == 2:
         return y_chunk, ma_neuron[sl]
     return y_chunk, torch.broadcast_to(ma_neuron, y_chunk.shape)
+
+
+def _dt_chunk(dt_l, n, n_time_per_chunk):
+    if dt_l is None:
+        return None
+    return dt_l[n * n_time_per_chunk:(n + 1) * n_time_per_chunk]
 
 
 # ---------------------------------------------------------------------------
@@ -445,6 +534,7 @@ def smooth_combined_chunked(
     lgamma_term=None,
     want_acc=True,
     diag_out=None,
+    dt_l=None,
 ):
     """Chunked forward-backward smoother.
 
@@ -483,7 +573,9 @@ def smooth_combined_chunked(
     ``lgamma_term``: the precomputed ``emissions.poisson_lgamma_term``,
     consumed by the parallel engine.  ``diag_out``: a list to which the
     parallel engine appends its fixed-point diagnostics ``(fwd_passes,
-    bwd_passes, fwd_delta, bwd_delta[, emit_delta_f, emit_delta_b])``."""
+    bwd_passes, fwd_delta, bwd_delta[, emit_delta_f, emit_delta_b])``.
+    ``dt_l``: a per-bin dt (T,) in the emissions (the gain model's gain
+    rides it), formed alike on every engine (``_loglik``)."""
     check_engine(engine)
     if memory_mode not in MEMORY_MODES:
         raise ValueError(
@@ -492,12 +584,16 @@ def smooth_combined_chunked(
     device = tuning.device
     y = torch.as_tensor(y, dtype=torch.float32, device=device)
     n_time_tot = y.shape[0]
+    if dt_l is not None:
+        dt_l = torch.broadcast_to(torch.as_tensor(
+            dt_l, dtype=torch.float32, device=device), (n_time_tot,))
     if engine_resolves_parallel(n_time_tot, trans, engine, device):
         return _smooth_parallel_driver(
             y, tuning, hyperparam, trans, ma_neuron, ma_latent,
             likelihood_scale, observation_model, memory_mode,
             marginal_smooth, n_time_per_chunk, scan_carry_in,
             want_scan_carry, scan_fast, lgamma_term, want_acc, diag_out,
+            dt_l,
         )
     if want_scan_carry:
         raise ValueError(
@@ -530,6 +626,7 @@ def smooth_combined_chunked(
         post, prior, ratios, carry, ll = _filter_chunk(
             y_chunk, tuning, hyperparam, trans, ma_chunk, ma_latent, carry,
             likelihood_scale, observation_model, engine,
+            _dt_chunk(dt_l, n, n_time_per_chunk),
         )
         post_chunks.append(post)
         prior_chunks.append(prior)
@@ -579,7 +676,8 @@ def smooth_combined_chunked(
 
 def _transition_stack(trans):
     """(tlat (n_dyn, L, L), tdyn (n_dyn, n_dyn)) of either transition; a
-    latent-only one is the n_dyn = 1 stack."""
+    latent-only one is the n_dyn = 1 stack.  A ``TransitionStack`` gives
+    its (G, ...) stacks."""
     if hasattr(trans, "Tdyn"):
         return trans.Tlat, trans.Tdyn
     return trans.T[None], torch.ones((1, 1), dtype=trans.T.dtype,
@@ -601,29 +699,114 @@ def epoch_loglikelihoods(y_b, lengths, tuning, hyperparam, ma_neuron,
     ).view(E, Tmax, tuning.shape[0])
 
 
-def _scan_batch(ll, trans, lengths, likelihood_scale):
+def _scan_batch(ll, trans, lengths, likelihood_scale, cfg=None):
     """One launch of K1 (``filter_chunk_batch``) and one of K2
     (``smoother_chunk_batch``) over a batch of log-likelihoods ll
-    (E, Tmax, L) under one transition, each sequence from the uniform
-    initial state.  Returns ``(filter posteriors, ratios, smoothed
-    posteriors of the steps before each sequence's last, K2's r, last
-    step's filter posterior (E, n_dyn, L))`` in probability space."""
+    (E, Tmax, L) under one transition, or, with a ``TransitionStack`` and
+    ``cfg`` (E,) int32, each sequence under its own configuration; each
+    sequence from the uniform initial state.  Returns ``(filter
+    posteriors, ratios, smoothed posteriors of the steps before each
+    sequence's last, K2's r, last step's filter posterior (E, n_dyn,
+    L))`` in probability space."""
     tlat, tdyn = _transition_stack(trans)
     E, _, L = ll.shape
-    n_dyn = tlat.shape[0]
+    n_dyn = tlat.shape[-3]
     band = _cached_band(trans, tlat)
     p_init = torch.exp(trans.uniform_log_init()).reshape(1, n_dyn, L)
     post, prior, ratios = sk.filter_chunk_batch(
         ll, tlat, tdyn, p_init.expand(E, n_dyn, L), lengths, likelihood_scale,
-        uniform_rows=trans.uniform_rows, band=band)
+        uniform_rows=trans.uniform_rows, band=band, cfg=cfg)
     # the last step's smoothed posterior is its filter posterior; the
     # smoother runs over the rows before it against the +1-shifted priors
     last = post[torch.arange(E, device=post.device),
                 (lengths - 1).long()]
     smooth, r = sk.smoother_chunk_batch(
         post[:, :-1], prior[:, 1:], tlat, tdyn, last, lengths - 1,
-        uniform_rows=trans.uniform_rows, band=band)
+        uniform_rows=trans.uniform_rows, band=band, cfg=cfg)
     return post, ratios, smooth, r, last
+
+
+def sequence_lml(ratios, n_time_per_chunk):
+    """(E,) log marginals of ratios (E, T): each sequence's ratios summed
+    chunk by chunk, each chunk from a fresh copy, as ``decode_latent``
+    sums its own (a reduction's order depends on the alignment of its
+    input), so that each equals the decode of that sequence alone."""
+    E, T = ratios.shape
+    lml = torch.zeros((E,), dtype=torch.float32, device=ratios.device)
+    for n in range(-(-T // n_time_per_chunk)):
+        lml = lml + torch.stack([
+            ratios[e, n * n_time_per_chunk:(n + 1) * n_time_per_chunk]
+            .clone().sum() for e in range(E)])
+    return lml
+
+
+def filter_lml_batch(ll, trans, likelihood_scale=1.0, cfg=None,
+                     n_time_per_chunk=None):
+    """(E,) forward-filter log marginals of a batch of log-likelihoods ll
+    (E, T, L): one launch of the norm-only K1 (``filter_chunk_batch
+    (norm_only=True)``), no row stored; ``trans`` one transition, or a
+    ``TransitionStack`` with ``cfg`` (E,) int32.  Each equals the
+    ``log_marginal_final`` of ``smooth_combined_chunked`` on the
+    sequential engine for that sequence alone when its ll are the
+    decode's (``n_time_per_chunk``: the decode's chunk, None its
+    ``auto_chunk_size``).  On CPU tensors K1 runs its plain version."""
+    E, T, L = ll.shape
+    tlat, tdyn = _transition_stack(trans)
+    n_dyn = tlat.shape[-3]
+    if n_time_per_chunk is None:
+        n_time_per_chunk = auto_chunk_size(T, n_dyn * L, L, ll.device)
+    p_init = torch.exp(trans.uniform_log_init()).reshape(1, n_dyn, L)
+    _, _, ratios = sk.filter_chunk_batch(
+        ll, tlat, tdyn, p_init.expand(E, n_dyn, L),
+        torch.full((E,), T, dtype=torch.int32, device=ll.device),
+        likelihood_scale, uniform_rows=trans.uniform_rows,
+        band=_cached_band(trans, tlat), cfg=cfg, norm_only=True)
+    return sequence_lml(ratios, n_time_per_chunk)
+
+
+def filter_lmls(y, tunings, hyper, trans, ma_neuron, ma_latent,
+                likelihood_scale=1.0, observation_model="poisson",
+                n_time_per_chunk=None, latent_masks=None):
+    """(E,) forward-filter log marginals of y, each the
+    ``log_marginal_final`` of ``decode_latent`` (the smoother does not
+    change it): one for each tuning (L, N) of ``tunings``, or, with
+    ``latent_masks`` (E, L), one for each mask over the single tuning.
+    The emissions are formed as the decode forms them (``ma_neuron`` (N,)
+    or (T, N)), a mask's dropped bins set to ``MASK_NEG``, then one
+    launch of the norm-only K1 (``filter_lml_batch``).  The one path of
+    the downsampled-LML metric and the LML history of tuning snapshots
+    (``selection``)."""
+    device = tunings[0].device
+    y = torch.as_tensor(y, dtype=torch.float32, device=device)
+    L = tunings[0].shape[0]
+    if n_time_per_chunk is None:
+        n_time_per_chunk = auto_chunk_size(
+            y.shape[0], trans.uniform_log_init().numel(), L, device)
+    ma_neuron = torch.as_tensor(ma_neuron, dtype=torch.float32,
+                                device=device)
+    ma_latent = torch.as_tensor(ma_latent, dtype=torch.float32,
+                                device=device)
+    ll = torch.cat([sequence_loglikelihoods(
+        y[None], tun, hyper, ma_neuron, ma_latent, n_time_per_chunk,
+        observation_model) for tun in tunings])
+    if latent_masks is not None:
+        if ll.shape[0] != 1:
+            raise ValueError("latent_masks take a single tuning")
+        keep = torch.as_tensor(latent_masks, device=device).bool()
+        ll = torch.where(keep[:, None, :], ll, MASK_NEG)
+    return filter_lml_batch(ll, trans, likelihood_scale,
+                            n_time_per_chunk=n_time_per_chunk)
+
+
+def forward_filter_lml(y, tuning, hyper, trans, ma_neuron, ma_latent,
+                       likelihood_scale=1.0, observation_model="poisson",
+                       n_time_per_chunk=None):
+    """Forward-filter log marginal, the ``log_marginal_final`` of
+    ``decode_latent``, as a 0-dim tensor (``filter_lmls`` of one
+    tuning)."""
+    return filter_lmls(y, [tuning], hyper, trans, ma_neuron, ma_latent,
+                       likelihood_scale, observation_model,
+                       n_time_per_chunk)[0]
 
 
 def smooth_epochs(y_b, lengths, tuning, hyperparam, trans, ma_neuron,
@@ -782,14 +965,7 @@ def smooth_batch_full(y_b, tuning, hyperparam, trans, ma_neuron,
         else trans.outer_acc(post[e, :-1, 0], r[e, :, 0])
         for e in range(E)])
     del r
-    # the log marginal sums the ratios chunk by chunk, as the decode does,
-    # each chunk from a fresh copy: the reduction's order depends on the
-    # alignment of its input, and the decode sums a fresh tensor
-    lml = torch.zeros((E,), dtype=torch.float32, device=device)
-    for n in range(-(-T // n_time_per_chunk)):
-        lml = lml + torch.stack([
-            ratios[e, n * n_time_per_chunk:(n + 1) * n_time_per_chunk]
-            .clone().sum() for e in range(E)])
+    lml = sequence_lml(ratios, n_time_per_chunk)
     smooth = torch.cat([smooth, last[:, None]], dim=1)
     del post, last
     smooth_log = prob_to_log(smooth if is_joint else smooth[:, :, 0])
@@ -875,7 +1051,7 @@ def _smooth_parallel_driver(
     y, tuning, hyperparam, trans, ma_neuron, ma_latent, likelihood_scale,
     observation_model, memory_mode, marginal_smooth, n_time_per_chunk,
     scan_carry_in, want_scan_carry, scan_fast, lgamma_term, want_acc,
-    diag_out,
+    diag_out, dt_l=None,
 ):
     """engine='cuda_parallel': the fixed-point parallel-in-time scans
     (``ops/parallel_scan.py``).  Falls back to the sequential 'cuda' engine
@@ -898,6 +1074,7 @@ def _smooth_parallel_driver(
             n_time_per_chunk=n_time_per_chunk,
             observation_model=observation_model, engine="cuda",
             memory_mode=memory_mode, marginal_smooth=marginal_smooth,
+            dt_l=dt_l,
         )
     device = tuning.device
     if ma_latent is None:
@@ -911,9 +1088,8 @@ def _smooth_parallel_driver(
     y, ma_t = _chunk_inputs(
         y, torch.as_tensor(ma_neuron, dtype=torch.float32, device=device),
         0, T)
-    ll = get_loglikelihood_ma_all(y, tuning, hyperparam, ma_t, ma_latent,
-                                  observation_model=observation_model,
-                                  lgamma_term=lgamma_term)
+    ll = _loglik(y, tuning, hyperparam, ma_t, ma_latent, observation_model,
+                 dt_l, lgamma_term)
     tlat, tdyn = _transition_stack(trans)
     p_init = torch.exp(trans.uniform_log_init())
     if not is_joint:

@@ -1,7 +1,9 @@
 """M-step: sufficient statistics, tuning links, the Poisson objectives and
 their Adam runner, and the Gaussian ridge solve (PyTorch).
 
-Counterpart of ``poor_man_gplvm_tpu/ops/mstep.py``.
+Counterpart of ``poor_man_gplvm_tpu/ops/mstep.py``, and the M-step of B
+runs at once (``*_batch``: a sweep's runs, ``parallel/sweep.py``; the JAX
+package vmaps the single-run functions instead).
 The EM M-step works on *grouped* statistics, the posterior-weighted counts
 ``y_weighted`` (L, N) and occupancy ``t_weighted`` (L,), so its cost does
 not depend on T; the statistics are one (T, L)^T @ (T, N) matmul.
@@ -29,15 +31,20 @@ import torch
 __all__ = [
     "AdamState",
     "adam_init",
+    "adam_init_batch",
     "adam_update",
     "batch_trim_m_step_histories",
     "gaussian_m_step_analytic",
+    "gaussian_m_step_analytic_batch",
     "get_statistics",
+    "get_statistics_batch",
     "get_tuning_linear",
     "get_tuning_softplus",
     "make_adam_runner",
+    "make_adam_runner_batch",
     "package_adam_result",
     "poisson_m_step_objective",
+    "poisson_m_step_objective_batch",
     "poisson_m_step_objective_smoothness",
     "tree_l2_norm",
 ]
@@ -94,6 +101,25 @@ def get_statistics(log_posterior_probs, y, n_time_per_chunk=200_000):
     return y_weighted, t_weighted
 
 
+def get_statistics_batch(log_posterior_probs, y, n_time_per_chunk=200_000):
+    """``get_statistics`` of B runs' posteriors (B, T, L) against one y
+    (T, N): returns (y_weighted (B, L, N), t_weighted (B, L))."""
+    y = torch.as_tensor(y, dtype=torch.float32,
+                        device=log_posterior_probs.device)
+    T = log_posterior_probs.shape[1]
+    y_weighted = t_weighted = None
+    for start in range(0, T, n_time_per_chunk):
+        post = torch.exp(log_posterior_probs[:, start:start + n_time_per_chunk])
+        yw = post.transpose(1, 2) @ y[start:start + n_time_per_chunk]
+        tw = post.sum(dim=1)
+        if y_weighted is None:
+            y_weighted, t_weighted = yw, tw
+        else:
+            y_weighted = y_weighted + yw
+            t_weighted = t_weighted + tw
+    return y_weighted, t_weighted
+
+
 def _norm_logpdf(x, scale):
     """``jax.scipy.stats.norm.logpdf(x, 0, scale)`` in its order of
     operations: (log(2 pi scale^2) + x^2 / scale^2) / -2."""
@@ -132,6 +158,46 @@ def poisson_m_step_objective_smoothness(param, hyperparam, basis_mat,
     log_likelihood = torch.sum(fit_term - norm_term)
     log_prior = _norm_logpdf(param, hyperparam["param_prior_std"]).sum()
     return -log_likelihood - log_prior + roughness_term
+
+
+def _run_scalar(v, like):
+    """A per-run (B,) hyperparameter as (B, 1, 1) on ``like``'s device."""
+    return torch.as_tensor(v, dtype=like.dtype, device=like.device).reshape(
+        -1, 1, 1)
+
+
+def poisson_m_step_objective_batch(param, hyperparam, basis_mat, y_weighted,
+                                   t_weighted):
+    """``poisson_m_step_objective`` of B runs at once: param (B, n_basis,
+    N), basis_mat (B, L, n_basis) or one (L, n_basis), y_weighted (B, L,
+    N), t_weighted (B, L), ``hyperparam['param_prior_std']`` (B,).
+    Returns the (B,) losses."""
+    pf_hat = get_tuning_softplus(param, basis_mat)  # (B, L, N)
+    norm_term = pf_hat * t_weighted[:, :, None]
+    fit_term = torch.xlogy(y_weighted, pf_hat + 1e-20)
+    log_likelihood = torch.sum(fit_term - norm_term, dim=(1, 2))
+    scale = _run_scalar(hyperparam["param_prior_std"], param)
+    log_prior = ((torch.log(2 * math.pi * scale**2) + param**2 / scale**2)
+                 / -2).sum(dim=(1, 2))
+    return -log_likelihood - log_prior
+
+
+def gaussian_m_step_analytic_batch(hyperparam, basis_mat, y_weighted,
+                                   t_weighted):
+    """``gaussian_m_step_analytic`` of B runs at once: one batched
+    (n_basis, n_basis) solve; ``noise_std`` and ``param_prior_std`` (B,),
+    basis_mat (B, L, n_basis) or one (L, n_basis).  Returns (B, n_basis,
+    N)."""
+    B = y_weighted.shape[0]
+    basis_mat = basis_mat.expand(B, *basis_mat.shape[-2:])
+    n_basis = basis_mat.shape[-1]
+    noise_var = _run_scalar(hyperparam["noise_std"], y_weighted) ** 2
+    prior_std = _run_scalar(hyperparam["param_prior_std"], y_weighted)
+    gram = torch.einsum("bqd,bq,bqc->bdc", basis_mat, t_weighted, basis_mat)
+    H = gram / noise_var + torch.eye(
+        n_basis, dtype=gram.dtype, device=gram.device) / (prior_std**2)
+    rhs = basis_mat.transpose(1, 2) @ y_weighted / noise_var
+    return torch.linalg.solve(H, rhs)
 
 
 def gaussian_m_step_analytic(hyperparam, basis_mat, y_weighted, t_weighted):
@@ -175,14 +241,19 @@ def adam_update(grads, state, step_size):
     """One ``optax.adam(step_size)`` update: returns (updates, new state).
     The order of operations is optax's: moment EMAs, count + 1, bias
     corrections 1 - b**count in f32, mu_hat / (sqrt(nu_hat) + eps), then
-    the scale by -step_size."""
+    the scale by -step_size.  A (B,) count (``adam_init_batch``) is one
+    count per run along the leading axis."""
     mu = (1 - ADAM_B1) * grads + ADAM_B1 * state.mu
     nu = (1 - ADAM_B2) * grads**2 + ADAM_B2 * state.nu
     count = state.count + 1
     b1 = _const(ADAM_B1, grads.device)  # 0-dim f32, as optax's b**count
     b2 = _const(ADAM_B2, grads.device)
-    mu_hat = mu / (1 - b1**count)
-    nu_hat = nu / (1 - b2**count)
+    c1, c2 = 1 - b1**count, 1 - b2**count
+    if count.ndim:
+        c1 = c1.reshape(count.shape + (1,) * (mu.ndim - 1))
+        c2 = c2.reshape(c1.shape)
+    mu_hat = mu / c1
+    nu_hat = nu / c2
     updates = mu_hat / (torch.sqrt(nu_hat) + ADAM_EPS)
     return -step_size * updates, AdamState(count, mu, nu)
 
@@ -243,11 +314,89 @@ def make_adam_runner(fun, step_size, maxiter=1000, tol=1e-6):
     return run, adam_init
 
 
-def package_adam_result(adam_res, host_trim=True):
+def make_adam_runner_batch(fun, step_size, maxiter=1000, tol=1e-6):
+    """``make_adam_runner`` for B independent runs at once (what the JAX
+    package's vmap of the while-loop computes): ``fun(params (B, ...),
+    *args)`` returns the (B,) losses.  Each run stops at its own iteration
+    by the single runner's rule, and its params, state, loss and error
+    freeze from then on; the loop ends when every run has stopped, or at
+    ``maxiter - 1``.  All B stop flags come to the host in one read per
+    iteration.  Adam's step count is per run, (B,) int32.
+
+    Returns ``run(init_params, opt_state, *args)`` -> dict with params /
+    opt_state / n_iter (B,) / final_loss (B,) / final_error (B,) /
+    loss_history and error_history (B, maxiter), zero past each run's
+    ``n_iter``."""
+
+    def value_and_grad(params, args):
+        params = params.detach().requires_grad_(True)
+        with torch.enable_grad():
+            loss = fun(params, *args)
+            (grads,) = torch.autograd.grad(loss.sum(), params)
+        return loss.detach(), grads
+
+    def run(init_params, opt_state, *args):
+        params = init_params
+        B = params.shape[0]
+        dev = params.device
+        bshape = (B,) + (1,) * (params.ndim - 1)
+        loss, grads = value_and_grad(params, args)
+        error = torch.sqrt(torch.sum(torch.square(grads),
+                                     dim=tuple(range(1, grads.ndim))))
+        loss_history = torch.zeros((B, maxiter), device=dev)
+        error_history = torch.zeros((B, maxiter), device=dev)
+        loss_history[:, 0], error_history[:, 0] = loss, error
+        n_iter = torch.ones((B,), dtype=torch.int64, device=dev)
+        active = torch.ones((B,), dtype=torch.bool, device=dev)
+        loss_prev = loss
+        i = 0
+        while i < maxiter - 1:
+            if i >= 5:
+                rel_change = (loss - loss_prev).abs() / torch.clamp(
+                    loss.abs(), min=1e-8)
+                active = active & (rel_change > tol)
+                if not bool(active.any()):
+                    break
+            new_loss, grads = value_and_grad(params, args)
+            updates, new_state = adam_update(grads, opt_state, step_size)
+            keep = active.reshape(bshape)
+            params = torch.where(keep, params + updates, params)
+            opt_state = AdamState(
+                torch.where(active, new_state.count, opt_state.count),
+                torch.where(keep, new_state.mu, opt_state.mu),
+                torch.where(keep, new_state.nu, opt_state.nu))
+            new_error = torch.sqrt(torch.sum(
+                torch.square(grads), dim=tuple(range(1, grads.ndim))))
+            error = torch.where(active, new_error, error)
+            loss_prev = torch.where(active, loss, loss_prev)
+            loss = torch.where(active, new_loss, loss)
+            i += 1
+            n_iter = torch.where(active, i + 1, n_iter)
+            loss_history[:, i] = torch.where(active, loss, 0.0)
+            error_history[:, i] = torch.where(active, error, 0.0)
+        return {"params": params, "opt_state": opt_state, "n_iter": n_iter,
+                "final_loss": loss, "final_error": error,
+                "loss_history": loss_history,
+                "error_history": error_history}
+
+    return run
+
+
+def adam_init_batch(params):
+    """``adam_init`` of B runs: a (B,) int32 step count."""
+    return AdamState(
+        count=torch.zeros((params.shape[0],), dtype=torch.int32,
+                          device=params.device),
+        mu=torch.zeros_like(params), nu=torch.zeros_like(params),
+    )
+
+
+def package_adam_result(adam_res, host_trim=True, extra=None):
     """Package an Adam runner result for m_step callers.  ``host_trim``
     trims the pre-allocated histories to the realised iteration count;
     ``host_trim=False`` leaves that to ``batch_trim_m_step_histories``
-    after the EM loop."""
+    after the EM loop.  ``extra``: more entries of the result (the gain
+    model's tuning and gain)."""
     out = {k: adam_res[k] for k in (
         "params", "opt_state", "n_iter", "final_loss", "final_error",
         "loss_history", "error_history")}
@@ -257,6 +406,8 @@ def package_adam_result(adam_res, host_trim=True):
         out["loss_history"] = adam_res["loss_history"][:n_iter].cpu().numpy()
         out["error_history"] = (
             adam_res["error_history"][:n_iter].cpu().numpy())
+    if extra:
+        out.update(extra)
     return out
 
 

@@ -15,7 +15,13 @@ per sequence:
 The unbatched wrappers launch the same kernel on a batch of one.  The
 batched ones take (E, Tmax, ...) arrays and a device int32 array of
 lengths; a sequence runs exactly its own length, and the rows past it are
-left as allocated (unspecified).
+left as allocated (unspecified).  With ``cfg``, a device int32 array of
+one configuration index per sequence, they take a stack of G transition
+configurations (tlat (G, n_dyn, L, L), tdyn (G, n_dyn, n_dyn), the stacked
+band of ``ops/band.py::transition_band``): a sweep's runs, each under its
+own transition, in one launch.  ``filter_scan_batch(norm_only=True)`` is
+K1 without its row stores: it returns only the normalisers, with the same
+bits.
 
 Each wrapper checks its inputs, allocates the outputs with ``torch.empty``
 and launches on the current stream without synchronising (the batched
@@ -24,8 +30,8 @@ On a CPU tensor it runs the plain PyTorch version of the same function
 instead (a Python loop over time, as ``hmm._forward_scan_prob`` /
 ``_backward_scan_prob``; ``*_batch_plain`` loop over the sequences); on a
 CUDA tensor it launches the kernel or raises.  Each wrapper counts its
-launches in ``<wrapper>.launches`` so a run can show that it went through
-the kernel.
+launches in ``<wrapper>.launches`` (the batched ones also in
+``launches_by_mode``) so a run can show that it went through the kernel.
 
 ``filter_chunk`` and ``smoother_chunk`` keep the JAX wrappers' signatures
 and outputs: the likelihood weights ``w = exp(scale*(ll - rowmax))`` are
@@ -125,24 +131,53 @@ def _check_dims(n_dyn, L, uniform_rows):
         raise ValueError("uniform_rows needs one flag per dynamics channel")
 
 
+def _check_index(name, idx, E, device, lowest, highest, noun=None):
+    """Raise unless ``idx`` is an int32 (E,) tensor on ``device`` with
+    every entry (``noun``) in [lowest, highest] (one host read)."""
+    if not torch.is_tensor(idx) or idx.dtype != torch.int32:
+        raise TypeError(f"{name} must be an int32 tensor, got "
+                        f"{getattr(idx, 'dtype', type(idx))}")
+    if tuple(idx.shape) != (E,):
+        raise ValueError(f"{name} must have shape ({E},), got "
+                         f"{tuple(idx.shape)}")
+    if idx.device != device:
+        raise ValueError(f"{name} is on {idx.device}, expected {device}")
+    if not idx.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if E:
+        lo, hi = (int(v) for v in torch.aminmax(idx))
+        if lo < lowest or hi > highest:
+            raise ValueError(f"every {noun or 'entry of ' + name} must be "
+                             f"in [{lowest}, {highest}], got {lo} to {hi}")
+
+
 def _check_lengths(lengths, E, Tmax, device, shortest):
     """Raise unless ``lengths`` is an int32 (E,) tensor on ``device`` with
     every entry in [shortest, Tmax] (one host read)."""
-    if not torch.is_tensor(lengths) or lengths.dtype != torch.int32:
-        raise TypeError("lengths must be an int32 tensor, got "
-                        f"{getattr(lengths, 'dtype', type(lengths))}")
-    if tuple(lengths.shape) != (E,):
-        raise ValueError(f"lengths must have shape ({E},), got "
-                         f"{tuple(lengths.shape)}")
-    if lengths.device != device:
-        raise ValueError(f"lengths is on {lengths.device}, expected {device}")
-    if not lengths.is_contiguous():
-        raise ValueError("lengths must be contiguous")
-    if E:
-        lo, hi = (int(v) for v in torch.aminmax(lengths))
-        if lo < shortest or hi > Tmax:
-            raise ValueError(f"every length must be in [{shortest}, {Tmax}], "
-                             f"got {lo} to {hi}")
+    _check_index("lengths", lengths, E, device, shortest, Tmax, "length")
+
+
+def _check_stack(tlat_name, tlat, tdyn, cfg, E, n_dyn, L, device):
+    """Check the transition operands of a batched launch: one stack (cfg
+    None) or G of them indexed by ``cfg`` (E,) int32.  Returns G (None
+    without cfg)."""
+    if cfg is None:
+        _check(tlat_name, tlat, (n_dyn, L, L), device)
+        _check("tdyn", tdyn, (n_dyn, n_dyn), device)
+        return None
+    G = tlat.shape[0]
+    _check(tlat_name, tlat, (G, n_dyn, L, L), device)
+    _check("tdyn", tdyn, (G, n_dyn, n_dyn), device)
+    _check_index("cfg", cfg, E, device, 0, G - 1)
+    return G
+
+
+def _seq_transition(tlat, tdyn, cfg, e):
+    """Sequence e's transition stack in a plain version."""
+    if cfg is None:
+        return tlat, tdyn
+    g = int(cfg[e])
+    return tlat[g], tdyn[g]
 
 
 def _valid_rows(lengths, Tmax):
@@ -182,6 +217,26 @@ def _ptr(x):
     return 0 if x is None else x.data_ptr()
 
 
+def _stack_mode(cfg):
+    return "shared" if cfg is None else "cfg"
+
+
+def _count_mode(fn, mode):
+    fn.launches_by_mode[mode] = fn.launches_by_mode.get(mode, 0) + 1
+
+
+def _stack_args(band, half, tlat, tdyn, cfg):
+    """(band half pointer, window pointer, the configuration strides of
+    tlat, band, win0 and tdyn) of a launch: the strides are 0 without a
+    configuration index."""
+    mats = band.mats.select(-4, half)
+    start = band.start.select(-3, half)
+    if cfg is None:
+        return mats.data_ptr(), start.data_ptr(), 0, 0, 0, 0
+    return (mats.data_ptr(), start.data_ptr(), tlat[0].numel(),
+            band.mats[0].numel(), band.start[0].numel(), tdyn[0].numel())
+
+
 # ---------------------------------------------------------------------------
 # K1: causal filter
 # ---------------------------------------------------------------------------
@@ -213,40 +268,48 @@ def filter_scan_plain(w, tlat, tdyn, p_init, uniform_rows):
     return post, prior, norm
 
 
-def filter_scan_batch_plain(w, tlat, tdyn, p_init, lengths, uniform_rows):
+def filter_scan_batch_plain(w, tlat, tdyn, p_init, lengths, uniform_rows,
+                            cfg=None):
     """Plain version of K1 over a batch: ``filter_scan_plain`` on each
     sequence's own rows.  w (E, Tmax, L); p_init (E, n_dyn, L); lengths
-    (E,).  Returns post and prior (E, Tmax, n_dyn, L) and the normalisers
-    (E, Tmax), zero past each sequence's length."""
+    (E,); with ``cfg`` (E,) sequence e runs under tlat[cfg[e]] and
+    tdyn[cfg[e]] of a stack.  Returns post and prior (E, Tmax, n_dyn, L)
+    and the normalisers (E, Tmax), zero past each sequence's length."""
     E, Tmax, L = w.shape
     n_dyn = p_init.shape[1]
     post = torch.zeros((E, Tmax, n_dyn, L), dtype=w.dtype, device=w.device)
     prior = torch.zeros_like(post)
     norm = torch.zeros((E, Tmax), dtype=w.dtype, device=w.device)
     for e, n in enumerate(lengths.tolist()):
+        tl, td = _seq_transition(tlat, tdyn, cfg, e)
         post[e, :n], prior[e, :n], norm[e, :n] = filter_scan_plain(
-            w[e, :n], tlat, tdyn, p_init[e], uniform_rows)
+            w[e, :n], tl, td, p_init[e], uniform_rows)
     return post, prior, norm
 
 
-def _launch_filter(w, tlat, tdyn, p_init, lengths, uniform_rows, band):
+def _launch_filter(w, tlat, tdyn, p_init, lengths, uniform_rows, band,
+                   cfg=None, store=True):
     """One K1 launch over the batch w (E, Tmax, L), E and Tmax >= 1;
-    ``lengths`` None runs Tmax rows of every sequence."""
+    ``lengths`` None runs Tmax rows of every sequence; ``store=False``
+    allocates and writes only the normalisers (post and prior None)."""
     E, Tmax, L = w.shape
-    n_dyn = tlat.shape[0]
+    n_dyn = tlat.shape[-3]
     dev = w.device
-    post = torch.empty((E, Tmax, n_dyn, L), dtype=torch.float32, device=dev)
-    prior = torch.empty_like(post)
+    post = prior = None
+    if store:
+        post = torch.empty((E, Tmax, n_dyn, L), dtype=torch.float32,
+                           device=dev)
+        prior = torch.empty_like(post)
     norm = torch.empty((E, Tmax), dtype=torch.float32, device=dev)
     band = _band_for(band, tlat, None, uniform_rows)
+    # the push half is the first, contiguous half of each band
+    mats, win0, *strides = _stack_args(band, 0, tlat, tdyn, cfg)
     with torch.cuda.device(dev):  # the launch goes to the current device
-        # the push half is the first, contiguous half of the band
         err = _lib().pmg_filter_scan(
-            w.data_ptr(), tlat.data_ptr(), band.mats[0].data_ptr(),
-            band.start[0].data_ptr(), tdyn.data_ptr(), p_init.data_ptr(),
-            _ptr(lengths), post.data_ptr(), prior.data_ptr(),
-            norm.data_ptr(), w.stride(0), E, Tmax, n_dyn, L, band.W,
-            _mask(uniform_rows), _stream_ptr(dev),
+            w.data_ptr(), tlat.data_ptr(), mats, win0, tdyn.data_ptr(),
+            p_init.data_ptr(), _ptr(lengths), _ptr(cfg), _ptr(post),
+            _ptr(prior), norm.data_ptr(), w.stride(0), *strides, E, Tmax,
+            n_dyn, L, band.W, _mask(uniform_rows), _stream_ptr(dev),
         )
     return err, (post, prior, norm)
 
@@ -286,41 +349,54 @@ filter_scan.launches = 0
 
 
 def filter_scan_batch(w, tlat, tdyn, p_init, lengths, uniform_rows,
-                      band=None):
+                      band=None, cfg=None, norm_only=False):
     """K1 over a batch of sequences, one thread block each, in one launch:
     same arguments and outputs as ``filter_scan_batch_plain`` (lengths: an
     int32 tensor on w's device, every entry in [1, Tmax]), but the rows
     past a sequence's length are left unwritten.  Each sequence's rows are
-    bit-equal to ``filter_scan`` on that sequence alone."""
+    bit-equal to ``filter_scan`` on that sequence alone under its own
+    transition.
+
+    ``cfg``: an int32 (E,) tensor on w's device; tlat (G, n_dyn, L, L) and
+    tdyn (G, n_dyn, n_dyn) then stack G configurations that share the
+    constant-channel flags ``uniform_rows``, and sequence e runs under
+    configuration cfg[e] (``band``: the stacked band of the G, made here
+    when None).  ``norm_only``: return (None, None, norm); the kernel
+    skips its row stores and the normalisers keep their bits."""
     E, Tmax, L = w.shape
-    n_dyn = tlat.shape[0]
+    n_dyn = tlat.shape[-3]
     _check_dims(n_dyn, L, uniform_rows)
     dev = w.device
     _check("w", w, (E, Tmax, L), dev, batch=True)
-    _check("tlat", tlat, (n_dyn, L, L), dev)
-    _check("tdyn", tdyn, (n_dyn, n_dyn), dev)
+    G = _check_stack("tlat", tlat, tdyn, cfg, E, n_dyn, L, dev)
     _check("p_init", p_init, (E, n_dyn, L), dev)
     _check_lengths(lengths, E, Tmax, dev, shortest=1)
     if band is not None:
-        check_band(band, uniform_rows, L, dev)
+        check_band(band, uniform_rows, L, dev, n_config=G)
     if dev.type == "cpu":
-        return filter_scan_batch_plain(w, tlat, tdyn, p_init, lengths,
-                                       uniform_rows)
+        out = filter_scan_batch_plain(w, tlat, tdyn, p_init, lengths,
+                                      uniform_rows, cfg)
+        return (None, None, out[2]) if norm_only else out
     if dev.type != "cuda":
         raise ValueError(
             f"filter_scan_batch runs on cpu or cuda, not {dev.type}")
     if E == 0:
-        return (torch.empty((0, Tmax, n_dyn, L), device=dev),
-                torch.empty((0, Tmax, n_dyn, L), device=dev),
-                torch.empty((0, Tmax), device=dev))
+        rows = None if norm_only else torch.empty((0, Tmax, n_dyn, L),
+                                                  device=dev)
+        return rows, rows, torch.empty((0, Tmax), device=dev)
     err, out = _launch_filter(w, tlat, tdyn, p_init, lengths, uniform_rows,
-                              band)
+                              band, cfg, store=not norm_only)
     filter_scan_batch.launches += 1
+    _count_mode(filter_scan_batch,
+                "norm" if norm_only else _stack_mode(cfg))
     _raise_on(err, "filter_scan_batch")
     return out
 
 
 filter_scan_batch.launches = 0
+#: launches by mode: "shared" (one transition for the batch), "cfg" (a
+#: configuration per sequence), "norm" (norm-only, either)
+filter_scan_batch.launches_by_mode = {}
 
 
 def _weights(ll, likelihood_scale):
@@ -348,17 +424,21 @@ def filter_chunk(ll, tlat, tdyn, p_init, likelihood_scale, uniform_rows=None,
 
 
 def filter_chunk_batch(ll, tlat, tdyn, p_init, lengths, likelihood_scale,
-                       uniform_rows=None, band=None):
+                       uniform_rows=None, band=None, cfg=None,
+                       norm_only=False):
     """``filter_chunk`` over a batch: ll (E, Tmax, L), p_init (E, n_dyn,
-    L), lengths (E,) int32.  Returns (post, prior (E, Tmax, n_dyn, L),
-    ratios (E, Tmax)); the ratios are 0 past each sequence's length, so
-    their sum over time is the sequence's log marginal."""
+    L), lengths (E,) int32; ``cfg`` and ``norm_only`` as for
+    ``filter_scan_batch`` (``uniform_rows`` None: detected on the first
+    configuration).  Returns (post, prior (E, Tmax, n_dyn, L), or None
+    with ``norm_only``, ratios (E, Tmax)); the ratios are 0 past each
+    sequence's length, so their sum over time is the sequence's log
+    marginal."""
     if uniform_rows is None:
-        uniform_rows = _detect_uniform_rows(tlat)
+        uniform_rows = _detect_uniform_rows(tlat.reshape(-1, *tlat.shape[-3:])[0])
     w, m = _weights(ll, likelihood_scale)
     post, prior, norm = filter_scan_batch(
         w, tlat.contiguous(), tdyn.contiguous(), p_init.contiguous(),
-        lengths, uniform_rows, band,
+        lengths, uniform_rows, band, cfg=cfg, norm_only=norm_only,
     )
     valid = _valid_rows(lengths, ll.shape[1])
     ratios = torch.log(torch.where(valid, norm, 1.0)) + likelihood_scale * m
@@ -395,23 +475,24 @@ def smoother_scan_plain(filt, prior, tlat_t, tdyn, init, uniform_rows):
 
 
 def smoother_scan_batch_plain(filt, prior, tlat_t, tdyn, init, lengths,
-                              uniform_rows):
+                              uniform_rows, cfg=None):
     """Plain version of K2 over a batch: ``smoother_scan_plain`` on each
     sequence's own rows.  filt, prior (E, Tmax, n_dyn, L); init (E, n_dyn,
-    L); lengths (E,), 0 for a sequence with nothing to smooth over.
+    L); lengths (E,), 0 for a sequence with nothing to smooth over; with
+    ``cfg`` (E,) sequence e runs under tlat_t[cfg[e]] and tdyn[cfg[e]].
     Returns smooth and r (E, Tmax, n_dyn, L), zero past each length."""
     smooth = torch.zeros(filt.shape, dtype=filt.dtype, device=filt.device)
     rout = torch.zeros_like(smooth)
     for e, n in enumerate(lengths.tolist()):
         if n:
+            tl, td = _seq_transition(tlat_t, tdyn, cfg, e)
             smooth[e, :n], rout[e, :n] = smoother_scan_plain(
-                filt[e, :n], prior[e, :n], tlat_t, tdyn, init[e],
-                uniform_rows)
+                filt[e, :n], prior[e, :n], tl, td, init[e], uniform_rows)
     return smooth, rout
 
 
 def _launch_smoother(filt, prior, tlat_t, tdyn, init, lengths, uniform_rows,
-                     band):
+                     band, cfg=None):
     """One K2 launch over the batch filt, prior (E, Tmax, n_dyn, L), E and
     Tmax >= 1; ``lengths`` None runs Tmax rows of every sequence."""
     E, Tmax, n_dyn, L = filt.shape
@@ -419,15 +500,15 @@ def _launch_smoother(filt, prior, tlat_t, tdyn, init, lengths, uniform_rows,
     smooth = torch.empty((E, Tmax, n_dyn, L), dtype=torch.float32, device=dev)
     rout = torch.empty_like(smooth)
     band = _band_for(band, None, tlat_t, uniform_rows)
+    # the pull half is the second, contiguous half of each band
+    mats, win0, *strides = _stack_args(band, 1, tlat_t, tdyn, cfg)
     with torch.cuda.device(dev):
-        # the pull half is the second, contiguous half of the band
         err = _lib().pmg_smoother_scan(
-            filt.data_ptr(), prior.data_ptr(), tlat_t.data_ptr(),
-            band.mats[1].data_ptr(), band.start[1].data_ptr(),
-            tdyn.data_ptr(), init.data_ptr(), _ptr(lengths),
+            filt.data_ptr(), prior.data_ptr(), tlat_t.data_ptr(), mats, win0,
+            tdyn.data_ptr(), init.data_ptr(), _ptr(lengths), _ptr(cfg),
             smooth.data_ptr(), rout.data_ptr(), filt.stride(0),
-            prior.stride(0), E, Tmax, n_dyn, L, band.W, _mask(uniform_rows),
-            _stream_ptr(dev),
+            prior.stride(0), *strides, E, Tmax, n_dyn, L, band.W,
+            _mask(uniform_rows), _stream_ptr(dev),
         )
     return err, (smooth, rout)
 
@@ -467,7 +548,7 @@ smoother_scan.launches = 0
 
 
 def smoother_scan_batch(filt, prior, tlat_t, tdyn, init, lengths,
-                        uniform_rows, band=None):
+                        uniform_rows, band=None, cfg=None):
     """K2 over a batch of sequences, one thread block each, in one launch:
     same arguments and outputs as ``smoother_scan_batch_plain`` (lengths:
     an int32 tensor on filt's device, every entry in [0, Tmax]), but the
@@ -475,21 +556,22 @@ def smoother_scan_batch(filt, prior, tlat_t, tdyn, init, lengths,
     be slices along time of larger batched arrays (the filter's outputs:
     ``post[:, :-1]``, ``prior[:, 1:]``): the kernel takes their stride
     between sequences.  Each sequence's rows are bit-equal to
-    ``smoother_scan`` on that sequence alone."""
+    ``smoother_scan`` on that sequence alone under its own transition.
+    ``cfg``: as for ``filter_scan_batch``, with tlat_t (G, n_dyn, L, L)
+    the transposed stacks."""
     E, Tmax, n_dyn, L = filt.shape
     _check_dims(n_dyn, L, uniform_rows)
     dev = filt.device
     _check("filt", filt, (E, Tmax, n_dyn, L), dev, batch=True)
     _check("prior", prior, (E, Tmax, n_dyn, L), dev, batch=True)
-    _check("tlat_t", tlat_t, (n_dyn, L, L), dev)
-    _check("tdyn", tdyn, (n_dyn, n_dyn), dev)
+    G = _check_stack("tlat_t", tlat_t, tdyn, cfg, E, n_dyn, L, dev)
     _check("init", init, (E, n_dyn, L), dev)
     _check_lengths(lengths, E, Tmax, dev, shortest=0)
     if band is not None:
-        check_band(band, uniform_rows, L, dev)
+        check_band(band, uniform_rows, L, dev, n_config=G)
     if dev.type == "cpu":
         return smoother_scan_batch_plain(filt, prior, tlat_t, tdyn, init,
-                                         lengths, uniform_rows)
+                                         lengths, uniform_rows, cfg)
     if dev.type != "cuda":
         raise ValueError(
             f"smoother_scan_batch runs on cpu or cuda, not {dev.type}")
@@ -497,13 +579,16 @@ def smoother_scan_batch(filt, prior, tlat_t, tdyn, init, lengths,
         return (torch.empty((E, Tmax, n_dyn, L), device=dev),
                 torch.empty((E, Tmax, n_dyn, L), device=dev))
     err, out = _launch_smoother(filt, prior, tlat_t, tdyn, init, lengths,
-                                uniform_rows, band)
+                                uniform_rows, band, cfg)
     smoother_scan_batch.launches += 1
+    _count_mode(smoother_scan_batch, _stack_mode(cfg))
     _raise_on(err, "smoother_scan_batch")
     return out
 
 
 smoother_scan_batch.launches = 0
+#: launches by mode: "shared" or "cfg", as for filter_scan_batch
+smoother_scan_batch.launches_by_mode = {}
 
 
 def smoother_chunk(filt_xs, prior_xs, tlat, tdyn, smooth_init,
@@ -525,15 +610,16 @@ def smoother_chunk(filt_xs, prior_xs, tlat, tdyn, smooth_init,
 
 
 def smoother_chunk_batch(filt_xs, prior_xs, tlat, tdyn, smooth_init, lengths,
-                         uniform_rows=None, band=None):
+                         uniform_rows=None, band=None, cfg=None):
     """``smoother_chunk`` over a batch: filt_xs, prior_xs (E, T', n_dyn,
     L) (slices along time of the filter's outputs are read in place),
-    smooth_init (E, n_dyn, L), lengths (E,) int32 rows to smooth over.
-    Returns (smooth, ratios) (E, T', n_dyn, L)."""
+    smooth_init (E, n_dyn, L), lengths (E,) int32 rows to smooth over;
+    ``cfg`` as for ``filter_chunk_batch``.  Returns (smooth, ratios) (E,
+    T', n_dyn, L)."""
     if uniform_rows is None:
-        uniform_rows = _detect_uniform_rows(tlat)
+        uniform_rows = _detect_uniform_rows(tlat.reshape(-1, *tlat.shape[-3:])[0])
     tlat_t = tlat.transpose(-1, -2).contiguous()
     return smoother_scan_batch(
         _as_rows(filt_xs), _as_rows(prior_xs), tlat_t, tdyn.contiguous(),
-        smooth_init.contiguous(), lengths, uniform_rows, band,
+        smooth_init.contiguous(), lengths, uniform_rows, band, cfg=cfg,
     )

@@ -7,7 +7,9 @@ K1/K2 (sequential) are compared by ``kernel_vs_plain``, K3/K4
 against the same kernel forced dense by ``band_vs_dense``, ``joint_acc`` by
 ``joint_acc_vs_plain``; the batched full decode of ``hmm.
 smooth_batch_full`` (K1/K2 batched) by ``batch_full_vs_plain`` and, bit
-for bit against each sequence alone, by ``batch_full_vs_single``.
+for bit against each sequence alone, by ``batch_full_vs_single``; K1/K2
+with a configuration per sequence and the norm-only K1 by
+``config_batch_vs_single``.
 
 Shared by the CPU tests, the card tests and ``chip_smoke.py``.  Everything
 is built with numpy from a seed, so the same case can be fed to the JAX
@@ -21,6 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from poor_man_gplvm_tpu_torch.ops import band as bd
 from poor_man_gplvm_tpu_torch.ops import hmm
 from poor_man_gplvm_tpu_torch.ops import parallel_scan as ps
 from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk
@@ -36,7 +39,8 @@ __all__ = [
     "joint_acc_vs_plain", "JOINT_ACC_ENTRY_RTOL", "JOINT_ACC_FLOOR",
     "band_vs_dense", "BAND_K2_ROWS", "STEP_RTOL", "STEP_TOLERANCES",
     "pfilter_step_check", "psmooth_step_check", "pscan_failures",
-    "subnormal_prior_smoothers",
+    "subnormal_prior_smoothers", "CONFIG_MOVEMENT", "config_stack",
+    "config_batch_vs_single",
 ]
 
 #: kernel vs plain version (and port vs JAX): posteriors/priors/smoothed
@@ -711,3 +715,116 @@ def subnormal_prior_smoothers(device):
     outs = {"K2": (sm2[0, 0], r2[0, 0]), "K4": (sm4[0, 0], r4[0, 0]),
             "prob": (smp[0], rp[0])}
     return outs, (filt, prior, carry, tlat)
+
+
+#: movement channel lengthscales of a mixed-band launch: the RBF's band is
+#: W = 11, 21, 41, 81 rows (``bench.py``'s sweep grid, 0.5 ... 4)
+CONFIG_MOVEMENT = (0.5, 1.0, 2.0, 4.0)
+
+
+def config_stack(L, device, movement=CONFIG_MOVEMENT,
+                 p_move_to_jump=(0.005, 0.01, 0.02, 0.05)):
+    """The transition stacks of the jump model over ``movement`` and
+    ``p_move_to_jump`` (paired in order): tlat (G, 2, L, L) and tdyn (G,
+    2, 2) on ``device``."""
+    from poor_man_gplvm_tpu_torch.ops import kernels as gpk
+
+    lats, dyns = [], []
+    for mv, pj in zip(movement, p_move_to_jump):
+        lat, _, dyn, _ = gpk.create_transition_prob_1d(
+            torch.arange(L, device=device), torch.arange(2, device=device),
+            mv, pj, 0.01)
+        lats.append(lat)
+        dyns.append(dyn)
+    return torch.stack(lats).contiguous(), torch.stack(dyns).contiguous()
+
+
+def config_batch_vs_single(device, L=500, lengths=(301, 37, 301, 2, 299,
+                                                   301, 1, 150),
+                           seed=0, movement=CONFIG_MOVEMENT):
+    """K1 and K2 over a batch whose sequences each run under their own
+    transition configuration (sequence e under configuration e mod G of
+    ``config_stack``, the bands padded to the widest) on ``device``:
+    held against ``*_batch_plain`` with the same index (as
+    ``kernel_vs_plain``), each sequence's rows bit for bit against the
+    unbatched kernel under its own configuration alone (on its own,
+    narrower band: ``equal_single``), the norm-only K1's normalisers
+    against the full K1's (``norm_only_equal``), and a launch without a
+    configuration index against the same launch through a stack of one
+    (``shared_equal``).  Also finite rows and the band heights W of each
+    configuration alone and of the stack."""
+    rng = np.random.default_rng(seed)
+    tlat, tdyn = config_stack(L, device, movement)
+    G = tlat.shape[0]
+    flags = sk._detect_uniform_rows(tlat[0])
+    tlat_t = tlat.transpose(-1, -2).contiguous()
+    E, Tmax = len(lengths), max(lengths)
+    ll = torch.as_tensor(
+        (rng.normal(size=(E, Tmax, L)) * 4.0 - 50.0).astype(np.float32),
+        device=device)
+    w = torch.exp(ll - ll.amax(dim=2, keepdim=True))
+    len_t = torch.as_tensor(lengths, dtype=torch.int32, device=device)
+    cfg = torch.arange(E, dtype=torch.int32, device=device) % G
+    init = torch.full((E, 2, L), 1.0 / (2 * L), device=device)
+    band = bd.transition_band(tlat, tlat_t, flags)
+    args_f = (w, tlat, tdyn, init, len_t, flags)
+    post_p, prior_p, s_p = sk.filter_scan_batch_plain(*args_f, cfg=cfg)
+    post_k, prior_k, s_k = sk.filter_scan_batch(*args_f, band=band, cfg=cfg)
+    s_n = sk.filter_scan_batch(*args_f, band=band, cfg=cfg,
+                               norm_only=True)[2]
+    each = torch.arange(E, device=device)
+    last = post_p[each, (len_t - 1).long()].contiguous()
+    args_s = (post_p[:, :-1], prior_p[:, 1:], tlat_t, tdyn, last, len_t - 1,
+              flags)
+    sm_p, r_p = sk.smoother_scan_batch_plain(*args_s, cfg=cfg)
+    sm_k, r_k = sk.smoother_scan_batch(*args_s, band=band, cfg=cfg)
+
+    err = {"post_abs": 0.0, "prior_abs": 0.0, "norm_rel": 0.0,
+           "smooth_abs": 0.0, "r_rel": 0.0}
+    equal = finite = norm_equal = True
+    W_single = []
+    for g in range(G):
+        W_single.append(bd.transition_band(tlat[g], tlat_t[g], flags).W)
+    for e, n in enumerate(lengths):
+        g = int(cfg[e])
+        own = (post_k[e, :n], prior_k[e, :n], s_k[e, :n], sm_k[e, :n - 1],
+               r_k[e, :n - 1])
+        alone = bd.transition_band(tlat[g], tlat_t[g], flags)
+        single = sk.filter_scan(w[e, :n].contiguous(), tlat[g], tdyn[g],
+                                init[e].contiguous(), flags, band=alone)
+        single += sk.smoother_scan(
+            post_p[e, :n - 1].contiguous(), prior_p[e, 1:n].contiguous(),
+            tlat_t[g], tdyn[g], last[e].contiguous(), flags, band=alone)
+        equal &= _all_equal(own, single)
+        norm_equal &= bool(torch.equal(s_n[e, :n], s_k[e, :n]))
+        finite &= all(bool(torch.isfinite(x).all()) for x in own)
+        nxt = torch.cat([sm_p[e, 1:n - 1], last[e][None]])[:n - 1]
+        for key, got, want in (("post_abs", own[0], post_p[e, :n]),
+                               ("prior_abs", own[1], prior_p[e, :n]),
+                               ("smooth_abs", own[3], sm_p[e, :n - 1])):
+            if want.numel():
+                err[key] = max(err[key], float((got - want).abs().max()))
+        err["norm_rel"] = max(err["norm_rel"], float(
+            ((own[2] - s_p[e, :n]).abs() / s_p[e, :n]).max()))
+        err["r_rel"] = max(err["r_rel"], _max_rel(
+            own[4], r_p[e, :n - 1], (prior_p[e, 1:n] > 1e-30) & (nxt > 1e-30)))
+
+    # no index against a stack of one under index 0
+    zero = torch.zeros(E, dtype=torch.int32, device=device)
+    shared = sk.filter_scan_batch(w, tlat[1], tdyn[1], init, len_t, flags)
+    stacked = sk.filter_scan_batch(w, tlat[1:2], tdyn[1:2], init, len_t,
+                                   flags, cfg=zero)
+    shared += sk.smoother_scan_batch(post_p[:, :-1], prior_p[:, 1:],
+                                     tlat_t[1], tdyn[1], last, len_t - 1,
+                                     flags)
+    stacked += sk.smoother_scan_batch(post_p[:, :-1], prior_p[:, 1:],
+                                      tlat_t[1:2], tdyn[1:2], last,
+                                      len_t - 1, flags, cfg=zero)
+    shared_equal = all(
+        torch.equal(a[e, :n - (i >= 3)], b[e, :n - (i >= 3)])
+        for i, (a, b) in enumerate(zip(shared, stacked))
+        for e, n in enumerate(lengths))
+    return {**err, "equal_single": bool(equal),
+            "norm_only_equal": bool(norm_equal), "finite": bool(finite),
+            "shared_equal": bool(shared_equal), "W": band.W,
+            "W_single": W_single}

@@ -4,7 +4,10 @@ every mode, with the K5 dots in each precision) and joint_acc against
 their plain versions; K1, K2, K3 and K4 on the band of nonzeros against
 the same kernel forced dense, bit for bit; the batched K1/K2 against the
 unbatched ones and the parallel kernels against the sequential ones, bit
-for bit.
+for bit; K1/K2 with one transition configuration per sequence (bands of
+mixed widths padded to the widest) and the norm-only K1 against their
+plain versions and, bit for bit, against the unbatched kernels under each
+configuration alone.
 
 Imports no jax, so it runs on a machine with a card and no JAX:
 
@@ -30,6 +33,7 @@ from poor_man_gplvm_tpu_torch.testing import (  # noqa: E402
     SCAN_TOLERANCES,
     band_vs_dense,
     batch_vs_single,
+    config_batch_vs_single,
     joint_acc_vs_plain,
     kernel_vs_plain,
     pscan_failures,
@@ -442,3 +446,58 @@ def test_smooth_batch_full_matches_plain_and_each_sequence(cuda, name):
     for key, tol in BATCH_FULL_TOLERANCES.items():
         assert err[key] <= tol, (key, err)
     assert batch_full_vs_single(m, y_b.astype(np.float32)) == []
+
+
+@pytest.mark.parametrize("L, movement", [
+    (500, (0.5, 1.0, 2.0, 4.0)),  # W = 11 ... 81 in one launch
+    (100, (1.0, 4.0)),
+])
+def test_config_indexed_kernels_equal_each_configuration_alone(cuda, L,
+                                                               movement):
+    # odd lengths with a masked tail (shorter sequences in the batch), a
+    # 1-bin and a 2-bin sequence; each sequence under its own configuration
+    err = config_batch_vs_single(cuda, L=L, movement=movement)
+    torch.cuda.synchronize()
+    assert err["equal_single"], err
+    assert err["norm_only_equal"], err
+    assert err["shared_equal"], err
+    for key in ("post_abs", "prior_abs", "smooth_abs", "r_rel"):
+        assert err[key] <= SCAN_TOLERANCES[key], (key, err)
+    assert err["norm_rel"] <= 1e-5 and err["finite"], err
+    assert err["W"] == max(err["W_single"]), err
+    if L == 500:
+        assert err["W_single"] == [11, 21, 41, 81], err
+
+
+def test_config_index_launch_counts_and_bad_inputs(cuda):
+    from poor_man_gplvm_tpu_torch.testing import config_stack
+
+    E, T, L = 4, 9, 40
+    tlat, tdyn = config_stack(L, cuda, movement=(1.0, 2.0),
+                              p_move_to_jump=(0.01, 0.02))
+    flags = sk._detect_uniform_rows(tlat[0])
+    w = torch.rand((E, T, L), device=cuda)
+    init = torch.full((E, 2, L), 1.0 / (2 * L), device=cuda)
+    lengths = torch.full((E,), T, dtype=torch.int32, device=cuda)
+    cfg = torch.tensor([0, 1, 1, 0], dtype=torch.int32, device=cuda)
+    sk.filter_scan_batch.launches_by_mode = {}
+    sk.smoother_scan_batch.launches_by_mode = {}
+    post, prior, _ = sk.filter_scan_batch(w, tlat, tdyn, init, lengths,
+                                          flags, cfg=cfg)
+    rows = sk.filter_scan_batch(w, tlat, tdyn, init, lengths, flags,
+                                cfg=cfg, norm_only=True)
+    assert rows[0] is None and rows[1] is None
+    sk.smoother_scan_batch(post[:, :-1], prior[:, 1:],
+                           tlat.transpose(-1, -2).contiguous(), tdyn,
+                           post[:, -1].contiguous(), lengths - 1, flags,
+                           cfg=cfg)
+    torch.cuda.synchronize()
+    assert sk.filter_scan_batch.launches_by_mode == {"cfg": 1, "norm": 1}
+    assert sk.smoother_scan_batch.launches_by_mode == {"cfg": 1}
+    for bad in (torch.tensor([0, 1, 2, 0], dtype=torch.int32, device=cuda),
+                cfg.long(), cfg[:3], cfg.cpu()):
+        with pytest.raises((ValueError, TypeError)):
+            sk.filter_scan_batch(w, tlat, tdyn, init, lengths, flags,
+                                 cfg=bad)
+    with pytest.raises(ValueError):  # one stack is (n_dyn, L, L)
+        sk.filter_scan_batch(w, tlat, tdyn, init, lengths, flags)

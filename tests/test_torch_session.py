@@ -27,14 +27,21 @@ import jax.random as jr  # noqa: E402
 
 import poor_man_gplvm_tpu as jpmg  # noqa: E402
 import poor_man_gplvm_tpu_torch as pmt  # noqa: E402
+from poor_man_gplvm_tpu import experimental as jexp  # noqa: E402
 from poor_man_gplvm_tpu import initializers as jinit  # noqa: E402
+from poor_man_gplvm_tpu import selection as jsel  # noqa: E402
 from poor_man_gplvm_tpu import validation as jval  # noqa: E402
+from poor_man_gplvm_tpu.ops import fit_tuning_with_basis as jftb  # noqa: E402
+from poor_man_gplvm_tpu.parallel import sweep as jsweep  # noqa: E402
 from poor_man_gplvm_tpu.utils import checkpoint as jck  # noqa: E402
 from poor_man_gplvm_tpu.utils import compat as jcompat  # noqa: E402
 from poor_man_gplvm_tpu.utils import profiling as jprof  # noqa: E402
 from poor_man_gplvm_tpu.utils import timeseries as jts  # noqa: E402
 from poor_man_gplvm_tpu_torch import convert, initializers  # noqa: E402
+from poor_man_gplvm_tpu_torch import experimental, selection  # noqa: E402
 from poor_man_gplvm_tpu_torch import validation  # noqa: E402
+from poor_man_gplvm_tpu_torch.ops import fit_tuning_with_basis as ftb  # noqa: E402
+from poor_man_gplvm_tpu_torch.parallel import sweep  # noqa: E402
 from poor_man_gplvm_tpu_torch.utils import checkpoint as ck  # noqa: E402
 from poor_man_gplvm_tpu_torch.utils import compat, profiling  # noqa: E402
 from poor_man_gplvm_tpu_torch.utils import timeseries as pts  # noqa: E402
@@ -356,17 +363,32 @@ MISSING_OK = {
     "initializers.init_with_pca": {"kwargs": "ignored by the JAX function; "
                                    "the port raises on an unknown keyword"},
 }
+#: device: where the models (or the tensors) of a port entry point live,
+#: the card by default, 'cpu' on request
+_DEVICE = {"device": "the card by default, 'cpu' on request"}
 #: JAX functions with no counterpart in the port, with the reason
 NOT_PORTED = {"profiling.enable_compilation_cache": "the port compiles no "
-              "programs; its CUDA kernels are built once into build/"}
+              "programs; its CUDA kernels are built once into build/",
+              **{f"gain.{m}": "the experimental drop-in shims, queue 1 item I"
+                 for m in ("core_exp", "decoder_exp", "fit_tuning_helper_exp",
+                           "test_exp")}}
 #: parameters the port adds, with the reason
 ADDED = {
     "__init__": {"device": "the card by default, 'cpu' on request"},
     "decode_latent_naive_bayes": {"observation_model": "the port's classes "
                                   "inherit the base method, which takes it "
                                   "in both packages"},
+    "sweep.sweep_fit_poisson_jump": _DEVICE,
+    "sweep.sweep_fit_model_class": _DEVICE,
+    "selection.fit_model_one_config": _DEVICE,
+    "selection.model_selection_one_split": _DEVICE,
+    "selection.get_jump_consensus_shuffle": _DEVICE,
 }
-RENAMED = {"key": "generator"}  # jax.random key -> torch.Generator
+#: jax.random keys -> torch.Generators.  Kept as in the JAX signatures and
+#: raising NotImplementedError (queue 1, item J): every ``mesh``.  The
+#: selection functions return ``selection.ResultTable`` where the JAX
+#: package returns a DataFrame (ROADMAP §3).
+RENAMED = {"key": "generator", "key_l": "generator_l"}
 
 
 def _signature_gaps(where, jfn, pfn):
@@ -415,7 +437,10 @@ def test_public_signatures_match_jax():
     modules = {"validation": (jval, validation),
                "initializers": (jinit, initializers),
                "compat": (jcompat, compat), "profiling": (jprof, profiling),
-               "checkpoint": (jck, ck), "timeseries": (jts, pts)}
+               "checkpoint": (jck, ck), "timeseries": (jts, pts),
+               "sweep": (jsweep, sweep), "selection": (jsel, selection),
+               "gain": (jexp, experimental),
+               "fit_tuning_with_basis": (jftb, ftb)}
     for mod, (jm, pm) in modules.items():
         names = set(getattr(jm, "__all__", ())) | {
             n for n in pm.__all__ if hasattr(jm, n)}
@@ -427,6 +452,10 @@ def test_public_signatures_match_jax():
             jobj, pobj = getattr(jm, fname), getattr(pm, fname, None)
             if pobj is None:
                 gaps.append(f"{where}: missing")
+            elif not callable(jobj):  # module data: the same keys
+                if isinstance(jobj, dict) and set(jobj) != set(pobj):
+                    gaps.append(f"{where}: keys {sorted(pobj)}, JAX "
+                                f"{sorted(jobj)}")
             elif inspect.isclass(jobj):
                 for meth in _public(jobj, ["__init__"]):
                     if not hasattr(pobj, meth):
