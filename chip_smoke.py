@@ -100,14 +100,31 @@ Phases, each of which checks its results (any failure exits non-zero):
     ``model_selection_one_split`` batched against serial, a realistic
     batched selection (1,600 masked filters through the norm-only K1),
     the gain model (its decode at T=100,000 bit for bit between the two
-    CUDA engines, 3 EM iterations) and the L-BFGS M-step.
+    CUDA engines, 3 EM iterations) and the L-BFGS M-step;
+13. compat (last): the drop-in surface and the reactivation workflow on
+    the session's recording (N = L = 500): the functional decoder
+    (``decoder.smooth_all_step_combined_ma_chunk`` at T=100,000 through
+    K3/K4, bit for bit against ``hmm.smooth_combined_chunked`` on the same
+    matrices and within the decode tolerance of ``decode_latent``; the
+    filter through one K1 launch; ``filter_all_step``/``smooth_all_step``
+    from a precomputed log-likelihood through one K1 and one K2 launch;
+    the latent-only pair on a ``PoissonGPLVM1D`` recording; the gain
+    smoother bit for bit against ``smooth_combined_chunked(dt_l=gain)``),
+    and ``analysis.reactivation``: the within-epoch shuffle null on two
+    epochs of 20,000 bins (100 shuffles in batches of 32: one K1 and one
+    K2 launch per batch and epoch, two shuffles of each epoch bit for bit
+    against the serial path on K1/K2, the serial loop timed, only the
+    means copied to the host, the first batch's kernels against plain at
+    its full length), the naive-Bayes null, and ``decode_ripple_epochs``
+    on the epochs phase's 1,000 ragged epochs, equal to
+    ``decode_latent_epochs``.
 
-Each main path (phases 5 with the epochs, 7, 8, 9, 10, 11, 12) runs with the
-kernels' launch counts,
-by mode and precision, set to 0 just before it and read just after;
-comparison runs are not counted.  The line before the last is a JSON
-summary of the kernels; the last line is ``{"ok": true, "device":
-{...}}``.  Imports torch, numpy and the port only.
+Each main path (phases 5 with the epochs, 7, 8, 9, 10, 11, 12, 13) runs
+with the kernels' launch counts, by mode and precision, set to 0 just
+before it and read just after; comparison runs are not counted.  The
+line before the last is a JSON summary of the kernels; the last line is
+``{"ok": true, "device": {...}}``.  Imports torch, numpy and the port
+only.
 """
 
 import contextlib
@@ -243,6 +260,19 @@ REAL_KW = dict(
                     "random_scale": 0.1}, "verboase": False},
     model_class_str="poisson", n_repeat=5, verbose=False,
     backend="batched")  # default fractions (0.2 ... 0.8) x 10 masks
+# the compat phase: the functional decoder on the session's recording
+# (N = L = SESSION_NL, T_LONG bins), K1/K2 alone on COMPAT_T_LL rows of
+# its log-likelihood, and the reactivation null on two epochs of
+# COMPAT_T_EP bins each with the JAX function's defaults
+COMPAT_T_LL = 10_000
+COMPAT_T_EP = 20_000  # ~8 min at 25 ms
+COMPAT_N_SHUFFLE = 100
+COMPAT_BATCH = 32
+COMPAT_ALONE = 2  # shuffles of each key bit for bit against the serial path
+COMPAT_SERIAL = 4  # shuffles of the timed serial loop
+COMPAT_PLAIN_E = 2  # the first batch's shuffles held against plain K1/K2
+COMPAT_NULL_RTOL = 1e-5  # batched against serial on the default engine
+COMPAT_PROFILE = 8  # shuffles of the profiled null and the host-build timing
 #: the n_dyn = 1 kernel rows of the kernels line: wrapper[mode] names
 NDYN1_KERNELS = ("filter_scan", "smoother_scan",
                  "pfilter_pass[finals/highest]", "pfilter_pass[emit/highest]",
@@ -2987,6 +3017,354 @@ def phase_selection(launches):
     return rows
 
 
+# ---------------------------------------------------------------------------
+# compat: the drop-in surface (decoder, decoder_latentonly, decoder_exp) and
+# the reactivation workflow (analysis/reactivation.py)
+# ---------------------------------------------------------------------------
+
+
+def _ms(fn):
+    """(milliseconds on the host clock, result) of one call that ends in a
+    device synchronise."""
+    sec, out = wall_s(fn)
+    return 1e3 * sec, out
+
+
+def _post_err(a, b):
+    """Max |exp(a) - exp(b)| of two log posteriors where either is above
+    1e-30 (below, the kernels floor the log at -3e38 where the log-space
+    path keeps a finite log)."""
+    pa, pb = torch.exp(a), torch.exp(b)
+    where = (pa > 1e-30) | (pb > 1e-30)
+    return float((pa - pb).abs()[where].max())
+
+
+def _compat_decoder(m, y, launches):
+    """The functional decoder at N = L = SESSION_NL, T_LONG bins, through
+    the entry points a JAX caller's script calls, default engine: each
+    call's kernels counted and its ms printed."""
+    from poor_man_gplvm_tpu_torch import decoder, decoder_latentonly, gp_kernel
+    from poor_man_gplvm_tpu_torch.experimental import decoder_exp
+    from poor_man_gplvm_tpu_torch.ops import hmm
+
+    L = m.n_latent_bin
+    _, log_lat, _, log_dyn = gp_kernel.create_transition_prob_1d(
+        m.possible_latent_bin, m.possible_dynamics, m.movement_variance,
+        m.p_move_to_jump, m.p_jump_to_move)
+    args = (y, m.tuning, {}, log_lat, log_dyn, m.ma_neuron_default,
+            m.ma_latent_default)
+
+    def run(what, fn, want):
+        """One counted call, its result; ``want`` (wrapper: n, or None for
+        at least one) the launches it must make, and no other kernel but
+        ``joint_acc`` (the parallel smoother's pairwise joint).  Then the
+        call again, uncounted: its ms is the one reported (the first
+        includes the kernels' first launches)."""
+        got = {}
+        with counted_into(got, launches):
+            ms_first, out = _ms(fn)
+        ms, _ = _ms(fn)
+        ok = all((got.get(k, 0) == n if n is not None else got.get(k, 0) > 0)
+                 for k, n in want.items())
+        other = [k for k, n in got.items() if n and "[" not in k
+                 and k not in want and k != "joint_acc"]
+        check(ok and not other, f"{what}: launches {got}, want {want}")
+        log(f"compat {what}: {ms:.1f} ms (host clock; first call "
+            f"{ms_first:.1f}), launches "
+            f"{ {k: v for k, v in got.items() if '[' not in k and v} }")
+        return out
+
+    par = {"pfilter_pass": None, "psmooth_pass": None}
+    smooth = run(f"decoder.smooth_all_step_combined_ma_chunk T={T_LONG} "
+                 f"N=L={L}", lambda: decoder.smooth_all_step_combined_ma_chunk(
+                     *args), par)
+    ref = hmm.smooth_combined_chunked(
+        y, m.tuning, {}, decoder._joint(log_lat, log_dyn), m.ma_neuron_default,
+        m.ma_latent_default, n_time_per_chunk=10000, engine="cuda")
+    bits = all(torch.equal(a, b) for a, b in zip(smooth, ref))
+    dec = m.decode_latent(y)
+    post_err = float((torch.exp(smooth[0]) - dec["posterior_all"]).abs().max())
+    lmf_rel = abs(float(smooth[1]) - dec["log_marginal_final"]) / abs(
+        dec["log_marginal_final"])
+    log(f"compat smoother: bit-equal to hmm.smooth_combined_chunked on "
+        f"decoder._joint of the same matrices: {bits}; against "
+        f"decode_latent: max |post| {post_err:.3e}, log marginal rel "
+        f"{lmf_rel:.3e}")
+    check(bits and post_err <= DECODE_POST_ATOL
+          and lmf_rel <= DECODE_LMF_RTOL, (bits, post_err, lmf_rel))
+    lml = float(smooth[1])
+    ll = smooth[5]
+    del smooth, ref, dec
+
+    filt = run(f"decoder.filter_all_step_combined_ma T={T_LONG}",
+               lambda: decoder.filter_all_step_combined_ma(*args),
+               {"filter_scan": 1})
+    rel = abs(float(filt[1]) - lml) / abs(lml)
+    check(filt[0].shape == (T_LONG, 2, L) and rel <= DECODE_LMF_RTOL
+          and bool(torch.isfinite(filt[3]).all()), ("filter", rel))
+    log(f"compat filter: log marginal rel {rel:.3e} to the smoother's")
+    del filt
+
+    t = COMPAT_T_LL
+    f = run(f"decoder.filter_all_step from a ({t}, {L}) log-likelihood",
+            lambda: decoder.filter_all_step(ll[:t], log_lat, log_dyn),
+            {"filter_scan": 1})
+    s = run(f"decoder.smooth_all_step over {t} steps",
+            lambda: decoder.smooth_all_step(f[0], f[2][1:], log_lat, log_dyn),
+            {"smoother_scan": 1})
+    with sequential_engine():
+        want = hmm.smooth_combined_chunked(
+            y[:t], m.tuning, {}, decoder._joint(log_lat, log_dyn),
+            m.ma_neuron_default, m.ma_latent_default, engine="cuda")
+    errs = (_post_err(f[0], want[2]), _post_err(s[0], want[0]),
+            abs(float(f[1]) - float(want[1])) / abs(float(want[1])))
+    log(f"compat filter_all_step/smooth_all_step against the chunked "
+        f"smoother (K1/K2): max |filter post| {errs[0]:.3e}, max |smoothed "
+        f"post| {errs[1]:.3e}, log marginal rel {errs[2]:.3e}")
+    check(errs[0] <= DECODE_POST_ATOL and errs[1] <= DECODE_POST_ATOL
+          and errs[2] <= DECODE_LMF_RTOL, ("filter/smooth_all_step", errs))
+    del f, s, want, ll
+
+    gain = torch.as_tensor(np.random.default_rng(1010).uniform(
+        0.5, 2.0, T_LONG).astype(np.float32), device="cuda")
+    g = run(f"decoder_exp.smooth_all_step_combined_ma_chunk_gain T={T_LONG}",
+            lambda: decoder_exp.smooth_all_step_combined_ma_chunk_gain(
+                *args, gain_l=gain), par)
+    ref = hmm.smooth_combined_chunked(
+        y, m.tuning, {}, decoder._joint(log_lat, log_dyn), m.ma_neuron_default,
+        m.ma_latent_default, n_time_per_chunk=10000, engine="cuda",
+        dt_l=gain)
+    bits = all(torch.equal(a, b) for a, b in zip(g, ref))
+    log(f"compat gain smoother: bit-equal to smooth_combined_chunked("
+        f"dt_l=gain): {bits}")
+    check(bits and np.isfinite(float(g[1])), "gain smoother")
+    del g, ref
+
+    # the latent-only pair at n_dyn = 1, on a PoissonGPLVM1D recording
+    m1 = _family_model("PoissonGPLVM1D", m.n_neuron, L, "auto", seed=1011)
+    y1, _ = _family_data(m1, T_LONG, 1012)
+    _, log_k = gp_kernel.create_transition_prob_latent_1d(
+        m1.possible_latent_bin, m1.movement_variance)
+    args1 = (y1, m1.tuning, {}, log_k, m1.ma_neuron_default,
+             m1.ma_latent_default)
+    s1 = run(f"decoder_latentonly.smooth_all_step_combined_ma_chunk_latent "
+             f"T={T_LONG}", lambda: decoder_latentonly
+             .smooth_all_step_combined_ma_chunk_latent(*args1), par)
+    dec1 = m1.decode_latent(y1)
+    post_err = float((torch.exp(s1[0]) - dec1["posterior_all"]).abs().max())
+    lmf_rel = abs(float(s1[1]) - dec1["log_marginal_final"]) / abs(
+        dec1["log_marginal_final"])
+    f1 = run(f"decoder_latentonly.filter_all_step_combined_ma_latent "
+             f"T={T_LONG}", lambda: decoder_latentonly
+             .filter_all_step_combined_ma_latent(*args1), {"filter_scan": 1})
+    rel = abs(float(f1[1]) - float(s1[1])) / abs(float(s1[1]))
+    log(f"compat latent-only: smoother against decode_latent max |post| "
+        f"{post_err:.3e}, log marginal rel {lmf_rel:.3e}; filter log "
+        f"marginal rel {rel:.3e}")
+    check(post_err <= DECODE_POST_ATOL and lmf_rel <= DECODE_LMF_RTOL
+          and rel <= DECODE_LMF_RTOL, ("latent-only", post_err, lmf_rel, rel))
+
+
+def _compat_shuffles(v, seed, key_index, n_keys, E):
+    """The first ``E`` shuffles of one key of the reactivation null:
+    the seeds are drawn one per (shuffle, key), shuffle by shuffle."""
+    from poor_man_gplvm_tpu_torch.analysis import reactivation
+
+    rng = np.random.default_rng(seed)
+    seeds = [int(rng.integers(2**31)) for _ in range(E * n_keys)]
+    return np.stack([reactivation.circular_shuffle_column_independently(
+        v, min_shift=5, rng=s) for s in seeds[key_index::n_keys]])
+
+
+def _compat_plain_rows(m, v, seed):
+    """The null's first batch, cut to COMPAT_PLAIN_E shuffles at its full
+    length: batched K1 and K2 against their plain versions on the batch's
+    own log-likelihood rows, timed.  Returns the kernels line's rows."""
+    from poor_man_gplvm_tpu_torch.ops import hmm
+    from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk
+    from poor_man_gplvm_tpu_torch.testing import SCAN_TOLERANCES, _max_rel
+
+    E, (T, L) = COMPAT_PLAIN_E, (v.shape[0], m.n_latent_bin)
+    trans, _ = m._make_transition({})
+    y_b = torch.as_tensor(_compat_shuffles(v, seed, 0, 2, E),
+                          dtype=torch.float32, device=m.device)
+    ll = hmm.sequence_loglikelihoods(
+        y_b, m.tuning, {}, m.ma_neuron_default, m.ma_latent_default,
+        hmm.auto_chunk_size(T, 2 * L, L, m.device))
+    w, _ = sk._weights(ll, 1.0)
+    band = hmm._cached_band(trans, trans.Tlat)
+    tlat_t = trans.Tlat.transpose(-1, -2).contiguous()
+    flags = trans.uniform_rows
+    p_init = torch.exp(trans.uniform_log_init())[None].expand(
+        E, 2, L).contiguous()
+    lengths = torch.full((E,), T, dtype=torch.int32, device=m.device)
+    nnz = _nnz(trans.Tlat, flags)
+    k1 = lambda: sk.filter_scan_batch(  # noqa: E731
+        w, trans.Tlat, trans.Tdyn, p_init, lengths, flags, band=band)
+    post, prior, norm = k1()
+    want, plain1 = timed_once(lambda: sk.filter_scan_batch_plain(
+        w, trans.Tlat, trans.Tdyn, p_init, lengths, flags))
+    err1 = max(float((a - b).abs().max())
+               for a, b in zip((post, prior), want[:2]))
+    last = post[:, -1].contiguous()
+    k2 = lambda: sk.smoother_scan_batch(  # noqa: E731
+        post[:, :-1], prior[:, 1:], tlat_t, trans.Tdyn, last, lengths - 1,
+        flags, band=band)
+    smooth, r = k2()
+    want2, plain2 = timed_once(lambda: sk.smoother_scan_batch_plain(
+        want[0][:, :-1], want[1][:, 1:], tlat_t, trans.Tdyn,
+        want[0][:, -1].contiguous(), lengths - 1, flags))
+    err2 = float((smooth - want2[0]).abs().max())
+    nxt = torch.cat([smooth[:, 1:], last[:, None]], dim=1)
+    r_rel = _max_rel(r, want2[1], (prior[:, 1:] > 1e-30) & (nxt > 1e-30))
+    finite = all(bool(torch.isfinite(x).all())
+                 for x in (post, prior, norm, smooth, r))
+    check(err1 <= SCAN_TOLERANCES["post_abs"]
+          and err2 <= SCAN_TOLERANCES["smooth_abs"]
+          and r_rel <= SCAN_TOLERANCES["r_rel"] and finite,
+          ("the reactivation null's first batch against plain", err1, err2,
+           r_rel))
+    rows = {}
+    for name, kern, err, plain_ms, steps in (
+            ("filter_scan_batch", k1, err1, plain1, E * T),
+            ("smoother_scan_batch", k2, err2, plain2, E * (T - 1))):
+        ms = cuda_ms(kern, 5)
+        b_ms, b_by = kernel_bound(name, steps, L, 2, nnz)
+        rows[name] = dict(E=E, steps=steps, max_abs_err=err, ms=ms,
+                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                          library_ms=None)
+        log(f"time {name} on the reactivation null's first batch (E={E} "
+            f"shuffles of {T} bins, L={L}, {steps} steps in all): kernel "
+            f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms "
+            f"({b_by}); max |kernel - plain| {err:.3e}"
+            + (f", r rel {r_rel:.2e}" if name.startswith("smoother") else ""))
+    return rows
+
+
+def _compat_reactivation(m, y, y_tsdf, launches):
+    """The reactivation workflow at N = L = SESSION_NL: the within-epoch
+    null on two epochs of COMPAT_T_EP bins, batched (one K1 and one K2
+    launch per batch and key), two shuffles of each key bit for bit
+    against the serial path on K1/K2, the serial loop timed, the first
+    batch's kernels against plain, the naive-Bayes null, and
+    decode_ripple_epochs over the epochs phase's ragged epochs.  Returns
+    the kernels line's reactivation rows."""
+    from poor_man_gplvm_tpu_torch import IntervalSet
+    from poor_man_gplvm_tpu_torch.analysis import reactivation
+
+    T, L, dt, seed = COMPAT_T_EP, m.n_latent_bin, SESSION_DT, 1020
+    eps = {"pre": IntervalSet(0.0, (T - 0.5) * dt),
+           "post": IntervalSet(2 * T * dt, (3 * T - 0.5) * dt)}
+    null = reactivation.circular_shuffle_spikes_within_epoch_and_decode
+    kw = dict(decoder_type="dynamics", rng=seed, verbose=False)
+
+    got = {}
+    reactivation._to_host.bytes = 0
+    torch.cuda.reset_peak_memory_stats()
+    with counted_into(got, launches):
+        sec, table = wall_s(lambda: null(
+            m, y_tsdf, eps, n_shuffle=COMPAT_N_SHUFFLE,
+            shuffle_batch_size=COMPAT_BATCH, **kw))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_launch = 2 * -(-COMPAT_N_SHUFFLE // COMPAT_BATCH)
+    host_b = reactivation._to_host.bytes / COMPAT_N_SHUFFLE
+    check(got.get("filter_scan_batch") == n_launch
+          and got.get("smoother_scan_batch") == n_launch
+          and not got.get("pfilter_pass") and not got.get("psmooth_pass"),
+          f"reactivation null launches {got}")
+    check(len(table) == COMPAT_N_SHUFFLE * L and table.columns == [
+        "pre", "post", "diff"] and all(np.isfinite(table[c]).all()
+                                       for c in table.columns),
+          "reactivation null table")
+    sums = table["pre"].reshape(COMPAT_N_SHUFFLE, L).sum(axis=1)
+    check(np.abs(sums - 1).max() <= 1e-4, "mean posteriors sum to 1")
+    check(host_b == 2 * L * 4, f"{host_b} bytes per shuffle to the host")
+    log(f"compat reactivation null: 2 epochs of {T} bins, N=L={L}, "
+        f"{COMPAT_N_SHUFFLE} shuffles in batches of {COMPAT_BATCH}: "
+        f"{sec:.3f} s, {1e3 * sec / COMPAT_N_SHUFFLE:.1f} ms per shuffle "
+        f"(both epochs; launches {got}); {host_b:.0f} bytes per shuffle to "
+        f"the host (2 x L floats); peak device memory {peak:.2f} GiB")
+
+    # where the null's time goes: the host's shuffles, and the device's
+    # busy share of a small null (one batch per epoch)
+    v_pre = np.asarray(y_tsdf.restrict(eps["pre"]).d)
+    t0 = time.perf_counter()
+    _compat_shuffles(v_pre, seed, 0, 2, COMPAT_PROFILE)
+    host_ms = 1e3 * (time.perf_counter() - t0) / COMPAT_PROFILE
+    wall, busy, top, h2d = device_busy(lambda: null(
+        m, y_tsdf, eps, n_shuffle=COMPAT_PROFILE,
+        shuffle_batch_size=COMPAT_PROFILE, **kw))
+    log(f"compat reactivation null: one epoch's shuffle built on the host "
+        f"in {host_ms:.1f} ms (500 column rolls of {T} bins); under "
+        f"torch.profiler a null of {COMPAT_PROFILE} shuffles (one batch per "
+        f"epoch) keeps the device busy {busy:.3f} of {wall:.3f} s "
+        f"({100 * busy / wall:.1f} %), {h2d} host-to-device copies; top "
+        f"kernels {top}")
+
+    with sequential_engine():
+        alone = null(m, y_tsdf, eps, n_shuffle=COMPAT_ALONE, batched=False,
+                     **kw)
+    rows = COMPAT_ALONE * L
+    bits = all(np.array_equal(alone[c], table[c][:rows])
+               for c in table.columns)
+    log(f"compat reactivation null: shuffles 0-{COMPAT_ALONE - 1} of each "
+        f"epoch bit for bit against the serial path on K1/K2: {bits}")
+    check(bits, "batched null against the serial path")
+    sec_s, serial = wall_s(lambda: null(
+        m, y_tsdf, eps, n_shuffle=COMPAT_SERIAL, batched=False, **kw))
+    rows = COMPAT_SERIAL * L
+    rel = max(float(np.abs(serial[c] - table[c][:rows]).max()
+                    / np.abs(table[c][:rows]).max()) for c in table.columns)
+    log(f"compat reactivation null, serial loop on {COMPAT_SERIAL} shuffles "
+        f"(decode_latent, K3/K4 at {T} bins): {sec_s:.3f} s, "
+        f"{1e3 * sec_s / COMPAT_SERIAL:.1f} ms per shuffle; against the "
+        f"batched table max rel {rel:.2e}")
+    check(rel <= COMPAT_NULL_RTOL, ("serial against batched", rel))
+
+    kernel_rows = _compat_plain_rows(m, v_pre, seed)
+
+    with counted(launches):
+        sec_nb, nb = wall_s(lambda: null(
+            m, y_tsdf, eps, n_shuffle=COMPAT_N_SHUFFLE,
+            **dict(kw, decoder_type="naive_bayes")))
+    check(len(nb) == COMPAT_N_SHUFFLE * L
+          and all(np.isfinite(nb[c]).all() for c in nb.columns),
+          "naive-Bayes reactivation null")
+    log(f"compat reactivation naive-Bayes null: {COMPAT_N_SHUFFLE} shuffles "
+        f"{sec_nb:.3f} s, {1e3 * sec_nb / COMPAT_N_SHUFFLE:.1f} ms per "
+        "shuffle")
+
+    _, T_rec, E, bins, _ = EPOCH_CELLS[1]
+    lengths = _epoch_lengths(L, E, bins)
+    starts = np.random.default_rng(L + E).integers(0, T_rec - lengths)
+    intervals = np.stack([starts, starts + lengths], axis=1)
+    with counted(launches):
+        sec_r, rip = wall_s(lambda: reactivation.decode_ripple_epochs(
+            m, y, intervals))
+    own = m.decode_latent_epochs(y, intervals)
+    mean = np.stack([rip["posterior_mean_df"][j] for j in range(L)], axis=1)
+    same = np.array_equal(mean, own["posterior_mean"]) and np.array_equal(
+        rip["log_marginal_per_epoch"], own["log_marginal_per_epoch"])
+    log(f"compat decode_ripple_epochs: {E} ragged epochs of {bins[0]}-"
+        f"{bins[1]} bins, {1e3 * sec_r:.1f} ms; posterior_mean equal to "
+        f"decode_latent_epochs': {same}")
+    check(same, "decode_ripple_epochs against decode_latent_epochs")
+    return kernel_rows
+
+
+def phase_compat(launches):
+    """The drop-in surface and the reactivation workflow at N = L =
+    SESSION_NL on the session's sampled recording (``_compat_*``).
+    Returns the kernels line's rows of the batched K1/K2 on the
+    reactivation null's first batch."""
+    t0 = time.perf_counter()
+    m, _, y, y_tsdf = _session_model()
+    _compat_decoder(m, y, launches)
+    rows = _compat_reactivation(m, y, y_tsdf, launches)
+    log(f"compat phase {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def main():
     t_start = time.perf_counter()
     phase_preamble()
@@ -3011,6 +3389,7 @@ def main():
     t_sel = time.perf_counter()
     selection_rows = phase_selection(launches)
     log(f"selection phase {time.perf_counter() - t_sel:.1f} s")
+    compat_rows = phase_compat(launches)
     log(f"main-path launches: {launches}")
     path = {name: _path_launches(launches, name) for name in KERNELS}
     check(all(n > 0 for n in path.values()), path)
@@ -3067,6 +3446,10 @@ def main():
             # on the circular-shuffle null's first batch
             entry.update({f"{k}_session": v
                           for k, v in session_rows[name].items()})
+        if name in compat_rows:
+            # on the reactivation null's first batch
+            entry.update({f"{k}_reactivation": v
+                          for k, v in compat_rows[name].items()})
         if name in NDYN1_KERNELS:
             # the same kernel at n_dyn = 1, on a latent-only model's inputs
             entry["launches_ndyn1"] = _path_launches(ndyn1, name)
@@ -3086,7 +3469,9 @@ def main():
             "of its cell at L=100 and, *_L500, at L=500, and *_bs_L500 the "
             "first batch of its batch_size run; *_session the first batch "
             "of the session's dynamics null (E shuffles of "
-            f"{SESSION_T_NULL} bins, L={SESSION_NL}); each held against "
+            f"{SESSION_T_NULL} bins, L={SESSION_NL}); *_reactivation the "
+            "reactivation null's first batch cut to E shuffles of "
+            f"{COMPAT_T_EP} bins, L={SESSION_NL}; each held against "
             "plain"
             if shape_T is None else
             f"T={shape_T} n_dyn=2 (one RBF channel, ls=1, and "

@@ -20,8 +20,28 @@ containers (``utils.timeseries``, or pynapple's where it is installed)
 that ``t_l``/TsdFrame inputs and results use; the batched sweeps of
 ``parallel.sweep`` and the model selection of ``selection`` (K1/K2 with
 one transition configuration per sequence, the norm-only K1 for the
-downsampled log-marginals); the gain model of ``experimental``; and the
-legacy per-neuron L-BFGS M-step of ``ops.fit_tuning_with_basis``.
+downsampled log-marginals); the gain model of ``experimental``; the
+legacy per-neuron L-BFGS M-step of ``ops.fit_tuning_with_basis``; the
+reactivation analyses of ``analysis.reactivation`` (the within-epoch
+shuffle null as one K1 and one K2 launch per batch of shuffles); and the
+JAX package's drop-in surface: the modules ``core``, ``decoder``,
+``decoder_latentonly``, ``gp_kernel``, ``fit_tuning_helper``,
+``fit_tuning_with_basis``, ``initializer``, ``jump_analysis``,
+``model_selection_helper``, ``reactivation_analysis``, ``test``,
+``verify_latent_jump``, ``config`` and ``experimental.{core_exp,
+decoder_exp, fit_tuning_helper_exp, test_exp}``, under the same names.
+A script written against the JAX package's functional decoder runs
+unchanged: those entry points take ``device="cuda"`` (inputs moved there;
+without a card it raises) and ``engine=None`` (``'cuda'`` on the card,
+``'prob'`` on the CPU), and read the JAX engine names ``'pallas'`` and
+``'pallas_parallel'`` as ``'cuda'`` and ``'cuda_parallel'``.
+
+Not copied: the JAX package's numpy-only layers (``analysis_helper``,
+``distance_analysis``, ``pandas_util``, ``plot_helper``,
+``trial_analysis``, ``data``, ``plotting``, ``workflows``, and the rest of
+``analysis``).  They use no JAX, but importing them runs the JAX
+package's ``__init__``, which imports jax; they take numpy arrays from
+either package wherever JAX is installed.
 """
 
 from poor_man_gplvm_tpu_torch import (
@@ -34,6 +54,11 @@ from poor_man_gplvm_tpu_torch import (
     selection,
     utils,
     validation,
+)
+from poor_man_gplvm_tpu_torch.config import (
+    get_matmul_precision,
+    set_matmul_precision,
+    set_scan_precision,
 )
 from poor_man_gplvm_tpu_torch.models.jump1d import (
     AbstractGPLVMJump1D,
@@ -54,6 +79,24 @@ from poor_man_gplvm_tpu_torch.utils.timeseries import (
     TsGroup,
 )
 
+# the JAX package's reference-compatible submodule surface
+from poor_man_gplvm_tpu_torch import (  # noqa: E402,F401
+    analysis,
+    config,
+    core,
+    decoder,
+    decoder_latentonly,
+    fit_tuning_helper,
+    fit_tuning_with_basis,
+    gp_kernel,
+    initializer,
+    jump_analysis,
+    model_selection_helper,
+    reactivation_analysis,
+    test,
+    verify_latent_jump,
+)
+
 __all__ = [
     "AbstractGPLVM1D",
     "AbstractGPLVMJump1D",
@@ -66,14 +109,31 @@ __all__ = [
     "Tsd",
     "TsdFrame",
     "TsGroup",
+    "analysis",
+    "config",
     "convert",
+    "core",
+    "decoder",
+    "decoder_latentonly",
     "experimental",
+    "fit_tuning_helper",
+    "fit_tuning_with_basis",
     "generate_basis",
+    "get_matmul_precision",
+    "gp_kernel",
+    "initializer",
     "initializers",
+    "jump_analysis",
+    "model_selection_helper",
     "models",
     "ops",
     "parallel",
+    "reactivation_analysis",
     "selection",
+    "set_matmul_precision",
+    "set_scan_precision",
+    "test",
     "utils",
     "validation",
+    "verify_latent_jump",
 ]

@@ -26,7 +26,11 @@ On CPU tensors the kernels' wrappers run their plain versions.
 and one of K2 for the whole batch, one thread block per epoch.
 ``smooth_batch_full`` smooths a batch of equal-length sequences under one
 transition (the shuffles of ``validation.shuffle_and_decode``) with every
-output of ``smooth_combined_chunked``, the same way.  ``TransitionStack``
+output of ``smooth_combined_chunked``, the same way, and
+``smooth_batch_latent_mean`` keeps only each sequence's time mean of the
+latent marginal (the reactivation null, ``analysis/reactivation.py``).
+``filter_combined`` is the causal filter alone over one chunk (K1 on the
+CUDA engines), the functional decoder's ``filter_all_step_combined_ma``.  ``TransitionStack``
 holds G transitions of one shape, and ``_scan_batch`` runs a batch in which
 each sequence has its own (the runs of a sweep, ``parallel/sweep.py``).
 ``forward_filter_lml``, ``filter_lmls`` and ``filter_lml_batch`` give only
@@ -62,6 +66,8 @@ from poor_man_gplvm_tpu_torch.ops.emissions import (
 JOINT_ACC_INIT = -3.0e38
 
 ENGINES = ("prob", "log", "cuda", "cuda_parallel")
+#: the JAX package's names of the kernel engines, as the port's
+ENGINE_ALIASES = {"pallas": "cuda", "pallas_parallel": "cuda_parallel"}
 MEMORY_MODES = ("auto", "full", "checkpoint", "filter", "filter_bf16")
 
 __all__ = [
@@ -71,10 +77,12 @@ __all__ = [
     "prob_to_log",
     "auto_chunk_size",
     "smooth_combined_chunked",
+    "filter_combined",
     "epoch_loglikelihoods",
     "smooth_epochs",
     "sequence_loglikelihoods",
     "smooth_batch_full",
+    "smooth_batch_latent_mean",
     "TransitionStack",
     "stack_transitions",
     "forward_filter_lml",
@@ -674,6 +682,42 @@ def smooth_combined_chunked(
     )
 
 
+def filter_combined(
+    y, tuning, hyperparam, trans, ma_neuron, ma_latent, carry_init=None,
+    likelihood_scale=1.0, observation_model="poisson", engine="prob",
+):
+    """Causal filter over the full sequence (one chunk): the emissions,
+    then the filter from ``carry_init`` (log state, log marginal so far;
+    the uniform state and 0 when None).  Returns log-space
+    ``(log_posterior_all, log_marginal_final, log_prior_all,
+    log_one_step_predictive_marginals, log_likelihood_all)``.
+
+    ``'cuda'`` and ``'cuda_parallel'`` (and the JAX names ``'pallas'``,
+    ``'pallas_parallel'``): one launch of K1 (``trans.cuda_filter``); the
+    filter has no parallel-in-time variant, as in the JAX package.  On CPU
+    tensors K1 runs its plain version.  ``'prob'`` and ``'log'``: the
+    plain loops."""
+    engine = ENGINE_ALIASES.get(engine, engine)
+    check_engine(engine)
+    if engine == "cuda_parallel":
+        engine = "cuda"
+    device = tuning.device
+    y = torch.as_tensor(y, dtype=torch.float32, device=device)
+    ma_neuron = torch.as_tensor(ma_neuron, dtype=torch.float32, device=device)
+    if carry_init is None:
+        carry_init = (trans.uniform_log_init(), 0.0)
+    log_p = torch.as_tensor(carry_init[0], dtype=torch.float32, device=device)
+    logz = torch.as_tensor(carry_init[1], dtype=torch.float32, device=device)
+    in_log = engine == "log"
+    post, prior, ratios, carry_out, ll = _filter_chunk(
+        y, tuning, hyperparam, trans, ma_neuron, ma_latent,
+        (log_p if in_log else torch.exp(log_p), logz), likelihood_scale,
+        observation_model, engine)
+    if not in_log:
+        post, prior = prob_to_log(post), prob_to_log(prior)
+    return post, carry_out[1], prior, ratios, ll
+
+
 def _transition_stack(trans):
     """(tlat (n_dyn, L, L), tdyn (n_dyn, n_dyn)) of either transition; a
     latent-only one is the n_dyn = 1 stack.  A ``TransitionStack`` gives
@@ -900,6 +944,40 @@ def sequence_loglikelihoods(y_b, tuning, hyperparam, ma_neuron, ma_latent,
     return ll
 
 
+def _batch_inputs(y_b, tuning, ma_neuron, ma_latent):
+    """y_b (E, T, N), the (N,) neuron mask and the latent mask (all ones
+    when None) as f32 tensors on the tuning's device."""
+    device = tuning.device
+    y_b = torch.as_tensor(y_b, dtype=torch.float32, device=device)
+    ma_neuron = torch.as_tensor(ma_neuron, dtype=torch.float32, device=device)
+    if ma_latent is None:
+        ma_latent = torch.ones(tuning.shape[0], dtype=torch.float32,
+                               device=device)
+    return y_b, ma_neuron, ma_latent
+
+
+def _batch_kernels(y_b, tuning, hyperparam, trans, ma_neuron, ma_latent,
+                   likelihood_scale, n_time_per_chunk, observation_model):
+    """The CUDA engines' part of ``smooth_batch_full`` and
+    ``smooth_batch_latent_mean``: each sequence's log-likelihoods formed
+    on its own in the decode's chunks (``sequence_loglikelihoods``;
+    ``n_time_per_chunk`` None: ``auto_chunk_size`` of one sequence), then
+    one launch of K1 and one of K2 over the batch (``_scan_batch``).
+    Returns ``(ll, n_time_per_chunk, post, ratios, smooth, r, last)``."""
+    E, T = y_b.shape[:2]
+    L = tuning.shape[0]
+    if n_time_per_chunk is None:
+        n_time_per_chunk = auto_chunk_size(
+            T, trans.uniform_log_init().numel(), L, tuning.device)
+    ll = sequence_loglikelihoods(y_b, tuning, hyperparam, ma_neuron,
+                                 ma_latent, n_time_per_chunk,
+                                 observation_model)
+    post, ratios, smooth, r, last = _scan_batch(
+        ll, trans, torch.full((E,), T, dtype=torch.int32,
+                              device=tuning.device), likelihood_scale)
+    return ll, n_time_per_chunk, post, ratios, smooth, r, last
+
+
 def smooth_batch_full(y_b, tuning, hyperparam, trans, ma_neuron,
                       ma_latent=None, likelihood_scale=1.0,
                       n_time_per_chunk=None, observation_model="poisson",
@@ -932,13 +1010,9 @@ def smooth_batch_full(y_b, tuning, hyperparam, trans, ma_neuron,
         raise ValueError(
             f"memory_mode must be one of {MEMORY_MODES}, got {memory_mode!r}"
         )
-    device = tuning.device
-    y_b = torch.as_tensor(y_b, dtype=torch.float32, device=device)
+    y_b, ma_neuron, ma_latent = _batch_inputs(y_b, tuning, ma_neuron,
+                                              ma_latent)
     E, T = y_b.shape[:2]
-    L = tuning.shape[0]
-    ma_neuron = torch.as_tensor(ma_neuron, dtype=torch.float32, device=device)
-    if ma_latent is None:
-        ma_latent = torch.ones(L, dtype=torch.float32, device=device)
     if engine in ("prob", "log"):
         outs = [smooth_combined_chunked(
             y_b[e], tuning, hyperparam, trans, ma_neuron, ma_latent,
@@ -950,15 +1024,9 @@ def smooth_batch_full(y_b, tuning, hyperparam, trans, ma_neuron,
             None if j == 2 or outs[0][j] is None
             else torch.stack([o[j] for o in outs]) for j in range(6))
 
-    state_size = trans.uniform_log_init().numel()
-    if n_time_per_chunk is None:
-        n_time_per_chunk = auto_chunk_size(T, state_size, L, device)
-    ll = sequence_loglikelihoods(y_b, tuning, hyperparam, ma_neuron,
-                                 ma_latent, n_time_per_chunk,
-                                 observation_model)
-    post, ratios, smooth, r, last = _scan_batch(
-        ll, trans, torch.full((E,), T, dtype=torch.int32, device=device),
-        likelihood_scale)
+    ll, n_time_per_chunk, post, ratios, smooth, r, last = _batch_kernels(
+        y_b, tuning, hyperparam, trans, ma_neuron, ma_latent,
+        likelihood_scale, n_time_per_chunk, observation_model)
     is_joint = hasattr(trans, "Tdyn")
     acc = torch.stack([
         trans.outer_acc(post[e, :-1], r[e]) if is_joint
@@ -970,9 +1038,63 @@ def smooth_batch_full(y_b, tuning, hyperparam, trans, ma_neuron,
     del post, last
     smooth_log = prob_to_log(smooth if is_joint else smooth[:, :, 0])
     del smooth
-    keep_ll = _full_store(memory_mode, T, state_size, L)
+    keep_ll = _full_store(memory_mode, T, trans.uniform_log_init().numel(),
+                          tuning.shape[0])
     return (smooth_log, lml, None, ratios, prob_to_log(acc),
             ll if keep_ll else None)
+
+
+def _latent_marginal_mean(smooth_log, is_joint):
+    """(L,) time mean of the latent marginal of one log posterior (T,
+    *state), formed as ``decode_latent`` forms ``posterior_latent_marg``
+    (or a latent-only model's ``posterior_all``): exp, the sum over the
+    dynamics, then torch's mean over time of that fresh (T, L) tensor."""
+    post = torch.exp(smooth_log)
+    return (post.sum(dim=1) if is_joint else post).mean(dim=0)
+
+
+def smooth_batch_latent_mean(y_b, tuning, hyperparam, trans, ma_neuron,
+                             ma_latent=None, likelihood_scale=1.0,
+                             n_time_per_chunk=None,
+                             observation_model="poisson", engine="prob"):
+    """(E, L) time means of the smoothed latent marginals of a batch of E
+    equal-length sequences y_b (E, T, N) that share one transition, each
+    smoothed on its own (the reactivation null's shuffles).  Only these
+    means leave the function: on the card the posteriors stay there.
+
+    ``'cuda'`` and ``'cuda_parallel'``: the emissions, one launch of K1 and
+    one of K2 of ``smooth_batch_full`` (``_batch_kernels``); then each
+    sequence's mean from its own smoothed posterior, formed as the decode
+    of it alone forms its latent marginal (``_latent_marginal_mean``), so
+    that where ``smooth_batch_full`` equals that decode bit for bit, so
+    does the mean equal the mean of its ``posterior_latent_marg``.
+    ``'prob'`` and ``'log'``: ``smooth_combined_chunked`` per sequence."""
+    check_engine(engine)
+    y_b, ma_neuron, ma_latent = _batch_inputs(y_b, tuning, ma_neuron,
+                                              ma_latent)
+    E = y_b.shape[0]
+    is_joint = hasattr(trans, "Tdyn")
+    means = torch.empty((E, tuning.shape[0]), dtype=torch.float32,
+                        device=tuning.device)
+    if engine in ("prob", "log"):
+        for e in range(E):
+            smooth_log = smooth_combined_chunked(
+                y_b[e], tuning, hyperparam, trans, ma_neuron, ma_latent,
+                likelihood_scale=likelihood_scale,
+                n_time_per_chunk=n_time_per_chunk,
+                observation_model=observation_model, engine=engine)[0]
+            means[e] = _latent_marginal_mean(smooth_log, is_joint)
+        return means
+
+    ll, _, post, ratios, smooth, r, last = _batch_kernels(
+        y_b, tuning, hyperparam, trans, ma_neuron, ma_latent,
+        likelihood_scale, n_time_per_chunk, observation_model)
+    del ll, post, ratios, r
+    for e in range(E):
+        s = torch.cat([smooth[e], last[e, None]], dim=0)
+        means[e] = _latent_marginal_mean(
+            prob_to_log(s if is_joint else s[:, 0]), is_joint)
+    return means
 
 
 def _marginalize_log(smooth_log):

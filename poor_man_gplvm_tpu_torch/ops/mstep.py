@@ -42,6 +42,7 @@ __all__ = [
     "get_tuning_softplus",
     "make_adam_runner",
     "make_adam_runner_batch",
+    "make_adam_runner_cached",
     "package_adam_result",
     "poisson_m_step_objective",
     "poisson_m_step_objective_batch",
@@ -217,9 +218,16 @@ def gaussian_m_step_analytic(hyperparam, basis_mat, y_weighted, t_weighted):
     return torch.linalg.solve(H, rhs)
 
 
-def tree_l2_norm(x):
-    """L2 norm of a tensor (a pytree with one leaf in the JAX package)."""
-    return torch.sqrt(torch.sum(torch.square(x)))
+def tree_l2_norm(tree_x, squared=False):
+    """L2 norm across a tensor, or a list, tuple or dict of tensors (the
+    JAX package's pytree; reference fit_tuning_helper.py:199-205); its
+    square with ``squared``."""
+    if torch.is_tensor(tree_x):
+        sqnorm = torch.sum(torch.square(tree_x))
+    else:
+        leaves = tree_x.values() if isinstance(tree_x, dict) else tree_x
+        sqnorm = sum(torch.sum(torch.square(leaf)) for leaf in leaves)
+    return sqnorm if squared else torch.sqrt(sqnorm)
 
 
 class AdamState(NamedTuple):
@@ -312,6 +320,13 @@ def make_adam_runner(fun, step_size, maxiter=1000, tol=1e-6):
         }
 
     return run, adam_init
+
+
+def make_adam_runner_cached(fun, step_size, maxiter=1000, tol=1e-6):
+    """``make_adam_runner``.  The JAX package keeps its compiled Adam
+    program per (objective, settings) in a cache; the port compiles no
+    program, so there is nothing to keep and this is the same runner."""
+    return make_adam_runner(fun, step_size, maxiter=maxiter, tol=tol)
 
 
 def make_adam_runner_batch(fun, step_size, maxiter=1000, tol=1e-6):

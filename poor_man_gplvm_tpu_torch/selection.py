@@ -10,9 +10,9 @@ definitions and dict contracts, in PyTorch:
 * every entry point that builds models takes ``device`` (the card by
   default, ``'cpu'`` on request);
 * the JAX functions return pandas DataFrames, and the card's machine has
-  no pandas: the port returns a ``ResultTable`` (ordered numpy columns,
-  ``.columns``, ``len``, column access, ``.join``), whose
-  ``to_dataframe()`` imports pandas at the call.
+  no pandas: the port returns a ``ResultTable`` (``utils/table.py``:
+  ordered numpy columns, ``.columns``, ``len``, column access, ``.join``),
+  whose ``to_dataframe()`` imports pandas at the call.
 
 ``model_selection_one_split(backend='batched')`` runs the whole tree as
 ``parallel.sweep``'s batched programs: each bucket's EM with one K1 and
@@ -41,6 +41,7 @@ from poor_man_gplvm_tpu_torch.models.latent1d import (
 )
 from poor_man_gplvm_tpu_torch.ops import emissions, hmm
 from poor_man_gplvm_tpu_torch.parallel import sweep as _sweep
+from poor_man_gplvm_tpu_torch.utils.table import ResultTable
 
 __all__ = [
     "ResultTable",
@@ -75,61 +76,6 @@ default_fit_kwargs = {
 
 #: the Adam settings of fit_em, which the ridge classes' fit_em does not take
 _ADAM_FIT_KWARGS = ("m_step_step_size", "m_step_maxiter", "m_step_tol")
-
-
-class ResultTable:
-    """A small table of named numpy columns of equal length, in order: the
-    port's result format where the JAX package returns a DataFrame.
-    ``table[name]`` is a column, ``table.columns`` the names,
-    ``len(table)`` the rows; ``join`` puts two tables side by side;
-    ``to_dataframe()`` builds the pandas DataFrame (pandas is imported at
-    the call)."""
-
-    def __init__(self, columns=None):
-        self._cols = {}
-        for name, col in (columns or {}).items():
-            col = np.asarray(col)
-            if self._cols and len(col) != len(self):
-                raise ValueError(f"column {name!r} has {len(col)} rows, the "
-                                 f"table {len(self)}")
-            self._cols[name] = col
-
-    @property
-    def columns(self):
-        return list(self._cols)
-
-    def __len__(self):
-        return len(next(iter(self._cols.values()))) if self._cols else 0
-
-    def __getitem__(self, name):
-        return self._cols[name]
-
-    def to_dict(self):
-        return dict(self._cols)
-
-    def join(self, other):
-        """The columns of ``self`` then those of ``other`` (row by row;
-        names must differ)."""
-        if len(self) != len(other) and self._cols and other.columns:
-            raise ValueError("join needs tables of equal length")
-        clash = set(self.columns) & set(other.columns)
-        if clash:
-            raise ValueError(f"columns in both tables: {sorted(clash)}")
-        return ResultTable({**self._cols, **other.to_dict()})
-
-    def to_dataframe(self):
-        """The pandas DataFrame of the table (raises ``ImportError`` naming
-        pandas where it is not installed)."""
-        try:
-            import pandas as pd
-        except ImportError as exc:
-            raise ImportError(
-                "ResultTable.to_dataframe() needs pandas, which is not "
-                "installed") from exc
-        return pd.DataFrame(self._cols)
-
-    def __repr__(self):
-        return f"ResultTable({len(self)} rows, columns={self.columns})"
 
 
 def generate_hyperparam_grid(hyperparam_ranges):

@@ -1,11 +1,13 @@
 """Utilities of the port: the time-series containers (``timeseries``) and
-their pynapple shim (``compat``), EM checkpoints (``checkpoint``) and
-profiling helpers (``profiling``)."""
+their pynapple shim (``compat``), EM checkpoints (``checkpoint``),
+profiling helpers (``profiling``) and the ``ResultTable`` that stands for a
+pandas DataFrame (``table``)."""
 
 from poor_man_gplvm_tpu_torch.utils import (
     checkpoint,
     compat,
     profiling,
+    table,
     timeseries,
 )
 from poor_man_gplvm_tpu_torch.utils.timeseries import (
@@ -25,5 +27,6 @@ __all__ = [
     "checkpoint",
     "compat",
     "profiling",
+    "table",
     "timeseries",
 ]

@@ -1,0 +1,120 @@
+"""``ResultTable``: the port's result format where the JAX package returns
+a pandas DataFrame (the card's machine has no pandas).
+
+A table holds named numpy columns of equal length, in order, and an
+optional row index: one array per index level, with the level names.
+``to_dataframe()`` builds the DataFrame the JAX function returns, index
+included; pandas is imported at the call.  ``concat_tables`` stacks
+tables as ``pd.concat({key: frame, ...}, axis=0)`` does, with the keys as
+the outer index level.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+__all__ = ["ResultTable", "concat_tables"]
+
+
+class ResultTable:
+    """A small table of named numpy columns of equal length, in order.
+    ``table[name]`` is a column, ``table.columns`` the names,
+    ``len(table)`` the rows, ``table.index`` the index levels (a list of
+    arrays; one ``arange`` when none was given); ``join`` puts two tables
+    side by side; ``to_dataframe()`` builds the pandas DataFrame (pandas is
+    imported at the call)."""
+
+    def __init__(self, columns=None, index=None, index_names=None):
+        self._cols = {}
+        for name, col in (columns or {}).items():
+            col = np.asarray(col)
+            if self._cols and len(col) != len(self):
+                raise ValueError(f"column {name!r} has {len(col)} rows, the "
+                                 f"table {len(self)}")
+            self._cols[name] = col
+        self._index = None if index is None else [np.asarray(a)
+                                                  for a in index]
+        if self._index is not None and any(len(a) != len(self)
+                                           for a in self._index):
+            raise ValueError("every index level needs one entry per row")
+        n_levels = 1 if index is None else len(self._index)
+        self._index_names = (tuple(index_names) if index_names is not None
+                             else (None,) * n_levels)
+        if len(self._index_names) != n_levels:
+            raise ValueError(f"{len(self._index_names)} index names for "
+                             f"{n_levels} index levels")
+
+    @property
+    def columns(self):
+        return list(self._cols)
+
+    @property
+    def index(self):
+        if self._index is None:
+            return [np.arange(len(self))]
+        return list(self._index)
+
+    @property
+    def index_names(self):
+        return self._index_names
+
+    def __len__(self):
+        return len(next(iter(self._cols.values()))) if self._cols else 0
+
+    def __getitem__(self, name):
+        return self._cols[name]
+
+    def to_dict(self):
+        return dict(self._cols)
+
+    def join(self, other):
+        """The columns of ``self`` then those of ``other`` (row by row;
+        names must differ); the index is ``self``'s."""
+        if len(self) != len(other) and self._cols and other.columns:
+            raise ValueError("join needs tables of equal length")
+        clash = set(self.columns) & set(other.columns)
+        if clash:
+            raise ValueError(f"columns in both tables: {sorted(clash)}")
+        return ResultTable({**self._cols, **other.to_dict()}, self._index,
+                           self._index_names)
+
+    def to_dataframe(self):
+        """The pandas DataFrame of the table, with its index (raises
+        ``ImportError`` naming pandas where it is not installed)."""
+        try:
+            import pandas as pd
+        except ImportError as exc:
+            raise ImportError(
+                "ResultTable.to_dataframe() needs pandas, which is not "
+                "installed") from exc
+        df = pd.DataFrame(self._cols)
+        if self._index is None:
+            df.index.name = self._index_names[0]
+        elif len(self._index) == 1:
+            df.index = pd.Index(self._index[0], name=self._index_names[0])
+        else:
+            df.index = pd.MultiIndex.from_arrays(
+                self._index, names=list(self._index_names))
+        return df
+
+    def __repr__(self):
+        return f"ResultTable({len(self)} rows, columns={self.columns})"
+
+
+def concat_tables(tables):
+    """Stack the tables of a dict ``{key: table}`` (one set of columns) by
+    rows, as ``pd.concat(tables, axis=0)`` does: the keys become the outer
+    index level, each table's own index the inner levels."""
+    keys = list(tables)
+    if not keys:
+        raise ValueError("concat_tables needs at least one table")
+    first = tables[keys[0]]
+    cols = first.columns
+    if any(t.columns != cols for t in tables.values()):
+        raise ValueError("concat_tables needs tables of one set of columns")
+    outer = np.concatenate([np.full(len(tables[k]), k) for k in keys])
+    inner = [np.concatenate([tables[k].index[j] for k in keys])
+             for j in range(len(first.index))]
+    return ResultTable(
+        {c: np.concatenate([tables[k][c] for k in keys]) for c in cols},
+        index=[outer, *inner], index_names=(None, *first.index_names))

@@ -14,6 +14,7 @@ Poisson fits cap ``m_step_maxiter`` (the Adam stop flips under 1-ulp loss
 differences, ROADMAP §3).
 """
 
+import importlib
 import inspect
 import os
 import pickle
@@ -37,6 +38,8 @@ from poor_man_gplvm_tpu.utils import checkpoint as jck  # noqa: E402
 from poor_man_gplvm_tpu.utils import compat as jcompat  # noqa: E402
 from poor_man_gplvm_tpu.utils import profiling as jprof  # noqa: E402
 from poor_man_gplvm_tpu.utils import timeseries as jts  # noqa: E402
+from poor_man_gplvm_tpu.analysis import reactivation as jreact  # noqa: E402
+from poor_man_gplvm_tpu.ops import hmm as jhmm  # noqa: E402
 from poor_man_gplvm_tpu_torch import convert, initializers  # noqa: E402
 from poor_man_gplvm_tpu_torch import experimental, selection  # noqa: E402
 from poor_man_gplvm_tpu_torch import validation  # noqa: E402
@@ -45,6 +48,8 @@ from poor_man_gplvm_tpu_torch.parallel import sweep  # noqa: E402
 from poor_man_gplvm_tpu_torch.utils import checkpoint as ck  # noqa: E402
 from poor_man_gplvm_tpu_torch.utils import compat, profiling  # noqa: E402
 from poor_man_gplvm_tpu_torch.utils import timeseries as pts  # noqa: E402
+from poor_man_gplvm_tpu_torch.analysis import reactivation  # noqa: E402
+from poor_man_gplvm_tpu_torch.ops import hmm  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -360,18 +365,49 @@ def test_profiling_trace_and_phase_timer(tmp_path):
 MISSING_OK = {
     "profiling.trace": {"host_tracer_level": "a jax.profiler option; "
                         "torch.profiler has no host tracer level"},
-    "initializers.init_with_pca": {"kwargs": "ignored by the JAX function; "
-                                   "the port raises on an unknown keyword"},
+    **{f"{m}.init_with_pca": {"kwargs": "ignored by the JAX function; the "
+                              "port raises on an unknown keyword"}
+       for m in ("initializers", "initializer")},
 }
 #: device: where the models (or the tensors) of a port entry point live,
 #: the card by default, 'cpu' on request
 _DEVICE = {"device": "the card by default, 'cpu' on request"}
 #: JAX functions with no counterpart in the port, with the reason
 NOT_PORTED = {"profiling.enable_compilation_cache": "the port compiles no "
-              "programs; its CUDA kernels are built once into build/",
-              **{f"gain.{m}": "the experimental drop-in shims, queue 1 item I"
-                 for m in ("core_exp", "decoder_exp", "fit_tuning_helper_exp",
-                           "test_exp")}}
+              "programs; its CUDA kernels are built once into build/"}
+#: the functional decoder's entry points that filter or smooth take
+#: ``device`` (the card by default) and, where the JAX function takes
+#: ``engine="prob"``, ``engine=None``: 'prob' on the card would be a Python
+#: loop over time; None resolves as the models' 'auto' ('cuda' on the card,
+#: 'prob' on the CPU), and the JAX names 'pallas'/'pallas_parallel' are
+#: read as 'cuda'/'cuda_parallel'
+_FUNCTIONAL = {
+    "decoder": ("get_loglikelihood_ma_poisson",
+                "get_loglikelihood_ma_gaussian", "filter_one_step",
+                "filter_all_step", "smooth_one_step", "smooth_all_step",
+                "filter_all_step_combined_ma",
+                "smooth_all_step_combined_ma_chunk"),
+    "decoder_latentonly": ("filter_all_step_combined_ma_latent",
+                           "smooth_all_step_combined_ma_chunk_latent",
+                           "filter_one_step_latent", "filter_all_step_latent",
+                           "smooth_one_step_latent", "smooth_all_step_latent"),
+    "decoder_exp": ("get_loglikelihood_ma_poisson_gain",
+                    "get_loglikelihood_ma_gaussian_gain",
+                    "get_loglikelihood_ma_all_gain",
+                    "get_loglikelihood_ma_all_changing_dt_gain",
+                    "get_naive_bayes_ma_gain", "get_naive_bayes_ma_chunk_gain",
+                    "filter_all_step_combined_ma_gain",
+                    "smooth_all_step_combined_ma_chunk_gain",
+                    "smooth_one_step", "smooth_all_step"),
+}
+#: parameters whose default the port changes, with the new default and
+#: the reason
+CHANGED_DEFAULT = {
+    f"{mod}.{fn}": {"engine": (None, "'prob' would loop over time on the "
+                               "card; None is 'cuda' there, 'prob' on the "
+                               "CPU")}
+    for mod, fns in _FUNCTIONAL.items() for fn in fns
+}
 #: parameters the port adds, with the reason
 ADDED = {
     "__init__": {"device": "the card by default, 'cpu' on request"},
@@ -380,15 +416,39 @@ ADDED = {
                                   "in both packages"},
     "sweep.sweep_fit_poisson_jump": _DEVICE,
     "sweep.sweep_fit_model_class": _DEVICE,
-    "selection.fit_model_one_config": _DEVICE,
-    "selection.model_selection_one_split": _DEVICE,
-    "selection.get_jump_consensus_shuffle": _DEVICE,
+    # selection's, also where model_selection_helper and jump_analysis
+    # re-export them
+    "fit_model_one_config": _DEVICE,
+    "model_selection_one_split": _DEVICE,
+    "get_jump_consensus_shuffle": _DEVICE,
+    "generate_basis": {"device": "where the basis is made (the JAX "
+                       "function's arrays live on JAX's default device)"},
+    **{f"{mod}.{fn}": _DEVICE for mod, fns in _FUNCTIONAL.items()
+       for fn in fns},
+    "test_exp.shuffle_and_decode": {
+        "seed": "the shuffles' numpy seed (the JAX function draws them "
+                "unseeded)",
+        "verbose": "a line per shuffle where the JAX function shows a tqdm "
+                   "bar (the card's machine has no tqdm)"},
 }
 #: jax.random keys -> torch.Generators.  Kept as in the JAX signatures and
 #: raising NotImplementedError (queue 1, item J): every ``mesh``.  The
 #: selection functions return ``selection.ResultTable`` where the JAX
 #: package returns a DataFrame (ROADMAP §3).
 RENAMED = {"key": "generator", "key_l": "generator_l"}
+
+
+#: modules of which only these names are held here (the others are held
+#: through the classes and drop-in modules that use them)
+ONLY = {"hmm": {"filter_combined"}}
+#: the drop-in modules (the JAX package's reference-compatible surface)
+DROP_IN = {m: m for m in (
+    "core", "decoder", "decoder_latentonly", "gp_kernel", "fit_tuning_helper",
+    "fit_tuning_with_basis", "initializer", "model_selection_helper",
+    "jump_analysis", "verify_latent_jump", "test", "config",
+    "reactivation_analysis")} | {
+    m: f"experimental.{m}" for m in ("core_exp", "decoder_exp",
+                                     "fit_tuning_helper_exp", "test_exp")}
 
 
 def _signature_gaps(where, jfn, pfn):
@@ -402,6 +462,11 @@ def _signature_gaps(where, jfn, pfn):
         pname = RENAMED.get(name, name)
         if pname not in pp:
             gaps.append(f"{where}: no parameter {name!r}")
+        elif name in CHANGED_DEFAULT.get(where, {}):
+            if pp[pname].default != CHANGED_DEFAULT[where][name][0]:
+                gaps.append(f"{where}: {name}={pp[pname].default!r}, "
+                            "recorded "
+                            f"{CHANGED_DEFAULT[where][name][0]!r}")
         elif par.default is not inspect.Parameter.empty and \
                 pp[pname].default != par.default:
             gaps.append(f"{where}: {name}={pp[pname].default!r}, JAX "
@@ -440,10 +505,18 @@ def test_public_signatures_match_jax():
                "checkpoint": (jck, ck), "timeseries": (jts, pts),
                "sweep": (jsweep, sweep), "selection": (jsel, selection),
                "gain": (jexp, experimental),
-               "fit_tuning_with_basis": (jftb, ftb)}
+               "fit_tuning_with_basis": (jftb, ftb),
+               "hmm": (jhmm, hmm),
+               "reactivation": (jreact, reactivation),
+               **{name: (importlib.import_module(f"poor_man_gplvm_tpu.{path}"),
+                         importlib.import_module(
+                             f"poor_man_gplvm_tpu_torch.{path}"))
+                  for name, path in DROP_IN.items()}}
     for mod, (jm, pm) in modules.items():
-        names = set(getattr(jm, "__all__", ())) | {
-            n for n in pm.__all__ if hasattr(jm, n)}
+        names = ONLY.get(mod) or set(getattr(jm, "__all__", None) or (
+            n for n, v in vars(jm).items() if not n.startswith("_")
+            and callable(v) and not inspect.ismodule(v))) | {
+            n for n in getattr(pm, "__all__", ()) if hasattr(jm, n)}
         for fname in sorted(names):
             where = f"{mod}.{fname}"
             if where in NOT_PORTED:
