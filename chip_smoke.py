@@ -117,9 +117,21 @@ Phases, each of which checks its results (any failure exits non-zero):
     means copied to the host, the first batch's kernels against plain at
     its full length), the naive-Bayes null, and ``decode_ripple_epochs``
     on the epochs phase's 1,000 ragged epochs, equal to
-    ``decode_latent_epochs``.
+    ``decode_latent_epochs``;
+14. mesh (last): ``parallel.spmd`` on meshes of cuda:0 repeated, at
+    N = L = 500: K3/K4 with a time shard's validity bound n_valid (0, 1,
+    T - 3, T, T + 1) against their plain versions on the band and forced
+    dense, with a failing control, and timed at a shard's bounds; the
+    batched K1/K2 with a carry per chain against plain;
+    ``decode_latent(mesh=)`` at T = 99,999 on the (1, 4, 1) and (1, 2, 2)
+    meshes with both time engines, against the unsharded 'cuda_parallel'
+    decode (a neuron-split mesh also against it on its own emission
+    rows), its passes and ms per decode; a capped 3-iteration
+    ``fit_em(mesh=)`` against the unsharded host loop; one sharded Poisson
+    EM step on 2 chains at T = 2e4 against each chain's unsharded
+    iteration.
 
-Each main path (phases 5 with the epochs, 7, 8, 9, 10, 11, 12, 13) runs
+Each main path (phases 5 with the epochs, 7, 8, 9, 10, 11, 12, 13, 14) runs
 with the kernels' launch counts, by mode and precision, set to 0 just
 before it and read just after; comparison runs are not counted.  The
 line before the last is a JSON summary of the kernels; the last line is
@@ -273,6 +285,21 @@ COMPAT_SERIAL = 4  # shuffles of the timed serial loop
 COMPAT_PLAIN_E = 2  # the first batch's shuffles held against plain K1/K2
 COMPAT_NULL_RTOL = 1e-5  # batched against serial on the default engine
 COMPAT_PROFILE = 8  # shuffles of the profiled null and the host-build timing
+MESH_NL = 500  # N = L of the mesh phase, the north-star width
+MESH_T = 99_999  # 1e5 - 1: the last time shard holds a padded row
+MESH_SHAPES = ((1, 4, 1), (1, 2, 2))  # (data, time, neuron) over cuda:0
+MESH_FIT_ITERS = 3
+MESH_FIT_MAXITER = 20  # Adam capped, as tests/test_spmd.py caps it
+MESH_EM = (2, 20_000, (1, 2, 2), 10)  # chains B, T, mesh, Adam cap
+MESH_POST_ATOL = 1e-4  # decode posteriors (PARITY.json)
+#: a neuron-split mesh against the unsharded decode: the emissions sum the
+#: neuron shards' partial products, another order than one product, and at
+#: N = L = 500 sharp posteriors move by ~4e-4 (ROADMAP §3; the epochs
+#: phase's gate for an emission product summed in another order); on its
+#: own emission rows the mesh is held to MESH_POST_ATOL
+MESH_SPLIT_POST_ATOL = 1e-3
+MESH_FIT_POST_ATOL = 1e-2  # fit posteriors (PARITY.json)
+MESH_NV_REPS = 3
 #: the n_dyn = 1 kernel rows of the kernels line: wrapper[mode] names
 NDYN1_KERNELS = ("filter_scan", "smoother_scan",
                  "pfilter_pass[finals/highest]", "pfilter_pass[emit/highest]",
@@ -329,6 +356,13 @@ KERNELS = {
         "filter_scan_batch", "norm",
         "poor_man_gplvm_tpu_torch/csrc/scan_kernels.cu",
         "poor_man_gplvm_tpu/ops/pallas/scan_kernels.py:80"),
+    # K3/K4 with a time shard's validity bound n_valid other than its row
+    # count (the mesh phase, parallel/spmd.py)
+    **{f"{fn}[{mode}/highest/nv]": (fn, f"{mode}/highest/nv", PS_SRC,
+                                    f"{JPS}:{line}")
+       for fn, line, modes in (("pfilter_pass", 334, ("finals", "emit")),
+                               ("psmooth_pass", 474, ("finals", "full")))
+       for mode in modes},
 }
 
 
@@ -3365,6 +3399,369 @@ def phase_compat(launches):
     return rows
 
 
+def _mesh(shape):
+    """A ('data', 'time', 'neuron') mesh of ``shape`` over cuda:0
+    repeated."""
+    from poor_man_gplvm_tpu_torch.parallel import spmd
+
+    n = int(np.prod(shape))
+    return spmd.make_mesh(n, devices=[torch.device("cuda", 0)] * n,
+                          shape=shape)
+
+
+@contextlib.contextmanager
+def time_engine(name, diag):
+    """Run the mesh path's sharded smoother on the time engine ``name``,
+    its fixed-point diagnostics appended to ``diag``."""
+    from poor_man_gplvm_tpu_torch.parallel import spmd
+
+    orig = spmd.sharded_smooth
+    spmd.sharded_smooth = functools.partial(orig, time_engine=name,
+                                            diag_out=diag)
+    try:
+        yield
+    finally:
+        spmd.sharded_smooth = orig
+
+
+def _merge(launches, mine):
+    for k, v in mine.items():
+        launches[k] = launches.get(k, 0) + v
+
+
+def _k3k4_nvalid():
+    """K3/K4 with a shard-local validity bound against their plain
+    versions at L = MESH_NL (``testing.pscan_nvalid_vs_plain``: K3 finals
+    and emit, K4 finals and full), n_dyn in {1, 2}, n_valid in {0, 1,
+    T - 3, T, T + 1 (K4)}, on the band and forced dense, with the control
+    that fails a plain version at another bound."""
+    from poor_man_gplvm_tpu_torch.ops import band as bd
+    from poor_man_gplvm_tpu_torch.testing import (
+        pscan_nvalid_failures, pscan_nvalid_vs_plain, scan_case,
+    )
+
+    dev, T = torch.device("cuda"), T_PSCAN
+    for n_dyn in (1, 2):
+        case = scan_case(MESH_NL * 10 + n_dyn, T, MESH_NL, n_dyn, "masked")
+        for nv in (0, 1, T - 3, T, T + 1):
+            for dense in (False, True):
+                bd.set_band_override(dense)
+                try:
+                    err = pscan_nvalid_vs_plain(case, dev, nv)
+                    torch.cuda.synchronize()
+                finally:
+                    bd.set_band_override(False)
+                bad = pscan_nvalid_failures(err, "highest")
+                log(f"K3/K4 n_valid={nv} vs plain T={T} L={MESH_NL} "
+                    f"n_dyn={n_dyn} {'dense' if dense else 'band'}: "
+                    f"{_fmt(err)}")
+                check(not bad, f"K3/K4 n_valid={nv}: {bad} {err}")
+        ctl = pscan_nvalid_vs_plain(case, dev, T - 3, plain_n_valid=T // 2)
+        bad = pscan_nvalid_failures(ctl, "highest")
+        log(f"control n_dyn={n_dyn}: kernels at n_valid={T - 3} against "
+            f"plain at {T // 2} fail on {bad}")
+        check(bad, f"n_valid control passed: {ctl}")
+
+
+def _k3k4_nvalid_timed(Tl, n_valid_f, n_valid_b):
+    """The kernels line's rows of K3/K4 at a time shard's bounds: the
+    shard of the (1, 4, 1) decode that holds the padded row (Tl rows,
+    n_valid_f steps of K3; K4 at n_valid_b, Tl + 1 on the shards before
+    it), n_dyn = 2 with the jump channel, L = MESH_NL; each call held
+    against its plain version and timed, beside its bound."""
+    from poor_man_gplvm_tpu_torch.ops import parallel_scan as ps
+    from poor_man_gplvm_tpu_torch.testing import (
+        PSCAN_TOLERANCES, bwd_guess, pscan_inputs, scan_case,
+    )
+
+    dev, L = torch.device("cuda"), MESH_NL
+    a = pscan_inputs(scan_case(L, Tl, L, 2, "jump"), dev)
+    C = a["ins"].shape[0]
+    nnz = _nnz(a["tlat"], a["flags"])
+    fwd = (a["w"], a["tlat"], a["tdyn"], a["ins"], a["tc"], a["flags"])
+    post = ps.pfilter_pass_plain(*fwd, True, n_valid=n_valid_f)[0]
+    bwd = (post, a["tlat"], a["tlat_t"], a["tdyn"],
+           bwd_guess(post, a["tc"], C), a["tc"], a["flags"])
+    band = ps.transition_band(a["tlat"], a["tlat_t"], a["flags"])
+    calls = {}
+    for m in ("finals", "emit"):
+        e = m == "emit"
+        calls[f"pfilter_pass[{m}/highest/nv]"] = (
+            lambda e=e: ps.pfilter_pass(*fwd, e, band=band,
+                                        n_valid=n_valid_f),
+            lambda e=e: ps.pfilter_pass_plain(*fwd, e, n_valid=n_valid_f),
+            TIMED_OUTPUT.get(m, (2, "fwd_finals_abs")))
+    for m in ("finals", "full"):
+        calls[f"psmooth_pass[{m}/highest/nv]"] = (
+            lambda m=m: ps.psmooth_pass(*bwd, m, band=band,
+                                        n_valid=n_valid_b),
+            lambda m=m: ps.psmooth_pass_plain(*bwd, m, n_valid=n_valid_b),
+            TIMED_OUTPUT.get(m, (2, "bwd_finals_abs")))
+    rows = {}
+    for name, (kern, plain, (idx, key)) in calls.items():
+        want, plain_ms = timed_once(plain)
+        got = kern()
+        err = float((got[idx] - want[idx]).abs().max())
+        ms = cuda_ms(kern, MESH_NV_REPS)
+        bound_ms, bound_by = kernel_bound(name.replace("/nv", ""), Tl, L, 2,
+                                          nnz)
+        rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                          bound_ms=bound_ms, bound_by=bound_by,
+                          library_ms=None)
+        log(f"time {name} T={Tl} L={L} n_dyn=2 C={C} tc={a['tc']} "
+            f"n_valid={n_valid_f if 'pfilter' in name else n_valid_b}: "
+            f"kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+            f"{bound_ms:.4f} ms ({bound_by}); max |kernel - plain| "
+            f"{err:.3e}")
+        check(err <= PSCAN_TOLERANCES[key], (name, key, err))
+    return rows
+
+
+def _k12_chains_vs_plain(Tl, L):
+    """The batched K1/K2 as the pipeline engine launches them, a chain per
+    sequence with its own carry (K1's p_init, K2's init) and lengths,
+    against their plain versions."""
+    from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk
+    from poor_man_gplvm_tpu_torch.testing import SCAN_TOLERANCES, scan_case
+
+    dev = torch.device("cuda")
+    case = scan_case(77, Tl, L, 2, "jump")
+    tlat = torch.as_tensor(case["tlat"], device=dev)
+    tdyn = torch.as_tensor(case["tdyn"], device=dev)
+    rng = np.random.default_rng(78)
+    ll = torch.as_tensor(np.stack([case["ll"], case["ll"][::-1].copy()]),
+                         device=dev)
+    carry = torch.as_tensor(rng.dirichlet(np.ones(2 * L), size=2).astype(
+        np.float32).reshape(2, 2, L), device=dev)
+    lengths = torch.tensor([Tl, Tl - 7], dtype=torch.int32, device=dev)
+    flags = sk._detect_uniform_rows(tlat)
+    post, prior, _ = sk.filter_chunk_batch(ll, tlat, tdyn, carry, lengths,
+                                           1.0, uniform_rows=flags)
+    w, _ = sk._weights(ll, 1.0)
+    post_p, prior_p, _ = sk.filter_scan_batch_plain(w, tlat, tdyn, carry,
+                                                    lengths, flags)
+    err = {"post_abs": 0.0, "smooth_abs": 0.0}
+    filt = torch.stack([torch.where(
+        (torch.arange(Tl, device=dev) < n)[:, None, None], post[e], 0.0)
+        for e, n in enumerate(lengths.tolist())])
+    sm, _ = sk.smoother_chunk_batch(filt, prior, tlat, tdyn, carry, lengths,
+                                    uniform_rows=flags)
+    sm_p, _ = sk.smoother_scan_batch_plain(
+        filt, prior, tlat.transpose(-1, -2).contiguous(), tdyn, carry,
+        lengths, flags)
+    for e, n in enumerate(lengths.tolist()):
+        err["post_abs"] = max(err["post_abs"], float(
+            (post[e, :n] - post_p[e, :n]).abs().max()))
+        err["smooth_abs"] = max(err["smooth_abs"], float(
+            (sm[e, :n] - sm_p[e, :n]).abs().max()))
+    log(f"K1/K2 batched with a carry per chain, E=2 T={Tl} L={L} lengths "
+        f"{lengths.tolist()}: vs plain {_fmt(err)}")
+    check(err["post_abs"] <= SCAN_TOLERANCES["post_abs"]
+          and err["smooth_abs"] <= SCAN_TOLERANCES["smooth_abs"], err)
+
+
+def _split_ll_smooth(trans, tuning, y, n_neuron):
+    """The smoothed posterior (T, n_dyn, L) of the unsharded parallel
+    engine on the emissions a mesh of ``n_neuron`` neuron shards forms:
+    each shard's partial product (``spmd._ll_partial``), summed in shard
+    order."""
+    from poor_man_gplvm_tpu_torch.ops import hmm, parallel_scan as ps
+    from poor_man_gplvm_tpu_torch.parallel import spmd
+
+    Nl = y.shape[1] // n_neuron
+    ll = None
+    for n in range(n_neuron):
+        cols = slice(n * Nl, (n + 1) * Nl)
+        part = spmd._ll_partial(y[:, cols], tuning[:, cols],
+                                torch.ones_like(y[:, cols]), "poisson",
+                                torch.tensor(1.0, device=y.device))
+        ll = part if ll is None else ll + part
+    tlat, tdyn = hmm._transition_stack(trans)
+    return ps.smooth_parallel(ll, tlat, tdyn,
+                              torch.exp(trans.uniform_log_init()), 1.0,
+                              uniform_rows=trans.uniform_rows,
+                              want_acc=False)[0]
+
+
+def _mesh_decodes(launches):
+    """``decode_latent(mesh=)`` on both meshes and both time engines,
+    against the unsharded 'cuda_parallel' decode (a neuron-split mesh also
+    against the unsharded engine on its own emission rows)."""
+    N = L = MESH_NL
+    m, params, y = _decode_setup(N, L, MESH_T)
+    ref_model = _model(N, L, "cuda_parallel", params)
+    ref = ref_model.decode_latent(y)
+    _check_decode(ref, MESH_T, L)
+    split_ref = {n: _split_ll_smooth(m._make_transition({})[0], m.tuning, y,
+                                     n)
+                 for n in {shape[2] for shape in MESH_SHAPES if shape[2] > 1}}
+    ref_ms = cuda_ms(lambda: ref_model.decode_latent(y)["posterior_all"], 2)
+    log(f"mesh: unsharded decode N=L={L} T={MESH_T} engine=cuda_parallel "
+        f"{ref_ms:.1f} ms/call")
+    for shape in MESH_SHAPES:
+        mesh = _mesh(shape)
+        for eng in ("pscan", "pipeline"):
+            diag, mine = [], {}
+            with time_engine(eng, diag), counted(mine):
+                res = m.decode_latent(y, mesh=mesh)
+            _merge(launches, mine)
+            _check_decode(res, MESH_T, L)
+            lmf_rel = abs(res["log_marginal_final"]
+                          - ref["log_marginal_final"]) / abs(
+                              ref["log_marginal_final"])
+            post_err = float((res["posterior_all"]
+                              - ref["posterior_all"]).abs().max())
+            with time_engine(eng, []):
+                ms = cuda_ms(lambda: m.decode_latent(
+                    y, mesh=mesh)["posterior_all"], 1)
+            own = ""
+            if shape[2] > 1:
+                own_err = float((res["posterior_all"]
+                                 - split_ref[shape[2]]).abs().max())
+                own = (f", max |post - unsharded on the mesh's own "
+                       f"emissions| {own_err:.2e}")
+                check(own_err <= MESH_POST_ATOL, (shape, eng, own_err))
+            log(f"mesh decode {shape} {eng}: {ms:.1f} ms/call (unsharded "
+                f"{ref_ms:.1f}), log_marginal_final rel {lmf_rel:.2e}, max "
+                f"|post - unsharded| {post_err:.2e}{own}, fixed-point passes "
+                f"(fwd, bwd) {[d[:2] for d in diag]}, launches {mine}")
+            check(lmf_rel <= DECODE_LMF_RTOL, (shape, eng, lmf_rel))
+            check(post_err <= (MESH_POST_ATOL if shape[2] == 1
+                               else MESH_SPLIT_POST_ATOL),
+                  (shape, eng, post_err))
+            if eng == "pscan":
+                check(len(diag) == 1 and mine.get("pfilter_pass", 0) > 0,
+                      (diag, mine))
+            else:
+                check(mine.get("filter_scan_batch", 0) > 0
+                      and mine.get("pfilter_pass", 0) == 0, mine)
+    return m, params, y
+
+
+def _mesh_fit(launches, params, y):
+    """A capped 3-iteration ``fit_em(mesh=)`` against the unsharded host
+    loop on the same engine."""
+    N = L = MESH_NL
+    rng = np.random.default_rng(1)
+    init = rng.random((MESH_T, L)) * 0.1
+    lpi = np.log(init / init.sum(axis=1, keepdims=True)).astype(np.float32)
+    kw = dict(n_iter=MESH_FIT_ITERS, log_posterior_init=lpi, verboase=False,
+              m_step_maxiter=MESH_FIT_MAXITER)
+    t0 = time.perf_counter()
+    ref = _model(N, L, "cuda_parallel", params).fit_em(y, fused=False, **kw)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    mine = {}
+    with counted(mine):
+        t0 = time.perf_counter()
+        em = _model(N, L, "auto", params).fit_em(
+            y, mesh=_mesh(MESH_SHAPES[0]), **kw)
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t0
+    _merge(launches, mine)
+    a = np.array([float(v) for v in em["log_marginal_l"]])
+    b = np.array([float(v) for v in ref["log_marginal_l"]])
+    rel = float((np.abs(a - b) / np.abs(b)).max())
+    post_err = float((em["posterior"] - ref["posterior"]).abs().max())
+    log(f"mesh fit_em {MESH_SHAPES[0]} {MESH_FIT_ITERS} iterations "
+        f"(m_step_maxiter={MESH_FIT_MAXITER}): {mesh_s:.2f} s (unsharded "
+        f"host loop {ref_s:.2f} s), log_marginal_l rel {rel:.2e}, max "
+        f"|posterior diff| {post_err:.2e}, launches {mine}")
+    check(rel <= FIT_LML_RTOL and post_err <= MESH_FIT_POST_ATOL,
+          (rel, post_err))
+
+
+def _mesh_em_step(launches, m):
+    """One sharded Poisson EM step on B chains (the pipeline engine, a
+    batched K1/K2 launch where two chains meet), each chain against the
+    unsharded iteration: the params against the unsharded M-step
+    (test_spmd.py's tolerance), the log marginal against the decode with
+    those params (1e-5), and the posteriors against the unsharded parallel
+    engine on the step's own emission rows (its params, its neuron-shard
+    sum; MESH_POST_ATOL).  The posteriors against the unsharded decodes are
+    logged: the neuron shards' sum rounds the emissions otherwise, and
+    sharp posteriors move with it (as in the decodes)."""
+    from poor_man_gplvm_tpu_torch.ops import hmm, mstep
+    from poor_man_gplvm_tpu_torch.parallel import spmd
+
+    B, T, shape, maxiter = MESH_EM
+    N = L = MESH_NL
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(2)
+    y = torch.as_tensor(np.stack([_spikes(10 + b, m.tuning.cpu().numpy(), T)
+                                  for b in range(B)]), device=dev)
+    basis = m.tuning_basis
+    params = torch.as_tensor(rng.normal(size=(B, basis.shape[1], N)) * 0.3,
+                             dtype=torch.float32, device=dev)
+    post0 = rng.random((B, T, L)) + 0.05
+    log_post = torch.as_tensor(np.log(post0 / post0.sum(-1, keepdims=True)),
+                               dtype=torch.float32, device=dev)
+    trans, _ = m._make_transition({})
+    step = spmd.make_sharded_poisson_em_step(_mesh(shape), basis, trans,
+                                             m_maxiter=maxiter)
+    mine = {}
+    with counted(mine):
+        t0 = time.perf_counter()
+        p2, opt2, lp2, lml, loss = step(params, mstep.adam_init_batch(params),
+                                        log_post, y)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+    _merge(launches, mine)
+    worst = {"params": 0.0, "lml_rel": 0.0, "post_own": 0.0, "post": 0.0,
+             "post_full": 0.0}
+    for b in range(B):
+        y_w, t_w = mstep.get_statistics(log_post[b], y[b])
+        run, init = mstep.make_adam_runner(mstep.poisson_m_step_objective,
+                                           0.01, maxiter=maxiter)
+        p_ref = run(params[b], init(params[b]), {"param_prior_std": 1.0},
+                    basis, y_w, t_w)["params"]
+        worst["params"] = max(worst["params"], float(
+            ((p2[b] - p_ref).abs() - 2e-4 * p_ref.abs()).max()))
+        for key, p in (("post_full", p_ref), ("post", p2[b])):
+            sm, lml_ref = hmm.smooth_combined_chunked(
+                y[b], mstep.get_tuning_softplus(p, basis), {}, trans,
+                torch.ones(N, device=dev), engine="cuda")[:2]
+            want = torch.exp(torch.logsumexp(sm, dim=1))
+            worst[key] = max(worst[key], float(
+                ((torch.exp(lp2[b]) - want).abs() - 2e-3 * want).max()))
+            if key == "post_full":
+                worst["lml_rel"] = max(worst["lml_rel"], abs(
+                    float(lml[b]) - float(lml_ref)) / abs(float(lml_ref)))
+        own = _split_ll_smooth(trans, mstep.get_tuning_softplus(p2[b], basis),
+                               y[b], shape[2]).sum(dim=1)
+        worst["post_own"] = max(worst["post_own"], float(
+            (torch.exp(lp2[b]) - own).abs().max()))
+    log(f"mesh EM step {shape} B={B} T={T}: {step_s:.2f} s, Adam state "
+        f"count {opt2.count.tolist()}, final loss {loss.tolist()}; against "
+        f"each chain's unsharded iteration (params: |diff| - 2e-4 |want|; "
+        f"post_own: max |diff| on the step's own emissions; post, "
+        f"post_full: |diff| - 2e-3 |want| against the unsharded decode "
+        f"with the step's / the unsharded M-step's params): {_fmt(worst)}; "
+        f"launches {mine}")
+    # test_spmd.py's tolerances: params 2e-4 rel + 2e-5 abs, log marginal
+    # 1e-5 rel; the E-step's posteriors PARITY's 1e-4
+    check(worst["params"] <= 2e-5 and worst["post_own"] <= MESH_POST_ATOL
+          and worst["lml_rel"] <= FIT_LML_RTOL, worst)
+    check(mine.get("filter_scan_batch", 0) == B + shape[1] - 1
+          and mine.get("smoother_scan_batch", 0) == B + shape[1] - 1, mine)
+
+
+def phase_mesh(launches):
+    """The mesh path (``parallel/spmd.py``) at N = L = MESH_NL on meshes of
+    cuda:0 repeated.  Returns the kernels line's rows of K3/K4 at a time
+    shard's validity bounds."""
+    t0 = time.perf_counter()
+    _k3k4_nvalid()
+    Tl = -(-MESH_T // 4)
+    rows = _k3k4_nvalid_timed(Tl, MESH_T - 3 * Tl, Tl + 1)
+    _k12_chains_vs_plain(MESH_EM[1] // MESH_EM[2][1], MESH_NL)
+    m, params, y = _mesh_decodes(launches)
+    _mesh_fit(launches, params, y)
+    _mesh_em_step(launches, m)
+    log(f"mesh phase {time.perf_counter() - t0:.1f} s ({card_line()})")
+    return rows
+
+
 def main():
     t_start = time.perf_counter()
     phase_preamble()
@@ -3390,6 +3787,7 @@ def main():
     selection_rows = phase_selection(launches)
     log(f"selection phase {time.perf_counter() - t_sel:.1f} s")
     compat_rows = phase_compat(launches)
+    mesh_rows = phase_mesh(launches)
     log(f"main-path launches: {launches}")
     path = {name: _path_launches(launches, name) for name in KERNELS}
     check(all(n > 0 for n in path.values()), path)
@@ -3398,6 +3796,17 @@ def main():
     for name, (_, _, source, replaces) in KERNELS.items():
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": path[name]}
+        if name in mesh_rows:
+            entry.update(mesh_rows[name])
+            entry["shape"] = (
+                f"a time shard of the mesh phase's (1, 4, 1) decode, "
+                f"T={-(-MESH_T // 4)} rows, n_dyn=2 (one RBF channel, ls=1, "
+                f"and the jump channel), L={MESH_NL}: K3 at n_valid = the "
+                f"shard's real rows ({MESH_T - 3 * (-(-MESH_T // 4))}), K4 at "
+                f"n_valid = T + 1 (every row recurses, as on the shards "
+                f"before the last)")
+            kernels.append(entry)
+            continue
         if name in selection_rows:
             entry.update(selection_rows[name])
             entry["shape"] = (

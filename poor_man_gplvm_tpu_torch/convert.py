@@ -79,7 +79,10 @@ def adam_state_from_jax(opt_state, device="cuda"):
     """The port's ``AdamState`` from an optax ``optax.adam`` state (or its
     ``ScaleByAdamState``): count as int32, mu and nu as float32, on
     ``device`` (the card by default; without one that raises, and
-    ``device='cpu'`` keeps it on the CPU)."""
+    ``device='cpu'`` keeps it on the CPU).  A chain-batched state
+    (``jax.vmap(optax.adam(lr).init)(params)``) gives a (B,) count and
+    (B, ...) moments, the state of ``mstep.adam_init_batch`` that
+    ``parallel.spmd.make_sharded_em_step`` threads."""
     from poor_man_gplvm_tpu_torch.models.base import resolve_device
     from poor_man_gplvm_tpu_torch.ops.mstep import AdamState
 

@@ -46,10 +46,17 @@
 //   * A constant (jump) channel takes the sum(v) * row shortcut of K1/K2,
 //     in f32 in every precision (the TPU kernels never split it either).
 //
-// Validity rules (those of the TPU kernels): in K3 row t of a chunk is a
-// step when t < T; in K4 when t < T - 1.  Row T - 1 passes the smoother
-// carry through (smooth_parallel makes that carry post_{T-1}), and rows at or
-// past T do not exist here, so they are neither run nor stored.
+// Validity rules (those of the TPU kernels, with their runtime bound
+// n_valid): in K3 row t of a chunk is a step when t < n_valid (0 <= n_valid
+// <= T); in K4 when t < n_valid - 1 (0 <= n_valid <= T + 1).  The rows of a
+// chunk that are not steps pass the carry through: K3 stores the carry and
+// norm 1, K4 the carry and r = 0, so no row is left unwritten.  The
+// single-sequence driver passes n_valid = T, which makes row T - 1 K4's one
+// pass-through row (smooth_parallel makes that carry post_{T-1}); a time
+// shard of a mesh (parallel/spmd.py) passes its own bounds, up to T + 1 in
+// K4, where every row recurses and the last reads the carry of the next
+// shard.  Rows at or past T do not exist here, so they are neither run nor
+// stored.
 //
 // K4 computes prior_{t+1} = push(post_t) itself, per step, from the stored
 // filter posterior of row t with K3's exact arithmetic in every precision
@@ -101,6 +108,7 @@ struct PassArgs {
   const bf16* band_lo;
   const int* win0;      // (2, n_mat, L) first row of each column's window
   int T, L, tc, mask;
+  int nv;               // the validity bound n_valid (see the header)
   int W, n_mat;         // window height (L for a dense channel), count
 };
 
@@ -143,7 +151,7 @@ __device__ __forceinline__ void store_row(const PassArgs& a, size_t t,
   if (j == 0) a.out2[t] = den;
 }
 
-// K3: filter pass.  Per step, forward over the chunk's rows t < T:
+// K3: filter pass.  Per step, forward over the chunk's rows t < n_valid:
 //   q_d = sum_p Tdyn[p,d] carry_p; prior_d = q_d @ Tlat[d];
 //   carry = prior * w_t, normalised.
 // EMIT stores post (T, ND, L) and norm[t] = max(s_t, 1e-38), the
@@ -186,7 +194,8 @@ __global__ void __launch_bounds__(kMaxThreads) pfilter_kernel(PassArgs a) {
   const size_t LL = (size_t)L * L, WL = (size_t)W * L;
   const int c = blockIdx.x;
   const int t0 = c * a.tc;
-  const int n = max(0, min(a.tc, a.T - t0));
+  const int rows = max(0, min(a.tc, a.T - t0));  // the chunk's rows
+  const int n = max(0, min(rows, a.nv - t0));    // its steps
 
   const MatOperand band = stage<PREC, RESIDENT>(
       a.band, a.band_hi, a.band_lo, a.n_mat * WL, smem + NV * ND * L);
@@ -273,6 +282,10 @@ __global__ void __launch_bounds__(kMaxThreads) pfilter_kernel(PassArgs a) {
     den_prev = den;
   }
   if (EMIT && n > 0) store_row<ND>(a, (size_t)t0 + n - 1, carry, den_prev);
+  // the rows past n_valid pass the carry through, with norm 1
+  if (EMIT)
+    for (int tau = n; tau < rows; ++tau)
+      store_row<ND>(a, (size_t)t0 + tau, carry, 1.f);
 #pragma unroll
   for (int d = 0; d < ND; ++d)
     if (live) a.finals[((size_t)c * ND + d) * L + j] = carry[d];
@@ -310,12 +323,14 @@ __device__ __forceinline__ void marginal_finish(const PassArgs& a, size_t t,
   }
 }
 
-// K4: smoother pass.  Per step, backward over the chunk's rows t < T-1:
+// K4: smoother pass.  Per step, backward over the chunk's rows
+// t < n_valid - 1:
 //   prior = push(post_t); r = carry / prior (0 where prior == 0);
 //   pull_e = Tlat[e] @ r_e; out_d = sum_e Tdyn[d,e] pull_e;
 //   carry = post_t * out, normalised.
 // MODE full stores smooth and r (T, ND, L); marginal stores lat (T, L) and
-// dyn (T, ND); marginal+acc also stores r.  On row T-1 smooth = carry, r = 0.
+// dyn (T, ND); marginal+acc also stores r.  On the rows that are not steps
+// (row T-1 alone at n_valid = T) smooth = carry, r = 0.
 //
 // Design for the H100 (PERF.md §5-6).  The movement channel of every
 // configuration the repo runs is an RBF of integer positions, exactly 0 in
@@ -360,8 +375,9 @@ __global__ void __launch_bounds__(kMaxThreads) psmooth_kernel(PassArgs a) {
   const int c = blockIdx.x;
   const int t0 = c * a.tc;
   const int t_end = min(t0 + a.tc, a.T);
-  // rows [t0, t0 + n) are steps; row T-1, if this chunk holds it, is not
-  const int n = max(0, min(t_end, a.T - 1) - t0);
+  // rows [t0, t0 + n) are steps; rows [t0 + n, t_end) pass the carry
+  // through (row T-1 alone at n_valid = T, none at T + 1)
+  const int n = max(0, min(t_end, a.nv - 1) - t0);
 
   const MatOperand band = stage<PREC, RESIDENT>(
       a.band, a.band_hi, a.band_lo, 2 * a.n_mat * WL,
@@ -394,18 +410,22 @@ __global__ void __launch_bounds__(kMaxThreads) psmooth_kernel(PassArgs a) {
   }
   bool dyn_pending = false;  // a row's dyn partials wait in red_m
   size_t dyn_row = 0;
-  if (MODE != kFinals && t0 <= a.T - 1 && a.T - 1 < t_end) {
-    const size_t last = (size_t)(a.T - 1);
-    const size_t base = last * ND * L;
+  const int pass0 = t0 + n;  // the first row that passes the carry through
+  if (MODE != kFinals && pass0 < t_end) {
+    for (int t = pass0; t < t_end; ++t) {
+      const size_t base = (size_t)t * ND * L;
 #pragma unroll
-    for (int d = 0; d < ND; ++d) {
-      if (live && MODE == kFull) a.out[base + d * L + j] = carry[d];
-      if (live && STORE_R) a.out2[base + d * L + j] = 0.f;
+      for (int d = 0; d < ND; ++d) {
+        if (live && MODE == kFull) a.out[base + d * L + j] = carry[d];
+        if (live && STORE_R) a.out2[base + d * L + j] = 0.f;
+      }
+      // every such row holds the same carry: one block reduction serves
+      // them all (its lat row stored here, its dyn rows after the barrier)
+      if (MARG) marginal_partials<ND>(a, carry, t, red_m);
     }
     if (MARG) {
-      marginal_partials<ND>(a, carry, last, red_m);
       dyn_pending = true;
-      dyn_row = last;
+      dyn_row = pass0;
     }
   }
   // the filter posterior of the next row, a step ahead
@@ -414,8 +434,10 @@ __global__ void __launch_bounds__(kMaxThreads) psmooth_kernel(PassArgs a) {
   for (int p = 0; p < ND; ++p)
     f_next[p] = (live && n > 0)
                     ? a.x[((size_t)(t0 + n - 1) * ND + p) * L + j] : 0.f;
-  __syncthreads();  // resident band complete; row T-1's dyn partials
-  if (MARG && dyn_pending) marginal_finish<ND>(a, dyn_row, red_m);
+  __syncthreads();  // resident band complete; the pass rows' dyn partials
+  if (MARG && dyn_pending)
+    for (int t = (int)dyn_row; t < t_end; ++t)
+      marginal_finish<ND>(a, t, red_m);
   dyn_pending = false;
 
   float v[ND];  // the unnormalised smoothed posterior of the last step
@@ -891,10 +913,12 @@ cudaError_t dispatch(const PassArgs& a, int C, int n_dyn, bool res, int mode,
              : by_mode<Run, 2, false>(mode, n_modes, prec, a, C, s);
 }
 
-// every row in exactly one chunk; chunk offsets c * tc fit an int
-bool bad_chunks(int T, int C, int tc) {
+// every row in exactly one chunk; chunk offsets c * tc fit an int; the
+// validity bound in [0, T + extra] (extra 0 for K3, 1 for K4)
+bool bad_chunks(int T, int C, int tc, int n_valid, int extra) {
   const long long rows = (long long)C * tc;
-  return T < 1 || C < 1 || tc < 1 || rows < T || rows > 0x7fffffffLL;
+  return T < 1 || C < 1 || tc < 1 || rows < T || rows > 0x7fffffffLL ||
+         n_valid < 0 || (long long)n_valid > (long long)T + extra;
 }
 
 bool bad_prec(int prec, const void* hi, const void* lo) {
@@ -959,6 +983,8 @@ int pmg_pscan_resident(int kind, int n_dyn, int n_mat, int L, int W,
 
 // K3.  Returns a cudaError_t (0 on success); the launch is asynchronous.
 // post and norm are written only when emit != 0 (they may be null then).
+// Rows t < n_valid (0 <= n_valid <= T) are steps, the others pass the
+// carry through (n_valid = T: every row a step).
 // tlat is read for the constant channels' first rows; the other channels'
 // push goes through the push half of `band` (2, n_mat, W, L) with window
 // rows `win0` (2, n_mat, L), n_mat the channels not flagged constant in
@@ -967,10 +993,10 @@ int pmg_pfilter_pass(const void* w, const void* tlat, const void* band,
                      const void* band_hi, const void* band_lo,
                      const void* win0, const void* tdyn, const void* ins,
                      void* finals, void* post, void* norm, int T, int C,
-                     int tc, int n_dyn, int L, int W, int uniform_mask,
-                     int emit, int prec, void* stream) {
+                     int tc, int n_valid, int n_dyn, int L, int W,
+                     int uniform_mask, int emit, int prec, void* stream) {
   const int n_mat = count_matrices(n_dyn, uniform_mask);
-  if (bad_shape(n_dyn, L) || bad_chunks(T, C, tc) ||
+  if (bad_shape(n_dyn, L) || bad_chunks(T, C, tc, n_valid, 0) ||
       bad_band(prec, n_mat, W, L, band, band_hi, band_lo, win0))
     return (int)cudaErrorInvalidValue;
   PassArgs a{};
@@ -985,6 +1011,7 @@ int pmg_pfilter_pass(const void* w, const void* tlat, const void* band,
   a.T = T;
   a.L = L;
   a.tc = tc;
+  a.nv = n_valid;
   a.mask = uniform_mask;
   return (int)dispatch<FilterRun>(
       a, C, n_dyn,
@@ -995,6 +1022,8 @@ int pmg_pfilter_pass(const void* w, const void* tlat, const void* band,
 // K4.  mode 0 finals only; 1 full (out = smooth, out2 = r); 2 marginal
 // (out = lat (T, L), out3 = dyn (T, ND)); 3 marginal + r (out2 = r, the
 // scratch joint_acc reduces).  Outputs a mode does not write may be null.
+// Rows t < n_valid - 1 (0 <= n_valid <= T + 1) are steps, the others pass
+// the carry through (n_valid = T: row T - 1 alone).
 // tlat/tlatT are read for the constant channels' first rows; the other
 // channels' push and pull go through `band` (2, n_mat, W, L) with window
 // rows `win0` (2, n_mat, L), n_mat the channels not flagged constant in
@@ -1003,11 +1032,11 @@ int pmg_psmooth_pass(const void* post, const void* tlat, const void* tlatT,
                      const void* band, const void* band_hi,
                      const void* band_lo, const void* win0, const void* tdyn,
                      const void* ins, void* finals, void* out, void* out2,
-                     void* out3, int T, int C, int tc, int n_dyn, int L,
-                     int W, int uniform_mask, int mode, int prec,
-                     void* stream) {
+                     void* out3, int T, int C, int tc, int n_valid,
+                     int n_dyn, int L, int W, int uniform_mask, int mode,
+                     int prec, void* stream) {
   const int n_mat = count_matrices(n_dyn, uniform_mask);
-  if (bad_shape(n_dyn, L) || bad_chunks(T, C, tc) ||
+  if (bad_shape(n_dyn, L) || bad_chunks(T, C, tc, n_valid, 1) ||
       bad_band(prec, n_mat, W, L, band, band_hi, band_lo, win0))
     return (int)cudaErrorInvalidValue;
   PassArgs a{};
@@ -1024,6 +1053,7 @@ int pmg_psmooth_pass(const void* post, const void* tlat, const void* tlatT,
   a.T = T;
   a.L = L;
   a.tc = tc;
+  a.nv = n_valid;
   a.mask = uniform_mask;
   return (int)dispatch<SmoothRun>(
       a, C, n_dyn,

@@ -21,7 +21,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from poor_man_gplvm_tpu_torch.models.base import check_no_mesh, _seeded
+from poor_man_gplvm_tpu_torch.models.base import _seeded
 from poor_man_gplvm_tpu_torch.models.jump1d import PoissonGPLVMJump1D
 from poor_man_gplvm_tpu_torch.ops import emissions, hmm
 from poor_man_gplvm_tpu_torch.ops import kernels as gpk
@@ -152,8 +152,8 @@ class PoissonGPLVMGain1D_gain(PoissonGPLVMJump1D):
     ):
         """Gain-aware decode: the gain folded into the per-bin dt of the
         emissions (reference experimental/decoder_exp.py), on the model's
-        engine.  ``mesh`` is not ported."""
-        check_no_mesh(mesh)
+        engine.  ``mesh``: run the smoother sharded over a
+        ``parallel.spmd.Mesh`` (the gain rides the per-time dt)."""
         y = self._as_device(y)
         gain = self._resolve_gain(gain, len(y))
         log_lat = self._as_device(log_latent_transition_kernel_l)
@@ -161,6 +161,15 @@ class PoissonGPLVMGain1D_gain(PoissonGPLVMJump1D):
         trans = hmm.JointTransition(
             Tdyn=torch.exp(log_dyn), Tlat=torch.exp(log_lat),
             logTdyn=log_dyn, logTlat=log_lat)
+        if mesh is not None:
+            from poor_man_gplvm_tpu_torch.parallel import spmd
+
+            return tuple(None if x is None else x.to(self.device)
+                         for x in spmd.sharded_smooth(
+                             mesh, y, tuning, hyperparam, trans, ma_neuron,
+                             ma_latent, likelihood_scale=likelihood_scale,
+                             observation_model=self.observation_model,
+                             dt_l=gain))
         return hmm.smooth_combined_chunked(
             y, tuning, hyperparam, trans, ma_neuron, ma_latent,
             likelihood_scale=likelihood_scale,
@@ -262,9 +271,8 @@ class PoissonGPLVMGain1D_gain(PoissonGPLVMJump1D):
         """EM alternating tuning/gain M-steps with gain-aware E-steps
         (reference core_exp.py:172-293).  ``generator`` (a CPU
         ``torch.Generator``) draws the initial posterior in place of
-        ``key``; ``mesh`` is not ported; with ``verboase`` each iteration
-        prints a line (no progress bar)."""
-        check_no_mesh(mesh)
+        ``key``; ``mesh``: every E-step sharded over it (``_decode_latent``);
+        with ``verboase`` each iteration prints a line (no progress bar)."""
         verboase = kwargs.pop("verbose", verboase)
         if kwargs:
             raise TypeError(f"unexpected keyword arguments {sorted(kwargs)}")
@@ -331,7 +339,7 @@ class PoissonGPLVMGain1D_gain(PoissonGPLVMJump1D):
              _ll) = self._decode_latent(
                 y, tuning, hyperparam_, self.log_latent_transition_kernel_l,
                 self.log_dynamics_transition_kernel, ma_neuron, ma_latent,
-                likelihood_scale, n_time_per_chunk, gain_curr,
+                likelihood_scale, n_time_per_chunk, gain_curr, mesh=mesh,
             )
             log_posterior_curr = torch.logsumexp(log_posterior_all, dim=1)
             log_marginal_l.append(log_marginal_final)

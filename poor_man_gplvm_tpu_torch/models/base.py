@@ -55,14 +55,6 @@ def resolve_device(device):
     return device
 
 
-def check_no_mesh(mesh):
-    """Raise unless ``mesh`` is None: sharding over several cards is not
-    ported."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh is not ported yet (ROADMAP queue 1, item J)")
-
-
 def _check_t_l(t_l, n_time):
     """Raise unless the bin times ``t_l`` have one entry per time bin (the
     JAX package builds a TsdFrame whose times and rows disagree, and fails
@@ -360,7 +352,25 @@ class _GPLVMCommon(ABC):
         return torch.as_tensor(x, dtype=torch.float32, device=self.device)
 
     def _smooth(self, y, tuning, hyperparam, trans, ma_neuron, ma_latent,
-                likelihood_scale, n_time_per_chunk, **smooth_kwargs):
+                likelihood_scale, n_time_per_chunk, mesh=None,
+                **smooth_kwargs):
+        """The E-step smoother: ``hmm.smooth_combined_chunked`` on the
+        model's engine, or with a ``mesh`` ``parallel.spmd.sharded_smooth``
+        (time and neurons sharded; the engine and memory knobs do not
+        apply there, and ``marginal_smooth`` is emulated from the full
+        posterior, as in the JAX package), its results on the model's
+        device."""
+        if mesh is not None:
+            from poor_man_gplvm_tpu_torch.parallel import spmd
+
+            out = tuple(None if x is None else x.to(self.device)
+                        for x in spmd.sharded_smooth(
+                            mesh, y, tuning, hyperparam, trans, ma_neuron,
+                            ma_latent, likelihood_scale=likelihood_scale,
+                            observation_model=self.observation_model))
+            if smooth_kwargs.get("marginal_smooth"):
+                return (hmm._marginalize_log(out[0]),) + out[1:]
+            return out
         return hmm.smooth_combined_chunked(
             y, tuning, hyperparam, trans, ma_neuron, ma_latent,
             likelihood_scale=likelihood_scale,
@@ -376,9 +386,9 @@ class _GPLVMCommon(ABC):
         """Shared decode driver: smoother, then the family's result dict
         (``build_res``).  With bin times ``t_l`` the keys
         ``tsd_wrap_keys`` are wrapped as TsdFrames (numpy, on the host), as
-        in the JAX package.  The ``float()`` host sync of the log-marginal
-        comes LAST, after all device work is enqueued."""
-        check_no_mesh(mesh)
+        in the JAX package.  With a ``mesh`` the smoother runs sharded over
+        it (``parallel.spmd.sharded_smooth``).  The ``float()`` host sync of
+        the log-marginal comes LAST, after all device work is enqueued."""
         y = self._as_device(y)
         _check_t_l(t_l, y.shape[0])
         (
@@ -386,7 +396,7 @@ class _GPLVMCommon(ABC):
             log_one_step_pred, log_acc, log_likelihood_all,
         ) = self._smooth(
             y, tuning, hyperparam, trans, ma_neuron, ma_latent,
-            likelihood_scale, n_time_per_chunk,
+            likelihood_scale, n_time_per_chunk, mesh=mesh,
         )
         decoding_res = build_res(
             log_posterior_all, log_one_step_pred, log_acc, log_likelihood_all
@@ -589,15 +599,16 @@ class _GPLVMCommon(ABC):
 
     def _e_step(self, y_, tuning, hyperparam, trans, ma_neuron, ma_latent,
                 likelihood_scale, n_time_per_chunk, output_mode, memory_mode,
-                diag):
+                diag, mesh=None):
         """One host-loop E-step: ``(log_posterior_all, log_posterior_curr,
         log_marginal_final, lean dynamics marginal or None)``.  Lean: the
         marginal smoother in 'checkpoint' memory mode unless told
-        otherwise, and log_posterior_all is the (T, L) latent marginal."""
+        otherwise, and log_posterior_all is the (T, L) latent marginal.
+        ``mesh``: the smoother sharded over it."""
         if output_mode == "lean":
             smooth_out, log_marginal_final = self._smooth(
                 y_, tuning, hyperparam, trans, ma_neuron, ma_latent,
-                likelihood_scale, n_time_per_chunk, want_acc=False,
+                likelihood_scale, n_time_per_chunk, mesh=mesh, want_acc=False,
                 diag_out=diag, memory_mode=memory_mode or "checkpoint",
                 marginal_smooth=True,
             )[:2]
@@ -605,7 +616,7 @@ class _GPLVMCommon(ABC):
             return lat, lat, log_marginal_final, dyn
         log_posterior_all, log_marginal_final = self._smooth(
             y_, tuning, hyperparam, trans, ma_neuron, ma_latent,
-            likelihood_scale, n_time_per_chunk, want_acc=False,
+            likelihood_scale, n_time_per_chunk, mesh=mesh, want_acc=False,
             diag_out=diag,
             **({"memory_mode": memory_mode} if memory_mode else {}),
         )[:2]
@@ -675,12 +686,17 @@ class _GPLVMCommon(ABC):
         A TsdFrame ``y`` (full output) gives ``posterior_latent_marg`` and
         ``posterior_dynamics_marg`` (jump models) or ``posterior``
         (latent-only models) as TsdFrames on its times, as in the JAX
-        package.  ``mesh`` is not ported."""
+        package.  ``mesh`` (a ``parallel.spmd.Mesh``): every E-step runs
+        sharded over it (``spmd.sharded_smooth``), on the host loop (no
+        fused schedule), as in the JAX package."""
         del dt  # unused, as in the reference
         if output_mode not in ("full", "lean"):
             raise ValueError(
                 f"output_mode must be 'full' or 'lean', got {output_mode!r}")
-        check_no_mesh(mesh)
+        if mesh is not None:
+            from poor_man_gplvm_tpu_torch.parallel import spmd
+
+            spmd.check_mesh(mesh)
         fused = kwargs.pop("fused", None)
         verboase = kwargs.pop("verbose", verboase)
         if kwargs:
@@ -782,7 +798,7 @@ class _GPLVMCommon(ABC):
         # observed.  The segment runs the same loop body with its own
         # E-step; a failed warm-start certificate at its end replays it
         # from its start with strict fixed-point exits.
-        can_fuse = (checkpointer is None and not profile
+        can_fuse = (checkpointer is None and not profile and mesh is None
                     and save_every >= n_iter and n_iter >= 3)
         use_fused = (fused if fused is not None else not verboase) \
             and can_fuse
@@ -820,7 +836,8 @@ class _GPLVMCommon(ABC):
             if seg is None:
                 (log_posterior_all, log_posterior_curr, log_marginal_final,
                  lean_dyn_marg) = self._e_step(
-                    y_, tuning, *smooth_args, output_mode, memory_mode, diag)
+                    y_, tuning, *smooth_args, output_mode, memory_mode, diag,
+                    mesh)
             else:
                 log_posterior_curr, log_marginal_final = seg.e_step(
                     self, y_, tuning, smooth_args)

@@ -147,7 +147,8 @@ class AbstractGPLVMJump1D(_GPLVMCommon):
         """Full smoother decode: 7 base keys + 12 transition-posterior
         keys + ``log_marginal_final``, as the JAX ``decode_latent``.  With
         bin times ``t_l`` (or a TsdFrame ``y``, whose times win) the latent
-        and dynamics marginals are TsdFrames; ``mesh`` is not ported."""
+        and dynamics marginals are TsdFrames.  ``mesh``: run the smoother
+        sharded over a ('data', 'time', 'neuron') ``parallel.spmd.Mesh``."""
         if compat.is_tsdframe(y):
             t_l = y.t
             y = y.d

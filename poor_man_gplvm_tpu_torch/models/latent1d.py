@@ -119,7 +119,8 @@ class AbstractGPLVM1D(_GPLVMCommon):
         ``hmm.compute_transition_posterior_prob_latent`` and
         ``log_marginal_final``, as the JAX ``decode_latent``.  With bin
         times ``t_l`` (or a TsdFrame ``y``, whose times win)
-        ``posterior_all`` is a TsdFrame; ``mesh`` is not ported."""
+        ``posterior_all`` is a TsdFrame.  ``mesh``: run the smoother sharded
+        over a ('data', 'time', 'neuron') ``parallel.spmd.Mesh``."""
         if compat.is_tsdframe(y):
             t_l = y.t
             y = y.d

@@ -60,8 +60,8 @@ _SIGNATURES = {
         "pmg_scan_band_resident": [_ci] * 4,
     },
     "parallel_scan": {
-        "pmg_pfilter_pass": [_vp] * 11 + [_ci] * 9 + [_vp],
-        "pmg_psmooth_pass": [_vp] * 13 + [_ci] * 9 + [_vp],
+        "pmg_pfilter_pass": [_vp] * 11 + [_ci] * 10 + [_vp],
+        "pmg_psmooth_pass": [_vp] * 13 + [_ci] * 10 + [_vp],
         "pmg_pscan_resident": [_ci] * 6,
         "pmg_joint_acc": [_vp] * 4 + [_ci] * 6 + [_vp],
     },

@@ -35,7 +35,9 @@ it runs its plain PyTorch version instead (``*_plain``: batched torch ops
 over the C chunks, one Python step per row); on a CUDA tensor it launches
 the kernel or raises.  Each wrapper counts its launches in
 ``<wrapper>.launches`` and, per mode and precision, in
-``<wrapper>.launches_by_mode`` (keys ``"<mode>/<precision>"``).
+``<wrapper>.launches_by_mode`` (keys ``"<mode>/<precision>"``, and also
+``"<mode>/<precision>/nv"`` for a launch whose validity bound ``n_valid``
+is not the row count, a time shard's pass in ``parallel/spmd.py``).
 
 Layout: Hopper needs no 128-lane padding and the kernels need no
 chunk-major copy: the weights w (T, L) and the posteriors (T, n_dyn, L) are
@@ -204,6 +206,17 @@ def _check_chunks(T, C, tc):
         raise ValueError(f"C={C} chunks of tc={tc} rows must cover T={T}")
 
 
+def _n_valid(n_valid, T, extra):
+    """The validity bound of a pass over T rows: T when None, else an int
+    in [0, T + extra] (``extra`` 0 for K3, 1 for K4)."""
+    if n_valid is None:
+        return T
+    n_valid = int(n_valid)
+    if not 0 <= n_valid <= T + extra:
+        raise ValueError(f"n_valid={n_valid} must lie in [0, {T + extra}]")
+    return n_valid
+
+
 def _check_prec(scan_prec):
     if scan_prec not in SCAN_PRECISIONS:
         raise ValueError(f"unknown scan precision {scan_prec!r}")
@@ -217,10 +230,13 @@ def _splits(mats, scan_prec, splits):
     return split_bf16(mats) if splits is None else splits
 
 
-def _count(fn, mode, scan_prec):
+def _count(fn, mode, scan_prec, shard=False):
+    """Count a launch under ``<mode>/<precision>``, and with ``shard`` (a
+    validity bound other than T) also under ``<mode>/<precision>/nv``."""
     fn.launches += 1
     key = f"{mode}/{scan_prec}"
-    fn.launches_by_mode[key] = fn.launches_by_mode.get(key, 0) + 1
+    for k in (key, f"{key}/nv") if shard else (key,):
+        fn.launches_by_mode[k] = fn.launches_by_mode.get(k, 0) + 1
 
 
 def reset_launches():
@@ -261,16 +277,19 @@ def _unchunked(xc, T):
 
 
 def pfilter_pass_plain(w, tlat, tdyn, ins, tc, uniform_rows, emit,
-                       scan_prec="highest", splits=None):
+                       scan_prec="highest", splits=None, n_valid=None):
     """Plain version of K3.  w: (T, L) likelihood weights; tlat (n_dyn, L,
     L); tdyn (n_dyn, n_dyn); ins (C, n_dyn, L) boundary carries; tc rows
     per chunk; ``scan_prec`` the recursion-dot precision and ``splits``
     tlat's ``split_bf16`` (made here when None).  Row tau of chunk c
-    (global row c*tc + tau) is a step when it is < T.  Returns (post (T,
-    n_dyn, L), norm (T,), finals (C, n_dyn, L)) with norm_t = max(s_t,
-    1e-38); post and norm are None unless ``emit``."""
+    (global row c*tc + tau) is a step when it is < ``n_valid`` (0 <=
+    n_valid <= T, default T, the JAX kernel's runtime bound); the other
+    rows pass the carry through, with norm 1.  Returns (post (T, n_dyn,
+    L), norm (T,), finals (C, n_dyn, L)) with norm_t = max(s_t, 1e-38);
+    post and norm are None unless ``emit``."""
     T = w.shape[0]
     C = ins.shape[0]
+    nv = _n_valid(n_valid, T, 0)
     splits = _splits(tlat, scan_prec, splits)
     w_c = _chunked(w, C, tc)
     off = torch.arange(C, device=w.device) * tc
@@ -279,7 +298,7 @@ def pfilter_pass_plain(w, tlat, tdyn, ins, tc, uniform_rows, emit,
         post_c = w.new_empty((C, tc) + tuple(ins.shape[1:]))
         norm_c = w.new_ones((C, tc))
     for tau in range(tc):
-        valid = (off + tau) < T
+        valid = (off + tau) < nv
         q = torch.einsum("cpl,pd->cdl", carry, tdyn)
         u = _matvec(q, tlat, uniform_rows, scan_prec, splits) \
             * w_c[:, tau, None, :]
@@ -294,7 +313,7 @@ def pfilter_pass_plain(w, tlat, tdyn, ins, tc, uniform_rows, emit,
 
 
 def pfilter_pass(w, tlat, tdyn, ins, tc, uniform_rows, emit,
-                 scan_prec="highest", splits=None, band=None):
+                 scan_prec="highest", splits=None, band=None, n_valid=None):
     """K3 wrapper: same arguments and outputs as ``pfilter_pass_plain``.
     On the card the kernel reads the non-constant channels through the
     push half of ``band``, their ``transition_band`` in ``scan_prec`` (made
@@ -304,6 +323,7 @@ def pfilter_pass(w, tlat, tdyn, ins, tc, uniform_rows, emit,
     C, n_dyn = ins.shape[:2]
     _check_dims(n_dyn, L, uniform_rows)
     _check_chunks(T, C, tc)
+    nv = _n_valid(n_valid, T, 0)
     _check_prec(scan_prec)
     dev = w.device
     _check("w", w, (T, L), dev)
@@ -314,7 +334,7 @@ def pfilter_pass(w, tlat, tdyn, ins, tc, uniform_rows, emit,
         check_band(band, uniform_rows, L, dev, scan_prec)
     if dev.type == "cpu":
         return pfilter_pass_plain(w, tlat, tdyn, ins, tc, uniform_rows, emit,
-                                  scan_prec, splits)
+                                  scan_prec, splits, nv)
     if dev.type != "cuda":
         raise ValueError(f"pfilter_pass runs on cpu or cuda, not {dev.type}")
     if band is None:
@@ -330,11 +350,12 @@ def pfilter_pass(w, tlat, tdyn, ins, tc, uniform_rows, emit,
         err = _lib().pmg_pfilter_pass(
             w.data_ptr(), tlat.data_ptr(), _ptr(band.mats), _ptr(band.hi),
             _ptr(band.lo), _ptr(band.start), tdyn.data_ptr(), ins.data_ptr(),
-            finals.data_ptr(), _ptr(post), _ptr(norm), T, C, tc, n_dyn, L,
+            finals.data_ptr(), _ptr(post), _ptr(norm), T, C, tc, nv, n_dyn,
+            L,
             band.W, _mask(uniform_rows), int(emit), _PREC_CODE[scan_prec],
             _stream_ptr(dev),
         )
-    _count(pfilter_pass, "emit" if emit else "finals", scan_prec)
+    _count(pfilter_pass, "emit" if emit else "finals", scan_prec, nv != T)
     _raise_on(err, "pfilter_pass")
     return post, norm, finals
 
@@ -349,7 +370,7 @@ def _ptr(x):
 
 
 def psmooth_pass_plain(post, tlat, tlat_t, tdyn, ins, tc, uniform_rows,
-                       mode, scan_prec="highest", splits=None):
+                       mode, scan_prec="highest", splits=None, n_valid=None):
     """Plain version of K4.  post: (T, n_dyn, L) filter posteriors; tlat
     and tlat_t (n_dyn, L, L) the latent kernels and their transposes; tdyn
     (n_dyn, n_dyn); ins (C, n_dyn, L) smoothed posteriors after each
@@ -357,8 +378,11 @@ def psmooth_pass_plain(post, tlat, tlat_t, tdyn, ins, tc, uniform_rows,
     ``scan_prec`` is not "highest" (made here when None).  Per row,
     backward: prior = push(post_t) (K3's arithmetic), r = carry / prior
     (0 where the prior is below ``PRIOR_FLOOR``), pull, normalise.  A row
-    is a step when its global index is < T - 1; the others pass the carry
-    through (and store r = 0).  Returns, by ``mode`` (see ``PSMOOTH_MODES``):
+    is a step when its global index is < ``n_valid`` - 1 (0 <= n_valid <=
+    T + 1, default T: every row but T - 1; T + 1: every row, the last
+    reading the carry that ``ins`` gives after it); the others pass the
+    carry through (and store r = 0).  Returns, by ``mode`` (see
+    ``PSMOOTH_MODES``):
 
     * "finals": (None, None, finals (C, n_dyn, L));
     * "full": (smooth (T, n_dyn, L), r (T, n_dyn, L), finals);
@@ -370,6 +394,7 @@ def psmooth_pass_plain(post, tlat, tlat_t, tdyn, ins, tc, uniform_rows,
         raise ValueError(f"mode must be one of {PSMOOTH_MODES}, got {mode!r}")
     T = post.shape[0]
     C = ins.shape[0]
+    nv = _n_valid(n_valid, T, 1)
     if splits is None and scan_prec != "highest":
         splits = (split_bf16(tlat), split_bf16(tlat_t))
     sp_f, sp_b = splits if splits is not None else (None, None)
@@ -385,7 +410,7 @@ def psmooth_pass_plain(post, tlat, tlat_t, tdyn, ins, tc, uniform_rows,
     if keep_r:
         r_c = torch.empty_like(post_c)
     for tau in range(tc - 1, -1, -1):
-        valid = ((off + tau) < T - 1)[:, None, None]
+        valid = ((off + tau) < nv - 1)[:, None, None]
         filt = post_c[:, tau]
         prior = _matvec(torch.einsum("cpl,pd->cdl", filt, tdyn), tlat,
                         uniform_rows, scan_prec, sp_f)
@@ -414,7 +439,7 @@ def psmooth_pass_plain(post, tlat, tlat_t, tdyn, ins, tc, uniform_rows,
 
 
 def psmooth_pass(post, tlat, tlat_t, tdyn, ins, tc, uniform_rows, mode,
-                 scan_prec="highest", splits=None, band=None):
+                 scan_prec="highest", splits=None, band=None, n_valid=None):
     """K4 wrapper: same arguments and outputs as ``psmooth_pass_plain``.
     On the card the kernel reads the non-constant channels through
     ``band``, their ``transition_band`` in ``scan_prec`` (made here when
@@ -426,6 +451,7 @@ def psmooth_pass(post, tlat, tlat_t, tdyn, ins, tc, uniform_rows, mode,
     C = ins.shape[0]
     _check_dims(n_dyn, L, uniform_rows)
     _check_chunks(T, C, tc)
+    nv = _n_valid(n_valid, T, 1)
     _check_prec(scan_prec)
     if mode not in PSMOOTH_MODES:
         raise ValueError(f"mode must be one of {PSMOOTH_MODES}, got {mode!r}")
@@ -439,7 +465,7 @@ def psmooth_pass(post, tlat, tlat_t, tdyn, ins, tc, uniform_rows, mode,
         check_band(band, uniform_rows, L, dev, scan_prec)
     if dev.type == "cpu":
         return psmooth_pass_plain(post, tlat, tlat_t, tdyn, ins, tc,
-                                  uniform_rows, mode, scan_prec, splits)
+                                  uniform_rows, mode, scan_prec, splits, nv)
     if dev.type != "cuda":
         raise ValueError(f"psmooth_pass runs on cpu or cuda, not {dev.type}")
     if band is None:
@@ -459,11 +485,11 @@ def psmooth_pass(post, tlat, tlat_t, tdyn, ins, tc, uniform_rows, mode,
             _ptr(band.mats), _ptr(band.hi), _ptr(band.lo),
             _ptr(band.start), tdyn.data_ptr(), ins.data_ptr(),
             finals.data_ptr(), _ptr(out), _ptr(out2), _ptr(out3), T, C, tc,
-            n_dyn, L, band.W, _mask(uniform_rows),
+            nv, n_dyn, L, band.W, _mask(uniform_rows),
             PSMOOTH_MODES.index(mode), _PREC_CODE[scan_prec],
             _stream_ptr(dev),
         )
-    _count(psmooth_pass, mode, scan_prec)
+    _count(psmooth_pass, mode, scan_prec, nv != T)
     _raise_on(err, "psmooth_pass")
     if mode == "finals":
         return None, None, finals

@@ -25,8 +25,15 @@ initial posterior, drawn on the device, and, for
 ``sweep_fit_poisson_jump``, its initial weights) come from its own
 ``torch.Generator`` in ``draw_run_init`` / ``draw_poisson_jump_init``,
 and the constructor's weights from ``ctor_params``: one place each, so that a test can put the JAX package's
-draws in their place.  ``mesh=`` raises (sharding over several cards is
-not ported).
+draws in their place.
+
+``mesh=`` (a ``parallel.spmd.Mesh``) is pure data parallelism: each
+bucket's runs are padded to a multiple of the mesh's devices (repeating
+its last run) and split over them in order, each device runs its share as
+a bucket of its own, and the pads are dropped.  A run's results then come
+from a batch of another shape than without a mesh, so they agree with the
+unsharded ones to the tolerances of the emission and Adam products, not
+bit for bit.
 """
 
 from __future__ import annotations
@@ -38,7 +45,6 @@ import torch
 
 from poor_man_gplvm_tpu_torch.models.base import (
     _log_posterior_init,
-    check_no_mesh,
     resolve_device,
 )
 from poor_man_gplvm_tpu_torch.ops import hmm
@@ -328,6 +334,38 @@ def _bucket_em(y, basis, params0, log_post, hps, model_class_str, n_iter,
     return out
 
 
+def _run_shards(n, mesh, device):
+    """[(device, positions)] of a bucket of n runs: all of them (positions
+    None) on ``device`` without a mesh; with one, the positions padded to
+    a multiple of the mesh's devices by repeating the last, in contiguous
+    groups, one per device (a repeated position is a pad)."""
+    if mesh is None:
+        return [(device, None)]
+    from poor_man_gplvm_tpu_torch.parallel import spmd
+
+    devs = list(spmd.check_mesh(mesh).devices.reshape(-1))
+    pos = list(range(n)) + [n - 1] * ((-n) % len(devs))
+    per = len(pos) // len(devs)
+    return [(d, pos[g * per:(g + 1) * per]) for g, d in enumerate(devs)]
+
+
+def _take(x, pos, device):
+    """Rows ``pos`` of the batched tensor x on ``device`` (x itself for
+    positions None)."""
+    if pos is None:
+        return x
+    return x[torch.as_tensor(pos, device=x.device)].to(device)
+
+
+def _scatter(per_run, idxs, pos, res, device):
+    """Write each run's row of a shard's results ``res`` into per_run,
+    skipping the pads, on ``device``."""
+    pos = range(len(idxs)) if pos is None else pos
+    for j, p in enumerate(pos):
+        if per_run[idxs[p]] is None:
+            per_run[idxs[p]] = {k: v[j].to(device) for k, v in res.items()}
+
+
 def _stack_rows(per_run, B):
     """Per-run dicts -> one dict: stacked where shapes agree, else a list
     of per-run tensors (``params`` across basis ranks)."""
@@ -371,8 +409,9 @@ def sweep_fit_poisson_jump(
     (a list of per-run tensors when ranks differ), ``tuning``,
     ``log_marginal_l`` (B, n_iter), ``m_step_final_loss_l``,
     ``log_posterior_latent`` (B, T, L), plus ``config_index``,
-    ``chain_index`` and ``grid`` (the per-run hyperparameter arrays)."""
-    check_no_mesh(mesh)
+    ``chain_index`` and ``grid`` (the per-run hyperparameter arrays).
+    ``mesh``: each bucket's runs split over its devices (module
+    docstring)."""
     device = resolve_device(device)
     generator = torch.Generator().manual_seed(0) if generator is None \
         else generator
@@ -405,12 +444,15 @@ def sweep_fit_poisson_jump(
         log_post0 = [torch.stack([d[0] for d in draws]).to(device,
                                                            torch.float32)]
         del draws
-        res = _bucket_em(
-            y, basis, params0, log_post0.pop(), hps,
-            "poisson", n_iter, n_latent_bin, m_step_size, m_maxiter, m_tol,
-            likelihood_scale, want_posterior=True)
-        for j, i in enumerate(idxs):
-            per_run[i] = {k: v[j] for k, v in res.items()}
+        for dev, pos in _run_shards(len(idxs), mesh, device):
+            res = _bucket_em(
+                y.to(dev), _take(basis, pos, dev), _take(params0, pos, dev),
+                log_post0.pop() if pos is None
+                else _take(log_post0[0], pos, dev),
+                hps if pos is None else [hps[p] for p in pos],
+                "poisson", n_iter, n_latent_bin, m_step_size, m_maxiter,
+                m_tol, likelihood_scale, want_posterior=True)
+            _scatter(per_run, idxs, pos, res, device)
     results = _stack_rows(per_run, B)
     results["config_index"] = config_index
     results["chain_index"] = chain_index
@@ -450,8 +492,8 @@ def sweep_fit_model_class(
     ``config_l``: one ctor-kwargs dict PER RUN (configs repeated per
     chain); ``generator_l``: one CPU ``torch.Generator`` per run, in the
     place of the JAX ``key_l``.  Returns a list of per-run dicts
-    (params / tuning / log_marginal_l / m_step_final_loss_l)."""
-    check_no_mesh(mesh)
+    (params / tuning / log_marginal_l / m_step_final_loss_l).  ``mesh``:
+    each bucket's runs split over its devices (module docstring)."""
     device = resolve_device(device)
     y = torch.as_tensor(y, dtype=torch.float32, device=device)
     T, n_neuron = y.shape
@@ -474,7 +516,8 @@ def sweep_fit_model_class(
     per_run = [None] * B
     for (L, nb), idxs in sorted(buckets.items()):
         bks = [_basis_key(full_cfg[i]) for i in idxs]
-        if all(b == bks[0] for b in bks):
+        same_basis = all(b == bks[0] for b in bks)
+        if same_basis:
             basis = bases[bks[0]].to(device)
         else:  # two lengthscales share a rank: the basis rides the batch
             basis = torch.stack([bases[b] for b in bks]).to(device)
@@ -484,15 +527,19 @@ def sweep_fit_model_class(
         log_post0 = [torch.stack([draw_run_init(
             model_class_str, T, L, generator_l[i], random_scale,
             device=device) for i in idxs]).to(device, torch.float32)]
-        res = _bucket_em(
-            y, basis,
-            params0[nb].to(device, torch.float32)[None]
-            .expand(len(idxs), -1, -1).contiguous(),
-            log_post0.pop(), hps,
-            model_class_str, n_iter, L, m_step_size, m_maxiter, m_tol,
-            likelihood_scale)
-        for j, i in enumerate(idxs):
-            per_run[i] = {k: v[j] for k, v in res.items()}
+        for dev, pos in _run_shards(len(idxs), mesh, device):
+            n_runs = len(idxs) if pos is None else len(pos)
+            res = _bucket_em(
+                y.to(dev),
+                basis.to(dev) if same_basis else _take(basis, pos, dev),
+                params0[nb].to(dev, torch.float32)[None]
+                .expand(n_runs, -1, -1).contiguous(),
+                log_post0.pop() if pos is None
+                else _take(log_post0[0], pos, dev),
+                hps if pos is None else [hps[p] for p in pos],
+                model_class_str, n_iter, L, m_step_size, m_maxiter, m_tol,
+                likelihood_scale)
+            _scatter(per_run, idxs, pos, res, device)
     return per_run
 
 
@@ -506,21 +553,18 @@ def sweep_eval_model_class(
     predictive ratios and dynamics marginal), and every (run x frac x
     mask) downsampled LML through the norm-only K1, in launches of at most
     ``MASKED_BATCH_BYTES`` of log-likelihoods and weights.  The runs'
-    tunings give the device.
+    tunings give the device of the results.  ``mesh``: each bucket's runs
+    split over its devices (module docstring).
 
     ``masks_per_run``: {frac: list of (n_mask, L_i) masks, one per run}.
     Returns (decode metrics per run: dicts of ``log_marginal_final``,
     ``ratios`` (T,), ``posterior_dynamics_marg`` (T, n_dyn), zeros (T, 1)
     for a latent-only class; {frac: list of (n_mask,) LMLs per run})."""
-    check_no_mesh(mesh)
     device = per_run[0]["tuning"].device
     y_test = torch.as_tensor(y_test, dtype=torch.float32, device=device)
-    T = y_test.shape[0]
-    is_jump, is_poisson = _family(model_class_str)
+    is_poisson = _family(model_class_str)[1]
     B = len(config_l)
     full_cfg, hp_names = _full_configs(config_l, model_class_str)
-    lg = poisson_lgamma_term(y_test, torch.ones_like(y_test)) \
-        if is_poisson else None
     buckets = {}
     for i, cfg in enumerate(full_cfg):
         buckets.setdefault(cfg["n_latent_bin"], []).append(i)
@@ -528,39 +572,61 @@ def sweep_eval_model_class(
     dec_per_run = [None] * B
     masked_per_run = {frac: [None] * B for frac in masks_per_run}
     for L, idxs in sorted(buckets.items()):
-        hps = [{k: full_cfg[i][k] for k in hp_names} for i in idxs]
-        stack, cfg = _transition_stack(model_class_str, hps, L, device)
-        tunings = torch.stack([per_run[i]["tuning"] for i in idxs])
-        ll = _runs_loglik(y_test, tunings, hps, model_class_str, lg)
-        # the decode sums its ratios chunk by chunk
-        n_chunk = hmm.auto_chunk_size(T, stack.n_dyn * L, L, device)
-        lml, _lat, ratios, dyn = _e_step(ll, stack, cfg, likelihood_scale,
-                                         want_dyn=is_jump, n_chunk=n_chunk)
-        del _lat
-        for j, i in enumerate(idxs):
-            dec_per_run[i] = {
-                "log_marginal_final": lml[j], "ratios": ratios[j],
-                "posterior_dynamics_marg": dyn[j] if is_jump else torch.zeros(
-                    (T, 1), dtype=torch.float32, device=device)}
-        for frac, masks_l in masks_per_run.items():
-            masks = torch.stack([torch.as_tensor(masks_l[i], device=device)
-                                 .bool() for i in idxs])  # (Bb, n_mask, L)
-            n_mask = masks.shape[1]
-            run_of = torch.arange(len(idxs), device=device).repeat_interleave(
-                n_mask)
-            flat = masks.reshape(-1, L)
-            per = max(1, int(MASKED_BATCH_BYTES // (2 * T * L * 4)))
-            out = []
-            for s0 in range(0, flat.shape[0], per):
-                runs = run_of[s0:s0 + per]
-                ll_m = torch.where(flat[s0:s0 + per, None, :], ll[runs],
-                                   MASK_NEG)
-                out.append(hmm.filter_lml_batch(
-                    ll_m, stack, likelihood_scale, cfg=cfg[runs].contiguous(),
-                    n_time_per_chunk=n_chunk))
-                del ll_m
-            lml_rm = torch.cat(out).reshape(len(idxs), n_mask)
-            for j, i in enumerate(idxs):
-                masked_per_run[frac][i] = lml_rm[j]
-        del ll
+        for dev, pos in _run_shards(len(idxs), mesh, device):
+            runs = idxs if pos is None else [idxs[p] for p in pos]
+            y_d = y_test.to(dev)
+            lg = poisson_lgamma_term(y_d, torch.ones_like(y_d)) \
+                if is_poisson else None
+            dec, masked = _eval_bucket(
+                y_d, lg, per_run, runs, full_cfg, hp_names, model_class_str,
+                masks_per_run, L, likelihood_scale)
+            for j, i in enumerate(runs):
+                if dec_per_run[i] is None:
+                    dec_per_run[i] = {k: v.to(device)
+                                      for k, v in dec[j].items()}
+                    for frac in masks_per_run:
+                        masked_per_run[frac][i] = masked[frac][j].to(device)
     return dec_per_run, masked_per_run
+
+
+def _eval_bucket(y_test, lg, per_run, runs, full_cfg, hp_names,
+                 model_class_str, masks_per_run, L, likelihood_scale):
+    """``sweep_eval_model_class`` on the runs ``runs`` of one bucket of
+    latent size L, on y_test's device: (a decode-metrics dict per run,
+    {frac: (n_mask,) LMLs per run})."""
+    device = y_test.device
+    T = y_test.shape[0]
+    is_jump = _family(model_class_str)[0]
+    hps = [{k: full_cfg[i][k] for k in hp_names} for i in runs]
+    stack, cfg = _transition_stack(model_class_str, hps, L, device)
+    tunings = torch.stack([per_run[i]["tuning"].to(device) for i in runs])
+    ll = _runs_loglik(y_test, tunings, hps, model_class_str, lg)
+    # the decode sums its ratios chunk by chunk
+    n_chunk = hmm.auto_chunk_size(T, stack.n_dyn * L, L, device)
+    lml, _lat, ratios, dyn = _e_step(ll, stack, cfg, likelihood_scale,
+                                     want_dyn=is_jump, n_chunk=n_chunk)
+    del _lat
+    dec = [{"log_marginal_final": lml[j], "ratios": ratios[j],
+            "posterior_dynamics_marg": dyn[j] if is_jump else torch.zeros(
+                (T, 1), dtype=torch.float32, device=device)}
+           for j in range(len(runs))]
+    masked = {}
+    for frac, masks_l in masks_per_run.items():
+        masks = torch.stack([torch.as_tensor(masks_l[i], device=device)
+                             .bool() for i in runs])  # (Bb, n_mask, L)
+        n_mask = masks.shape[1]
+        run_of = torch.arange(len(runs), device=device).repeat_interleave(
+            n_mask)
+        flat = masks.reshape(-1, L)
+        per = max(1, int(MASKED_BATCH_BYTES // (2 * T * L * 4)))
+        out = []
+        for s0 in range(0, flat.shape[0], per):
+            sel = run_of[s0:s0 + per]
+            ll_m = torch.where(flat[s0:s0 + per, None, :], ll[sel], MASK_NEG)
+            out.append(hmm.filter_lml_batch(
+                ll_m, stack, likelihood_scale, cfg=cfg[sel].contiguous(),
+                n_time_per_chunk=n_chunk))
+            del ll_m
+        masked[frac] = torch.cat(out).reshape(len(runs), n_mask)
+    del ll
+    return dec, masked

@@ -30,7 +30,7 @@ import itertools
 import numpy as np
 import torch
 
-from poor_man_gplvm_tpu_torch.models.base import check_no_mesh, resolve_device
+from poor_man_gplvm_tpu_torch.models.base import resolve_device
 from poor_man_gplvm_tpu_torch.models.jump1d import (
     GaussianGPLVMJump1D,
     PoissonGPLVMJump1D,
@@ -40,6 +40,7 @@ from poor_man_gplvm_tpu_torch.models.latent1d import (
     PoissonGPLVM1D,
 )
 from poor_man_gplvm_tpu_torch.ops import emissions, hmm
+from poor_man_gplvm_tpu_torch.parallel import spmd as _spmd
 from poor_man_gplvm_tpu_torch.parallel import sweep as _sweep
 from poor_man_gplvm_tpu_torch.utils.table import ResultTable
 
@@ -354,12 +355,22 @@ def model_selection_one_split(
     ``device`` is where the models live.  ``model_eval_result_all_configs``
     and ``hyperparam_grid_df`` are ``ResultTable``s and
     ``hyperparam_tosweep_keys`` a list of names, where the JAX package
-    returns DataFrames and their columns.  ``mesh`` is not ported."""
-    check_no_mesh(mesh)
+    returns DataFrames and their columns.
+
+    ``mesh`` (a ``parallel.spmd.Mesh``): the batched backend splits each
+    bucket's runs over the mesh's devices (pure data parallelism,
+    ``parallel.sweep``); it requires the batched backend, and
+    ``backend='serial'`` raises."""
     device = resolve_device(device)
     generator = _seeded(generator, 0)
     if backend not in ("auto", "serial", "batched"):
         raise ValueError(f"unknown backend {backend!r}")
+    if mesh is not None:
+        _spmd.check_mesh(mesh)
+        if backend == "serial":
+            raise ValueError(
+                "mesh= requires the batched backend (the serial host loop "
+                "fits one model after another)")
     y = _as_numpy(y)
     T = y.shape[0]
     metric_type_l = list(metric_type_l)
@@ -382,7 +393,7 @@ def model_selection_one_split(
     if backend != "serial":
         applicable = _batched_backend_applicable(
             hyperparam_dict, fit_kwargs, model_class_str, n_cfg, n_repeat)
-        if backend == "batched" and not applicable:
+        if (backend == "batched" or mesh is not None) and not applicable:
             raise ValueError(
                 "backend='batched' cannot handle this grid/fit_kwargs "
                 "combination (shape-incompatible or unsupported keys): "
@@ -392,7 +403,7 @@ def model_selection_one_split(
             return _one_split_batched(
                 y_train, y_test, hyperparam_grid_l, grid, gens_fit, gens_eval,
                 model_to_return_type, fit_kwargs, model_class_str, n_repeat,
-                eval_kw, verbose, device)
+                eval_kw, verbose, device, mesh)
 
     fit_kwargs = dict(fit_kwargs)
     if fit_kwargs.get("log_posterior_init") is not None:
@@ -427,7 +438,7 @@ def _downsample_masks(generator, n_latent_bin, downsample_frac, n_repeat):
 def _one_split_batched(
     y_train, y_test, hyperparam_grid_l, grid, gens_fit, gens_eval,
     model_to_return_type, fit_kwargs, model_class_str, n_repeat, eval_kw,
-    verbose, device,
+    verbose, device, mesh=None,
 ):
     """backend='batched': the serial tree (fit chains -> decode -> masked
     decodes -> consensus) as ``parallel.sweep``'s batched programs, with
@@ -452,7 +463,7 @@ def _one_split_batched(
         random_scale=random_scale,
         m_step_size=float(fk.get("m_step_step_size", 0.01)),
         m_maxiter=int(fk.get("m_step_maxiter", 1000)),
-        m_tol=float(fk.get("m_step_tol", 1e-6)), device=device)
+        m_tol=float(fk.get("m_step_tol", 1e-6)), mesh=mesh, device=device)
 
     metric_type_l = eval_kw["metric_type_l"]
     L_default = _sweep._config_defaults(model_class_str)["n_latent_bin"]
@@ -469,7 +480,7 @@ def _one_split_batched(
             masks_per_run[frac] = masks_l
     dec_per_run, masked_per_run = _sweep.sweep_eval_model_class(
         y_test, per_run, config_l, model_class_str, masks_per_run,
-        likelihood_scale=1.0)
+        likelihood_scale=1.0, mesh=mesh)
 
     # one constructor per config (its basis SVD), copied per chain
     model_class = model_class_dict[model_class_str]

@@ -39,6 +39,7 @@ __all__ = [
     "joint_acc_vs_plain", "JOINT_ACC_ENTRY_RTOL", "JOINT_ACC_FLOOR",
     "band_vs_dense", "BAND_K2_ROWS", "STEP_RTOL", "STEP_TOLERANCES",
     "pfilter_step_check", "psmooth_step_check", "pscan_failures",
+    "pscan_nvalid_vs_plain", "pscan_nvalid_failures",
     "subnormal_prior_smoothers", "CONFIG_MOVEMENT", "config_stack",
     "config_batch_vs_single",
 ]
@@ -414,13 +415,15 @@ def _slices(T, rows):
         yield torch.arange(lo, min(T, lo + rows))
 
 
-def pfilter_step_check(a, post, scan_prec, rows=1 << 16):
+def pfilter_step_check(a, post, scan_prec, rows=1 << 16, n_valid=None):
     """The one-step check of K3's emitted posteriors ``post`` (T, n_dyn,
     L) on the inputs ``a`` of ``pscan_inputs``: row t recomputed by the
     plain arithmetic in ``scan_prec`` from the kernel's own row t-1 (the
-    boundary carry at a chunk's first row), over entries > 1e-30.  Returns
+    boundary carry at a chunk's first row), over entries > 1e-30, on the
+    rows that are steps (t < ``n_valid``, default T).  Returns
     ``step_post_rel`` and ``step_post_frac`` (see ``STEP_TOLERANCES``)."""
     tc, tdyn, flags = a["tc"], a["tdyn"], a["flags"]
+    nv = post.shape[0] if n_valid is None else n_valid
     splits = ps._splits(a["tlat"], scan_prec, None)
     stats = _StepStats()
     for idx in _slices(post.shape[0], rows):
@@ -431,30 +434,36 @@ def pfilter_step_check(a, post, scan_prec, rows=1 << 16):
                        flags, scan_prec, splits) * a["w"][idx][:, None, :]
         want = u / torch.clamp(u.sum(dim=(1, 2), keepdim=True),
                                min=ps.NORM_FLOOR)
-        stats.add(post[idx], want, want > 1e-30)
+        stats.add(post[idx], want, (want > 1e-30)
+                  & (idx < nv)[:, None, None])
     return stats.out("post")
 
 
-def psmooth_step_check(a, post, ins_b, smooth, r, scan_prec, rows=1 << 16):
+def psmooth_step_check(a, post, ins_b, smooth, r, scan_prec, rows=1 << 16,
+                       n_valid=None):
     """The one-step check of K4's full-mode outputs ``smooth`` and ``r``
     (T, n_dyn, L), run on the filter posteriors ``post`` from the boundary
     carries ``ins_b`` (``a`` as in ``pfilter_step_check``), in
     ``scan_prec``: at each step row t (< T-1), r recomputed from the
     kernel's smoothed posterior of row t+1 (the carry at a chunk's last
     row), and the smoothed posterior of row t pulled from the kernel's own
-    r, so that no operand rounds differently in the pull.  r is compared
-    where the prior and the numerator are > 1e-30, smooth where > 1e-30.
-    Returns ``step_{r,smooth}_{rel,frac}``."""
+    r, so that no operand rounds differently in the pull; the steps are
+    the rows t < ``n_valid`` - 1 (default T).  r is compared where the
+    prior and the numerator are > 1e-30, smooth where > 1e-30.  Returns
+    ``step_{r,smooth}_{rel,frac}``."""
     T = post.shape[0]
+    nv = T if n_valid is None else n_valid
     tc, tdyn, flags = a["tc"], a["tdyn"], a["flags"]
     sp_f = ps._splits(a["tlat"], scan_prec, None)
     sp_b = ps._splits(a["tlat_t"], scan_prec, None)
     st_r, st_s = _StepStats(), _StepStats()
     for idx in _slices(T, rows):
         idx = idx.to(post.device)
-        step = (idx < T - 1)[:, None, None]
-        carry = torch.where((idx % tc == tc - 1)[:, None, None],
-                            ins_b[idx // tc], smooth[(idx + 1).clamp(max=T - 1)])
+        step = (idx < nv - 1)[:, None, None]
+        # a chunk's last row (and the sequence's) reads the chunk's carry
+        last = (idx % tc == tc - 1) | (idx == T - 1)
+        carry = torch.where(last[:, None, None], ins_b[idx // tc],
+                            smooth[(idx + 1).clamp(max=T - 1)])
         filt = post[idx]
         prior = ps._matvec(torch.einsum("tpl,pd->tdl", filt, tdyn),
                            a["tlat"], flags, scan_prec, sp_f)
@@ -554,6 +563,95 @@ def pscan_vs_plain(case, device, C=None, scan_prec="highest",
         "modes_agree": bool(agree), "marginal_exact": bool(exact),
     })
     return err
+
+
+def _passed_through(a, out, ins, first, rows_nv):
+    """Whether every row of ``out`` (T, n_dyn, L) at or past ``rows_nv``
+    holds, bit for bit, the row a pass-through gives: the row before it in
+    its chunk (``first``: K3, from the chunk's first row on) or after it
+    (K4), or the chunk's carry ``ins`` at the chunk's edge."""
+    T, tc = out.shape[0], a["tc"]
+    idx = torch.arange(T, device=out.device)
+    if first:
+        edge = idx % tc == 0
+        nb = out[(idx - 1).clamp(min=0)]
+    else:
+        edge = (idx % tc == tc - 1) | (idx == T - 1)
+        nb = out[(idx + 1).clamp(max=T - 1)]
+    want = torch.where(edge[:, None, None], ins[idx // tc], nb)
+    past = idx >= rows_nv
+    return bool(torch.equal(out[past], want[past]))
+
+
+def pscan_nvalid_vs_plain(case, device, n_valid, scan_prec="highest",
+                          plain_n_valid=None):
+    """K3 (finals-only and emit) with the validity bound min(``n_valid``,
+    T) and K4 (finals-only and full) with ``n_valid`` (up to T + 1: every
+    row recurses, the last from its chunk's carry), in ``scan_prec``,
+    against their plain versions at ``plain_n_valid`` (default the same;
+    another bound is the failing control) on the inputs of
+    ``pscan_inputs``.  Returns the disagreements of ``pscan_vs_plain``'s
+    keys that these modes give, the one-step check over the steps, and
+    ``passthrough_exact``: whether the kernel's rows past the steps hold
+    the passed-through carry bit for bit, with norm 1 (K3) and r = 0
+    (K4)."""
+    plain_nv = n_valid if plain_n_valid is None else plain_n_valid
+    a = pscan_inputs(case, device, None, scan_prec)
+    T = a["w"].shape[0]
+    nv_f, pnv_f = min(n_valid, T), min(plain_nv, T)
+    fwd = (a["w"], a["tlat"], a["tdyn"], a["ins"], a["tc"], a["flags"])
+    post_p, norm_p, fin_p = ps.pfilter_pass_plain(*fwd, True, scan_prec,
+                                                  n_valid=pnv_f)
+    post_k, norm_k, fin_k = ps.pfilter_pass(*fwd, True, scan_prec,
+                                            n_valid=nv_f)
+    _, _, fin_k0 = ps.pfilter_pass(*fwd, False, scan_prec, n_valid=nv_f)
+    lr_p = float((torch.log(norm_p) + a["m"]).double().sum())
+    lr_k = float((torch.log(norm_k) + a["m"]).double().sum())
+    err = {
+        "fwd_finals_abs": float((fin_k - fin_p).abs().max()),
+        "post_abs": float((post_k - post_p).abs().max()),
+        "log_norm_sum_rel": abs(lr_k - lr_p) / abs(lr_p),
+        **pfilter_step_check(a, post_k, scan_prec, n_valid=nv_f),
+    }
+    idx = torch.arange(T, device=post_k.device)
+    through = (_passed_through(a, post_k, a["ins"], True, nv_f)
+               and bool((norm_k[idx >= nv_f] == 1.0).all()))
+    C = a["ins"].shape[0]
+    ins_b = bwd_guess(post_p, a["tc"], C)
+    bwd = (post_p, a["tlat"], a["tlat_t"], a["tdyn"], ins_b, a["tc"],
+           a["flags"])
+    sm_k, r_k, bfin_k = ps.psmooth_pass(*bwd, "full", scan_prec,
+                                        n_valid=n_valid)
+    _, _, bfin_k0 = ps.psmooth_pass(*bwd, "finals", scan_prec,
+                                    n_valid=n_valid)
+    sm_p, r_p, bfin_p = ps.psmooth_pass_plain(*bwd, "full", scan_prec,
+                                              n_valid=plain_nv)
+    err.update(psmooth_step_check(a, post_p, ins_b, sm_k, r_k, scan_prec,
+                                  n_valid=n_valid))
+    prior = ps._matvec(torch.einsum("tpl,pd->tdl", post_p, a["tdyn"]),
+                       a["tlat"], a["flags"], scan_prec)
+    where = (prior > 1e-30) & ((r_p * prior) > 1e-30)
+    err.update({
+        "bwd_finals_abs": float((bfin_k - bfin_p).abs().max()),
+        "smooth_abs": float((sm_k - sm_p).abs().max()),
+        "r_rel": _max_rel(r_k, r_p, where),
+    })
+    through &= (_passed_through(a, sm_k, ins_b, False, n_valid - 1)
+                and bool((r_k[idx >= n_valid - 1] == 0).all()))
+    finite = all(bool(torch.isfinite(x).all())
+                 for x in (post_k, norm_k, fin_k, sm_k, r_k, bfin_k))
+    return {**err, "finite": finite, "passthrough_exact": through,
+            "modes_agree": bool(torch.equal(fin_k0, fin_k)
+                                and torch.equal(bfin_k0, bfin_k))}
+
+
+def pscan_nvalid_failures(err, scan_prec):
+    """The keys of ``pscan_nvalid_vs_plain``'s result that break the
+    tolerances of ``scan_prec`` or its boolean checks."""
+    bad = [k for k, tol in pscan_tolerances(scan_prec).items()
+           if k in err and not err[k] <= tol]
+    return bad + [k for k in ("finite", "passthrough_exact", "modes_agree")
+                  if not err[k]]
 
 
 def pscan_failures(err, scan_prec):

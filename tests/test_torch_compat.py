@@ -616,8 +616,7 @@ def test_module_symbols():
 
 
 #: JAX modules not ported, with the reason: the numpy-only layers
-#: (importing them imports jax; they take numpy from either package) and
-#: sharding over several cards (ROADMAP queue 1, item J)
+#: (importing them imports jax; they take numpy from either package)
 NOT_PORTED_PATHS = {
     **{p: "numpy-only layer" for p in (
         "data", "plotting", "workflows", "analysis/ccg.py",
@@ -626,7 +625,6 @@ NOT_PORTED_PATHS = {
         "utils/pandas_util.py", "utils/sorting.py", "analysis_helper.py",
         "distance_analysis.py", "pandas_util.py", "plot_helper.py",
         "trial_analysis.py")},
-    "parallel/spmd.py": "sharding over several cards, queue 1 item J",
 }
 #: public JAX names with no same-named counterpart, with the reason
 NAME_EXCEPTIONS = {

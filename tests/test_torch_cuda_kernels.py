@@ -7,7 +7,8 @@ unbatched ones and the parallel kernels against the sequential ones, bit
 for bit; K1/K2 with one transition configuration per sequence (bands of
 mixed widths padded to the widest) and the norm-only K1 against their
 plain versions and, bit for bit, against the unbatched kernels under each
-configuration alone.
+configuration alone; K3/K4 with a validity bound n_valid other than T
+(the time shards of ``parallel/spmd.py``), with a failing control.
 
 Imports no jax, so it runs on a machine with a card and no JAX:
 
@@ -38,6 +39,8 @@ from poor_man_gplvm_tpu_torch.testing import (  # noqa: E402
     kernel_vs_plain,
     pscan_failures,
     pscan_inputs,
+    pscan_nvalid_failures,
+    pscan_nvalid_vs_plain,
     pscan_vs_plain,
     scan_case,
     subnormal_prior_smoothers,
@@ -356,6 +359,72 @@ def test_pscan_kernels_empty_chunks(cuda):
     err = pscan_vs_plain(scan_case(5, 101, 40, 2, "masked"), cuda, C=64)
     torch.cuda.synchronize()
     _assert_pscan(err)
+
+
+#: K3/K4 with a shard-local validity bound: T odd, so the last chunk is
+#: ragged; n_valid 0 and 1 (a shard past, or at, the sequence's last row),
+#: T - 3 (inside the last chunk), T (the default) and T + 1 (K4 only: every
+#: row recurses, the last from its chunk's carry)
+NV_T = 4001
+NV_CASES = (0, 1, NV_T - 3, NV_T, NV_T + 1)
+
+
+@pytest.mark.parametrize("dense", [False, True])
+@pytest.mark.parametrize("nv", NV_CASES)
+@pytest.mark.parametrize("n_dyn", [1, 2])
+@pytest.mark.parametrize("L", [100, 500])
+def test_pscan_n_valid_matches_plain(cuda, L, n_dyn, nv, dense):
+    bd.set_band_override(dense)
+    try:
+        err = pscan_nvalid_vs_plain(
+            scan_case(L + n_dyn, NV_T, L, n_dyn, "masked"), cuda, nv)
+        torch.cuda.synchronize()
+    finally:
+        bd.set_band_override(False)
+    assert not pscan_nvalid_failures(err, "highest"), err
+
+
+@pytest.mark.parametrize("scan_prec", ["bf16x3", "bf16"])
+@pytest.mark.parametrize("nv", [NV_T - 3, NV_T + 1])
+def test_pscan_n_valid_precisions_match_plain(cuda, nv, scan_prec):
+    err = pscan_nvalid_vs_plain(scan_case(502, NV_T, 500, 2, "masked"), cuda,
+                                nv, scan_prec)
+    torch.cuda.synchronize()
+    assert not pscan_nvalid_failures(err, scan_prec), err
+
+
+@pytest.mark.parametrize("nv", [1, NV_T - 3, NV_T + 1])
+@pytest.mark.parametrize("L", [100, 500])
+def test_pscan_n_valid_check_rejects_another_bound(cuda, L, nv):
+    # control: the kernels at one bound fail against the plain versions at
+    # another
+    err = pscan_nvalid_vs_plain(scan_case(L + 2, NV_T, L, 2, "masked"), cuda,
+                                nv, plain_n_valid=NV_T // 2)
+    torch.cuda.synchronize()
+    assert pscan_nvalid_failures(err, "highest"), err
+
+
+def test_pscan_n_valid_launch_counts_and_range(cuda):
+    a = pscan_inputs(scan_case(0, 301, 40, 2, "jump"), cuda)
+    args = (a["w"], a["tlat"], a["tdyn"], a["ins"], a["tc"], a["flags"])
+    ps.reset_launches()
+    post, _, _ = ps.pfilter_pass(*args, emit=True, n_valid=300)
+    ps.pfilter_pass(*args, emit=False, n_valid=301)
+    bwd = (post, a["tlat"], a["tlat_t"], a["tdyn"], a["ins"], a["tc"],
+           a["flags"])
+    ps.psmooth_pass(*bwd, "full", n_valid=302)
+    ps.psmooth_pass(*bwd, "finals", n_valid=301)
+    torch.cuda.synchronize()
+    assert ps.pfilter_pass.launches_by_mode == {
+        "emit/highest": 1, "emit/highest/nv": 1, "finals/highest": 1}
+    assert ps.psmooth_pass.launches_by_mode == {
+        "full/highest": 1, "full/highest/nv": 1, "finals/highest": 1}
+    for nv in (-1, 302):
+        with pytest.raises(ValueError, match="n_valid"):
+            ps.pfilter_pass(*args, emit=False, n_valid=nv)
+    for nv in (-1, 303):
+        with pytest.raises(ValueError, match="n_valid"):
+            ps.psmooth_pass(*bwd, "finals", n_valid=nv)
 
 
 def test_pscan_launch_counts_and_bad_inputs(cuda):

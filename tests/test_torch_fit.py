@@ -16,6 +16,8 @@ package's own engine-vs-engine fit tests do; the default-settings test
 bounds the recorded divergence (ROADMAP §3).
 """
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +30,7 @@ import poor_man_gplvm_tpu as jpmg  # noqa: E402
 from poor_man_gplvm_tpu.ops import mstep as jms  # noqa: E402
 from poor_man_gplvm_tpu_torch import PoissonGPLVMJump1D, convert  # noqa: E402
 from poor_man_gplvm_tpu_torch.ops import mstep as ms  # noqa: E402
+from poor_man_gplvm_tpu_torch.parallel import spmd  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -289,8 +292,14 @@ def test_fit_em_options_and_profile(setup):
     assert all(len(h) == 8 for h in res["m_step_res_l"]["loss_history"])
     assert torch.equal(m.params, res["params"])
     assert np.isfinite(float(m.log_marginal_final))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # mesh= takes a spmd.Mesh: a real one runs the E-step sharded, any
+    # other object raises
+    with pytest.raises(TypeError, match="Mesh"):
         m.fit_em(y, n_iter=1, verboase=False, mesh=object())
+    em_mesh = copy.deepcopy(m).fit_em(
+        y, n_iter=1, verboase=False, m_step_maxiter=8,
+        mesh=spmd.make_mesh(devices=["cpu"] * 2, shape=(1, 2, 1)))
+    assert np.isfinite(float(em_mesh["log_marginal"]))
     with pytest.raises(ValueError, match="output_mode"):
         m.fit_em(y, n_iter=1, verboase=False, output_mode="no_such_mode")
     with pytest.raises(ValueError):

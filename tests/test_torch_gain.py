@@ -12,6 +12,8 @@ Tolerances: the ``poisson_gain[prob]`` case of PARITY.json (log-marginals
 loss differences).
 """
 
+import copy
+
 import numpy as np
 import pytest
 
@@ -23,6 +25,7 @@ import jax.random as jr  # noqa: E402
 from poor_man_gplvm_tpu import experimental as jexp  # noqa: E402
 from poor_man_gplvm_tpu.ops import kernels as jgpk  # noqa: E402
 from poor_man_gplvm_tpu_torch import convert, experimental  # noqa: E402
+from poor_man_gplvm_tpu_torch.parallel import spmd  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -173,5 +176,10 @@ def test_gain_shuffle_sample_and_mesh(sim):
                          gain=torch.as_tensor(gain))
     assert lat.shape == (T, 2) and y_s.shape == (T, N)
     assert float(y_s[T // 2:].mean()) > float(y_s[:T // 2].mean())
-    with pytest.raises(NotImplementedError, match="item J"):
+    # mesh= takes a spmd.Mesh: any other object raises, a real one runs
+    with pytest.raises(TypeError, match="Mesh"):
         pm.fit_em(y, n_iter=1, mesh=object(), verboase=False)
+    res = copy.deepcopy(pm).fit_em(
+        y, n_iter=1, verboase=False, m_step_maxiter=6,
+        mesh=spmd.make_mesh(devices=["cpu"] * 2, shape=(1, 2, 1)))
+    assert np.isfinite(float(res["log_marginal"]))

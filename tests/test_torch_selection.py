@@ -34,7 +34,7 @@ from poor_man_gplvm_tpu.models.latent1d import (  # noqa: E402
 )
 import poor_man_gplvm_tpu_torch as pmt  # noqa: E402
 from poor_man_gplvm_tpu_torch import convert, selection  # noqa: E402
-from poor_man_gplvm_tpu_torch.parallel import sweep  # noqa: E402
+from poor_man_gplvm_tpu_torch.parallel import spmd, sweep  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -224,9 +224,21 @@ def test_one_split_fallbacks_and_metric_subsets(data):
                    res["model_eval_result_all_configs"].columns)
     assert len(res["model_to_return_l"]) == 1
     assert len(res["model_to_return_l"][0]) == 2
-    with pytest.raises(NotImplementedError, match="item J"):
+    # mesh= takes a spmd.Mesh and the batched backend: a real one runs,
+    # any other object raises, and so does the serial backend
+    with pytest.raises(TypeError, match="Mesh"):
         selection.model_selection_one_split(
             data, {"movement_variance": [1.0]}, mesh=object(), device="cpu")
+    mesh = spmd.make_mesh(devices=["cpu"] * 2)
+    with pytest.raises(ValueError, match="batched"):
+        selection.model_selection_one_split(
+            data, {"movement_variance": [1.0]}, mesh=mesh, backend="serial",
+            device="cpu")
+    out = selection.model_selection_one_split(
+        data, {"movement_variance": [0.5, 2.0]}, test_frac=0.3,
+        fit_kwargs=FAST_FIT, n_repeat=1, metric_type_l=("log_marginal_test",),
+        verbose=False, mesh=mesh, device="cpu")
+    assert len(out["model_eval_result_all_configs"]) == 2
 
 
 def _port_model(jm, name="PoissonGPLVMJump1D", **kw):

@@ -33,6 +33,7 @@ from poor_man_gplvm_tpu import initializers as jinit  # noqa: E402
 from poor_man_gplvm_tpu import selection as jsel  # noqa: E402
 from poor_man_gplvm_tpu import validation as jval  # noqa: E402
 from poor_man_gplvm_tpu.ops import fit_tuning_with_basis as jftb  # noqa: E402
+from poor_man_gplvm_tpu.parallel import spmd as jspmd  # noqa: E402
 from poor_man_gplvm_tpu.parallel import sweep as jsweep  # noqa: E402
 from poor_man_gplvm_tpu.utils import checkpoint as jck  # noqa: E402
 from poor_man_gplvm_tpu.utils import compat as jcompat  # noqa: E402
@@ -44,7 +45,7 @@ from poor_man_gplvm_tpu_torch import convert, initializers  # noqa: E402
 from poor_man_gplvm_tpu_torch import experimental, selection  # noqa: E402
 from poor_man_gplvm_tpu_torch import validation  # noqa: E402
 from poor_man_gplvm_tpu_torch.ops import fit_tuning_with_basis as ftb  # noqa: E402
-from poor_man_gplvm_tpu_torch.parallel import sweep  # noqa: E402
+from poor_man_gplvm_tpu_torch.parallel import spmd, sweep  # noqa: E402
 from poor_man_gplvm_tpu_torch.utils import checkpoint as ck  # noqa: E402
 from poor_man_gplvm_tpu_torch.utils import compat, profiling  # noqa: E402
 from poor_man_gplvm_tpu_torch.utils import timeseries as pts  # noqa: E402
@@ -344,9 +345,14 @@ def test_session_inputs_that_raise():
         pm.decode_latent_naive_bayes(y, t_l=np.arange(T + 1) * DT)
     bad = jts.TsdFrame(d=np.ones((T, 2)), t=np.arange(T - 1) * DT)
     assert len(bad.t) != bad.d.shape[0]  # what the JAX shim accepts
+    # mesh= takes a spmd.Mesh: any other object raises, a real one runs
+    mesh = spmd.make_mesh(devices=["cpu"] * 2, shape=(1, 2, 1))
     for call in (pm.decode_latent, pm.fit_em):
-        with pytest.raises(NotImplementedError, match="item J"):
+        with pytest.raises(TypeError, match="Mesh"):
             call(y, mesh=object())
+    assert np.isfinite(pm.decode_latent(y, mesh=mesh)["log_marginal_final"])
+    assert np.isfinite(float(pm.fit_em(y, n_iter=1, verboase=False,
+                                       mesh=mesh)["log_marginal"]))
 
 
 def test_profiling_trace_and_phase_timer(tmp_path):
@@ -411,6 +417,8 @@ CHANGED_DEFAULT = {
 #: parameters the port adds, with the reason
 ADDED = {
     "__init__": {"device": "the card by default, 'cpu' on request"},
+    "spmd.sharded_smooth": {"diag_out": "a list for the 'pscan' engine's "
+                            "fixed-point passes and movements"},
     "decode_latent_naive_bayes": {"observation_model": "the port's classes "
                                   "inherit the base method, which takes it "
                                   "in both packages"},
@@ -431,16 +439,18 @@ ADDED = {
         "verbose": "a line per shuffle where the JAX function shows a tqdm "
                    "bar (the card's machine has no tqdm)"},
 }
-#: jax.random keys -> torch.Generators.  Kept as in the JAX signatures and
-#: raising NotImplementedError (queue 1, item J): every ``mesh``.  The
-#: selection functions return ``selection.ResultTable`` where the JAX
+#: jax.random keys -> torch.Generators.  Every ``mesh`` takes a
+#: ``parallel.spmd.Mesh`` of torch devices.  The selection functions return ``selection.ResultTable`` where the JAX
 #: package returns a DataFrame (ROADMAP §3).
 RENAMED = {"key": "generator", "key_l": "generator_l"}
 
 
 #: modules of which only these names are held here (the others are held
 #: through the classes and drop-in modules that use them)
-ONLY = {"hmm": {"filter_combined"}}
+ONLY = {"hmm": {"filter_combined"},
+        # the port's Mesh is a mesh of torch devices, not jax.sharding.Mesh
+        "spmd": {"factorize_devices", "make_mesh", "sharded_smooth",
+                 "make_sharded_em_step", "make_sharded_poisson_em_step"}}
 #: the drop-in modules (the JAX package's reference-compatible surface)
 DROP_IN = {m: m for m in (
     "core", "decoder", "decoder_latentonly", "gp_kernel", "fit_tuning_helper",
@@ -504,6 +514,7 @@ def test_public_signatures_match_jax():
                "compat": (jcompat, compat), "profiling": (jprof, profiling),
                "checkpoint": (jck, ck), "timeseries": (jts, pts),
                "sweep": (jsweep, sweep), "selection": (jsel, selection),
+               "spmd": (jspmd, spmd),
                "gain": (jexp, experimental),
                "fit_tuning_with_basis": (jftb, ftb),
                "hmm": (jhmm, hmm),

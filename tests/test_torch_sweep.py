@@ -33,7 +33,7 @@ from poor_man_gplvm_tpu.ops import hmm as jhmm  # noqa: E402
 from poor_man_gplvm_tpu.parallel import sweep as jsw  # noqa: E402
 from poor_man_gplvm_tpu_torch.ops import hmm  # noqa: E402
 from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk  # noqa: E402
-from poor_man_gplvm_tpu_torch.parallel import sweep  # noqa: E402
+from poor_man_gplvm_tpu_torch.parallel import spmd, sweep  # noqa: E402
 from poor_man_gplvm_tpu_torch.testing import (  # noqa: E402
     SCAN_TOLERANCES,
     config_batch_vs_single,
@@ -321,9 +321,16 @@ def test_forward_filter_lml_matches_jax_and_the_decode(y):
 
 
 def test_sweep_inputs_that_raise(y):
-    with pytest.raises(NotImplementedError, match="item J"):
+    # mesh= takes a spmd.Mesh: a real one splits the runs, any other
+    # object raises
+    with pytest.raises(TypeError, match="Mesh"):
         sweep.sweep_fit_poisson_jump(y, {"movement_variance": [1.0]},
                                      mesh=object(), device="cpu")
+    res = sweep.sweep_fit_poisson_jump(
+        y[:200], {"movement_variance": [1.0]}, n_iter=1, n_latent_bin=L,
+        m_maxiter=6, mesh=spmd.make_mesh(devices=["cpu"] * 2), device="cpu")
+    assert res["log_marginal_l"].shape == (1, 1)
+    assert np.isfinite(res["log_marginal_l"].numpy()).all()
     with pytest.raises(ValueError, match="cannot handle"):
         sweep.sweep_fit_model_class(y, [{"rng_init_int": 3}],
                                     [torch.Generator()], "poisson",
