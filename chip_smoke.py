@@ -300,6 +300,18 @@ MESH_POST_ATOL = 1e-4  # decode posteriors (PARITY.json)
 MESH_SPLIT_POST_ATOL = 1e-3
 MESH_FIT_POST_ATOL = 1e-2  # fit posteriors (PARITY.json)
 MESH_NV_REPS = 3
+# the session pipeline (scripts/pipeline_session.py on a realistic session)
+PIPE_PROBES, PIPE_UNITS = 2, 250
+PIPE_DURATION_S, PIPE_DT = 1200.0, 0.01  # T = 120,000 bins of 10 ms
+PIPE_L = 101  # the pipeline's n_latent_bin
+PIPE_RATE_HZ = 5.0
+#: the pipeline's unit filters (scripts/pipeline_session.py defaults)
+PIPE_FILTERS = dict(min_total_spikes=500, min_mean_rate=0.01,
+                    min_presence_ratio=0.50, n_coarse_bins=100)
+PIPE_FIT_ITERS = 3
+PIPE_CHUNK = 10_000  # the pipeline's n_time_per_chunk
+PIPE_FOLDS = 5
+PIPE_BAYES_RTOL = 1e-9  # card float64 against the CPU float64 run
 #: the n_dyn = 1 kernel rows of the kernels line: wrapper[mode] names
 NDYN1_KERNELS = ("filter_scan", "smoother_scan",
                  "pfilter_pass[finals/highest]", "pfilter_pass[emit/highest]",
@@ -716,17 +728,32 @@ def phase_kernels():
         if L == 500:
             dense = _forced_dense_band(t["tlat"], tlat_t, flags)
             check(dense.W == L, dense.W)
-            for name, (kern, _, args) in runs.items():
+            for name, (kern, plain, args) in runs.items():
                 got = kern(*args, band=band)
                 want = kern(*args, band=dense)
                 check(all(torch.equal(g, x) for g, x in zip(got, want)),
                       f"{name} on the band differs from {name} forced dense")
+                ref, plain_ms = timed_once(lambda: plain(*args))
+                # K1: posteriors and priors; K2: the smoothed posteriors
+                n_out = 2 if name == "filter_scan" else 1
+                err = max(float((g - x).abs().max())
+                          for g, x in zip(want[:n_out], ref[:n_out]))
                 ms = cuda_ms(lambda: kern(*args, band=dense), 3)
-                times[L][f"{name}_dense"] = ms
+                # the bound of the work a dense channel (W = L) needs, as
+                # the K3/K4 dense rows count it: L * L nonzeros in the one
+                # channel that takes a matvec
+                b_ms, b_by = kernel_bound(name, T_DECODE, L, 2, L * L)
+                times[L][f"{name}_dense"] = dict(
+                    max_abs_err_L500_dense=err, ms_L500_dense=ms,
+                    plain_ms_L500_dense=plain_ms, bound_ms_L500_dense=b_ms,
+                    bound_by_L500_dense=b_by)
                 log(f"time {name} L={L} T={T_DECODE} forced dense "
                     f"(W={dense.W}): kernel {ms:.3f} ms "
-                    f"({1e3 * ms / T_DECODE:.3f} us/step); bit-equal to the "
-                    "band")
+                    f"({1e3 * ms / T_DECODE:.3f} us/step), plain "
+                    f"{plain_ms:.1f} ms, bound of a dense channel "
+                    f"{b_ms:.4f} ms ({b_by}); bit-equal to the band, max "
+                    f"|kernel - plain| {err:.3e}")
+                check(err <= SCAN_TOLERANCES["post_abs"], (name, err))
     return worst, times, {cell[0]: _batch_timed(cell, dev)
                           for cell in EPOCH_CELLS}
 
@@ -3762,6 +3789,351 @@ def phase_mesh(launches):
     return rows
 
 
+def _pipeline_counts(dirs):
+    """Each probe's counts through ``compute_spike_counts_old`` (the
+    native binner above 1e5 spikes), held equal to the numpy binner on
+    the same spikes, with a control that must differ (the windows shifted
+    by half a bin); then the pipeline's unit filters.  Returns (filtered
+    counts of each probe, time bins, seconds by stage)."""
+    from poor_man_gplvm_tpu_torch import data as pdata
+    from poor_man_gplvm_tpu_torch.data import kilosort, native
+
+    sec = {"load+bin (native)": 0.0, "bin (native)": 0.0,
+           "bin (numpy)": 0.0, "filters": 0.0}
+    mats, time_ref = [], None
+    for d in dirs:
+        calls = native.bin_sliding_native.calls
+        t0 = time.perf_counter()
+        counts, tb, units = pdata.compute_spike_counts_old(
+            d, window_size=PIPE_DT, step_size=PIPE_DT, use_units="good",
+            sigma=0, zscore=False, adj="")
+        sec["load+bin (native)"] += time.perf_counter() - t0
+        check(native.bin_sliding_native.calls == calls + 1,
+              "compute_spike_counts_old did not run the native binner")
+        st, clu = kilosort.load_kilosort_spikes(d, "good", "")
+        for key, native_flag in (("bin (native)", True),
+                                 ("bin (numpy)", False)):
+            t0 = time.perf_counter()
+            got = pdata.bin_spikes_sliding(st, clu, PIPE_DT, PIPE_DT,
+                                           use_native=native_flag)
+            sec[key] += time.perf_counter() - t0
+            check(all(np.array_equal(a, b) for a, b in
+                      zip(got, (counts, tb, units))),
+                  f"{key} counts differ from compute_spike_counts_old's")
+        shifted = pdata.bin_spikes_sliding(st, clu, PIPE_DT, PIPE_DT,
+                                           t_origin=PIPE_DT / 2,
+                                           use_native=True)[0]
+        check(shifted.shape != counts.shape
+              or not np.array_equal(shifted, counts),
+              "the control (windows shifted by half a bin) equals the counts")
+        t0 = time.perf_counter()
+        total = counts.sum(axis=1)
+        mean_rate = total / (len(tb) * PIPE_DT)
+        presence = pdata.get_presence_ratio(counts, tb,
+                                            PIPE_FILTERS["n_coarse_bins"])
+        keep = ((total >= PIPE_FILTERS["min_total_spikes"])
+                & (mean_rate >= PIPE_FILTERS["min_mean_rate"])
+                & (presence >= PIPE_FILTERS["min_presence_ratio"]))
+        sec["filters"] += time.perf_counter() - t0
+        # the session's units 0 (presence 0.2) and 1 (1 % of the rate)
+        check(sorted(units[~keep]) == [0, 1], ("filtered", units[~keep]))
+        check(time_ref is None or np.array_equal(tb, time_ref),
+              "the probes bin to different time grids")
+        time_ref = tb
+        log(f"pipeline probe {os.path.basename(d)}: {int(keep.sum())}/"
+            f"{len(keep)} good units pass the filters, {int(total.sum())} "
+            f"spikes, counts {counts.shape} equal on the native and numpy "
+            "binners, the shifted control differs")
+        mats.append(counts[keep])
+    return mats, time_ref, sec
+
+
+def _pipeline_epoch_rows(m, y, intervals, ep):
+    """The bursts' batch (one batch: every burst) on its own
+    log-likelihood rows, as ``decode_latent_epochs`` forms them: batched
+    K1 and K2 against their plain versions over each epoch's rows, timed,
+    and the batch's latent marginals against the decode's ``ep``.  Returns
+    the kernels line's ``*_pipeline`` rows."""
+    from poor_man_gplvm_tpu_torch.ops import hmm
+    from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk
+    from poor_man_gplvm_tpu_torch.testing import SCAN_TOLERANCES, _max_rel
+
+    dev, L = y.device, m.n_latent_bin
+    lengths = intervals[:, 1] - intervals[:, 0]
+    E, Tmax = len(lengths), int(lengths.max())
+    lens = torch.as_tensor(lengths, dtype=torch.int32, device=dev)
+    steps = torch.arange(Tmax, device=dev)
+    valid = steps[None, :] < lens[:, None]
+    rows = (torch.as_tensor(intervals[:, 0], device=dev)[:, None]
+            + steps[None, :]).clamp(max=y.shape[0] - 1)
+    ll = hmm.epoch_loglikelihoods(
+        y[rows] * valid[:, :, None], lens, m.tuning, m._emission_hyper({}),
+        m.ma_neuron_default, m.ma_latent_default, m.observation_model)
+    w, _ = sk._weights(ll, 1.0)
+    trans, _ = m._make_transition({})
+    band = hmm._cached_band(trans, trans.Tlat)
+    tlat_t = trans.Tlat.transpose(-1, -2).contiguous()
+    flags = trans.uniform_rows
+    p_init = torch.exp(trans.uniform_log_init()).reshape(1, 2, L).expand(
+        E, 2, L).contiguous()
+    each = torch.arange(E, device=dev)
+    end = (lens - 1).long()
+
+    def masked_err(a, b, mask):
+        return float(torch.where(mask[:, :, None, None], a - b, 0.0)
+                     .abs().max())
+
+    k1 = lambda: sk.filter_scan_batch(  # noqa: E731
+        w, trans.Tlat, trans.Tdyn, p_init, lens, flags, band=band)
+    post, prior, norm = k1()
+    want, plain1 = timed_once(lambda: sk.filter_scan_batch_plain(
+        w, trans.Tlat, trans.Tdyn, p_init, lens, flags))
+    err1 = max(masked_err(a, b, valid) for a, b in zip((post, prior),
+                                                       want[:2]))
+    last = post[each, end].contiguous()
+    k2 = lambda: sk.smoother_scan_batch(  # noqa: E731
+        post[:, :-1], prior[:, 1:], tlat_t, trans.Tdyn, last, lens - 1,
+        flags, band=band)
+    smooth, r = k2()
+    want2, plain2 = timed_once(lambda: sk.smoother_scan_batch_plain(
+        want[0][:, :-1], want[1][:, 1:], tlat_t, trans.Tdyn,
+        want[0][each, end].contiguous(), lens - 1, flags))
+    own = valid[:, 1:]
+    err2 = masked_err(smooth, want2[0], own)
+    # r[t] = smooth[t + 1] / prior[t + 1], the last row's numerator the
+    # filter's last posterior
+    nxt = torch.cat([smooth[:, 1:], torch.zeros_like(last[:, None])], dim=1)
+    nxt[each, (lens - 2).long()] = last
+    r_rel = _max_rel(r, want2[1], own[:, :, None, None]
+                     & (prior[:, 1:] > 1e-30) & (nxt > 1e-30))
+    lat = torch.cat([smooth.sum(dim=2), torch.zeros_like(
+        smooth[:, :1].sum(dim=2))], dim=1)
+    lat[each, end] = last.sum(dim=1)
+    got = torch.as_tensor(ep["posterior_latent_marg"], device=dev)
+    same = float(torch.where(valid[:, :, None], lat - got, 0.0).abs().max())
+    finite = all(bool(torch.isfinite(torch.where(
+        valid[:, :, None, None], x, 0.0)).all()) for x in (post, prior))
+    check(err1 <= SCAN_TOLERANCES["post_abs"]
+          and err2 <= SCAN_TOLERANCES["smooth_abs"]
+          and r_rel <= SCAN_TOLERANCES["r_rel"] and finite
+          and same <= EPOCH_SAME_LL_ATOL,
+          ("the bursts' batch against plain", err1, err2, r_rel, same))
+    nnz = _nnz(trans.Tlat, flags)
+    out = {}
+    for name, kern, err, plain_ms, n_steps in (
+            ("filter_scan_batch", k1, err1, plain1, int(lengths.sum())),
+            ("smoother_scan_batch", k2, err2, plain2,
+             int(lengths.sum()) - E)):
+        ms = cuda_ms(kern, 5)
+        b_ms, b_by = kernel_bound(name, n_steps, L, 2, nnz)
+        out[name] = dict(E=E, steps=n_steps, max_abs_err=err, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                         library_ms=None)
+        log(f"time {name} on the bursts' batch (E={E} bursts of "
+            f"{int(lengths.min())}-{Tmax} bins, L={L}, {n_steps} steps in "
+            f"all): kernel {ms:.3f} ms, plain {plain_ms:.1f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by}); max |kernel - plain| {err:.3e}"
+            + (f", r rel {r_rel:.2e}" if name.startswith("smoother") else "")
+            + f"; the decode's marginals {same:.2e} from the batch's")
+    return out
+
+
+def _pipeline_bayes(counts, position):
+    """The naive-Bayes baselines over PIPE_FOLDS folds of ``cv_split``
+    on the card (float64), each against its plain CPU float64 run:
+    predictions equal, log-probabilities within PIPE_BAYES_RTOL of the
+    largest magnitude.  Returns (card s, CPU s, mean accuracy) by class."""
+    from poor_man_gplvm_tpu_torch import data as pdata
+
+    dev = torch.device("cuda")
+    card = pdata.DecoderDataset(torch.as_tensor(counts, device=dev),
+                                torch.as_tensor(position, device=dev))
+    host = pdata.DecoderDataset(counts, position)
+    out = {}
+    for kind in ("Poisson", "Gaussian"):
+        cls = getattr(pdata, f"{kind}BayesDecoder")
+        sec_card = sec_cpu = acc = worst = 0.0
+        for k in range(PIPE_FOLDS):
+            (xtr, ytr), (xte, yte), _, _ = card.split(k, k_CV=PIPE_FOLDS)
+            (cxtr, cytr), (cxte, _), _, _ = host.split(k, k_CV=PIPE_FOLDS)
+            dec = cls(PIPE_L)
+            check(dec.device.type == "cuda" and xte.is_cuda,
+                  f"{kind}BayesDecoder is not on the card")
+            s, lp = wall_s(lambda: dec.fit(xtr, ytr)
+                           .predict_log_probabilities(xte))
+            sec_card += s
+            t0 = time.perf_counter()
+            ref = cls(PIPE_L, device="cpu").fit(cxtr, cytr) \
+                .predict_log_probabilities(cxte)
+            sec_cpu += time.perf_counter() - t0
+            check(lp.is_cuda and lp.dtype == torch.float64, lp.device)
+            pred = torch.argmax(lp, dim=0).cpu()
+            check(torch.equal(pred, torch.argmax(ref, dim=0)),
+                  f"{kind}BayesDecoder fold {k}: the card's predictions "
+                  "differ from the CPU float64 run")
+            rel = float((lp.cpu() - ref).abs().max() / ref.abs().max())
+            worst = max(worst, rel)
+            acc += float((pred == yte.cpu()).double().mean()) / PIPE_FOLDS
+        check(worst <= PIPE_BAYES_RTOL, (kind, worst))
+        log(f"pipeline {kind}BayesDecoder, {PIPE_FOLDS} folds, K={PIPE_L}: "
+            f"card {sec_card:.3f} s, CPU float64 {sec_cpu:.3f} s, "
+            f"predictions equal, log-probabilities {worst:.2e} relative, "
+            f"accuracy {acc:.3f}")
+        out[kind] = (sec_card, sec_cpu, acc)
+    return out
+
+
+def phase_pipeline(launches):
+    """``scripts/pipeline_session.py`` on a realistic two-probe session
+    through the port's modules only: the Kilosort directory
+    (``testing.kilosort_session``: 2 x 250 units, 1,200 s, ~3e6 spikes),
+    counts on the native binner (equal to the numpy binner), the unit
+    filters, the correlation sort, the fit and decode on the card (K3/K4,
+    the decode against the sequential engine), the bursts of the MUA and
+    their epoch decode (one batched K1 and one K2 launch, held against
+    plain), a burst-restricted fit, the naive-Bayes baselines over 5
+    folds on the card, the posterior-weighted position and the neuron
+    sort.  Returns the kernels line's ``*_pipeline`` rows."""
+    import tempfile
+
+    from poor_man_gplvm_tpu_torch import PoissonGPLVMJump1D
+    from poor_man_gplvm_tpu_torch import data as pdata
+    from poor_man_gplvm_tpu_torch import testing
+    from poor_man_gplvm_tpu_torch.analysis import (
+        get_posterior_weighted_average,
+    )
+    from poor_man_gplvm_tpu_torch.utils import compat, post_fit_sort_neuron
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    sec = {}
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        info = testing.kilosort_session(
+            root, n_probes=PIPE_PROBES, n_units=PIPE_UNITS,
+            duration_s=PIPE_DURATION_S, dt=PIPE_DT, n_latent_bin=PIPE_L,
+            rate_hz=PIPE_RATE_HZ, seed=0)
+        sec["session written"] = time.perf_counter() - t0
+        disk = sum(os.path.getsize(os.path.join(d, f)) for d in info["dirs"]
+                   for f in os.listdir(d))
+        log(f"pipeline session: {PIPE_PROBES} probes x {PIPE_UNITS} units, "
+            f"{PIPE_DURATION_S:.0f} s, {info['n_spikes']} spikes, "
+            f"{disk} bytes on disk, {len(info['burst_starts'])} bursts put "
+            f"in")
+        mats, time_bins, bin_sec = _pipeline_counts(info["dirs"])
+    sec.update(bin_sec)
+    t0 = time.perf_counter()
+    counts = pdata.sort_units(np.vstack(mats), mode="corr")
+    sec["sort (corr)"] = time.perf_counter() - t0
+    N, T = counts.shape
+    check(N == PIPE_PROBES * (PIPE_UNITS - 5), N)
+    t0 = time.perf_counter()
+    y = torch.as_tensor(counts.T, dtype=torch.float32, device=dev)
+    torch.cuda.synchronize()
+    sec["counts to the card"] = time.perf_counter() - t0
+    log(f"pipeline counts: N={N} x T={T} ({counts.nbytes} bytes float64 on "
+        f"the host, {y.numel() * 4} bytes float32 on the card)")
+
+    m = PoissonGPLVMJump1D(N, n_latent_bin=PIPE_L, movement_variance=1.0,
+                           tuning_lengthscale=1.0)
+    fit_l = {}
+    with counted(fit_l):
+        sec["fit"], em = wall_s(lambda: m.fit_em(
+            y, generator=torch.Generator().manual_seed(3),
+            n_iter=PIPE_FIT_ITERS, n_time_per_chunk=PIPE_CHUNK,
+            verboase=False))
+    lml = np.array([float(v) for v in em["log_marginal_l"]])
+    check(np.isfinite(lml).all() and np.all(
+        np.diff(lml) >= -1e-6 * np.abs(lml[:-1])), ("fit lml", lml))
+    check(fit_l.get("pfilter_pass", 0) > 0 and fit_l.get("psmooth_pass", 0)
+          > 0, ("the fit did not run K3/K4", fit_l))
+    dec_l = {}
+    with counted(dec_l):
+        sec["decode"], res = wall_s(lambda: m.decode_latent(y))
+    check(dec_l.get("pfilter_pass", 0) > 0 and dec_l.get("psmooth_pass", 0)
+          > 0, ("the decode did not run K3/K4", dec_l))
+    _check_decode(res, T, PIPE_L)
+    with sequential_engine():
+        ref = m.decode_latent(y)
+    lmf_rel = abs(res["log_marginal_final"] - ref["log_marginal_final"]) / \
+        abs(ref["log_marginal_final"])
+    post_err = float((res["posterior_all"] - ref["posterior_all"])
+                     .abs().max())
+    check(lmf_rel <= DECODE_LMF_RTOL and post_err <= DECODE_POST_ATOL,
+          ("the session decode against the sequential engine", lmf_rel,
+           post_err))
+    log(f"pipeline fit: {PIPE_FIT_ITERS} EM iterations {sec['fit']:.3f} s "
+        f"({sec['fit'] / PIPE_FIT_ITERS:.3f} s/EM-iter; Adam iterations "
+        f"{em['m_step_res_l']['n_iter']}), log marginals "
+        f"{lml.tolist()}, K3/K4 launches {fit_l}; decode T={T} "
+        f"{1e3 * sec['decode']:.1f} ms, against the sequential engine: "
+        f"log_marginal_final rel {lmf_rel:.2e}, max |post| {post_err:.2e}")
+
+    t0 = time.perf_counter()
+    z = pdata.smooth_and_zscore(counts.sum(axis=0)[None], sigma=1.0,
+                                zscore=True)[0]
+    bursts = pdata.detect_population_bursts(z, STEP_SIZE=PIPE_DT)
+    sec["bursts"] = time.perf_counter() - t0
+    check(0.5 * len(info["burst_starts"]) <= len(bursts)
+          <= 2 * len(info["burst_starts"]),
+          ("bursts found against put in", len(bursts),
+           len(info["burst_starts"])))
+    intervals = np.array([[s, e + 1] for s, e in bursts])
+    ep_l = {}
+    with counted(ep_l):
+        sec["burst epochs decode"], ep = wall_s(
+            lambda: m.decode_latent_epochs(y, intervals))
+    check(ep_l.get("filter_scan_batch", 0) == 1
+          and ep_l.get("smoother_scan_batch", 0) == 1,
+          ("one batched K1 and one K2 launch for the one batch", ep_l))
+    check(np.isfinite(np.asarray(ep["log_marginal_per_epoch"])).all(),
+          "burst log marginals")
+    rows = _pipeline_epoch_rows(m, y, intervals, ep)
+
+    ma = torch.zeros((T, N), dtype=torch.float32, device=dev)
+    for s, e in bursts:
+        ma[s:e + 1] = 1.0
+    m_b = PoissonGPLVMJump1D(N, n_latent_bin=PIPE_L, movement_variance=0.5,
+                             tuning_lengthscale=3.0)
+    burst_l = {}
+    with counted(burst_l):
+        sec["burst-restricted fit"], em_b = wall_s(lambda: m_b.fit_em(
+            y, generator=torch.Generator().manual_seed(3),
+            n_iter=PIPE_FIT_ITERS, ma_neuron=ma, verboase=False))
+    lml_b = np.array([float(v) for v in em_b["log_marginal_l"]])
+    check(np.isfinite(lml_b).all() and lml_b[-1] > lml_b[0],
+          ("burst-restricted fit", lml_b))
+    log(f"pipeline bursts: {len(bursts)} found ({len(info['burst_starts'])} "
+        f"put in), epoch decode {1e3 * sec['burst epochs decode']:.1f} ms; "
+        f"burst-restricted fit ({int(ma[:, 0].sum())} burst bins) "
+        f"{sec['burst-restricted fit']:.3f} s, log marginals "
+        f"{lml_b.tolist()}")
+    del ma
+
+    bayes = _pipeline_bayes(counts, info["position"][:T].astype(np.int64))
+    sec["Bayes decoders (card)"] = sum(v[0] for v in bayes.values())
+
+    t0 = time.perf_counter()
+    post = compat.tsdframe(res["posterior_latent_marg"], time_bins)
+    pwa = get_posterior_weighted_average(
+        compat.tsd(info["position"][:T], time_bins), post)[None]
+    order = post_fit_sort_neuron({"tuning": m.tuning}, y)["argsort"]
+    sec["posterior average + neuron sort"] = time.perf_counter() - t0
+    visited = res["posterior_latent_marg"].sum(dim=0).cpu().numpy() > 0
+    check(pwa.shape == (PIPE_L,) and np.isfinite(pwa[visited]).all(),
+          ("posterior-weighted position", pwa))
+    check(np.array_equal(np.sort(order), np.arange(N)), "neuron sort")
+    _merge(launches, fit_l)
+    _merge(launches, dec_l)
+    _merge(launches, ep_l)
+    _merge(launches, burst_l)
+    log("pipeline stage seconds: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sec.items()))
+    log(f"pipeline phase {time.perf_counter() - t_phase:.1f} s "
+        f"({card_line()})")
+    return rows
+
+
 def main():
     t_start = time.perf_counter()
     phase_preamble()
@@ -3788,6 +4160,7 @@ def main():
     log(f"selection phase {time.perf_counter() - t_sel:.1f} s")
     compat_rows = phase_compat(launches)
     mesh_rows = phase_mesh(launches)
+    pipeline_rows = phase_pipeline(launches)
     log(f"main-path launches: {launches}")
     path = {name: _path_launches(launches, name) for name in KERNELS}
     check(all(n > 0 for n in path.values()), path)
@@ -3833,8 +4206,7 @@ def main():
                     np.count_nonzero(scan_case(L, 2, L, 2, "jump")["tlat"][0])))
                 row = dict(err=worst[name], ms=ms, plain_ms=plain_ms,
                            bound_ms=b_ms, bound_by=b_by, library_ms=None)
-                if f"{name}_dense" in times[L]:
-                    row["ms_L500_dense"] = times[L][f"{name}_dense"]
+                row.update(times[L].get(f"{name}_dense", {}))
                 shape_T = T_DECODE
             else:
                 row = rows[L][name]
@@ -3859,6 +4231,10 @@ def main():
             # on the reactivation null's first batch
             entry.update({f"{k}_reactivation": v
                           for k, v in compat_rows[name].items()})
+        if name in pipeline_rows:
+            # on the session pipeline's bursts (one batch)
+            entry.update({f"{k}_pipeline": v
+                          for k, v in pipeline_rows[name].items()})
         if name in NDYN1_KERNELS:
             # the same kernel at n_dyn = 1, on a latent-only model's inputs
             entry["launches_ndyn1"] = _path_launches(ndyn1, name)
@@ -3880,7 +4256,8 @@ def main():
             "of the session's dynamics null (E shuffles of "
             f"{SESSION_T_NULL} bins, L={SESSION_NL}); *_reactivation the "
             "reactivation null's first batch cut to E shuffles of "
-            f"{COMPAT_T_EP} bins, L={SESSION_NL}; each held against "
+            f"{COMPAT_T_EP} bins, L={SESSION_NL}; *_pipeline the session "
+            f"pipeline's bursts (E epochs, L={PIPE_L}); each held against "
             "plain"
             if shape_T is None else
             f"T={shape_T} n_dyn=2 (one RBF channel, ls=1, and "

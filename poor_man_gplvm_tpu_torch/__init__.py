@@ -36,12 +36,19 @@ without a card it raises) and ``engine=None`` (``'cuda'`` on the card,
 ``'prob'`` on the CPU), and read the JAX engine names ``'pallas'`` and
 ``'pallas_parallel'`` as ``'cuda'`` and ``'cuda_parallel'``.
 
-Not copied: the JAX package's numpy-only layers (``analysis_helper``,
-``distance_analysis``, ``pandas_util``, ``plot_helper``,
-``trial_analysis``, ``data``, ``plotting``, ``workflows``, and the rest of
-``analysis``).  They use no JAX, but importing them runs the JAX
-package's ``__init__``, which imports jax; they take numpy arrays from
-either package wherever JAX is installed.
+The session-ingestion layer is the port's own copy too: ``data`` (the
+Kilosort/CellExplorer/behavior loaders, which read without pandas, the
+binners with the native C++ spike binner built at first use, unit
+filters and sorting, burst detection, blocked CV, and the naive-Bayes
+baseline decoders, which compute in float64 on the card), the analyses
+of ``analysis`` (``ccg``, ``distance``, ``posterior``, ``regression``,
+``trial``) with their root modules ``analysis_helper``,
+``distance_analysis`` and ``trial_analysis``, and ``utils.stats`` and
+``utils.sorting``.  Where a JAX function returns a DataFrame or Series
+they return ``utils.table.ResultTable``.
+
+Not copied yet: ``plotting``, ``workflows``, ``utils.pandas_util`` and
+the root modules ``pandas_util`` and ``plot_helper``.
 """
 
 from poor_man_gplvm_tpu_torch import (
@@ -82,10 +89,13 @@ from poor_man_gplvm_tpu_torch.utils.timeseries import (
 # the JAX package's reference-compatible submodule surface
 from poor_man_gplvm_tpu_torch import (  # noqa: E402,F401
     analysis,
+    analysis_helper,
     config,
     core,
+    data,
     decoder,
     decoder_latentonly,
+    distance_analysis,
     fit_tuning_helper,
     fit_tuning_with_basis,
     gp_kernel,
@@ -94,6 +104,7 @@ from poor_man_gplvm_tpu_torch import (  # noqa: E402,F401
     model_selection_helper,
     reactivation_analysis,
     test,
+    trial_analysis,
     verify_latent_jump,
 )
 
@@ -110,11 +121,14 @@ __all__ = [
     "TsdFrame",
     "TsGroup",
     "analysis",
+    "analysis_helper",
     "config",
     "convert",
     "core",
+    "data",
     "decoder",
     "decoder_latentonly",
+    "distance_analysis",
     "experimental",
     "fit_tuning_helper",
     "fit_tuning_with_basis",
@@ -133,6 +147,7 @@ __all__ = [
     "set_matmul_precision",
     "set_scan_precision",
     "test",
+    "trial_analysis",
     "utils",
     "validation",
     "verify_latent_jump",

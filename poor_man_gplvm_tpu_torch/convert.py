@@ -8,7 +8,9 @@ the same decode.  An optax Adam state carried across with
 ``adam_state_from_jax`` lets a fit continue from where the JAX one stopped,
 and ``checkpoint_state_from_jax`` turns a whole EM checkpoint of the JAX
 package into the port's, so that ``fit_em(resume=True)`` continues a fit
-the JAX package checkpointed.  Everything crosses as numpy arrays: this
+the JAX package checkpointed.  ``bayes_decoder_from_jax`` turns a fitted
+naive-Bayes baseline decoder of the JAX package's ``data`` into the
+port's.  Everything crosses as numpy arrays: this
 module imports neither jax, optax nor the JAX package (unpickling a JAX
 checkpoint needs optax, where the caller has it).
 """
@@ -19,7 +21,7 @@ import numpy as np
 import torch
 
 __all__ = ["state_from_model", "load_jax_state", "adam_state_from_jax",
-           "checkpoint_state_from_jax"]
+           "checkpoint_state_from_jax", "bayes_decoder_from_jax"]
 
 
 def state_from_model(model):
@@ -124,3 +126,32 @@ def checkpoint_state_from_jax(state, device="cuda"):
             device=device),
         "rng": np.asarray(state.get("rng")),
     }
+
+
+def bayes_decoder_from_jax(dec, device="cuda"):
+    """The port's ``data.GaussianBayesDecoder`` or ``PoissonBayesDecoder``
+    from the JAX package's (fitted or not): its settings (``n_bins``, the
+    floor, ``uniform_prior``) and fitted numpy attributes (``mu_``,
+    ``var_`` or ``rate_``, ``log_rate_``; ``log_prior_``) as float64
+    tensors on ``device`` (the card by default; ``device='cpu'`` keeps them
+    on the CPU).  It reads the attributes, not a pickle: a pickled JAX
+    decoder cannot be unpickled without JAX."""
+    from poor_man_gplvm_tpu_torch.data import decoders
+
+    if hasattr(dec, "var_floor"):
+        out = decoders.GaussianBayesDecoder(
+            dec.n_bins, var_floor=dec.var_floor,
+            uniform_prior=dec.uniform_prior, device=device)
+        names = ("mu_", "var_", "log_prior_")
+    elif hasattr(dec, "rate_floor"):
+        out = decoders.PoissonBayesDecoder(
+            dec.n_bins, rate_floor=dec.rate_floor,
+            uniform_prior=dec.uniform_prior, device=device)
+        names = ("rate_", "log_rate_", "log_prior_")
+    else:
+        raise TypeError(f"not a naive-Bayes decoder: {type(dec).__name__}")
+    for name in names:
+        value = getattr(dec, name)
+        setattr(out, name, None if value is None else torch.tensor(
+            np.asarray(value, dtype=np.float64), device=out.device))
+    return out

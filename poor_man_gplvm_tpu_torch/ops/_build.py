@@ -16,7 +16,10 @@ Libraries:
   block per sequence of a batch;
 * ``parallel_scan``: K3/K4, the parallel-in-time filter and smoother passes
   in the three recursion-dot precisions (K5), and ``joint_acc`` (3xTF32 on
-  the tensor cores).
+  the tensor cores);
+* ``binning``: the ingestion layer's spike binner (``csrc/binning.cpp``),
+  host code, built by the host's C++ compiler (``g++``, or ``$CXX``) in the
+  same way and loaded by ``data/native.py``.
 """
 
 from __future__ import annotations
@@ -43,7 +46,10 @@ CSRC = _PKG / "csrc"
 SOURCES = {
     "scan_kernels": CSRC / "scan_kernels.cu",
     "parallel_scan": CSRC / "parallel_scan.cu",
+    "binning": CSRC / "binning.cpp",
 }
+#: the libraries built by the host's C++ compiler, not nvcc
+HOST_LIBS = ("binning",)
 HEADERS = (CSRC / "scan_common.cuh",)
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
@@ -65,7 +71,14 @@ _SIGNATURES = {
         "pmg_pscan_resident": [_ci] * 6,
         "pmg_joint_acc": [_vp] * 4 + [_ci] * 6 + [_vp],
     },
+    "binning": {
+        "bin_sliding": [_vp, _vp, _cl, ctypes.c_double, ctypes.c_double,
+                        _cl, _cl, _vp],
+        "bin_overlapping": [_vp, _vp, _cl, ctypes.c_double, ctypes.c_double,
+                            ctypes.c_double, _cl, _cl, _vp],
+    },
 }
+HOST_FLAGS = ("-O3", "-shared", "-fPIC")
 
 _libs = {}
 #: ptxas report (registers, shared memory, spills) of each library built
@@ -85,14 +98,22 @@ def _nvcc():
 
 def _so_path(name):
     h = hashlib.sha256(SOURCES[name].read_bytes())
-    for header in HEADERS:
+    for header in () if name in HOST_LIBS else HEADERS:
         h.update(header.read_bytes())
     return BUILD_DIR / f"{name}_{h.hexdigest()[:16]}.so"
 
 
+def _command(name, out):
+    """The compiler command that builds library ``name`` into ``out``."""
+    if name in HOST_LIBS:
+        return [os.environ.get("CXX", "g++"), *HOST_FLAGS, "-o", out,
+                str(SOURCES[name])]
+    return [_nvcc(), *NVCC_FLAGS, "-o", out, str(SOURCES[name])]
+
+
 def build_all(names=None):
     """Compile every library in ``names`` (default: all) that is not built
-    yet, one ``nvcc`` process per source, all started together; raise if
+    yet, one compiler process per source, all started together; raise if
     any fails.  Each library is written atomically (a reader never sees a
     partial .so)."""
     names = list(SOURCES) if names is None else list(names)
@@ -106,7 +127,7 @@ def build_all(names=None):
             fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
             os.close(fd)
             proc = subprocess.Popen(
-                [_nvcc(), *NVCC_FLAGS, "-o", tmp, str(SOURCES[name])],
+                _command(name, tmp),
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
             jobs.append((name, out, tmp, proc))
@@ -114,7 +135,8 @@ def build_all(names=None):
         for name, out, tmp, proc in jobs:
             text, _ = proc.communicate()
             if proc.returncode != 0:
-                failed.append(f"nvcc failed on {SOURCES[name].name} (exit "
+                failed.append(f"{_command(name, tmp)[0]} failed on "
+                              f"{SOURCES[name].name} (exit "
                               f"{proc.returncode}):\n{text}")
                 continue
             os.replace(tmp, out)
@@ -140,7 +162,7 @@ def load(name):
     lib = ctypes.CDLL(str(_so_path(name)))
     for fn, argtypes in _SIGNATURES[name].items():
         getattr(lib, fn).argtypes = argtypes
-        getattr(lib, fn).restype = _ci
+        getattr(lib, fn).restype = None if name in HOST_LIBS else _ci
     _libs[name] = lib
     return lib
 

@@ -11,6 +11,11 @@ for bit against each sequence alone, by ``batch_full_vs_single``; K1/K2
 with a configuration per sequence and the norm-only K1 by
 ``config_batch_vs_single``.
 
+``kilosort_session`` writes a seeded multi-probe Kilosort session (spike
+times, clusters, labels, ``params.py``) sampled from a
+``PoissonGPLVMJump1D``, with population bursts and units that fail the
+session pipeline's filters, for the ingestion layer's end-to-end runs.
+
 Shared by the CPU tests, the card tests and ``chip_smoke.py``.  Everything
 is built with numpy from a seed, so the same case can be fed to the JAX
 package, the plain PyTorch versions and the CUDA kernels.
@@ -19,6 +24,7 @@ package, the plain PyTorch versions and the CUDA kernels.
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -41,7 +47,7 @@ __all__ = [
     "pfilter_step_check", "psmooth_step_check", "pscan_failures",
     "pscan_nvalid_vs_plain", "pscan_nvalid_failures",
     "subnormal_prior_smoothers", "CONFIG_MOVEMENT", "config_stack",
-    "config_batch_vs_single",
+    "config_batch_vs_single", "kilosort_session", "SESSION_LABELS",
 ]
 
 #: kernel vs plain version (and port vs JAX): posteriors/priors/smoothed
@@ -926,3 +932,83 @@ def config_batch_vs_single(device, L=500, lengths=(301, 37, 301, 2, 299,
             "norm_only_equal": bool(norm_equal), "finite": bool(finite),
             "shared_equal": bool(shared_equal), "W": band.W,
             "W_single": W_single}
+
+
+#: probe-local unit index -> Kilosort label; every other unit is "good"
+SESSION_LABELS = {2: "mua", 3: "mua", 4: "noise"}
+
+
+def kilosort_session(root, n_probes=2, n_units=250, duration_s=1200.0,
+                     dt=0.01, n_latent_bin=101, rate_hz=5.0,
+                     burst_every_s=4.0, burst_bins=12, burst_gain=5.0,
+                     seed=0, fs=30000.0):
+    """Write a seeded Kilosort session of ``n_probes`` probes of
+    ``n_units`` units each under ``root/probe{p}`` and return what made it.
+
+    One ``PoissonGPLVMJump1D(n_probes * n_units, n_latent_bin,
+    tuning_lengthscale=5)`` on the CPU samples the (dynamics, latent) path
+    over T = duration_s / dt bins; each unit's rate is its tuning curve
+    along the path scaled to a mean of ``rate_hz``, times ``burst_gain``
+    for ``burst_bins`` bins every ``burst_every_s`` seconds (population
+    bursts; probe p's lag p bins, as ``examples/10`` puts them in).  Spike
+    counts are Poisson, spike times uniform within their bin, stored as
+    samples at ``fs`` (``spike_times.npy``, int64) with their cluster ids
+    (``spike_clusters.npy``, int32), labels in ``cluster_KSLabel.tsv``
+    (``SESSION_LABELS``), ``params.py`` with ``sample_rate``.  On every
+    probe unit 0 fires only in the first fifth of the session (presence
+    ratio 0.2) and unit 1 at 1 % of ``rate_hz`` (below the pipeline's 500
+    spikes); unit 5 fires once in the middle of the last bin, so every
+    probe bins to the same T - 1 windows.
+
+    Returns a dict: ``dirs`` (one per probe), ``latent`` (T, 2) int64,
+    ``position`` (T,) float (the latent bin), ``burst_starts`` (bin
+    indices), ``n_spikes``, ``T``, ``dt``."""
+    from poor_man_gplvm_tpu_torch.models.jump1d import PoissonGPLVMJump1D
+
+    T = int(round(duration_s / dt))
+    model = PoissonGPLVMJump1D(n_probes * n_units, n_latent_bin=n_latent_bin,
+                               tuning_lengthscale=5.0, device="cpu")
+    latent = model.sample_latent(
+        T, torch.Generator().manual_seed(seed)).numpy()
+    tuning = model.tuning.double().numpy()
+    rng = np.random.default_rng(seed)
+    every = int(round(burst_every_s / dt))
+    starts = np.arange(every // 2, T - burst_bins - n_probes, every)
+    starts = starts + rng.integers(0, every // 4, starts.size)
+    dirs, n_spikes = [], 0
+    for p in range(n_probes):
+        cols = slice(p * n_units, (p + 1) * n_units)
+        rate = tuning[latent[:, 1], cols]
+        rate *= rate_hz * dt / rate.mean(axis=0)
+        rate[:, 1] *= 0.01
+        rate[T // 5:, 0] = 0.0
+        gain = np.ones(T)
+        for s in starts + p:
+            gain[s:s + burst_bins] = burst_gain
+        counts = rng.poisson(rate * gain[:, None])
+        counts[-1, 5] = 0
+        t_idx, unit = np.nonzero(counts)
+        reps = counts[t_idx, unit]
+        t_idx, unit = np.repeat(t_idx, reps), np.repeat(unit, reps)
+        times = (t_idx + rng.random(t_idx.size)) * dt
+        times = np.append(times, (T - 0.5) * dt)
+        unit = np.append(unit, 5)
+        order = np.argsort(times, kind="stable")
+        d = os.path.join(root, f"probe{p}")
+        os.makedirs(d, exist_ok=True)
+        np.save(os.path.join(d, "spike_times.npy"),
+                np.round(times[order] * fs).astype(np.int64))
+        np.save(os.path.join(d, "spike_clusters.npy"),
+                unit[order].astype(np.int32))
+        with open(os.path.join(d, "params.py"), "w") as f:
+            f.write(f"dat_path = 'probe{p}.bin'\nn_channels_dat = 384\n"
+                    f"sample_rate = {fs}\n")
+        with open(os.path.join(d, "cluster_KSLabel.tsv"), "w") as f:
+            f.write("cluster_id\tKSLabel\n" + "".join(
+                f"{u}\t{SESSION_LABELS.get(u, 'good')}\n"
+                for u in range(n_units)))
+        dirs.append(d)
+        n_spikes += times.size
+    return {"dirs": dirs, "latent": latent,
+            "position": latent[:, 1].astype(float), "burst_starts": starts,
+            "n_spikes": n_spikes, "T": T, "dt": dt}

@@ -4,16 +4,27 @@ a pandas DataFrame (the card's machine has no pandas).
 A table holds named numpy columns of equal length, in order, and an
 optional row index: one array per index level, with the level names.
 ``to_dataframe()`` builds the DataFrame the JAX function returns, index
-included; pandas is imported at the call.  ``concat_tables`` stacks
-tables as ``pd.concat({key: frame, ...}, axis=0)`` does, with the keys as
-the outer index level.
+included, and ``to_series()`` the Series of a one-column table; pandas is
+imported at the call.  ``concat_tables`` stacks tables as
+``pd.concat({key: frame, ...}, axis=0)`` does, with the keys as the outer
+index level.  ``read_csv`` reads a delimited text file with a header row
+into a table, as the subset of ``pandas.read_csv`` that the data loaders
+use.
 """
 
 from __future__ import annotations
 
+import csv
+
 import numpy as np
 
-__all__ = ["ResultTable", "concat_tables"]
+__all__ = ["ResultTable", "concat_tables", "read_csv", "NA_VALUES"]
+
+#: the strings ``pandas.read_csv`` reads as missing by default
+NA_VALUES = frozenset((
+    "", "#N/A", "#N/A N/A", "#NA", "-1.#IND", "-1.#QNAN", "-NaN", "-nan",
+    "1.#IND", "1.#QNAN", "<NA>", "N/A", "NA", "NULL", "NaN", "None", "n/a",
+    "nan", "null"))
 
 
 class ResultTable:
@@ -97,6 +108,17 @@ class ResultTable:
                 self._index, names=list(self._index_names))
         return df
 
+    def to_series(self):
+        """The pandas Series of a one-column table, named by the column,
+        with the table's index."""
+        if len(self._cols) != 1:
+            raise ValueError("to_series() needs a table of one column")
+        import pandas as pd
+
+        (name, col), = self._cols.items()
+        df = self.to_dataframe()
+        return pd.Series(col, index=df.index, name=name)
+
     def __repr__(self):
         return f"ResultTable({len(self)} rows, columns={self.columns})"
 
@@ -118,3 +140,47 @@ def concat_tables(tables):
     return ResultTable(
         {c: np.concatenate([tables[k][c] for k in keys]) for c in cols},
         index=[outer, *inner], index_names=(None, *first.index_names))
+
+
+def _parse_column(fields):
+    """One column of strings as ``pandas.read_csv`` types it: int64 where
+    every field is an integer, float64 where every field is a number or
+    missing (NaN), bool where every field is True/False, else an object
+    array of strings with None where missing."""
+    missing = [f in NA_VALUES for f in fields]
+    present = [f for f, m in zip(fields, missing) if not m]
+    # python's int()/float() read "1_000"; pandas does not
+    if all("_" not in f for f in present):
+        if present and not any(missing):
+            try:
+                return np.array([int(f) for f in present], dtype=np.int64)
+            except ValueError:
+                pass
+        try:
+            return np.array([np.nan if m else float(f)
+                             for f, m in zip(fields, missing)],
+                            dtype=np.float64)
+        except ValueError:
+            pass
+    bools = {"true": True, "false": False}
+    if present and not any(missing) and all(f.lower() in bools
+                                            for f in present):
+        return np.array([bools[f.lower()] for f in present], dtype=bool)
+    return np.array([None if m else f for f, m in zip(fields, missing)],
+                    dtype=object)
+
+
+def read_csv(path, sep=","):
+    """A delimited text file with a header row as a ``ResultTable``, its
+    columns typed as ``pandas.read_csv`` types them (``_parse_column``)."""
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f, delimiter=sep))
+    if not rows:
+        raise ValueError(f"{path} is empty (no header row)")
+    header, body = rows[0], rows[1:]
+    width = len(header)
+    body = [r + [""] * (width - len(r)) for r in body if r]
+    if any(len(r) > width for r in body):
+        raise ValueError(f"{path}: a row has more fields than the header")
+    return ResultTable({name: _parse_column([r[j] for r in body])
+                        for j, name in enumerate(header)})

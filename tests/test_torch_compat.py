@@ -558,17 +558,16 @@ def test_config():
     assert config.get_matmul_precision() == "highest"
 
 
-#: the reference's submodules that the port has, and the numpy-only layers
-#: it leaves to the JAX package (importing them imports jax)
+#: the reference's submodules that the port has, and the layers it has not
+#: ported yet (importing the JAX package's imports jax)
 PORTED_SUBMODULES = (
     "core", "test", "utils", "model_selection_helper", "experimental",
     "gp_kernel", "decoder", "decoder_latentonly", "fit_tuning_helper",
     "fit_tuning_with_basis", "initializer", "reactivation_analysis",
     "verify_latent_jump", "jump_analysis", "analysis", "config", "parallel",
-    "selection", "validation")
-NUMPY_ONLY = ("analysis_helper", "distance_analysis", "pandas_util",
-              "plot_helper", "trial_analysis", "data", "plotting",
-              "workflows")
+    "selection", "validation", "data", "analysis_helper",
+    "distance_analysis", "trial_analysis")
+NUMPY_ONLY = ("pandas_util", "plot_helper", "plotting", "workflows")
 
 
 def test_reference_submodules_present():
@@ -585,7 +584,7 @@ def test_reference_submodules_present():
 
 def test_module_symbols():
     """The port's counterpart of ``test_compat_surface::test_module_symbols``
-    (the names of the numpy-only layers are absent)."""
+    (the names of the layers not ported yet are absent)."""
     assert callable(pmt.gp_kernel.create_transition_prob_1d)
     assert callable(pmt.gp_kernel.rbf_kernel)
     assert callable(pmt.decoder.smooth_all_step_combined_ma_chunk)
@@ -610,21 +609,24 @@ def test_module_symbols():
     for mod in ("core_exp", "decoder_exp", "fit_tuning_helper_exp",
                 "test_exp"):
         assert hasattr(pmt.experimental, mod), mod
-    # the JAX names of the numpy-only layers are not in the port
-    assert not hasattr(pmt.utils, "post_fit_sort_neuron")
-    assert not hasattr(pmt.utils, "rbf_kernel")
+    # the ingestion layer and the analyses are in the port; the plotting
+    # and pandas helpers are not yet
+    assert callable(pmt.utils.post_fit_sort_neuron)
+    assert callable(pmt.utils.rbf_kernel)
+    assert callable(pmt.data.compute_spike_counts_old)
+    assert callable(pmt.analysis_helper.get_posterior_weighted_average)
+    assert callable(pmt.distance_analysis.compute_distance_lag)
+    assert callable(pmt.trial_analysis.get_event_phase_in_trial)
+    assert not hasattr(pmt.utils, "pandas_util")
+    assert not hasattr(pmt, "plot_helper")
 
 
-#: JAX modules not ported, with the reason: the numpy-only layers
-#: (importing them imports jax; they take numpy from either package)
+#: JAX modules not ported yet, with the reason: the plotting and pandas
+#: helpers, queued for the next slice (ROADMAP.md)
 NOT_PORTED_PATHS = {
-    **{p: "numpy-only layer" for p in (
-        "data", "plotting", "workflows", "analysis/ccg.py",
-        "analysis/distance.py", "analysis/posterior.py",
-        "analysis/regression.py", "analysis/trial.py", "utils/stats.py",
-        "utils/pandas_util.py", "utils/sorting.py", "analysis_helper.py",
-        "distance_analysis.py", "pandas_util.py", "plot_helper.py",
-        "trial_analysis.py")},
+    **{p: "plotting/pandas helper, queued for the next slice" for p in (
+        "plotting", "workflows", "utils/pandas_util.py", "pandas_util.py",
+        "plot_helper.py")},
 }
 #: public JAX names with no same-named counterpart, with the reason
 NAME_EXCEPTIONS = {
@@ -692,7 +694,9 @@ def test_name_diff():
 
 
 def test_the_jax_shims_import_no_jax_in_the_port():
-    """Nothing of the port imports jax, pandas or tqdm at module level."""
+    """Nothing of the port imports jax, or pandas, tqdm, sklearn,
+    matplotlib, seaborn, h5py or statsmodels (absent on the card's
+    machine), at module level."""
     bad = []
     for path in (REPO / "poor_man_gplvm_tpu_torch").rglob("*.py"):
         for node in ast.parse(path.read_text()).body:
@@ -702,7 +706,9 @@ def test_the_jax_shims_import_no_jax_in_the_port():
                     else [])
             bad += [f"{path.name}: {m}" for m in mods
                     if m.split(".")[0] in ("jax", "pandas", "tqdm",
-                                           "poor_man_gplvm_tpu")]
+                                           "poor_man_gplvm_tpu", "sklearn",
+                                           "matplotlib", "seaborn", "h5py",
+                                           "statsmodels")]
     assert not bad, bad
 
 

@@ -8,7 +8,10 @@ for bit; K1/K2 with one transition configuration per sequence (bands of
 mixed widths padded to the widest) and the norm-only K1 against their
 plain versions and, bit for bit, against the unbatched kernels under each
 configuration alone; K3/K4 with a validity bound n_valid other than T
-(the time shards of ``parallel/spmd.py``), with a failing control.
+(the time shards of ``parallel/spmd.py``), with a failing control.  Also
+the card's side of the ingestion layer: the naive-Bayes baseline decoders
+on the card against their CPU float64 run, and the native spike binner
+built in the card machine's environment against the numpy binner.
 
 Imports no jax, so it runs on a machine with a card and no JAX:
 
@@ -570,3 +573,47 @@ def test_config_index_launch_counts_and_bad_inputs(cuda):
                                  cfg=bad)
     with pytest.raises(ValueError):  # one stack is (n_dyn, L, L)
         sk.filter_scan_batch(w, tlat, tdyn, init, lengths, flags)
+
+
+@pytest.mark.parametrize("kind", ["Poisson", "Gaussian"])
+def test_bayes_decoders_on_the_card_equal_their_cpu_float64_run(cuda, kind):
+    import numpy as np
+
+    from poor_man_gplvm_tpu_torch import data as pdata
+
+    rng = np.random.default_rng(0)
+    K, N, T = 31, 60, 20_000
+    Y = rng.integers(0, K, T)
+    X = rng.poisson(rng.gamma(2.0, 1.0, (N, K))[:, Y]).astype(float)
+    cls = getattr(pdata, f"{kind}BayesDecoder")
+    card = cls(K).fit(torch.as_tensor(X, device=cuda),
+                      torch.as_tensor(Y, device=cuda))
+    lp = card.predict_log_probabilities(X)
+    assert lp.is_cuda and lp.dtype == torch.float64
+    ref = cls(K, device="cpu").fit(X, Y).predict_log_probabilities(X)
+    assert torch.equal(torch.argmax(lp, dim=0).cpu(),
+                       torch.argmax(ref, dim=0))
+    assert float((lp.cpu() - ref).abs().max() / ref.abs().max()) <= 1e-9
+    assert card.predict(X).is_cuda
+
+
+def test_native_binner_builds_in_the_card_environment(cuda):
+    import numpy as np
+
+    from poor_man_gplvm_tpu_torch import data as pdata
+    from poor_man_gplvm_tpu_torch.data import native
+
+    assert native.available()
+    rng = np.random.default_rng(1)
+    st = np.concatenate([rng.uniform(0, 200, 300_000),
+                         np.arange(20_000) * 0.01])
+    clu = rng.integers(0, 50, st.size)
+    for kw in (dict(), dict(t_origin=0.5)):
+        got = pdata.bin_spikes_sliding(st, clu, 0.01, 0.01, use_native=True,
+                                       **kw)
+        want = pdata.bin_spikes_sliding(st, clu, 0.01, 0.01,
+                                        use_native=False, **kw)
+        assert all(np.array_equal(a, b) for a, b in zip(got, want))
+    got = pdata.compute_spike_counts(st, clu, 0.05, 0.01, use_native=True)
+    want = pdata.compute_spike_counts(st, clu, 0.05, 0.01, use_native=False)
+    assert all(np.array_equal(a, b) for a, b in zip(got, want))

@@ -229,12 +229,24 @@ def test_single_step_and_sampling():
 
 def test_port_imports_and_decodes_without_jax():
     code = textwrap.dedent("""
+        import importlib.abc
         import sys
-        for banned in ("jax", "poor_man_gplvm_tpu", "pandas", "sklearn",
-                       "pynapple"):
-            sys.modules[banned] = None
+        BANNED = ("jax", "poor_man_gplvm_tpu", "pandas", "sklearn",
+                  "pynapple", "matplotlib", "seaborn", "h5py", "statsmodels")
+
+        class Blocked(importlib.abc.MetaPathFinder):
+            # an import of these fails as where they are not installed
+            # (a None in sys.modules would look like a loaded module to
+            # scipy's array-API checks)
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in BANNED:
+                    raise ModuleNotFoundError(f"No module named {name!r}")
+
+        sys.meta_path.insert(0, Blocked())
         import numpy as np
         import poor_man_gplvm_tpu_torch as pmt
+        import poor_man_gplvm_tpu_torch.analysis
+        import poor_man_gplvm_tpu_torch.data
         m = pmt.PoissonGPLVMJump1D(5, n_latent_bin=8, device="cpu")
         y = np.random.default_rng(0).poisson(1.0, (30, 5)).astype("f4")
         res = m.decode_latent(y)
@@ -258,6 +270,16 @@ def test_port_imports_and_decodes_without_jax():
         assert em["posterior"].shape == (300, 8)
         assert em["log_posterior_final"] is None
         assert m._scan_passes_mid.shape == (2, 2)
+        # the ingestion layer and a baseline decoder with nothing of those
+        counts, tb, units = pmt.data.bin_spikes_sliding(
+            np.sort(np.random.default_rng(2).uniform(0, 3, 300)),
+            np.arange(300) % 4, 0.1, 0.1)
+        pr = pmt.data.get_presence_ratio(counts, tb, 5)
+        dec = pmt.data.PoissonBayesDecoder(3, device="cpu").fit(
+            counts, np.arange(counts.shape[1]) % 3)
+        assert dec.predict(counts).shape == (counts.shape[1],)
+        assert pr.shape == (4,)
+        assert pmt.data.sort_units(counts).shape == counts.shape
         assert np.isfinite(float(em["log_marginal_l"][-1]))
         # the other families, the log engine and the initializers
         g = pmt.GaussianGPLVM1D(5, n_latent_bin=8, device="cpu",
@@ -285,11 +307,13 @@ def test_port_imports_and_decodes_without_jax():
 def test_port_sources_import_neither_jax_nor_the_jax_package():
     """No source file of the port, and not ``chip_smoke.py``, imports
     ``jax``, ``jaxlib``, ``optax``, sklearn or anything of
-    ``poor_man_gplvm_tpu``, nor pandas, pynapple, tqdm or orbax at module
-    level (the card's machine has none of them; pandas and pynapple are
+    ``poor_man_gplvm_tpu``, nor pandas, pynapple, tqdm, orbax, matplotlib,
+    seaborn, h5py or statsmodels at module level (the card's machine has
+    none of them; pandas, pynapple, matplotlib, seaborn and h5py are
     imported inside the functions that use them where installed:
     ``utils.timeseries._PeriEvent.as_dataframe``,
-    ``utils.compat.timeseries_module``)."""
+    ``utils.compat.timeseries_module``, ``data.behavior``,
+    ``analysis.distance``, ``analysis.trial``)."""
     import pathlib
     import re
 
@@ -301,8 +325,8 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
         r"^\s*(?:import|from)\s+(?:jax|jaxlib|optax|poor_man_gplvm_tpu|"
         r"sklearn)(?![\w])", re.MULTILINE)
     top_level = re.compile(
-        r"^(?:import|from)\s+(?:pandas|pynapple|tqdm|orbax)(?![\w])",
-        re.MULTILINE)
+        r"^(?:import|from)\s+(?:pandas|pynapple|tqdm|orbax|matplotlib|"
+        r"seaborn|h5py|statsmodels)(?![\w])", re.MULTILINE)
     for path in files:
         hits = banned.findall(path.read_text())
         hits += top_level.findall(path.read_text())

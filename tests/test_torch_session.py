@@ -433,6 +433,11 @@ ADDED = {
                        "function's arrays live on JAX's default device)"},
     **{f"{mod}.{fn}": _DEVICE for mod, fns in _FUNCTIONAL.items()
        for fn in fns},
+    # the naive-Bayes baselines compute in float64 on the card by default
+    # (the JAX decoders are numpy); the native binner takes no new
+    # parameter, but raises where the JAX package falls back to numpy
+    "data.decoders.GaussianBayesDecoder.__init__": _DEVICE,
+    "data.decoders.PoissonBayesDecoder.__init__": _DEVICE,
     "test_exp.shuffle_and_decode": {
         "seed": "the shuffles' numpy seed (the JAX function draws them "
                 "unseeded)",
@@ -459,6 +464,15 @@ DROP_IN = {m: m for m in (
     "reactivation_analysis")} | {
     m: f"experimental.{m}" for m in ("core_exp", "decoder_exp",
                                      "fit_tuning_helper_exp", "test_exp")}
+#: the session-ingestion layer and the post-fit analyses
+INGESTION = {m: m for m in (
+    *(f"data.{d}" for d in ("binning", "quality", "kilosort", "grouping",
+                            "cellexplorer", "behavior", "bursts", "cv",
+                            "decoders", "moser", "native")),
+    *(f"analysis.{a}" for a in ("ccg", "distance", "posterior",
+                                "regression", "trial")),
+    "utils.stats", "utils.sorting", "analysis_helper", "distance_analysis",
+    "trial_analysis")}
 
 
 def _signature_gaps(where, jfn, pfn):
@@ -522,7 +536,7 @@ def test_public_signatures_match_jax():
                **{name: (importlib.import_module(f"poor_man_gplvm_tpu.{path}"),
                          importlib.import_module(
                              f"poor_man_gplvm_tpu_torch.{path}"))
-                  for name, path in DROP_IN.items()}}
+                  for name, path in {**DROP_IN, **INGESTION}.items()}}
     for mod, (jm, pm) in modules.items():
         names = ONLY.get(mod) or set(getattr(jm, "__all__", None) or (
             n for n, v in vars(jm).items() if not n.startswith("_")
