@@ -17,8 +17,9 @@ Phases, each of which checks its results (any failure exits non-zero):
    batched launches (one thread block per sequence, ragged lengths with a
    1-bin sequence and an odd longest one) against ``*_batch_plain`` and,
    bit for bit, against the unbatched kernel on each sequence alone, and
-   held against ``*_batch_plain`` and timed at every batch the epochs
-   phase launches (all 1,000 epochs at L=500, and its 256-epoch batch);
+   held against ``*_batch_plain`` and timed at the batches the epochs
+   phase launches (at L=500 its 256-epoch batch, and the launch over all
+   1,000 epochs held on those 256);
 4. parallel kernels: K3 (filter pass: finals-only, emit) and K4 (smoother
    pass: finals-only, full, marginal, marginal+acc) against their plain
    versions over the same grid at an odd T (ragged last chunk, T-1
@@ -131,7 +132,25 @@ Phases, each of which checks its results (any failure exits non-zero):
     EM step on 2 chains at T = 2e4 against each chain's unsharded
     iteration.
 
-Each main path (phases 5 with the epochs, 7, 8, 9, 10, 11, 12, 13, 14) runs
+15. pipeline: ``scripts/pipeline_session.py`` on a seeded two-probe
+    Kilosort session through the port's loaders, the native binner, the
+    filters and sort, a fit and decode, the bursts' epoch decode and the
+    naive-Bayes baselines (``phase_pipeline``);
+16. workflows (last): the post-fit layer at full width: the T-maze
+    workflow (``workflows.tmaze_dataset``) on a fit and decode of a 30 min
+    session (N = 500, L = 100, T = 72,000, 40 trials; the decode against
+    the sequential engine; the reward zone's latents, the arrivals, the
+    jump consensus around them against 100 circular shifts, the
+    jump-triggered and null contrastive projections from the fitted
+    ``tuning`` on the card), and the ACh workflow
+    (``workflows.ach_dataset``) on a model selection (2 chains, 3 EM
+    iterations on 80 % of a 20 min sleep session, N = 500, L = 100,
+    T = 120,000, evaluated on the rest): ``main`` (event-triggered
+    analyses with 100 shuffles) and the distance-vs-label analysis; every
+    result computed from card tensors equal to the same function on the
+    host copies, the planted effects found (``phase_workflows``).
+
+Each main path (phases 5 with the epochs, 7-16) runs
 with the kernels' launch counts, by mode and precision, set to 0 just
 before it and read just after; comparison runs are not counted.  The
 line before the last is a JSON summary of the kernels; the last line is
@@ -245,7 +264,7 @@ SWEEP_KW = dict(n_repeat=4, n_iter=3, tuning_lengthscale=10.0,
 SWEEP_ALONE_MAXITER = 20  # four runs against each alone
 SWEEP_ALONE_RTOL = 1e-5
 # kernel rows vs plain: runs per band width, bins (the sweep's own length)
-SWEEP_PLAIN = (2, SWEEP_T)
+SWEEP_PLAIN = (1, SWEEP_T)
 SPLIT_T = 5_000  # bench.py's model_selection_one_split cell
 SPLIT_KW = dict(
     hyperparam_dict={"movement_variance": [0.5, 1.0, 2.0, 4.0],
@@ -279,6 +298,7 @@ REAL_KW = dict(
 COMPAT_T_LL = 10_000
 COMPAT_T_EP = 20_000  # ~8 min at 25 ms
 COMPAT_N_SHUFFLE = 100
+COMPAT_NB_SHUFFLE = 32  # the naive-Bayes null, cut from 100 for time
 COMPAT_BATCH = 32
 COMPAT_ALONE = 2  # shuffles of each key bit for bit against the serial path
 COMPAT_SERIAL = 4  # shuffles of the timed serial loop
@@ -312,6 +332,29 @@ PIPE_FIT_ITERS = 3
 PIPE_CHUNK = 10_000  # the pipeline's n_time_per_chunk
 PIPE_FOLDS = 5
 PIPE_BAYES_RTOL = 1e-9  # card float64 against the CPU float64 run
+# the post-fit workflows (workflows/{tmaze,ach}_dataset.py) at full width
+WF_TMAZE = dict(n_neuron=500, n_latent_bin=100, T=72_000, dt=0.025,
+                n_trials=40)  # 30 min of 25 ms bins
+WF_ACH = dict(n_neuron=500, n_latent_bin=100, T=120_000, dt=0.01)  # 20 min
+WF_FIT_ITERS = 3
+WF_CHAINS = 2  # the ACh selection's chains
+WF_TEST_FRAC = 0.2  # the ACh selection's held-out tail
+WF_N_SHUFFLE = 100
+WF_LIN_PT = 108.5  # reward arrival: the first bin past it is in the zone
+WF_WINDOW = 10  # the consensus windows' largest half-width (bins)
+WF_NULL_Q = 0.95  # the planted effects must clear this shuffle quantile
+#: the post-fit functions the card's machine cannot run, by the package
+#: they need there
+WF_NOT_ON_CARD = {
+    "sklearn": ("tmaze_dataset.classify_latent (DBSCAN)",
+                "ach_dataset.cluster_peri_event (KMeans)",
+                "ach_dataset.latent_cluster_vs_timing_regression"),
+    "dill": ("ach_dataset.load_data_and_fit_res",),
+    "matplotlib": ("the plot_* functions of tmaze_dataset",
+                   "do_plot=True of the ach_dataset functions",
+                   "plotting/, plot_helper"),
+    "plotly": ("plotting.plotly_helpers",),
+}
 #: the n_dyn = 1 kernel rows of the kernels line: wrapper[mode] names
 NDYN1_KERNELS = ("filter_scan", "smoother_scan",
                  "pfilter_pass[finals/highest]", "pfilter_pass[emit/highest]",
@@ -766,14 +809,14 @@ def _epoch_lengths(seed, E, bins):
 def _batch_timed(cell, dev):
     """K1 and K2 batched at the batches a cell of the epochs phase
     launches (its L, its epochs and their lengths, padded to the cell's
-    longest; n_dyn=2 with the jump channel): all E epochs, and where the
-    cell also runs with ``batch_size`` the first batch of that run (the
-    row's ``bs`` entry).  Each is held against ``*_batch_plain`` over every
-    row of every sequence (posteriors and priors; the smoothed posterior,
-    and r relative where prior and numerator are > 1e-30) and both are
-    timed; K2 in place on K1's outputs.  The plain loop over all epochs
-    runs as that first batch and the rest, so its time over all of them is
-    the sum of the two.  The bound takes a batch as the sum of its rows."""
+    longest; n_dyn=2 with the jump channel): all E epochs where the cell
+    runs in one batch, else the first batch of its ``batch_size`` run, held
+    against ``*_batch_plain`` over every row of every sequence (posteriors
+    and priors; the smoothed posterior, and r relative where prior and
+    numerator are > 1e-30) and both timed; then the launch over all E
+    epochs (the row's ``all`` entry), timed and held on that first batch's
+    epochs.  K2 runs in place on K1's outputs.  The bound takes a batch as
+    the sum of its rows."""
     from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk
     from poor_man_gplvm_tpu_torch.ops.band import transition_band
     from poor_man_gplvm_tpu_torch.testing import (
@@ -808,12 +851,15 @@ def _batch_timed(cell, dev):
                 lambda sl: (post[sl, :-1], prior[sl, 1:], tlat_t, t["tdyn"],
                             last[sl], len_all[sl] - 1, flags))}
 
-    def held(name, sl, want, plain_ms):
-        """The kernel on the epochs ``sl`` against ``want``, and timed."""
+    def held(name, launch, want, plain_ms, cmp=None):
+        """The kernel on the epochs ``launch``, held against ``want`` on its
+        first epochs ``cmp`` (all by default), and timed."""
         kern, _, args = runs[name]
         is_k1 = name == "filter_scan_batch"
+        got = kern(*args(launch), band=band)
+        sl = cmp or launch
         n = sl.stop - sl.start
-        got = kern(*args(sl), band=band)
+        got = tuple(g[:n] for g in got)
         # K1 over a sequence's rows, K2 over one row fewer
         own = valid[sl] if is_k1 else valid[sl, 1:]
         err = max(float((g - x).abs()[own].max())
@@ -834,6 +880,15 @@ def _batch_timed(cell, dev):
             check(r_rel <= SCAN_TOLERANCES["r_rel"], (name, n, r_rel))
             del nxt, where
         del got
+        if plain_ms is None:
+            steps = int(lengths[launch].sum()) - (
+                0 if is_k1 else launch.stop - launch.start)
+            ms = cuda_ms(lambda: kern(*args(launch), band=band), 5)
+            log(f"time {name} L={L} E={launch.stop} epochs ({steps} steps "
+                f"in all): kernel {ms:.3f} ms; held on its first {n} "
+                f"epochs: max |kernel - plain| {err:.3e}"
+                + ("" if r_rel is None else f", r rel {r_rel:.2e}"))
+            return dict(err=err, ms=ms, E=launch.stop, steps=steps)
         steps = int(lengths[sl].sum()) - (0 if is_k1 else n)
         b_ms, b_by = kernel_bound(name, steps, L, 2, nnz)
         ms = cuda_ms(lambda: kern(*args(sl), band=band), 5)
@@ -846,16 +901,15 @@ def _batch_timed(cell, dev):
         return dict(err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                     bound_by=b_by, library_ms=None, E=n, steps=steps)
 
-    parts = [slice(0, bs), slice(bs, E)] if bs else [slice(0, E)]
+    first = slice(0, bs or E)
     rows = {}
     for name, (_, plain, args) in runs.items():
-        wants, plain_ms = zip(*(timed_once(lambda: plain(*args(sl)))
-                                for sl in parts))
-        whole = tuple(torch.cat(x) for x in zip(*wants))
-        rows[name] = held(name, slice(0, E), whole, sum(plain_ms))
-        del whole
+        want, plain_ms = timed_once(lambda: plain(*args(first)))
+        rows[name] = held(name, first, want, plain_ms)
         if bs:
-            rows[name]["bs"] = held(name, parts[0], wants[0], plain_ms[0])
+            # the launch over all E epochs, held on its first batch's
+            # epochs (the plain loop over all of them took ~110 s)
+            rows[name]["all"] = held(name, slice(0, E), want, None, first)
     return rows
 
 
@@ -1656,9 +1710,11 @@ def _mid_e_step(m, y, tunings, reps, **kw):
 
 
 @functools.lru_cache(maxsize=1)
+@functools.cache
 def _ns_spikes():
     """bench.py's north-star spikes on the card, Poisson(0.5) from
-    np.random.default_rng(7), made once for the script (~19 s)."""
+    np.random.default_rng(7), made once for the script (~15 s; the
+    families phase frees them)."""
     sec, y = wall_s(lambda: torch.as_tensor(
         np.random.default_rng(7).poisson(0.5, size=(NS_T, NS_N))
         .astype(np.float32), device="cuda"))
@@ -1879,6 +1935,7 @@ def phase_families(launches):
     _families_decode(launches, ndyn1)
     _families_fit(launches, ndyn1)
     _families_lean(launches, ndyn1)
+    _ns_spikes.cache_clear()
     _families_log()
     _families_isolated(launches, ndyn1)
     m = _family_model("GaussianGPLVMJump1D", 100, 100, "auto", seed=17)
@@ -2740,8 +2797,9 @@ def _sel_kernel_rows(ll, stack, cfg):
         rows[name] = dict(E=E, steps=E * steps, max_abs_err=err, ms=ms,
                           plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                           library_ms=None)
-        log(f"time {name} on the sweep's first batch cut to {E} runs (two "
-            f"per band width) x {steps} bins, L={L}: kernel {ms:.3f} ms, "
+        log(f"time {name} on the sweep's first batch cut to {E} runs "
+            f"({per_w} per band width) x {steps} bins, L={L}: kernel "
+            f"{ms:.3f} ms, "
             f"plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms ({b_by}); max "
             f"|kernel - plain| {err:.3e}"
             + (f", rel {reln:.2e}, bit-equal to the full K1's normalisers "
@@ -3386,14 +3444,14 @@ def _compat_reactivation(m, y, y_tsdf, launches):
 
     with counted(launches):
         sec_nb, nb = wall_s(lambda: null(
-            m, y_tsdf, eps, n_shuffle=COMPAT_N_SHUFFLE,
+            m, y_tsdf, eps, n_shuffle=COMPAT_NB_SHUFFLE,
             **dict(kw, decoder_type="naive_bayes")))
-    check(len(nb) == COMPAT_N_SHUFFLE * L
+    check(len(nb) == COMPAT_NB_SHUFFLE * L
           and all(np.isfinite(nb[c]).all() for c in nb.columns),
           "naive-Bayes reactivation null")
-    log(f"compat reactivation naive-Bayes null: {COMPAT_N_SHUFFLE} shuffles "
-        f"{sec_nb:.3f} s, {1e3 * sec_nb / COMPAT_N_SHUFFLE:.1f} ms per "
-        "shuffle")
+    log(f"compat reactivation naive-Bayes null: {COMPAT_NB_SHUFFLE} "
+        f"shuffles {sec_nb:.3f} s, {1e3 * sec_nb / COMPAT_NB_SHUFFLE:.1f} ms "
+        "per shuffle")
 
     _, T_rec, E, bins, _ = EPOCH_CELLS[1]
     lengths = _epoch_lengths(L, E, bins)
@@ -4134,33 +4192,371 @@ def phase_pipeline(launches):
     return rows
 
 
+def _same(a, b, path="result"):
+    """Check two workflow results equal exactly (walking dicts, lists and
+    tuples; ``ResultTable``s by columns and index; time-series containers
+    by times and values)."""
+    from poor_man_gplvm_tpu_torch.utils.table import ResultTable
+
+    if isinstance(a, dict):
+        check(list(a) == list(b), (path, "keys"))
+        for k in a:
+            _same(a[k], b[k], f"{path}[{k!r}]")
+    elif isinstance(a, (list, tuple)):
+        check(len(a) == len(b), (path, "length"))
+        for i, (x, y) in enumerate(zip(a, b)):
+            _same(x, y, f"{path}[{i}]")
+    elif isinstance(a, ResultTable):
+        check(a.columns == b.columns, (path, "columns"))
+        for x, y in zip([a[c] for c in a.columns] + a.index,
+                        [b[c] for c in b.columns] + b.index):
+            _same(x, y, path)
+    elif hasattr(a, "t") and not torch.is_tensor(a) or hasattr(a, "start"):
+        for attr in ("t", "d", "start", "end", "rel_times"):
+            if hasattr(a, attr):
+                _same(getattr(a, attr), getattr(b, attr), f"{path}.{attr}")
+    else:
+        x, y = np.asarray(a), np.asarray(b)
+        check(x.shape == y.shape and x.dtype == y.dtype and (
+            np.array_equal(x, y, equal_nan=x.dtype.kind in "fc")
+            if x.dtype != object else all(
+                np.array_equal(np.asarray(u), np.asarray(v))
+                for u, v in zip(x.ravel(), y.ravel()))),
+            (path, "differs from the host copy's result"))
+
+
+def _finite_tables(obj, path="result"):
+    """Check every float column of every ``ResultTable`` in ``obj`` has no
+    NaN."""
+    from poor_man_gplvm_tpu_torch.utils.table import ResultTable
+
+    if isinstance(obj, dict):
+        for k, v in obj.items():
+            _finite_tables(v, f"{path}[{k!r}]")
+    elif isinstance(obj, ResultTable):
+        for c in obj.columns:
+            col = obj[c]
+            check(col.dtype.kind not in "fc" or not np.isnan(col).any(),
+                  (path, c, "NaN in a table"))
+
+
+def _wf_tmaze(sec, launches):
+    """The T-maze post-fit path on a seeded session
+    (``testing.tmaze_session``): fit and decode on the card, then the
+    workflow's functions on the results."""
+    from poor_man_gplvm_tpu_torch import PoissonGPLVMJump1D, testing
+    from poor_man_gplvm_tpu_torch.utils import compat
+    from poor_man_gplvm_tpu_torch.utils.table import ResultTable
+    from poor_man_gplvm_tpu_torch.workflows import tmaze_dataset as tmz
+
+    nap = compat.timeseries_module()
+    t0 = time.perf_counter()
+    s = testing.tmaze_session(**WF_TMAZE, seed=0)
+    sec["tmaze session written"] = time.perf_counter() - t0
+    N, L, T = WF_TMAZE["n_neuron"], WF_TMAZE["n_latent_bin"], WF_TMAZE["T"]
+    t = s["t"]
+    y = torch.as_tensor(s["spikes"], device="cuda")
+    m = PoissonGPLVMJump1D(N, n_latent_bin=L, movement_variance=1.0,
+                           tuning_lengthscale=1.0)
+    fit_l, dec_l = {}, {}
+    with counted(fit_l):
+        sec["tmaze fit"], em = wall_s(lambda: m.fit_em(
+            y, generator=torch.Generator().manual_seed(3),
+            n_iter=WF_FIT_ITERS, verboase=False))
+    lml = np.array([float(v) for v in em["log_marginal_l"]])
+    check(np.isfinite(lml).all() and np.all(
+        np.diff(lml) >= -1e-6 * np.abs(lml[:-1])), ("tmaze fit lml", lml))
+    with counted(dec_l):
+        sec["tmaze decode"], dec = wall_s(lambda: m.decode_latent(y))
+    check(dec_l.get("pfilter_pass", 0) > 0 and dec_l.get("psmooth_pass", 0)
+          > 0, ("the decode did not run K3/K4", dec_l))
+    _check_decode(dec, T, L)
+    with sequential_engine():
+        ref = m.decode_latent(y)
+    lmf_rel = abs(dec["log_marginal_final"] - ref["log_marginal_final"]) / \
+        abs(ref["log_marginal_final"])
+    post_err = max(float((dec[k] - ref[k]).abs().max()) for k in (
+        "posterior_all", "posterior_latent_marg", "posterior_dynamics_marg"))
+    check(lmf_rel <= DECODE_LMF_RTOL and post_err <= DECODE_POST_ATOL,
+          ("the T-maze decode against the sequential engine", lmf_rel,
+           post_err))
+    _merge(launches, fit_l)
+    _merge(launches, dec_l)
+
+    # the decode's results stay on the card up to the workflow
+    map_d = dec["posterior_latent_marg"].argmax(dim=1)
+    jump_p = dec["posterior_dynamics_marg"][:, 1]
+    planted = s["dynamics"] == 1
+    jump_host = compat.to_numpy(jump_p) > 0.5
+    log(f"workflows tmaze: N={N} L={L} T={T} ({T * WF_TMAZE['dt']:.0f} s, "
+        f"{WF_TMAZE['n_trials']} trials), fit {WF_FIT_ITERS} EM iterations "
+        f"{sec['tmaze fit']:.3f} s, log marginals {lml.tolist()}, decode "
+        f"{1e3 * sec['tmaze decode']:.1f} ms (against the sequential engine:"
+        f" rel {lmf_rel:.2e}, max |post| {post_err:.2e}); jump calls "
+        f"p>0.5: {jump_host[planted].mean():.3f} of the planted jump bins, "
+        f"{jump_host[~planted].mean():.5f} of the others")
+    map_host = compat.to_numpy(map_d)
+    map_tsd = nap.Tsd(d=map_host.astype(float), t=t)
+    speed = nap.Tsd(d=s["speed"], t=t)
+    lin = nap.Tsd(d=s["lin"], t=t)
+    trials = ResultTable(s["trials"])
+    spk = nap.TsdFrame(d=s["spikes"], t=t)
+    t0 = time.perf_counter()
+    occ = tmz.get_latent_occurance_index_per_speed_level(map_d, speed, [5])
+    _same(occ, tmz.get_latent_occurance_index_per_speed_level(
+        map_host, speed, [5]), "occurrence index")
+    # one place field per latent seen running (DBSCAN is sklearn's, not
+    # on the card's machine)
+    clusters = {k: np.zeros(len(v[1]), dtype=np.int64)
+                for k, v in occ.items() if len(v[1]) > 10}
+    fields = tmz.get_latent_field_properties(
+        occ, clusters, lin, trial_intervals=trials,
+        trial_range_to_compare={"early": (0, 10), "late": (-10, None)})
+    in_range = tmz.get_latent_in_position_range(occ, lin, trials)
+    single = tmz.get_single_reward_latent(in_range)
+    both = tmz.get_both_reward_latent(in_range)
+    changes = np.nonzero(map_host[1:] != map_host[:-1])[0] + 1
+    pairs, n_pair = np.unique(np.column_stack(
+        [map_host[changes - 1], map_host[changes]]), axis=0,
+        return_counts=True)
+    top = [tuple(int(v) for v in pairs[i]) for i in np.argsort(-n_pair)[:3]]
+    idx = tmz.find_all_index_per_latent_pair(top, map_d)
+    _same(idx, tmz.find_all_index_per_latent_pair(top, map_host),
+          "latent pairs")
+    trans = tmz.find_transition_times(lin, trials, lin_pt=WF_LIN_PT)
+    sec["tmaze fields, reward latents, pairs, transitions"] = \
+        time.perf_counter() - t0
+    check(len(trans.t) == WF_TMAZE["n_trials"], ("arrivals", len(trans.t)))
+    _finite_tables({"fields": fields, "in_range": in_range})
+
+    t0 = time.perf_counter()
+    jump_bin = compat.tsd((jump_p > 0.5).float(), t)
+    cons = tmz.analyze_peri_transition_jump_consensus(
+        lin, trials, jump_bin, lin_pt=WF_LIN_PT, max_window_size=WF_WINDOW,
+        n_shuffle=WF_N_SHUFFLE, rng=0)
+    sec["tmaze peri-arrival consensus (100 shuffles x 10 windows)"] = \
+        time.perf_counter() - t0
+    frac = cons["consensus_fractions"][None]
+    null_q = np.array([np.quantile(cons["shuffle_fractions"][w], WF_NULL_Q)
+                       for w in range(1, WF_WINDOW + 1)])
+    _finite_tables(cons)
+    check(frac[-1] > null_q[-1], ("the arrival jump consensus is not above "
+                                  "its shuffles", frac.tolist(),
+                                  null_q.tolist()))
+    log(f"workflows tmaze: {len(trans.t)} arrivals; jump consensus by "
+        f"window {np.round(frac, 3).tolist()}, shuffles' "
+        f"{WF_NULL_Q:.0%} {np.round(null_q, 3).tolist()}; "
+        f"{len(occ)} latents, {len(fields)} fields, reward latents: "
+        f"{len(single)} one arm, {len(both)} both arms; pairs {top}")
+
+    # the first MAP change at or after the first arrival: its pair
+    first = changes[np.searchsorted(changes, int(round(
+        s["arrival_t"][0] / WF_TMAZE["dt"])))]
+    t0 = time.perf_counter()
+    trig = tmz.latent_jump_triggered_analysis(
+        map_tsd, nap.TsdFrame(d=np.column_stack([s["x"], s["y"], s["lin"],
+                                                 s["speed"]]), t=t,
+                              columns=["x", "y", "lin", "speed_gauss"]),
+        spk, m.tuning, t=t[first])
+    sec["tmaze jump-triggered"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    null = tmz.get_null_contrastive_projection(
+        spk, m.tuning, map_tsd, jump_p[:, None], n_shuffle=WF_N_SHUFFLE,
+        rng=0)
+    sec["tmaze null projection (100 shuffles)"] = time.perf_counter() - t0
+    tuning_host = compat.to_numpy(m.tuning)
+    _same(null, tmz.get_null_contrastive_projection(
+        spk, tuning_host, map_tsd, compat.to_numpy(jump_p)[:, None],
+        n_shuffle=WF_N_SHUFFLE, rng=0), "null projection")
+    check(np.isfinite(null[0]).all(), "null projection")
+    check(all(np.isfinite(v.d).all() or np.isnan(v.d).all(axis=0).any()
+              for v in trig[0].values()), "jump-triggered analysis")
+    log(f"workflows tmaze: jump-triggered: {len(trig[1].t)} occurrences of "
+        f"the MAP pair {map_host[first - 1:first + 1].tolist()} first seen "
+        f"at the first arrival; null projection "
+        f"{null[0].shape}; card results equal to the host copies' "
+        "(occurrence index, latent pairs, null projection)")
+    return dec, t, trig
+
+
+def _wf_ach(sec, launches):
+    """The ACh post-fit path on a seeded sleep session
+    (``testing.ach_session``): the selection's fit and held-out
+    evaluation on the card, ``prep_res`` as ``load_data_and_fit_res``
+    builds it, ``main`` and the representational analysis."""
+    from poor_man_gplvm_tpu_torch import selection, testing
+    from poor_man_gplvm_tpu_torch.utils import compat
+    from poor_man_gplvm_tpu_torch.workflows import ach_dataset as ach
+
+    nap = compat.timeseries_module()
+    t0 = time.perf_counter()
+    a = testing.ach_session(**WF_ACH, seed=1)
+    sec["ach session written"] = time.perf_counter() - t0
+    L, T = WF_ACH["n_latent_bin"], WF_ACH["T"]
+    n_train = int(T * (1 - WF_TEST_FRAC))
+    y = torch.as_tensor(a["spikes"], device="cuda")
+    config = dict(n_latent_bin=L, movement_variance=1.0,
+                  tuning_lengthscale=1.0)
+    fit_kw = dict(selection.default_fit_kwargs, n_iter=WF_FIT_ITERS,
+                  verboase=False)
+    sel_l, ev_l = {}, {}
+    with counted(sel_l):
+        sec["ach selection fit"], (model_fit_l, em_res_l) = wall_s(
+            lambda: selection.fit_model_one_config(
+                config, y[:n_train], generator=torch.Generator(
+                ).manual_seed(0), fit_kwargs=fit_kw, n_repeat=WF_CHAINS))
+    for em in em_res_l:
+        lml = np.array([float(v) for v in em["log_marginal_l"]])
+        check(np.isfinite(lml).all(), ("ach fit lml", lml))
+    with counted(ev_l):
+        sec["ach held-out evaluation"], metric = wall_s(
+            lambda: selection.evaluate_model_one_config(model_fit_l,
+                                                        y[n_train:]))
+    best = int(metric["metric_overall"]["best_index"])
+    _merge(launches, sel_l)
+    _merge(launches, ev_l)
+    log(f"workflows ach: N={WF_ACH['n_neuron']} L={L} T={T} "
+        f"({T * WF_ACH['dt']:.0f} s), {len(a['onset_t'])} ACh ramps; "
+        f"selection fit ({WF_CHAINS} chains x {WF_FIT_ITERS} EM iterations, "
+        f"T={n_train}) {sec['ach selection fit']:.3f} s, launches {sel_l}; "
+        f"evaluation on the held-out {T - n_train} bins "
+        f"{sec['ach held-out evaluation']:.3f} s, launches {ev_l}; best "
+        f"chain {best}")
+
+    t_l = a["t"][:n_train]
+    t0 = time.perf_counter()
+    decode_res_l = ach.get_decode_res_l_from_em_res_l(em_res_l, t_l)
+    sec["ach posteriors to the host"] = time.perf_counter() - t0
+    _same(decode_res_l, ach.get_decode_res_l_from_em_res_l(
+        [{"log_posterior_final": compat.to_numpy(e["log_posterior_final"])}
+         for e in em_res_l], t_l), "posterior marginals")
+    prep_res = {
+        "spike_mat_sub": nap.TsdFrame(d=a["spikes"][:n_train], t=t_l),
+        "fluo_data": nap.TsdFrame(d=a["ach"][:, None], t=a["t"],
+                                  columns=["ACh"]),
+        "sleep_state_index": nap.Tsd(d=a["sleep_state_index"], t=a["t"]),
+        "is_stim": nap.Tsd(d=a["is_stim"], t=a["t"]),
+        "t_l": t_l, **decode_res_l[best], "model_fit": model_fit_l[best]}
+    t0 = time.perf_counter()
+    res = ach.main(prep_res=prep_res, event_triggered_analysis_kwargs={
+        "n_shuffle": WF_N_SHUFFLE, "minmax": 4, "do_zscore": False,
+        "test_win": 2, "do_plot": False})
+    sec["ach main (event-triggered, 100 shuffles)"] = \
+        time.perf_counter() - t0
+    _finite_tables(res)
+    lines = []
+    for state in ("NREM", "REM", "Awake"):
+        key = ("p_continuous", f"ACh_onset_{state}")
+        if key not in res:
+            continue
+        r = res[key]
+        tp = ach.test_pre_post_against_shuffle(r["feature"], r["shuffle"],
+                                               test_win=2)
+        lines.append(f"{state}: {len(r['feature'])} onsets, post-pre "
+                     f"{tp['diff']:.4f}, shuffles' 5-95% "
+                     f"[{np.quantile(tp['diff_shuffle'][None], 0.05):.4f}, "
+                     f"{np.quantile(tp['diff_shuffle'][None], 0.95):.4f}],"
+                     f" p {tp['p']:.3f}")
+        if state == "NREM":
+            check(tp["diff"] < 0 and tp["p"] <= 1 - WF_NULL_Q,
+                  ("p_continuous does not fall after ACh onset beyond its "
+                   "shuffles", tp["diff"], tp["p"]))
+    check(("p_continuous", "ACh_onset_NREM") in res, sorted(res))
+    nrem = ach.turn_sleep_state_tsd_to_interval(
+        prep_res["sleep_state_index"])["NREM"]
+    t0 = time.perf_counter()
+    dist = ach.feature_distance_vs_label_distance_analysis(
+        prep_res, nrem, ach_onset=nap.Ts(a["onset_t"]),
+        interval_key_l=("ACh_onset",), n_shuffles=200)
+    sec["ach distance vs label (200 shuffles)"] = time.perf_counter() - t0
+    for k, d in dist["dist_d"].items():
+        check(np.isfinite(d).all(), ("distance matrix", k))
+    log(f"workflows ach: {len(res)} (feature, event) analyses; "
+        f"p_continuous after ACh onset: {'; '.join(lines)}; distance vs "
+        f"label: {[(k, v.shape) for k, v in dist['dist_d'].items()]}")
+
+
+def phase_workflows(launches):
+    """The post-fit layer on the card's results, at full width: the T-maze
+    workflow on a fit and decode of a 30 min session (N = 500, L = 100,
+    T = 72,000) and the ACh workflow on a model selection's fits of a
+    20 min sleep session (N = 500, L = 100, T = 120,000), each result
+    computed from card tensors held equal to the same function on the host
+    copies, the planted effects found, no NaN in a table.  Returns the
+    phase's launch counts."""
+    import importlib.util
+
+    from poor_man_gplvm_tpu_torch import (  # noqa: F401
+        pandas_util, plot_helper, plotting, workflows)
+    from poor_man_gplvm_tpu_torch.utils import compat
+
+    t_phase = time.perf_counter()
+    sec, mine = {}, {}
+    dec, t, _ = _wf_tmaze(sec, mine)
+    _wf_ach(sec, mine)
+    present = {lib: importlib.util.find_spec(lib) is not None
+               for lib in WF_NOT_ON_CARD}
+    if present["matplotlib"]:
+        import tempfile
+
+        nap = compat.timeseries_module()
+        plotting.core._pyplot().switch_backend("Agg")
+        with tempfile.TemporaryDirectory() as d:
+            fig, _, _ = plotting.plot_pynapple_data_mpl({
+                "posterior": nap.TsdFrame(d=dec["posterior_latent_marg"][
+                    :4000].cpu().numpy(), t=t[:4000]),
+                "p_jump": nap.Tsd(d=dec["posterior_dynamics_marg"][
+                    :4000, 1].cpu().numpy(), t=t[:4000])},
+                add_scatter_to_heatmap=True)
+            path = plotting.save_fig(fig, "decode", d, fig_format=["png"],
+                                     do_close=True)[0]
+            log(f"workflows: plot_pynapple_data_mpl of the decode drawn "
+                f"with Agg, {os.path.getsize(path)} bytes of PNG")
+    else:
+        log("workflows: matplotlib is not installed here: "
+            "plot_pynapple_data_mpl not drawn (plotting is held on the CPU)")
+    log("workflows: not called on the card: " + "; ".join(
+        f"{', '.join(fns)} (need {lib}, "
+        f"{'installed' if present[lib] else 'not installed'} here)"
+        for lib, fns in WF_NOT_ON_CARD.items()))
+    _merge(launches, mine)
+    log(f"workflows launches (counted): {mine}")
+    log("workflows stage seconds: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in sec.items()))
+    log(f"workflows phase {time.perf_counter() - t_phase:.1f} s "
+        f"({card_line()})")
+    return mine
+
+
 def main():
     t_start = time.perf_counter()
     phase_preamble()
     from poor_man_gplvm_tpu_torch.testing import scan_case
 
     phase_build()
-    worst, times, batch_rows = phase_kernels()
-    pworst, rows = phase_pscan_kernels()
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        log(f"{name} phase {time.perf_counter() - t0:.1f} s")
+        return out
+
+    worst, times, batch_rows = timed("kernels", phase_kernels)
+    pworst, rows = timed("parallel kernels", phase_pscan_kernels)
     launches = {}
-    phase_slice(launches)
-    phase_epochs(launches)
-    phase_crossover()
-    phase_long_decode(launches)
-    phase_fit(launches)
-    phase_northstar(launches)
-    t_fam = time.perf_counter()
-    ndyn1, ndyn1_rows = phase_families(launches)
-    log(f"families phase {time.perf_counter() - t_fam:.1f} s")
-    t_ses = time.perf_counter()
-    session_rows = phase_session(launches)
-    log(f"session phase {time.perf_counter() - t_ses:.1f} s")
-    t_sel = time.perf_counter()
-    selection_rows = phase_selection(launches)
-    log(f"selection phase {time.perf_counter() - t_sel:.1f} s")
+    timed("slice", phase_slice, launches)
+    timed("epochs", phase_epochs, launches)
+    timed("crossover", phase_crossover)
+    timed("long decode", phase_long_decode, launches)
+    timed("fit", phase_fit, launches)
+    timed("north-star", phase_northstar, launches)
+    ndyn1, ndyn1_rows = timed("families", phase_families, launches)
+    session_rows = timed("session", phase_session, launches)
+    selection_rows = timed("selection", phase_selection, launches)
     compat_rows = phase_compat(launches)
     mesh_rows = phase_mesh(launches)
     pipeline_rows = phase_pipeline(launches)
+    workflow_launches = phase_workflows(launches)
     log(f"main-path launches: {launches}")
     path = {name: _path_launches(launches, name) for name in KERNELS}
     check(all(n > 0 for n in path.values()), path)
@@ -4169,6 +4565,9 @@ def main():
     for name, (_, _, source, replaces) in KERNELS.items():
         entry = {"name": name, "route": "cuda", "source": source,
                  "replaces": replaces, "launches": path[name]}
+        if _path_launches(workflow_launches, name):
+            entry["launches_workflows"] = _path_launches(workflow_launches,
+                                                         name)
         if name in mesh_rows:
             entry.update(mesh_rows[name])
             entry["shape"] = (
@@ -4183,7 +4582,7 @@ def main():
         if name in selection_rows:
             entry.update(selection_rows[name])
             entry["shape"] = (
-                "the sweep fan-out's first batch cut to E runs, two per "
+                "the sweep fan-out's first batch cut to E runs, one per "
                 "band width (W = 11, 21, 41, 81, padded to 81), of `steps` "
                 f"rows in all, n_dyn=2, L={SEL_NL}; ms_band_* K1 on the "
                 "W=21 runs alone and padded, at T=10,000")
@@ -4196,9 +4595,9 @@ def main():
                     worst[name], batch_rows[L][name]["err"]))
                 for key in ("E", "steps"):
                     entry[f"{key}{sfx}"] = row[key]
-                for key, v in row.get("bs", {}).items():
+                for key, v in row.get("all", {}).items():
                     key = "max_abs_err" if key == "err" else key
-                    entry[f"{key}_bs{sfx}"] = v
+                    entry[f"{key}_all{sfx}"] = v
                 shape_T = None
             elif name in ("filter_scan", "smoother_scan"):
                 ms, plain_ms = times[L][name]
@@ -4250,9 +4649,11 @@ def main():
         entry["shape"] = (
             "a batch of E sequences of `steps` rows in all, one thread "
             "block each, n_dyn=2 (one RBF channel, ls=1, and the jump "
-            "channel): every batch the epochs phase launches, all E epochs "
-            "of its cell at L=100 and, *_L500, at L=500, and *_bs_L500 the "
-            "first batch of its batch_size run; *_session the first batch "
+            "channel): a batch the epochs phase launches, all E epochs of "
+            "its cell at L=100 and, *_L500, the first batch of its "
+            "batch_size run at L=500, *_all_L500 the launch over all its "
+            "epochs (timed; held on that first batch's epochs); *_session "
+            "the first batch "
             "of the session's dynamics null (E shuffles of "
             f"{SESSION_T_NULL} bins, L={SESSION_NL}); *_reactivation the "
             "reactivation null's first batch cut to E shuffles of "

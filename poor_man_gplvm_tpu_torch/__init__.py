@@ -47,8 +47,12 @@ of ``analysis`` (``ccg``, ``distance``, ``posterior``, ``regression``,
 ``utils.sorting``.  Where a JAX function returns a DataFrame or Series
 they return ``utils.table.ResultTable``.
 
-Not copied yet: ``plotting``, ``workflows``, ``utils.pandas_util`` and
-the root modules ``pandas_util`` and ``plot_helper``.
+The post-fit layer too: ``plotting`` (matplotlib, seaborn, sklearn and
+plotly imported by the functions that draw with them), the T-maze and
+ACh workflows of ``workflows`` on the port's fits and decodes,
+``utils.pandas_util`` (on a ``ResultTable`` without pandas) and the root
+modules ``pandas_util`` and ``plot_helper``.  With them the port has a
+counterpart of every module of the JAX package.
 """
 
 from poor_man_gplvm_tpu_torch import (
@@ -102,10 +106,14 @@ from poor_man_gplvm_tpu_torch import (  # noqa: E402,F401
     initializer,
     jump_analysis,
     model_selection_helper,
+    pandas_util,
+    plot_helper,
+    plotting,
     reactivation_analysis,
     test,
     trial_analysis,
     verify_latent_jump,
+    workflows,
 )
 
 __all__ = [
@@ -141,7 +149,10 @@ __all__ = [
     "model_selection_helper",
     "models",
     "ops",
+    "pandas_util",
     "parallel",
+    "plot_helper",
+    "plotting",
     "reactivation_analysis",
     "selection",
     "set_matmul_precision",
@@ -151,4 +162,5 @@ __all__ = [
     "utils",
     "validation",
     "verify_latent_jump",
+    "workflows",
 ]

@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from poor_man_gplvm_tpu_torch.utils import compat
+from poor_man_gplvm_tpu_torch.utils.table import cut_codes
 
 __all__ = ["init_with_pca", "init_with_label_1D"]
 
@@ -75,7 +76,8 @@ def _cut_codes(x, n_bins):
     else:
         bins = np.linspace(mn, mx, n_bins + 1, endpoint=True)
         bins[0] -= (mx - mn) * 0.001
-    return np.searchsorted(bins, x, side="left") - 1
+    # every value lies inside the edges: no NaN code
+    return cut_codes(x, bins)
 
 
 def init_with_label_1D(label_tsd, n_latent_bin=100, t_l=None, seed=0,

@@ -15,6 +15,9 @@ with a configuration per sequence and the norm-only K1 by
 times, clusters, labels, ``params.py``) sampled from a
 ``PoissonGPLVMJump1D``, with population bursts and units that fail the
 session pipeline's filters, for the ingestion layer's end-to-end runs.
+``tmaze_session`` and ``ach_session`` make the seeded recordings of the
+post-fit workflows (``workflows.tmaze_dataset``, ``workflows.ach_dataset``)
+with the effects those workflows look for planted in them.
 
 Shared by the CPU tests, the card tests and ``chip_smoke.py``.  Everything
 is built with numpy from a seed, so the same case can be fed to the JAX
@@ -48,6 +51,7 @@ __all__ = [
     "pscan_nvalid_vs_plain", "pscan_nvalid_failures",
     "subnormal_prior_smoothers", "CONFIG_MOVEMENT", "config_stack",
     "config_batch_vs_single", "kilosort_session", "SESSION_LABELS",
+    "tmaze_session", "ach_session", "place_field_tuning",
 ]
 
 #: kernel vs plain version (and port vs JAX): posteriors/priors/smoothed
@@ -1012,3 +1016,231 @@ def kilosort_session(root, n_probes=2, n_units=250, duration_s=1200.0,
     return {"dirs": dirs, "latent": latent,
             "position": latent[:, 1].astype(float), "burst_starts": starts,
             "n_spikes": n_spikes, "T": T, "dt": dt}
+
+
+def place_field_tuning(n_neuron, n_latent_bin, rng, peak_hz=15.0,
+                       base_hz=0.3, width_bins=None):
+    """(L, N) firing rates in Hz: one Gaussian place field per neuron on
+    the latent axis (centres uniform over the bins, width ``width_bins``,
+    3 % of L by default) over a baseline."""
+    width = max(1.0, 0.03 * n_latent_bin) if width_bins is None \
+        else width_bins
+    centres = rng.uniform(0, n_latent_bin, n_neuron)
+    bins = np.arange(n_latent_bin)[:, None]
+    return base_hz + peak_hz * np.exp(-0.5 * ((bins - centres) / width) ** 2)
+
+
+#: the linearised T-maze of the reference's helpers (``plotting.backup``
+#: sections): home 0-15, central 15-74, T 74-111, return side 111-185,
+#: return central 185-222; the reward zone 109-113 is the end of the T arm
+TMAZE_LENGTH = 222.0
+TMAZE_STEM = 74.0
+TMAZE_REWARD = (109.0, 113.0)
+
+
+def _tmaze_xy(lin, arm):
+    """2-D position of linearised position ``lin`` on arm 0 (left) or 1
+    (right): up the stem, out along the T, down the return side, back
+    along the bottom to home."""
+    side = np.where(arm == 1, 1.0, -1.0)
+    arm_len = TMAZE_REWARD[1] - TMAZE_STEM + 2.0  # 41: along the T
+    x = np.zeros_like(lin)
+    y = np.zeros_like(lin)
+    stem = lin < TMAZE_STEM
+    y[stem] = lin[stem]
+    t_arm = (lin >= TMAZE_STEM) & (lin < TMAZE_STEM + arm_len)
+    x[t_arm] = side[t_arm] * (lin[t_arm] - TMAZE_STEM)
+    y[t_arm] = TMAZE_STEM
+    down = (lin >= TMAZE_STEM + arm_len) & (lin < TMAZE_STEM + arm_len
+                                            + TMAZE_STEM)
+    x[down] = side[down] * arm_len
+    y[down] = TMAZE_STEM - (lin[down] - TMAZE_STEM - arm_len)
+    back = lin >= TMAZE_STEM + arm_len + TMAZE_STEM
+    x[back] = side[back] * np.maximum(
+        arm_len - (lin[back] - 2 * TMAZE_STEM - arm_len), 0.0)
+    return x, y
+
+
+def tmaze_session(n_neuron=500, n_latent_bin=100, T=72_000, dt=0.025,
+                  n_trials=40, run_speed=25.0, reward_stop_s=6.0,
+                  jump_bins=20, seed=0):
+    """A seeded T-maze recording for ``workflows.tmaze_dataset``, sampled
+    as a ``PoissonGPLVMJump1D`` samples: Poisson counts of a tuning
+    (``place_field_tuning``, rates in Hz times ``dt``) at a (dynamics,
+    latent) path.
+
+    Behaviour: ``n_trials`` trials of equal length over the T bins; in
+    each the animal runs the linearised maze (``TMAZE_*``) at
+    ``run_speed`` units/s from home to the reward zone, stops there
+    ``reward_stop_s`` s (speed 0, inside [109, 113]), runs on to the end
+    of the return (222) and waits at home for the rest of the trial.
+    Trials alternate arms (``visitedArm`` 0/1); every fifth is an error
+    (``choice`` 0).  The continuous latent is the position along a track
+    that joins the stem to a copy of the rest of the maze per arm (370
+    units over the L bins).
+
+    Planted effect: at each reward arrival (the first bin at or past
+    lin 109) the path enters the jump state for ``jump_bins`` bins, in
+    which the latent is drawn uniformly each bin; nowhere else is it in
+    the jump state.  ``find_transition_times(..., lin_pt=108.5)`` finds
+    those arrivals, so the jump consensus around them sits far above its
+    circular-shift null.
+
+    Returns a dict of numpy arrays: ``spikes`` (T, N) float32 counts,
+    ``t`` (T,), ``lin``, ``x``, ``y``, ``speed`` (|d lin / dt|),
+    ``latent`` (T,) int64, ``dynamics`` (T,) int64 (1 = jump),
+    ``tuning_hz`` (L, N), ``trials`` (a dict of columns ``start``,
+    ``end``, ``choice``, ``visitedArm``), ``arrival_t`` (the planted
+    arrival times), ``maze_xy`` (the sampled maze outline, both arms)."""
+    rng = np.random.default_rng(seed)
+    trial_bins = T // n_trials
+    run1 = int(round(TMAZE_REWARD[0] / run_speed / dt)) + 1
+    stop = int(round(reward_stop_s / dt))
+    run2 = int(round((TMAZE_LENGTH - TMAZE_REWARD[0]) / run_speed / dt))
+    if run1 + stop + run2 > trial_bins:
+        raise ValueError(f"a trial of {trial_bins} bins cannot hold the run "
+                         f"({run1 + stop + run2} bins)")
+    lin = np.zeros(T)
+    arm = np.zeros(T, dtype=np.int64)
+    dynamics = np.zeros(T, dtype=np.int64)
+    arrival = []
+    trials = {"start": [], "end": [], "choice": [], "visitedArm": []}
+    for k in range(n_trials):
+        b0 = k * trial_bins
+        b1 = T if k == n_trials - 1 else b0 + trial_bins
+        a = k % 2
+        one = np.zeros(b1 - b0)
+        one[:run1] = np.linspace(0.0, TMAZE_REWARD[0] + 2.0, run1)
+        one[run1:run1 + stop] = TMAZE_REWARD[0] + 2.0
+        one[run1 + stop:run1 + stop + run2] = np.linspace(
+            TMAZE_REWARD[0] + 2.0, TMAZE_LENGTH - 1e-6, run2)
+        lin[b0:b1] = one
+        arm[b0:b1] = a
+        hit = b0 + int(np.argmax(one >= TMAZE_REWARD[0]))
+        dynamics[hit:hit + jump_bins] = 1
+        arrival.append(hit * dt)
+        trials["start"].append(b0 * dt)
+        trials["end"].append((b1 - 1) * dt)
+        trials["choice"].append(0 if k % 5 == 4 else 1)
+        trials["visitedArm"].append(a)
+    track = np.where((arm == 1) & (lin >= TMAZE_STEM),
+                     TMAZE_LENGTH + lin - TMAZE_STEM, lin)
+    span = 2 * TMAZE_LENGTH - TMAZE_STEM
+    latent = np.minimum((track / span * n_latent_bin).astype(np.int64),
+                        n_latent_bin - 1)
+    jumped = dynamics == 1
+    latent[jumped] = rng.integers(0, n_latent_bin, int(jumped.sum()))
+    tuning = place_field_tuning(n_neuron, n_latent_bin, rng)
+    spikes = rng.poisson(tuning[latent] * dt).astype(np.float32)
+    x, y = _tmaze_xy(lin, arm)
+    speed = np.abs(np.gradient(lin, dt))
+    grid = np.linspace(0.0, TMAZE_LENGTH - 1e-6, 400)
+    maze = [np.column_stack(_tmaze_xy(grid, np.full(grid.size, a)))
+            for a in (0, 1)]
+    return {"spikes": spikes, "t": np.arange(T) * dt, "lin": lin, "x": x,
+            "y": y, "speed": speed, "latent": latent, "dynamics": dynamics,
+            "tuning_hz": tuning,
+            "trials": {k: np.asarray(v) for k, v in trials.items()},
+            "arrival_t": np.asarray(arrival), "maze_xy": np.vstack(maze)}
+
+
+#: the ACh session's sleep states, as ``sleep_state_index`` codes them
+ACH_STATES = {"Awake": 0, "NREM": 2, "REM": 4}
+#: (state, fraction of the session where it ends)
+ACH_STATE_BLOCKS = (("Awake", 0.05), ("NREM", 0.42), ("REM", 0.52),
+                    ("NREM", 0.83), ("REM", 0.90), ("Awake", 1.0))
+
+
+def ach_session(n_neuron=500, n_latent_bin=100, T=120_000, dt=0.01,
+                onset_every_s=(15.0, 25.0), ramp_s=1.0, hold_s=2.0,
+                decay_s=4.0, jump_window_s=2.0, p_enter_jump=0.1,
+                p_leave_jump=0.02, p_enter_jump_base=2e-4,
+                stim_s=10.0, n_stim=3, state_blocks=ACH_STATE_BLOCKS,
+                seed=0):
+    """A seeded sleep recording with ACh photometry for
+    ``workflows.ach_dataset``, sampled as a ``PoissonGPLVMJump1D``
+    samples (Poisson counts of ``place_field_tuning`` at a (dynamics,
+    latent) path), with the jump state's entry probability raised after
+    each ACh ramp.
+
+    ACh (one value per bin): ramps planted every ``onset_every_s`` s
+    (uniform in the range): a linear rise of 1 over ``ramp_s``, held
+    ``hold_s``, then an exponential decay (``decay_s``), summed, plus
+    Gaussian noise of 0.05.  ``sleep_state_index``: Awake 0 / NREM 2 /
+    REM 4 in ``state_blocks`` ((state, fraction of the session where its
+    block ends), ``ACH_STATE_BLOCKS`` by default: every state has a block
+    in the first 80 %, the part a held-out split fits on).  ``is_stim``: ``n_stim``
+    epochs of ``stim_s`` s (1 inside, 0 outside), spread over the session
+    between ramps.
+
+    The path: in the continuous state the latent takes Gaussian steps of
+    one bin's std (rounded, reflected at the ends); in the jump state it
+    is drawn uniformly each bin.  The jump state is entered with
+    probability ``p_enter_jump`` per bin in the ``jump_window_s`` s after
+    each ramp onset and ``p_enter_jump_base`` elsewhere, and left with
+    ``p_leave_jump`` per bin (a jump episode lasts 0.5 s on average at
+    10 ms bins).  So the posterior probability of the continuous state
+    falls after ACh onsets: ``test_pre_post_against_shuffle`` on its
+    peri-onset table sees a post-minus-pre difference below its shuffles.
+
+    Returns a dict of numpy arrays: ``spikes`` (T, N) float32, ``t``,
+    ``ach``, ``sleep_state_index`` (T,) int64, ``is_stim`` (T,) float,
+    ``latent``, ``dynamics`` (T,) int64, ``tuning_hz`` (L, N),
+    ``onset_t`` (the planted ramp onsets, those inside stim epochs
+    included)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(T) * dt
+    duration = T * dt
+    onsets, t0 = [], 0.5 * onset_every_s[0]
+    while t0 < duration - (ramp_s + hold_s):
+        onsets.append(t0)
+        t0 += rng.uniform(*onset_every_s)
+    onsets = np.asarray(onsets)
+    ach = np.zeros(T)
+    for o in onsets:
+        rel = t - o
+        rise = np.clip(rel / ramp_s, 0.0, 1.0)
+        fall = np.exp(-np.maximum(rel - ramp_s - hold_s, 0.0) / decay_s)
+        ach += np.where(rel >= 0, rise * fall, 0.0)
+    ach += rng.normal(0.0, 0.05, T)
+    state = np.zeros(T, dtype=np.int64)
+    lo = 0
+    for name, frac in state_blocks:
+        hi = int(round(frac * T))
+        state[lo:hi] = ACH_STATES[name]
+        lo = hi
+    is_stim = np.zeros(T)
+    for k in range(n_stim):
+        # midway between two ramps, in the middle of the session's k-th
+        # part
+        mid = duration * (k + 1) / (n_stim + 1)
+        j = int(np.searchsorted(onsets, mid))
+        start = onsets[j - 1] + ramp_s + hold_s + 1.0 if j > 0 else mid
+        is_stim[(t >= start) & (t < start + stim_s)] = 1.0
+    p_enter = np.full(T, p_enter_jump_base)
+    for o in onsets:
+        p_enter[(t >= o) & (t < o + jump_window_s)] = p_enter_jump
+    u = rng.random(T)
+    steps = np.rint(rng.normal(0.0, 1.0, T)).astype(np.int64)
+    uniform = rng.integers(0, n_latent_bin, T)
+    latent = np.zeros(T, dtype=np.int64)
+    dynamics = np.zeros(T, dtype=np.int64)
+    z, lat = 0, n_latent_bin // 2
+    for i in range(T):
+        z = (1 if u[i] < p_enter[i] else 0) if z == 0 else (
+            0 if u[i] < p_leave_jump else 1)
+        if z:
+            lat = uniform[i]
+        else:
+            lat += steps[i]
+            if lat < 0:
+                lat = -lat
+            if lat > n_latent_bin - 1:
+                lat = 2 * (n_latent_bin - 1) - lat
+        latent[i], dynamics[i] = lat, z
+    tuning = place_field_tuning(n_neuron, n_latent_bin, rng)
+    spikes = rng.poisson(tuning[latent] * dt).astype(np.float32)
+    return {"spikes": spikes, "t": t, "ach": ach,
+            "sleep_state_index": state, "is_stim": is_stim,
+            "latent": latent, "dynamics": dynamics, "tuning_hz": tuning,
+            "onset_t": onsets}

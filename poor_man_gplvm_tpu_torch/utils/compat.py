@@ -5,7 +5,8 @@ when pynapple is installed, else the port's own minimal containers in
 :mod:`poor_man_gplvm_tpu_torch.utils.timeseries` (never the JAX package's
 copy).  pynapple is imported at the first call, not when this module is
 imported.  ``tsdframe`` and ``tsd`` take torch tensors too (copied to the
-host as numpy).
+host as numpy).  ``HAS_PYNAPPLE`` (the JAX module's flag) is read at its
+first use, so reading it may import pynapple.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ import numpy as np
 import torch
 
 __all__ = ["timeseries_module", "is_tsdframe", "is_tsd_like", "tsdframe",
-           "tsd", "to_numpy"]
+           "tsd", "to_numpy", "HAS_PYNAPPLE"]
 
 
 @functools.cache
@@ -28,6 +29,14 @@ def timeseries_module():
     except ImportError:
         from poor_man_gplvm_tpu_torch.utils import timeseries as nap
     return nap
+
+
+def __getattr__(name):
+    # HAS_PYNAPPLE: whether the time-series classes are pynapple's,
+    # decided at the first read rather than at import
+    if name == "HAS_PYNAPPLE":
+        return timeseries_module().__name__ == "pynapple"
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def to_numpy(x):

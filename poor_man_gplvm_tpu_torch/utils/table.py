@@ -78,6 +78,19 @@ class ResultTable:
     def to_dict(self):
         return dict(self._cols)
 
+    def take(self, rows):
+        """The rows ``rows`` (a boolean mask or positions) with their
+        index entries, as ``df[mask]``/``df.iloc[rows]`` keeps the labels
+        (a table without an index gets the positions as its index)."""
+        return ResultTable({c: v[rows] for c, v in self._cols.items()},
+                           [a[rows] for a in self.index], self._index_names)
+
+    def to_numpy(self):
+        """The columns side by side, (rows, columns), as
+        ``DataFrame.to_numpy()``."""
+        return np.column_stack([self._cols[c] for c in self._cols]) \
+            if self._cols else np.empty((0, 0))
+
     def join(self, other):
         """The columns of ``self`` then those of ``other`` (row by row;
         names must differ); the index is ``self``'s."""
@@ -184,3 +197,50 @@ def read_csv(path, sep=","):
         raise ValueError(f"{path}: a row has more fields than the header")
     return ResultTable({name: _parse_column([r[j] for r in body])
                         for j, name in enumerate(header)})
+
+
+def _bins_to_codes(x, bins, include_lowest):
+    """pandas' ``_bins_to_cuts`` with ``labels=False``: the 0-based
+    right-closed bin of each value, NaN outside the edges or where the
+    value is NaN (float then; int64 where no value is NaN)."""
+    x = np.asarray(x, dtype=float)
+    bins = np.asarray(bins, dtype=float)
+    ids = np.searchsorted(bins, x, side="left")
+    if include_lowest:
+        ids[x == bins[0]] = 1
+    na = np.isnan(x) | (ids == len(bins)) | (ids == 0)
+    codes = ids - 1
+    if na.any():
+        codes = codes.astype(np.float64)
+        codes[na] = np.nan
+    return codes
+
+
+def cut_codes(x, bins):
+    """``pandas.cut(x, bins, labels=False)`` for increasing edges
+    ``bins``: right-closed bins, values at or below the first edge NaN."""
+    bins = np.asarray(bins, dtype=float)
+    if np.any(np.diff(bins) < 0):
+        raise ValueError("bins must increase monotonically.")
+    return _bins_to_codes(x, bins, include_lowest=False)
+
+
+def qcut_codes(x, q):
+    """``pandas.qcut(x, q, labels=False)`` for an integer ``q``: the
+    edges are the non-NaN values' quantiles at ``linspace(0, 1, q + 1)``
+    (each rounded up where not exact in base 2; linear, as
+    ``Series.quantile``), the first bin closed on the left;
+    duplicate edges raise, as pandas' default ``duplicates='raise'``."""
+    x = np.asarray(x, dtype=float)
+    finite = x[~np.isnan(x)]
+    quantiles = np.linspace(0, 1, q + 1)
+    # pandas rounds a quantile up where it is not exact in base 2
+    np.putmask(quantiles, q * quantiles != np.arange(q + 1),
+               np.nextafter(quantiles, 1))
+    bins = np.quantile(finite, quantiles) \
+        if finite.size else np.full(q + 1, np.nan)
+    if len(np.unique(bins)) < len(bins):
+        raise ValueError(f"Bin edges must be unique: {bins!r}.\nYou can "
+                         "drop duplicate edges by setting the 'duplicates' "
+                         "kwarg")
+    return _bins_to_codes(x, bins, include_lowest=True)

@@ -410,6 +410,24 @@ class _PeriEvent:
         return pd.DataFrame(self.d, index=self.rel_times)
 
 
+def _nearest_index(t, events):
+    """For each event, the index ``argmin(|t - event|)`` gives (the first
+    of equal distances).  On ascending times without NaN it is found by
+    bisection, between the two neighbours of the event; else by the
+    scan."""
+    events = np.asarray(events, dtype=float)
+    if len(t) == 0 or np.isnan(t).any() or np.isnan(events).any() or (
+            np.diff(t) < 0).any():
+        return [int(np.argmin(np.abs(t - ev))) for ev in events]
+    idx = np.searchsorted(t, events, side="left")
+    left = np.clip(idx - 1, 0, len(t) - 1)
+    right = np.clip(idx, 0, len(t) - 1)
+    pick = np.where(np.abs(t[left] - events) <= np.abs(t[right] - events),
+                    left, right)
+    # the first index that holds the nearest time
+    return np.searchsorted(t, t[pick], side="left").tolist()
+
+
 def compute_perievent_continuous(timeseries, tref, minmax):
     """Align a continuous signal around each event time (pynapple
     compute_perievent_continuous subset): samples on the signal's own grid in
@@ -421,8 +439,7 @@ def compute_perievent_continuous(timeseries, tref, minmax):
     rel = (np.arange(2 * n_half + 1) - n_half) * dt
     events = np.asarray(tref.t if hasattr(tref, "t") else tref)
     out = np.full((len(rel), len(events)), np.nan)
-    for k, ev in enumerate(events):
-        c = int(np.argmin(np.abs(t - ev)))
+    for k, c in enumerate(_nearest_index(t, events)):
         lo, hi = c - n_half, c + n_half + 1
         src_lo, src_hi = max(lo, 0), min(hi, len(t))
         out[src_lo - lo : src_lo - lo + (src_hi - src_lo), k] = d[src_lo:src_hi]

@@ -558,25 +558,22 @@ def test_config():
     assert config.get_matmul_precision() == "highest"
 
 
-#: the reference's submodules that the port has, and the layers it has not
-#: ported yet (importing the JAX package's imports jax)
+#: the reference's submodules, all of which the port has (importing the
+#: JAX package's imports jax)
 PORTED_SUBMODULES = (
     "core", "test", "utils", "model_selection_helper", "experimental",
     "gp_kernel", "decoder", "decoder_latentonly", "fit_tuning_helper",
     "fit_tuning_with_basis", "initializer", "reactivation_analysis",
     "verify_latent_jump", "jump_analysis", "analysis", "config", "parallel",
     "selection", "validation", "data", "analysis_helper",
-    "distance_analysis", "trial_analysis")
-NUMPY_ONLY = ("pandas_util", "plot_helper", "plotting", "workflows")
+    "distance_analysis", "trial_analysis", "pandas_util", "plot_helper",
+    "plotting", "workflows")
 
 
 def test_reference_submodules_present():
     for name in PORTED_SUBMODULES:
         assert hasattr(pmt, name), name
         importlib.import_module(f"poor_man_gplvm_tpu.{name}")
-    for name in NUMPY_ONLY:
-        assert hasattr(jpmg, name), name
-        assert not hasattr(pmt, name), name
     for name in ("set_matmul_precision", "get_matmul_precision",
                  "set_scan_precision"):
         assert callable(getattr(pmt, name)), name
@@ -584,7 +581,7 @@ def test_reference_submodules_present():
 
 def test_module_symbols():
     """The port's counterpart of ``test_compat_surface::test_module_symbols``
-    (the names of the layers not ported yet are absent)."""
+    (every layer of the JAX package is in the port)."""
     assert callable(pmt.gp_kernel.create_transition_prob_1d)
     assert callable(pmt.gp_kernel.rbf_kernel)
     assert callable(pmt.decoder.smooth_all_step_combined_ma_chunk)
@@ -609,25 +606,29 @@ def test_module_symbols():
     for mod in ("core_exp", "decoder_exp", "fit_tuning_helper_exp",
                 "test_exp"):
         assert hasattr(pmt.experimental, mod), mod
-    # the ingestion layer and the analyses are in the port; the plotting
-    # and pandas helpers are not yet
+    # the ingestion layer, the analyses, and the post-fit layer: the
+    # plotting and pandas helpers and the dataset workflows
     assert callable(pmt.utils.post_fit_sort_neuron)
     assert callable(pmt.utils.rbf_kernel)
     assert callable(pmt.data.compute_spike_counts_old)
     assert callable(pmt.analysis_helper.get_posterior_weighted_average)
     assert callable(pmt.distance_analysis.compute_distance_lag)
     assert callable(pmt.trial_analysis.get_event_phase_in_trial)
-    assert not hasattr(pmt.utils, "pandas_util")
-    assert not hasattr(pmt, "plot_helper")
+    assert hasattr(pmt.utils, "pandas_util")
+    assert hasattr(pmt, "plot_helper")
+    assert callable(pmt.pandas_util.filter_df_with_spec)
+    assert callable(pmt.utils.pandas_util.filter_df_with_spec)
+    assert callable(pmt.plot_helper.plot_pynapple_data_mpl)
+    assert callable(pmt.plot_helper.plot_pynapple_data_plotly)
+    assert sorted(pmt.plotting.__all__) == sorted(jpmg.plotting.__all__)
+    assert callable(pmt.workflows.tmaze_dataset.classify_latent)
+    assert callable(pmt.workflows.ach_dataset.main)
+    assert pmt.workflows.__all__ == jpmg.workflows.__all__
 
 
-#: JAX modules not ported yet, with the reason: the plotting and pandas
-#: helpers, queued for the next slice (ROADMAP.md)
-NOT_PORTED_PATHS = {
-    **{p: "plotting/pandas helper, queued for the next slice" for p in (
-        "plotting", "workflows", "utils/pandas_util.py", "pandas_util.py",
-        "plot_helper.py")},
-}
+#: JAX modules not ported, with the reason: none (every module has its
+#: counterpart in the port)
+NOT_PORTED_PATHS = {}
 #: public JAX names with no same-named counterpart, with the reason
 NAME_EXCEPTIONS = {
     "ops/pallas/scan_kernels.py::filter_chunk_pallas":
@@ -690,13 +691,15 @@ def test_name_diff():
             elif not hasattr(port, name):
                 missing.append(f"{rel}::{name} -> {mod}")
     assert not missing, "\n".join(missing)
-    assert checked > 200
+    # 308 names before the post-fit layer (plotting, workflows, the
+    # pandas helpers) was ported, 455 with it
+    assert checked >= 455
 
 
 def test_the_jax_shims_import_no_jax_in_the_port():
     """Nothing of the port imports jax, or pandas, tqdm, sklearn,
-    matplotlib, seaborn, h5py or statsmodels (absent on the card's
-    machine), at module level."""
+    matplotlib, seaborn, h5py, statsmodels, plotly or dill (absent on the
+    card's machine), at module level."""
     bad = []
     for path in (REPO / "poor_man_gplvm_tpu_torch").rglob("*.py"):
         for node in ast.parse(path.read_text()).body:
@@ -708,7 +711,7 @@ def test_the_jax_shims_import_no_jax_in_the_port():
                     if m.split(".")[0] in ("jax", "pandas", "tqdm",
                                            "poor_man_gplvm_tpu", "sklearn",
                                            "matplotlib", "seaborn", "h5py",
-                                           "statsmodels")]
+                                           "statsmodels", "plotly", "dill")]
     assert not bad, bad
 
 

@@ -232,7 +232,8 @@ def test_port_imports_and_decodes_without_jax():
         import importlib.abc
         import sys
         BANNED = ("jax", "poor_man_gplvm_tpu", "pandas", "sklearn",
-                  "pynapple", "matplotlib", "seaborn", "h5py", "statsmodels")
+                  "pynapple", "matplotlib", "seaborn", "h5py", "statsmodels",
+                  "plotly", "tqdm", "dill")
 
         class Blocked(importlib.abc.MetaPathFinder):
             # an import of these fails as where they are not installed
@@ -247,6 +248,21 @@ def test_port_imports_and_decodes_without_jax():
         import poor_man_gplvm_tpu_torch as pmt
         import poor_man_gplvm_tpu_torch.analysis
         import poor_man_gplvm_tpu_torch.data
+        # the post-fit layer imports with none of those
+        from poor_man_gplvm_tpu_torch import (pandas_util, plot_helper,
+                                              plotting, workflows)
+        from poor_man_gplvm_tpu_torch.utils.table import ResultTable
+        assert callable(plot_helper.plot_pynapple_data_mpl)
+        out = pandas_util.filter_df_with_spec(
+            ResultTable({"a": np.arange(4.0)}), ["a", ">", 1])
+        assert out["df"]["a"].tolist() == [2.0, 3.0]
+        try:
+            plotting.subplots_wrapper(2)
+            raise AssertionError("drew without matplotlib")
+        except ModuleNotFoundError as e:
+            assert "matplotlib" in str(e)
+        assert workflows.tmaze_dataset.compute_consensus_fractions_by_window(
+            np.ones((5, 2)), 2)[None].tolist() == [1.0, 1.0]
         m = pmt.PoissonGPLVMJump1D(5, n_latent_bin=8, device="cpu")
         y = np.random.default_rng(0).poisson(1.0, (30, 5)).astype("f4")
         res = m.decode_latent(y)
@@ -306,14 +322,16 @@ def test_port_imports_and_decodes_without_jax():
 
 def test_port_sources_import_neither_jax_nor_the_jax_package():
     """No source file of the port, and not ``chip_smoke.py``, imports
-    ``jax``, ``jaxlib``, ``optax``, sklearn or anything of
-    ``poor_man_gplvm_tpu``, nor pandas, pynapple, tqdm, orbax, matplotlib,
-    seaborn, h5py or statsmodels at module level (the card's machine has
-    none of them; pandas, pynapple, matplotlib, seaborn and h5py are
-    imported inside the functions that use them where installed:
+    ``jax``, ``jaxlib``, ``optax`` or anything of ``poor_man_gplvm_tpu``,
+    nor sklearn outside the post-fit functions that are sklearn's
+    (``SKLEARN_INSIDE``), nor pandas, pynapple, tqdm, orbax, matplotlib,
+    seaborn, h5py, statsmodels, plotly, dill or sklearn at module level
+    (the card's machine has none of them; they are imported inside the
+    functions that use them where installed:
     ``utils.timeseries._PeriEvent.as_dataframe``,
     ``utils.compat.timeseries_module``, ``data.behavior``,
-    ``analysis.distance``, ``analysis.trial``)."""
+    ``analysis.distance``, ``analysis.trial``, ``plotting``,
+    ``workflows``)."""
     import pathlib
     import re
 
@@ -322,12 +340,29 @@ def test_port_sources_import_neither_jax_nor_the_jax_package():
     files.append(root / "chip_smoke.py")
     assert len(files) >= 15
     banned = re.compile(
-        r"^\s*(?:import|from)\s+(?:jax|jaxlib|optax|poor_man_gplvm_tpu|"
-        r"sklearn)(?![\w])", re.MULTILINE)
+        r"^\s*(?:import|from)\s+(?:jax|jaxlib|optax|poor_man_gplvm_tpu)"
+        r"(?![\w])", re.MULTILINE)
+    sklearn = re.compile(r"^\s*(?:import|from)\s+sklearn(?![\w])",
+                         re.MULTILINE)
     top_level = re.compile(
         r"^(?:import|from)\s+(?:pandas|pynapple|tqdm|orbax|matplotlib|"
-        r"seaborn|h5py|statsmodels)(?![\w])", re.MULTILINE)
+        r"seaborn|h5py|statsmodels|plotly|dill|sklearn)(?![\w])",
+        re.MULTILINE)
+    seen = set()
     for path in files:
         hits = banned.findall(path.read_text())
         hits += top_level.findall(path.read_text())
+        rel = path.relative_to(root).as_posix()
+        if sklearn.findall(path.read_text()):
+            seen.add(rel)
+            hits += [] if rel in SKLEARN_INSIDE else [f"{rel}: sklearn"]
         assert not hits, (path.name, hits)
+    assert seen == set(SKLEARN_INSIDE)
+
+
+#: the port's modules whose functions import sklearn, as the JAX ones do:
+#: DBSCAN, KMeans, PCA and the multinomial logistic regression of the
+#: post-fit layer
+SKLEARN_INSIDE = ("poor_man_gplvm_tpu_torch/plotting/extras.py",
+                  "poor_man_gplvm_tpu_torch/workflows/ach_dataset.py",
+                  "poor_man_gplvm_tpu_torch/workflows/tmaze_dataset.py")

@@ -473,6 +473,12 @@ INGESTION = {m: m for m in (
                                 "regression", "trial")),
     "utils.stats", "utils.sorting", "analysis_helper", "distance_analysis",
     "trial_analysis")}
+#: the post-fit layer (plotting, workflows, the pandas helper)
+POST_FIT = {m: m for m in (
+    *(f"plotting.{p}" for p in ("core", "backup", "extras",
+                                "plotly_helpers")),
+    "workflows.tmaze_dataset", "workflows.ach_dataset",
+    "utils.pandas_util", "pandas_util", "plot_helper")}
 
 
 def _signature_gaps(where, jfn, pfn):
@@ -536,7 +542,8 @@ def test_public_signatures_match_jax():
                **{name: (importlib.import_module(f"poor_man_gplvm_tpu.{path}"),
                          importlib.import_module(
                              f"poor_man_gplvm_tpu_torch.{path}"))
-                  for name, path in {**DROP_IN, **INGESTION}.items()}}
+                  for name, path in {**DROP_IN, **INGESTION,
+                                     **POST_FIT}.items()}}
     for mod, (jm, pm) in modules.items():
         names = ONLY.get(mod) or set(getattr(jm, "__all__", None) or (
             n for n, v in vars(jm).items() if not n.startswith("_")
