@@ -90,7 +90,8 @@ Phases, each of which checks its results (any failure exits non-zero):
     ``shuffle_batch_size`` 16 and 132, equal to it; one launch of K1 and
     one of K2 per batch, no NaN, two shuffles bit for bit against
     ``decode_latent`` of each alone, the first batch's K1/K2 against their
-    plain versions at T=10,000) and the naive-Bayes null (100 shuffles);
+    plain versions at T=10,000 on its first 2 shuffles) and the
+    naive-Bayes null (100 shuffles);
 12. selection: on a sampled recording at N = L = 500, ``bench.py``'s sweep
     fan-out (``sweep_fit_poisson_jump``, 64 runs of T=10,000: one K1 and
     one K2 launch per EM iteration, each run under its own transition,
@@ -148,9 +149,24 @@ Phases, each of which checks its results (any failure exits non-zero):
     T = 120,000, evaluated on the rest): ``main`` (event-triggered
     analyses with 100 shuffles) and the distance-vs-label analysis; every
     result computed from card tensors equal to the same function on the
-    host copies, the planted effects found (``phase_workflows``).
+    host copies, the planted effects found (``phase_workflows``);
+17. memory (last): recordings longer than the card holds
+    (``phase_memory``): (a) ``smooth_combined_chunked`` in 'checkpoint',
+    'filter' and 'filter_bf16' against 'full' at T=200,000, N = L = 500 in
+    4 chunks on K1/K2 (bit for bit; bf16 within its rounding), each
+    mode's peak allocation beside its prediction, and K2 with the prior
+    recomputed against its plain version, K2 on K1's priors and its band
+    forced dense; (b) a 12-hour recording at 10 ms bins, T=4,320,000,
+    N = L = 500, where neither the parallel engine nor full mode fits: a
+    lean 2-iteration ``fit_em`` whose E-steps run 'checkpoint' and a
+    'filter' decode of the fitted model, bit for bit the last E-step's
+    latent marginal, peak memory and seconds per pass; (c) the
+    out-of-memory retry of ``decode_latent`` at the north-star shape
+    (T=1e6): the card filled after the gate's read, one retry under the
+    lean config with the warning, equal to an unforced decode under it;
+    a second out-of-memory error raises with the guidance.
 
-Each main path (phases 5 with the epochs, 7-16) runs
+Each main path (phases 5 with the epochs, 7-17) runs
 with the kernels' launch counts, by mode and precision, set to 0 just
 before it and read just after; comparison runs are not counted.  The
 line before the last is a JSON summary of the kernels; the last line is
@@ -249,6 +265,7 @@ SESSION_T_NULL = 10_000  # the circular-shuffle nulls
 SESSION_N_SHUFFLE = 32  # the dynamics null
 SESSION_BATCHES = (16, 132)  # shuffle_batch_size: the default, the SMs
 SESSION_NB_SHUFFLE = 100  # the naive-Bayes null
+SESSION_PLAIN_E = 2  # the null's first batch held against plain on these
 SESSION_ALONE = 2  # shuffles held against decode_latent alone
 # fit_em resumed from a checkpoint against the uninterrupted checkpointed
 # fit: the log-marginals within the certified fixed point of the parallel
@@ -361,6 +378,15 @@ NDYN1_KERNELS = ("filter_scan", "smoother_scan",
                  "psmooth_pass[finals/highest]", "psmooth_pass[full/highest]",
                  "psmooth_pass[marginal/highest]",
                  "psmooth_pass[marginal_acc/highest]", "joint_acc")
+MEM_NL = 500  # N = L of the memory phase, the north-star width
+MEM_PARITY_T = 200_000  # (a) the modes against full mode
+MEM_PARITY_CHUNK = 50_000  # (a) 4 chunks
+MEM_KERNEL_T = 5_000  # (a) K2 with the prior recomputed against plain
+MEM_T = 4_320_000  # (b) a 12-hour overnight recording at 10 ms bins
+MEM_FIT_ITERS = 2
+MEM_FIT_MAXITER = 20  # Adam capped, as the other capped phases
+MEM_SEED = 41
+MEM_BF16_BOUND = 2.0 ** -8  # bf16's rounding of a probability in [0, 1]
 # the card's peaks (NVIDIA's data sheet, H100 SXM, 700 W): device memory
 # rate, float32 outside the tensor cores, dense bf16 and TF32 in the tensor
 # cores
@@ -411,6 +437,13 @@ KERNELS = {
         "filter_scan_batch", "norm",
         "poor_man_gplvm_tpu_torch/csrc/scan_kernels.cu",
         "poor_man_gplvm_tpu/ops/pallas/scan_kernels.py:80"),
+    # K2 with the prior recomputed from the stored filter posteriors, f32
+    # ('filter') and bf16 ('filter_bf16'): the memory phase
+    **{f"smoother_push_scan[{key}]": (
+        "smoother_push_scan", key,
+        "poor_man_gplvm_tpu_torch/csrc/scan_kernels.cu",
+        "poor_man_gplvm_tpu/ops/pallas/scan_kernels.py:200")
+       for key in ("f32", "bf16")},
     # K3/K4 with a time shard's validity bound n_valid other than its row
     # count (the mesh phase, parallel/spmd.py)
     **{f"{fn}[{mode}/highest/nv]": (fn, f"{mode}/highest/nv", PS_SRC,
@@ -483,6 +516,7 @@ def _wrappers():
     return {"filter_scan": sk.filter_scan, "smoother_scan": sk.smoother_scan,
             "filter_scan_batch": sk.filter_scan_batch,
             "smoother_scan_batch": sk.smoother_scan_batch,
+            "smoother_push_scan": sk.smoother_push_scan,
             "pfilter_pass": ps.pfilter_pass, "psmooth_pass": ps.psmooth_pass,
             "joint_acc": ps.joint_acc}
 
@@ -2455,7 +2489,8 @@ def _session_null(m, y_tsdf, launches):
     batch size of SESSION_BATCHES, equal to it; each dynamics batch one
     launch of K1 and one of K2; SESSION_ALONE shuffles against
     decode_latent alone; the first batch's K1/K2 against plain at the
-    null's own length; and test_one_model's naive-Bayes null.  Returns the
+    null's own length on its first SESSION_PLAIN_E shuffles; and
+    test_one_model's naive-Bayes null.  Returns the
     kernels line's session rows."""
     import itertools
 
@@ -2530,10 +2565,11 @@ def _session_null(m, y_tsdf, launches):
               f"shuffle {s} differs from decode_latent alone: {diff}")
     del first, null
 
-    # the first batch's K1/K2 held against their plain versions on the
-    # null's own log-likelihood rows, at its full length
+    # the first batch's K1/K2, launched and timed over the whole batch at
+    # its full length, held against their plain versions on its first
+    # SESSION_PLAIN_E shuffles' own log-likelihood rows
     trans, _ = m._make_transition({})
-    E = SESSION_BATCHES[0]
+    E, P = SESSION_BATCHES[0], SESSION_PLAIN_E
     y_b = torch.as_tensor(np.stack(shuffles), device=m.device)
     ll = hmm.sequence_loglikelihoods(
         y_b, m.tuning, {}, m.ma_neuron_default, m.ma_latent_default, 10000)
@@ -2550,8 +2586,8 @@ def _session_null(m, y_tsdf, launches):
         w, trans.Tlat, trans.Tdyn, p_init, lengths, flags, band=band)
     post, prior, norm = k1()
     want, plain1 = timed_once(lambda: sk.filter_scan_batch_plain(
-        w, trans.Tlat, trans.Tdyn, p_init, lengths, flags))
-    err1 = max(float((a - b).abs().max())
+        w[:P], trans.Tlat, trans.Tdyn, p_init[:P], lengths[:P], flags))
+    err1 = max(float((a[:P] - b).abs().max())
                for a, b in zip((post, prior), want[:2]))
     last = post[:, -1].contiguous()
     k2 = lambda: sk.smoother_scan_batch(  # noqa: E731
@@ -2560,11 +2596,11 @@ def _session_null(m, y_tsdf, launches):
     smooth, r = k2()
     want2, plain2 = timed_once(lambda: sk.smoother_scan_batch_plain(
         want[0][:, :-1], want[1][:, 1:], tlat_t, trans.Tdyn,
-        want[0][:, -1].contiguous(), lengths - 1, flags))
-    err2 = float((smooth - want2[0]).abs().max())
-    nxt = torch.cat([smooth[:, 1:], last[:, None]], dim=1)
-    where = (prior[:, 1:] > 1e-30) & (nxt > 1e-30)
-    r_rel = _max_rel(r, want2[1], where)
+        want[0][:, -1].contiguous(), lengths[:P] - 1, flags))
+    err2 = float((smooth[:P] - want2[0]).abs().max())
+    nxt = torch.cat([smooth[:P, 1:], last[:P, None]], dim=1)
+    where = (prior[:P, 1:] > 1e-30) & (nxt > 1e-30)
+    r_rel = _max_rel(r[:P], want2[1], where)
     finite = all(bool(torch.isfinite(x).all())
                  for x in (post, prior, norm, smooth, r))
     check(err1 <= SCAN_TOLERANCES["post_abs"]
@@ -2578,12 +2614,13 @@ def _session_null(m, y_tsdf, launches):
         ms = cuda_ms(kern, 5)
         b_ms, b_by = kernel_bound(name, steps, L, 2, nnz)
         rows[name] = dict(E=E, steps=steps, max_abs_err=err, ms=ms,
-                          plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                          library_ms=None)
+                          plain_ms=plain_ms, plain_E=P, bound_ms=b_ms,
+                          bound_by=b_by, library_ms=None)
         log(f"time {name} on the null's first batch (E={E} shuffles of "
             f"{T} bins, L={L}, {steps} steps in all): kernel "
-            f"{ms:.3f} ms, plain {plain_ms:.1f} ms, bound {b_ms:.4f} ms "
-            f"({b_by}); max |kernel - plain| {err:.3e}"
+            f"{ms:.3f} ms, plain {plain_ms:.1f} ms on its first {P} "
+            f"shuffles, bound {b_ms:.4f} ms ({b_by}); max |kernel - plain| "
+            f"{err:.3e} on those {P}"
             + (f", r rel {r_rel:.2e}" if name.startswith("smoother") else ""))
     del w, post, prior, smooth, r, want, want2, nxt, where, ll
 
@@ -4528,6 +4565,414 @@ def phase_workflows(launches):
     return mine
 
 
+def _mem_predicted_peak(mode, T, n_dyn, L, N, chunk, marginal):
+    """The peak bytes a sequential ``smooth_combined_chunked`` call should
+    allocate above what was live before it (the spikes are the caller's),
+    from what each mode keeps: the outputs (the log posterior (T, state),
+    or its marginals), 'full''s filter posteriors, priors and
+    log-likelihoods, 'filter''s store, and one chunk's working set (K1's
+    post and prior, the log-likelihoods and weights, the (Tc, N) emission
+    temporaries, then in the backward pass the chunk's filter rows, the
+    shifted priors, K2's smooth and r and the pairwise joint's operand
+    copies: ~6 (Tc, state) arrays)."""
+    S = n_dyn * L
+    Tc = min(chunk, T)
+    state, c = 4.0 * T * S, 4.0 * Tc * S
+    work = 6 * c + 2 * 4.0 * Tc * L + 3 * 4.0 * Tc * N
+    out = 4.0 * T * (L + n_dyn) if marginal else state
+    keep = {"full": 2 * state + 4.0 * T * L, "checkpoint": 0.0,
+            "filter": state, "filter_bf16": state / 2}[mode]
+    if mode == "full" and marginal:
+        out = state + 4.0 * T * (L + n_dyn)
+    return out + keep + work + 4.0 * T
+
+
+def _mem_parity(launches, rows):
+    """(a) The memory modes against 'full' at MEM_PARITY_T, N = L = MEM_NL,
+    chunks of MEM_PARITY_CHUNK, on K1/K2 (``sequential_engine``); each
+    mode's peak allocation beside the prediction; then K2 with the prior
+    recomputed launched on the first chunk, the main path's launch shape,
+    held against K2 on K1's priors and its forced-dense band there, and
+    against its plain version on the chunk's last MEM_KERNEL_T rows (the
+    scan runs from the last row down, so those rows depend only on its
+    ``init`` and their own filter rows), and timed.  Fills ``rows`` with
+    the kernels line's rows of the new mode."""
+    from poor_man_gplvm_tpu_torch.ops import hmm
+    from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk
+    from poor_man_gplvm_tpu_torch.testing import (SCAN_TOLERANCES, _max_rel,
+                                                  memory_mode_peaks)
+
+    T, NL, chunk = MEM_PARITY_T, MEM_NL, MEM_PARITY_CHUNK
+    m, _, y = _decode_setup(NL, NL, T)
+    trans = m._make_transition({})[0]
+    counts = {}
+
+    def run(mode):
+        with counted(counts.setdefault(mode, {})):
+            return hmm.smooth_combined_chunked(
+                y, m.tuning, {}, trans, m.ma_neuron_default, None,
+                n_time_per_chunk=chunk, engine="cuda", memory_mode=mode)
+
+    with sequential_engine():
+        hmm.smooth_combined_chunked(  # warm-up: the band, the libraries
+            y[:chunk], m.tuning, {}, trans, m.ma_neuron_default, None,
+            engine="cuda")
+    res = memory_mode_peaks(run, ("full", "checkpoint", "filter",
+                                  "filter_bf16"))
+    outs, peaks = {}, {}
+    n_chunks = -(-T // chunk)
+    for mode, (peak, sec, out) in res.items():
+        mine = counts[mode]
+        _merge(launches, mine)
+        want = {"full": (n_chunks, n_chunks, 0),
+                "checkpoint": (2 * n_chunks - 1, n_chunks, 0),
+                "filter": (n_chunks, 0, n_chunks),
+                "filter_bf16": (n_chunks, 0, n_chunks)}[mode]
+        got = (mine["filter_scan"], mine["smoother_scan"],
+               mine["smoother_push_scan"])
+        check(got == want and mine["pfilter_pass"] == 0,
+              (f"memory mode {mode}: launches (K1, K2, K2 push) {got}, "
+               f"expected {want} on K1/K2", mine))
+        outs[mode] = out
+        peaks[mode] = peak
+        pred = _mem_predicted_peak(mode, T, 2, NL, NL, chunk, False)
+        log(f"memory (a) {mode} T={T} N=L={NL}, {n_chunks} chunks of "
+            f"{chunk} on K1/K2: {sec:.3f} s ({1e6 * sec / T:.3f} us a "
+            f"step); peak {peak / 1e9:.3f} GB above the inputs, "
+            f"predicted {pred / 1e9:.3f} GB; launches (K1, K2, K2 push) "
+            f"{got}")
+    del res
+    full = outs["full"]
+    for mode in ("checkpoint", "filter", "filter_bf16"):
+        out = outs[mode]
+        check(out[2] is None and out[5] is None,
+              f"{mode} returned causal posteriors or log-likelihoods")
+        check(float(out[1]) == float(full[1])
+              and torch.equal(out[3], full[3]),
+              f"{mode}: log marginal or ratios differ from full mode")
+        err = float((torch.exp(out[0]) - torch.exp(full[0])).abs().max())
+        if mode == "filter_bf16":
+            check(err <= MEM_BF16_BOUND, (mode, err))
+            log(f"memory (a) filter_bf16 against full: posteriors within "
+                f"{err:.3e} (bound {MEM_BF16_BOUND:.3e}, bf16's rounding of "
+                f"a probability), log marginal and ratios bit-equal")
+        else:
+            check(torch.equal(out[0], full[0]) and torch.equal(out[4],
+                                                               full[4]),
+                  (f"{mode}: posteriors or pairwise joint differ from full "
+                   f"mode", err))
+            log(f"memory (a) {mode} against full: posteriors, log marginal, "
+                f"ratios and pairwise joint bit-equal")
+    del outs, full, out
+
+    # K2 with the prior recomputed, alone, on the first chunk
+    n, k = chunk, MEM_KERNEL_T
+    ll = hmm._loglik(y[:n + 1], m.tuning, {}, torch.broadcast_to(
+        m.ma_neuron_default, (n + 1, NL)), m.ma_latent_default, "poisson")
+    w, _ = sk._weights(ll, 1.0)
+    p_init = torch.exp(trans.uniform_log_init())
+    post, prior, _ = sk.filter_scan(w, trans.Tlat, trans.Tdyn, p_init,
+                                    trans.uniform_rows)
+    tlat, tdyn, flags = trans.Tlat, trans.Tdyn, trans.uniform_rows
+    tlat_t = tlat.transpose(-1, -2).contiguous()
+    band = hmm._cached_band(trans, tlat)
+    dense = _forced_dense_band(tlat, tlat_t, flags)
+    init = post[-1].contiguous()
+    nnz = _nnz(tlat, flags)
+    k2_ref = sk.smoother_scan(post[:-1].contiguous(),
+                              prior[1:].contiguous(), tlat_t, tdyn, init,
+                              flags, band=band)
+    for dt_name, dtype, key in (("f32", torch.float32, "f32"),
+                                ("bf16", torch.bfloat16, "bf16")):
+        filt = post[:-1].to(dtype).contiguous()
+        args = (filt, tlat, tlat_t, tdyn, init, flags)
+        kern = lambda args=args: sk.smoother_push_scan(  # noqa: E731
+            *args, band=band)
+        sm, r = kern()
+        sm_d, r_d = sk.smoother_push_scan(*args, band=dense)
+        (sm_p, r_p), plain_ms = timed_once(
+            lambda: sk.smoother_push_scan_plain(filt[n - k:], *args[1:]))
+        err = float((sm[n - k:] - sm_p).abs().max())
+        nxt = torch.cat([sm_p[1:], init[None]])
+        r_rel = _max_rel(r[n - k:], r_p,
+                         (prior[n - k + 1:] > 1e-30) & (nxt > 1e-30))
+        same_dense = torch.equal(sm, sm_d) and torch.equal(r, r_d)
+        check(err <= SCAN_TOLERANCES["smooth_abs"]
+              and r_rel <= SCAN_TOLERANCES["r_rel"] and same_dense
+              and bool(torch.isfinite(sm).all()),
+              (f"K2 push [{dt_name}] against plain / dense", err, r_rel,
+               same_dense))
+        if dtype == torch.float32:
+            check(torch.equal(sm, k2_ref[0]) and torch.equal(r, k2_ref[1]),
+                  "K2 with the prior recomputed differs from K2 on K1's "
+                  "priors")
+        ms = cuda_ms(kern, 5)
+        fb = 2 if dtype == torch.bfloat16 else 4
+        S = 2 * NL
+        b_ms, b_by = bound(n * S * (fb + 8) + 2 * 2 * NL * NL * 4,
+                           n * 2.0 * 2 * nnz / F32_FLOP_PER_S)
+        rows[f"smoother_push_scan[{key}]"] = dict(
+            T=n, plain_T=k, max_abs_err=err, r_rel=r_rel, ms=ms,
+            plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+            library_ms=None)
+        log(f"time smoother_push_scan[{key}] (K2 with the prior recomputed, "
+            f"{dt_name} store) T={n} n_dyn=2 L={NL}: kernel {ms:.3f} ms "
+            f"({1e3 * ms / n:.3f} us a step), plain {plain_ms:.1f} ms on the "
+            f"last {k} rows, bound {b_ms:.4f} ms ({b_by}); max |kernel - "
+            f"plain| {err:.3e}, r rel {r_rel:.2e} on those {k}; band = "
+            f"forced dense bit for bit"
+            + ("; = K2 on K1's priors bit for bit"
+               if dtype == torch.float32 else ""))
+    k2_ms = cuda_ms(lambda: sk.smoother_scan(
+        post[:-1].contiguous(), prior[1:].contiguous(), tlat_t, tdyn, init,
+        flags, band=band), 5)
+    log(f"time smoother_scan (K2 on K1's priors) at the same rows: "
+        f"{k2_ms:.3f} ms ({1e3 * k2_ms / n:.3f} us a step)")
+    del m, y, post, prior, w, ll
+    return peaks["full"] / T
+
+
+def _mem_init_posterior(T, L, seed):
+    """The fit's initial log posterior (T, L), drawn on the card as the
+    model's ``init_latent_posterior`` draws on the host (uniform * 0.1,
+    normalised, log): at T = MEM_T the host draw and its copy are 8.6 GB."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    post = torch.rand((T, L), generator=g, device="cuda")
+    post.div_(post.sum(dim=1, keepdim=True))
+    return post.log_()
+
+
+def _mem_long(launches, full_per_step):
+    """(b) The long recording: T = MEM_T, N = L = MEM_NL, spikes drawn on
+    the card from a seeded generator; the parallel gate's and full mode's
+    estimates against the card's free memory; a lean ``fit_em`` of
+    MEM_FIT_ITERS iterations (Adam capped) whose E-steps run 'checkpoint'
+    on K1/K2; then ``smooth_combined_chunked(memory_mode='filter',
+    marginal_smooth=True)`` on the fitted model, its latent marginal bit
+    for bit the last E-step's.  ``full_per_step``: (a)'s measured peak of
+    full mode per step, above its inputs."""
+    from poor_man_gplvm_tpu_torch.ops import hmm
+
+    T, NL = MEM_T, MEM_NL
+    m = _model(NL, NL, "auto")
+    check(m.inference_engine == "cuda", m.inference_engine)
+    g = torch.Generator(device="cuda").manual_seed(MEM_SEED)
+    y = torch.empty((T, NL), device="cuda")
+    for a in range(0, T, 500_000):  # Poisson(0.5), bench.py's north-star
+        y[a:a + 500_000] = torch.poisson(
+            torch.full((min(500_000, T - a), NL), 0.5, device="cuda"),
+            generator=g)
+    trans = m._make_transition({})[0]
+    S = 2 * NL
+    free = hmm._device_free_bytes(torch.device("cuda"))
+    par = hmm._parallel_buffer_bytes(T, NL, 2)
+    rule = hmm._full_mode_bytes(T, S, NL)
+    chunk = hmm.auto_chunk_size(T, S, NL, "cuda")
+    n_chunks = -(-T // chunk)
+    full = _mem_predicted_peak("full", T, 2, NL, NL, chunk, True)
+    scaled = full_per_step * T
+    auto = hmm._resolve_memory_mode("auto", T, S, NL, "cuda")
+    log(f"memory (b) T={T} (12 h of 10 ms bins) N=L={NL}: spikes on the card "
+        f"{4 * T * NL / 1e9:.2f} GB; free {free / 1e9:.2f} GB; parallel "
+        f"engine's buffers {par / 1e9:.2f} GB (gate: 3/4 of free, "
+        f"{0.75 * free / 1e9:.2f}); full mode: the 'auto' rule's working "
+        f"set {rule / 1e9:.2f} GB, its predicted peak above the spikes "
+        f"{full / 1e9:.2f} GB, (a)'s measured peak per step x T "
+        f"{scaled / 1e9:.2f} GB; 'auto' resolves to {auto!r}; chunks of "
+        f"{chunk} ({n_chunks})")
+    check(par > free and full > free and scaled > free,
+          ("the parallel engine and full mode must not fit", par, full,
+           scaled, free))
+    check(not hmm.engine_resolves_parallel(T, trans, "cuda", "cuda")
+          and auto == "checkpoint", "the long recording's engine and mode")
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mine = {}
+    with counted(mine):
+        sec, em = wall_s(lambda: m.fit_em(
+            y, n_iter=MEM_FIT_ITERS, output_mode="lean", verboase=False,
+            log_posterior_init=_mem_init_posterior(T, NL, MEM_SEED + 1),
+            m_step_maxiter=MEM_FIT_MAXITER, profile=True))
+    peak = torch.cuda.max_memory_allocated()
+    _merge(launches, mine)
+    lml = [float(v) for v in em["log_marginal_l"]]
+    check(all(np.isfinite(lml)) and all(b >= a for a, b in zip(lml, lml[1:])),
+          ("lean fit log marginals", lml))
+    want = (MEM_FIT_ITERS * (2 * n_chunks - 1), MEM_FIT_ITERS * n_chunks)
+    got = (mine["filter_scan"], mine["smoother_scan"])
+    check(got == want and mine["pfilter_pass"] == 0
+          and mine["smoother_push_scan"] == 0,
+          ("the lean fit's E-steps must run 'checkpoint' on K1/K2", got,
+           want, mine))
+    e_step = em["profile"]["e_step"]
+    pred = _mem_predicted_peak("checkpoint", T, 2, NL, NL, chunk, True)
+    log(f"memory (b) lean fit_em {MEM_FIT_ITERS} iterations (Adam capped at "
+        f"{MEM_FIT_MAXITER}; initial posterior drawn on the card: the host "
+        f"draw is {4 * T * NL / 1e9:.1f} GB): {sec:.1f} s; E-steps "
+        f"'checkpoint' on K1/K2 {[round(s, 2) for s in e_step]} s "
+        f"({e_step[-1] / 3:.2f} s a pass, {1e6 * e_step[-1] / (3 * T):.3f} "
+        f"us a step-pass); M-steps "
+        f"{[round(s, 2) for s in em['profile']['m_step']]} s; log_marginal_l "
+        f"{lml}; peak {peak / 1e9:.2f} GB in all ({(peak - base) / 1e9:.2f} "
+        f"above the spikes; an E-step predicted {pred / 1e9:.2f}), against "
+        f"{(scaled + 4 * T * NL) / 1e9:.2f} GB for full mode with the "
+        f"spikes ((a)'s per step x T); launches (K1, K2) {got}")
+    post_fit = em["posterior"]
+    del em
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mine = {}
+    with counted(mine):
+        sec, out = wall_s(lambda: hmm.smooth_combined_chunked(
+            y, m.tuning, {}, trans, m.ma_neuron_default, None,
+            engine="cuda", memory_mode="filter", marginal_smooth=True))
+    peak = torch.cuda.max_memory_allocated() - base
+    _merge(launches, mine)
+    got = (mine["filter_scan"], mine["smoother_push_scan"])
+    check(got == (n_chunks, n_chunks) and mine["smoother_scan"] == 0
+          and mine["pfilter_pass"] == 0,
+          ("the 'filter' decode must run K1 and K2 with the prior "
+           "recomputed", mine))
+    lat = torch.exp(out[0][0])
+    same = torch.equal(lat, post_fit)
+    err = float((lat - post_fit).abs().max())
+    check(same, ("the 'filter' latent marginal differs from the last "
+                 "'checkpoint' E-step's", err))
+    check(bool(torch.isfinite(out[0][1]).all()) and out[0][1].shape == (T, 2),
+          "dynamics marginal")
+    pred = _mem_predicted_peak("filter", T, 2, NL, NL, chunk, True)
+    log(f"memory (b) smooth_combined_chunked memory_mode='filter', "
+        f"marginal_smooth: {sec:.1f} s ({sec / 2:.2f} s a pass); latent "
+        f"marginal bit-equal to the last E-step's 'checkpoint' one; peak "
+        f"{peak / 1e9:.2f} GB above its inputs (predicted "
+        f"{pred / 1e9:.2f}); launches (K1, K2 push) {got}")
+    del out, lat, post_fit, y
+
+
+def _mem_oom(launches):
+    """(c) The out-of-memory retry at the north-star shape (T = NS_T, N =
+    L = NS_N, the default engine: K3/K4): one ``decode_latent`` whose first
+    parallel solve finds the card filled by an allocation made after the
+    gate read free memory (held by the solve's own frame, so that the
+    retry's ``gc.collect``/``empty_cache`` return it), recovered once
+    under the lean config with the warning, equal to an unforced decode
+    under that config and within the decode tolerances of the default
+    one; a second out-of-memory error raises with the guidance.  Also
+    the peak of a decode with and without the lean config.  The retried
+    decode's launches count with the main path's ``launches``."""
+    import warnings
+
+    from poor_man_gplvm_tpu_torch.models import base as mbase
+    from poor_man_gplvm_tpu_torch.ops import parallel_scan as ps
+
+    T, NL = NS_T, NS_N
+    m = _model(NL, NL, "auto")
+    g = torch.Generator(device="cuda").manual_seed(MEM_SEED + 2)
+    y = torch.poisson(torch.full((T, NL), 0.5, device="cuda"), generator=g)
+    real = ps.smooth_parallel
+    fill = {"calls": set()}
+
+    def filled(*a, **k):
+        fill["n"] = fill.get("n", 0) + 1
+        hold = None
+        if fill["n"] in fill["calls"]:
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            hold = torch.empty(  # noqa: F841 (held until the frame ends)
+                int(torch.cuda.mem_get_info()[0] - 2e9), dtype=torch.uint8,
+                device="cuda")
+        return real(*a, **k)
+
+    peaks, res = {}, {}
+    for name, cfg in (("default", None), ("lean", mbase._LEAN_SCAN_CONFIG)):
+        ps.set_config_override(cfg)
+        try:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            sec, res[name] = wall_s(lambda: m.decode_latent(y))
+            peaks[name] = (torch.cuda.max_memory_allocated() - base, sec)
+        finally:
+            ps.set_config_override(None)
+    log(f"memory (c) decode_latent T={T} N=L={NL} (K3/K4): peak "
+        f"{peaks['default'][0] / 1e9:.2f} GB at C=128, "
+        f"{peaks['lean'][0] / 1e9:.2f} GB under the lean config "
+        f"{mbase._LEAN_SCAN_CONFIG} (C=64): the override alone saves "
+        f"{(peaks['default'][0] - peaks['lean'][0]) / 1e9:.3f} GB; "
+        f"{peaks['default'][1]:.3f} / {peaks['lean'][1]:.3f} s")
+    ps.smooth_parallel = filled
+    try:
+        fill.update(n=0, calls={1})
+        mine = {}
+        with warnings.catch_warnings(record=True) as caught, counted(mine):
+            warnings.simplefilter("always")
+            sec, got = wall_s(lambda: m.decode_latent(y))
+        _merge(launches, mine)
+        msgs = [str(w.message) for w in caught
+                if "lean parallel-scan config" in str(w.message)]
+        check(fill["n"] == 2 and len(msgs) == 1
+              and ps._CONFIG_OVERRIDE is None,
+              ("the out-of-memory retry", fill["n"], msgs))
+        check(mine["pfilter_pass"] > 0 and mine["psmooth_pass"] > 0
+              and mine["filter_scan"] == 0,
+              ("the retried decode must run K3/K4", mine))
+        same = all(torch.equal(got[k], res["lean"][k]) if torch.is_tensor(
+            got[k]) else got[k] == res["lean"][k] for k in res["lean"])
+        err = float((got["posterior_all"]
+                     - res["default"]["posterior_all"]).abs().max())
+        lmf = abs(got["log_marginal_final"]
+                  - res["default"]["log_marginal_final"]) / abs(
+                      res["default"]["log_marginal_final"])
+        check(same and err <= DECODE_POST_ATOL and lmf <= DECODE_LMF_RTOL,
+              ("the retried decode", same, err, lmf))
+        log(f"memory (c) out-of-memory on the first solve (the card filled "
+            f"after the gate read it): warned {msgs[0][:60]!r}..., retried "
+            f"once under {mbase._LEAN_SCAN_CONFIG}, override restored; "
+            f"{sec:.2f} s on K3/K4 (launches K3 {mine['pfilter_pass']}, K4 "
+            f"{mine['psmooth_pass']}); every key bit-equal to an unforced "
+            f"decode under "
+            f"the lean config, posteriors {err:.2e} and log marginal "
+            f"{lmf:.2e} from the default one")
+        del got
+        fill.update(n=0, calls={1, 2})
+        raised = None
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            try:
+                m.decode_latent(y)
+            except torch.cuda.OutOfMemoryError as e:
+                raised = str(e)
+        check(raised is not None and "set_config_override" in raised
+              and "memory_mode='checkpoint'" in raised
+              and ps._CONFIG_OVERRIDE is None and fill["n"] == 2,
+              ("a second out-of-memory error must raise with the guidance",
+               raised and raised[-200:]))
+        log("memory (c) a second out-of-memory error raises "
+            "torch.cuda.OutOfMemoryError with the knob ladder; override "
+            "restored")
+    finally:
+        ps.smooth_parallel = real
+    del res, y, m
+
+
+def phase_memory(launches):
+    """Recordings longer than the card holds: (a) the memory modes against
+    full mode, (b) the 12-hour recording's lean fit and 'filter' decode,
+    (c) the out-of-memory retry.  Returns the kernels line's rows of K2
+    with the prior recomputed."""
+    t0 = time.perf_counter()
+    rows = {}
+    full_per_step = _mem_parity(launches, rows)
+    _mem_long(launches, full_per_step)
+    _mem_oom(launches)
+    log(f"memory phase {time.perf_counter() - t0:.1f} s ({card_line()})")
+    return rows
+
+
 def main():
     t_start = time.perf_counter()
     phase_preamble()
@@ -4557,6 +5002,7 @@ def main():
     mesh_rows = phase_mesh(launches)
     pipeline_rows = phase_pipeline(launches)
     workflow_launches = phase_workflows(launches)
+    memory_rows = phase_memory(launches)
     log(f"main-path launches: {launches}")
     path = {name: _path_launches(launches, name) for name in KERNELS}
     check(all(n > 0 for n in path.values()), path)
@@ -4568,6 +5014,18 @@ def main():
         if _path_launches(workflow_launches, name):
             entry["launches_workflows"] = _path_launches(workflow_launches,
                                                          name)
+        if name in memory_rows:
+            entry.update(memory_rows[name])
+            entry["shape"] = (
+                f"the first {MEM_PARITY_CHUNK}-row chunk of the memory "
+                f"phase's (a) recording's filter posteriors (K1's), stored "
+                f"in {'bf16' if 'bf16' in name else 'f32'}, n_dyn=2 (one RBF "
+                f"channel, ls=1, and the jump channel), L={MEM_NL}, as the "
+                f"main path launches it once per chunk in (a) (in (b) on "
+                f"auto_chunk_size's rows at T={MEM_T}); the plain version "
+                f"on its last plain_T rows")
+            kernels.append(entry)
+            continue
         if name in mesh_rows:
             entry.update(mesh_rows[name])
             entry["shape"] = (
@@ -4655,7 +5113,8 @@ def main():
             "epochs (timed; held on that first batch's epochs); *_session "
             "the first batch "
             "of the session's dynamics null (E shuffles of "
-            f"{SESSION_T_NULL} bins, L={SESSION_NL}); *_reactivation the "
+            f"{SESSION_T_NULL} bins, L={SESSION_NL}; the plain version on "
+            "its first plain_E_session); *_reactivation the "
             "reactivation null's first batch cut to E shuffles of "
             f"{COMPAT_T_EP} bins, L={SESSION_NL}; *_pipeline the session "
             f"pipeline's bursts (E epochs, L={PIPE_L}); each held against "

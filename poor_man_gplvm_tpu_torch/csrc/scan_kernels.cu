@@ -476,6 +476,239 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   smoother_body<ND, RESIDENT, true>(a, c);
 }
 
+// K2 with the prior recomputed (the smoother of the 'filter' and
+// 'filter_bf16' memory modes, ops/hmm.py::_smooth_chunked_filterstore):
+// the backward smoother over stored filter posteriors alone, each +1-shifted
+// prior formed in the kernel as K1 formed it, prior_{t+1} = push(filt_t).
+// As K4 recomputes K3's prior (parallel_scan.cu::psmooth_kernel), the push
+// runs K1's operations in K1's order (the dynamics mix of the own column,
+// the warp-order row sum of a constant channel, the window sum over the
+// push band ascending with fmaf), so on f32 filter posteriors it gives
+// K1's prior bits and the smoothed rows and r are K2's on the stored
+// priors, bit for bit.  The push's window sum runs in the pull's loop, as
+// a second chain (the dense loop's order in each).  FT = bf16 reads the 'filter_bf16' store and forms
+// the push and the smoother step from its f32 values.
+//
+// Layout as K2 (one block, thread j owns column j; E = 1).  The push of
+// row t-1, which does not depend on the recursion, runs beside step t's
+// pull: its dynamics-mixed vector q goes to shared memory before barrier
+// (a) with r, and both window sums run between (a) and (b), so a step
+// keeps K2's two barriers.  Shared memory holds r, q and both halves of
+// the band (84 KB at L = 500, W = 21) when they fit.
+struct PushArgs {
+  const void* filt;     // (T, ND, L) float or bf16
+  const float* tlat;    // (ND, L, L): row 0 of the constant channels' push
+  const float* tlatT;   // (ND, L, L) transposed: row 0 of their pull
+  const float* band;    // (2, n_mat, W, L): the push half, then the pull
+  const int* win0;      // (2, n_mat, L)
+  const float* tdyn;    // (ND, ND)
+  const float* init;    // (ND, L) smoothed posterior after the last row
+  float* smooth;        // (T, ND, L)
+  float* rout;          // (T, ND, L)
+  int T, L, W, n_mat, mask;
+};
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+template <int ND, bool RESIDENT, typename FT>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+    smoother_push_kernel(PushArgs a) {
+  extern __shared__ float smem[];
+  float* r_s = smem;                    // (ND, L) ratios
+  float* q_s = smem + ND * a.L;         // (ND, L) dynamics-mixed filt row
+  float* band_s = smem + 2 * ND * a.L;  // (2, n_mat, W, L) when RESIDENT
+  __shared__ float red_r[32][ND];
+  __shared__ float red_q[32][ND];
+  __shared__ float red_s[32];
+
+  const int L = a.L, W = a.W, T = a.T, j = threadIdx.x;
+  const int lane = j & 31, warp = j >> 5, nwarp = blockDim.x >> 5;
+  const bool live = j < L;
+  const size_t LL = (size_t)L * L, WL = (size_t)W * L;
+  const size_t row = (size_t)ND * L, half = (size_t)a.n_mat * WL;
+  const FT* __restrict__ filt = static_cast<const FT*>(a.filt);
+
+  if (RESIDENT) {
+    for (size_t k = j; k < 2 * half; k += blockDim.x) band_s[k] = a.band[k];
+  }
+  const float* band = RESIDENT ? band_s : a.band;
+
+  float tdyn[ND][ND], carry[ND], row0_f[ND], row0_b[ND];
+  size_t off[ND];  // each channel's window in a half of the band
+  int i0_f[ND], i0_b[ND];
+  int slot = 0;
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+#pragma unroll
+    for (int e = 0; e < ND; ++e) tdyn[d][e] = a.tdyn[d * ND + e];
+#pragma unroll
+  for (int d = 0; d < ND; ++d) {
+    carry[d] = live ? a.init[d * L + j] : 0.f;
+    row0_f[d] = live ? a.tlat[d * LL + j] : 0.f;
+    row0_b[d] = live ? a.tlatT[d * LL + j] : 0.f;
+    off[d] = 0;
+    i0_f[d] = i0_b[d] = 0;
+    if (!((a.mask >> d) & 1)) {
+      off[d] = slot * WL;
+      if (live) {
+        i0_f[d] = a.win0[slot * L + j];
+        i0_b[d] = a.win0[(a.n_mat + slot) * L + j];
+      }
+      ++slot;
+    }
+  }
+
+  // q_d = sum_p Tdyn[p,d] * f_p of the own column (K1's mix), to shared
+  // memory with the warp partials of the constant channels
+  auto mix = [&](const float (&f)[ND]) {
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      float v = tdyn[0][d] * f[0];
+#pragma unroll
+      for (int p = 1; p < ND; ++p) v = fmaf(tdyn[p][d], f[p], v);
+      if (live) q_s[d * L + j] = v;
+      if ((a.mask >> d) & 1) {
+        const float s = warp_sum(v);
+        if (lane == 0) red_q[warp][d] = s;
+      }
+    }
+  };
+  // the prior of column j from q in shared memory (K1's push)
+  auto push = [&](float (&pr)[ND]) {
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      if ((a.mask >> d) & 1) {
+        float s = 0.f;
+        for (int k = 0; k < nwarp; ++k) s += red_q[k][d];
+        pr[d] = s * row0_f[d];
+      } else {
+        pr[d] = live ? window_matvec<matvec_unroll(RESIDENT)>(
+                           q_s + d * L, band + off[d], i0_f[d], W, L, j)
+                     : 0.f;
+      }
+    }
+  };
+  // the pull of r (K2's) and, in the same loops, the push of q: two
+  // independent chains, each summed in its own order, so each has the bits
+  // it has alone while their loads overlap
+  auto pull_push = [&](float (&pull)[ND], float (&pr)[ND]) {
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      if ((a.mask >> d) & 1) {
+        float s = 0.f, u = 0.f;
+        for (int k = 0; k < nwarp; ++k) {
+          s += red_r[k][d];
+          u += red_q[k][d];
+        }
+        pull[d] = s * row0_b[d];
+        pr[d] = u * row0_f[d];
+      } else {
+        float x = 0.f, y = 0.f;
+        if (live) {
+          const float* __restrict__ rv = r_s + d * L + i0_b[d];
+          const float* __restrict__ qv = q_s + d * L + i0_f[d];
+          const float* __restrict__ mb = band + half + off[d];
+          const float* __restrict__ mf = band + off[d];
+          constexpr int kUnroll = matvec_unroll(RESIDENT);
+#pragma unroll (kUnroll)
+          for (int k = 0; k < W; ++k) {
+            x = fmaf(rv[k], mb[(size_t)k * L + j], x);
+            y = fmaf(qv[k], mf[(size_t)k * L + j], y);
+          }
+        }
+        pull[d] = x;
+        pr[d] = y;
+      }
+    }
+  };
+
+  // the filter rows t and t-1 (mixed for the push this step), and row t-2
+  // as stored, loaded a whole step before its mix and converted only then
+  float f[ND], f_next[ND], pn[ND];
+  FT f_ld[ND] = {};
+#pragma unroll
+  for (int e = 0; e < ND; ++e) {
+    f[e] = live ? to_f32(filt[(size_t)(T - 1) * row + e * L + j]) : 0.f;
+    f_next[e] = (live && T > 1)
+                    ? to_f32(filt[(size_t)(T - 2) * row + e * L + j])
+                    : 0.f;
+  }
+  __syncthreads();  // resident band complete
+  mix(f);
+  __syncthreads();
+  push(pn);         // the prior of the last row
+  __syncthreads();  // q reads done before the first step writes q
+
+  for (int t = T - 1; t >= 0; --t) {
+    const size_t base = (size_t)t * row;
+    float r[ND];
+#pragma unroll
+    for (int e = 0; e < ND; ++e) {
+      if (live && t > 1) f_ld[e] = filt[(size_t)(t - 2) * row + e * L + j];
+      const float p = pn[e];
+      r[e] = p >= kPriorFloor ? (p < kRcpDivisorMax
+                                     ? div_by_rcp(carry[e], rcp_f64(p))
+                                     : carry[e] / p)
+                              : 0.f;
+      if (live) r_s[e * L + j] = r[e];
+      if ((a.mask >> e) & 1) {
+        const float s = warp_sum(r[e]);
+        if (lane == 0) red_r[warp][e] = s;
+      }
+    }
+    if (t > 0) mix(f_next);  // the push of row t-1 rides this step
+    __syncthreads();  // (a)
+
+    if (live) {
+#pragma unroll
+      for (int e = 0; e < ND; ++e) {
+        a.rout[base + e * L + j] = r[e];
+        if (t < T - 1) a.smooth[base + (ND + e) * L + j] = carry[e];
+      }
+    }
+
+    // (at t = 0 the push reads the previous step's q, unused)
+    float pull[ND], pn_next[ND];
+    pull_push(pull, pn_next);
+    float v[ND], vsum = 0.f;
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      float out = tdyn[d][0] * pull[0];
+#pragma unroll
+      for (int e = 1; e < ND; ++e) out = fmaf(tdyn[d][e], pull[e], out);
+      v[d] = f[d] * out;
+      vsum += v[d];
+    }
+    vsum = warp_sum(vsum);
+    if (lane == 0) red_s[warp] = vsum;
+    __syncthreads();  // (b)
+
+    float s = 0.f;
+    for (int k = 0; k < nwarp; ++k) s += red_s[k];
+    const float den = fmaxf(s, 1e-38f);
+    if (den < kRcpDivisorMax) {  // the same for the whole block
+      const double rden = rcp_f64(den);
+#pragma unroll
+      for (int d = 0; d < ND; ++d) carry[d] = div_by_rcp(v[d], rden);
+    } else {
+#pragma unroll
+      for (int d = 0; d < ND; ++d) carry[d] = v[d] / den;
+    }
+    if (t > 0) {
+#pragma unroll
+      for (int e = 0; e < ND; ++e) {
+        pn[e] = pn_next[e];
+        f[e] = f_next[e];
+        f_next[e] = to_f32(f_ld[e]);
+      }
+    }
+  }
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+    if (live) a.smooth[d * L + j] = carry[d];  // row 0
+}
+
 // shared memory of either kernel: the (ND, L) vector, plus its half of the
 // band when that is kept resident
 size_t vec_bytes(int n_dyn, int L) {
@@ -648,6 +881,57 @@ int pmg_smoother_scan(const void* filt, const void* prior, const void* tlatT,
               : (res ? run(smoother_cfg_kernel<2, true>, a, E, 2, true, s, c)
                      : run(smoother_cfg_kernel<2, false>, a, E, 2, false, s,
                            c));
+  }
+  return (int)err;
+}
+
+// 1 when K2 with the prior recomputed keeps both halves of the band in
+// shared memory beside its two (n_dyn, L) vectors.
+int pmg_smoother_push_resident(int n_dyn, int n_mat, int L, int W) {
+  return 2 * (vec_bytes(n_dyn, L) + band_bytes(n_mat, W, L)) <= kResidentCap;
+}
+
+// K2 with the prior recomputed, over one sequence of T rows: filt (T,
+// n_dyn, L), float32 (filt_bf16 = 0) or bfloat16 (1); tlat and tlatT are
+// read for the constant channels' first rows; the other channels go through
+// `band` (2, n_mat, W, L), both halves of the transition band (push, then
+// pull), with window rows `win0` (2, n_mat, L).  Out: smooth and r (T,
+// n_dyn, L), as pmg_smoother_scan with prior[t] = push(filt[t]).
+int pmg_smoother_push_scan(const void* filt, const void* tlat,
+                           const void* tlatT, const void* band,
+                           const void* win0, const void* tdyn,
+                           const void* init, void* smooth, void* rout, int T,
+                           int n_dyn, int L, int W, int uniform_mask,
+                           int filt_bf16, void* stream) {
+  SeqArgs s{};
+  if (!prepare(s, 1, T, n_dyn, L, W, uniform_mask, band, win0))
+    return (int)cudaErrorInvalidValue;
+  PushArgs a{filt, static_cast<const float*>(tlat),
+             static_cast<const float*>(tlatT), s.band, s.win0,
+             static_cast<const float*>(tdyn), static_cast<const float*>(init),
+             static_cast<float*>(smooth), static_cast<float*>(rout), T, L,
+             s.W, s.n_mat, uniform_mask};
+  const bool res = pmg_smoother_push_resident(n_dyn, s.n_mat, L, s.W);
+  const size_t smem = 2 * vec_bytes(n_dyn, L) +
+                      (res ? 2 * band_bytes(s.n_mat, s.W, L) : 0);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto go = [&](auto kernel) {
+    cudaError_t err = launch_prep(kernel, smem);
+    if (err != cudaSuccess) return err;
+    kernel<<<1, block_threads(L), smem, st>>>(a);
+    return cudaGetLastError();
+  };
+  cudaError_t err;
+  if (n_dyn == 1) {
+    err = filt_bf16 ? (res ? go(smoother_push_kernel<1, true, bf16>)
+                           : go(smoother_push_kernel<1, false, bf16>))
+                    : (res ? go(smoother_push_kernel<1, true, float>)
+                           : go(smoother_push_kernel<1, false, float>));
+  } else {
+    err = filt_bf16 ? (res ? go(smoother_push_kernel<2, true, bf16>)
+                           : go(smoother_push_kernel<2, false, bf16>))
+                    : (res ? go(smoother_push_kernel<2, true, float>)
+                           : go(smoother_push_kernel<2, false, float>));
   }
   return (int)err;
 }

@@ -19,6 +19,8 @@ analytic ridge M-step).
 
 from __future__ import annotations
 
+import functools
+import gc
 import numbers
 import time
 import warnings
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from poor_man_gplvm_tpu_torch.ops import emissions, hmm, mstep
+from poor_man_gplvm_tpu_torch.ops import parallel_scan as ps
 from poor_man_gplvm_tpu_torch.ops.basis import generate_basis
 from poor_man_gplvm_tpu_torch.ops.hmm import JOINT_ACC_INIT
 from poor_man_gplvm_tpu_torch.utils import compat
@@ -40,6 +43,96 @@ from poor_man_gplvm_tpu_torch.utils.checkpoint import EMCheckpointer
 #: start halves a middle E-step, but the fit's time did not resolve the
 #: gain from the host's spread (PERF.md), so the gate stays here.
 WARM_START_MIN_WORK = 5e10
+
+
+_OOM_GUIDANCE = """
+[poor_man_gplvm_tpu_torch] The card ran out of memory for this call.
+Knobs, in order of preference (all exact):
+  1. memory_mode='checkpoint': O(chunk) smoother state on the sequential
+     engine (each chunk's filter runs twice; 'filter' and 'filter_bf16'
+     store the filter posteriors instead).
+  2. A smaller n_time_per_chunk (e.g. 50_000): bounds each chunk's
+     buffers.
+  3. output_mode='lean' (fit_em): keeps the (T, L) latent marginal
+     instead of the full posterior.
+  4. poor_man_gplvm_tpu_torch.ops.parallel_scan.set_config_override(
+         (64, 8, 8)): the lean parallel-scan launch config (C = 64 chunks
+     in place of 128).
+  5. fused=False (fit_em): the host loop, one E-step at a time.
+Also free other tensors on the card: every live tensor, and the blocks the
+caching allocator holds (torch.cuda.empty_cache()), count against the same
+device memory."""
+
+#: the lean parallel-scan launch config (knob 4 above), the JAX package's
+#: ``_LEAN_SCAN_CONFIG``; on the card it changes only the chunk count C
+_LEAN_SCAN_CONFIG = (64, 8, 8)
+
+
+def _generator_states(args, kwargs):
+    """(generator, state) of every ``torch.Generator`` among a call's
+    arguments, so that a retry draws what the first call drew."""
+    return [(g, g.get_state()) for g in (*args, *kwargs.values())
+            if isinstance(g, torch.Generator)]
+
+
+def _with_oom_guidance(fn):
+    """Recover once from ``torch.cuda.OutOfMemoryError``, then guide: the
+    JAX package's ``_with_oom_guidance`` (its ``models/base.py:34-175``)
+    on the port's ``fit_em`` and decode dispatch.
+
+    On the first out-of-memory error the call's traceback is dropped (its
+    frames pin the failed call's tensors), then ``gc.collect()`` and
+    ``torch.cuda.empty_cache()`` return them to the card, a warning says
+    so, and the call runs again once under the lean parallel-scan config
+    ``_LEAN_SCAN_CONFIG`` (``parallel_scan.set_config_override``), which is
+    restored afterwards; the call's generators are put back to the states
+    they had, so the retry draws what the first call drew.  On the card
+    the override changes only the chunk count C (the port's kernels do not
+    block time, ``ops/parallel_scan.py::choose_parallel_config``); the
+    retry mostly helps because it runs after the allocator was emptied:
+    ``hmm.engine_resolves_parallel`` reads free memory again, and where
+    the parallel engine's buffers no longer fit the retry runs on the
+    sequential engine's O(chunk) memory modes.  A second out-of-memory
+    error (or one under an override the caller set) is raised again with
+    the knob ladder ``_OOM_GUIDANCE`` appended; any other error passes
+    through untouched.  The port caches no compiled program, so the JAX
+    package's ``_rekey_lean_cache`` has no counterpart."""
+
+    @functools.wraps(fn)
+    def wrapper(self, *args, **kwargs):
+        rng = _generator_states(args, kwargs)
+        try:
+            return fn(self, *args, **kwargs)
+        except torch.cuda.OutOfMemoryError as e:
+            if ps._CONFIG_OVERRIDE is not None:
+                # already at an override: nothing left to try here
+                raise torch.cuda.OutOfMemoryError(
+                    str(e) + _OOM_GUIDANCE) from e
+            e.__traceback__ = None
+        # the retry runs outside the except block, so that no reference to
+        # the failed call's frames survives on the thread state
+        gc.collect()
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+        warnings.warn(
+            "[poor_man_gplvm_tpu_torch] the card ran out of memory; "
+            "retrying once with the lean parallel-scan config "
+            f"{_LEAN_SCAN_CONFIG} after emptying the caching allocator "
+            "(exact). Set parallel_scan.set_config_override(...) or "
+            "memory_mode='checkpoint' up front to skip the failed first "
+            "call.")
+        for g, state in rng:
+            g.set_state(state)
+        ps.set_config_override(_LEAN_SCAN_CONFIG)
+        try:
+            return fn(self, *args, **kwargs)
+        except torch.cuda.OutOfMemoryError as e2:
+            raise torch.cuda.OutOfMemoryError(
+                str(e2) + _OOM_GUIDANCE) from e2
+        finally:
+            ps.set_config_override(None)
+
+    return wrapper
 
 
 def resolve_device(device):
@@ -380,6 +473,7 @@ class _GPLVMCommon(ABC):
             **smooth_kwargs,
         )
 
+    @_with_oom_guidance
     def _decode_dispatch(self, y, tuning, hyperparam, trans, ma_neuron,
                          ma_latent, likelihood_scale, n_time_per_chunk, t_l,
                          mesh, tsd_wrap_keys, build_res):
@@ -624,6 +718,7 @@ class _GPLVMCommon(ABC):
             if self.has_dynamics else log_posterior_all
         return log_posterior_all, curr, log_marginal_final, None
 
+    @_with_oom_guidance
     def fit_em(
         self, y, hyperparam=None, generator=None, n_iter=20,
         log_posterior_init=None, opt_state_curr=None, ma_neuron=None,

@@ -64,6 +64,8 @@ _SIGNATURES = {
         "pmg_filter_scan": [_vp] * 11 + [_cl] * 5 + [_ci] * 6 + [_vp],
         "pmg_smoother_scan": [_vp] * 11 + [_cl] * 6 + [_ci] * 6 + [_vp],
         "pmg_scan_band_resident": [_ci] * 4,
+        "pmg_smoother_push_scan": [_vp] * 9 + [_ci] * 6 + [_vp],
+        "pmg_smoother_push_resident": [_ci] * 4,
     },
     "parallel_scan": {
         "pmg_pfilter_pass": [_vp] * 11 + [_ci] * 10 + [_vp],

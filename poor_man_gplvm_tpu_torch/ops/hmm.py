@@ -2,8 +2,10 @@
 
 Counterpart of ``poor_man_gplvm_tpu/ops/hmm.py`` for the decode and fit
 paths: scaled probability-space forward/backward recursions, the chunked
-host driver ``smooth_combined_chunked`` in full memory mode, the
-parallel-in-time driver, and the transition-posterior extraction.
+host loop ``smooth_combined_chunked`` in every memory mode (the full
+store, and the O(chunk) checkpoint and filter-store modes of recordings
+longer than the card holds), the parallel-in-time path, and the
+transition-posterior extraction.
 
 Engines:
 * ``'prob'``: a plain PyTorch loop over time (``_forward_scan_prob``,
@@ -210,6 +212,18 @@ class LatentTransition:
         )
         return smooth[:, 0], r[:, 0]
 
+    def cuda_smooth_push(self, filt_xs, smooth_init):
+        ones = torch.ones((1, 1), dtype=self.T.dtype, device=self.T.device)
+        smooth, r = sk.smoother_push_chunk(
+            filt_xs[:, None], self.T[None], ones, smooth_init[None],
+            uniform_rows=self.uniform_rows,
+            band=_cached_band(self, self.T[None]),
+        )
+        return smooth[:, 0], r[:, 0]
+
+    def split_marginals(self, p):
+        return p, None
+
 
 @dataclasses.dataclass(frozen=True)
 class JointTransition:
@@ -291,6 +305,16 @@ class JointTransition:
         return sk.smoother_chunk(filt_xs, prior_xs, self.Tlat, self.Tdyn,
                                  smooth_init, uniform_rows=self.uniform_rows,
                                  band=_cached_band(self, self.Tlat))
+
+    def cuda_smooth_push(self, filt_xs, smooth_init):
+        return sk.smoother_push_chunk(filt_xs, self.Tlat, self.Tdyn,
+                                      smooth_init,
+                                      uniform_rows=self.uniform_rows,
+                                      band=_cached_band(self, self.Tlat))
+
+    def split_marginals(self, p):
+        """(latent marginal, dynamics marginal) of p (..., n_dyn, L)."""
+        return p.sum(dim=-2), p.sum(dim=-1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -523,6 +547,44 @@ def auto_chunk_size(n_time_tot, state_size, n_latent, device="cpu"):
     return int(np.clip(chunk, 10_000, n_time_tot))
 
 
+#: 'auto' keeps the whole working set ('full') up to this many bytes, and
+#: the filter store ('filter') while one (T, state) f32 array takes at most
+#: FILTER_STORE_MAX_BYTES; past both it checkpoints.  These are the JAX
+#: package's thresholds (``poor_man_gplvm_tpu/ops/hmm.py:792-803``), kept
+#: as they are so that both packages resolve 'auto' to the same mode for
+#: every shape; they were set there, not measured on the card.
+FULL_MODE_MAX_BYTES = 4e9
+FILTER_STORE_MAX_BYTES = 2e9
+
+
+def _full_mode_bytes(n_time, state_size, n_latent):
+    """The full mode's working set as the 'auto' rule reckons it: filter
+    posteriors, priors and smoothed posteriors (T, state) and the
+    log-likelihoods (T, L), f32."""
+    return n_time * (3 * state_size + n_latent) * 4
+
+
+def _resolve_memory_mode(memory_mode, n_time, state_size, n_latent,
+                         engine="cuda"):
+    """The memory mode a sequential decode of ``n_time`` steps runs: an
+    explicit mode as given; 'auto' as the JAX package resolves it
+    (``poor_man_gplvm_tpu/ops/hmm.py:792-803``): 'full' while
+    ``_full_mode_bytes`` is at most ``FULL_MODE_MAX_BYTES`` or on the 'log'
+    engine, else 'filter' while one (T, state) f32 array is at most
+    ``FILTER_STORE_MAX_BYTES``, else 'checkpoint'.  The one rule behind the
+    sequential paths, the parallel path's ``want_post`` and the kept
+    log-likelihoods of ``smooth_batch_full``.  (The parallel gate,
+    ``engine_resolves_parallel``, runs first, as in the JAX package.)"""
+    if memory_mode != "auto":
+        return memory_mode
+    if (_full_mode_bytes(n_time, state_size, n_latent) <= FULL_MODE_MAX_BYTES
+            or engine == "log"):
+        return "full"
+    if n_time * state_size * 4 <= FILTER_STORE_MAX_BYTES:
+        return "filter"
+    return "checkpoint"
+
+
 def smooth_combined_chunked(
     y,
     tuning,
@@ -560,18 +622,36 @@ def smooth_combined_chunked(
     ``marginal_smooth``: the first entry is the pair (latent marginal (T,
     L), dynamics marginal (T, n_dyn) or None for a latent-only model), in
     log space.  The parallel engine forms it in its smoother kernel (K4's
-    marginal modes); the sequential engines run full mode and marginalise
-    at return (logsumexp of the log posterior, as the JAX package's
-    full-mode path does).
+    marginal modes); the sequential engines' full mode marginalises at
+    return (logsumexp of the log posterior), the O(chunk) modes chunk by
+    chunk in probability space, as the JAX package's chunk loops do.
 
-    ``memory_mode``: every JAX mode is accepted.  On an 80 GB card the
-    full working set of the north-star shape fits, so the sequential
-    engines run full mode in every memory mode ('checkpoint', 'filter' and
-    'filter_bf16' return None for the causal posteriors and the
-    log-likelihoods, as the JAX package's drivers do; the port's
-    'filter_bf16' keeps the filter in f32, more exact than the JAX bf16
-    store).  On the parallel engine only ``want_post`` depends on it.  The
-    ``'log'`` engine takes 'auto' and 'full' only, as in the JAX package.
+    ``memory_mode`` (the sequential engines; 'auto' resolves by
+    ``_resolve_memory_mode``, the JAX package's rule):
+
+    * 'full' keeps the filter posteriors and priors of the whole sequence,
+      and returns the causal posteriors and the log-likelihoods;
+    * 'checkpoint' keeps each chunk's input carry, first prior row and
+      ratios, and recomputes the chunk's filter (K1 again, the same bits)
+      in the backward pass: O(chunk) state, three passes;
+    * 'filter' stores the filter posteriors (T, state) in f32, and
+      'filter_bf16' in bf16 (round-to-nearest-even, the tail chunk kept in
+      f32 where the JAX package keeps it: from 3 chunks on); the backward
+      pass recomputes each prior from its stored row inside the smoother
+      (K2 with the prior recomputed, ``sk.smoother_push_scan``): two
+      passes.
+
+    The O(chunk) modes write the smoothed posterior (or its marginals)
+    into outputs allocated once and return None for the causal posteriors
+    and the log-likelihoods; 'checkpoint' and 'filter' give 'full''s
+    smoothed posteriors, ratios, log marginal and pairwise joint bit for
+    bit at the same chunking, and 'filter_bf16' its log marginal and
+    ratios.  Their chunk loop launches K1 or K2 once per chunk (at least
+    10,000 steps under ``auto_chunk_size``), as the JAX package's host loop
+    over chunks does; nothing loops over time steps in Python on the CUDA
+    engines.  On the parallel engine only ``want_post`` depends on the
+    mode.  The ``'log'`` engine takes 'auto' and 'full' only, as in the
+    JAX package.
 
     ``want_acc=False``: the caller discards ``log_accumulated_joint``
     (``fit_em`` does).  The parallel engine then skips the pairwise joint
@@ -608,78 +688,313 @@ def smooth_combined_chunked(
             "want_scan_carry requires the parallel-in-time engine "
             "(use parallel_scan_carry_spec to gate the request)"
         )
-    in_log = engine == "log"
-    if in_log and memory_mode not in ("auto", "full"):
+    state_size = trans.uniform_log_init().numel()
+    mode = _resolve_memory_mode(memory_mode, n_time_tot, state_size,
+                                tuning.shape[0], engine)
+    if engine == "log" and mode != "full":
         raise ValueError(
             f"memory_mode={memory_mode!r} requires engine prob/cuda")
     if n_time_per_chunk is None:
         n_time_per_chunk = auto_chunk_size(
-            n_time_tot, trans.uniform_log_init().numel(), tuning.shape[0],
-            device,
-        )
-    n_chunks = -(-n_time_tot // n_time_per_chunk)
+            n_time_tot, state_size, tuning.shape[0], device)
     ma_neuron = torch.as_tensor(ma_neuron, dtype=torch.float32, device=device)
     if ma_latent is None:
         ma_latent = torch.ones(tuning.shape[0], dtype=torch.float32,
                                device=device)
+    chunks = _Chunks(y, tuning, hyperparam, trans, ma_neuron, ma_latent,
+                     likelihood_scale, observation_model, engine, dt_l,
+                     n_time_per_chunk)
+    if mode == "checkpoint":
+        return _smooth_chunked_checkpoint(chunks, marginal_smooth)
+    if mode in ("filter", "filter_bf16"):
+        return _smooth_chunked_filterstore(
+            chunks, marginal_smooth,
+            torch.float32 if mode == "filter" else torch.bfloat16)
+    return _smooth_chunked_full(chunks, marginal_smooth)
 
-    # ---- forward pass over chunks ----
-    to_log = (lambda x: x) if in_log else prob_to_log
-    log_init = trans.uniform_log_init()
-    carry = (log_init if in_log else torch.exp(log_init),
-             torch.zeros((), dtype=torch.float32, device=device))
-    post_chunks, prior_chunks, ratio_chunks, ll_chunks = [], [], [], []
-    for n in range(n_chunks):
-        y_chunk, ma_chunk = _chunk_inputs(y, ma_neuron, n, n_time_per_chunk)
-        post, prior, ratios, carry, ll = _filter_chunk(
-            y_chunk, tuning, hyperparam, trans, ma_chunk, ma_latent, carry,
-            likelihood_scale, observation_model, engine,
-            _dt_chunk(dt_l, n, n_time_per_chunk),
-        )
-        post_chunks.append(post)
-        prior_chunks.append(prior)
-        ratio_chunks.append(ratios)
-        ll_chunks.append(ll)
+
+@dataclasses.dataclass
+class _Chunks:
+    """The chunks of one sequential decode and what each chunk's filter
+    reads: chunk n covers steps [n * size, min((n + 1) * size, T))."""
+
+    y: torch.Tensor
+    tuning: torch.Tensor
+    hyperparam: dict
+    trans: object
+    ma_neuron: torch.Tensor
+    ma_latent: torch.Tensor
+    likelihood_scale: float
+    observation_model: str
+    engine: str
+    dt_l: torch.Tensor
+    size: int
+
+    @property
+    def T(self):
+        return self.y.shape[0]
+
+    @property
+    def n(self):
+        return -(-self.T // self.size)
+
+    @property
+    def in_log(self):
+        return self.engine == "log"
+
+    def bounds(self, n):
+        return n * self.size, min((n + 1) * self.size, self.T)
+
+    def init_carry(self):
+        """(state, log marginal 0) at the uniform initial state."""
+        log_init = self.trans.uniform_log_init()
+        return (log_init if self.in_log else torch.exp(log_init),
+                torch.zeros((), dtype=torch.float32, device=self.y.device))
+
+    def filter(self, n, carry):
+        """Chunk n's causal filter from ``carry``: ``_filter_chunk``'s
+        (post, prior, ratios, carry out, ll)."""
+        y_c, ma_c = _chunk_inputs(self.y, self.ma_neuron, n, self.size)
+        return _filter_chunk(
+            y_c, self.tuning, self.hyperparam, self.trans, ma_c,
+            self.ma_latent, carry, self.likelihood_scale,
+            self.observation_model, self.engine,
+            _dt_chunk(self.dt_l, n, self.size))
+
+    def empty(self, *shape, dtype=torch.float32):
+        return torch.empty(shape, dtype=dtype, device=self.y.device)
+
+    def state_shape(self):
+        return tuple(self.trans.uniform_log_init().shape)
+
+    def acc_init(self):
+        return torch.full(self.trans.joint_shape(),
+                          JOINT_ACC_INIT if self.in_log else 0.0,
+                          dtype=torch.float32, device=self.y.device)
+
+
+def _to_log_(p):
+    """``prob_to_log`` in place: the same operations on the same positions
+    of the tensor, so the same bits, without its temporaries."""
+    off = ~(p > 0)
+    p.masked_fill_(off, 1.0)
+    torch.log(p, out=p)
+    return p.masked_fill_(off, JOINT_ACC_INIT)
+
+
+def _smooth_last_chunk(post, prior_next, chunks):
+    """The backward pass over the sequence's last chunk: the smoother starts
+    from its last filter posterior.  Returns (smooth (T', *state), carry)."""
+    carry = (post[-1], chunks.acc_init())
+    smooth, carry = _backward_chunk(post[:-1], prior_next, chunks.trans,
+                                    carry, chunks.engine)
+    return torch.cat([smooth, post[-1][None]], dim=0), carry
+
+
+def _smooth_chunked_full(chunks, marginal_smooth):
+    """memory_mode='full': the filter posteriors and priors of the whole
+    sequence kept.  The outputs are allocated once and each chunk written
+    into them; the log conversion runs in place over the whole of each
+    (``_to_log_``), so the bits are those of converting the concatenated
+    chunks."""
+    T, state = chunks.T, chunks.state_shape()
+    post_all = chunks.empty(T, *state)
+    prior_all = chunks.empty(T, *state)
+    ratios_all = chunks.empty(T)
+    ll_all = chunks.empty(T, chunks.tuning.shape[0])
+    carry = chunks.init_carry()
+    for n in range(chunks.n):
+        a, b = chunks.bounds(n)
+        post, prior, ratios, carry, ll = chunks.filter(n, carry)
+        post_all[a:b], prior_all[a:b] = post, prior
+        ratios_all[a:b], ll_all[a:b] = ratios, ll
+        del post, prior, ratios, ll
     log_marginal_final = carry[1]
-    prior_all = torch.cat(prior_chunks, dim=0)
 
-    # ---- backward pass over chunks, reversed ----
-    smooth_chunks = [None] * n_chunks
+    smooth_all = chunks.empty(T, *state)
     bwd_carry = None
-    for n in range(n_chunks - 1, -1, -1):
-        a = n * n_time_per_chunk
-        b = min((n + 1) * n_time_per_chunk, n_time_tot)
-        filt_chunk = post_chunks[n]
-        prior_shifted = prior_all[a + 1: b + 1]
-        if bwd_carry is None:  # last chunk: start from the last filter post
-            bwd_carry = (
-                filt_chunk[-1],
-                torch.full(trans.joint_shape(),
-                           JOINT_ACC_INIT if in_log else 0.0,
-                           dtype=torch.float32, device=device),
-            )
-            smooth, bwd_carry = _backward_chunk(
-                filt_chunk[:-1], prior_shifted, trans, bwd_carry, engine
-            )
-            smooth = torch.cat([smooth, filt_chunk[-1][None]], dim=0)
+    for n in range(chunks.n - 1, -1, -1):
+        a, b = chunks.bounds(n)
+        # a fresh copy of the chunk: the pairwise joint's product then
+        # reads it as it reads the filter's own output
+        filt = post_all[a:b].clone()
+        prior_shifted = prior_all[a + 1:b + 1]
+        if bwd_carry is None:
+            smooth, bwd_carry = _smooth_last_chunk(filt, prior_shifted,
+                                                   chunks)
         else:
             smooth, bwd_carry = _backward_chunk(
-                filt_chunk, prior_shifted, trans, bwd_carry, engine
-            )
-        smooth_chunks[n] = smooth
+                filt, prior_shifted, chunks.trans, bwd_carry, chunks.engine)
+        smooth_all[a:b] = smooth
+        del filt, smooth
+    del prior_all
+    if not chunks.in_log:
+        _to_log_(smooth_all)
+        _to_log_(post_all)
+    smooth_log = _marginalize_log(smooth_all) if marginal_smooth \
+        else smooth_all
+    acc = bwd_carry[1] if chunks.in_log else prob_to_log(bwd_carry[1])
+    return (smooth_log, log_marginal_final, post_all, ratios_all, acc,
+            ll_all)
 
-    smooth_log = to_log(torch.cat(smooth_chunks, dim=0))
-    if marginal_smooth:
-        smooth_log = _marginalize_log(smooth_log)
-    full_store = memory_mode in ("auto", "full")
-    return (
-        smooth_log,
-        log_marginal_final,
-        to_log(torch.cat(post_chunks, dim=0)) if full_store else None,
-        torch.cat(ratio_chunks, dim=0),
-        to_log(bwd_carry[1]),
-        torch.cat(ll_chunks, dim=0) if full_store else None,
-    )
+
+class _SmoothOut:
+    """The smoothed posterior of an O(chunk) mode, written chunk by chunk
+    into outputs allocated once: with ``marginal`` the latent marginal (T,
+    L) and the dynamics marginal (T, n_dyn) (None for a latent-only
+    model), summed in probability space as the JAX package's
+    ``_marginalize_emit``; else the posterior (T, *state).  ``result``
+    converts to log space in place."""
+
+    def __init__(self, chunks, marginal):
+        self.trans, self.marginal = chunks.trans, marginal
+        T, state = chunks.T, chunks.state_shape()
+        if marginal:
+            self.out = [chunks.empty(T, state[-1]),
+                        chunks.empty(T, state[0]) if len(state) == 2
+                        else None]
+        else:
+            self.out = [chunks.empty(T, *state)]
+
+    def write(self, a, b, smooth):
+        parts = self.trans.split_marginals(smooth) if self.marginal \
+            else (smooth,)
+        for out, part in zip(self.out, parts):
+            if out is not None:
+                out[a:b] = part
+
+    def result(self):
+        for out in self.out:
+            if out is not None:
+                _to_log_(out)
+        return tuple(self.out) if self.marginal else self.out[0]
+
+
+def _smooth_chunked_checkpoint(chunks, marginal_smooth):
+    """memory_mode='checkpoint' (the JAX package's
+    ``_smooth_chunked_checkpoint``): the forward pass keeps each chunk's
+    input carry, its first prior row and its ratios, and the last chunk's
+    outputs; the backward pass, last chunk first, runs the chunk's filter
+    again from its carry (the same kernel on the same inputs: the same
+    bits), then the smoother, the prior at the chunk's last row being the
+    next chunk's first.  At most two chunks' filter outputs are alive at
+    once."""
+    T = chunks.T
+    last = chunks.n - 1
+    ratios_all = chunks.empty(T)
+    carries, first_priors = [], []  # one (n_dyn, L) row per chunk
+    carry = chunks.init_carry()
+    for n in range(chunks.n):
+        a, b = chunks.bounds(n)
+        carries.append(carry[0])
+        post, prior, ratios, carry, _ = chunks.filter(n, carry)
+        ratios_all[a:b] = ratios
+        first_priors.append(prior[0].clone())
+        if n == last:
+            tail = (post, prior)
+        else:  # the carry's row without the chunk it was read from
+            carry = (carry[0].clone(), carry[1])
+        del post, prior, ratios
+    log_marginal_final = carry[1]
+
+    out = _SmoothOut(chunks, marginal_smooth)
+    bwd_carry = None
+    zero = torch.zeros((), dtype=torch.float32, device=chunks.y.device)
+    for n in range(last, -1, -1):
+        a, b = chunks.bounds(n)
+        if n == last:
+            post, prior = tail
+            del tail
+            smooth, bwd_carry = _smooth_last_chunk(post, prior[1:], chunks)
+        else:
+            post, prior = chunks.filter(n, (carries[n], zero))[:2]
+            prior_shifted = torch.cat([prior[1:], first_priors[n + 1][None]])
+            del prior
+            smooth, bwd_carry = _backward_chunk(
+                post, prior_shifted, chunks.trans, bwd_carry, chunks.engine)
+            del prior_shifted
+        del post
+        out.write(a, b, smooth)
+        del smooth
+    return (out.result(), log_marginal_final, None, ratios_all,
+            prob_to_log(bwd_carry[1]), None)
+
+
+def _push_rows(trans, filt):
+    """The +1-shifted priors of the 'prob' engine's stored filter rows:
+    ``trans.push`` of each row, the forward scan's own operation, so the
+    bits of the priors it formed."""
+    return torch.stack([trans.push(filt[t]) for t in range(filt.shape[0])])
+
+
+def _backward_push_chunk(filt_xs, trans, carry, engine):
+    """``_backward_chunk`` over stored filter rows (f32 or bf16), each prior
+    recomputed from its row: on 'cuda' inside K2 (``cuda_smooth_push``),
+    on 'prob' by ``_push_rows``."""
+    if filt_xs.shape[0] == 0:  # T=1 sequence: nothing to smooth over
+        return filt_xs.float(), carry
+    smooth_init, acc_in = carry
+    if engine == "cuda":
+        smooth, r = trans.cuda_smooth_push(filt_xs, smooth_init)
+        acc = trans.outer_acc(filt_xs.float(), r)
+    else:
+        filt = filt_xs.float()
+        smooth, acc = _backward_scan_prob(filt, _push_rows(trans, filt),
+                                          trans, smooth_init)
+    return smooth, (smooth[0], acc_in + acc)
+
+
+def _smooth_chunked_filterstore(chunks, marginal_smooth, store_dtype):
+    """memory_mode='filter' (``store_dtype`` f32) or 'filter_bf16' (bf16):
+    the JAX package's ``_smooth_chunked_filterstore``.  The forward pass
+    stores the filter posteriors only, cast per chunk; from 3 chunks on the
+    last chunk stays in f32, as the JAX package's head scan keeps it.  The
+    backward pass, last chunk first, reads each stored chunk (a fresh
+    copy) and recomputes its priors from it (``_backward_push_chunk``)."""
+    T, state = chunks.T, chunks.state_shape()
+    last = chunks.n - 1
+    tail_f32 = chunks.n >= 3
+    a_tail = chunks.bounds(last)[0]
+    store = chunks.empty(a_tail if tail_f32 else T, *state,
+                         dtype=store_dtype)
+    ratios_all = chunks.empty(T)
+    carry = chunks.init_carry()
+    for n in range(chunks.n):
+        a, b = chunks.bounds(n)
+        post, _, ratios, carry, _ = chunks.filter(n, carry)
+        ratios_all[a:b] = ratios
+        if n == last and tail_f32:
+            tail = post
+        else:
+            store[a:b] = post
+            carry = (carry[0].clone(), carry[1])
+        del post, ratios
+    log_marginal_final = carry[1]
+
+    out = _SmoothOut(chunks, marginal_smooth)
+    bwd_carry = None
+    for n in range(last, -1, -1):
+        a, b = chunks.bounds(n)
+        if n == last and tail_f32:
+            filt = tail
+            del tail
+        else:
+            filt = store[a:b].clone()
+        if n == last:
+            init = filt[-1].float()
+            smooth, bwd_carry = _backward_push_chunk(
+                filt[:-1], chunks.trans, (init, chunks.acc_init()),
+                chunks.engine)
+            smooth = torch.cat([smooth, init[None]], dim=0)
+        else:
+            smooth, bwd_carry = _backward_push_chunk(
+                filt, chunks.trans, bwd_carry, chunks.engine)
+        del filt
+        out.write(a, b, smooth)
+        del smooth
+    del store
+    return (out.result(), log_marginal_final, None, ratios_all,
+            prob_to_log(bwd_carry[1]), None)
 
 
 def filter_combined(
@@ -916,12 +1231,10 @@ def smooth_epochs(y_b, lengths, tuning, hyperparam, trans, ma_neuron,
 
 def _full_store(memory_mode, n_time, state_size, n_latent):
     """Whether a decode in ``memory_mode`` keeps the log-likelihoods (and
-    the causal posteriors): 'full', or 'auto' while the full working set
-    of one sequence takes at most 4 GB (the JAX package's resolution of
-    'auto', and the parallel driver's ``want_post``)."""
-    est_bytes = n_time * (3 * state_size + n_latent) * 4
-    return memory_mode == "full" or (memory_mode == "auto"
-                                     and est_bytes <= 4e9)
+    the causal posteriors): where it resolves to 'full'
+    (``_resolve_memory_mode``; the parallel path's ``want_post``)."""
+    return _resolve_memory_mode(memory_mode, n_time, state_size,
+                                n_latent) == "full"
 
 
 def sequence_loglikelihoods(y_b, tuning, hyperparam, ma_neuron, ma_latent,
@@ -1118,19 +1431,31 @@ def _marginalize_log(smooth_log):
 _PARALLEL_UPGRADE_MIN_T = 2_000
 
 
-def _parallel_upgrade_ok(n_time, n_latent, n_dyn, device):
-    """Whether the parallel engine's full-sequence buffers fit the card.
-    It holds, at its peak, the log-likelihoods and weights (2 x (T, L))
-    and five (T, n_dyn, L) f32 arrays (filter posteriors, smoothed
-    posteriors, ratios, and the two log-space outputs), with no O(chunk)
-    fallback; the upgrade is allowed while they take at most 3/4 of what
-    the card has free (the caching allocator's unused blocks count as
-    free).  An explicit engine='cuda_parallel' bypasses this."""
-    est_bytes = 4.0 * n_time * n_latent * (2 + 5 * max(1, n_dyn))
+def _parallel_buffer_bytes(n_time, n_latent, n_dyn):
+    """The parallel engine's full-sequence buffers at their peak: the
+    log-likelihoods and weights (2 x (T, L)) and five (T, n_dyn, L) f32
+    arrays (filter posteriors, smoothed posteriors, ratios, and the two
+    log-space outputs)."""
+    return 4.0 * n_time * n_latent * (2 + 5 * max(1, n_dyn))
+
+
+def _device_free_bytes(device):
+    """What the card has free for new tensors: the CUDA runtime's free memory
+    plus the caching allocator's unused blocks."""
     free, _ = torch.cuda.mem_get_info(device)
-    cached = (torch.cuda.memory_reserved(device)
-              - torch.cuda.memory_allocated(device))
-    return est_bytes <= 0.75 * (free + cached)
+    return free + (torch.cuda.memory_reserved(device)
+                   - torch.cuda.memory_allocated(device))
+
+
+def _parallel_upgrade_ok(n_time, n_latent, n_dyn, device):
+    """Whether the parallel engine's buffers (``_parallel_buffer_bytes``),
+    which have no O(chunk) fallback, fit the card: the upgrade is allowed
+    while they take at most 3/4 of ``_device_free_bytes``, read at each
+    call.  Past it the sequential engine runs, in the memory mode 'auto'
+    resolves to (``_resolve_memory_mode``).  An explicit
+    engine='cuda_parallel' bypasses this."""
+    return (_parallel_buffer_bytes(n_time, n_latent, n_dyn)
+            <= 0.75 * _device_free_bytes(device))
 
 
 def engine_resolves_parallel(n_time, trans, engine, device):

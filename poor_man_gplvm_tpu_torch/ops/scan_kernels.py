@@ -59,6 +59,9 @@ __all__ = [
     "filter_scan_batch_plain",
     "smoother_scan_batch",
     "smoother_scan_batch_plain",
+    "smoother_push_scan",
+    "smoother_push_scan_plain",
+    "smoother_push_chunk",
 ]
 
 #: normaliser clamp of both kernels (as in the TPU kernels)
@@ -242,6 +245,20 @@ def _stack_args(band, half, tlat, tdyn, cfg):
 # ---------------------------------------------------------------------------
 
 
+def _push_plain(p, tlat, tdyn, uniform_rows):
+    """The prior that follows the state p (n_dyn, L): the push of K1's plain
+    version, q[d] = sum_p Tdyn[p, d] * p[p], then q[d] @ Tlat[d] (a
+    constant channel: sum(q[d]) * its first row)."""
+    q = tdyn.T @ p
+    rows = []
+    for d in range(p.shape[0]):
+        if uniform_rows[d]:
+            rows.append(q[d].sum() * tlat[d, 0])
+        else:
+            rows.append(q[d] @ tlat[d])
+    return torch.stack(rows)
+
+
 def filter_scan_plain(w, tlat, tdyn, p_init, uniform_rows):
     """Plain version of K1.  w: (T, L) likelihood weights; tlat (n_dyn, L,
     L); tdyn (n_dyn, n_dyn); p_init (n_dyn, L).  Returns post and prior
@@ -253,14 +270,7 @@ def filter_scan_plain(w, tlat, tdyn, p_init, uniform_rows):
     norm = torch.empty((T,), dtype=w.dtype, device=w.device)
     carry = p_init
     for t in range(T):
-        q = tdyn.T @ carry  # q[d] = sum_p Tdyn[p, d] * carry[p]
-        rows = []
-        for d in range(n_dyn):
-            if uniform_rows[d]:
-                rows.append(q[d].sum() * tlat[d, 0])
-            else:
-                rows.append(q[d] @ tlat[d])
-        pr = torch.stack(rows)
+        pr = _push_plain(carry, tlat, tdyn, uniform_rows)
         u = pr * w[t]
         s = u.sum()
         carry = u / torch.clamp(s, min=NORM_FLOOR)
@@ -455,23 +465,29 @@ def smoother_scan_plain(filt, prior, tlat_t, tdyn, init, uniform_rows):
     and +1-shifted priors; tlat_t: (n_dyn, L, L) TRANSPOSED latent kernels;
     tdyn (n_dyn, n_dyn); init (n_dyn, L) smoothed posterior after the last
     row.  Returns smooth and the ratios r (T, n_dyn, L)."""
-    T, n_dyn, L = filt.shape
+    T = filt.shape[0]
     smooth = torch.empty_like(filt)
     rout = torch.empty_like(filt)
     carry = init
     for t in range(T - 1, -1, -1):
-        r = smoother_ratio(carry, prior[t])
-        rows = []
-        for e in range(n_dyn):
-            if uniform_rows[e]:
-                rows.append(r[e].sum() * tlat_t[e, 0])
-            else:
-                rows.append(r[e] @ tlat_t[e])  # = Tlat[e] @ r[e]
-        out = tdyn @ torch.stack(rows)  # out[d] = sum_e Tdyn[d, e] pull[e]
-        v = filt[t] * out
-        carry = v / torch.clamp(v.sum(), min=NORM_FLOOR)
-        smooth[t], rout[t] = carry, r
+        carry, smooth[t], rout[t] = _smooth_step_plain(
+            carry, prior[t], filt[t], tlat_t, tdyn, uniform_rows)
     return smooth, rout
+
+
+def _smooth_step_plain(carry, prior_next, filt, tlat_t, tdyn, uniform_rows):
+    """One step of K2's plain version: (carry, smoothed row, r)."""
+    r = smoother_ratio(carry, prior_next)
+    rows = []
+    for e in range(filt.shape[0]):
+        if uniform_rows[e]:
+            rows.append(r[e].sum() * tlat_t[e, 0])
+        else:
+            rows.append(r[e] @ tlat_t[e])  # = Tlat[e] @ r[e]
+    out = tdyn @ torch.stack(rows)  # out[d] = sum_e Tdyn[d, e] pull[e]
+    v = filt * out
+    carry = v / torch.clamp(v.sum(), min=NORM_FLOOR)
+    return carry, carry, r
 
 
 def smoother_scan_batch_plain(filt, prior, tlat_t, tdyn, init, lengths,
@@ -622,4 +638,96 @@ def smoother_chunk_batch(filt_xs, prior_xs, tlat, tdyn, smooth_init, lengths,
     return smoother_scan_batch(
         _as_rows(filt_xs), _as_rows(prior_xs), tlat_t, tdyn.contiguous(),
         smooth_init.contiguous(), lengths, uniform_rows, band, cfg=cfg,
+    )
+
+
+# ---------------------------------------------------------------------------
+# K2 with the prior recomputed: the 'filter' memory modes' smoother
+# ---------------------------------------------------------------------------
+
+
+def smoother_push_scan_plain(filt, tlat, tlat_t, tdyn, init, uniform_rows):
+    """Plain version of K2 with the prior recomputed.  filt (T, n_dyn, L)
+    float32 or bfloat16 filter posteriors; tlat and tlat_t (n_dyn, L, L);
+    tdyn (n_dyn, n_dyn); init (n_dyn, L).  Each step's +1-shifted prior is
+    ``_push_plain`` of its filter row (K1's plain push, so on f32 rows the
+    plain filter's prior bits), then K2's plain step.  Returns smooth and
+    the ratios r (T, n_dyn, L), float32."""
+    T = filt.shape[0]
+    smooth = torch.empty(filt.shape, dtype=torch.float32, device=filt.device)
+    rout = torch.empty_like(smooth)
+    carry = init
+    for t in range(T - 1, -1, -1):
+        f = filt[t].float()
+        carry, smooth[t], rout[t] = _smooth_step_plain(
+            carry, _push_plain(f, tlat, tdyn, uniform_rows), f, tlat_t, tdyn,
+            uniform_rows)
+    return smooth, rout
+
+
+def smoother_push_scan(filt, tlat, tlat_t, tdyn, init, uniform_rows,
+                       band=None):
+    """K2 with the prior recomputed: same arguments and outputs as
+    ``smoother_push_scan_plain``.  On the card one launch reads the
+    non-constant channels through both halves of ``band`` (the push for
+    the prior, the pull for the smoother; made here when None) and gives
+    what K2 gives on the priors K1 wrote, bit for bit, for f32 rows.
+    Counts its launches in ``launches`` and ``launches_by_mode`` ("f32",
+    "bf16": the store it read)."""
+    T, n_dyn, L = filt.shape
+    _check_dims(n_dyn, L, uniform_rows)
+    dev = filt.device
+    if filt.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"filt must be float32 or bfloat16, got {filt.dtype}")
+    if not filt.is_contiguous():
+        raise ValueError("filt must be contiguous")
+    if filt.device != dev:
+        raise ValueError(f"filt is on {filt.device}, expected {dev}")
+    _check("tlat", tlat, (n_dyn, L, L), dev)
+    _check("tlat_t", tlat_t, (n_dyn, L, L), dev)
+    _check("tdyn", tdyn, (n_dyn, n_dyn), dev)
+    _check("init", init, (n_dyn, L), dev)
+    if band is not None:
+        check_band(band, uniform_rows, L, dev)
+    if dev.type == "cpu":
+        return smoother_push_scan_plain(filt, tlat, tlat_t, tdyn, init,
+                                        uniform_rows)
+    if dev.type != "cuda":
+        raise ValueError(
+            f"smoother_push_scan runs on cpu or cuda, not {dev.type}")
+    smooth = torch.empty((T, n_dyn, L), dtype=torch.float32, device=dev)
+    rout = torch.empty_like(smooth)
+    if T == 0:  # nothing to smooth over: launch nothing
+        return smooth, rout
+    band = _band_for(band, tlat, tlat_t, uniform_rows)
+    bf16 = filt.dtype == torch.bfloat16
+    with torch.cuda.device(dev):
+        err = _lib().pmg_smoother_push_scan(
+            filt.data_ptr(), tlat.data_ptr(), tlat_t.data_ptr(),
+            band.mats.data_ptr(), band.start.data_ptr(), tdyn.data_ptr(),
+            init.data_ptr(), smooth.data_ptr(), rout.data_ptr(), T, n_dyn,
+            L, band.W, _mask(uniform_rows), int(bf16), _stream_ptr(dev),
+        )
+    smoother_push_scan.launches += 1
+    _count_mode(smoother_push_scan, "bf16" if bf16 else "f32")
+    _raise_on(err, "smoother_push_scan")
+    return smooth, rout
+
+
+smoother_push_scan.launches = 0
+#: launches by the store read: "f32" ('filter') or "bf16" ('filter_bf16')
+smoother_push_scan.launches_by_mode = {}
+
+
+def smoother_push_chunk(filt_xs, tlat, tdyn, smooth_init, uniform_rows=None,
+                        band=None):
+    """Backward smoother over (T', n_dyn, L) stored filter posteriors
+    (float32 or bfloat16), each +1-shifted prior recomputed from its row
+    (``smoother_push_scan``).  Returns (smooth, ratios) (T', n_dyn, L)."""
+    if uniform_rows is None:
+        uniform_rows = _detect_uniform_rows(tlat)
+    tlat = tlat.contiguous()
+    return smoother_push_scan(
+        filt_xs.contiguous(), tlat, tlat.transpose(-1, -2).contiguous(),
+        tdyn.contiguous(), smooth_init.contiguous(), uniform_rows, band,
     )

@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
+import time
 
 import numpy as np
 import torch
@@ -41,7 +42,7 @@ from poor_man_gplvm_tpu_torch.ops.emissions import MASK_NEG
 __all__ = [
     "SCAN_CASES", "SCAN_TOLERANCES", "PSCAN_TOLERANCES",
     "PSCAN_TOLERANCES_BF16X3", "PSCAN_TOLERANCES_BF16", "pscan_tolerances",
-    "scan_case",
+    "scan_case", "smoother_push_vs", "memory_mode_peaks",
     "kernel_vs_plain", "batch_vs_single", "BATCH_LENGTHS", "pscan_inputs",
     "BATCH_FULL_TOLERANCES", "batch_full_vs_plain", "batch_full_vs_single",
     "pscan_vs_plain", "bwd_guess",
@@ -789,6 +790,77 @@ def band_vs_dense(case, device, scan_prec="highest"):
     return {"band_equal_dense": all(equal.values()), "equal_by_mode": equal,
             "finite": finite, "masked_exact_zero": zeros, "W": band.W,
             "W_dense": dense.W}
+
+
+def smoother_push_vs(case, device, filt_dtype=torch.float32):
+    """K2 with the prior recomputed (``sk.smoother_push_scan``) on the
+    filter posteriors that K1 gives for ``case`` on ``device``, stored in
+    ``filt_dtype`` (float32: 'filter'; bfloat16: 'filter_bf16'): against
+    its plain version on the same inputs (``SCAN_TOLERANCES``' smooth_abs
+    and r_rel), against K2 on the priors K1 wrote (``equal_k2``: bit for
+    bit, f32 only), and on the band against the same kernel forced dense
+    (``band_equal_dense``: bit for bit).  Also whether every output is
+    finite and the masked bins exact zeros."""
+    t = {k: torch.as_tensor(v, device=device) for k, v in case.items()
+         if k != "masked"}
+    flags = sk._detect_uniform_rows(t["tlat"])
+    m = t["ll"].amax(dim=1)
+    w = torch.exp(t["ll"] - m[:, None]).contiguous()
+    post, prior, _ = sk.filter_scan(w, t["tlat"], t["tdyn"], t["p_init"],
+                                    flags)
+    filt = post[:-1].to(filt_dtype).contiguous()
+    init = post[-1].contiguous()
+    tlat, tdyn = t["tlat"], t["tdyn"]
+    tlat_t = tlat.transpose(-1, -2).contiguous()
+    args = (filt, tlat, tlat_t, tdyn, init, flags)
+    sm_p, r_p = sk.smoother_push_scan_plain(*args)
+    band = bd.transition_band(tlat, tlat_t, flags)
+    bd.set_band_override(True)
+    try:
+        dense = bd.transition_band(tlat, tlat_t, flags)
+    finally:
+        bd.set_band_override(False)
+    sm_k, r_k = sk.smoother_push_scan(*args, band=band)
+    sm_d, r_d = sk.smoother_push_scan(*args, band=dense)
+    nxt = torch.cat([sm_p[1:], init[None]])
+    masked = torch.as_tensor(case["masked"], device=device)
+    out = {
+        "smooth_abs": float((sm_k - sm_p).abs().max()),
+        "r_rel": _max_rel(r_k, r_p, (prior[1:] > 1e-30) & (nxt > 1e-30)),
+        "band_equal_dense": _all_equal([sm_k, r_k], [sm_d, r_d]),
+        "finite": bool(torch.isfinite(sm_k).all() and torch.isfinite(r_k).all()),
+        "masked_exact_zero": bool((sm_k[..., masked] == 0).all()),
+    }
+    if filt_dtype == torch.float32:
+        sm_2, r_2 = sk.smoother_scan(post[:-1].contiguous(),
+                                     prior[1:].contiguous(), tlat_t, tdyn,
+                                     init, flags, band=band)
+        out["equal_k2"] = _all_equal([sm_k, r_k], [sm_2, r_2])
+    return out
+
+
+def memory_mode_peaks(run, modes):
+    """``run(mode)`` for each memory mode in turn on the sequential kernels
+    K1/K2 (the parallel engine's upgrade off) on the current CUDA card:
+    the peak allocation above what was live before each call, the call's
+    seconds and its result.  Returns {mode: (peak_bytes, seconds, out)};
+    each result stays live, so later peaks are measured above it."""
+    saved = hmm._PARALLEL_UPGRADE_MIN_T
+    hmm._PARALLEL_UPGRADE_MIN_T = float("inf")
+    res = {}
+    try:
+        for mode in modes:
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            out = run(mode)
+            torch.cuda.synchronize()
+            res[mode] = (torch.cuda.max_memory_allocated() - base,
+                         time.perf_counter() - t0, out)
+    finally:
+        hmm._PARALLEL_UPGRADE_MIN_T = saved
+    return res
 
 
 def subnormal_prior_smoothers(device):

@@ -8,7 +8,10 @@ for bit; K1/K2 with one transition configuration per sequence (bands of
 mixed widths padded to the widest) and the norm-only K1 against their
 plain versions and, bit for bit, against the unbatched kernels under each
 configuration alone; K3/K4 with a validity bound n_valid other than T
-(the time shards of ``parallel/spmd.py``), with a failing control.  Also
+(the time shards of ``parallel/spmd.py``), with a failing control; K2
+with the prior recomputed (the 'filter' memory modes) against its plain
+version, against K2 on K1's priors and band against dense, and the
+'checkpoint' mode's peak memory against full mode's.  Also
 the card's side of the ingestion layer: the naive-Bayes baseline decoders
 on the card against their CPU float64 run, and the native spike binner
 built in the card machine's environment against the numpy binner.
@@ -40,12 +43,14 @@ from poor_man_gplvm_tpu_torch.testing import (  # noqa: E402
     config_batch_vs_single,
     joint_acc_vs_plain,
     kernel_vs_plain,
+    memory_mode_peaks,
     pscan_failures,
     pscan_inputs,
     pscan_nvalid_failures,
     pscan_nvalid_vs_plain,
     pscan_vs_plain,
     scan_case,
+    smoother_push_vs,
     subnormal_prior_smoothers,
 )
 
@@ -617,3 +622,73 @@ def test_native_binner_builds_in_the_card_environment(cuda):
     got = pdata.compute_spike_counts(st, clu, 0.05, 0.01, use_native=True)
     want = pdata.compute_spike_counts(st, clu, 0.05, 0.01, use_native=False)
     assert all(np.array_equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.parametrize("filt_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", SCAN_CASES)
+@pytest.mark.parametrize("n_dyn", [1, 2])
+@pytest.mark.parametrize("L", [100, 500])
+def test_smoother_push_matches_plain_and_k2(cuda, L, n_dyn, case,
+                                            filt_dtype):
+    """K2 with the prior recomputed, at an odd T (1,001 rows of K1, 1,000
+    smoothed), with masked bins in the 'masked' case: within the K2
+    tolerances of its plain version, bit for bit K2 on the priors K1
+    wrote (f32 store), and on the band bit for bit forced dense."""
+    err = smoother_push_vs(scan_case(L + n_dyn + 7, 1001, L, n_dyn, case),
+                           cuda, getattr(torch, filt_dtype))
+    torch.cuda.synchronize()
+    for key in ("smooth_abs", "r_rel"):
+        assert err[key] <= SCAN_TOLERANCES[key], (key, err)
+    assert err["band_equal_dense"], err
+    assert err["finite"] and err["masked_exact_zero"], err
+    if filt_dtype == "float32":
+        assert err["equal_k2"], err
+
+
+def test_smoother_push_launch_counts(cuda):
+    case = scan_case(1, 33, 40, 2, "jump")
+    t = {k: torch.as_tensor(v, device=cuda) for k, v in case.items()
+         if k != "masked"}
+    flags = sk._detect_uniform_rows(t["tlat"])
+    filt = torch.softmax(t["ll"], dim=1)[:, None].expand(33, 2, 40) / 2
+    tlat_t = t["tlat"].transpose(-1, -2).contiguous()
+    sk.smoother_push_scan.launches = 0
+    sk.smoother_push_scan.launches_by_mode = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        sk.smoother_push_scan(filt.to(dtype).contiguous(), t["tlat"],
+                              tlat_t, t["tdyn"], t["p_init"], flags)
+    sk.smoother_push_scan(filt[:0].contiguous(), t["tlat"], tlat_t,
+                          t["tdyn"], t["p_init"], flags)  # nothing to do
+    assert sk.smoother_push_scan.launches == 2
+    assert sk.smoother_push_scan.launches_by_mode == {"f32": 1, "bf16": 1}
+    with pytest.raises(TypeError):
+        sk.smoother_push_scan(filt.half().contiguous(), t["tlat"], tlat_t,
+                              t["tdyn"], t["p_init"], flags)
+
+
+def test_checkpoint_peak_memory_below_full(cuda):
+    """At T = 2e5, N = L = 500 in 8 chunks on the sequential engine,
+    'checkpoint''s peak allocation stays below full mode's by at least the
+    two (T, n_dyn, L) f32 arrays it does not keep (the filter posteriors
+    and priors), and its posteriors are full mode's bits."""
+    from poor_man_gplvm_tpu_torch import PoissonGPLVMJump1D
+
+    T, NL, chunk = 200_000, 500, 25_000
+    m = PoissonGPLVMJump1D(NL, n_latent_bin=NL, movement_variance=1,
+                           tuning_lengthscale=10.0, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    y = torch.poisson(m.tuning[torch.randint(0, NL, (T,), device=cuda,
+                                             generator=g)] * 0.1,
+                      generator=g)
+    trans = m._make_transition({})[0]
+    res = memory_mode_peaks(
+        lambda mode: hmm.smooth_combined_chunked(
+            y, m.tuning, {}, trans, m.ma_neuron_default, None,
+            n_time_per_chunk=chunk, engine="cuda", memory_mode=mode),
+        ("full", "checkpoint"))
+    peaks = {mode: r[0] for mode, r in res.items()}
+    outs = {mode: r[2] for mode, r in res.items()}
+    dropped = 2 * T * 2 * NL * 4
+    assert peaks["full"] - peaks["checkpoint"] >= dropped, peaks
+    assert torch.equal(outs["full"][0], outs["checkpoint"][0])
+    assert float(outs["full"][1]) == float(outs["checkpoint"][1])
