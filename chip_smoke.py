@@ -75,10 +75,24 @@ Phases, each of which checks its results (any failure exits non-zero):
    ``smooth_combined_chunked(marginal_smooth=True)`` at T=100,000, with
    and without the pairwise joint, held against the full mode in each
    scan precision.
+10. precision: the lower levels of ``config.set_matmul_precision``
+    ('high', bf16x3; 'default', bf16) on ``bf16_gemm``: (a) the kernel
+    against its plain version at both levels on the north-star emission
+    (1e6, 500) @ (500, 500), one statistics chunk post.T (500, 2e5) @ y
+    read in place and the sweep's batched statistics (64 runs of 1e4
+    rows), timed beside its bound, the f32 product and the library's bf16
+    product; (b) against a float64 product ('high' close, 'default'
+    measurably reduced) and a one-pass control that gate (a) must fail;
+    (c) rows and a batch entry alone, bit for bit; (d) ``decode_latent``
+    at T=100,000, N = L = 500 at each level (the CUDA engines
+    bit-identical, the log marginal near 'highest', 'checkpoint' equal to
+    'full' at 'high'); (e) the north-star lean fit at each level,
+    s/EM-iter; (f) a Gaussian jump decode at each level against
+    'highest'; (g) back at 'highest', the first decode's bits;
 
-10. families: the other three model classes through their entry points
+11. families: the other three model classes through their entry points
     (``phase_families``);
-11. session: one sampled ``PoissonGPLVMJump1D`` recording at N = L = 500
+12. session: one sampled ``PoissonGPLVMJump1D`` recording at N = L = 500
     in a ``TsdFrame``: ``decode_latent`` on it at T=100,000 (the wrapped
     keys against the unwrapped decode, bit for bit, and timed with and
     without bin times), naive Bayes with ``t_l``, ``_decode_latent`` from
@@ -92,7 +106,7 @@ Phases, each of which checks its results (any failure exits non-zero):
     ``decode_latent`` of each alone, the first batch's K1/K2 against their
     plain versions at T=10,000 on its first 2 shuffles) and the
     naive-Bayes null (100 shuffles);
-12. selection: on a sampled recording at N = L = 500, ``bench.py``'s sweep
+13. selection: on a sampled recording at N = L = 500, ``bench.py``'s sweep
     fan-out (``sweep_fit_poisson_jump``, 64 runs of T=10,000: one K1 and
     one K2 launch per EM iteration, each run under its own transition,
     every run's E-step rows bit for bit against the unbatched kernels under
@@ -103,7 +117,7 @@ Phases, each of which checks its results (any failure exits non-zero):
     batched selection (1,600 masked filters through the norm-only K1),
     the gain model (its decode at T=100,000 bit for bit between the two
     CUDA engines, 3 EM iterations) and the L-BFGS M-step;
-13. compat (last): the drop-in surface and the reactivation workflow on
+14. compat (last): the drop-in surface and the reactivation workflow on
     the session's recording (N = L = 500): the functional decoder
     (``decoder.smooth_all_step_combined_ma_chunk`` at T=100,000 through
     K3/K4, bit for bit against ``hmm.smooth_combined_chunked`` on the same
@@ -120,7 +134,7 @@ Phases, each of which checks its results (any failure exits non-zero):
     its full length), the naive-Bayes null, and ``decode_ripple_epochs``
     on the epochs phase's 1,000 ragged epochs, equal to
     ``decode_latent_epochs``;
-14. mesh (last): ``parallel.spmd`` on meshes of cuda:0 repeated, at
+15. mesh (last): ``parallel.spmd`` on meshes of cuda:0 repeated, at
     N = L = 500: K3/K4 with a time shard's validity bound n_valid (0, 1,
     T - 3, T, T + 1) against their plain versions on the band and forced
     dense, with a failing control, and timed at a shard's bounds; the
@@ -133,11 +147,11 @@ Phases, each of which checks its results (any failure exits non-zero):
     EM step on 2 chains at T = 2e4 against each chain's unsharded
     iteration.
 
-15. pipeline: ``scripts/pipeline_session.py`` on a seeded two-probe
+16. pipeline: ``scripts/pipeline_session.py`` on a seeded two-probe
     Kilosort session through the port's loaders, the native binner, the
     filters and sort, a fit and decode, the bursts' epoch decode and the
     naive-Bayes baselines (``phase_pipeline``);
-16. workflows (last): the post-fit layer at full width: the T-maze
+17. workflows (last): the post-fit layer at full width: the T-maze
     workflow (``workflows.tmaze_dataset``) on a fit and decode of a 30 min
     session (N = 500, L = 100, T = 72,000, 40 trials; the decode against
     the sequential engine; the reward zone's latents, the arrivals, the
@@ -150,7 +164,7 @@ Phases, each of which checks its results (any failure exits non-zero):
     analyses with 100 shuffles) and the distance-vs-label analysis; every
     result computed from card tensors equal to the same function on the
     host copies, the planted effects found (``phase_workflows``);
-17. memory (last): recordings longer than the card holds
+18. memory (last): recordings longer than the card holds
     (``phase_memory``): (a) ``smooth_combined_chunked`` in 'checkpoint',
     'filter' and 'filter_bf16' against 'full' at T=200,000, N = L = 500 in
     4 chunks on K1/K2 (bit for bit; bf16 within its rounding), each
@@ -166,7 +180,7 @@ Phases, each of which checks its results (any failure exits non-zero):
     lean config with the warning, equal to an unforced decode under it;
     a second out-of-memory error raises with the guidance.
 
-Each main path (phases 5 with the epochs, 7-17) runs
+Each main path (phases 5 with the epochs, 7-18) runs
 with the kernels' launch counts, by mode and precision, set to 0 just
 before it and read just after; comparison runs are not counted.  The
 line before the last is a JSON summary of the kernels; the last line is
@@ -387,6 +401,19 @@ MEM_FIT_ITERS = 2
 MEM_FIT_MAXITER = 20  # Adam capped, as the other capped phases
 MEM_SEED = 41
 MEM_BF16_BOUND = 2.0 ** -8  # bf16's rounding of a probability in [0, 1]
+PREC_LEVELS = ("high", "default")  # the lower levels of set_matmul_precision
+PREC_T_STATS = 200_000  # one statistics chunk (get_statistics' chunk)
+PREC_SWEEP = (64, 10_000)  # the sweep's batched statistics: runs, rows
+PREC_ROWS = slice(1000, 1500)  # rows of the emission called alone
+PREC_ENTRY = 7  # the batch entry called alone
+PREC_F64_ROWS = 4096  # the emission slice held against a float64 product
+PREC_HIGH_F64 = 5e-6  # 'high' within this of the float64 product
+PREC_DEFAULT_F64 = 1e-4  # 'default' farther than this somewhere
+PREC_DECODE_RTOL = {"high": 1e-5, "default": 1e-4}  # log marginal vs highest
+PREC_CKPT_CHUNK = 25_000  # the checkpoint-vs-full decode: 4 chunks
+PREC_NS_ITERS = 5  # the north-star lean fit at each level
+PREC_NS_RTOL = 1e-5  # 'high' log_marginal_l vs 'highest'
+PREC_GAUSS_T = 100_000  # the Gaussian decode at each level
 # the card's peaks (NVIDIA's data sheet, H100 SXM, 700 W): device memory
 # rate, float32 outside the tensor cores, dense bf16 and TF32 in the tensor
 # cores
@@ -423,6 +450,13 @@ KERNELS = {
                                   "marginal_acc")))
        for mode in modes},
     "joint_acc": ("joint_acc", "acc/highest", PS_SRC, f"{JPS}:600"),
+    # the emission and M-step products at the lower matmul precisions: on
+    # the TPU XLA's product (poor_man_gplvm_tpu/ops/emissions.py:103-104,
+    # :111-112, :148-149, ops/mstep.py:57, ...), not a Pallas kernel
+    **{f"bf16_gemm[{lvl}]": (
+        "bf16_gemm", lvl, "poor_man_gplvm_tpu_torch/csrc/bf16_gemm.cu",
+        "poor_man_gplvm_tpu/ops/emissions.py:103")
+       for lvl in ("high", "default")},
     # K1/K2 with a transition configuration per sequence, and K1 without
     # its row stores (the selection phase)
     "filter_scan_batch[cfg]": (
@@ -511,6 +545,7 @@ def wall_s(fn):
 
 def _wrappers():
     from poor_man_gplvm_tpu_torch.ops import parallel_scan as ps
+    from poor_man_gplvm_tpu_torch.ops import precision
     from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk
 
     return {"filter_scan": sk.filter_scan, "smoother_scan": sk.smoother_scan,
@@ -518,7 +553,7 @@ def _wrappers():
             "smoother_scan_batch": sk.smoother_scan_batch,
             "smoother_push_scan": sk.smoother_push_scan,
             "pfilter_pass": ps.pfilter_pass, "psmooth_pass": ps.psmooth_pass,
-            "joint_acc": ps.joint_acc}
+            "joint_acc": ps.joint_acc, "bf16_gemm": precision.bf16_gemm}
 
 
 @contextlib.contextmanager
@@ -603,6 +638,18 @@ def scan_precision(mode):
         yield
     finally:
         ps.set_scan_precision("highest")
+
+
+@contextlib.contextmanager
+def matmul_precision(level):
+    """Run with the emission and M-step products at ``level``."""
+    from poor_man_gplvm_tpu_torch import config
+
+    config.set_matmul_precision(level)
+    try:
+        yield
+    finally:
+        config.set_matmul_precision("highest")
 
 
 @contextlib.contextmanager
@@ -1958,6 +2005,281 @@ def counted_into(*targets):
     for target in targets:
         for k, v in got.items():
             target[k] = target.get(k, 0) + v
+
+
+def _gemm_bound(a, b, passes):
+    """(ms, by) of one product a @ b: its operands read once and its f32
+    output written once, against ``passes`` bf16 products on the tensor
+    cores (the f32 product of 'highest': one product at the f32 rate)."""
+    B = a.shape[0] if a.ndim == 3 else 1
+    M, K = a.shape[-2:]
+    N = b.shape[-1]
+    nbytes = 4.0 * (B * M * K + b.numel() + B * M * N)
+    rate = F32_FLOP_PER_S if passes == 0 else BF16_FLOP_PER_S
+    return bound(nbytes, max(passes, 1) * 2.0 * B * M * N * K / rate)
+
+
+def _prec_products():
+    """The three products of the main path at full size: the north-star
+    emission y (1e6, 500) @ (log lam).T (a transposed view), one
+    statistics chunk post.T (500, 2e5) (read in place) @ y, and the sweep's
+    batched statistics (64 runs of 1e4 rows)."""
+    from poor_man_gplvm_tpu_torch import PoissonGPLVMJump1D
+    from poor_man_gplvm_tpu_torch.testing import bf16_gemm_case
+
+    m = PoissonGPLVMJump1D(NS_N, n_latent_bin=NS_L, movement_variance=1,
+                           tuning_lengthscale=10.0, device="cuda")
+    yield "emission", (_ns_spikes(), torch.log(m.tuning + 1e-20).T)
+    yield "statistics", bf16_gemm_case("statistics", PREC_T_STATS, NS_N,
+                                       NS_L, "cuda", 1501)
+    yield "batched", bf16_gemm_case("batched", PREC_SWEEP[1], NS_N, NS_L,
+                                    "cuda", 1502, batch=PREC_SWEEP[0])
+
+
+def _prec_kernel(rows):
+    """(a)-(c): ``bf16_gemm`` at each level against its plain version on
+    the main path's products, timed beside the plain version, its bound,
+    the f32 product and the library's bf16 product; the failing controls
+    against a float64 product; rows and a batch entry alone, bit for
+    bit."""
+    from poor_man_gplvm_tpu_torch.ops import precision
+    from poor_man_gplvm_tpu_torch.testing import (bf16_gemm_rows_alone,
+                                                  bf16_gemm_rtol)
+
+    for kind, (a, b) in _prec_products():
+        sfx = "" if kind == "emission" else f"_{kind}"
+        K = a.shape[-1]
+        scale = float(torch.matmul(a.abs(), b.abs()).max())
+        f32_ms = cuda_ms(lambda: torch.matmul(a, b), 3)
+        try:
+            ab, bb = a.bfloat16(), b.bfloat16()
+            lib_ms = cuda_ms(lambda: torch.mm(ab, bb, out_dtype=torch.float32),
+                             3) if a.ndim == 2 else None
+            del ab, bb
+        except (TypeError, RuntimeError) as exc:  # no out_dtype
+            lib_ms = None
+            log(f"precision (a) {kind}: torch.mm(out_dtype=float32) not "
+                f"available ({exc!r:.120})")
+        f32_bound = _gemm_bound(a, b, 0)
+        for lvl in PREC_LEVELS:
+            passes = precision.PASSES[lvl]
+            want, plain_ms = timed_once(lambda: precision.matmul_plain(
+                a, b, lvl))
+            got = precision._gemm_run(a, b, passes)
+            diff = float((got - want).abs().max())
+            err = diff / scale
+            ms = cuda_ms(lambda: precision._gemm_run(a, b, passes), 3)
+            b_ms, b_by = _gemm_bound(a, b, passes)
+            alone = (bf16_gemm_rows_alone(a, b, lvl, entry=PREC_ENTRY)
+                     if a.ndim == 3 else
+                     bf16_gemm_rows_alone(a, b, lvl, rows=PREC_ROWS))
+            log(f"precision (a) bf16_gemm[{lvl}] {kind} {tuple(a.shape)} @ "
+                f"{tuple(b.shape)}: {ms:.3f} ms (plain {plain_ms:.3f}, bound "
+                f"{b_ms:.4f} by {b_by}; f32 torch.matmul {f32_ms:.3f}, bound "
+                f"{f32_bound[0]:.4f}; library bf16 with f32 output "
+                f"{lib_ms if lib_ms is None else round(lib_ms, 3)}); vs plain "
+                f"max |diff| {diff:.3e} = {err:.2e} of max |a|@|b| (limit "
+                f"{bf16_gemm_rtol(K):.0e}); (c) "
+                + ("entry %d alone" % PREC_ENTRY if a.ndim == 3 else
+                   "rows [%d, %d) alone" % (PREC_ROWS.start, PREC_ROWS.stop))
+                + f" bit-equal {alone} ({card_line()})")
+            check(err <= bf16_gemm_rtol(K), (lvl, kind, err))
+            check(alone, (lvl, kind, "not row independent"))
+            row = rows.setdefault(f"bf16_gemm[{lvl}]", {})
+            row.update({
+                f"max_abs_err{sfx}": diff, f"rel_err{sfx}": err,
+                f"ms{sfx}": ms, f"plain_ms{sfx}": plain_ms,
+                f"bound_ms{sfx}": b_ms, f"bound_by{sfx}": b_by,
+                f"library_ms{sfx}": lib_ms if lvl == "default" else f32_ms,
+                f"f32_matmul_ms{sfx}": f32_ms,
+                f"f32_matmul_bound_ms{sfx}": f32_bound[0]})
+            if kind == "emission":
+                _prec_controls(a, b, lvl, got, want, scale)
+            del want, got
+        del a, b
+        torch.cuda.empty_cache()
+
+
+def _prec_controls(a, b, lvl, got, want, scale):
+    """(b): the level against a float64 product on the first
+    PREC_F64_ROWS rows ('high' within PREC_HIGH_F64, 'default' farther
+    than PREC_DEFAULT_F64 somewhere); at 'high' the kernel run with one
+    pass where three were asked must fail gate (a)."""
+    from poor_man_gplvm_tpu_torch.ops import precision
+    from poor_man_gplvm_tpu_torch.testing import bf16_gemm_rtol
+
+    r = PREC_F64_ROWS
+    ref = a[:r].double() @ b.double()
+    sc = float(torch.matmul(a[:r].abs(), b.abs()).max())
+    f64_err = float((got[:r].double() - ref).abs().max()) / sc
+    ok = (f64_err <= PREC_HIGH_F64 if lvl == "high"
+          else f64_err > PREC_DEFAULT_F64)
+    log(f"precision (b) bf16_gemm[{lvl}] emission rows [0, {r}) vs float64: "
+        f"{f64_err:.2e} of max |a|@|b| (" + (
+            f"limit {PREC_HIGH_F64:.0e})" if lvl == "high" else
+            f"must exceed {PREC_DEFAULT_F64:.0e}: the level is reduced)"))
+    check(ok, (lvl, "float64 control", f64_err))
+    if lvl == "high":
+        one = precision._gemm_run(a, b, 1)
+        bad = float((one - want).abs().max()) / scale
+        log(f"precision (b) control: one bf16 pass where 'high' was asked, "
+            f"vs the plain 'high' product {bad:.2e} (must exceed "
+            f"{bf16_gemm_rtol(a.shape[-1]):.0e})")
+        check(bad > bf16_gemm_rtol(a.shape[-1]), ("one-pass control", bad))
+        del one
+
+
+def _prec_decode(launches):
+    """(d) decode_latent at T = T_LONG, N = L = 500 at each level: the
+    engines 'cuda' (K1/K2) and 'cuda_parallel' (K3/K4) bit-identical, the
+    log marginal within PREC_DECODE_RTOL of 'highest', 'checkpoint'
+    bit-equal to 'full' at 'high'; (g) back at 'highest', the first
+    decode's bits.  Returns the decode ms per level."""
+    from poor_man_gplvm_tpu_torch.ops import hmm
+
+    N = L = SLICE_SHAPES[1][0]
+    m, params, y = _decode_setup(N, L, T_LONG)
+    m_seq, m_par = _model(N, L, "cuda", params), _model(N, L,
+                                                        "cuda_parallel",
+                                                        params)
+    trans, _ = m_seq._make_transition({})
+    args = (y, m_seq.tuning, {}, trans.logTlat, trans.logTdyn,
+            m_seq.ma_neuron_default)
+    first, lmf, times = None, {}, {}
+    for lvl in ("highest",) + PREC_LEVELS:
+        with matmul_precision(lvl):
+            with counted(launches):
+                res = m.decode_latent(y)
+            _check_decode(res, T_LONG, L)
+            times[lvl] = cuda_ms(lambda: m.decode_latent(y)["posterior_all"],
+                                 3)
+            with sequential_engine():
+                seq = m_seq._decode_latent(*args, n_time_per_chunk=T_LONG)
+            par = m_par._decode_latent(*args, n_time_per_chunk=T_LONG)
+            same = torch.equal(seq[0], par[0]) and float(seq[1]) == float(
+                par[1])
+            del seq, par
+        lmf[lvl] = float(res["log_marginal_final"])
+        if first is None:
+            first = res
+        rel = abs(lmf[lvl] - lmf["highest"]) / abs(lmf["highest"])
+        err = float((res["posterior_all"] - first["posterior_all"]).abs()
+                    .max())
+        log(f"precision (d) decode T={T_LONG} N=L={L} at '{lvl}': "
+            f"{times[lvl]:.1f} ms/call; 'cuda' and 'cuda_parallel' "
+            f"bit-identical {same}; log_marginal_final {lmf[lvl]!r}, rel to "
+            f"'highest' {rel:.2e}, max |post - highest| {err:.2e}; launches "
+            f"so far {launches} ({card_line()})")
+        check(same, (lvl, "the CUDA engines differ"))
+        if lvl != "highest":
+            check(rel <= PREC_DECODE_RTOL[lvl], (lvl, rel))
+            check(err > 0.0, (lvl, "the level changed nothing"))
+        del res
+    trans_j = m._make_transition({})[0]
+    with matmul_precision("high"), sequential_engine():
+        out = {mode: hmm.smooth_combined_chunked(
+            y, m.tuning, {}, trans_j, m.ma_neuron_default, None,
+            n_time_per_chunk=PREC_CKPT_CHUNK, engine="cuda",
+            memory_mode=mode) for mode in ("full", "checkpoint")}
+    same = (torch.equal(out["full"][0], out["checkpoint"][0])
+            and float(out["full"][1]) == float(out["checkpoint"][1])
+            and torch.equal(out["full"][3], out["checkpoint"][3]))
+    log(f"precision (d) 'checkpoint' vs 'full' at 'high', T={T_LONG} in "
+        f"chunks of {PREC_CKPT_CHUNK} on K1/K2: posteriors, log marginal and "
+        f"ratios bit-equal {same}")
+    check(same, "'checkpoint' differs from 'full' at 'high'")
+    del out
+    with counted(launches):
+        again = m.decode_latent(y)
+    same = all(torch.equal(v, again[k]) if torch.is_tensor(v)
+               else v == again[k] for k, v in first.items())
+    log(f"precision (g) back at 'highest': the first decode's bits {same}")
+    check(same, "'highest' after the lower levels differs from before")
+    return times
+
+
+def _prec_northstar(launches):
+    """(e) The north-star lean fit at each level, PREC_NS_ITERS
+    iterations: s/EM-iter; 'high' log_marginal_l within PREC_NS_RTOL of
+    'highest', 'default' measured."""
+    from poor_man_gplvm_tpu_torch import PoissonGPLVMJump1D
+
+    y = _ns_spikes()
+    kw = dict(output_mode="lean", save_every=10**9, verboase=False,
+              n_iter=PREC_NS_ITERS)
+    lml, secs = {}, {}
+    for lvl in ("highest",) + PREC_LEVELS:
+        m = PoissonGPLVMJump1D(NS_N, n_latent_bin=NS_L, movement_variance=1,
+                               tuning_lengthscale=10.0, device="cuda")
+        before = dict(launches)
+        with matmul_precision(lvl), counted(launches):
+            sec, em = wall_s(lambda: m.fit_em(y, **kw))
+        n_gemm = launches.get(f"bf16_gemm[{lvl}]", 0) - before.get(
+            f"bf16_gemm[{lvl}]", 0)
+        lml[lvl] = np.array([float(v) for v in em["log_marginal_l"]])
+        secs[lvl] = sec / PREC_NS_ITERS
+        check(np.all(np.isfinite(lml[lvl])), (lvl, lml[lvl]))
+        rel = np.abs(lml[lvl] - lml["highest"]) / np.abs(lml["highest"])
+        log(f"precision (e) north-star lean fit T={NS_T} L=N={NS_L} at "
+            f"'{lvl}': {secs[lvl]:.3f} s/EM-iter over {PREC_NS_ITERS} "
+            f"iterations ('highest' {secs['highest']:.3f}); Adam iterations "
+            f"{em['m_step_res_l']['n_iter']}; bf16_gemm launches {n_gemm}; "
+            f"log_marginal_l {lml[lvl].tolist()}, rel to 'highest' "
+            f"{rel.tolist()} ({card_line()})")
+        check(lvl == "highest" or n_gemm > 0, (lvl, "no bf16_gemm launch"))
+        if lvl == "high":
+            check(float(rel.max()) <= PREC_NS_RTOL, ("north-star high", rel))
+        del em
+    return secs
+
+
+def _prec_gaussian(launches):
+    """(f) A GaussianGPLVMJump1D decode at T = PREC_GAUSS_T, N = L = 500
+    at each level against 'highest', recorded (the expansion cancels, so
+    one bf16 pass loses most of it, as on the TPU)."""
+    m = _family_model("GaussianGPLVMJump1D", 500, 500, "auto", seed=1503)
+    y, _ = _family_data(m, PREC_GAUSS_T, 1504)
+    ref = None
+    for lvl in ("highest",) + PREC_LEVELS:
+        with matmul_precision(lvl), counted(launches):
+            res = m.decode_latent(y)
+        check(all(bool(torch.isfinite(v).all()) for v in res.values()
+                  if torch.is_tensor(v)), (lvl, "non-finite Gaussian decode"))
+        if ref is None:
+            ref = res
+            continue
+        rel = abs(float(res["log_marginal_final"])
+                  - float(ref["log_marginal_final"])) / abs(
+                      float(ref["log_marginal_final"]))
+        err = float((res["posterior_latent_marg"]
+                     - ref["posterior_latent_marg"]).abs().max())
+        log(f"precision (f) Gaussian jump decode T={PREC_GAUSS_T} N=L=500 at "
+            f"'{lvl}' vs 'highest': log_marginal_final rel {rel:.3e}, max "
+            f"|latent marginal - highest| {err:.3e}")
+        del res
+    del y, ref
+
+
+def phase_precision(launches):
+    """The lower levels of ``set_matmul_precision`` on the card: (a)-(c)
+    ``bf16_gemm`` against its plain version on the main path's products,
+    with its controls and row independence; (d) and (g) the decode at each
+    level; (e) the north-star lean fit at each level; (f) a Gaussian
+    decode.  Returns the kernels line's rows of ``bf16_gemm``."""
+    t0 = time.perf_counter()
+    rows = {}
+    _prec_kernel(rows)
+    dec_ms = _prec_decode(launches)
+    ns = _prec_northstar(launches)
+    _prec_gaussian(launches)
+    for lvl in PREC_LEVELS:
+        rows[f"bf16_gemm[{lvl}]"].update({
+            f"decode_ms_T{T_LONG}": dec_ms[lvl],
+            f"decode_ms_T{T_LONG}_highest": dec_ms["highest"],
+            "northstar_s_per_em_iter": ns[lvl],
+            "northstar_s_per_em_iter_highest": ns["highest"]})
+    log(f"precision phase {time.perf_counter() - t0:.1f} s ({card_line()})")
+    return rows
 
 
 def phase_families(launches):
@@ -4995,6 +5317,7 @@ def main():
     timed("long decode", phase_long_decode, launches)
     timed("fit", phase_fit, launches)
     timed("north-star", phase_northstar, launches)
+    precision_rows = timed("precision", phase_precision, launches)
     ndyn1, ndyn1_rows = timed("families", phase_families, launches)
     session_rows = timed("session", phase_session, launches)
     selection_rows = timed("selection", phase_selection, launches)
@@ -5014,6 +5337,20 @@ def main():
         if _path_launches(workflow_launches, name):
             entry["launches_workflows"] = _path_launches(workflow_launches,
                                                          name)
+        if name in precision_rows:
+            entry.update(precision_rows[name])
+            entry["note"] = ("XLA's product on the TPU, not a Pallas kernel; "
+                             "replaces names its first site")
+            entry["shape"] = (
+                f"the north-star emission y ({NS_T}, {NS_N}) @ (log "
+                f"lam).T ({NS_N}, {NS_L}), a transposed view; *_statistics "
+                f"one statistics chunk post.T ({NS_L}, {PREC_T_STATS}) read "
+                f"in place @ y; *_batched the sweep's statistics, "
+                f"{PREC_SWEEP[0]} runs of {PREC_SWEEP[1]} rows; "
+                "library_ms: torch.mm on bf16 copies with f32 output "
+                "('default'), the f32 torch.matmul of 'highest' ('high')")
+            kernels.append(entry)
+            continue
         if name in memory_rows:
             entry.update(memory_rows[name])
             entry["shape"] = (

@@ -1,50 +1,54 @@
 """Runtime configuration knobs (counterpart of
 ``poor_man_gplvm_tpu/config.py``).
 
-``set_scan_precision`` sets the recursion dots of the parallel-in-time
-kernels K3/K4 (K5: ``'highest'``, ``'bf16x3'``, ``'bf16'``), as the JAX
-knob does.  The matmul-precision knob of the JAX package picks the XLA
-precision of the emission and M-step products; the port keeps every such
-product in full f32 with TF32 off, the one setting its parity tolerances
-and the Gaussian emissions' cancellation allow, so ``'highest'`` (and its
-alias ``'float32'``) is the only level it takes and the lower levels
-raise ``ValueError``.
+``set_matmul_precision`` sets the precision of the emission and M-step
+products (``ops/precision.py``, the one place the level lives), with the
+JAX package's six names; ``set_scan_precision`` sets the recursion dots of
+the parallel-in-time kernels K3/K4 (K5: ``'highest'``, ``'bf16x3'``,
+``'bf16'``), as the JAX knob does.  Both are module state: set them back
+to ``'highest'`` after a run.
 """
 
 from __future__ import annotations
+
+from poor_man_gplvm_tpu_torch.ops import precision
 
 __all__ = [
     "set_matmul_precision", "get_matmul_precision", "set_scan_precision",
 ]
 
-#: the JAX package's level names: the port runs the first two (full f32)
-_F32_LEVELS = ("highest", "float32")
-_LOWER_LEVELS = ("high", "bfloat16_3x", "default", "bfloat16")
-
 
 def set_matmul_precision(level):
-    """Check the precision of the emission and M-step matmuls: ``'highest'``
-    or ``'float32'`` (full f32, TF32 off: what the port always runs)
-    returns ``'highest'``; the JAX package's lower levels (``'high'``,
-    ``'bfloat16_3x'``, ``'default'``, ``'bfloat16'``) raise ``ValueError``,
-    as does an unknown name."""
-    level_l = str(level).lower()
-    if level_l in _F32_LEVELS:
-        return "highest"
-    if level_l in _LOWER_LEVELS:
-        raise ValueError(
-            f"matmul precision {level!r} is not supported by the port: its "
-            "emission and M-step products run in full f32 with TF32 off "
-            "(the parity tolerances and the Gaussian emissions need it); "
-            "use 'highest'")
-    raise ValueError(f"unknown precision {level!r}; one of "
-                     f"{sorted(_F32_LEVELS + _LOWER_LEVELS)}")
+    """Set the precision of the emission and M-step products; returns the
+    canonical level (the JAX package returns its ``jax.lax.Precision``).
+
+    ==========================  =========  ================================
+    name (case-insensitive)     level      what each product computes
+    ==========================  =========  ================================
+    'highest', 'float32'        'highest'  f32, TF32 off (the default)
+    'high', 'bfloat16_3x'       'high'     bf16x3: a_hi@b_hi + a_lo@b_hi
+                                           + a_hi@b_lo, f32 sums
+    'default', 'bfloat16'       'default'  one bf16 pass, f32 sums and
+                                           output
+    ==========================  =========  ================================
+
+    On the card the lower levels run the tensor cores (``bf16_gemm``,
+    ``csrc/bf16_gemm.cu``); on the CPU their plain PyTorch version.  The
+    products the knob reaches are the JAX package's: the Poisson and
+    Gaussian emissions, the per-bin dt emissions, the statistics
+    ``post.T @ y`` (``get_statistics``, ``get_statistics_batch``), the
+    L-BFGS M-step's grouped spikes and the gain model's products.  The
+    HMM recursions, ``joint_acc``, the tuning link, the Gaussian ridge
+    solve, ``get_s_b`` and the mesh's sharded statistics stay f32 (the
+    scan dots have their own knob, ``set_scan_precision``).  An unknown
+    name raises ``ValueError``.  Takes effect at the next call."""
+    return precision.set_level(level)
 
 
 def get_matmul_precision():
-    """The precision of the emission and M-step matmuls: always
-    ``'highest'``."""
-    return "highest"
+    """The current precision of the emission and M-step products:
+    ``'highest'``, ``'high'`` or ``'default'``."""
+    return precision.get_level()
 
 
 def set_scan_precision(mode):

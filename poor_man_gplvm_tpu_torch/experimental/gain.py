@@ -23,7 +23,7 @@ import torch
 
 from poor_man_gplvm_tpu_torch.models.base import _seeded
 from poor_man_gplvm_tpu_torch.models.jump1d import PoissonGPLVMJump1D
-from poor_man_gplvm_tpu_torch.ops import emissions, hmm
+from poor_man_gplvm_tpu_torch.ops import emissions, hmm, precision
 from poor_man_gplvm_tpu_torch.ops import kernels as gpk
 from poor_man_gplvm_tpu_torch.ops import mstep as fth
 from poor_man_gplvm_tpu_torch.utils import compat
@@ -47,9 +47,10 @@ def get_statistics_gain(log_posterior_probs, y, gain):
     y = torch.as_tensor(y, dtype=torch.float32, device=dev)
     gain = torch.as_tensor(gain, dtype=torch.float32, device=dev)
     posterior_probs = torch.exp(log_posterior_probs)
-    y_weighted = posterior_probs.T @ y
+    y_weighted = precision.matmul(posterior_probs.T, y)
     t_weighted = posterior_probs.sum(dim=0)
-    gain_weighted = (posterior_probs.T @ gain) / (t_weighted + 1e-20)
+    gain_weighted = (precision.matvec(posterior_probs.T, gain)
+                     / (t_weighted + 1e-20))
     return y_weighted, t_weighted, gain_weighted
 
 
@@ -61,7 +62,8 @@ def get_gain_mstep(y, log_posterior, tuning):
     dev = log_posterior.device
     y = torch.as_tensor(y, dtype=torch.float32, device=dev)
     tuning = torch.as_tensor(tuning, dtype=torch.float32, device=dev)
-    total_expected = torch.exp(log_posterior) @ tuning.sum(dim=1)
+    total_expected = precision.matvec(torch.exp(log_posterior),
+                                      tuning.sum(dim=1))
     return y.sum(dim=1) / (total_expected + 1e-20)
 
 

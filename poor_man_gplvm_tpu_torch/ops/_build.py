@@ -17,6 +17,9 @@ Libraries:
 * ``parallel_scan``: K3/K4, the parallel-in-time filter and smoother passes
   in the three recursion-dot precisions (K5), and ``joint_acc`` (3xTF32 on
   the tensor cores);
+* ``bf16_gemm``: the emission and M-step products at the lower matmul
+  precisions ('high', 'default'), bf16 ``mma.sync`` with f32 sums
+  (``ops/precision.py``);
 * ``binning``: the ingestion layer's spike binner (``csrc/binning.cpp``),
   host code, built by the host's C++ compiler (``g++``, or ``$CXX``) in the
   same way and loaded by ``data/native.py``.
@@ -46,6 +49,7 @@ CSRC = _PKG / "csrc"
 SOURCES = {
     "scan_kernels": CSRC / "scan_kernels.cu",
     "parallel_scan": CSRC / "parallel_scan.cu",
+    "bf16_gemm": CSRC / "bf16_gemm.cu",
     "binning": CSRC / "binning.cpp",
 }
 #: the libraries built by the host's C++ compiler, not nvcc
@@ -72,6 +76,9 @@ _SIGNATURES = {
         "pmg_psmooth_pass": [_vp] * 13 + [_ci] * 10 + [_vp],
         "pmg_pscan_resident": [_ci] * 6,
         "pmg_joint_acc": [_vp] * 4 + [_ci] * 6 + [_vp],
+    },
+    "bf16_gemm": {
+        "pmg_bf16_gemm": [_vp] * 3 + [_cl] * 13 + [_ci, _vp],
     },
     "binning": {
         "bin_sliding": [_vp, _vp, _cl, ctypes.c_double, ctypes.c_double,

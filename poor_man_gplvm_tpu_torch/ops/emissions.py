@@ -13,12 +13,15 @@ one per neuron):
                - (log s + log sqrt(2 pi)) * ma[t].sum
 
 A per-time dt (T,) takes the elementwise (T, L, N) form instead (the
-naive-Bayes path with ``dt_l``).  The (T, N) @ (N, L) products are plain
+naive-Bayes path with ``dt_l``).  The (T, N) @ (N, L) products and the
+per-bin dt contractions run at the matmul precision
+``config.set_matmul_precision`` sets (``ops/precision.py``), as the JAX
+package's products run at its ``PRECISION``.  At ``'highest'`` they are
 ``torch.matmul`` in float32: on the card that needs TF32 off
-(``torch.backends.cuda.matmul.allow_tf32 = False``, the default), matching
-the JAX package's ``Precision.HIGHEST``.  The Gaussian expansion subtracts
-terms of the size of sum_n y^2 w, so TF32's 10-bit mantissa would lose the
-result entirely.
+(``torch.backends.cuda.matmul.allow_tf32 = False``, the default).  The
+Gaussian expansion subtracts terms of the size of sum_n y^2 w, so TF32's
+10-bit mantissa would lose the result entirely; one bf16 pass
+(``'default'``) loses most of it too, as it does on the TPU.
 """
 
 from __future__ import annotations
@@ -26,6 +29,8 @@ from __future__ import annotations
 import math
 
 import torch
+
+from poor_man_gplvm_tpu_torch.ops.precision import dt_contract, matmul
 
 RATE_FLOOR = 1e-20
 MASK_NEG = -1e20
@@ -88,19 +93,20 @@ def poisson_loglik(y, tuning, ma_neuron, ma_latent, dt=1.0, lgamma_term=None):
         log_lam = torch.log(lam)
         if ma.ndim == 1:
             ll = (
-                y @ (log_lam * ma[None, :]).T
+                matmul(y, (log_lam * ma[None, :]).T)
                 - (lam * ma[None, :]).sum(dim=-1)[None, :]
                 - lgamma_term[:, None]
             )
         else:
             ma = torch.broadcast_to(ma, y.shape)
-            ll = (y * ma) @ log_lam.T - ma @ lam.T - lgamma_term[:, None]
+            ll = (matmul(y * ma, log_lam.T) - matmul(ma, lam.T)
+                  - lgamma_term[:, None])
     else:
         ma = torch.broadcast_to(ma, y.shape)
         lam = tuning[None, :, :] * dt[:, None, None] + RATE_FLOOR  # (T, L, N)
         ll = (
-            torch.einsum("tn,tln->tl", y * ma, torch.log(lam))
-            - torch.einsum("tn,tln->tl", ma, lam)
+            dt_contract(y * ma, torch.log(lam))
+            - dt_contract(ma, lam)
             - lgamma_term[:, None]
         )
     return _mask_latent(ll, ma_latent)
@@ -121,8 +127,8 @@ def gaussian_loglik(y, tuning, noise_std, ma_neuron, ma_latent, dt=1.0):
         w = 1.0 / (noise_std**2)  # scalar or (N,) precision weights
         quad = (
             (ma * y * y * w).sum(dim=-1)[:, None]
-            - 2.0 * ((ma * y * w) @ mu.T)
-            + (ma * w) @ (mu * mu).T
+            - 2.0 * matmul(ma * y * w, mu.T)
+            + matmul(ma * w, (mu * mu).T)
         )
         ll = -0.5 * quad + (ma * const).sum(dim=-1)[:, None]
     else:

@@ -22,6 +22,8 @@ from __future__ import annotations
 
 import torch
 
+from poor_man_gplvm_tpu_torch.ops.precision import matmul
+
 __all__ = [
     "glm_get_tuning",
     "gaussian_logprior",
@@ -63,8 +65,8 @@ def group_spk_occupancy_chunk_neuron(spk, post_x_l, n_neuron_per_chunk=100,
                                      dt=1.0):
     """Grouped statistics: posterior-weighted spikes (L, N) and occupancy
     (L,) with an optional per-time dt (reference
-    fit_tuning_with_basis.py:59-76); one (L, T) @ (T, N) product, so no
-    neuron chunking."""
+    fit_tuning_with_basis.py:59-76); one (L, T) @ (T, N) product at the
+    matmul precision (``ops/precision.py``), so no neuron chunking."""
     del n_neuron_per_chunk
     spk = torch.as_tensor(spk, dtype=torch.float32)
     post_x_l = torch.as_tensor(post_x_l, dtype=torch.float32,
@@ -73,7 +75,7 @@ def group_spk_occupancy_chunk_neuron(spk, post_x_l, n_neuron_per_chunk=100,
         torch.as_tensor(dt, dtype=spk.dtype, device=spk.device),
         (spk.shape[0],))
     t_b = (post_x_l * dt_l[:, None]).sum(dim=0)
-    return post_x_l.T @ spk, t_b
+    return matmul(post_x_l.T, spk), t_b
 
 
 def get_log_poisson_p_y_given_params_oneneuron_grouped(params_one, s_b_one,

@@ -28,6 +28,8 @@ from typing import NamedTuple
 
 import torch
 
+from poor_man_gplvm_tpu_torch.ops.precision import matmul
+
 __all__ = [
     "AdamState",
     "adam_init",
@@ -78,13 +80,15 @@ def get_tuning_softplus(params, basis):
 
 def _statistics_block(log_posterior_probs, y):
     posterior_probs = torch.exp(log_posterior_probs)
-    return posterior_probs.T @ y, posterior_probs.sum(dim=0)
+    return matmul(posterior_probs.T, y), posterior_probs.sum(dim=0)
 
 
 def get_statistics(log_posterior_probs, y, n_time_per_chunk=200_000):
     """Posterior-weighted observations and occupancy per latent bin,
     accumulated over time chunks so the exp + matmul transients stay
-    O(chunk).  Returns (y_weighted (L, N), t_weighted (L,))."""
+    O(chunk).  The product ``post.T @ y`` runs at the matmul precision
+    (``ops/precision.py``; on the card at a lower level ``post.T`` is read
+    in place).  Returns (y_weighted (L, N), t_weighted (L,))."""
     y = torch.as_tensor(y, dtype=torch.float32,
                         device=log_posterior_probs.device)
     T = log_posterior_probs.shape[0]
@@ -111,7 +115,8 @@ def get_statistics_batch(log_posterior_probs, y, n_time_per_chunk=200_000):
     y_weighted = t_weighted = None
     for start in range(0, T, n_time_per_chunk):
         post = torch.exp(log_posterior_probs[:, start:start + n_time_per_chunk])
-        yw = post.transpose(1, 2) @ y[start:start + n_time_per_chunk]
+        yw = matmul(post.transpose(1, 2),
+                    y[start:start + n_time_per_chunk])
         tw = post.sum(dim=1)
         if y_weighted is None:
             y_weighted, t_weighted = yw, tw

@@ -9,7 +9,10 @@ against the same kernel forced dense by ``band_vs_dense``, ``joint_acc`` by
 smooth_batch_full`` (K1/K2 batched) by ``batch_full_vs_plain`` and, bit
 for bit against each sequence alone, by ``batch_full_vs_single``; K1/K2
 with a configuration per sequence and the norm-only K1 by
-``config_batch_vs_single``.
+``config_batch_vs_single``; ``bf16_gemm`` (the emission and statistics
+products at the lower matmul precisions) by ``bf16_gemm_vs_plain`` and,
+bit for bit against a slice of its rows or one entry of its batch alone,
+by ``bf16_gemm_rows_alone``.
 
 ``kilosort_session`` writes a seeded multi-probe Kilosort session (spike
 times, clusters, labels, ``params.py``) sampled from a
@@ -36,6 +39,7 @@ import torch
 from poor_man_gplvm_tpu_torch.ops import band as bd
 from poor_man_gplvm_tpu_torch.ops import hmm
 from poor_man_gplvm_tpu_torch.ops import parallel_scan as ps
+from poor_man_gplvm_tpu_torch.ops import precision
 from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk
 from poor_man_gplvm_tpu_torch.ops.emissions import MASK_NEG
 
@@ -53,6 +57,8 @@ __all__ = [
     "subnormal_prior_smoothers", "CONFIG_MOVEMENT", "config_stack",
     "config_batch_vs_single", "kilosort_session", "SESSION_LABELS",
     "tmaze_session", "ach_session", "place_field_tuning",
+    "bf16_gemm_case", "bf16_gemm_rtol", "bf16_gemm_vs_plain",
+    "bf16_gemm_rows_alone",
 ]
 
 #: kernel vs plain version (and port vs JAX): posteriors/priors/smoothed
@@ -1316,3 +1322,62 @@ def ach_session(n_neuron=500, n_latent_bin=100, T=120_000, dt=0.01,
             "sleep_state_index": state, "is_stim": is_stim,
             "latent": latent, "dynamics": dynamics, "tuning_hz": tuning,
             "onset_t": onsets}
+
+
+# ---------------------------------------------------------------------------
+# bf16_gemm: the emission and statistics products at 'high' and 'default'
+# ---------------------------------------------------------------------------
+
+
+def bf16_gemm_rtol(K):
+    """The limit of ``bf16_gemm_vs_plain``'s error over a reduction of
+    length K: the kernel and its plain version add the same exact bf16
+    products in f32 in other orders, 2e-6 of |a| @ |b| over the emissions'
+    K = N = 500, 2e-5 over the statistics' long K (time rows)."""
+    return 2e-6 if K <= 1000 else 2e-5
+
+
+def bf16_gemm_case(kind, rows, N, L, device, seed, batch=None):
+    """(a, b) of one product of the main path, made on ``device`` from a
+    seeded generator: ``'emission'`` y (rows, N) spike counts @ (log
+    lam).T (N, L), a transposed view; ``'statistics'`` post.T (L, rows),
+    a transposed view of softmax rows, @ y (rows, N); ``'batched'`` the
+    statistics of ``batch`` runs' posteriors against one y."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(*shape):
+        return torch.rand(shape, generator=gen, device=device)
+
+    tuning = 0.05 + 3.0 * draw(L, N)
+    lat = (draw(rows) * L).long().clamp_max(L - 1)
+    y = torch.poisson(tuning[lat], generator=gen)
+    if kind == "emission":
+        return y, torch.log(tuning + 1e-20).T
+    lead = () if kind == "statistics" else (batch,)
+    post = torch.softmax(6.0 * draw(*lead, rows, L), dim=-1)
+    return post.transpose(-1, -2), y
+
+
+def bf16_gemm_vs_plain(a, b, level, passes=None):
+    """max |k - p| / max(|a| @ |b|) of ``bf16_gemm`` at ``level`` against
+    ``precision.matmul_plain`` on the same operands; ``passes`` runs the
+    kernel with that many bf16 products instead (the one-pass control
+    where three were asked must fail ``bf16_gemm_rtol``)."""
+    want = precision.matmul_plain(a, b, level)
+    got = (precision.bf16_gemm(a, b, precision.PASSES[level])
+           if passes is None else precision._gemm_run(a, b, passes))
+    scale = torch.matmul(a.abs(), b.abs()).max()
+    return float((got - want).abs().max() / scale)
+
+
+def bf16_gemm_rows_alone(a, b, level, rows=None, entry=None):
+    """Whether ``bf16_gemm`` gives ``rows`` (a slice) of a 2-D product, or
+    entry ``entry`` of a batched one, the same bits alone as in the whole
+    call."""
+    passes = precision.PASSES[level]
+    whole = precision._gemm_run(a, b, passes)
+    if entry is not None:
+        alone = precision._gemm_run(a[entry], b, passes)
+        return bool(torch.equal(alone, whole[entry]))
+    alone = precision._gemm_run(a[rows], b, passes)
+    return bool(torch.equal(alone, whole[rows]))

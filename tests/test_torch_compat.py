@@ -540,7 +540,9 @@ def test_test_exp_shuffle_and_decode(monkeypatch):
 
 def test_config():
     """The scan precision round-trips through ``config`` (and the package
-    root); the matmul precision is f32 only."""
+    root); each of the JAX package's six matmul-precision names sets its
+    canonical level and round-trips through ``get_matmul_precision``; an
+    unknown name raises and leaves the level as it was."""
     for mode in ("bf16x3", "bf16", "highest"):
         pmt.set_scan_precision(mode)
         assert parallel_scan.scan_mode_key()[1] == mode
@@ -548,13 +550,20 @@ def test_config():
         config.set_scan_precision("fp8")
     assert parallel_scan.scan_mode_key()[1] == "highest"
     assert pmt.get_matmul_precision() == "highest"
-    assert config.set_matmul_precision("float32") == "highest"
-    assert config.set_matmul_precision("HIGHEST") == "highest"
-    for level in ("high", "bfloat16_3x", "default", "bfloat16"):
-        with pytest.raises(ValueError, match="not supported by the port"):
-            pmt.set_matmul_precision(level)
-    with pytest.raises(ValueError, match="unknown precision"):
-        config.set_matmul_precision("fp8")
+    try:
+        for name, level in (("float32", "highest"), ("HIGHEST", "highest"),
+                            ("high", "high"), ("bfloat16_3x", "high"),
+                            ("Default", "default"), ("bfloat16", "default"),
+                            ("highest", "highest")):
+            assert pmt.set_matmul_precision(name) == level
+            assert config.get_matmul_precision() == level
+            assert pmt.get_matmul_precision() == level
+        config.set_matmul_precision("high")
+        with pytest.raises(ValueError, match="unknown precision"):
+            config.set_matmul_precision("fp8")
+        assert config.get_matmul_precision() == "high"
+    finally:
+        config.set_matmul_precision("highest")
     assert config.get_matmul_precision() == "highest"
 
 

@@ -12,6 +12,10 @@ configuration alone; K3/K4 with a validity bound n_valid other than T
 with the prior recomputed (the 'filter' memory modes) against its plain
 version, against K2 on K1's priors and band against dense, and the
 'checkpoint' mode's peak memory against full mode's.  Also
+``bf16_gemm`` (the emission and statistics products at the matmul
+precisions 'high' and 'default') against its plain version, with its
+one-pass control, its rows and batch entries alone bit for bit, and the
+knob's products routed to it.  Also
 the card's side of the ingestion layer: the naive-Bayes baseline decoders
 on the card against their CPU float64 run, and the native spike binner
 built in the card machine's environment against the numpy binner.
@@ -33,6 +37,7 @@ torch = pytest.importorskip("torch")
 from poor_man_gplvm_tpu_torch.ops import band as bd  # noqa: E402
 from poor_man_gplvm_tpu_torch.ops import hmm  # noqa: E402
 from poor_man_gplvm_tpu_torch.ops import parallel_scan as ps  # noqa: E402
+from poor_man_gplvm_tpu_torch.ops import precision  # noqa: E402
 from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk  # noqa: E402
 from poor_man_gplvm_tpu_torch.testing import (  # noqa: E402
     JOINT_ACC_ENTRY_RTOL,
@@ -40,6 +45,10 @@ from poor_man_gplvm_tpu_torch.testing import (  # noqa: E402
     SCAN_TOLERANCES,
     band_vs_dense,
     batch_vs_single,
+    bf16_gemm_case,
+    bf16_gemm_rows_alone,
+    bf16_gemm_rtol,
+    bf16_gemm_vs_plain,
     config_batch_vs_single,
     joint_acc_vs_plain,
     kernel_vs_plain,
@@ -692,3 +701,56 @@ def test_checkpoint_peak_memory_below_full(cuda):
     assert peaks["full"] - peaks["checkpoint"] >= dropped, peaks
     assert torch.equal(outs["full"][0], outs["checkpoint"][0])
     assert float(outs["full"][1]) == float(outs["checkpoint"][1])
+
+
+# the emission (1e4 rows), one statistics chunk (2e4 rows) and the sweep's
+# batched statistics (8 runs of 2e3 rows) at N = L = 500, cut in rows
+GEMM_CASES = {"emission": (10_000, None), "statistics": (20_000, None),
+              "batched": (2_000, 8)}
+
+
+@pytest.mark.parametrize("kind", list(GEMM_CASES))
+@pytest.mark.parametrize("level", ["high", "default"])
+def test_bf16_gemm_matches_plain(cuda, level, kind):
+    rows, batch = GEMM_CASES[kind]
+    a, b = bf16_gemm_case(kind, rows, 500, 500, cuda, 3, batch=batch)
+    err = bf16_gemm_vs_plain(a, b, level)
+    assert err <= bf16_gemm_rtol(a.shape[-1]), err
+    if batch:
+        assert bf16_gemm_rows_alone(a, b, level, entry=5)
+    else:
+        assert bf16_gemm_rows_alone(a, b, level, rows=slice(37, 301))
+
+
+def test_bf16_gemm_one_pass_control_fails(cuda):
+    a, b = bf16_gemm_case("emission", 10_000, 500, 500, cuda, 4)
+    assert bf16_gemm_vs_plain(a, b, "high") <= bf16_gemm_rtol(500)
+    assert bf16_gemm_vs_plain(a, b, "high", passes=1) > bf16_gemm_rtol(500)
+
+
+@pytest.mark.parametrize("level", ["high", "default"])
+def test_matmul_at_a_lower_level_launches_bf16_gemm(cuda, level):
+    """The knob's products on a CUDA tensor reach the kernel: one launch
+    per product (an emission, the statistics, the batched statistics), the
+    plain version's bits within the limit; 'highest' launches nothing."""
+    from poor_man_gplvm_tpu_torch.ops import emissions, mstep
+
+    rng = torch.Generator(device=cuda).manual_seed(0)
+    y = torch.poisson(torch.rand((3_000, 40), generator=rng, device=cuda)
+                      * 3, generator=rng)
+    tuning = 0.1 + torch.rand((30, 40), generator=rng, device=cuda)
+    lp = torch.log_softmax(torch.rand((3_000, 30), generator=rng,
+                                      device=cuda), dim=-1)
+    ones = torch.ones(40, device=cuda)
+    keep = torch.ones(30, device=cuda)
+    precision.reset_launches()
+    em_hi = emissions.poisson_loglik(y, tuning, ones, keep)
+    assert precision.bf16_gemm.launches == 0
+    with precision.level(level):
+        em_lo = emissions.poisson_loglik(y, tuning, ones, keep)
+        mstep.get_statistics(lp, y)
+        mstep.get_statistics_batch(torch.stack([lp, lp]), y)
+    torch.cuda.synchronize()
+    assert precision.bf16_gemm.launches == 3
+    assert precision.bf16_gemm.launches_by_mode == {level: 3}
+    assert not torch.equal(em_lo, em_hi)
