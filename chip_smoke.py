@@ -83,12 +83,17 @@ Phases, each of which checks its results (any failure exits non-zero):
     rows), timed beside its bound, the f32 product and the library's bf16
     product; (b) against a float64 product ('high' close, 'default'
     measurably reduced) and a one-pass control that gate (a) must fail;
-    (c) rows and a batch entry alone, bit for bit; (d) ``decode_latent``
+    (c) rows (the emission, a statistics chunk) or a batch entry and a
+    block of columns alone, and the TMA and cp.async variants (A through a
+    padded-stride view, timed), bit for bit; (d) ``decode_latent``
     at T=100,000, N = L = 500 at each level (the CUDA engines
     bit-identical, the log marginal near 'highest', 'checkpoint' equal to
     'full' at 'high'); (e) the north-star lean fit at each level,
     s/EM-iter; (f) a Gaussian jump decode at each level against
-    'highest'; (g) back at 'highest', the first decode's bits;
+    'highest'; (g) back at 'highest', the first decode's bits; (h) the
+    pipeline session's widths N = 490, L = 101 (rows TMA refuses): a decode
+    and a 2-iteration fit at each level through the cp.async variant;
+    launches counted by level and by variant;
 
 11. families: the other three model classes through their entry points
     (``phase_families``);
@@ -405,6 +410,9 @@ PREC_LEVELS = ("high", "default")  # the lower levels of set_matmul_precision
 PREC_T_STATS = 200_000  # one statistics chunk (get_statistics' chunk)
 PREC_SWEEP = (64, 10_000)  # the sweep's batched statistics: runs, rows
 PREC_ROWS = slice(1000, 1500)  # rows of the emission called alone
+PREC_STAT_ROWS = slice(37, 301)  # rows of a statistics chunk called alone
+PREC_COLS = slice(130, 300)  # columns called alone (a 4-byte offset)
+PREC_PIPE = (490, 101)  # N, L of the pipeline session: the cp.async variant
 PREC_ENTRY = 7  # the batch entry called alone
 PREC_F64_ROWS = 4096  # the emission slice held against a float64 product
 PREC_HIGH_F64 = 5e-6  # 'high' within this of the float64 product
@@ -564,17 +572,21 @@ def counted(launches):
     from poor_man_gplvm_tpu_torch.ops import parallel_scan as ps
 
     wrappers = _wrappers()
+    by = ("launches_by_mode", "launches_by_variant")
     for fn in wrappers.values():
         fn.launches = 0
-        if hasattr(fn, "launches_by_mode"):
-            fn.launches_by_mode = {}
+        for attr in by:
+            if hasattr(fn, attr):
+                setattr(fn, attr, {})
     ps.reset_launches()
     yield
     torch.cuda.synchronize()
     for name, fn in wrappers.items():
         launches[name] = launches.get(name, 0) + fn.launches
-        for key, n in getattr(fn, "launches_by_mode", {}).items():
-            launches[f"{name}[{key}]"] = launches.get(f"{name}[{key}]", 0) + n
+        for attr in by:
+            for key, n in getattr(fn, attr, {}).items():
+                launches[f"{name}[{key}]"] = launches.get(
+                    f"{name}[{key}]", 0) + n
 
 
 def _path_launches(launches, name):
@@ -2040,11 +2052,16 @@ def _prec_kernel(rows):
     """(a)-(c): ``bf16_gemm`` at each level against its plain version on
     the main path's products, timed beside the plain version, its bound,
     the f32 product and the library's bf16 product; the failing controls
-    against a float64 product; rows and a batch entry alone, bit for
-    bit."""
+    against a float64 product; rows (the emission, the statistics) or a
+    batch entry (the batched statistics) alone and a block of columns
+    alone, bit for bit; the TMA variant and the cp.async one (A through a
+    padded-stride view, timed) bit for bit."""
     from poor_man_gplvm_tpu_torch.ops import precision
-    from poor_man_gplvm_tpu_torch.testing import (bf16_gemm_rows_alone,
-                                                  bf16_gemm_rtol)
+    from poor_man_gplvm_tpu_torch.testing import (bf16_gemm_cols_alone,
+                                                  bf16_gemm_rows_alone,
+                                                  bf16_gemm_rtol,
+                                                  bf16_gemm_variants_equal,
+                                                  padded_copy)
 
     for kind, (a, b) in _prec_products():
         sfx = "" if kind == "emission" else f"_{kind}"
@@ -2070,9 +2087,15 @@ def _prec_kernel(rows):
             err = diff / scale
             ms = cuda_ms(lambda: precision._gemm_run(a, b, passes), 3)
             b_ms, b_by = _gemm_bound(a, b, passes)
+            r = PREC_ROWS if kind == "emission" else PREC_STAT_ROWS
             alone = (bf16_gemm_rows_alone(a, b, lvl, entry=PREC_ENTRY)
                      if a.ndim == 3 else
-                     bf16_gemm_rows_alone(a, b, lvl, rows=PREC_ROWS))
+                     bf16_gemm_rows_alone(a, b, lvl, rows=r))
+            cols = bf16_gemm_cols_alone(a, b, lvl, PREC_COLS)
+            same, variants = bf16_gemm_variants_equal(a, b, lvl)
+            padded = padded_copy(a)
+            cp_ms = cuda_ms(lambda: precision._gemm_run(padded, b, passes), 3)
+            del padded
             log(f"precision (a) bf16_gemm[{lvl}] {kind} {tuple(a.shape)} @ "
                 f"{tuple(b.shape)}: {ms:.3f} ms (plain {plain_ms:.3f}, bound "
                 f"{b_ms:.4f} by {b_by}; f32 torch.matmul {f32_ms:.3f}, bound "
@@ -2081,10 +2104,15 @@ def _prec_kernel(rows):
                 f"max |diff| {diff:.3e} = {err:.2e} of max |a|@|b| (limit "
                 f"{bf16_gemm_rtol(K):.0e}); (c) "
                 + ("entry %d alone" % PREC_ENTRY if a.ndim == 3 else
-                   "rows [%d, %d) alone" % (PREC_ROWS.start, PREC_ROWS.stop))
-                + f" bit-equal {alone} ({card_line()})")
+                   "rows [%d, %d) alone" % (r.start, r.stop))
+                + f" bit-equal {alone}, columns [{PREC_COLS.start}, "
+                f"{PREC_COLS.stop}) alone bit-equal {cols}, variants "
+                f"{variants} bit-equal {same} (cp.async {cp_ms:.3f} ms) "
+                f"({card_line()})")
             check(err <= bf16_gemm_rtol(K), (lvl, kind, err))
-            check(alone, (lvl, kind, "not row independent"))
+            check(alone and cols, (lvl, kind, "not row independent"))
+            check(same and variants == ("tma", "cp_async"),
+                  (lvl, kind, "the variants differ", variants))
             row = rows.setdefault(f"bf16_gemm[{lvl}]", {})
             row.update({
                 f"max_abs_err{sfx}": diff, f"rel_err{sfx}": err,
@@ -2092,7 +2120,8 @@ def _prec_kernel(rows):
                 f"bound_ms{sfx}": b_ms, f"bound_by{sfx}": b_by,
                 f"library_ms{sfx}": lib_ms if lvl == "default" else f32_ms,
                 f"f32_matmul_ms{sfx}": f32_ms,
-                f"f32_matmul_bound_ms{sfx}": f32_bound[0]})
+                f"f32_matmul_bound_ms{sfx}": f32_bound[0],
+                f"cp_async_ms{sfx}": cp_ms})
             if kind == "emission":
                 _prec_controls(a, b, lvl, got, want, scale)
             del want, got
@@ -2198,6 +2227,39 @@ def _prec_decode(launches):
     return times
 
 
+def _prec_pipeline_widths(launches):
+    """(h) The pipeline session's widths, N = 490 and L = 101, whose rows
+    TMA refuses: ``decode_latent`` at T = T_LONG and a 2-iteration fit at
+    each lower level, through ``bf16_gemm``'s cp.async variant (counted),
+    the log marginal within PREC_DECODE_RTOL of 'highest'."""
+    N, L = PREC_PIPE
+    _, params, y = _decode_setup(N, L, T_LONG)
+    ref = None
+    for lvl in ("highest",) + PREC_LEVELS:
+        m = _model(N, L, "auto", params)  # the fit moves its parameters
+        before = dict(launches)
+        with matmul_precision(lvl), counted(launches):
+            res = m.decode_latent(y)
+            em = m.fit_em(y, n_iter=2, verboase=False)
+        _check_decode(res, T_LONG, L)
+        lmf = float(res["log_marginal_final"])
+        ref = lmf if ref is None else ref
+        rel = abs(lmf - ref) / abs(ref)
+        key = f"bf16_gemm[{lvl}/cp_async]"
+        n_cp = launches.get(key, 0) - before.get(key, 0)
+        log(f"precision (h) N={N} L={L} T={T_LONG} at '{lvl}': decode "
+            f"log_marginal_final rel to 'highest' {rel:.2e}; a 2-iteration "
+            f"fit log_marginal_l {[float(v) for v in em['log_marginal_l']]}; "
+            f"bf16_gemm cp.async launches {n_cp}")
+        check(np.all(np.isfinite([float(v) for v in em["log_marginal_l"]])),
+              (lvl, "non-finite fit"))
+        if lvl != "highest":
+            check(n_cp > 0, (lvl, "no cp.async launch at N=490, L=101"))
+            check(rel <= PREC_DECODE_RTOL[lvl], (lvl, "pipeline widths", rel))
+        del res, em, m
+    del y
+
+
 def _prec_northstar(launches):
     """(e) The north-star lean fit at each level, PREC_NS_ITERS
     iterations: s/EM-iter; 'high' log_marginal_l within PREC_NS_RTOL of
@@ -2263,16 +2325,25 @@ def _prec_gaussian(launches):
 def phase_precision(launches):
     """The lower levels of ``set_matmul_precision`` on the card: (a)-(c)
     ``bf16_gemm`` against its plain version on the main path's products,
-    with its controls and row independence; (d) and (g) the decode at each
-    level; (e) the north-star lean fit at each level; (f) a Gaussian
-    decode.  Returns the kernels line's rows of ``bf16_gemm``."""
+    with its controls, row independence and its two variants; (d) and (g)
+    the decode at each level; (h) the pipeline's widths through the
+    cp.async variant; (e) the north-star lean fit at each level; (f) a
+    Gaussian decode.  Returns the kernels line's rows of ``bf16_gemm``."""
     t0 = time.perf_counter()
     rows = {}
     _prec_kernel(rows)
     dec_ms = _prec_decode(launches)
+    _prec_pipeline_widths(launches)
     ns = _prec_northstar(launches)
     _prec_gaussian(launches)
     for lvl in PREC_LEVELS:
+        by_variant = {v: launches.get(f"bf16_gemm[{lvl}/{v}]", 0)
+                      for v in ("tma", "cp_async")}
+        log(f"precision: bf16_gemm[{lvl}] main-path launches by variant "
+            f"{by_variant}")
+        check(all(by_variant.values()), (lvl, "a variant never launched",
+                                         by_variant))
+        rows[f"bf16_gemm[{lvl}]"]["launches_by_variant"] = by_variant
         rows[f"bf16_gemm[{lvl}]"].update({
             f"decode_ms_T{T_LONG}": dec_ms[lvl],
             f"decode_ms_T{T_LONG}_highest": dec_ms["highest"],

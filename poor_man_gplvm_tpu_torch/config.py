@@ -33,7 +33,12 @@ def set_matmul_precision(level):
     ==========================  =========  ================================
 
     On the card the lower levels run the tensor cores (``bf16_gemm``,
-    ``csrc/bf16_gemm.cu``); on the CPU their plain PyTorch version.  The
+    ``csrc/bf16_gemm.cu``: wgmma, TMA, a split-K cut at fixed K), faster
+    than 'highest' there (on the H100, the north-star emission 3.2 / 2.2 ms
+    at 'high' / 'default' against 10.0 for f32, a statistics chunk 1.0 /
+    0.6 against 1.9; ``PERF.md``); a product's bits depend on K alone, not
+    on its other rows, columns or batch.  On the CPU their plain PyTorch
+    version.  The
     products the knob reaches are the JAX package's: the Poisson and
     Gaussian emissions, the per-bin dt emissions, the statistics
     ``post.T @ y`` (``get_statistics``, ``get_statistics_batch``), the

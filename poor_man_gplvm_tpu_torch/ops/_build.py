@@ -18,7 +18,7 @@ Libraries:
   in the three recursion-dot precisions (K5), and ``joint_acc`` (3xTF32 on
   the tensor cores);
 * ``bf16_gemm``: the emission and M-step products at the lower matmul
-  precisions ('high', 'default'), bf16 ``mma.sync`` with f32 sums
+  precisions ('high', 'default'), bf16 ``wgmma`` with f32 sums
   (``ops/precision.py``);
 * ``binning``: the ingestion layer's spike binner (``csrc/binning.cpp``),
   host code, built by the host's C++ compiler (``g++``, or ``$CXX``) in the
@@ -78,7 +78,8 @@ _SIGNATURES = {
         "pmg_joint_acc": [_vp] * 4 + [_ci] * 6 + [_vp],
     },
     "bf16_gemm": {
-        "pmg_bf16_gemm": [_vp] * 3 + [_cl] * 13 + [_ci, _vp],
+        "pmg_bf16_gemm": [_vp] * 3 + [_cl] * 13 + [_ci] * 4 + [_cl]
+        + [_vp] * 3,
     },
     "binning": {
         "bin_sliding": [_vp, _vp, _cl, ctypes.c_double, ctypes.c_double,

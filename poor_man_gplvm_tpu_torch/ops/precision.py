@@ -22,10 +22,17 @@ every level):
   sums and output.
 
 Neither lower level is TF32.  On a CUDA tensor a lower level runs
-``bf16_gemm`` (``csrc/bf16_gemm.cu``: bf16 ``mma.sync`` with f32 sums and
-f32 output, operands read in place through their strides, each output
-row's sum in one order that no other row or batch entry changes) or
-raises; on a CPU tensor it runs the plain version, ``matmul_plain``.
+``bf16_gemm`` (``csrc/bf16_gemm.cu``: bf16 ``wgmma`` with f32 sums and f32
+output, A read in place through its strides by TMA or cp.async, B split
+once per call into bf16 scratch) or raises; on a CPU tensor it runs the
+plain version, ``matmul_plain``.  ``gemm_plan`` decides a launch in plain
+Python: the variant (TMA where A's base and strides meet its 16-byte
+rules, else cp.async, the same bits), the tile, the cluster and the K
+segments.  The order of an output element's sums depends on K alone: per
+32-wide slice of K a fresh tensor-core accumulator, then one f32 add; for
+K above ``SPLIT_MIN_K`` each ``SEG_K`` segment (``k_segments``) summed
+apart and the segments added in order.  So a row, a column block or a
+batch entry gives the same bits alone as in any call that contains it.
 
 Only the sites the JAX knob reaches call this module: the Poisson and
 Gaussian emission products (``ops/emissions.py``), the statistics
@@ -52,6 +59,8 @@ __all__ = [
     "matvec",
     "dt_contract",
     "bf16_gemm",
+    "gemm_plan",
+    "k_segments",
     "reset_launches",
 ]
 
@@ -182,9 +191,68 @@ def _batched(x, B):
     return x, (x.stride(0) if x.shape[0] == B else 0)
 
 
-def _gemm_run(a, b, passes, out=None):
+#: the block tile: rows, columns and K per pipeline stage
+TILE = (128, 128, 64)
+#: K of one segment of the split-K (128 slices of 32), and the K above
+#: which a product is split
+SEG_K = 4096
+SPLIT_MIN_K = 16384
+
+
+def k_segments(K):
+    """The segments [start, stop) of a product's K: one up to
+    ``SPLIT_MIN_K``, else fixed segments of ``SEG_K`` from k = 0.  They
+    depend on K alone, so an output element's sum order does too."""
+    if K <= SPLIT_MIN_K:
+        return [(0, K)]
+    return [(s, min(s + SEG_K, K)) for s in range(0, K, SEG_K)]
+
+
+def _tma_ok(M, K, batch, strides, ptr):
+    """(ok, k_fast): whether TMA can load A (M, K) with element strides
+    ``strides`` = (batch, row, k) from address ``ptr``: a unit stride along
+    K or M, the base 16-byte aligned, the other strides multiples of 16
+    bytes, and rows that do not overlap (a stride-0 broadcast row does
+    not qualify)."""
+    sa_b, sa_m, sa_k = strides
+    if sa_k == 1 or K == 1:
+        k_fast, outer, n_outer, n_inner = True, sa_m, M, K
+    elif sa_m == 1 or M == 1:
+        k_fast, outer, n_outer, n_inner = False, sa_k, K, M
+    else:
+        return False, sa_k <= sa_m
+    ok = ptr % 16 == 0
+    if n_outer > 1:
+        ok = ok and outer % 4 == 0 and outer >= n_inner
+    if batch > 1:
+        ok = ok and sa_b % 4 == 0
+    return ok, k_fast
+
+
+def gemm_plan(M, N, K, batch, strides, ptr):
+    """The launch plan of ``bf16_gemm`` for A (M, K) with element strides
+    ``strides`` = (batch, row, k) at address ``ptr`` (bytes): ``variant``
+    'tma' where TMA can load A, else 'cp_async' (the same bits); ``a_kfast``
+    A staged K-fast (else M-fast); ``tile``; ``cluster``, the thread
+    blocks along N that share A's loads (TMA with at least 3 column tiles:
+    4, else 1; it changes no bit); ``segments``, the K segments
+    (``k_segments``); ``seg_k``, their length as the kernel takes it (a
+    multiple of TILE[2])."""
+    ok, k_fast = _tma_ok(M, K, batch, strides, ptr)
+    segments = k_segments(K)
+    step = TILE[2]
+    seg_k = (SEG_K if len(segments) > 1
+             else max(step, -(-K // step) * step))
+    cluster = 4 if ok and -(-N // TILE[1]) >= 3 else 1
+    return {"variant": "tma" if ok else "cp_async", "a_kfast": k_fast,
+            "tile": TILE, "cluster": cluster, "segments": segments,
+            "seg_k": seg_k}
+
+
+def _gemm(a, b, passes, out=None):
     """Launch ``bf16_gemm`` with ``passes`` bf16 products (3: 'high', 1:
-    'default') on float32 CUDA tensors; returns the f32 product."""
+    'default') on float32 CUDA tensors; returns (the f32 product, the
+    plan)."""
     if a.ndim not in (2, 3) or b.ndim not in (2, 3):
         raise ValueError(f"bf16_gemm takes 2-D or 3-D operands, got "
                          f"{a.ndim}-D and {b.ndim}-D")
@@ -209,15 +277,34 @@ def _gemm_run(a, b, passes, out=None):
           or out.device != a.device):
         raise ValueError(f"out must be float32 {shape} on {a.device}")
     c3 = out if out.ndim == 3 else out.unsqueeze(0)
+    plan = gemm_plan(M, N, K, B, (sa_b, a3.stride(1), a3.stride(2)),
+                     a3.data_ptr())
+    # scratch: B's bf16 hi (and lo), K contiguous; the segments' partials
+    Kp = -(-K // 8) * 8
+    bsplit = torch.empty(((passes + 1) // 2, 1 if sb_b == 0 else B, N, Kp),
+                         dtype=torch.bfloat16, device=a.device)
+    segs = len(plan["segments"])
+    part = (torch.empty((segs, B, M, N), dtype=torch.float32,
+                        device=a.device) if segs > 1 else None)
     with torch.cuda.device(a.device):
         err = _lib().pmg_bf16_gemm(
             a3.data_ptr(), b3.data_ptr(), c3.data_ptr(), M, N, K, B,
             sa_b, a3.stride(1), a3.stride(2), sb_b, b3.stride(1),
             b3.stride(2), c3.stride(0), c3.stride(1), c3.stride(2), passes,
+            int(plan["variant"] == "tma"), int(plan["a_kfast"]),
+            plan["cluster"], plan["seg_k"], bsplit.data_ptr(),
+            None if part is None else part.data_ptr(),
             torch.cuda.current_stream(a.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"bf16_gemm launch failed: cudaError {err}")
-    return out
+    return out, plan
+
+
+def _gemm_run(a, b, passes, out=None):
+    """Launch ``bf16_gemm`` with ``passes`` bf16 products (3: 'high', 1:
+    'default') on float32 CUDA tensors, uncounted; returns the f32
+    product."""
+    return _gemm(a, b, passes, out=out)[0]
 
 
 def bf16_gemm(a, b, passes, out=None):
@@ -225,8 +312,9 @@ def bf16_gemm(a, b, passes, out=None):
     output: ``passes`` 3 is 'high' (bf16x3), 1 is 'default' (bf16).  a
     (M, K) or (B, M, K), b (K, N) or (B, K, N), float32, any strides.  On
     a CPU tensor: ``matmul_plain``; on a CUDA tensor: the kernel, or
-    raise.  Counts its launches in ``bf16_gemm.launches`` and, by level,
-    in ``bf16_gemm.launches_by_mode``."""
+    raise.  Counts its launches in ``bf16_gemm.launches``, by level in
+    ``bf16_gemm.launches_by_mode`` and by level and variant ('high/tma',
+    'default/cp_async', ...) in ``bf16_gemm.launches_by_variant``."""
     lvl = {3: "high", 1: "default"}[passes]
     if a.device.type == "cpu":
         res = matmul_plain(a, b, lvl)
@@ -234,16 +322,20 @@ def bf16_gemm(a, b, passes, out=None):
     if a.device.type != "cuda":
         raise ValueError(f"bf16_gemm runs on cpu or cuda, not "
                          f"{a.device.type}")
+    res, plan = _gemm(a, b, passes, out=out)
     bf16_gemm.launches += 1
-    bf16_gemm.launches_by_mode[lvl] = bf16_gemm.launches_by_mode.get(
-        lvl, 0) + 1
-    return _gemm_run(a, b, passes, out=out)
+    by_mode, by_var = bf16_gemm.launches_by_mode, bf16_gemm.launches_by_variant
+    by_mode[lvl] = by_mode.get(lvl, 0) + 1
+    key = f"{lvl}/{plan['variant']}"
+    by_var[key] = by_var.get(key, 0) + 1
+    return res
 
 
 def reset_launches():
     """Set ``bf16_gemm``'s launch counts to 0."""
     bf16_gemm.launches = 0
     bf16_gemm.launches_by_mode = {}
+    bf16_gemm.launches_by_variant = {}
 
 
 reset_launches()

@@ -10,9 +10,12 @@ smooth_batch_full`` (K1/K2 batched) by ``batch_full_vs_plain`` and, bit
 for bit against each sequence alone, by ``batch_full_vs_single``; K1/K2
 with a configuration per sequence and the norm-only K1 by
 ``config_batch_vs_single``; ``bf16_gemm`` (the emission and statistics
-products at the lower matmul precisions) by ``bf16_gemm_vs_plain`` and,
-bit for bit against a slice of its rows or one entry of its batch alone,
-by ``bf16_gemm_rows_alone``.
+products at the lower matmul precisions) by ``bf16_gemm_vs_plain``, bit
+for bit against a slice of its rows, one entry of its batch or a block of
+its columns alone by ``bf16_gemm_rows_alone``/``bf16_gemm_cols_alone``,
+its two variants (TMA and cp.async, the second through ``padded_copy``)
+by ``bf16_gemm_variants_equal``, and its order of sums on the CPU by
+``bf16_gemm_emulate``.
 
 ``kilosort_session`` writes a seeded multi-probe Kilosort session (spike
 times, clusters, labels, ``params.py``) sampled from a
@@ -58,7 +61,8 @@ __all__ = [
     "config_batch_vs_single", "kilosort_session", "SESSION_LABELS",
     "tmaze_session", "ach_session", "place_field_tuning",
     "bf16_gemm_case", "bf16_gemm_rtol", "bf16_gemm_vs_plain",
-    "bf16_gemm_rows_alone",
+    "bf16_gemm_rows_alone", "bf16_gemm_cols_alone", "padded_copy",
+    "bf16_gemm_variants_equal", "bf16_gemm_emulate",
 ]
 
 #: kernel vs plain version (and port vs JAX): posteriors/priors/smoothed
@@ -1381,3 +1385,66 @@ def bf16_gemm_rows_alone(a, b, level, rows=None, entry=None):
         return bool(torch.equal(alone, whole[entry]))
     alone = precision._gemm_run(a[rows], b, passes)
     return bool(torch.equal(alone, whole[rows]))
+
+
+def bf16_gemm_cols_alone(a, b, level, cols):
+    """Whether ``bf16_gemm`` gives the columns ``cols`` (a slice) of a
+    product the same bits alone (b's columns alone) as in the whole
+    call."""
+    passes = precision.PASSES[level]
+    whole = precision._gemm_run(a, b, passes)
+    alone = precision._gemm_run(a, b[..., cols], passes)
+    return bool(torch.equal(alone, whole[..., cols]))
+
+
+def padded_copy(x, pad=1):
+    """``x`` (2-D or 3-D) copied into a buffer whose rows along x's unit
+    stride (of its last two axes) are ``pad`` elements longer: the same
+    values and the same fast axis, at a row stride that is no multiple of
+    16 bytes, so ``bf16_gemm`` loads it by cp.async, not TMA."""
+    nd = x.ndim
+    fast = nd - 1 if x.stride(-1) == 1 else nd - 2
+    other = nd - 2 if fast == nd - 1 else nd - 1
+    perm = [i for i in range(nd) if i not in (fast, other)] + [other, fast]
+    shape = [x.shape[i] for i in perm]
+    shape[-1] += pad
+    buf = torch.empty(shape, dtype=x.dtype, device=x.device)
+    view = buf[..., :x.shape[fast]].permute(*np.argsort(perm).tolist())
+    return view.copy_(x)
+
+
+def bf16_gemm_variants_equal(a, b, level):
+    """(bit-equal, (variant of a, variant of ``padded_copy(a)``)):
+    ``bf16_gemm`` on ``a`` and on the same values at a row stride TMA
+    refuses."""
+    passes = precision.PASSES[level]
+    got, plan = precision._gemm(a, b, passes)
+    other, plan_p = precision._gemm(padded_copy(a), b, passes)
+    return (bool(torch.equal(got, other)),
+            (plan["variant"], plan_p["variant"]))
+
+
+def bf16_gemm_emulate(a, b, level):
+    """The kernel's order of sums in plain f32 on any device: per K
+    segment (``precision.k_segments``), per 32-wide slice a fresh sum of
+    the slice's split products (the three terms at 'high'), added to the
+    segment's running f32 sum; the segments' sums added in order.  The
+    products within a slice are summed by ``torch.matmul`` in f32 (the
+    tensor cores' own order is theirs)."""
+    lvl = precision.LEVELS[level]
+    a_hi, a_lo = precision._split(a, lvl)
+    b_hi, b_lo = precision._split(b, lvl)
+    K = a.shape[-1]
+    total = None
+    for k0, k1 in precision.k_segments(K):
+        acc = None
+        for s in range(k0, k1, 32):
+            sl = slice(s, min(s + 32, k1))
+            part = a_hi[..., sl] @ b_hi[..., sl, :]
+            if lvl == "high":
+                part = (a_lo[..., sl] @ b_hi[..., sl, :]
+                        + a_hi[..., sl] @ b_lo[..., sl, :] + part)
+            acc = part if acc is None else acc + part
+        total = acc if total is None else total + acc
+    return total
+

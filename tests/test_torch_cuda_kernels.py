@@ -14,8 +14,9 @@ version, against K2 on K1's priors and band against dense, and the
 'checkpoint' mode's peak memory against full mode's.  Also
 ``bf16_gemm`` (the emission and statistics products at the matmul
 precisions 'high' and 'default') against its plain version, with its
-one-pass control, its rows and batch entries alone bit for bit, and the
-knob's products routed to it.  Also
+one-pass control, its rows, batch entries and column blocks alone bit for
+bit, its TMA and cp.async variants bit for bit, ragged K (split into
+segments, no multiple of 32), and the knob's products routed to it.  Also
 the card's side of the ingestion layer: the naive-Bayes baseline decoders
 on the card against their CPU float64 run, and the native spike binner
 built in the card machine's environment against the numpy binner.
@@ -46,8 +47,10 @@ from poor_man_gplvm_tpu_torch.testing import (  # noqa: E402
     band_vs_dense,
     batch_vs_single,
     bf16_gemm_case,
+    bf16_gemm_cols_alone,
     bf16_gemm_rows_alone,
     bf16_gemm_rtol,
+    bf16_gemm_variants_equal,
     bf16_gemm_vs_plain,
     config_batch_vs_single,
     joint_acc_vs_plain,
@@ -722,6 +725,69 @@ def test_bf16_gemm_matches_plain(cuda, level, kind):
         assert bf16_gemm_rows_alone(a, b, level, rows=slice(37, 301))
 
 
+@pytest.mark.parametrize("kind", list(GEMM_CASES))
+@pytest.mark.parametrize("level", ["high", "default"])
+def test_bf16_gemm_variants_bit_equal(cuda, level, kind):
+    """The TMA variant and the cp.async one (A through a padded-stride
+    view) give the same bits."""
+    rows, batch = GEMM_CASES[kind]
+    a, b = bf16_gemm_case(kind, rows, 500, 500, cuda, 5, batch=batch)
+    equal, variants = bf16_gemm_variants_equal(a, b, level)
+    assert variants == ("tma", "cp_async")
+    assert equal
+
+
+@pytest.mark.parametrize("kind", ["statistics", "batched"])
+@pytest.mark.parametrize("level", ["high", "default"])
+def test_bf16_gemm_statistics_blocks_alone(cuda, level, kind):
+    """A statistics product's column block, and a batch entry of the
+    batched one, give the same bits alone as in the whole product."""
+    rows, batch = GEMM_CASES[kind]
+    a, b = bf16_gemm_case(kind, rows, 500, 500, cuda, 6, batch=batch)
+    assert bf16_gemm_cols_alone(a, b, level, slice(129, 300))
+    if batch:
+        assert bf16_gemm_rows_alone(a, b, level, entry=3)
+
+
+@pytest.mark.parametrize("N", [500, 101])
+@pytest.mark.parametrize("K", [45, 4_099, 20_017])
+@pytest.mark.parametrize("level", ["high", "default"])
+def test_bf16_gemm_ragged_k(cuda, level, K, N):
+    """K no multiple of 32, of a stage or of a segment (20,017: five
+    segments, the last 3,633 long), and N = 101, whose output rows TMA
+    cannot store: within the limit of the plain version, the two variants
+    and a block of rows alone bit-equal."""
+    assert len(precision.k_segments(K)) == (5 if K > 20_000 else 1)
+    g = torch.Generator(device=cuda).manual_seed(K)
+    a = torch.rand((300, K), generator=g, device=cuda) - 0.5
+    b = torch.poisson(2.0 * torch.rand((K, N), generator=g, device=cuda),
+                      generator=g)
+    assert bf16_gemm_vs_plain(a, b, level) <= bf16_gemm_rtol(K)
+    assert bf16_gemm_variants_equal(a, b, level)[0]
+    assert bf16_gemm_variants_equal(a.T.contiguous().T, b, level)[0]
+    assert bf16_gemm_rows_alone(a, b, level, rows=slice(7, 250))
+
+
+@pytest.mark.parametrize("level", ["high", "default"])
+def test_bf16_gemm_out_views(cuda, level):
+    """``out=`` a transposed view or a view with padded rows (the output
+    stored by the threads, not by TMA) gets the same bits as a fresh
+    output, split-K or not; K = 0 gives zeros."""
+    passes = precision.PASSES[level]
+    for rows, K in ((700, 500), (130, 17_000)):
+        g = torch.Generator(device=cuda).manual_seed(rows)
+        a = torch.rand((rows, K), generator=g, device=cuda)
+        b = torch.rand((K, 260), generator=g, device=cuda)
+        want = precision._gemm_run(a, b, passes)
+        for out in (torch.empty((260, rows), device=cuda).T,
+                    torch.empty((rows, 263), device=cuda)[:, :260]):
+            assert precision._gemm_run(a, b, passes, out=out) is out
+            assert torch.equal(out, want)
+    zero = precision._gemm_run(torch.rand((5, 0), device=cuda),
+                               torch.rand((0, 7), device=cuda), passes)
+    assert torch.equal(zero, torch.zeros((5, 7), device=cuda))
+
+
 def test_bf16_gemm_one_pass_control_fails(cuda):
     a, b = bf16_gemm_case("emission", 10_000, 500, 500, cuda, 4)
     assert bf16_gemm_vs_plain(a, b, "high") <= bf16_gemm_rtol(500)
@@ -753,4 +819,7 @@ def test_matmul_at_a_lower_level_launches_bf16_gemm(cuda, level):
     torch.cuda.synchronize()
     assert precision.bf16_gemm.launches == 3
     assert precision.bf16_gemm.launches_by_mode == {level: 3}
+    # y's rows (40 floats) meet TMA's 16 bytes, post's (30) do not
+    assert precision.bf16_gemm.launches_by_variant == {
+        f"{level}/tma": 1, f"{level}/cp_async": 2}
     assert not torch.equal(em_lo, em_hi)
