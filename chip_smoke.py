@@ -5075,6 +5075,7 @@ def _mem_parity(launches, rows):
     k2_ref = sk.smoother_scan(post[:-1].contiguous(),
                               prior[1:].contiguous(), tlat_t, tdyn, init,
                               flags, band=band)
+    step_us = {}
     for dt_name, dtype, key in (("f32", torch.float32, "f32"),
                                 ("bf16", torch.bfloat16, "bf16")):
         filt = post[:-1].to(dtype).contiguous()
@@ -5100,6 +5101,7 @@ def _mem_parity(launches, rows):
                   "K2 with the prior recomputed differs from K2 on K1's "
                   "priors")
         ms = cuda_ms(kern, 5)
+        step_us[dt_name] = 1e3 * ms / n
         fb = 2 if dtype == torch.bfloat16 else 4
         S = 2 * NL
         b_ms, b_by = bound(n * S * (fb + 8) + 2 * 2 * NL * NL * 4,
@@ -5121,6 +5123,14 @@ def _mem_parity(launches, rows):
         flags, band=band), 5)
     log(f"time smoother_scan (K2 on K1's priors) at the same rows: "
         f"{k2_ms:.3f} ms ({1e3 * k2_ms / n:.3f} us a step)")
+    plan = sk.push_plan(2, 1, NL, band.W, False)
+    log(f"memory (a) per step at L={NL}, n_dyn=2, W={band.W}: K2 with the "
+        f"prior recomputed {step_us['f32']:.3f} us (f32 store), "
+        f"{step_us['bf16']:.3f} us (bf16 store) against K2 on stored priors "
+        f"{1e3 * k2_ms / n:.3f} us ({step_us['f32'] / (1e3 * k2_ms / n):.3f}x"
+        f"); a cluster of {plan['cluster']} blocks of {plan['threads']} "
+        f"threads, {plan['stages']} ring stages, {plan['smem']} bytes of "
+        f"shared memory a block ({card_line()})")
     del m, y, post, prior, w, ll
     return peaks["full"] / T
 

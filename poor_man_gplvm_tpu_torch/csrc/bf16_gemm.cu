@@ -85,7 +85,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hopper_common.cuh"
+
 namespace {
+
+using namespace pmg;
 
 constexpr int kBM = 128, kBN = 128, kBK = 64;  // block tile, K per stage
 constexpr int kConsumerWarps = 8;              // two warpgroups
@@ -116,81 +120,6 @@ struct Gemm {
   int a_bcast, b_bcast;
   int c_tma;  // the output (or the partials) stored by TMA from tm_c
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
-               "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
-                   "r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  } while (!done);
-}
-
-// whether the barrier's phase of `parity` has completed (no wait)
-__device__ __forceinline__ bool mbar_ready(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.test_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-// one TMA box of a 3-D map into shared memory, completing on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1,
-                                         int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
-      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-      "r"(c2)
-      : "memory");
-}
-
-// 4 bytes into shared memory, zero-filled when src_bytes is 0
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,
-                                          int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-
-// arrive on `bar` once this thread's cp.asyncs have landed
-__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
-                   bar)
-               : "memory");
-}
 
 // Byte offset of A's element (m, k) in a stage, as TMA's 128-byte swizzle
 // lays its boxes: K-fast, two boxes of [128 m][32 k]; M-fast, four boxes
@@ -227,13 +156,6 @@ __device__ __forceinline__ void split(float2 v, uint32_t& hi, uint32_t& lo) {
   }
 }
 
-// wgmma descriptor of a K-major, 128-byte-swizzled bf16 tile at shared
-// address `addr` (8-row groups 1024 bytes apart)
-__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
 // d (64 x 128, f32) = (scale_d ? d : 0) + a (64 x 16, registers) @ b
 __device__ __forceinline__ void wgmma(float (&d)[64], const uint32_t (&a)[4],
                                       uint64_t desc, int scale_d) {
@@ -266,12 +188,6 @@ __device__ __forceinline__ void wgmma(float (&d)[64], const uint32_t (&a)[4],
         "r"(scale_d));
 }
 
-// keep the compiler from moving reads of the accumulator across the wait
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
 // A's fragment of 32-wide slice `sl` of a stage, split: hi[h], lo[h] for
 // its two 16-wide halves; registers: (row g, k 2t..), (row g+8, k 2t..),
 // (row g, k 2t+8..), (row g+8, k 2t+8..)
@@ -300,10 +216,10 @@ __device__ __forceinline__ void slice_mma(float (&d)[64],
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const uint32_t kb = (sl * 32 + h * 16) * 2;  // bytes along K
-    const uint64_t dh = b_desc(sb + kb);
+    const uint64_t dh = sw128_desc(sb + kb);
     if (PASSES == 3) {
       wgmma(d, lo[h], dh, h);
-      wgmma(d, hi[h], b_desc(sb + kBBytes + kb), 1);
+      wgmma(d, hi[h], sw128_desc(sb + kBBytes + kb), 1);
       wgmma(d, hi[h], dh, 1);
     } else {
       wgmma(d, hi[h], dh, h);
@@ -318,31 +234,6 @@ __device__ __forceinline__ void slice_add(float (&acc)[64], float (&d)[64]) {
   fence_regs(d);
 #pragma unroll
   for (int i = 0; i < 64; ++i) acc[i] += d[i];
-}
-
-// this thread block's place in its cluster
-__device__ __forceinline__ uint32_t cluster_rank() {
-  uint32_t r;
-  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
-  return r;
-}
-
-__device__ __forceinline__ void cluster_sync() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
-}
-
-// arrive on the barrier at shared address `bar` of block `rank` of the
-// cluster
-__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar,
-                                                    uint32_t rank) {
-  asm volatile(
-      "{\n.reg .b32 ra;\n"
-      "mapa.shared::cluster.u32 ra, %0, %1;\n"
-      "mbarrier.arrive.shared::cluster.b64 _, [ra];\n}\n" ::
-          "r"(bar),
-      "r"(rank)
-      : "memory");
 }
 
 // one TMA box into the same shared address of every block in `mask`
@@ -694,51 +585,6 @@ __global__ void sum_segments_kernel(const float* part, float* C, long long M,
     }
     C[b * sc_b + m * sc_m + n * sc_n] = s;
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled from the driver, found through the runtime (no
-// link against libcuda)
-EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;
-  if (fn) return fn;
-  void* p = nullptr;
-  cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-  const cudaError_t err = cudaGetDriverEntryPointByVersion(
-      "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-  const cudaError_t err = cudaGetDriverEntryPoint(
-      "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-  if (err != cudaSuccess || q != cudaDriverEntryPointSuccess) return nullptr;
-  fn = reinterpret_cast<EncodeTiled>(p);
-  return fn;
-}
-
-long long round16(long long bytes) { return (bytes + 15) / 16 * 16; }
-
-// a 3-D map (d0 fastest) with the strides of d1 and d2 in bytes, boxes of
-// b0 x b1 x 1, 128-byte swizzle, zeros out of bounds
-bool encode(CUtensorMap* map, CUtensorMapDataType type, const void* ptr,
-            long long d0, long long d1, long long d2, long long s1,
-            long long s2, int b0, int b1) {
-  const EncodeTiled fn = encoder();
-  if (!fn) return false;
-  const cuuint64_t dims[3] = {(cuuint64_t)d0, (cuuint64_t)d1, (cuuint64_t)d2};
-  const cuuint64_t strides[2] = {(cuuint64_t)s1, (cuuint64_t)s2};
-  const cuuint32_t box[3] = {(cuuint32_t)b0, (cuuint32_t)b1, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, type, 3, const_cast<void*>(ptr), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // launch one instantiation on a persistent grid: as many clusters as

@@ -79,6 +79,7 @@
 
 #include <stdint.h>
 
+#include "hopper_common.cuh"
 #include "scan_common.cuh"
 
 namespace {
@@ -575,50 +576,84 @@ __global__ void __launch_bounds__(kMaxThreads) psmooth_kernel(PassArgs a) {
 //
 // On the tensor cores in 3xTF32: each operand a = hi + lo with hi =
 // tf32(a), lo = tf32(a - hi), and a.b ~ hi.hi + hi.lo + lo.hi (the lo.lo
-// term is 2^-22 of the product), each product an f32-accumulated
-// mma.sync.m16n8k8 TF32 product.  Three TF32 products of 2 T M^2 operations
-// at the card's 495 TFLOP/s: 1.2 ms at T = 1e5, M = 1000, against 6 ms for
-// one f32 product without tensor cores (67 TFLOP/s), and 0.24 ms for
-// reading A and B once, so it is bound by operations.
+// term is 2^-22 of the product), each product an f32-accumulated TF32
+// wgmma.  Three TF32 products of 2 T M^2 operations at the card's 495
+// TFLOP/s: 1.2 ms at T = 1e5, M = 1000, against 6 ms for one f32 product
+// without tensor cores (67 TFLOP/s), and 0.24 ms for reading A and B once,
+// so it is bound by operations.
 //
-// Why mma.sync and not wgmma: TF32 wgmma takes only K-major operands, and
-// here both are M-contiguous (T, M) rows; mma.sync loads its fragments from
-// registers filled from any shared-memory layout.  A later kernel can
-// transpose tiles into wgmma's layout.
+// The design for Hopper (the warp-level mma kernel it replaced ran at a
+// third of the bound: that TF32 rate is below wgmma's).  TF32 wgmma reads B
+// only K-major from shared memory, and here both operands are M-contiguous
+// (T, M) rows, so B is transposed once per stage.  Each block owns one
+// 128 x 128 output tile over one slice of time (split-K: S slices, as many
+// as fill one wave of the card; at M = 200 there are 4 tiles and 33
+// slices), and holds three warpgroups:
+//   * a producer warpgroup fills a ring of kAccStages stages, each 32 time
+//     rows of the A and B column tiles as they lie in device memory: TMA
+//     boxes where M % 4 == 0 and the bases are 16-byte aligned, else 4-byte
+//     cp.asyncs (AccLoad); a stage's mbarrier counts its bytes (or the
+//     cp.asyncs' arrivals); a stage is refilled once both consumer
+//     warpgroups have read their A fragments from it;
+//   * two consumer warpgroups own 64 rows each of the tile.  Together they
+//     transpose and split each stage's B tile once into K-major hi and lo
+//     TF32 tiles in the 128-byte-swizzled layout wgmma reads (128 rows of
+//     32 k: one swizzle row each; double-buffered, so the next stage's
+//     tile is made while the tensor cores form this one's products); each
+//     reads its A rows' fragments from the stage into registers and splits
+//     them there (each staged value is split once, by the one thread that
+//     owns it), and issues wgmma.m64n128k8 TF32 with A from registers, B
+//     from shared memory.  setmaxnreg gives the producer's registers to
+//     them.
+// Past T and past M the values are masked to exact zeros where they are
+// read (the stages hold stale data there).
 //
-// Each block owns one 128 x 128 output tile over one slice of t (split-K:
-// S slices, as many as fill one wave of the card; at M = 200 there are 4
-// tiles and 33 slices).  Per stage it loads 32 time rows of the A and
-// B column tiles with cp.async (16-byte copies when M % 4 == 0),
-// double-buffered, zero-filled past the slice and past M.  Rows are padded
-// by 8 floats: the fragment reads (k = lane % 4, m = lane / 4) then fall
-// on 32 banks.  Each warp splits the raw values of its fragments in
-// registers (hi = tf32(a) rounded as cvt.rna.tf32.f32 does, lo = tf32(a -
-// hi)) and issues the
-// three products per k-step.  That beat splitting each tile once in shared
-// memory, hi in place and lo beside it, on the H100: the split tile
-// doubles the bytes of every fragment read and adds a pass over the tile,
-// while the conversions repeated per warp take ALU slots the mma.sync loop
-// leaves free.  What bounds it then is mma.sync's TF32 rate, below
-// wgmma's (PERF.md times the one-product control beside it).  Sums run in
-// two levels: each 32-row stage in a fresh mma
-// accumulator (the tensor cores' f32 adds truncate, and a bias over 96
-// accumulations per 256 rows reached 3e-6 of an entry), then the stage
-// sums in f32 with rounding to nearest over the slice.  Each slice's
-// partial goes to an (S, M, M) buffer; a second kernel adds the S
-// partials in slice order into the (ND, ND, L, L) result.  No atomics:
-// runs repeat bit for bit.  PASSES = 1 (hi.hi only, one TF32 product)
-// exists for the tests' control and is not reachable from the public
-// wrapper.
+// Order (no atomics: runs repeat bit for bit).  Each 32-row stage goes
+// into a fresh tensor-core accumulator (per 8-row step lo.hi, hi.lo, then
+// hi.hi; the tensor cores' f32 adds truncate, and a bias over 96
+// accumulations per 256 rows reached 3e-6 of an entry without it), which
+// is then added to the tile's running f32 sum, rounded to nearest, stage
+// after stage over the slice.  Each slice's partial goes to an (S, M, M)
+// buffer; a second kernel adds the S partials in slice order into the
+// (ND, ND, L, L) result.  PASSES = 1 (hi.hi only, one TF32 product) exists
+// for the tests' control and is not reachable from the public wrapper.
 // ---------------------------------------------------------------------------
 
-constexpr int kAccBK = 32;    // time rows per shared-memory stage
-constexpr int kAccPad = 8;    // floats of padding per shared row
+// The two ways the ring is filled (the same values; the consumers read
+// through raw_off):
+//   kLoadTma: TMA boxes of 32 columns x 32 rows, four per operand and
+//     stage, 128-byte swizzle (M % 4 == 0, 16-byte aligned bases);
+//   kLoadCp: 4-byte cp.asyncs into rows padded to 136 floats (any M, any
+//     alignment).
+// On the H100 at T = 1e5, L = 500 (scripts/scan_push_probe.py) the TMA
+// boxes took 2.16 ms, one bulk copy per row 3.66 and cp.async 4.00.
+enum AccLoad { kLoadTma = 0, kLoadCp = 2 };
+
+constexpr int kAccBK = 32;      // time rows per stage: one swizzle row of K
+constexpr int kAccTile = 128;   // the output tile, kAccTile x kAccTile
+constexpr int kAccRow = kAccTile + 8;  // floats of a padded staged row
+constexpr int kAccStages = 4;
+constexpr int kAccConsumers = 256;     // two warpgroups
+constexpr int kAccThreads = kAccConsumers + 128;  // + a producer warpgroup
+// one operand's stage: the padded rows, rounded up to 1024 bytes (the
+// swizzled boxes take 16 KB of it)
+constexpr uint32_t kAccRawBytes = (kAccBK * kAccRow * 4 + 1023) / 1024 * 1024;
+constexpr uint32_t kAccBTile = kAccTile * kAccBK * 4;     // B hi (or lo)
+// the K-major B tiles (two buffers of hi and lo), the ring, its barriers,
+// and room to align to 1024
+constexpr size_t kAccSmem =
+    4 * kAccBTile + kAccStages * 2 * kAccRawBytes + 16 * kAccStages + 1024;
+
+// byte offset of element (time row k, column m) in an operand's stage
+template <int LOAD>
+__device__ __forceinline__ uint32_t raw_off(int k, int m) {
+  if (LOAD == kLoadTma) return (m >> 5) * 4096 + sw128_off4(k, m);
+  return (k * kAccRow + m) * 4;
+}
 
 // tf32(x): the rounding of cvt.rna.tf32.f32 (to nearest, ties away from
 // zero, onto the top 10 mantissa bits) in two integer operations; for
-// finite x the bits are cvt's (post and r are finite).  On the H100 the
-// cvt form made joint_acc slower, with bit-equal output.
+// finite x the bits are cvt's (post and r are finite).
 __device__ __forceinline__ uint32_t to_tf32(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
@@ -630,183 +665,227 @@ __device__ __forceinline__ void split_tf32(float x, uint32_t& hi,
   lo = to_tf32(x - __uint_as_float(hi));
 }
 
-// d += a (16 x 8, row) @ b (8 x 8, col), TF32 operands, f32 sums
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
+// d (64 x 128, f32) = (scale_d ? d : 0) + a (64 x 8 TF32, registers) @ b
+// (128 x 8 TF32, K-major in shared memory); a: (row g, k t), (row g + 8,
+// k t), (row g, k t + 4), (row g + 8, k t + 4) of the warp's 16 rows
+__device__ __forceinline__ void wgmma_tf32(float (&d)[64],
+                                           const uint32_t (&a)[4],
+                                           uint64_t desc, int scale_d) {
   asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc),
+        "r"(scale_d));
 }
 
-// copy `BYTES` (16 or 4) to shared memory, zero-filled past `src_bytes`
-template <int BYTES>
-__device__ __forceinline__ void cp_async(void* dst, const void* src,
-                                         int src_bytes) {
-  const unsigned d = (unsigned)__cvta_generic_to_shared(dst);
-  if (BYTES == 16) {
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d),
-                 "l"(src), "r"(src_bytes));
-  } else {
-    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d),
-                 "l"(src), "r"(src_bytes));
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::);
-}
-
-// the block's copies of one stage of one operand: rows [t, t + kAccBK) of
-// columns [col0, col0 + TILE) of X (T, M) into xs (kAccBK, TILE + pad).
-// Chunk k of the stage is 4 columns of one row; each thread takes every
-// NTH-th chunk.
-template <int TILE, int NTH, bool VEC>
-__device__ __forceinline__ void load_stage(const float* X, float* xs, int t,
-                                           int tb, int col0, int M) {
-  constexpr int S = TILE + kAccPad;
-  for (int k = threadIdx.x; k < kAccBK * TILE / 4; k += NTH) {
-    const int row = k / (TILE / 4), col = (k % (TILE / 4)) * 4;
-    const int tt = t + row, gc = col0 + col;
-    float* dst = xs + row * S + col;
-    const float* src = X + (size_t)tt * M + gc;
-    if (VEC) {
-      const bool ok = tt < tb && gc < M;
-      cp_async<16>(dst, ok ? src : X, ok ? 16 : 0);
-    } else {
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const bool ok = tt < tb && gc + u < M;
-        cp_async<4>(dst + u, ok ? src + u : X, ok ? 4 : 0);
-      }
-    }
-  }
-}
-
-// the block tile: WM x WN warps, each MT x NT_ mma tiles of 16 x 8, so
-// 128 x 128 in 8 warps of 64 x 32 (on the H100 at T = 1e5 this beat 16
-// warps of 32 x 32 and, at M = 200, 64 x 64 tiles of 4 warps)
-constexpr int kAccWM = 2, kAccWN = 4, kAccMT = 4, kAccNT = 4;
-constexpr int kAccTile = kAccWM * kAccMT * 16;
-static_assert(kAccTile == kAccWN * kAccNT * 8, "square block tile");
-constexpr int kAccThreads = kAccWM * kAccWN * 32;
-
-template <int PASSES, bool VEC>
-__global__ void __launch_bounds__(kAccThreads)
-    joint_acc_partial_kernel(const float* __restrict__ A,
+template <int PASSES, int LOAD>
+__global__ void __launch_bounds__(kAccThreads, 1)
+    joint_acc_partial_kernel(const __grid_constant__ CUtensorMap tm_a,
+                             const __grid_constant__ CUtensorMap tm_b,
+                             const float* __restrict__ A,
                              const float* __restrict__ B, float* partial,
                              int T, int M, int rows_per_slice) {
-  constexpr int WN = kAccWN, MT = kAccMT, NT_ = kAccNT;
-  constexpr int TILE = kAccTile, NTH = kAccThreads;
-  constexpr int S = TILE + kAccPad;
-  constexpr int STAGE = kAccBK * S;  // floats of one operand stage
-  extern __shared__ __align__(16) float smem[];
-  float* as = smem;                  // [2][kAccBK][S]
-  float* bs = smem + 2 * STAGE;      // [2][kAccBK][S]
+  constexpr int S = kAccStages;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw0 = smem_u32(smem_raw);
+  const uint32_t base = (raw0 + 1023u) & ~1023u;
+  uint8_t* const tiles = smem_raw + (base - raw0);  // B hi/lo [2 buffers]
+  uint8_t* const ring = tiles + 4 * kAccBTile;       // [S][A, B]
+  const uint32_t ring_u = base + 4 * kAccBTile;
+  const uint32_t bars = ring_u + S * 2 * kAccRawBytes;
+  auto full = [&](int s) { return bars + 8 * s; };
+  auto empty = [&](int s) { return bars + 8 * (S + s); };
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int g = lane >> 2, tig = lane & 3;
-  const int wm = warp / WN, wn = warp % WN;
-  const int p0 = blockIdx.y * TILE, q0 = blockIdx.x * TILE;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int p0 = blockIdx.y * kAccTile, q0 = blockIdx.x * kAccTile;
   const int ta = blockIdx.z * rows_per_slice;
   const int tb = min(T, ta + rows_per_slice);
-  const int stages = tb > ta ? (tb - ta + kAccBK - 1) / kAccBK : 0;
-
-  float acc[MT][NT_][4];
-#pragma unroll
-  for (int m = 0; m < MT; ++m)
-#pragma unroll
-    for (int n = 0; n < NT_; ++n)
-#pragma unroll
-      for (int u = 0; u < 4; ++u) acc[m][n][u] = 0.f;
-
-  if (stages > 0) {
-    load_stage<TILE, NTH, VEC>(A, as, ta, tb, p0, M);
-    load_stage<TILE, NTH, VEC>(B, bs, ta, tb, q0, M);
-    cp_async_commit();
-  }
-  for (int st = 0; st < stages; ++st) {
-    const float* ah = as + (st & 1) * STAGE;
-    const float* bh = bs + (st & 1) * STAGE;
-    cp_async_wait_all();  // this thread's copies of stage st landed
-    __syncthreads();      // all of stage st; every warp done with st - 1
-    if (st + 1 < stages) {
-      const int t = ta + (st + 1) * kAccBK;
-      load_stage<TILE, NTH, VEC>(A, as + ((st + 1) & 1) * STAGE, t, tb, p0,
-                                 M);
-      load_stage<TILE, NTH, VEC>(B, bs + ((st + 1) & 1) * STAGE, t, tb, q0,
-                                 M);
-      cp_async_commit();
+  const int nst = tb > ta ? (tb - ta + kAccBK - 1) / kAccBK : 0;
+  // the tile's columns that lie in the matrix, of A (rows of the output)
+  // and of B (its columns)
+  const int ma = min(kAccTile, M - p0), nb = min(kAccTile, M - q0);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full(s), LOAD == kLoadCp ? 128 : 1);
+      mbar_init(empty(s), 2);  // one release per consumer warpgroup
     }
-    float part[MT][NT_][4];
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int n = 0; n < NT_; ++n)
-#pragma unroll
-        for (int u = 0; u < 4; ++u) part[m][n][u] = 0.f;
-#pragma unroll
-    for (int k0 = 0; k0 < kAccBK; k0 += 8) {
-      const float* a0 = ah + (k0 + tig) * S + wm * MT * 16 + g;
-      const float* b0 = bh + (k0 + tig) * S + wn * NT_ * 8 + g;
-      uint32_t ahi[MT][4], alo[MT][4], bhi[NT_][2], blo[NT_][2];
-#pragma unroll
-      for (int m = 0; m < MT; ++m) {
-        // element i: row g (+8 for odd i), column tig (+4 for i >= 2)
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-          split_tf32(a0[(i >> 1) * 4 * S + m * 16 + (i & 1) * 8], ahi[m][i],
-                     alo[m][i]);
-      }
-#pragma unroll
-      for (int n = 0; n < NT_; ++n) {
-        // element i: row (k) tig (+4 for i = 1), column g
-#pragma unroll
-        for (int i = 0; i < 2; ++i)
-          split_tf32(b0[i * 4 * S + n * 8], bhi[n][i], blo[n][i]);
-      }
-      // small terms first; each product over all tiles before the next,
-      // so that neighbouring mma.sync write different accumulators
-      if (PASSES == 3) {
-#pragma unroll
-        for (int m = 0; m < MT; ++m)
-#pragma unroll
-          for (int n = 0; n < NT_; ++n) mma_tf32(part[m][n], alo[m], bhi[n]);
-#pragma unroll
-        for (int m = 0; m < MT; ++m)
-#pragma unroll
-          for (int n = 0; n < NT_; ++n) mma_tf32(part[m][n], ahi[m], blo[n]);
-      }
-#pragma unroll
-      for (int m = 0; m < MT; ++m)
-#pragma unroll
-        for (int n = 0; n < NT_; ++n) mma_tf32(part[m][n], ahi[m], bhi[n]);
-    }
-#pragma unroll
-    for (int m = 0; m < MT; ++m)
-#pragma unroll
-      for (int n = 0; n < NT_; ++n)
-#pragma unroll
-        for (int u = 0; u < 4; ++u) acc[m][n][u] += part[m][n][u];
+    mbar_init_fence();
   }
-  // accumulator element u of tile (m, n): row g (+8 for u >= 2), column
-  // 2 * tig (+1 for odd u)
-  float* out = partial + (size_t)blockIdx.z * M * M;
+  __syncthreads();
+
+  if (threadIdx.x >= kAccConsumers) {
+    // ---- the producer warpgroup ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 56;\n" ::: "memory");
+    const int p = threadIdx.x - kAccConsumers;
+    if (LOAD == kLoadTma && p >= 32) return;  // one thread issues the boxes
+    for (int st = 0; st < nst; ++st) {
+      const int s = st % S;
+      if (st >= S) mbar_wait(empty(s), (st / S - 1) & 1);
+      const int t0 = ta + st * kAccBK, rows = min(kAccBK, tb - t0);
+      const uint32_t sa = ring_u + s * 2 * kAccRawBytes, sb = sa + kAccRawBytes;
+      if (LOAD == kLoadTma) {
+        if (lane == 0) {
+          // zeros past M and past T, counted as loaded
+          mbar_expect_tx(full(s), 2 * 4 * 4096);
 #pragma unroll
-  for (int m = 0; m < MT; ++m)
+          for (int j = 0; j < 4; ++j) {
+            tma_load(sa + 4096 * j, &tm_a, full(s), p0 + 32 * j, t0, 0);
+            tma_load(sb + 4096 * j, &tm_b, full(s), q0 + 32 * j, t0, 0);
+          }
+        }
+      } else {
+        for (int e = p; e < rows * kAccTile; e += 128) {
+          const int r = e / kAccTile, c = e % kAccTile;
+          const size_t g = (size_t)(t0 + r) * M;
+          if (c < ma) cp_async4(sa + raw_off<LOAD>(r, c), A + g + p0 + c, 4);
+          if (c < nb) cp_async4(sb + raw_off<LOAD>(r, c), B + g + q0 + c, 4);
+        }
+        cp_async_arrive(full(s));
+      }
+    }
+    if (LOAD == kLoadCp) asm volatile("cp.async.wait_all;\n" ::: "memory");
+    return;
+  }
+
+  // ---- the consumers: warpgroup wg owns rows wg * 64 .. + 63 ----
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 224;\n" ::: "memory");
+  const int ct = threadIdx.x;  // 0 .. 255
+  const int wg = warp >> 2, g8 = lane >> 2, t4 = lane & 3;
+  const int r0 = wg * 64 + (warp & 3) * 16 + g8;  // and r0 + 8
+  auto rows_of = [&](int st) { return min(kAccBK, tb - (ta + st * kAccBK)); };
+
+  // stage st's B tile (k, n) -> K-major hi (and lo) TF32 tiles of buffer
+  // `buf`: thread ct takes column n = ct % 128 and the 4-row chunks kc =
+  // ct / 128 + 2 i, one 16-byte store each (a warp's reads and stores fall
+  // on 32 banks)
+  auto convert = [&](int st, int buf) {
+    const uint8_t* rb = ring + (st % S) * 2 * kAccRawBytes + kAccRawBytes;
+    const int rows = rows_of(st), n = ct & (kAccTile - 1);
+    const uint32_t hi_t = base + buf * 2 * kAccBTile, lo_t = hi_t + kAccBTile;
 #pragma unroll
-    for (int n = 0; n < NT_; ++n)
+    for (int i = 0; i < 4; ++i) {
+      const int kc = (ct >> 7) + 2 * i;
+      uint32_t h[4], l[4];
 #pragma unroll
       for (int u = 0; u < 4; ++u) {
-        const int p = p0 + wm * MT * 16 + m * 16 + g + (u >= 2 ? 8 : 0);
-        const int q = q0 + wn * NT_ * 8 + n * 8 + 2 * tig + (u & 1);
-        if (p < M && q < M) out[(size_t)p * M + q] = acc[m][n][u];
+        const int k = 4 * kc + u;
+        const float x =
+            (n < nb && k < rows)
+                ? *reinterpret_cast<const float*>(rb + raw_off<LOAD>(k, n))
+                : 0.f;
+        split_tf32(x, h[u], l[u]);
       }
+      const uint32_t off = sw128_off4(n, 4 * kc);
+      asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                       hi_t + off),
+                   "r"(h[0]), "r"(h[1]), "r"(h[2]), "r"(h[3])
+                   : "memory");
+      if (PASSES == 3)
+        asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(
+                         lo_t + off),
+                     "r"(l[0]), "r"(l[1]), "r"(l[2]), "r"(l[3])
+                     : "memory");
+    }
+    fence_proxy_async();  // the tiles are read by wgmma
+  };
+
+  float acc[64], part[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  if (nst > 0) {
+    mbar_wait(full(0), 0);
+    convert(0, 0);
+  }
+  named_sync(1, kAccConsumers);
+  for (int st = 0; st < nst; ++st) {
+    const int s = st % S, buf = st & 1, rows = rows_of(st);
+    // this warp's A fragments of the stage's four 8-row steps, split
+    const uint8_t* ra = ring + s * 2 * kAccRawBytes;
+    uint32_t ahi[4][4], alo[4][4];
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int m = r0 + (i & 1) * 8, k = ks * 8 + t4 + (i >> 1) * 4;
+        const float x =
+            (m < ma && k < rows)
+                ? *reinterpret_cast<const float*>(ra + raw_off<LOAD>(k, m))
+                : 0.f;
+        split_tf32(x, ahi[ks][i], alo[ks][i]);
+      }
+    // the stage is read (its B converted before the last consumer
+    // barrier): the warpgroup releases it
+    named_sync(2 + wg, 128);
+    if ((warp & 3) == 0 && lane == 0) mbar_arrive(empty(s));
+    const uint32_t hi_t = base + buf * 2 * kAccBTile, lo_t = hi_t + kAccBTile;
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks) {
+      const uint64_t dh = sw128_desc(hi_t + 32 * ks);
+      if (PASSES == 3) {
+        wgmma_tf32(part, alo[ks], dh, ks);
+        wgmma_tf32(part, ahi[ks], sw128_desc(lo_t + 32 * ks), 1);
+        wgmma_tf32(part, ahi[ks], dh, 1);
+      } else {
+        wgmma_tf32(part, ahi[ks], dh, ks);
+      }
+    }
+    wgmma_commit();
+    // the next stage's B tile, made while the tensor cores work
+    if (st + 1 < nst) {
+      mbar_wait(full((st + 1) % S), ((st + 1) / S) & 1);
+      convert(st + 1, buf ^ 1);
+    }
+    wgmma_wait0();
+    fence_regs(part);
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] += part[i];
+    // the next tile complete; no warpgroup still reads this one
+    named_sync(1, kAccConsumers);
+  }
+  // accumulator 4j + u: row r0 (+8 for u >= 2), column 8j + 2 t4 (+1 for
+  // odd u)
+  float* out = partial + (size_t)blockIdx.z * M * M;
+  const bool pair = M % 2 == 0;
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int p = p0 + r0 + half * 8;
+    if (p >= M) continue;
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj) {
+      const int q = q0 + jj * 8 + 2 * t4;
+      float* o = out + (size_t)p * M + q;
+      const float v0 = acc[4 * jj + 2 * half], v1 = acc[4 * jj + 2 * half + 1];
+      if (pair && q + 1 < M) {
+        *reinterpret_cast<float2*>(o) = make_float2(v0, v1);
+      } else {
+        if (q < M) o[0] = v0;
+        if (q + 1 < M) o[1] = v1;
+      }
+    }
+  }
 }
 
 // acc[d, e, i, j] = sum over slices, in slice order, of partial[s, d*L+i,
@@ -933,17 +1012,30 @@ int count_matrices(int n_dyn, int mask) {
   return n;
 }
 
-template <int PASSES, bool VEC>
-cudaError_t acc_partial(const float* A, const float* B, float* partial,
+template <int PASSES, int LOAD>
+cudaError_t acc_partial(const CUtensorMap& ta, const CUtensorMap& tb,
+                        const float* A, const float* B, float* partial,
                         int T, int M, int S, int rows, cudaStream_t s) {
-  const size_t smem = (size_t)4 * kAccBK * (kAccTile + kAccPad) * sizeof(float);
-  auto kernel = joint_acc_partial_kernel<PASSES, VEC>;
-  cudaError_t err = launch_prep(kernel, smem);
+  auto kernel = joint_acc_partial_kernel<PASSES, LOAD>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kAccSmem);
   if (err != cudaSuccess) return err;
   const int tiles = (M + kAccTile - 1) / kAccTile;
-  kernel<<<dim3(tiles, tiles, S), kAccThreads, smem, s>>>(
-      A, B, partial, T, M, rows);
+  kernel<<<dim3(tiles, tiles, S), kAccThreads, kAccSmem, s>>>(
+      ta, tb, A, B, partial, T, M, rows);
   return cudaGetLastError();
+}
+
+template <int PASSES>
+cudaError_t acc_partial_by(int load, const CUtensorMap& ta,
+                           const CUtensorMap& tb, const float* A,
+                           const float* B, float* partial, int T, int M,
+                           int S, int rows, cudaStream_t s) {
+  if (load == kLoadTma)
+    return acc_partial<PASSES, kLoadTma>(ta, tb, A, B, partial, T, M, S,
+                                         rows, s);
+  return acc_partial<PASSES, kLoadCp>(ta, tb, A, B, partial, T, M, S, rows,
+                                      s);
 }
 
 // a pass's band arguments are usable: n_mat channels of W rows
@@ -1064,7 +1156,9 @@ int pmg_psmooth_pass(const void* post, const void* tlat, const void* tlatT,
 // joint_acc over post, r (T, ND, L): S slices of `rows_per_slice` rows of
 // 128 x 128 output tiles into `partial` (S, ND*L, ND*L), then their sum
 // into acc (ND, ND, L, L).  passes 3: 3xTF32; 1: the one-pass control
-// (hi.hi only).
+// (hi.hi only).  Both on wgmma TF32.  The ring is filled by TMA where
+// M % 4 == 0 and both bases are 16-byte aligned, else by cp.async
+// (AccLoad; the same bits either way).
 int pmg_joint_acc(const void* post, const void* r, void* partial, void* acc,
                   int T, int n_dyn, int L, int S, int rows_per_slice,
                   int passes, void* stream) {
@@ -1076,16 +1170,23 @@ int pmg_joint_acc(const void* post, const void* r, void* partial, void* acc,
   const float* A = static_cast<const float*>(post);
   const float* B = static_cast<const float*>(r);
   float* part = static_cast<float*>(partial);
-  // 16-byte copies when every row of the tiles starts 16-byte aligned
-  const bool vec = M % 4 == 0;
+  // TMA where every row starts 16-byte aligned
+  const bool aligned = M % 4 == 0 &&
+                       reinterpret_cast<uintptr_t>(A) % 16 == 0 &&
+                       reinterpret_cast<uintptr_t>(B) % 16 == 0;
+  const int load = aligned ? kLoadTma : kLoadCp;
+  CUtensorMap maps[2] = {};
+  if (load == kLoadTma &&
+      (!encode(&maps[0], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, A, M, T, 1,
+               4LL * M, 4LL * M * T, 32, kAccBK) ||
+       !encode(&maps[1], CU_TENSOR_MAP_DATA_TYPE_FLOAT32, B, M, T, 1,
+               4LL * M, 4LL * M * T, 32, kAccBK)))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err =
-      passes == 3
-          ? (vec ? acc_partial<3, true>(A, B, part, T, M, S, rows_per_slice, s)
-                 : acc_partial<3, false>(A, B, part, T, M, S, rows_per_slice,
-                                         s))
-          : (vec ? acc_partial<1, true>(A, B, part, T, M, S, rows_per_slice, s)
-                 : acc_partial<1, false>(A, B, part, T, M, S, rows_per_slice,
-                                         s));
+      passes == 3 ? acc_partial_by<3>(load, maps[0], maps[1], A, B, part, T,
+                                      M, S, rows_per_slice, s)
+                  : acc_partial_by<1>(load, maps[0], maps[1], A, B, part, T,
+                                      M, S, rows_per_slice, s);
   if (err != cudaSuccess) return (int)err;
   const size_t total = (size_t)M * M;
   const int blocks = (int)((total + 255) / 256 < 4096 ? (total + 255) / 256

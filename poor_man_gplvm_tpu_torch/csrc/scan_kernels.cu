@@ -61,6 +61,7 @@
 // kernels divide through an f64 reciprocal, which gives the f32 quotient's
 // bits (scan_common.cuh::div_by_rcp).
 
+#include "hopper_common.cuh"
 #include "scan_common.cuh"
 
 namespace {
@@ -485,16 +486,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 // the warp-order row sum of a constant channel, the window sum over the
 // push band ascending with fmaf), so on f32 filter posteriors it gives
 // K1's prior bits and the smoothed rows and r are K2's on the stored
-// priors, bit for bit.  The push's window sum runs in the pull's loop, as
-// a second chain (the dense loop's order in each).  FT = bf16 reads the 'filter_bf16' store and forms
+// priors, bit for bit.  FT = bf16 reads the 'filter_bf16' store and forms
 // the push and the smoother step from its f32 values.
-//
-// Layout as K2 (one block, thread j owns column j; E = 1).  The push of
-// row t-1, which does not depend on the recursion, runs beside step t's
-// pull: its dynamics-mixed vector q goes to shared memory before barrier
-// (a) with r, and both window sums run between (a) and (b), so a step
-// keeps K2's two barriers.  Shared memory holds r, q and both halves of
-// the band (84 KB at L = 500, W = 21) when they fit.
 struct PushArgs {
   const void* filt;     // (T, ND, L) float or bf16
   const float* tlat;    // (ND, L, L): row 0 of the constant channels' push
@@ -511,32 +504,176 @@ struct PushArgs {
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
 
-template <int ND, bool RESIDENT, typename FT>
+// The specialised design of K2 with the prior recomputed: the push taken
+// off the chain and off the chain's SM.  prior_{t+1} = push(filt_t) does
+// not depend on the recursion, so a cluster of two thread blocks, on two
+// SMs, runs one sequence:
+//   * block 0, the consumer: thread j owns latent column j (one thread per
+//     column at every L up to 1,024) and runs K2's step exactly (the
+//     ratio, r to shared memory, the pull's window sum, the dynamics mix,
+//     the normaliser, the division through div_by_rcp), the filter row of
+//     the step loaded from device memory a step ahead as K2 loads it; the
+//     prior comes as its reciprocal code from a ring in its own shared
+//     memory, read a step ahead too (while the other warps reach barrier
+//     (b)), so the ring is off the chain;
+//   * block 1, the producer: S rows ahead of the consumer, it brings the
+//     stored filter rows t = T-1, T-2, ... into its shared memory by bulk
+//     copies (cp.async.bulk, one 16-byte-aligned span a row, S rows in
+//     flight, each completing on its stage's mbarrier), and thread j forms
+//     column j's prior with K1's operations in K1's order and K1's layout
+//     (the dynamics mix of its column, warp_sum's tree and the warps in
+//     ascending order for a constant channel, the window sum over the push
+//     band ascending with fmaf), so the prior's bits are K1's; it stores
+//     the prior's reciprocal code into the consumer's ring by asynchronous
+//     stores to the cluster's distributed shared memory (st.async), whose
+//     bytes complete on the consumer's barrier: rcp_f64(p) for FLT_MIN <=
+//     p < 2, -p for p >= 2 (the consumer then divides in f32, as K2 does),
+//     0 below FLT_MIN or NaN (r = 0).
+// What the H100 taught (scripts/scan_push_probe.py, PERF.md): a producer
+// warpgroup inside the consumer's block (warp specialisation in one block)
+// made a step slower, 2.61 us against 2.18 for the push on the consumer
+// threads: its instructions take the issue slots of the chain it was meant
+// to spare.  On its own SM the producer costs the chain nothing.  The
+// consumer's side of the ring stays at block scope: a cluster-scope
+// release and acquire there compiled to a GPU-wide memory barrier and an
+// L1 invalidation each step (2.09-2.15 us a step; 1.84 with st.async and
+// block-scope waits).
+//
+// Synchronisation, per ring stage (ring[s][j][d]: a column's codes
+// together): `full` in the consumer (its thread 0 arms it with the row's
+// bytes, the producer's stores complete them), `empty` in the producer
+// (the consumer's thread 0 arrives after its barrier (a), by which every
+// consumer thread has read the stage's codes), `loaded` in the producer
+// (the bulk copy's bytes).  Row i (i = T-1-t) uses stage i % S; waits on
+// stage s for the phase (i / S) & 1, the producer's wait for `empty` the
+// phase of the row S before.  A cluster barrier after the barriers'
+// initialisation and another before either block leaves (the consumer's
+// last release reaches the producer's shared memory).
+//
+// Shared memory (push_layout, the same for both blocks): the barriers, the
+// ring (S x ND x L f64), then the role's part: the producer's S filter
+// stages, two mixed rows and the push half of the band; the consumer's r
+// and the pull half (each thread keeps its window rows and the constant
+// channels' first rows in registers).  A half of the band is kept resident
+// when both roles' layouts fit kResidentCap at 2 stages, else read from L2
+// with 16 loads in flight (a dense channel); the host code takes S, the
+// most stages, up to 4, that fit (push_plan_of).
+// ops/scan_kernels.py::push_plan mirrors that choice for the tests.
+constexpr int kPushMaxStages = 4;
+constexpr int kPushMinStages = 2;
+
+struct PushLayout {
+  size_t bars, ring, filt, fstage, q, pband, r, cband, total;
+};
+
+__host__ __device__ constexpr size_t align16(size_t x) {
+  return (x + 15) & ~(size_t)15;
+}
+
+__host__ __device__ inline PushLayout push_layout(int nd, int n_mat, int L,
+                                                  int W, int fbytes, int S,
+                                                  bool resident) {
+  PushLayout p{};
+  const size_t vec = (size_t)nd * L * 4;
+  const size_t half = resident ? (size_t)n_mat * W * L * 4 : 0;
+  size_t o = 0;
+  p.bars = o;  // full[S], empty[S], loaded[S]
+  o = align16(o + (size_t)3 * S * 8);
+  p.ring = o;
+  o = align16(o + (size_t)S * nd * L * 8);
+  const size_t role = o;
+  // the producer's part: a row's bytes rounded up, and 16 more for the
+  // span's offset, per filter stage
+  p.fstage = align16((size_t)nd * L * fbytes) + 16;
+  p.filt = role;
+  p.q = p.filt + S * p.fstage;  // two mixed rows
+  p.pband = align16(p.q + 2 * vec);
+  const size_t prod = align16(p.pband + half);
+  // the consumer's part
+  p.r = role;
+  p.cband = align16(p.r + vec);
+  const size_t cons = align16(p.cband + half);
+  p.total = prod > cons ? prod : cons;
+  return p;
+}
+
+// the ring depth (0 where 2 stages do not fit) of one residency
+inline int push_stages(int n_dyn, int n_mat, int L, int W, int fbytes,
+                       bool resident) {
+  for (int S = kPushMaxStages; S >= kPushMinStages; --S)
+    if (push_layout(n_dyn, n_mat, L, W, fbytes, S, resident).total <=
+        kResidentCap)
+      return S;
+  return 0;
+}
+
+// the launch's plan: the band's residency, the ring depth and the bytes
+struct PushPlan {
+  bool resident;
+  int stages;
+  size_t smem;
+};
+
+inline PushPlan push_plan_of(int n_dyn, int n_mat, int L, int W,
+                             int filt_bf16) {
+  if (n_mat == 0) W = 0;
+  const int fbytes = filt_bf16 ? 2 : 4;
+  PushPlan p{};
+  p.resident = push_stages(n_dyn, n_mat, L, W, fbytes, true) > 0;
+  p.stages = push_stages(n_dyn, n_mat, L, W, fbytes, p.resident);
+  p.smem =
+      push_layout(n_dyn, n_mat, L, W, fbytes, p.stages, p.resident).total;
+  return p;
+}
+
+// the reciprocal code of a prior p (see above)
+__device__ __forceinline__ double prior_code(float p) {
+  return p >= kPriorFloor ? (p < kRcpDivisorMax ? rcp_f64(p) : -(double)p)
+                          : 0.0;
+}
+
+template <int ND, typename FT, bool RESIDENT>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-    smoother_push_kernel(PushArgs a) {
-  extern __shared__ float smem[];
-  float* r_s = smem;                    // (ND, L) ratios
-  float* q_s = smem + ND * a.L;         // (ND, L) dynamics-mixed filt row
-  float* band_s = smem + 2 * ND * a.L;  // (2, n_mat, W, L) when RESIDENT
-  __shared__ float red_r[32][ND];
-  __shared__ float red_q[32][ND];
+    smoother_push_cluster_kernel(PushArgs a, int S) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __shared__ float red[2][32][ND];  // warp partials: the producer's q
+                                    // sums (two rows), the consumer's r
   __shared__ float red_s[32];
 
-  const int L = a.L, W = a.W, T = a.T, j = threadIdx.x;
-  const int lane = j & 31, warp = j >> 5, nwarp = blockDim.x >> 5;
+  const int L = a.L, W = a.W, T = a.T, n_mat = a.n_mat;
+  const int j = threadIdx.x, lane = j & 31, warp = j >> 5;
+  const int nwarp = blockDim.x >> 5;
   const bool live = j < L;
+  const PushLayout lay =
+      push_layout(ND, n_mat, L, W, sizeof(FT), S, RESIDENT);
+  const uint32_t bars = smem_u32(smem_raw + lay.bars);
+  const uint32_t ring = smem_u32(smem_raw + lay.ring);
   const size_t LL = (size_t)L * L, WL = (size_t)W * L;
-  const size_t row = (size_t)ND * L, half = (size_t)a.n_mat * WL;
-  const FT* __restrict__ filt = static_cast<const FT*>(a.filt);
+  const size_t row = (size_t)ND * L, half = (size_t)n_mat * WL;
+  const bool producer = cluster_rank() == 1;
+  const uint32_t full = bars, empty = bars + 8 * S, loaded = bars + 16 * S;
 
+  // each block's half of the band
+  float* __restrict__ band_s = reinterpret_cast<float*>(
+      smem_raw + (producer ? lay.pband : lay.cband));
   if (RESIDENT) {
-    for (size_t k = j; k < 2 * half; k += blockDim.x) band_s[k] = a.band[k];
+    const float* src = a.band + (producer ? 0 : half);
+    for (size_t k = j; k < half; k += blockDim.x) band_s[k] = src[k];
   }
-  const float* band = RESIDENT ? band_s : a.band;
-
-  float tdyn[ND][ND], carry[ND], row0_f[ND], row0_b[ND];
-  size_t off[ND];  // each channel's window in a half of the band
-  int i0_f[ND], i0_b[ND];
+  const float* __restrict__ band =
+      RESIDENT ? band_s : a.band + (producer ? 0 : half);
+  constexpr int kUnroll = matvec_unroll(RESIDENT);
+  if (j == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, 1);
+      mbar_init(loaded + 8 * s, 1);
+    }
+    mbar_init_fence();
+  }
+  float tdyn[ND][ND], row0[ND];
+  size_t off[ND];  // each channel's window in the block's half of the band
+  int i0[ND];
   int slot = 0;
 #pragma unroll
   for (int d = 0; d < ND; ++d)
@@ -544,122 +681,140 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     for (int e = 0; e < ND; ++e) tdyn[d][e] = a.tdyn[d * ND + e];
 #pragma unroll
   for (int d = 0; d < ND; ++d) {
-    carry[d] = live ? a.init[d * L + j] : 0.f;
-    row0_f[d] = live ? a.tlat[d * LL + j] : 0.f;
-    row0_b[d] = live ? a.tlatT[d * LL + j] : 0.f;
+    // the first row of a constant channel: the push's (tlat) or the
+    // pull's (tlatT)
+    row0[d] = live ? (producer ? a.tlat : a.tlatT)[d * LL + j] : 0.f;
     off[d] = 0;
-    i0_f[d] = i0_b[d] = 0;
+    i0[d] = 0;
     if (!((a.mask >> d) & 1)) {
       off[d] = slot * WL;
-      if (live) {
-        i0_f[d] = a.win0[slot * L + j];
-        i0_b[d] = a.win0[(a.n_mat + slot) * L + j];
-      }
+      if (live) i0[d] = a.win0[((producer ? 0 : n_mat) + slot) * L + j];
       ++slot;
     }
   }
+  cluster_sync();  // both blocks' barriers and bands ready
+  const FT* __restrict__ filt = static_cast<const FT*>(a.filt);
 
-  // q_d = sum_p Tdyn[p,d] * f_p of the own column (K1's mix), to shared
-  // memory with the warp partials of the constant channels
-  auto mix = [&](const float (&f)[ND]) {
-#pragma unroll
-    for (int d = 0; d < ND; ++d) {
-      float v = tdyn[0][d] * f[0];
-#pragma unroll
-      for (int p = 1; p < ND; ++p) v = fmaf(tdyn[p][d], f[p], v);
-      if (live) q_s[d * L + j] = v;
-      if ((a.mask >> d) & 1) {
-        const float s = warp_sum(v);
-        if (lane == 0) red_q[warp][d] = s;
+  if (producer) {
+    // ---- block 1: the priors of rows T-1, T-2, ..., K1's push ----
+    const size_t rbytes = row * sizeof(FT);
+    if (j == 0) {
+      // the 16-byte-aligned span of row T-1-i into filter stage i % S
+      for (int i = 0; i < S && i < T; ++i) {
+        const uintptr_t src =
+            reinterpret_cast<uintptr_t>(filt) + (size_t)(T - 1 - i) * rbytes;
+        const uintptr_t a0 = src & ~(uintptr_t)15;
+        const uint32_t bytes =
+            (uint32_t)(((src + rbytes + 15) & ~(uintptr_t)15) - a0);
+        mbar_expect_tx(loaded + 8 * i, bytes);
+        bulk_load(smem_u32(smem_raw + lay.filt + i * lay.fstage),
+                  reinterpret_cast<const void*>(a0), bytes, loaded + 8 * i);
       }
     }
-  };
-  // the prior of column j from q in shared memory (K1's push)
-  auto push = [&](float (&pr)[ND]) {
+    for (int i = 0; i < T; ++i) {
+      const int s = i % S, k = i / S, qb = i & 1;
+      const uintptr_t src =
+          reinterpret_cast<uintptr_t>(filt) + (size_t)(T - 1 - i) * rbytes;
+      const FT* __restrict__ fr = reinterpret_cast<const FT*>(
+          smem_raw + lay.filt + s * lay.fstage + (src & 15));
+      // two mixed rows and partials, so one barrier a row orders them
+      float* __restrict__ q =
+          reinterpret_cast<float*>(smem_raw + lay.q) + qb * row;
+      mbar_wait(loaded + 8 * s, k & 1);
+      // q_d = sum_p Tdyn[p,d] * f_p of the own column (K1's mix)
+      float f[ND];
 #pragma unroll
-    for (int d = 0; d < ND; ++d) {
-      if ((a.mask >> d) & 1) {
-        float s = 0.f;
-        for (int k = 0; k < nwarp; ++k) s += red_q[k][d];
-        pr[d] = s * row0_f[d];
-      } else {
-        pr[d] = live ? window_matvec<matvec_unroll(RESIDENT)>(
-                           q_s + d * L, band + off[d], i0_f[d], W, L, j)
-                     : 0.f;
-      }
-    }
-  };
-  // the pull of r (K2's) and, in the same loops, the push of q: two
-  // independent chains, each summed in its own order, so each has the bits
-  // it has alone while their loads overlap
-  auto pull_push = [&](float (&pull)[ND], float (&pr)[ND]) {
+      for (int e = 0; e < ND; ++e) f[e] = live ? to_f32(fr[e * L + j]) : 0.f;
 #pragma unroll
-    for (int d = 0; d < ND; ++d) {
-      if ((a.mask >> d) & 1) {
-        float s = 0.f, u = 0.f;
-        for (int k = 0; k < nwarp; ++k) {
-          s += red_r[k][d];
-          u += red_q[k][d];
+      for (int d = 0; d < ND; ++d) {
+        float v = tdyn[0][d] * f[0];
+#pragma unroll
+        for (int p = 1; p < ND; ++p) v = fmaf(tdyn[p][d], f[p], v);
+        if (live) q[d * L + j] = v;
+        if ((a.mask >> d) & 1) {
+          const float sum = warp_sum(v);
+          if (lane == 0) red[qb][warp][d] = sum;
         }
-        pull[d] = s * row0_b[d];
-        pr[d] = u * row0_f[d];
-      } else {
-        float x = 0.f, y = 0.f;
-        if (live) {
-          const float* __restrict__ rv = r_s + d * L + i0_b[d];
-          const float* __restrict__ qv = q_s + d * L + i0_f[d];
-          const float* __restrict__ mb = band + half + off[d];
-          const float* __restrict__ mf = band + off[d];
-          constexpr int kUnroll = matvec_unroll(RESIDENT);
-#pragma unroll (kUnroll)
-          for (int k = 0; k < W; ++k) {
-            x = fmaf(rv[k], mb[(size_t)k * L + j], x);
-            y = fmaf(qv[k], mf[(size_t)k * L + j], y);
-          }
-        }
-        pull[d] = x;
-        pr[d] = y;
       }
+      __syncthreads();  // q complete; filter stage s read
+      if (j == 0 && i + S < T) {
+        const uintptr_t nsrc = reinterpret_cast<uintptr_t>(filt) +
+                               (size_t)(T - 1 - i - S) * rbytes;
+        const uintptr_t a0 = nsrc & ~(uintptr_t)15;
+        const uint32_t bytes =
+            (uint32_t)(((nsrc + rbytes + 15) & ~(uintptr_t)15) - a0);
+        mbar_expect_tx(loaded + 8 * s, bytes);
+        bulk_load(smem_u32(smem_raw + lay.filt + s * lay.fstage),
+                  reinterpret_cast<const void*>(a0), bytes, loaded + 8 * s);
+      }
+      double code[ND];
+#pragma unroll
+      for (int d = 0; d < ND; ++d) {
+        float pr;
+        if ((a.mask >> d) & 1) {
+          float sum = 0.f;
+          for (int w = 0; w < nwarp; ++w) sum += red[qb][w][d];
+          pr = sum * row0[d];
+        } else {
+          pr = live ? window_matvec<kUnroll>(q + d * L, band + off[d], i0[d],
+                                             W, L, j)
+                    : 0.f;
+        }
+        code[d] = prior_code(pr);
+      }
+      if (k > 0) mbar_wait(empty + 8 * s, (k - 1) & 1);
+      // column j's codes into the consumer's ring, counted on its `full`
+      if (live)
+        st_async<ND>(map_shared(ring + 8 * (s * row + j * ND), 0), code,
+                     map_shared(full + 8 * s, 0));
     }
-  };
+    cluster_sync();  // the consumer's last release has arrived
+    return;
+  }
 
-  // the filter rows t and t-1 (mixed for the push this step), and row t-2
-  // as stored, loaded a whole step before its mix and converted only then
-  float f[ND], f_next[ND], pn[ND];
-  FT f_ld[ND] = {};
+  // ---- block 0: K2's step, thread j owns column j ----
+  float* __restrict__ r_s = reinterpret_cast<float*>(smem_raw + lay.r);
+  const double* __restrict__ codes =
+      reinterpret_cast<const double*>(smem_raw + lay.ring);
+  const uint32_t row_bytes = (uint32_t)(row * 8);
+  if (j == 0)  // each stage expects its row's codes
+    for (int s = 0; s < S && s < T; ++s)
+      mbar_expect_tx(full + 8 * s, row_bytes);
+  float carry[ND];
+  FT f_next[ND] = {};
+  double c_next[ND];
 #pragma unroll
   for (int e = 0; e < ND; ++e) {
-    f[e] = live ? to_f32(filt[(size_t)(T - 1) * row + e * L + j]) : 0.f;
-    f_next[e] = (live && T > 1)
-                    ? to_f32(filt[(size_t)(T - 2) * row + e * L + j])
-                    : 0.f;
+    carry[e] = live ? a.init[e * L + j] : 0.f;
+    if (live) f_next[e] = filt[(size_t)(T - 1) * row + e * L + j];
   }
-  __syncthreads();  // resident band complete
-  mix(f);
-  __syncthreads();
-  push(pn);         // the prior of the last row
-  __syncthreads();  // q reads done before the first step writes q
+  mbar_wait(full, 0);
+#pragma unroll
+  for (int e = 0; e < ND; ++e) c_next[e] = live ? codes[j * ND + e] : 0.0;
 
-  for (int t = T - 1; t >= 0; --t) {
+  for (int i = 0; i < T; ++i) {
+    const int t = T - 1 - i, s = i % S;
     const size_t base = (size_t)t * row;
-    float r[ND];
+    float f[ND], r[ND];
 #pragma unroll
     for (int e = 0; e < ND; ++e) {
-      if (live && t > 1) f_ld[e] = filt[(size_t)(t - 2) * row + e * L + j];
-      const float p = pn[e];
-      r[e] = p >= kPriorFloor ? (p < kRcpDivisorMax
-                                     ? div_by_rcp(carry[e], rcp_f64(p))
-                                     : carry[e] / p)
-                              : 0.f;
+      f[e] = to_f32(f_next[e]);
+      // K2's carry / prior: through the reciprocal for FLT_MIN <= p < 2
+      const double rc = c_next[e];
+      r[e] = rc > 0.0 ? div_by_rcp(carry[e], rc)
+                      : (rc < 0.0 ? carry[e] / (float)(-rc) : 0.f);
       if (live) r_s[e * L + j] = r[e];
       if ((a.mask >> e) & 1) {
-        const float s = warp_sum(r[e]);
-        if (lane == 0) red_r[warp][e] = s;
+        const float sum = warp_sum(r[e]);
+        if (lane == 0) red[0][warp][e] = sum;
       }
     }
-    if (t > 0) mix(f_next);  // the push of row t-1 rides this step
     __syncthreads();  // (a)
-
+#pragma unroll
+    for (int e = 0; e < ND; ++e)
+      if (live && t > 0) f_next[e] = filt[base - row + e * L + j];
+    // this step's r and the smoothed row of step t+1 (still in carry) go
+    // out here, where the window dot that follows hides them
     if (live) {
 #pragma unroll
       for (int e = 0; e < ND; ++e) {
@@ -668,9 +823,20 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
       }
     }
 
-    // (at t = 0 the push reads the previous step's q, unused)
-    float pull[ND], pn_next[ND];
-    pull_push(pull, pn_next);
+    // pull_e = Tlat[e] @ r_e; out_d = sum_e Tdyn[d,e] * pull_e
+    float pull[ND];
+#pragma unroll
+    for (int e = 0; e < ND; ++e) {
+      if ((a.mask >> e) & 1) {
+        float sum = 0.f;
+        for (int k = 0; k < nwarp; ++k) sum += red[0][k][e];
+        pull[e] = sum * row0[e];
+      } else {
+        pull[e] = live ? window_matvec<kUnroll>(r_s + e * L, band + off[e],
+                                                i0[e], W, L, j)
+                       : 0.f;
+      }
+    }
     float v[ND], vsum = 0.f;
 #pragma unroll
     for (int d = 0; d < ND; ++d) {
@@ -682,11 +848,25 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     }
     vsum = warp_sum(vsum);
     if (lane == 0) red_s[warp] = vsum;
+    // Every code of row i was read before (b) of the step before: thread 0
+    // arms the stage for row i + S and releases it to the producer.  Then
+    // the next row's codes, a step ahead, while the other warps reach (b).
+    if (j == 0) {
+      if (i + S < T) mbar_expect_tx(full + 8 * s, row_bytes);
+      mbar_arrive_cluster(empty + 8 * s, 1);
+    }
+    if (i + 1 < T) {
+      const int s1 = (i + 1) % S;
+      mbar_wait(full + 8 * s1, ((i + 1) / S) & 1);
+#pragma unroll
+      for (int e = 0; e < ND; ++e)
+        c_next[e] = live ? codes[s1 * row + j * ND + e] : 0.0;
+    }
     __syncthreads();  // (b)
 
-    float s = 0.f;
-    for (int k = 0; k < nwarp; ++k) s += red_s[k];
-    const float den = fmaxf(s, 1e-38f);
+    float sum = 0.f;
+    for (int k = 0; k < nwarp; ++k) sum += red_s[k];
+    const float den = fmaxf(sum, 1e-38f);
     if (den < kRcpDivisorMax) {  // the same for the whole block
       const double rden = rcp_f64(den);
 #pragma unroll
@@ -695,18 +875,11 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 #pragma unroll
       for (int d = 0; d < ND; ++d) carry[d] = v[d] / den;
     }
-    if (t > 0) {
-#pragma unroll
-      for (int e = 0; e < ND; ++e) {
-        pn[e] = pn_next[e];
-        f[e] = f_next[e];
-        f_next[e] = to_f32(f_ld[e]);
-      }
-    }
   }
 #pragma unroll
   for (int d = 0; d < ND; ++d)
     if (live) a.smooth[d * L + j] = carry[d];  // row 0
+  cluster_sync();
 }
 
 // shared memory of either kernel: the (ND, L) vector, plus its half of the
@@ -885,10 +1058,14 @@ int pmg_smoother_scan(const void* filt, const void* prior, const void* tlatT,
   return (int)err;
 }
 
-// 1 when K2 with the prior recomputed keeps both halves of the band in
-// shared memory beside its two (n_dyn, L) vectors.
-int pmg_smoother_push_resident(int n_dyn, int n_mat, int L, int W) {
-  return 2 * (vec_bytes(n_dyn, L) + band_bytes(n_mat, W, L)) <= kResidentCap;
+// The dynamic shared memory of each block of K2 with the prior recomputed,
+// or -1 where `stages` is not the ring depth the launch takes
+// (push_plan_of; ops/scan_kernels.py::push_plan is the tests' mirror).
+int pmg_smoother_push_smem(int n_dyn, int n_mat, int L, int W,
+                           int filt_bf16, int stages) {
+  if (bad_shape(n_dyn, L) || n_mat < 0 || n_mat > n_dyn) return -1;
+  const PushPlan p = push_plan_of(n_dyn, n_mat, L, W, filt_bf16);
+  return stages == p.stages ? (int)p.smem : -1;
 }
 
 // K2 with the prior recomputed, over one sequence of T rows: filt (T,
@@ -896,7 +1073,9 @@ int pmg_smoother_push_resident(int n_dyn, int n_mat, int L, int W) {
 // read for the constant channels' first rows; the other channels go through
 // `band` (2, n_mat, W, L), both halves of the transition band (push, then
 // pull), with window rows `win0` (2, n_mat, L).  Out: smooth and r (T,
-// n_dyn, L), as pmg_smoother_scan with prior[t] = push(filt[t]).
+// n_dyn, L), as pmg_smoother_scan with prior[t] = push(filt[t]).  A
+// cluster of two blocks, with the ring depth and residency of
+// push_plan_of.
 int pmg_smoother_push_scan(const void* filt, const void* tlat,
                            const void* tlatT, const void* band,
                            const void* win0, const void* tdyn,
@@ -906,33 +1085,45 @@ int pmg_smoother_push_scan(const void* filt, const void* tlat,
   SeqArgs s{};
   if (!prepare(s, 1, T, n_dyn, L, W, uniform_mask, band, win0))
     return (int)cudaErrorInvalidValue;
+  const PushPlan plan = push_plan_of(n_dyn, s.n_mat, L, s.W, filt_bf16);
+  const size_t smem = plan.smem;
   PushArgs a{filt, static_cast<const float*>(tlat),
              static_cast<const float*>(tlatT), s.band, s.win0,
              static_cast<const float*>(tdyn), static_cast<const float*>(init),
              static_cast<float*>(smooth), static_cast<float*>(rout), T, L,
              s.W, s.n_mat, uniform_mask};
-  const bool res = pmg_smoother_push_resident(n_dyn, s.n_mat, L, s.W);
-  const size_t smem = 2 * vec_bytes(n_dyn, L) +
-                      (res ? 2 * band_bytes(s.n_mat, s.W, L) : 0);
   auto st = static_cast<cudaStream_t>(stream);
+  // a cluster of two blocks: the consumer (rank 0) and the producer
   auto go = [&](auto kernel) {
     cudaError_t err = launch_prep(kernel, smem);
     if (err != cudaSuccess) return err;
-    kernel<<<1, block_threads(L), smem, st>>>(a);
-    return cudaGetLastError();
+    cudaLaunchConfig_t cfg = {};
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = 2;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.gridDim = dim3(2);
+    cfg.blockDim = dim3(block_threads(L));
+    cfg.dynamicSmemBytes = smem;
+    cfg.stream = st;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaLaunchKernelEx(&cfg, kernel, a, plan.stages);
+    return err != cudaSuccess ? err : cudaGetLastError();
   };
+  const bool res = plan.resident;
   cudaError_t err;
-  if (n_dyn == 1) {
-    err = filt_bf16 ? (res ? go(smoother_push_kernel<1, true, bf16>)
-                           : go(smoother_push_kernel<1, false, bf16>))
-                    : (res ? go(smoother_push_kernel<1, true, float>)
-                           : go(smoother_push_kernel<1, false, float>));
-  } else {
-    err = filt_bf16 ? (res ? go(smoother_push_kernel<2, true, bf16>)
-                           : go(smoother_push_kernel<2, false, bf16>))
-                    : (res ? go(smoother_push_kernel<2, true, float>)
-                           : go(smoother_push_kernel<2, false, float>));
-  }
+  if (n_dyn == 1)
+    err = filt_bf16 ? (res ? go(smoother_push_cluster_kernel<1, bf16, true>)
+                           : go(smoother_push_cluster_kernel<1, bf16, false>))
+                    : (res ? go(smoother_push_cluster_kernel<1, float, true>)
+                           : go(smoother_push_cluster_kernel<1, float, false>));
+  else
+    err = filt_bf16 ? (res ? go(smoother_push_cluster_kernel<2, bf16, true>)
+                           : go(smoother_push_cluster_kernel<2, bf16, false>))
+                    : (res ? go(smoother_push_cluster_kernel<2, float, true>)
+                           : go(smoother_push_cluster_kernel<2, float, false>));
   return (int)err;
 }
 

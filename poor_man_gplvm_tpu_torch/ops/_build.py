@@ -4,7 +4,7 @@ Each source is compiled with ``nvcc`` for ``sm_90a`` into a shared library
 of its own, with a plain C interface, and loaded with ``ctypes`` — no
 PyTorch headers, so a build takes seconds, not minutes.  The libraries go
 into ``build/torch_kernels/`` at the repository root and their file names
-carry a hash of the source and the shared header, so a changed source
+carry a hash of the source and the shared headers, so a changed source
 rebuilds and an unchanged one is reused.  Nothing is built at import time:
 a library is built at its first launch, or by ``build_all``, which starts
 one ``nvcc`` per missing library at once (``chip_smoke.py`` calls it to
@@ -15,8 +15,8 @@ Libraries:
 * ``scan_kernels``: K1/K2, the sequential filter and smoother, one thread
   block per sequence of a batch;
 * ``parallel_scan``: K3/K4, the parallel-in-time filter and smoother passes
-  in the three recursion-dot precisions (K5), and ``joint_acc`` (3xTF32 on
-  the tensor cores);
+  in the three recursion-dot precisions (K5), and ``joint_acc`` (3xTF32
+  ``wgmma`` on the tensor cores);
 * ``bf16_gemm``: the emission and M-step products at the lower matmul
   precisions ('high', 'default'), bf16 ``wgmma`` with f32 sums
   (``ops/precision.py``);
@@ -54,7 +54,7 @@ SOURCES = {
 }
 #: the libraries built by the host's C++ compiler, not nvcc
 HOST_LIBS = ("binning",)
-HEADERS = (CSRC / "scan_common.cuh",)
+HEADERS = (CSRC / "scan_common.cuh", CSRC / "hopper_common.cuh")
 BUILD_DIR = _PKG.parent / "build" / "torch_kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -69,7 +69,7 @@ _SIGNATURES = {
         "pmg_smoother_scan": [_vp] * 11 + [_cl] * 6 + [_ci] * 6 + [_vp],
         "pmg_scan_band_resident": [_ci] * 4,
         "pmg_smoother_push_scan": [_vp] * 9 + [_ci] * 6 + [_vp],
-        "pmg_smoother_push_resident": [_ci] * 4,
+        "pmg_smoother_push_smem": [_ci] * 6,
     },
     "parallel_scan": {
         "pmg_pfilter_pass": [_vp] * 11 + [_ci] * 10 + [_vp],

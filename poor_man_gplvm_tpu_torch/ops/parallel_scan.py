@@ -504,9 +504,10 @@ def psmooth_pass(post, tlat, tlat_t, tdyn, ins, tc, uniform_rows, mode,
 # joint_acc: the pairwise-joint reduction of K4's marginal+acc mode
 # ---------------------------------------------------------------------------
 
-#: joint_acc's output tile (128 x 128, one block of 8 warps and 70 KB of
-#: shared memory in flight per SM), the H100's SMs, and at most this many
-#: time rows per split-K slice (rounding of long f32 sums)
+#: joint_acc's output tile (128 x 128: one block of three warpgroups and
+#: 201 KB of shared memory per SM), the H100's SMs, at most this many time
+#: rows per split-K slice (rounding of long f32 sums), and the rows of a
+#: stage (one fresh tensor-core sum each)
 _ACC_TILE = 128
 _ACC_SMS = 132
 _ACC_MAX_ROWS = 131_072
@@ -532,7 +533,9 @@ def _acc_slices(T, M):
 def _joint_acc_run(post, r, passes):
     """Launch joint_acc's kernels on (T, n_dyn, L) CUDA tensors: ``passes``
     3 is the 3xTF32 product, 1 the one-pass (hi.hi) control the tests hold
-    against the limit."""
+    against the limit.  The kernel fills its ring by TMA where n_dyn*L %
+    4 == 0 and both bases are 16-byte aligned, else by cp.async (the same
+    bits)."""
     T, n_dyn, L = post.shape
     dev = post.device
     _check_dims(n_dyn, L, (False,) * n_dyn)
@@ -552,9 +555,9 @@ def _joint_acc_run(post, r, passes):
 def joint_acc(post, r):
     """``joint_acc`` wrapper: same arguments and output as
     ``joint_acc_plain``.  On the card: the product on the tensor cores in
-    3xTF32 (f32 accuracy), split-K over S slices of time into an (S,
-    n_dyn*L, n_dyn*L) partial buffer, then a second kernel that adds the
-    partials in slice order (deterministic)."""
+    3xTF32 ``wgmma`` (f32 accuracy), split-K over S slices of time into an
+    (S, n_dyn*L, n_dyn*L) partial buffer, then a second kernel that adds
+    the partials in slice order (deterministic)."""
     T, n_dyn, L = post.shape
     dev = post.device
     _check("post", post, (T, n_dyn, L), dev)

@@ -62,6 +62,7 @@ __all__ = [
     "smoother_push_scan",
     "smoother_push_scan_plain",
     "smoother_push_chunk",
+    "push_plan",
 ]
 
 #: normaliser clamp of both kernels (as in the TPU kernels)
@@ -665,15 +666,65 @@ def smoother_push_scan_plain(filt, tlat, tlat_t, tdyn, init, uniform_rows):
     return smooth, rout
 
 
+#: K2 with the prior recomputed (``csrc/scan_kernels.cu``), the tests'
+#: mirror of its host code's plan: its ring depths in the order tried, and
+#: the shared memory a scan kernel's layout may take
+#: (``scan_common.cuh::kResidentCap``)
+PUSH_STAGES = (4, 3, 2)
+RESIDENT_CAP = 200 * 1024
+
+
+def _align16(n):
+    return -(-n // 16) * 16
+
+
+def push_cluster_bytes(n_dyn, n_mat, L, W, filt_bytes, stages, resident):
+    """Shared memory of each block of K2 with the prior recomputed
+    (``scan_kernels.cu::push_layout``): the barriers and the ring of prior
+    codes (f64), then the larger of the producer's part (the filter-row
+    stages, two mixed rows, the push half of the band when resident) and
+    the consumer's (r, the pull half when resident)."""
+    vec = 4 * n_dyn * L
+    half = 4 * n_mat * W * L if resident else 0
+    ring = _align16(_align16(3 * stages * 8) + stages * n_dyn * L * 8)
+    q = ring + stages * (_align16(n_dyn * L * filt_bytes) + 16)
+    prod = _align16(_align16(q + 2 * vec) + half)
+    cons = _align16(_align16(ring + vec) + half)
+    return max(prod, cons)
+
+
+def push_plan(n_dyn, n_mat, L, W, bf16):
+    """The launch plan of K2 with the prior recomputed, a mirror of the
+    kernel's host code (``push_plan_of``; the card tests hold the two
+    together through ``pmg_smoother_push_smem``): ``design`` 'cluster', a
+    cluster of two blocks of ``threads`` each (one consumer thread per
+    latent column, running K2's step; a producer block forming the priors
+    ``stages`` rows ahead into the consumer's ring) at every L; both
+    halves of the band ``resident`` where the layout fits ``RESIDENT_CAP``
+    with them at 2 stages, else read from L2; ``stages`` the most of
+    ``PUSH_STAGES`` that fit; ``smem`` bytes of dynamic shared memory per
+    block."""
+    W = W if n_mat else 0
+    fb = 2 if bf16 else 4
+    resident = push_cluster_bytes(n_dyn, n_mat, L, W, fb, 2,
+                                  True) <= RESIDENT_CAP
+    S = next(S for S in PUSH_STAGES if push_cluster_bytes(
+        n_dyn, n_mat, L, W, fb, S, resident) <= RESIDENT_CAP)
+    return {"design": "cluster", "threads": -(-L // 32) * 32, "cluster": 2,
+            "stages": S, "resident": resident,
+            "smem": push_cluster_bytes(n_dyn, n_mat, L, W, fb, S, resident)}
+
+
 def smoother_push_scan(filt, tlat, tlat_t, tdyn, init, uniform_rows,
                        band=None):
     """K2 with the prior recomputed: same arguments and outputs as
     ``smoother_push_scan_plain``.  On the card one launch reads the
     non-constant channels through both halves of ``band`` (the push for
     the prior, the pull for the smoother; made here when None) and gives
-    what K2 gives on the priors K1 wrote, bit for bit, for f32 rows.
-    Counts its launches in ``launches`` and ``launches_by_mode`` ("f32",
-    "bf16": the store it read)."""
+    what K2 gives on the priors K1 wrote, bit for bit, for f32 rows, on a
+    cluster of two blocks (``push_plan``'s plan).  Counts its launches in
+    ``launches`` and ``launches_by_mode`` ("f32", "bf16": the store it
+    read)."""
     T, n_dyn, L = filt.shape
     _check_dims(n_dyn, L, uniform_rows)
     dev = filt.device

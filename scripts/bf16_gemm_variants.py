@@ -103,7 +103,8 @@ def build(name, edits):
     OUT.mkdir(parents=True, exist_ok=True)
     cu, so = OUT / f"{name}.cu", OUT / f"{name}.so"
     cu.write_text(src)
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(cu)]
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o",
+           str(so), str(cu)]
     done = subprocess.run(cmd, capture_output=True, text=True)
     if done.returncode:
         raise RuntimeError(f"{name}: nvcc failed\n{done.stdout}{done.stderr}")

@@ -10,8 +10,11 @@ plain versions and, bit for bit, against the unbatched kernels under each
 configuration alone; K3/K4 with a validity bound n_valid other than T
 (the time shards of ``parallel/spmd.py``), with a failing control; K2
 with the prior recomputed (the 'filter' memory modes) against its plain
-version, against K2 on K1's priors and band against dense, and the
-'checkpoint' mode's peak memory against full mode's.  Also
+version, against K2 on K1's priors and band against dense, on its cluster
+of two blocks up to L = 1,024 (T = 1, 2, 7), with its launch plan against
+the host code's check; joint_acc's three ways of filling
+its ring bit for bit; and the 'checkpoint' mode's peak memory against full
+mode's.  Also
 ``bf16_gemm`` (the emission and statistics products at the matmul
 precisions 'high' and 'default') against its plain version, with its
 one-pass control, its rows, batch entries and column blocks alone bit for
@@ -676,6 +679,79 @@ def test_smoother_push_launch_counts(cuda):
     with pytest.raises(TypeError):
         sk.smoother_push_scan(filt.half().contiguous(), t["tlat"], tlat_t,
                               t["tdyn"], t["p_init"], flags)
+
+
+@pytest.mark.parametrize("filt_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [1, 2, 7])
+@pytest.mark.parametrize("L, n_dyn", [(500, 2), (896, 1), (897, 1),
+                                      (1024, 1), (1024, 2)])
+def test_smoother_push_cluster_at_the_edges(cuda, L, n_dyn, T, filt_dtype):
+    """K2 with the prior recomputed on its cluster of two blocks at the
+    widths where one block could not hold a producer warpgroup beside one
+    thread per column (L = 897 and 1,024) and below them, at T = 1, 2 and
+    an odd T shorter than its ring: within the plain tolerances, on the
+    band bit for bit forced dense (read from L2), and with an f32 store
+    bit for bit K2 on K1's priors; the launch counted under its store."""
+    dtype = getattr(torch, filt_dtype)
+    sk.smoother_push_scan.launches_by_mode = {}
+    err = smoother_push_vs(scan_case(L + T, T + 1, L, n_dyn, "jump"), cuda,
+                           dtype)
+    torch.cuda.synchronize()
+    for key in ("smooth_abs", "r_rel"):
+        assert err[key] <= SCAN_TOLERANCES[key], (key, err)
+    assert err["band_equal_dense"] and err["finite"], err
+    if dtype == torch.float32:
+        assert err["equal_k2"], err
+    store = "bf16" if dtype == torch.bfloat16 else "f32"
+    assert sk.smoother_push_scan.launches_by_mode.get(store, 0) >= 1, \
+        sk.smoother_push_scan.launches_by_mode
+
+
+def test_push_plan_matches_the_kernels_host_code(cuda):
+    """``scan_kernels.push_plan`` (the Python mirror) against the host
+    code's plan, through ``pmg_smoother_push_smem``: the same shared
+    memory for the plan's ring depth, and -1 for every other depth."""
+    lib = sk._lib()
+    for L in (1, 2, 100, 101, 500, 896, 897, 1024):
+        for W in (21, 81, L):
+            W = min(W, L)
+            for n_dyn, n_mat in ((2, 1), (2, 2), (1, 1), (1, 0)):
+                for bf16 in (0, 1):
+                    p = sk.push_plan(n_dyn, n_mat, L, W, bool(bf16))
+                    got = lib.pmg_smoother_push_smem(n_dyn, n_mat, L, W, bf16,
+                                                     p["stages"])
+                    assert got == p["smem"], (L, W, n_dyn, n_mat, bf16, p)
+                    for other in {1, 2, 3, 4, 5} - {p["stages"]}:
+                        assert lib.pmg_smoother_push_smem(
+                            n_dyn, n_mat, L, W, bf16,
+                            other) == -1, (L, W, n_dyn, n_mat, other, p)
+
+
+@pytest.mark.parametrize("L", [100, 500])
+def test_joint_acc_loads_bit_equal(cuda, L):
+    """joint_acc at M = 200 and 1,000 (n_dyn 2): the ring filled by TMA
+    boxes (aligned rows) and by 4-byte cp.asyncs (the same values at a
+    4-byte offset, where only cp.async can load) gives the same bits,
+    twice."""
+    import numpy as np
+
+    T, n_dyn = 20_001, 2
+    rng = np.random.default_rng(L)
+    post = torch.as_tensor(rng.dirichlet(np.ones(n_dyn * L), T).reshape(
+        T, n_dyn, L).astype(np.float32), device=cuda)
+    r = torch.as_tensor(rng.gamma(2.0, 0.5, (T, n_dyn, L)).astype(
+        np.float32), device=cuda)
+
+    def shifted(x):
+        buf = torch.empty(x.numel() + 1, device=cuda)
+        y = buf[1:].view(x.shape)
+        y.copy_(x)
+        return y
+
+    got = [ps.joint_acc(post, r), ps.joint_acc(shifted(post), shifted(r)),
+           ps.joint_acc(post, r), ps.joint_acc(shifted(post), shifted(r))]
+    torch.cuda.synchronize()
+    assert all(torch.equal(got[0], g) for g in got[1:])
 
 
 def test_checkpoint_peak_memory_below_full(cuda):
