@@ -1698,8 +1698,12 @@ def device_busy(fn, top=6):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         wall, _ = wall_s(fn)
-    kernels = [e for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA]
+    # a host span (record_function) is mirrored on the device under its
+    # own name, which no kernel, copy or fill shares
+    ops = prof.key_averages()
+    host = {e.key for e in ops if e.device_type != DeviceType.CUDA}
+    kernels = [e for e in ops
+               if e.device_type == DeviceType.CUDA and e.key not in host]
     busy_us = sum(e.self_device_time_total for e in kernels)
     kernels.sort(key=lambda e: -e.self_device_time_total)
     h2d = sum(e.count for e in kernels if "memcpy htod" in e.key.lower())

@@ -19,10 +19,10 @@ analytic ridge M-step).
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import numbers
-import time
 import warnings
 from abc import ABC, abstractmethod
 
@@ -33,7 +33,7 @@ from poor_man_gplvm_tpu_torch.ops import emissions, hmm, mstep
 from poor_man_gplvm_tpu_torch.ops import parallel_scan as ps
 from poor_man_gplvm_tpu_torch.ops.basis import generate_basis
 from poor_man_gplvm_tpu_torch.ops.hmm import JOINT_ACC_INIT
-from poor_man_gplvm_tpu_torch.utils import compat
+from poor_man_gplvm_tpu_torch.utils import compat, profiling
 from poor_man_gplvm_tpu_torch.utils.checkpoint import EMCheckpointer
 
 #: the fused middle EM iterations warm-start the parallel scans' fixed
@@ -166,11 +166,25 @@ def _seeded(generator, seed):
 def _log_posterior_init(post, device):
     """(log_post, post) on ``device`` of a normalised (T, L) CPU posterior,
     zeros floored at ``JOINT_ACC_INIT``."""
-    post = post.to(device)
+    post = profiling.to_device(post, device)
     log_post = torch.log(post)
     log_post = torch.where(torch.isneginf(log_post),
                            torch.full_like(log_post, JOINT_ACC_INIT), log_post)
     return log_post, post
+
+
+def _phase_profile(fit, scan_passes):
+    """``em_res['profile']`` of the fit whose span has the id ``fit``,
+    recorded under ``profiling.recording(sync=True)``: the seconds of its
+    ``fit.m_step``, ``fit.e_step`` and ``fit.collect`` spans, iteration by
+    iteration, and the E-steps' fixed-point passes ``scan_passes``."""
+    prof = {"m_step": [], "e_step": [], "collect": []}
+    for s in profiling.spans():
+        phase = s.name[4:] if s.name.startswith("fit.") else None
+        if s.parent == fit and phase in prof:
+            prof[phase].append(s.seconds)
+    prof["scan_passes"] = scan_passes
+    return prof
 
 
 def _epoch_intervals(intervals, t_l, n_time):
@@ -276,6 +290,7 @@ class _FusedSegment:
         numpy arrays) when the segment was warm-started, else {}."""
         if not self.passes:
             return {}
+        profiling.host_sync("segment_diag", 2)
         return {"scan_passes": np.asarray(self.passes, dtype=np.int64),
                 "scan_emit_delta": torch.stack(self.emit_delta).cpu().numpy(),
                 "scan_drift": torch.stack(self.drift).cpu().numpy()}
@@ -329,14 +344,15 @@ class _GPLVMCommon(ABC):
         self.inference_engine = resolve_engine(inference_engine, self.device)
 
         # the SVD runs on the host so that every device gets the same basis
-        self.tuning_basis = generate_basis(
-            self.tuning_lengthscale,
-            self.n_latent_bin,
-            self.explained_variance_threshold_basis,
-            include_bias=True,
-            basis_type=basis_type,
-            custom_kernel=custom_tuning_kernel,
-        ).to(self.device)
+        with profiling.span("model.basis"):
+            self.tuning_basis = profiling.to_device(generate_basis(
+                self.tuning_lengthscale,
+                self.n_latent_bin,
+                self.explained_variance_threshold_basis,
+                include_bias=True,
+                basis_type=basis_type,
+                custom_kernel=custom_tuning_kernel,
+            ), self.device)
         self.n_basis = self.tuning_basis.shape[1]
         self.ma_neuron_default = torch.ones(n_neuron, device=self.device)
         self.ma_latent_default = torch.ones(n_latent_bin, device=self.device)
@@ -432,17 +448,17 @@ class _GPLVMCommon(ABC):
         """Random normal basis weights from ``generator`` (a CPU
         ``torch.Generator``, so a seed gives the same weights on every
         device)."""
-        params_init = (
+        params_init = profiling.to_device(
             torch.randn((self.n_basis, self.n_neuron), generator=generator)
-            * float(np.sqrt(self.w_init_variance)) + self.w_init_mean
-        ).to(self.device)
+            * float(np.sqrt(self.w_init_variance)) + self.w_init_mean,
+            self.device)
         self.params = params_init
         self.tuning = self.get_tuning(params_init, hyperparam={},
                                       tuning_basis=self.tuning_basis)
         return self.params, self.tuning
 
     def _as_device(self, x):
-        return torch.as_tensor(x, dtype=torch.float32, device=self.device)
+        return profiling.to_device(x, self.device, torch.float32)
 
     def _smooth(self, y, tuning, hyperparam, trans, ma_neuron, ma_latent,
                 likelihood_scale, n_time_per_chunk, mesh=None,
@@ -482,24 +498,29 @@ class _GPLVMCommon(ABC):
         ``tsd_wrap_keys`` are wrapped as TsdFrames (numpy, on the host), as
         in the JAX package.  With a ``mesh`` the smoother runs sharded over
         it (``parallel.spmd.sharded_smooth``).  The ``float()`` host sync of
-        the log-marginal comes LAST, after all device work is enqueued."""
-        y = self._as_device(y)
-        _check_t_l(t_l, y.shape[0])
-        (
-            log_posterior_all, log_marginal_final, _log_causal,
-            log_one_step_pred, log_acc, log_likelihood_all,
-        ) = self._smooth(
-            y, tuning, hyperparam, trans, ma_neuron, ma_latent,
-            likelihood_scale, n_time_per_chunk, mesh=mesh,
-        )
-        decoding_res = build_res(
-            log_posterior_all, log_one_step_pred, log_acc, log_likelihood_all
-        )
-        if t_l is not None:
-            for k in tsd_wrap_keys:
-                decoding_res[k] = compat.tsdframe(d=decoding_res[k], t=t_l)
-        decoding_res["log_marginal_final"] = float(log_marginal_final)
-        return decoding_res
+        the log-marginal comes LAST, after all device work is enqueued.
+        The call is the top-level span ``decode_latent``."""
+        with profiling.span("decode_latent"):
+            y = self._as_device(y)
+            _check_t_l(t_l, y.shape[0])
+            (
+                log_posterior_all, log_marginal_final, _log_causal,
+                log_one_step_pred, log_acc, log_likelihood_all,
+            ) = self._smooth(
+                y, tuning, hyperparam, trans, ma_neuron, ma_latent,
+                likelihood_scale, n_time_per_chunk, mesh=mesh,
+            )
+            decoding_res = build_res(
+                log_posterior_all, log_one_step_pred, log_acc,
+                log_likelihood_all
+            )
+            if t_l is not None:
+                for k in tsd_wrap_keys:
+                    decoding_res[k] = compat.tsdframe(d=decoding_res[k],
+                                                      t=t_l)
+            profiling.host_sync("log_marginal")
+            decoding_res["log_marginal_final"] = float(log_marginal_final)
+            return decoding_res
 
     def predict_expected_rate(self, post_latent_marg, tuning=None):
         """Expected firing rate (T, N) under the latent posterior (T, L); a
@@ -759,10 +780,14 @@ class _GPLVMCommon(ABC):
         ``posterior`` is the (T, L) latent marginal, and no posterior
         snapshots are kept.  ``nan_guard`` (default: on in lean mode)
         raises ``FloatingPointError`` on a non-finite log marginal, fused
-        iterations included.  ``profile=True`` syncs the device after each
-        phase and adds ``em_res['profile']`` with the per-iteration
-        ``m_step`` / ``e_step`` / ``collect`` seconds and the parallel
-        engine's fixed-point pass counts (``scan_passes``).
+        iterations included.  ``profile=True`` runs the host loop, syncs
+        the device after each phase and adds ``em_res['profile']`` with the
+        per-iteration ``m_step`` / ``e_step`` / ``collect`` seconds (the
+        spans ``fit.m_step``, ``fit.e_step`` and ``fit.collect``, recorded
+        under ``utils.profiling.recording(sync=True)``) and the parallel
+        engine's fixed-point pass counts (``scan_passes``).  The call is
+        the top-level span ``fit_em`` (attrs ``n_iter``, ``fused``), its
+        initial posterior the span ``fit.init_posterior``.
 
         ``checkpoint_dir``: save ``{step, params, opt_state,
         log_posterior, rng}`` every ``checkpoint_every`` iterations
@@ -800,269 +825,284 @@ class _GPLVMCommon(ABC):
             raise ValueError(
                 f"n_iter={n_iter} requests no EM iterations; n_iter must be "
                 ">= 1.")
-        lean = output_mode == "lean"
-        hyperparam = {} if hyperparam is None else hyperparam
-        generator = torch.Generator().manual_seed(0) if generator is None \
-            else generator
-        posterior_init_kwargs = (
-            {"random_scale": 0.1} if posterior_init_kwargs is None
-            else posterior_init_kwargs
-        )
-        y_tsd = y if compat.is_tsdframe(y) else None
-        y_ = self._as_device(y.d if y_tsd is not None else y)
-        self._adopt_hyperparam(hyperparam)
-        if save_every is None:
-            save_every = n_iter
-
-        trans, kernel_attrs = self._make_transition(hyperparam)
-        if ma_neuron is None:
-            ma_neuron = self.ma_neuron_default
-        if ma_latent is None:
-            ma_latent = self.ma_latent_default
-
-        # a swept tuning_lengthscale regenerates the basis; a changed rank
-        # re-initialises the params (and the optimizer state built on them)
-        if "tuning_lengthscale" in hyperparam:
-            tuning_basis = generate_basis(
-                self.tuning_lengthscale, self.n_latent_bin,
-                self.explained_variance_threshold_basis, include_bias=True,
-                basis_type=self.basis_type,
-                custom_kernel=self.custom_tuning_kernel,
-            ).to(self.device)
-            if tuning_basis.shape[1] != self.params.shape[0]:
-                self.tuning_basis = tuning_basis
-                self.n_basis = tuning_basis.shape[1]
-                self.initialize_params(generator)
-                if opt_state_curr is not None:
-                    opt_state_curr = self.opt_state_init_fun(self.params)
-        else:
-            tuning_basis = self.tuning_basis
-
-        params = self.params
-        start_iter = 0
-        checkpointer = None
-        if checkpoint_dir is not None:
-            checkpointer = EMCheckpointer(checkpoint_dir)
-            checkpoint_every = checkpoint_every or 1
-            state = checkpointer.restore() if resume else None
-            if state is not None:
-                start_iter = int(state["step"]) + 1
-                if start_iter >= n_iter:
-                    raise ValueError(
-                        f"resume: checkpoint step {start_iter - 1} >= "
-                        f"n_iter - 1 = {n_iter - 1}; nothing to do. Pass a "
-                        "larger n_iter to continue training, or load the "
-                        "checkpoint state directly.")
-                params = self._as_device(state["params"])
-                if state.get("opt_state") is not None:
-                    opt_state_curr = mstep.AdamState(**{
-                        k: torch.as_tensor(v, device=self.device)
-                        for k, v in state["opt_state"].items()})
-                # the restored posterior is where the fit starts: no
-                # initial posterior is drawn
-                log_posterior_init = state["log_posterior"]
-
-        if log_posterior_init is None:
-            log_posterior_init, _ = self.init_latent_posterior(
-                y_.shape[0], generator, **posterior_init_kwargs
+        with (
+            profiling.recording(sync=True) if profile
+            else contextlib.nullcontext(),
+            profiling.span("fit_em", n_iter=n_iter) as top,
+        ):
+            lean = output_mode == "lean"
+            hyperparam = {} if hyperparam is None else hyperparam
+            generator = torch.Generator().manual_seed(0) if generator is None \
+                else generator
+            posterior_init_kwargs = (
+                {"random_scale": 0.1} if posterior_init_kwargs is None
+                else posterior_init_kwargs
             )
-        else:
-            if isinstance(log_posterior_init, np.ndarray) and \
-                    log_posterior_init.dtype == np.float64:
-                # reference inits floor -inf at -1e40, which overflows f32:
-                # clamp to the shared finite sentinel first (both carry zero
-                # probability mass)
-                log_posterior_init = np.maximum(
-                    log_posterior_init, hmm.JOINT_ACC_INIT
-                ).astype(np.float32)
-            log_posterior_init = self._as_device(log_posterior_init)
+            y_tsd = y if compat.is_tsdframe(y) else None
+            y_ = self._as_device(y.d if y_tsd is not None else y)
+            self._adopt_hyperparam(hyperparam)
+            if save_every is None:
+                save_every = n_iter
 
-        log_posterior_curr = log_posterior_init
-        log_marginal_l = []
-        m_step_res_l = {}
-        log_posterior_all_saved, params_saved = [], []
-        tuning_saved, iter_saved, log_marginal_saved = [], [], []
-        phase_times = {"m_step": [], "e_step": [], "collect": [],
-                       "scan_passes": []}
-        check_nan = nan_guard if nan_guard is not None else lean
-        smooth_args = (hyperparam, trans, ma_neuron, ma_latent,
-                       likelihood_scale, n_time_per_chunk)
+            trans, kernel_attrs = self._make_transition(hyperparam)
+            if ma_neuron is None:
+                ma_neuron = self.ma_neuron_default
+            if ma_latent is None:
+                ma_latent = self.ma_latent_default
 
-        # the fused schedule: iterations [1, n_iter-1) as one segment that
-        # reads nothing per iteration, when nothing per iteration is
-        # observed.  The segment runs the same loop body with its own
-        # E-step; a failed warm-start certificate at its end replays it
-        # from its start with strict fixed-point exits.
-        can_fuse = (checkpointer is None and not profile and mesh is None
-                    and save_every >= n_iter and n_iter >= 3)
-        use_fused = (fused if fused is not None else not verboase) \
-            and can_fuse
-        seg = None
-
-        def sync():
-            if profile and self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
-
-        i = start_iter
-        while i < n_iter:
-            if use_fused and i == 1 and seg is None:
-                seg = self._fused_segment(
-                    y_, trans, ma_neuron, output_mode, memory_mode,
-                    (params, opt_state_curr, log_posterior_curr, 1))
-            t0 = time.perf_counter()
-            m_res = self.m_step(
-                params, y_, log_posterior_curr, tuning_basis, hyperparam,
-                opt_state_curr=opt_state_curr, host_trim=False,
-            )
-            sync()
-            t1 = time.perf_counter()
-            params = m_res["params"]
-            opt_state_curr = m_res.get("opt_state", None)
-            if lean:
-                # consumed by iteration 0's M-step; lean em_res drops it
-                log_posterior_init = None
-            tuning = self.get_tuning(params, hyperparam, tuning_basis)
-            diag = []
-            # release the previous posteriors before the E-step allocates
-            # the new ones (matters at T ~ 1e6 x L ~ 500)
-            if i > start_iter and i % save_every != 0:
-                log_posterior_all = None
-            log_posterior_curr = None
-            if seg is None:
-                (log_posterior_all, log_posterior_curr, log_marginal_final,
-                 lean_dyn_marg) = self._e_step(
-                    y_, tuning, *smooth_args, output_mode, memory_mode, diag,
-                    mesh)
+            # a swept tuning_lengthscale regenerates the basis; a changed
+            # rank re-initialises the params (and the optimizer state built
+            # on them)
+            if "tuning_lengthscale" in hyperparam:
+                with profiling.span("model.basis"):
+                    tuning_basis = profiling.to_device(generate_basis(
+                        self.tuning_lengthscale, self.n_latent_bin,
+                        self.explained_variance_threshold_basis,
+                        include_bias=True, basis_type=self.basis_type,
+                        custom_kernel=self.custom_tuning_kernel,
+                    ), self.device)
+                if tuning_basis.shape[1] != self.params.shape[0]:
+                    self.tuning_basis = tuning_basis
+                    self.n_basis = tuning_basis.shape[1]
+                    self.initialize_params(generator)
+                    if opt_state_curr is not None:
+                        opt_state_curr = self.opt_state_init_fun(self.params)
             else:
-                log_posterior_curr, log_marginal_final = seg.e_step(
-                    self, y_, tuning, smooth_args)
-            sync()
-            t2 = time.perf_counter()
+                tuning_basis = self.tuning_basis
 
-            if not m_step_res_l:
-                m_step_res_l = {k: [] for k in m_res}
-            for k in m_res:
-                if k not in ("params", "opt_state"):
-                    m_step_res_l[k].append(m_res[k])
-            log_marginal_l.append(log_marginal_final)
-            if i % save_every == 0:
-                if not lean:  # lean keeps no posterior snapshot
-                    log_posterior_all_saved.append(log_posterior_all)
-                params_saved.append(params)
-                tuning_saved.append(tuning)
-                log_marginal_saved.append(log_marginal_final)
-                iter_saved.append(i)
-            if checkpointer is not None and i % checkpoint_every == 0:
-                checkpointer.save(i, {
-                    "step": i, "params": params, "opt_state": opt_state_curr,
-                    "log_posterior": log_posterior_curr, "rng": generator,
-                })
-            t3 = time.perf_counter()
-            phase_times["m_step"].append(t1 - t0)
-            phase_times["e_step"].append(t2 - t1)
-            phase_times["collect"].append(t3 - t2)
-            phase_times["scan_passes"].extend(d[:2] for d in diag)
+            params = self.params
+            start_iter = 0
+            checkpointer = None
+            if checkpoint_dir is not None:
+                checkpointer = EMCheckpointer(checkpoint_dir)
+                checkpoint_every = checkpoint_every or 1
+                state = checkpointer.restore() if resume else None
+                if state is not None:
+                    start_iter = int(state["step"]) + 1
+                    if start_iter >= n_iter:
+                        raise ValueError(
+                            f"resume: checkpoint step {start_iter - 1} >= "
+                            f"n_iter - 1 = {n_iter - 1}; nothing to do. Pass "
+                            "a larger n_iter to continue training, or load "
+                            "the checkpoint state directly.")
+                    params = self._as_device(state["params"])
+                    if state.get("opt_state") is not None:
+                        opt_state_curr = mstep.AdamState(**{
+                            k: profiling.to_device(v, self.device)
+                            for k, v in state["opt_state"].items()})
+                    # the restored posterior is where the fit starts: no
+                    # initial posterior is drawn
+                    log_posterior_init = state["log_posterior"]
 
-            if seg is None:
-                if verboase:
-                    print(f"EM iteration {i + 1}/{n_iter}", flush=True)
-                # a non-finite log marginal means the fit diverged; the
-                # check costs one host read (default: on in lean mode)
-                if check_nan and not np.isfinite(float(log_marginal_final)):
-                    raise FloatingPointError(
-                        f"EM diverged: log marginal is "
-                        f"{float(log_marginal_final)} at iteration {i} "
-                        f"(T={y_.shape[0]}, n_latent_bin={self.n_latent_bin})"
-                        ". Check hyperparam values and neuron/latent masks."
+            with profiling.span("fit.init_posterior"):
+                if log_posterior_init is None:
+                    log_posterior_init, _ = self.init_latent_posterior(
+                        y_.shape[0], generator, **posterior_init_kwargs
                     )
-            elif i == n_iter - 2:  # the segment's end: its deferred reads
-                seg_diag = seg.diag()
-                bad_cert = _first_failed_certificate(seg_diag)
-                if bad_cert is not None and seg.strict:
-                    raise FloatingPointError(
-                        "parallel-scan certificate failed even with strict "
-                        f"fixed-point exits at fused iteration {bad_cert[0]}"
-                        f": emit residual {bad_cert[1]} > 1e-3. The solve "
-                        "did not converge; rerun with fused=False or "
-                        "inference_engine='cuda'."
-                    )
-                if bad_cert is not None:
-                    warnings.warn(
-                        "parallel-scan warm-start certificate failed at "
-                        f"fused iteration {bad_cert[0]} (emit residual "
-                        f"{bad_cert[1]}); re-running the fused segment with "
-                        "strict fixed-point exits."
-                    )
-                    # nothing was donated: replay from the segment's start
-                    params, opt_state_curr, log_posterior_curr, n_done = \
-                        seg.start
-                    del log_marginal_l[n_done:]
-                    for v in m_step_res_l.values():
-                        del v[n_done:]
+                else:
+                    if isinstance(log_posterior_init, np.ndarray) and \
+                            log_posterior_init.dtype == np.float64:
+                        # reference inits floor -inf at -1e40, which
+                        # overflows f32: clamp to the shared finite sentinel
+                        # first (both carry zero probability mass)
+                        log_posterior_init = np.maximum(
+                            log_posterior_init, hmm.JOINT_ACC_INIT
+                        ).astype(np.float32)
+                    log_posterior_init = self._as_device(log_posterior_init)
+
+            log_posterior_curr = log_posterior_init
+            log_marginal_l = []
+            m_step_res_l = {}
+            log_posterior_all_saved, params_saved = [], []
+            tuning_saved, iter_saved, log_marginal_saved = [], [], []
+            scan_passes = []  # profile: the E-steps' fixed-point passes
+            check_nan = nan_guard if nan_guard is not None else lean
+            smooth_args = (hyperparam, trans, ma_neuron, ma_latent,
+                           likelihood_scale, n_time_per_chunk)
+
+            # the fused schedule: iterations [1, n_iter-1) as one segment
+            # that reads nothing per iteration, when nothing per iteration
+            # is observed.  The segment runs the same loop body with its own
+            # E-step; a failed warm-start certificate at its end replays it
+            # from its start with strict fixed-point exits.
+            can_fuse = (checkpointer is None and not profile and mesh is None
+                        and save_every >= n_iter and n_iter >= 3)
+            use_fused = (fused if fused is not None else not verboase) \
+                and can_fuse
+            if top is not None:
+                top.attrs["fused"] = use_fused
+            seg = None
+
+            i = start_iter
+            while i < n_iter:
+                if use_fused and i == 1 and seg is None:
                     seg = self._fused_segment(
                         y_, trans, ma_neuron, output_mode, memory_mode,
-                        seg.start, strict=True)
-                    i = 1
-                    continue
-                for key, attr in (("scan_passes", "_scan_passes_mid"),
-                                  ("scan_drift", "_scan_drift_mid"),
-                                  ("scan_emit_delta", "_scan_emit_delta_mid")):
-                    if key in seg_diag:
-                        setattr(self, attr, seg_diag[key])
-                # divergence over the fused iterations, in one transfer
-                if check_nan:
-                    lml_host = torch.stack(seg.lml).cpu().numpy()
-                    if not np.all(np.isfinite(lml_host)):
-                        bad = int(np.argmax(~np.isfinite(lml_host)))
-                        raise FloatingPointError(
-                            "EM diverged: log marginal is "
-                            f"{lml_host[bad]} at iteration {1 + bad} "
-                            f"(fused segment; T={y_.shape[0]}, "
-                            f"n_latent_bin={self.n_latent_bin}). Check "
-                            "hyperparam values and masks."
-                        )
-                seg = None
-            i += 1
+                        (params, opt_state_curr, log_posterior_curr, 1))
+                with profiling.span("fit.m_step"):
+                    m_res = self.m_step(
+                        params, y_, log_posterior_curr, tuning_basis,
+                        hyperparam, opt_state_curr=opt_state_curr,
+                        host_trim=False,
+                    )
+                with profiling.span("fit.e_step"):
+                    params = m_res["params"]
+                    opt_state_curr = m_res.get("opt_state", None)
+                    if lean:
+                        # consumed by iteration 0's M-step; lean em_res drops
+                        # it
+                        log_posterior_init = None
+                    tuning = self.get_tuning(params, hyperparam, tuning_basis)
+                    diag = []
+                    # release the previous posteriors before the E-step
+                    # allocates the new ones (matters at T ~ 1e6 x L ~ 500)
+                    if i > start_iter and i % save_every != 0:
+                        log_posterior_all = None
+                    log_posterior_curr = None
+                    if seg is None:
+                        (log_posterior_all, log_posterior_curr,
+                         log_marginal_final, lean_dyn_marg) = self._e_step(
+                            y_, tuning, *smooth_args, output_mode,
+                            memory_mode, diag, mesh)
+                    else:
+                        log_posterior_curr, log_marginal_final = seg.e_step(
+                            self, y_, tuning, smooth_args)
 
-        mstep.batch_trim_m_step_histories(m_step_res_l)
+                with profiling.span("fit.collect"):
+                    if not m_step_res_l:
+                        m_step_res_l = {k: [] for k in m_res}
+                    for k in m_res:
+                        if k not in ("params", "opt_state"):
+                            m_step_res_l[k].append(m_res[k])
+                    log_marginal_l.append(log_marginal_final)
+                    if i % save_every == 0:
+                        if not lean:  # lean keeps no posterior snapshot
+                            log_posterior_all_saved.append(log_posterior_all)
+                        params_saved.append(params)
+                        tuning_saved.append(tuning)
+                        log_marginal_saved.append(log_marginal_final)
+                        iter_saved.append(i)
+                    if checkpointer is not None and i % checkpoint_every == 0:
+                        checkpointer.save(i, {
+                            "step": i, "params": params,
+                            "opt_state": opt_state_curr,
+                            "log_posterior": log_posterior_curr,
+                            "rng": generator,
+                        })
+                    if profile:
+                        scan_passes.extend(d[:2] for d in diag)
 
-        self.params = params
-        self.tuning = tuning
-        self.log_marginal_final = log_marginal_final
-        for attr_name, attr_val in kernel_attrs.items():
-            setattr(self, attr_name, attr_val)
-        self.tuning_basis = tuning_basis
+                    if seg is None:
+                        if verboase:
+                            print(f"EM iteration {i + 1}/{n_iter}",
+                                  flush=True)
+                        # a non-finite log marginal means the fit diverged;
+                        # the check costs one host read (default: on in lean
+                        # mode)
+                        if check_nan:
+                            profiling.host_sync("nan_guard")
+                            if not np.isfinite(float(log_marginal_final)):
+                                raise FloatingPointError(
+                                    "EM diverged: log marginal is "
+                                    f"{float(log_marginal_final)} at "
+                                    f"iteration {i} (T={y_.shape[0]}, "
+                                    f"n_latent_bin={self.n_latent_bin}). "
+                                    "Check hyperparam values and "
+                                    "neuron/latent masks."
+                                )
+                    elif i == n_iter - 2:  # the segment's end: its deferred
+                        seg_diag = seg.diag()  # reads
+                        bad_cert = _first_failed_certificate(seg_diag)
+                        if bad_cert is not None and seg.strict:
+                            raise FloatingPointError(
+                                "parallel-scan certificate failed even with "
+                                "strict fixed-point exits at fused iteration "
+                                f"{bad_cert[0]}: emit residual {bad_cert[1]}"
+                                " > 1e-3. The solve did not converge; rerun "
+                                "with fused=False or inference_engine='cuda'."
+                            )
+                        if bad_cert is not None:
+                            warnings.warn(
+                                "parallel-scan warm-start certificate failed "
+                                f"at fused iteration {bad_cert[0]} (emit "
+                                f"residual {bad_cert[1]}); re-running the "
+                                "fused segment with strict fixed-point exits."
+                            )
+                            # nothing was donated: replay from the segment's
+                            # start
+                            (params, opt_state_curr, log_posterior_curr,
+                             n_done) = seg.start
+                            del log_marginal_l[n_done:]
+                            for v in m_step_res_l.values():
+                                del v[n_done:]
+                            seg = self._fused_segment(
+                                y_, trans, ma_neuron, output_mode,
+                                memory_mode, seg.start, strict=True)
+                            i = 1
+                            continue
+                        for key, attr in (
+                                ("scan_passes", "_scan_passes_mid"),
+                                ("scan_drift", "_scan_drift_mid"),
+                                ("scan_emit_delta", "_scan_emit_delta_mid")):
+                            if key in seg_diag:
+                                setattr(self, attr, seg_diag[key])
+                        # divergence over the fused iterations, in one
+                        # transfer
+                        if check_nan:
+                            profiling.host_sync("segment_lml")
+                            lml_host = torch.stack(seg.lml).cpu().numpy()
+                            if not np.all(np.isfinite(lml_host)):
+                                bad = int(np.argmax(~np.isfinite(lml_host)))
+                                raise FloatingPointError(
+                                    "EM diverged: log marginal is "
+                                    f"{lml_host[bad]} at iteration {1 + bad} "
+                                    f"(fused segment; T={y_.shape[0]}, "
+                                    f"n_latent_bin={self.n_latent_bin}). "
+                                    "Check hyperparam values and masks."
+                                )
+                        seg = None
+                i += 1
 
-        posterior = torch.exp(log_posterior_all)
-        em_res = {
-            "log_posterior_all_saved": log_posterior_all_saved,
-            "log_posterior_init": log_posterior_init,
-            "params_saved": params_saved,
-            "tuning_saved": tuning_saved,
-            "iter_saved": iter_saved,
-            "params": params,
-            "tuning": tuning,
-            "log_posterior_final": None if lean else log_posterior_all,
-            "log_marginal": log_marginal_final,
-            "log_marginal_l": log_marginal_l,
-            "log_marginal_saved": log_marginal_saved,
-            "posterior": posterior,
-            "m_step_res_l": m_step_res_l,
-        }
-        if profile:
-            em_res["profile"] = phase_times
-        if self.has_dynamics and lean:
-            em_res["posterior_latent_marg"] = posterior
-            em_res["posterior_dynamics_marg"] = torch.exp(lean_dyn_marg)
-        elif self.has_dynamics:
-            em_res["posterior_latent_marg"] = posterior.sum(dim=1)
-            em_res["posterior_dynamics_marg"] = posterior.sum(dim=2)
-            if y_tsd is not None:
-                for k in ("posterior_latent_marg", "posterior_dynamics_marg"):
-                    em_res[k] = compat.tsdframe(d=em_res[k], t=y_tsd.t)
-        elif y_tsd is not None:
-            em_res["posterior"] = compat.tsdframe(d=posterior, t=y_tsd.t)
-        return em_res
+            mstep.batch_trim_m_step_histories(m_step_res_l)
+
+            self.params = params
+            self.tuning = tuning
+            self.log_marginal_final = log_marginal_final
+            for attr_name, attr_val in kernel_attrs.items():
+                setattr(self, attr_name, attr_val)
+            self.tuning_basis = tuning_basis
+
+            posterior = torch.exp(log_posterior_all)
+            em_res = {
+                "log_posterior_all_saved": log_posterior_all_saved,
+                "log_posterior_init": log_posterior_init,
+                "params_saved": params_saved,
+                "tuning_saved": tuning_saved,
+                "iter_saved": iter_saved,
+                "params": params,
+                "tuning": tuning,
+                "log_posterior_final": None if lean else log_posterior_all,
+                "log_marginal": log_marginal_final,
+                "log_marginal_l": log_marginal_l,
+                "log_marginal_saved": log_marginal_saved,
+                "posterior": posterior,
+                "m_step_res_l": m_step_res_l,
+            }
+            if profile:
+                em_res["profile"] = _phase_profile(top.id, scan_passes)
+            if self.has_dynamics and lean:
+                em_res["posterior_latent_marg"] = posterior
+                em_res["posterior_dynamics_marg"] = torch.exp(lean_dyn_marg)
+            elif self.has_dynamics:
+                em_res["posterior_latent_marg"] = posterior.sum(dim=1)
+                em_res["posterior_dynamics_marg"] = posterior.sum(dim=2)
+                if y_tsd is not None:
+                    for k in ("posterior_latent_marg",
+                              "posterior_dynamics_marg"):
+                        em_res[k] = compat.tsdframe(d=em_res[k], t=y_tsd.t)
+            elif y_tsd is not None:
+                em_res["posterior"] = compat.tsdframe(d=posterior, t=y_tsd.t)
+            return em_res
 
 
 # ----------------------------------------------------------------------

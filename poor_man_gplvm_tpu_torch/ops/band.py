@@ -20,6 +20,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from poor_man_gplvm_tpu_torch.utils import profiling
+
 __all__ = [
     "Band",
     "band_windows",
@@ -85,6 +87,7 @@ def band_windows(mats):
     rows = torch.arange(L, device=mats.device)[:, None]
     first = torch.where(nz, rows, L).amin(dim=1)
     last = torch.where(nz, rows, -1).amax(dim=1)
+    profiling.host_sync("band")
     W = int(torch.where(last >= first, last - first + 1, L).max())
     return torch.clamp(first, max=L - W).to(torch.int32), W
 
@@ -116,7 +119,9 @@ def transition_band(tlat, tlat_t, uniform_rows, scan_prec="highest"):
         raise ValueError("a band stacks configurations along one axis, "
                          "in 'highest' only")
     keep = [d for d, flag in enumerate(uniform_rows) if not flag]
-    mats = torch.stack([tlat[..., keep, :, :], tlat_t[..., keep, :, :]],
+    idx = profiling.to_device(torch.tensor(keep, dtype=torch.int64),
+                              tlat.device)
+    mats = torch.stack([tlat[..., idx, :, :], tlat_t[..., idx, :, :]],
                        dim=len(lead)).reshape(-1, L, L)
     start, W = band_windows(mats)
     band = _gather_band(mats, start, W).view(*lead, 2, len(keep), W, L)

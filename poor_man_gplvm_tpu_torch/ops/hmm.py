@@ -62,6 +62,7 @@ from poor_man_gplvm_tpu_torch.ops.emissions import (
     get_loglikelihood_ma_all,
     get_loglikelihood_ma_all_changing_dt,
 )
+from poor_man_gplvm_tpu_torch.utils import profiling
 
 # The f32-representable stand-in for the reference's -1e40 zero-probability
 # sentinel (the JAX package's JOINT_ACC_INIT).
@@ -670,11 +671,11 @@ def smooth_combined_chunked(
             f"memory_mode must be one of {MEMORY_MODES}, got {memory_mode!r}"
         )
     device = tuning.device
-    y = torch.as_tensor(y, dtype=torch.float32, device=device)
+    y = profiling.to_device(y, device, torch.float32)
     n_time_tot = y.shape[0]
     if dt_l is not None:
-        dt_l = torch.broadcast_to(torch.as_tensor(
-            dt_l, dtype=torch.float32, device=device), (n_time_tot,))
+        dt_l = torch.broadcast_to(profiling.to_device(
+            dt_l, device, torch.float32), (n_time_tot,))
     if engine_resolves_parallel(n_time_tot, trans, engine, device):
         return _smooth_parallel_driver(
             y, tuning, hyperparam, trans, ma_neuron, ma_latent,
@@ -697,7 +698,7 @@ def smooth_combined_chunked(
     if n_time_per_chunk is None:
         n_time_per_chunk = auto_chunk_size(
             n_time_tot, state_size, tuning.shape[0], device)
-    ma_neuron = torch.as_tensor(ma_neuron, dtype=torch.float32, device=device)
+    ma_neuron = profiling.to_device(ma_neuron, device, torch.float32)
     if ma_latent is None:
         ma_latent = torch.ones(tuning.shape[0], dtype=torch.float32,
                                device=device)
@@ -1466,13 +1467,12 @@ def engine_resolves_parallel(n_time, trans, engine, device):
     if engine == "cuda_parallel":
         return True
     device = torch.device(device)
-    return (
-        engine == "cuda"
-        and device.type == "cuda"
-        and n_time >= _PARALLEL_UPGRADE_MIN_T
-        and _parallel_upgrade_ok(n_time, trans.n_latent,
-                                 getattr(trans, "n_dyn", 1), device)
-    )
+    if not (engine == "cuda" and device.type == "cuda"
+            and n_time >= _PARALLEL_UPGRADE_MIN_T):
+        return False
+    with profiling.span("smooth.engine_gate"):
+        return _parallel_upgrade_ok(n_time, trans.n_latent,
+                                    getattr(trans, "n_dyn", 1), device)
 
 
 def parallel_scan_carry_spec(n_time, trans, engine, force=False,
@@ -1533,8 +1533,7 @@ def _smooth_parallel_driver(
     # posteriors by 3e-4 against the sequential engine on the H100.)  A
     # precomputed lgamma term gives the same values as the one formed here.
     y, ma_t = _chunk_inputs(
-        y, torch.as_tensor(ma_neuron, dtype=torch.float32, device=device),
-        0, T)
+        y, profiling.to_device(ma_neuron, device, torch.float32), 0, T)
     ll = _loglik(y, tuning, hyperparam, ma_t, ma_latent, observation_model,
                  dt_l, lgamma_term)
     tlat, tdyn = _transition_stack(trans)

@@ -10,6 +10,8 @@ from __future__ import annotations
 
 import torch
 
+from poor_man_gplvm_tpu_torch.utils import profiling
+
 __all__ = [
     "rbf_kernel",
     "rbf_kernel_multi_d",
@@ -85,9 +87,8 @@ def rbf_gram(points, ls, var=1.0):
     Returns (val, log_val)."""
     points = torch.as_tensor(points, dtype=torch.float32)
     diff = points[:, None] - points[None, :]
-    log_val = -(diff * diff) / (ls**2) + torch.log(
-        torch.tensor(var, dtype=torch.float32, device=points.device)
-    )
+    log_val = -(diff * diff) / (ls**2) + torch.log(profiling.to_device(
+        torch.tensor(var, dtype=torch.float32), points.device))
     return torch.exp(log_val), log_val
 
 
@@ -139,11 +140,10 @@ def create_transition_prob_1d(
     jump_val, jump_log = _row_normalize(*uniform_gram(n_latent_bin,
                                                       device=device))
 
-    dyn = torch.tensor(
+    dyn = profiling.to_device(torch.tensor(
         [[1.0 - p_move_to_jump, p_move_to_jump],
          [p_jump_to_move, 1.0 - p_jump_to_move]],
-        dtype=torch.float32, device=device,
-    )
+        dtype=torch.float32), device)
     del possible_dynamics  # implied by the 2x2 structure; kept for API parity
     return (
         torch.stack([move_val, jump_val]),

@@ -29,6 +29,7 @@ from typing import NamedTuple
 import torch
 
 from poor_man_gplvm_tpu_torch.ops.precision import matmul
+from poor_man_gplvm_tpu_torch.utils import profiling
 
 __all__ = [
     "AdamState",
@@ -203,6 +204,7 @@ def gaussian_m_step_analytic_batch(hyperparam, basis_mat, y_weighted,
     H = gram / noise_var + torch.eye(
         n_basis, dtype=gram.dtype, device=gram.device) / (prior_std**2)
     rhs = basis_mat.transpose(1, 2) @ y_weighted / noise_var
+    profiling.host_sync("ridge_solve")  # the solve's error check
     return torch.linalg.solve(H, rhs)
 
 
@@ -220,6 +222,7 @@ def gaussian_m_step_analytic(hyperparam, basis_mat, y_weighted, t_weighted):
     H = gram / noise_var + torch.eye(
         n_basis, dtype=gram.dtype, device=gram.device) / (param_prior_std**2)
     rhs = basis_mat.T @ y_weighted / noise_var
+    profiling.host_sync("ridge_solve")  # the solve's error check
     return torch.linalg.solve(H, rhs)
 
 
@@ -304,6 +307,7 @@ def make_adam_runner(fun, step_size, maxiter=1000, tol=1e-6):
             if i >= 5:
                 rel_change = (loss - loss_prev).abs() / torch.clamp(
                     loss.abs(), min=1e-8)
+                profiling.host_sync("adam_stop")
                 if not bool(rel_change > tol):
                     break
             new_loss, grads = value_and_grad(params, args)
@@ -375,6 +379,7 @@ def make_adam_runner_batch(fun, step_size, maxiter=1000, tol=1e-6):
                 rel_change = (loss - loss_prev).abs() / torch.clamp(
                     loss.abs(), min=1e-8)
                 active = active & (rel_change > tol)
+                profiling.host_sync("adam_stop")
                 if not bool(active.any()):
                     break
             new_loss, grads = value_and_grad(params, args)
@@ -421,6 +426,7 @@ def package_adam_result(adam_res, host_trim=True, extra=None):
         "params", "opt_state", "n_iter", "final_loss", "final_error",
         "loss_history", "error_history")}
     if host_trim:
+        profiling.host_sync("adam_history", 3)
         n_iter = int(adam_res["n_iter"])
         out["n_iter"] = n_iter
         out["loss_history"] = adam_res["loss_history"][:n_iter].cpu().numpy()
@@ -438,6 +444,7 @@ def batch_trim_m_step_histories(m_step_res_l):
         return m_step_res_l
     if isinstance(m_step_res_l["n_iter"][0], int):
         return m_step_res_l  # already trimmed (host_trim=True path)
+    profiling.host_sync("adam_history", 3)
     n_arr = torch.stack(m_step_res_l["n_iter"]).cpu().tolist()
     loss_h = torch.stack(m_step_res_l["loss_history"]).cpu().numpy()
     err_h = torch.stack(m_step_res_l["error_history"]).cpu().numpy()

@@ -68,6 +68,7 @@ from poor_man_gplvm_tpu_torch.ops.scan_kernels import (
     _stream_ptr,
     smoother_ratio,
 )
+from poor_man_gplvm_tpu_torch.utils import profiling
 
 __all__ = [
     "SCAN_PRECISIONS",
@@ -593,13 +594,15 @@ def _solve(run_pass, shift, ins, tol, max_passes, pred=None, lam=None):
     pass at all) and runs while ``delta * lam > tol``."""
     if pred is None:
         new = shift(run_pass(ins))
+        profiling.host_sync("solve")
         delta, passes = float(_max_abs(new, ins)), 1
         lam = np.float32(1.0)
-    else:
+    else:  # a host number: no read
         new, delta, passes = ins, float(pred), 0
     tol = np.float32(tol)
     while np.float32(delta) * lam > tol and passes < max_passes:
         ins, new = new, shift(run_pass(new))
+        profiling.host_sync("solve")
         delta, passes = float(_max_abs(new, ins)), passes + 1
     return new, passes, delta
 
@@ -681,8 +684,10 @@ def smooth_parallel(ll, tlat, tdyn, p_init, likelihood_scale, *,
     if has_ws:
         fwd_ws, bwd_ws, ws_pred, ws_valid = warm_start
         ws_valid = bool(ws_valid)
-        ws_pred = (np.asarray(ws_pred.cpu() if torch.is_tensor(ws_pred)
-                              else ws_pred, dtype=np.float32)
+        if fast and ws_valid and torch.is_tensor(ws_pred):
+            profiling.host_sync("warm_start")
+            ws_pred = ws_pred.cpu()
+        ws_pred = (np.asarray(ws_pred, dtype=np.float32)
                    if fast and ws_valid else None)
     else:
         ws_valid = False

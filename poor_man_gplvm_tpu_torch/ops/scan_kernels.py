@@ -45,6 +45,7 @@ from __future__ import annotations
 import torch
 
 from poor_man_gplvm_tpu_torch.ops.band import check_band, transition_band
+from poor_man_gplvm_tpu_torch.utils import profiling
 
 __all__ = [
     "filter_chunk",
@@ -92,6 +93,7 @@ def _detect_uniform_rows(tlat):
     are NOT flagged: the kernels' shortcut ``sum(v) * row`` equals the true
     matvec only for a constant matrix.  One host sync."""
     dev = (tlat - tlat[:, :1, :1]).abs().amax(dim=(1, 2)) < 1e-12
+    profiling.host_sync("uniform_rows")
     return tuple(bool(f) for f in dev.tolist())
 
 
