@@ -36,6 +36,11 @@ Phases, each of which checks its results (any failure exits non-zero):
    nonzeros these inputs need) and, for ``joint_acc``, the one PyTorch call
    that computes the same sum; K3 and K4 finals-only with the band cut to
    one row (the step's fixed cost) and on a dense channel at L=500;
+   rng: a fit's initial posterior drawn on the card from a CPU
+   generator's MT19937 stream at T=100,000, L=500, the uniforms and the
+   generator's state bit for bit against ``torch.rand``, the posterior
+   within a few ulps of the host recipe, kernels A (recurrence) and B
+   (normalise) timed (``phase_rng``);
 5. slice: ``PoissonGPLVMJump1D.decode_latent`` at T=10,000 for (N, L) =
    (100, 100) and (500, 500) through the engine 'auto' resolves to (the
    parallel one above its threshold), held against the plain ``'prob'``
@@ -553,7 +558,7 @@ def wall_s(fn):
 
 def _wrappers():
     from poor_man_gplvm_tpu_torch.ops import parallel_scan as ps
-    from poor_man_gplvm_tpu_torch.ops import precision
+    from poor_man_gplvm_tpu_torch.ops import precision, rng
     from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk
 
     return {"filter_scan": sk.filter_scan, "smoother_scan": sk.smoother_scan,
@@ -561,7 +566,9 @@ def _wrappers():
             "smoother_scan_batch": sk.smoother_scan_batch,
             "smoother_push_scan": sk.smoother_push_scan,
             "pfilter_pass": ps.pfilter_pass, "psmooth_pass": ps.psmooth_pass,
-            "joint_acc": ps.joint_acc, "bf16_gemm": precision.bf16_gemm}
+            "joint_acc": ps.joint_acc, "bf16_gemm": precision.bf16_gemm,
+            "mt19937_draw": rng._launch_draw,
+            "mt19937_normalise": rng._launch_normalise}
 
 
 @contextlib.contextmanager
@@ -1607,6 +1614,102 @@ def phase_long_decode(launches):
             f"{rel_p:.2e}, max |post - highest| {err_p:.2e}; launches so far "
             f"{launches}")
         check(rel_p <= lmf_rtol and err_p <= post_atol, (prec, rel_p, err_p))
+
+
+RNG_SEED = 3_141_592_653  # the generator of the initial-draw phase
+RNG_SCALE = 0.1  # the models' random_scale
+RNG_POST_ULPS = 8  # the card posterior's gap to the host recipe's
+
+
+def _clone_generator(g):
+    h = torch.Generator()
+    h.set_state(g.get_state())
+    return h
+
+
+def phase_rng():
+    """The fit's initial posterior drawn on the card from a CPU generator's
+    MT19937 stream (``ops/rng.py``) at T_LONG x NS_L, the benchmark fit's
+    shape: the uniforms bit for bit against ``torch.rand`` on the host and
+    the generator's state after; the posterior within ``RNG_POST_ULPS`` of
+    the host recipe's (normalised on the host, copied), its log within
+    3e-7; kernel A (the recurrence) and kernel B (normalise and log) timed
+    by CUDA events beside their byte bounds; both paths' wall time.
+    Returns the rows of kernels A and B."""
+    from poor_man_gplvm_tpu_torch.models.base import _log_posterior_init
+    from poor_man_gplvm_tpu_torch.ops import rng
+
+    dev = torch.device("cuda")
+    T, L = T_LONG, NS_L
+    g = torch.Generator().manual_seed(RNG_SEED)
+    torch.rand(5, generator=g)  # start inside a twist
+    host = _clone_generator(g)
+    got = rng._draw((T, L), g, dev, RNG_SCALE)
+    t0 = time.perf_counter()
+    want = torch.rand((T, L), generator=host) * RNG_SCALE
+    host_draw_s = time.perf_counter() - t0
+    check(torch.equal(got.cpu(), want), "mt19937: the card's uniforms are "
+          "not torch.rand's")
+    check(torch.equal(g.get_state(), host.get_state()),
+          "mt19937: the generator's state differs from torch.rand's")
+    del got, want
+
+    g_card, g_host = _clone_generator(g), _clone_generator(g)
+    card_s, (log_post, post) = wall_s(lambda: rng.cpu_stream_posterior(
+        T, L, g_card, dev, RNG_SCALE))
+
+    def host_recipe():
+        u = torch.rand((T, L), generator=g_host) * RNG_SCALE
+        return _log_posterior_init(u / u.sum(dim=1, keepdim=True), dev)
+
+    host_s, (want_log, want_post) = wall_s(host_recipe)
+    check(torch.equal(g_card.get_state(), g_host.get_state()),
+          "mt19937: the posterior's generator state")
+    ulps = int((post.view(torch.int32).long()
+                - want_post.view(torch.int32).long()).abs().max())
+    rel = float(((log_post.double() - want_log.double()).abs()
+                 / want_log.double().abs().clamp_min(1e-30)).max())
+    check(ulps <= RNG_POST_ULPS and rel <= 3e-7,
+          f"mt19937 posterior against the host recipe: {ulps} ulps, its "
+          f"log {rel:.3e}")
+    del log_post, post, want_log, want_post
+
+    lib = rng._lib()
+    words, left, _ = rng.read_state(g)
+    state_in = torch.as_tensor(words.view(np.int32), device=dev)
+    state_out = torch.empty_like(state_in)
+    out = torch.empty((T, L), device=dev)
+    log_out = torch.empty_like(out)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ms_a = cuda_ms(lambda: lib.pmg_mt_draw(
+        state_in.data_ptr(), 625 - left, T * L, RNG_SCALE, out.data_ptr(),
+        state_out.data_ptr(), stream), 5)
+    ms_b = cuda_ms(lambda: lib.pmg_mt_normalise(
+        out.data_ptr(), log_out.data_ptr(), T, L, 0.0, -3.0e38, stream), 20)
+    twists = rng.end_position(625 - left, T * L)[0]
+    shape = (f"T={T} x L={L} from a CPU generator moved by 5 draws; "
+             "launches: the main paths' card fits")
+    rows = {
+        "mt19937_draw": {
+            "ms": ms_a, "bound_ms": 4 * T * L / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "the recurrence's chain", "twists": twists,
+            "ns_per_twist": ms_a * 1e6 / twists, "host_draw_s": host_draw_s,
+            "shape": shape},
+        "mt19937_normalise": {
+            "ms": ms_b, "bound_ms": 12 * T * L / HBM_BYTES_PER_S * 1e3,
+            "bound_by": "bytes", "max_ulps_post": ulps,
+            "max_rel_err_log_post": rel, "wall_s_card": card_s,
+            "wall_s_host_recipe": host_s, "shape": shape}}
+    log(f"mt19937 at T={T}, L={L}: uniforms and generator state equal to "
+        f"torch.rand's; the posterior within {ulps} ulps of the host "
+        f"recipe's, its log within {rel:.3e}; kernel A {ms_a:.3f} ms "
+        f"({twists} twists, {ms_a * 1e6 / twists:.1f} ns a twist; bytes "
+        f"bound {rows['mt19937_draw']['bound_ms']:.4f} ms: the chain bounds "
+        f"it), kernel B {ms_b:.3f} ms (bytes bound "
+        f"{rows['mt19937_normalise']['bound_ms']:.4f} ms); the card path "
+        f"{card_s:.4f} s against the host recipe {host_s:.4f} s (its draw "
+        f"alone {host_draw_s:.4f} s)")
+    return rows
 
 
 def _fit_data(N, L):
@@ -5395,6 +5498,7 @@ def main():
 
     worst, times, batch_rows = timed("kernels", phase_kernels)
     pworst, rows = timed("parallel kernels", phase_pscan_kernels)
+    rng_rows = timed("rng", phase_rng)
     launches = {}
     timed("slice", phase_slice, launches)
     timed("epochs", phase_epochs, launches)
@@ -5413,6 +5517,7 @@ def main():
     memory_rows = phase_memory(launches)
     log(f"main-path launches: {launches}")
     path = {name: _path_launches(launches, name) for name in KERNELS}
+    path.update({name: launches.get(name, 0) for name in rng_rows})
     check(all(n > 0 for n in path.values()), path)
     card = card_line()
     kernels = []
@@ -5547,6 +5652,11 @@ def main():
             "dense channel (K1, K2: the band forced dense); probe_ms* with "
             "the band cut to one row (joint_acc: one TF32 product)")
         kernels.append(entry)
+    for name, row in rng_rows.items():
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "poor_man_gplvm_tpu_torch/csrc/mt19937.cu",
+            "replaces": None, "launches": path[name], **row})
     log(f"K3/K4 grid, worst kernel-vs-plain by precision: "
         f"{ {f'{p}/{k}': v for (p, k), v in pworst.items()} }")
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")

@@ -29,7 +29,7 @@ from abc import ABC, abstractmethod
 import numpy as np
 import torch
 
-from poor_man_gplvm_tpu_torch.ops import emissions, hmm, mstep
+from poor_man_gplvm_tpu_torch.ops import emissions, hmm, mstep, rng
 from poor_man_gplvm_tpu_torch.ops import parallel_scan as ps
 from poor_man_gplvm_tpu_torch.ops.basis import generate_basis
 from poor_man_gplvm_tpu_torch.ops.hmm import JOINT_ACC_INIT
@@ -161,6 +161,17 @@ def _seeded(generator, seed):
     """``generator``, or a CPU ``torch.Generator`` seeded with ``seed``."""
     return torch.Generator().manual_seed(seed) if generator is None \
         else generator
+
+
+def _draws_on_card(device, generator, n):
+    """Whether an initial posterior of ``n`` entries is drawn on the card
+    from ``generator``'s stream (``ops/rng.py``): on a CUDA device from a
+    CPU ``torch.Generator``; else by the host recipe.  Counts ``n`` in
+    ``init_draw.card`` or ``init_draw.host``."""
+    card = torch.device(device).type == "cuda" and isinstance(
+        generator, torch.Generator) and generator.device.type == "cpu"
+    profiling.count("init_draw.card" if card else "init_draw.host", n)
+    return card
 
 
 def _log_posterior_init(post, device):
@@ -431,6 +442,23 @@ class _GPLVMCommon(ABC):
     @abstractmethod
     def init_latent_posterior(self, T, generator, random_scale=0.1):
         """Initial E-step posterior."""
+
+    def _random_posterior(self, T, generator, random_scale, plus_uniform):
+        """(log_post, post) of ``torch.rand((T, L), generator=generator) *
+        random_scale``, plus ``1 / L`` where ``plus_uniform``, each row
+        normalised, zeros floored at ``JOINT_ACC_INIT``.  On a CUDA device
+        from a CPU generator it is drawn on the card, the same uniforms
+        (``ops/rng.py``); else on the host."""
+        L = self.n_latent_bin
+        if _draws_on_card(self.device, generator, T * L):
+            offset = float(torch.ones(()) / L) if plus_uniform else 0.0
+            return rng.cpu_stream_posterior(T, L, generator, self.device,
+                                            random_scale, offset)
+        post = torch.rand((T, L), generator=generator) * random_scale
+        if plus_uniform:
+            post = torch.ones((T, L)) / L + post
+        return _log_posterior_init(post / post.sum(dim=1, keepdim=True),
+                                   self.device)
 
     @abstractmethod
     def m_step(self, param_curr, y, log_posterior_curr, tuning_basis,

@@ -15,7 +15,6 @@ import torch
 from poor_man_gplvm_tpu_torch.models.base import (
     _GaussianFamily,
     _GPLVMCommon,
-    _log_posterior_init,
     _PoissonFamily,
     _seeded,
 )
@@ -220,11 +219,11 @@ class AbstractGPLVMJump1D(_GPLVMCommon):
 
     def init_latent_posterior(self, T, generator, random_scale=0.1):
         """Pure-random initial posterior (T, L), intentionally different
-        from the latent-only family's; returns (log_post, post)."""
-        post = torch.rand((T, self.n_latent_bin), generator=generator) \
-            * random_scale
-        return _log_posterior_init(post / post.sum(dim=1, keepdim=True),
-                                   self.device)
+        from the latent-only family's; returns (log_post, post).  On a
+        CUDA device from a CPU generator it is drawn on the card, the same
+        uniforms (``ops/rng.py``)."""
+        return self._random_posterior(T, generator, random_scale,
+                                      plus_uniform=False)
 
 
 class PoissonGPLVMJump1D(_PoissonFamily, AbstractGPLVMJump1D):

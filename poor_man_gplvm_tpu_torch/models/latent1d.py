@@ -15,7 +15,6 @@ import torch
 from poor_man_gplvm_tpu_torch.models.base import (
     _GaussianFamily,
     _GPLVMCommon,
-    _log_posterior_init,
     _PoissonFamily,
     _seeded,
 )
@@ -178,12 +177,10 @@ class AbstractGPLVM1D(_GPLVMCommon):
     def init_latent_posterior(self, T, generator, random_scale=0.1):
         """Uniform-plus-noise initial posterior (T, L), intentionally
         different from the jump family's pure-random one; returns
-        (log_post, post)."""
-        L = self.n_latent_bin
-        post = torch.ones((T, L)) / L + torch.rand(
-            (T, L), generator=generator) * random_scale
-        return _log_posterior_init(post / post.sum(dim=1, keepdim=True),
-                                   self.device)
+        (log_post, post).  On a CUDA device from a CPU generator it is
+        drawn on the card, the same uniforms (``ops/rng.py``)."""
+        return self._random_posterior(T, generator, random_scale,
+                                      plus_uniform=True)
 
 
 class PoissonGPLVM1D(_PoissonFamily, AbstractGPLVM1D):

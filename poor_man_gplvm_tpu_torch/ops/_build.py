@@ -20,6 +20,9 @@ Libraries:
 * ``bf16_gemm``: the emission and M-step products at the lower matmul
   precisions ('high', 'default'), bf16 ``wgmma`` with f32 sums
   (``ops/precision.py``);
+* ``mt19937``: a fit's random initial posterior drawn on the card from a
+  CPU ``torch.Generator``'s own MT19937 stream, and normalised
+  (``ops/rng.py``);
 * ``binning``: the ingestion layer's spike binner (``csrc/binning.cpp``),
   host code, built by the host's C++ compiler (``g++``, or ``$CXX``) in the
   same way and loaded by ``data/native.py``.
@@ -50,6 +53,7 @@ SOURCES = {
     "scan_kernels": CSRC / "scan_kernels.cu",
     "parallel_scan": CSRC / "parallel_scan.cu",
     "bf16_gemm": CSRC / "bf16_gemm.cu",
+    "mt19937": CSRC / "mt19937.cu",
     "binning": CSRC / "binning.cpp",
 }
 #: the libraries built by the host's C++ compiler, not nvcc
@@ -61,7 +65,8 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_vp, _ci, _cl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_vp, _ci, _cl, _cf = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                      ctypes.c_float)
 #: (restype, argtypes) of every exported function, per library
 _SIGNATURES = {
     "scan_kernels": {
@@ -80,6 +85,10 @@ _SIGNATURES = {
     "bf16_gemm": {
         "pmg_bf16_gemm": [_vp] * 3 + [_cl] * 13 + [_ci] * 4 + [_cl]
         + [_vp] * 3,
+    },
+    "mt19937": {
+        "pmg_mt_draw": [_vp, _ci, _cl, _cf, _vp, _vp, _vp],
+        "pmg_mt_normalise": [_vp, _vp, _cl, _ci, _cf, _cf, _vp],
     },
     "binning": {
         "bin_sliding": [_vp, _vp, _cl, ctypes.c_double, ctypes.c_double,

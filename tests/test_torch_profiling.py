@@ -276,9 +276,10 @@ def test_phase_timer_is_a_view_over_spans():
 
 @pytest.mark.cuda
 def test_fit_h2d_bytes_are_its_posterior_weights_and_basis():
-    """On the card: a small fit copies its initial posterior, its weights
-    and basis, the transition's two small tensors and each band's channel
-    index, and nothing else."""
+    """On the card: a small fit copies its CPU generator's 624 MT19937
+    words (its initial posterior is drawn on the card from them), its
+    weights and basis, the transition's two small tensors and each band's
+    channel index, and nothing else."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     T = 3000
@@ -294,7 +295,8 @@ def test_fit_h2d_bytes_are_its_posterior_weights_and_basis():
     L, nb = KW["n_latent_bin"], m.n_basis
     bands = delta.get("host_syncs.band", 0)
     assert bands >= 3
-    want = (T * L + nb * N + L * nb) * 4 + 4 + 2 * 2 * 4 + bands * 8
+    assert delta["init_draw.card"] == T * L
+    want = (624 + nb * N + L * nb) * 4 + 4 + 2 * 2 * 4 + bands * 8
     assert delta["h2d_bytes"] == want
     assert delta["h2d_copies"] == 3 + 2 + bands
     (fit,) = [s for s in profiling.spans() if s.name == "fit_em"]
