@@ -3381,15 +3381,24 @@ def _sel_kernel_rows(ll, stack, cfg):
 def _sel_sweep(y, launches):
     """(a) the sweep fan-out: bench.py's grid at N = L = 500, T = 1e4."""
     from poor_man_gplvm_tpu_torch.parallel import sweep
+    from poor_man_gplvm_tpu_torch.utils import profiling
 
     ys = y[:SWEEP_T].contiguous()
     kw = dict(SWEEP_KW, n_latent_bin=SEL_NL, device="cuda")
     sweep.sweep_fit_poisson_jump(ys, SWEEP_GRID, **kw)  # warm-up
     torch.cuda.reset_peak_memory_stats()
     got = {}
-    with counted_into(got, launches):
+    # the call's stages from its spans, each ending in a device synchronise
+    profiling.reset()
+    with counted_into(got, launches), profiling.recording(sync=True):
         sec, res = wall_s(lambda: sweep.sweep_fit_poisson_jump(
             ys, SWEEP_GRID, **kw))
+    top = next(s for s in profiling.spans() if s.name == "sweep")
+    stage = {}
+    for s in profiling.spans():
+        if s.parent == top.id:
+            stage[s.name] = stage.get(s.name, 0.0) + s.seconds
+    profiling.reset()
     peak = torch.cuda.max_memory_allocated() / 1e9
     B = len(res["config_index"])
     n_iter = SWEEP_KW["n_iter"]
@@ -3409,32 +3418,19 @@ def _sel_sweep(y, launches):
     agg = B * SWEEP_T * n_iter / sec
     log(f"selection (a) sweep fan-out ({B} runs x T={SWEEP_T} x {n_iter} EM "
         f"iterations, N=L={SEL_NL}, m_maxiter={SWEEP_KW['m_maxiter']}): "
-        f"{sec:.3f} s per call -> {agg:.0f} aggregate EM timesteps/s; one "
-        f"run alone {sec1:.3f} s, x{B} = {B * sec1:.2f} s "
-        f"({B * sec1 / sec:.1f}x the batch); launches {got} (one K1 and one "
-        f"K2 per EM iteration); peak memory {peak:.2f} GB")
-    # where a call's time goes: one more call with its stages timed (each
-    # ends in a device synchronise)
-    from poor_man_gplvm_tpu_torch.ops import mstep
-
-    times = {}
-    with stage_timer(times, (sweep, "draw_poisson_jump_init"),
-                     (sweep, "_bucket_em"), (sweep, "_runs_loglik"),
-                     (sweep, "_e_step"), (mstep, "get_statistics_batch")):
-        sec_s, _ = wall_s(lambda: sweep.sweep_fit_poisson_jump(
-            ys, SWEEP_GRID, **kw))
-    em = times["_bucket_em"]
-    stages = {"initial draws": times["draw_poisson_jump_init"],
-              "emissions": times["_runs_loglik"],
-              "K1/K2 E-steps": times["_e_step"],
-              "statistics": times["get_statistics_batch"],
-              "Adam M-steps and the rest of the EM": em - times[
-                  "_runs_loglik"] - times["_e_step"] - times[
-                      "get_statistics_batch"],
-              "host before the EM": sec_s - em - times[
-                  "draw_poisson_jump_init"]}
-    log(f"selection (a) stages of one call ({sec_s:.3f} s with the stage "
-        f"syncs): " + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items()))
+        f"{sec:.3f} s per call (its stage syncs in) -> {agg:.0f} aggregate "
+        f"EM timesteps/s; one run alone {sec1:.3f} s, x{B} = "
+        f"{B * sec1:.2f} s ({B * sec1 / sec:.1f}x the batch); launches "
+        f"{got} (one K1 and one K2 per EM iteration); peak memory "
+        f"{peak:.2f} GB")
+    stages = {"initial draws": stage["sweep.init"],
+              "emissions": stage["sweep.emissions"],
+              "K1/K2 E-steps": stage["sweep.e_step"],
+              "statistics": stage["sweep.statistics"],
+              "Adam M-steps": stage["sweep.m_step"],
+              "the rest of the call": top.seconds - sum(stage.values())}
+    log(f"selection (a) stages of that call from its spans: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in stages.items()))
     ll, stack, cfg = _sweep_rows_vs_single(ys, res, launches)
     rows = _sel_kernel_rows(ll, stack, cfg)
     del ll, res

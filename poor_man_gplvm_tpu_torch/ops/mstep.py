@@ -13,10 +13,11 @@ with b1 = 0.9, b2 = 0.999, eps = 1e-8, eps_root = 0), with an explicit state
 ``AdamState(count, mu, nu)``, so that a fit resumed from a JAX optimizer
 state (``convert.adam_state_from_jax``) computes the same thing.  The
 runner keeps the JAX package's stopping rule; its loop reads the stopping
-test on the host once per iteration after the first five.  The scalar
-constants of the loop (Adam's decay rates, the prior's scale) are made on
-the device once and reused (``_const``), so an iteration copies nothing
-from the host.
+test on the host once per iteration after the first five (the batched
+runner on a card: once in ten, replaying a CUDA graph of its iteration).
+The scalar constants of the loop (Adam's decay rates, the prior's scale)
+are made on the device once and reused (``_const``), so an iteration
+copies nothing from the host.
 """
 
 from __future__ import annotations
@@ -338,14 +339,39 @@ def make_adam_runner_cached(fun, step_size, maxiter=1000, tol=1e-6):
     return make_adam_runner(fun, step_size, maxiter=maxiter, tol=tol)
 
 
+#: per card: the side stream that the batched runner's trip is captured
+#: on, and the last CUDA graph captured there, kept so that the next
+#: capture shares its memory pool (and reuses its blocks) where a new pool
+#: would take new memory every run
+_GRAPH_HOMES = {}
+#: the card's batched runner reads its runs' state once in this many trips
+GRAPH_TRIPS_PER_READ = 10
+
+
 def make_adam_runner_batch(fun, step_size, maxiter=1000, tol=1e-6):
     """``make_adam_runner`` for B independent runs at once (what the JAX
     package's vmap of the while-loop computes): ``fun(params (B, ...),
     *args)`` returns the (B,) losses.  Each run stops at its own iteration
     by the single runner's rule, and its params, state, loss and error
     freeze from then on; the loop ends when every run has stopped, or at
-    ``maxiter - 1``.  All B stop flags come to the host in one read per
-    iteration.  Adam's step count is per run, (B,) int32.
+    ``maxiter - 1``.  Adam's step count is per run, (B,) int32.  The
+    counters ``adam_steps`` (the loop's trips that moved a run) and
+    ``adam_run_steps`` (the runs moving, summed over the trips) come from
+    the loop's own reads (``host_syncs.adam_stop``).
+
+    On the CPU all B stop flags come to the host in one read per trip from
+    the sixth on, each trip's ops launched one by one.  On a card the
+    trips from the sixth on replay one CUDA graph of the rule's test and
+    the trip, captured once a run on static copies of the state: the same
+    kernels on the same values, so the same bits, at one launch a trip
+    where the host launched some seventy kernels.  The host reads the runs'
+    ``n_iter`` once in ``GRAPH_TRIPS_PER_READ`` replays, and so the loop
+    runs at the card's pace and not at the host's.  A replay after every
+    run has stopped moves none (each update is a ``torch.where`` on the
+    live flags, which returns the old values bit for bit) and leaves
+    ``n_iter`` as it was: the read that sees the largest ``n_iter`` fall
+    behind the trips replayed ends the loop, and ``n_iter`` gives the
+    counters, as if it had ended at the first trip that moved no run.
 
     Returns ``run(init_params, opt_state, *args)`` -> dict with params /
     opt_state / n_iter (B,) / final_loss (B,) / final_error (B,) /
@@ -359,49 +385,110 @@ def make_adam_runner_batch(fun, step_size, maxiter=1000, tol=1e-6):
             (grads,) = torch.autograd.grad(loss.sum(), params)
         return loss.detach(), grads
 
+    def stop_test(s):
+        """The live flags after the rule's test of the last trip."""
+        rel_change = (s["loss"] - s["loss_prev"]).abs() / torch.clamp(
+            s["loss"].abs(), min=1e-8)
+        return s["active"] & (rel_change > tol)
+
+    def trip(s, args, i):
+        """Trip ``i`` (an int, or a (1,) tensor on a card): the new state,
+        each stopped run's entries as they were."""
+        active = s["active"]
+        keep = active.reshape((-1,) + (1,) * (s["params"].ndim - 1))
+        new_loss, grads = value_and_grad(s["params"], args)
+        updates, new_state = adam_update(
+            grads, AdamState(s["count"], s["mu"], s["nu"]), step_size)
+        new_error = torch.sqrt(torch.sum(
+            torch.square(grads), dim=tuple(range(1, grads.ndim))))
+        return {"params": torch.where(keep, s["params"] + updates,
+                                      s["params"]),
+                "count": torch.where(active, new_state.count, s["count"]),
+                "mu": torch.where(keep, new_state.mu, s["mu"]),
+                "nu": torch.where(keep, new_state.nu, s["nu"]),
+                "error": torch.where(active, new_error, s["error"]),
+                "loss_prev": torch.where(active, s["loss"], s["loss_prev"]),
+                "loss": torch.where(active, new_loss, s["loss"]),
+                "n_iter": torch.where(active, i + 1, s["n_iter"])}
+
+    def replay(s, args, i, histories):
+        """Trips ``i + 1`` on, on the card: captures the test and the trip
+        over ``s`` (replaced by static copies, updated in place), then
+        replays them, ``GRAPH_TRIPS_PER_READ`` between reads, until a read
+        finds no run moved or the cap.  Returns the runs' ``n_iter``."""
+        dev = s["params"].device
+        stream, last = _GRAPH_HOMES.get(dev, (None, None))
+        with torch.cuda.device(dev):
+            if stream is None:
+                stream = torch.cuda.Stream(dev)
+            for k in s:
+                s[k] = s[k].clone()
+            step = torch.full((1,), i, dtype=torch.int64, device=dev)
+            graph = torch.cuda.CUDAGraph()
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                graph.capture_begin(pool=None if last is None
+                                    else last.pool())
+                s["active"].copy_(stop_test(s))
+                step += 1
+                for k, v in trip(s, args, step).items():
+                    s[k].copy_(v)
+                for h, k in zip(histories, ("loss", "error")):
+                    h.index_copy_(1, step, torch.where(
+                        s["active"], s[k], 0.0)[:, None])
+                graph.capture_end()
+            torch.cuda.current_stream(dev).wait_stream(stream)
+            _GRAPH_HOMES[dev] = (stream, graph)
+            while True:
+                n = min(GRAPH_TRIPS_PER_READ, maxiter - 1 - i)
+                for _ in range(n):
+                    graph.replay()
+                i += n
+                profiling.host_sync("adam_stop")
+                n_iter = s["n_iter"].tolist()
+                if max(n_iter) <= i or i >= maxiter - 1:
+                    return n_iter
+
     def run(init_params, opt_state, *args):
         params = init_params
         B = params.shape[0]
         dev = params.device
-        bshape = (B,) + (1,) * (params.ndim - 1)
         loss, grads = value_and_grad(params, args)
         error = torch.sqrt(torch.sum(torch.square(grads),
                                      dim=tuple(range(1, grads.ndim))))
         loss_history = torch.zeros((B, maxiter), device=dev)
         error_history = torch.zeros((B, maxiter), device=dev)
         loss_history[:, 0], error_history[:, 0] = loss, error
-        n_iter = torch.ones((B,), dtype=torch.int64, device=dev)
-        active = torch.ones((B,), dtype=torch.bool, device=dev)
-        loss_prev = loss
-        i = 0
+        s = {"params": params, "count": opt_state.count,
+             "mu": opt_state.mu, "nu": opt_state.nu, "error": error,
+             "loss": loss, "loss_prev": loss,
+             "n_iter": torch.ones((B,), dtype=torch.int64, device=dev),
+             "active": torch.ones((B,), dtype=torch.bool, device=dev)}
+        i = run_steps = 0
+        live = B
         while i < maxiter - 1:
             if i >= 5:
-                rel_change = (loss - loss_prev).abs() / torch.clamp(
-                    loss.abs(), min=1e-8)
-                active = active & (rel_change > tol)
-                profiling.host_sync("adam_stop")
-                if not bool(active.any()):
+                if dev.type == "cuda":
+                    n_iter = replay(s, args, i,
+                                    (loss_history, error_history))
+                    i, run_steps = max(n_iter) - 1, sum(n_iter) - B
                     break
-            new_loss, grads = value_and_grad(params, args)
-            updates, new_state = adam_update(grads, opt_state, step_size)
-            keep = active.reshape(bshape)
-            params = torch.where(keep, params + updates, params)
-            opt_state = AdamState(
-                torch.where(active, new_state.count, opt_state.count),
-                torch.where(keep, new_state.mu, opt_state.mu),
-                torch.where(keep, new_state.nu, opt_state.nu))
-            new_error = torch.sqrt(torch.sum(
-                torch.square(grads), dim=tuple(range(1, grads.ndim))))
-            error = torch.where(active, new_error, error)
-            loss_prev = torch.where(active, loss, loss_prev)
-            loss = torch.where(active, new_loss, loss)
+                s["active"] = stop_test(s)
+                profiling.host_sync("adam_stop")
+                live = int(s["active"].sum())
+                if not live:
+                    break
+            run_steps += live
             i += 1
-            n_iter = torch.where(active, i + 1, n_iter)
-            loss_history[:, i] = torch.where(active, loss, 0.0)
-            error_history[:, i] = torch.where(active, error, 0.0)
-        return {"params": params, "opt_state": opt_state, "n_iter": n_iter,
-                "final_loss": loss, "final_error": error,
-                "loss_history": loss_history,
+            s.update(trip(s, args, i))
+            loss_history[:, i] = torch.where(s["active"], s["loss"], 0.0)
+            error_history[:, i] = torch.where(s["active"], s["error"], 0.0)
+        profiling.count("adam_steps", i)
+        profiling.count("adam_run_steps", run_steps)
+        return {"params": s["params"],
+                "opt_state": AdamState(s["count"], s["mu"], s["nu"]),
+                "n_iter": s["n_iter"], "final_loss": s["loss"],
+                "final_error": s["error"], "loss_history": loss_history,
                 "error_history": error_history}
 
     return run

@@ -18,6 +18,13 @@ each EM iteration is:
 
 On CPU tensors the kernels' wrappers run their plain versions.
 
+Traced (``utils/profiling.py``), ``sweep_fit_poisson_jump`` records the
+span ``sweep`` (top-level: the counters' deltas over the call) and inside
+it ``sweep.init`` (a bucket's draws) and, each EM iteration,
+``sweep.statistics``, ``sweep.m_step`` (the batched Adam runner or the
+ridge solve, and the tuning), ``sweep.emissions`` (``_runs_loglik``) and
+``sweep.e_step`` (the K1 and K2 launches and the posterior's log).
+
 ``tuning_lengthscale`` changes the basis rank (an SVD threshold), so it is
 swept by bucketing: one batched EM per distinct rank, with the basis per
 run where two lengthscales share a rank.  The random draws of a run (its
@@ -56,6 +63,7 @@ from poor_man_gplvm_tpu_torch.ops.emissions import (
     get_loglikelihood_ma_all,
     poisson_lgamma_term,
 )
+from poor_man_gplvm_tpu_torch.utils import profiling
 
 __all__ = [
     "expand_grid",
@@ -308,23 +316,27 @@ def _bucket_em(y, basis, params0, log_post, hps, model_class_str, n_iter,
         opt_state = mstep.adam_init_batch(params)
     lml_l, loss_l = [], []
     for _ in range(n_iter):
-        y_w, t_w = mstep.get_statistics_batch(log_post, y)
-        del log_post
-        if is_poisson:
-            res = run(params, opt_state, hyper, basis, y_w, t_w)
-            params, opt_state = res["params"], res["opt_state"]
-            loss_l.append(res["final_loss"])
-            tuning = mstep.get_tuning_softplus(params, basis)
-        else:
-            params = mstep.gaussian_m_step_analytic_batch(hyper, basis, y_w,
-                                                          t_w)
-            loss_l.append(torch.zeros((B,), device=dev))
-            tuning = mstep.get_tuning_linear(params, basis)
-        ll = _runs_loglik(y, tuning, hps, model_class_str, lg)
-        lml, lat, _, _ = _e_step(ll, stack, cfg, likelihood_scale)
-        del ll
-        log_post = hmm.prob_to_log(lat)
-        del lat
+        with profiling.span("sweep.statistics"):
+            y_w, t_w = mstep.get_statistics_batch(log_post, y)
+            del log_post
+        with profiling.span("sweep.m_step"):
+            if is_poisson:
+                res = run(params, opt_state, hyper, basis, y_w, t_w)
+                params, opt_state = res["params"], res["opt_state"]
+                loss_l.append(res["final_loss"])
+                tuning = mstep.get_tuning_softplus(params, basis)
+            else:
+                params = mstep.gaussian_m_step_analytic_batch(hyper, basis,
+                                                              y_w, t_w)
+                loss_l.append(torch.zeros((B,), device=dev))
+                tuning = mstep.get_tuning_linear(params, basis)
+        with profiling.span("sweep.emissions"):
+            ll = _runs_loglik(y, tuning, hps, model_class_str, lg)
+        with profiling.span("sweep.e_step"):
+            lml, lat, _, _ = _e_step(ll, stack, cfg, likelihood_scale)
+            del ll
+            log_post = hmm.prob_to_log(lat)
+            del lat
         lml_l.append(lml)
     out = {"params": params, "tuning": tuning,
            "log_marginal_l": torch.stack(lml_l, dim=1),
@@ -412,51 +424,59 @@ def sweep_fit_poisson_jump(
     ``chain_index`` and ``grid`` (the per-run hyperparameter arrays).
     ``mesh``: each bucket's runs split over its devices (module
     docstring)."""
-    device = resolve_device(device)
-    generator = torch.Generator().manual_seed(0) if generator is None \
-        else generator
-    y = torch.as_tensor(y, dtype=torch.float32, device=device)
-    T, n_neuron = y.shape
-    grid, config_index, chain_index = expand_grid(
-        hyperparam_ranges, n_repeat=n_repeat,
-        defaults={"tuning_lengthscale": tuning_lengthscale},
-    )
-    B = len(config_index)
-    gens = split_generator(generator, B)
-    ls_arr = grid["tuning_lengthscale"].astype(np.float64)
-    bases = {float(ls): generate_basis(float(ls), n_latent_bin)
-             for ls in np.unique(ls_arr)}
-    buckets = {}
-    for i in range(B):
-        buckets.setdefault(bases[float(ls_arr[i])].shape[1], []).append(i)
+    with profiling.span("sweep", n_iter=n_iter) as top:
+        device = resolve_device(device)
+        generator = torch.Generator().manual_seed(0) if generator is None \
+            else generator
+        y = torch.as_tensor(y, dtype=torch.float32, device=device)
+        T, n_neuron = y.shape
+        grid, config_index, chain_index = expand_grid(
+            hyperparam_ranges, n_repeat=n_repeat,
+            defaults={"tuning_lengthscale": tuning_lengthscale},
+        )
+        B = len(config_index)
+        if top is not None:
+            top.attrs["n_runs"] = B
+        gens = split_generator(generator, B)
+        ls_arr = grid["tuning_lengthscale"].astype(np.float64)
+        bases = {float(ls): generate_basis(float(ls), n_latent_bin)
+                 for ls in np.unique(ls_arr)}
+        buckets = {}
+        for i in range(B):
+            buckets.setdefault(bases[float(ls_arr[i])].shape[1],
+                               []).append(i)
 
-    per_run = [None] * B
-    for nb, idxs in sorted(buckets.items()):
-        basis = torch.stack([bases[float(ls_arr[i])] for i in idxs]).to(
-            device)
-        hps = [{k: float(v[i]) for k, v in grid.items()} for i in idxs]
-        draws = [draw_poisson_jump_init(T, n_latent_bin, nb, n_neuron,
-                                        gens[i], device=device)
-                 for i in idxs]
-        params0 = torch.stack([d[1] for d in draws]).to(device,
-                                                        torch.float32)
-        # handed over whole, so that the EM frees it after its first use
-        log_post0 = [torch.stack([d[0] for d in draws]).to(device,
-                                                           torch.float32)]
-        del draws
-        for dev, pos in _run_shards(len(idxs), mesh, device):
-            res = _bucket_em(
-                y.to(dev), _take(basis, pos, dev), _take(params0, pos, dev),
-                log_post0.pop() if pos is None
-                else _take(log_post0[0], pos, dev),
-                hps if pos is None else [hps[p] for p in pos],
-                "poisson", n_iter, n_latent_bin, m_step_size, m_maxiter,
-                m_tol, likelihood_scale, want_posterior=True)
-            _scatter(per_run, idxs, pos, res, device)
-    results = _stack_rows(per_run, B)
-    results["config_index"] = config_index
-    results["chain_index"] = chain_index
-    results["grid"] = grid
+        per_run = [None] * B
+        for nb, idxs in sorted(buckets.items()):
+            basis = torch.stack([bases[float(ls_arr[i])]
+                                 for i in idxs]).to(device)
+            hps = [{k: float(v[i]) for k, v in grid.items()} for i in idxs]
+            with profiling.span("sweep.init"):
+                draws = [draw_poisson_jump_init(T, n_latent_bin, nb,
+                                                n_neuron, gens[i],
+                                                device=device)
+                         for i in idxs]
+                params0 = torch.stack([d[1] for d in draws]).to(
+                    device, torch.float32)
+                # handed over whole, so that the EM frees it after its
+                # first use
+                log_post0 = [torch.stack([d[0] for d in draws]).to(
+                    device, torch.float32)]
+                del draws
+            for dev, pos in _run_shards(len(idxs), mesh, device):
+                res = _bucket_em(
+                    y.to(dev), _take(basis, pos, dev),
+                    _take(params0, pos, dev),
+                    log_post0.pop() if pos is None
+                    else _take(log_post0[0], pos, dev),
+                    hps if pos is None else [hps[p] for p in pos],
+                    "poisson", n_iter, n_latent_bin, m_step_size, m_maxiter,
+                    m_tol, likelihood_scale, want_posterior=True)
+                _scatter(per_run, idxs, pos, res, device)
+        results = _stack_rows(per_run, B)
+        results["config_index"] = config_index
+        results["chain_index"] = chain_index
+        results["grid"] = grid
     return results
 
 

@@ -25,7 +25,9 @@ The port adds one recorder of spans and counters at its layer boundaries:
   reads them all): ``h2d_bytes`` / ``h2d_copies`` (``to_device``, every
   host-to-card copy of the fit's and the decode's paths) and
   ``host_syncs`` / ``host_syncs.<site>`` (``host_sync``, every read of a
-  device value by the host on those paths).
+  device value by the host on those paths), and ``adam_steps`` /
+  ``adam_run_steps`` (``ops/mstep.py::make_adam_runner_batch``: its loop's
+  trips, and the runs still moving summed over them).
 * ``spans()`` returns the recorded spans (at most ``MAX_SPANS``; those
   past it are counted in ``spans_dropped``), ``reset()`` clears them.
 
