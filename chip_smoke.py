@@ -122,7 +122,9 @@ Phases, each of which checks its results (any failure exits non-zero):
     every run's E-step rows bit for bit against the unbatched kernels under
     its own configuration and band, four runs against each alone, the
     stages of a call), the config-indexed K1/K2 and the norm-only K1
-    against their plain versions and the cost of a padded band,
+    against their plain versions and the cost of a padded band, the
+    batched Adam runner's fused trip at the sweep's shape (against its
+    plain version, timed beside the autograd trip and its bound),
     ``model_selection_one_split`` batched against serial, a realistic
     batched selection (1,600 masked filters through the norm-only K1),
     the gain model (its decode at T=100,000 bit for bit between the two
@@ -304,6 +306,14 @@ SWEEP_KW = dict(n_repeat=4, n_iter=3, tuning_lengthscale=10.0,
                 m_maxiter=100)  # bench.py's sweep fan-out cell
 SWEEP_ALONE_MAXITER = 20  # four runs against each alone
 SWEEP_ALONE_RTOL = 1e-5
+# the batched Adam runner's fused trip (csrc/adam_poisson.cu) timed at the
+# sweep's shape: runs, the basis rank at tuning_lengthscale 10, and held to
+# its plain version one trip from a warm state (tests/test_torch_adam_fused):
+# the losses 2e-6 relative, the weights a thousandth of Adam's step of 0.01
+# (an update divides the gradient by its own running scale, so a small
+# gradient's f32 sums in another order move it most: 1.9e-6 seen)
+ADAM_TRIP_RUNS, ADAM_TRIP_RANK = 64, 77
+ADAM_TRIP_LOSS_RTOL, ADAM_TRIP_PARAMS_ATOL = 2e-6, 1e-5
 # kernel rows vs plain: runs per band width, bins (the sweep's own length)
 SWEEP_PLAIN = (1, SWEEP_T)
 SPLIT_T = 5_000  # bench.py's model_selection_one_split cell
@@ -557,6 +567,7 @@ def wall_s(fn):
 
 
 def _wrappers():
+    from poor_man_gplvm_tpu_torch.ops import mstep
     from poor_man_gplvm_tpu_torch.ops import parallel_scan as ps
     from poor_man_gplvm_tpu_torch.ops import precision, rng
     from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk
@@ -568,7 +579,9 @@ def _wrappers():
             "pfilter_pass": ps.pfilter_pass, "psmooth_pass": ps.psmooth_pass,
             "joint_acc": ps.joint_acc, "bf16_gemm": precision.bf16_gemm,
             "mt19937_draw": rng._launch_draw,
-            "mt19937_normalise": rng._launch_normalise}
+            "mt19937_normalise": rng._launch_normalise,
+            "adam_poisson_trip": mstep._launch_adam_trip,
+            "adam_poisson_finish": mstep._launch_adam_finish}
 
 
 @contextlib.contextmanager
@@ -3650,16 +3663,99 @@ def _sel_basis():
           ("L-BFGS did not improve", float(f), float(f0)))
 
 
+def _sel_adam_trip():
+    """The batched Adam runner's fused trip (kernels A and B) at the
+    sweep's shape, (runs, L, rank, N) = (64, 500, 77, 500), on statistics
+    drawn on the card: held to its plain version one trip from a warm state
+    (run 1 stopped: its entries bit for bit), then timed with every run
+    live beside the plain version, the autograd trip it replaces and its
+    bound (4 B L K N operations at the f32 rate; yw and t read, W, mu and
+    nu read and written).  Returns the kernels line's row."""
+    from poor_man_gplvm_tpu_torch.ops import mstep
+    from poor_man_gplvm_tpu_torch.ops.basis import generate_basis
+
+    dev = torch.device("cuda")
+    B, L, N = ADAM_TRIP_RUNS, SEL_NL, SEL_NL
+    basis = generate_basis(SWEEP_KW["tuning_lengthscale"], L).to(dev)
+    K = basis.shape[1]
+    check(K == ADAM_TRIP_RANK, ("the sweep's basis rank", K))
+    g = torch.Generator(device=dev).manual_seed(23)
+    yw = torch.rand((B, L, N), generator=g, device=dev) ** 2 * 20
+    tw = torch.rand((B, L), generator=g, device=dev) * 40 + 1
+    args = ({"param_prior_std": torch.ones(B, device=dev)}, basis, yw, tw)
+    params = torch.randn((B, K, N), generator=g, device=dev)
+    state = mstep.adam_init_batch(params)
+    active = torch.ones(B, dtype=torch.bool, device=dev)
+    for _ in range(3):
+        r = mstep.poisson_value_and_grad_batch_plain(
+            params, *args, opt_state=state, active=active, step_size=0.01)
+        params, state = r["params"], r["opt_state"]
+    active[1] = False
+    hist = (torch.zeros((B, 8), device=dev), torch.zeros((B, 8), device=dev))
+    _, advance = mstep._fused_poisson_trip(params, args, 0.01, hist)
+    s = {"params": params.clone(), "count": state.count.clone(),
+         "mu": state.mu.clone(), "nu": state.nu.clone(),
+         "loss": torch.zeros(B, device=dev),
+         "loss_prev": torch.zeros(B, device=dev),
+         "error": torch.zeros(B, device=dev),
+         "n_iter": torch.ones(B, dtype=torch.int64, device=dev),
+         "active": active.clone()}
+    advance(s, 5)
+    want, plain_ms = timed_once(
+        lambda: mstep.poisson_value_and_grad_batch_plain(
+            params, *args, opt_state=state, active=active, step_size=0.01))
+    err = float((s["params"] - want["params"])[active].abs().max())
+    rel = float(((s["loss"] - want["loss"]).abs()
+                 / want["loss"].abs())[active].max())
+    frozen = all(torch.equal(s[k][1], v[1]) for k, v in (
+        ("params", params), ("mu", state.mu), ("nu", state.nu)))
+    check(err <= ADAM_TRIP_PARAMS_ATOL and rel <= ADAM_TRIP_LOSS_RTOL
+          and frozen, ("the fused Adam trip against plain", err, rel,
+                       frozen))
+    s["active"].fill_(True)
+    ms = cuda_ms(lambda: advance(s, 5), 50)
+    fun = mstep.poisson_m_step_objective_batch
+
+    def autograd_trip():
+        p = s["params"].detach().requires_grad_(True)
+        with torch.enable_grad():
+            (grads,) = torch.autograd.grad(fun(p, *args).sum(), p)
+        upd, new = mstep.adam_update(
+            grads, mstep.AdamState(s["count"], s["mu"], s["nu"]), 0.01)
+        return s["params"] + upd, new, torch.sqrt(
+            torch.sum(torch.square(grads), dim=(1, 2)))
+
+    auto_ms = cuda_ms(autograd_trip, 10)
+    b_ms, b_by = bound(4.0 * (B * L * N + B * L + 5 * B * K * N),
+                       4.0 * B * L * K * N / F32_FLOP_PER_S)
+    log(f"time adam_poisson_trip (kernels A + B, a trip of the batched Adam "
+        f"runner) at (runs, L, rank, N) = ({B}, {L}, {K}, {N}): {ms:.4f} ms, "
+        f"plain {plain_ms:.3f} ms, the autograd trip {auto_ms:.3f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}); against plain one trip from a warm state: "
+        f"weights max |diff| {err:.2e}, loss rel {rel:.2e}, the stopped "
+        f"run's entries bit for bit {frozen}")
+    return {"adam_poisson_trip": dict(
+        ms=ms, plain_ms=plain_ms, autograd_trip_ms=auto_ms, bound_ms=b_ms,
+        bound_by=b_by, max_abs_err=err, max_rel_err_loss=rel,
+        shape=(f"a trip of the sweep's batched Adam runner: {B} runs, L={L},"
+               f" rank {K} (tuning_lengthscale 10), N={N}, every run live; "
+               "the check one trip from a warm state with run 1 stopped; "
+               "launches: the main paths' (the host's; a CUDA graph's "
+               "replays launch it again uncounted)"))}
+
+
 def phase_selection(launches):
     """Sweeps and model selection at N = L = 500 on a sampled recording:
     (a) the sweep fan-out, (b) model_selection_one_split batched against
     serial, (c) a realistic batched selection; the config-indexed and
-    norm-only kernels held against plain; then the gain model and the
-    L-BFGS M-step.  Returns the kernels line's rows of the config-indexed
-    and norm-only kernels."""
+    norm-only kernels held against plain, the batched Adam runner's fused
+    trip timed; then the gain model and the L-BFGS M-step.  Returns the
+    kernels line's rows of the config-indexed and norm-only kernels and of
+    the fused trip."""
     log(f"selection phase starts; {host_line()}")
     y = _sel_data()
     rows = _sel_sweep(y, launches)
+    rows.update(_sel_adam_trip())
     _sel_one_split(y, launches)
     _sel_realistic(y, launches)
     del y
@@ -5514,6 +5610,7 @@ def main():
     log(f"main-path launches: {launches}")
     path = {name: _path_launches(launches, name) for name in KERNELS}
     path.update({name: launches.get(name, 0) for name in rng_rows})
+    path["adam_poisson_trip"] = launches.get("adam_poisson_trip", 0)
     check(all(n > 0 for n in path.values()), path)
     card = card_line()
     kernels = []
@@ -5653,6 +5750,11 @@ def main():
             "name": name, "route": "cuda",
             "source": "poor_man_gplvm_tpu_torch/csrc/mt19937.cu",
             "replaces": None, "launches": path[name], **row})
+    kernels.append({
+        "name": "adam_poisson_trip", "route": "cuda",
+        "source": "poor_man_gplvm_tpu_torch/csrc/adam_poisson.cu",
+        "replaces": None, "launches": path["adam_poisson_trip"],
+        **selection_rows["adam_poisson_trip"]})
     log(f"K3/K4 grid, worst kernel-vs-plain by precision: "
         f"{ {f'{p}/{k}': v for (p, k), v in pworst.items()} }")
     log(f"chip_smoke total {time.perf_counter() - t_start:.1f} s")

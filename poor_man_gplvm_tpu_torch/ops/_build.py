@@ -23,6 +23,9 @@ Libraries:
 * ``mt19937``: a fit's random initial posterior drawn on the card from a
   CPU ``torch.Generator``'s own MT19937 stream, and normalised
   (``ops/rng.py``);
+* ``adam_poisson``: one trip of the batched Adam runner on the Poisson
+  M-step objective, the objective, its gradient and the update in one pass
+  (``ops/mstep.py``);
 * ``binning``: the ingestion layer's spike binner (``csrc/binning.cpp``),
   host code, built by the host's C++ compiler (``g++``, or ``$CXX``) in the
   same way and loaded by ``data/native.py``.
@@ -54,6 +57,7 @@ SOURCES = {
     "parallel_scan": CSRC / "parallel_scan.cu",
     "bf16_gemm": CSRC / "bf16_gemm.cu",
     "mt19937": CSRC / "mt19937.cu",
+    "adam_poisson": CSRC / "adam_poisson.cu",
     "binning": CSRC / "binning.cpp",
 }
 #: the libraries built by the host's C++ compiler, not nvcc
@@ -89,6 +93,12 @@ _SIGNATURES = {
     "mt19937": {
         "pmg_mt_draw": [_vp, _ci, _cl, _cf, _vp, _vp, _vp],
         "pmg_mt_normalise": [_vp, _vp, _cl, _ci, _cf, _cf, _vp],
+    },
+    "adam_poisson": {
+        "pmg_adam_poisson_trip": [_vp] * 5 + [_cl] + [_vp] * 7 + [_ci] * 5
+        + [_cf, _vp],
+        "pmg_adam_poisson_finish": [_vp] * 2 + [_ci] * 2 + [_vp] * 8
+        + [_ci, _vp, _cl, _vp],
     },
     "binning": {
         "bin_sliding": [_vp, _vp, _cl, ctypes.c_double, ctypes.c_double,

@@ -17,7 +17,11 @@ test on the host once per iteration after the first five (the batched
 runner on a card: once in ten, replaying a CUDA graph of its iteration).
 The scalar constants of the loop (Adam's decay rates, the prior's scale)
 are made on the device once and reused (``_const``), so an iteration
-copies nothing from the host.
+copies nothing from the host.  On a card the batched runner's trip on
+``poisson_m_step_objective_batch`` is two hand-written kernels
+(``csrc/adam_poisson.cu``): the objective, its analytic gradient and the
+update in one pass over each run's statistics; its plain version is
+``poisson_value_and_grad_batch_plain``.
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ __all__ = [
     "poisson_m_step_objective",
     "poisson_m_step_objective_batch",
     "poisson_m_step_objective_smoothness",
+    "poisson_value_and_grad_batch_plain",
     "tree_l2_norm",
 ]
 
@@ -188,6 +193,48 @@ def poisson_m_step_objective_batch(param, hyperparam, basis_mat, y_weighted,
     log_prior = ((torch.log(2 * math.pi * scale**2) + param**2 / scale**2)
                  / -2).sum(dim=(1, 2))
     return -log_likelihood - log_prior
+
+
+def poisson_value_and_grad_batch_plain(params, hyperparam, basis_mat,
+                                       y_weighted, t_weighted,
+                                       opt_state=None, active=None,
+                                       step_size=None):
+    """The fused Adam trip of ``csrc/adam_poisson.cu`` in plain PyTorch
+    (its kernels' arithmetic, for the tests and ``chip_smoke.py``; no
+    runner calls it).  The (B,) losses of
+    ``poisson_m_step_objective_batch``, the gradient written out, G =
+    sigmoid(X) (t - y_w / (pf + 1e-20)) with X = basis @ params and pf =
+    softplus(X) (kernel A divides once, in another arrangement of the same
+    quantity), ``grads = basis^T G + params / s^2``, and
+    the error, the norm of each run's gradient; the losses' terms and the
+    squared gradients are summed in float64, as the kernels sum them.
+    Returns ``{'loss', 'error', 'grads'}``; given ``opt_state``, ``active``
+    (B,) bool and ``step_size`` also ``'params'`` and ``'opt_state'``
+    after ``adam_update`` on the live runs, each stopped run's entries as
+    they were."""
+    x = get_tuning_linear(params, basis_mat)  # (B, L, N)
+    pf = torch.logaddexp(x, torch.zeros_like(x))
+    t = t_weighted[:, :, None]
+    floored = pf + 1e-20
+    g_x = torch.sigmoid(x) * (t - y_weighted / floored)
+    var = _run_scalar(hyperparam["param_prior_std"], params) ** 2
+    grads = basis_mat.transpose(-1, -2) @ g_x + params / var
+    fit = (pf * t).double() - torch.xlogy(y_weighted, floored).double()
+    prior = 0.5 * (torch.log(2 * math.pi * var).double()
+                   + (params**2 / var).double())
+    out = {"loss": (fit.sum(dim=(1, 2)) + prior.sum(dim=(1, 2))).float(),
+           "error": torch.sqrt(torch.square(grads.double()).sum(
+               dim=(1, 2))).float(),
+           "grads": grads}
+    if opt_state is not None:
+        updates, new_state = adam_update(grads, opt_state, step_size)
+        keep = active.reshape(-1, 1, 1)
+        out["params"] = torch.where(keep, params + updates, params)
+        out["opt_state"] = AdamState(
+            torch.where(active, new_state.count, opt_state.count),
+            torch.where(keep, new_state.mu, opt_state.mu),
+            torch.where(keep, new_state.nu, opt_state.nu))
+    return out
 
 
 def gaussian_m_step_analytic_batch(hyperparam, basis_mat, y_weighted,
@@ -339,6 +386,160 @@ def make_adam_runner_cached(fun, step_size, maxiter=1000, tol=1e-6):
     return make_adam_runner(fun, step_size, maxiter=maxiter, tol=tol)
 
 
+#: neurons a block of the fused trip's kernel A; its basis rows come in
+#: groups of at most 128, and a larger rank writes the weights out of place
+ADAM_TRIP_TILE = 64
+_ADAM_TRIP_GROUP = 128
+
+
+def _adam_lib():
+    from poor_man_gplvm_tpu_torch.ops._build import load
+
+    return load("adam_poisson")
+
+
+def _raise_on(err, name):
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def _launch_adam_trip(params, out, mu, nu, count, active, ops, parts,
+                      step_size):
+    """Kernel A on the current stream: the loss and grad^2 partials of
+    every run into ``parts`` (2, B, tiles), and with ``active`` Adam on the
+    live runs, the weights into ``out`` (``params`` itself where the rank
+    allows), ``mu`` and ``nu`` in place."""
+    B, K, N = params.shape
+    with torch.cuda.device(params.device):
+        err = _adam_lib().pmg_adam_poisson_trip(
+            params.data_ptr(), _ptr(out), _ptr(mu), _ptr(nu),
+            ops["basis_t"].data_ptr(), ops["basis_stride"],
+            ops["yw"].data_ptr(), ops["tw"].data_ptr(),
+            ops["prior_std"].data_ptr(), _ptr(count), _ptr(active),
+            parts[0].data_ptr(), parts[1].data_ptr(), B, ops["L"],
+            ops["basis_t"].shape[-1], K, N,
+            float(step_size), torch.cuda.current_stream(
+                params.device).cuda_stream)
+    _raise_on(err, "adam_poisson trip")
+    _launch_adam_trip.launches += 1
+
+
+_launch_adam_trip.launches = 0
+
+
+def _launch_adam_finish(parts, active, s, histories, step):
+    """Kernel B on the current stream: each run's partials summed; without
+    ``active`` into the (B,) tensors ``s['loss']`` and ``s['error']``, with
+    it the trip's state ``s`` and the histories' column ``step`` (an int,
+    or a (1,) int64 tensor on the card) in place."""
+    _, B, tiles = parts.shape
+    trip = active is not None
+    loss_h, error_h = histories if trip else (None, None)
+    on_card = torch.is_tensor(step)
+    with torch.cuda.device(parts.device):
+        err = _adam_lib().pmg_adam_poisson_finish(
+            parts[0].data_ptr(), parts[1].data_ptr(), B, tiles, _ptr(active),
+            s["loss"].data_ptr(), _ptr(s["loss_prev"]) if trip else None,
+            s["error"].data_ptr(), _ptr(s["count"]) if trip else None,
+            _ptr(s["n_iter"]) if trip else None, _ptr(loss_h),
+            _ptr(error_h), loss_h.shape[1] if trip else 0,
+            step.data_ptr() if on_card else None, 0 if on_card else int(step),
+            torch.cuda.current_stream(parts.device).cuda_stream)
+    _raise_on(err, "adam_poisson finish")
+    _launch_adam_finish.launches += 1
+
+
+_launch_adam_finish.launches = 0
+
+
+def _fused_poisson_trip(params, args, step_size, histories):
+    """The batched runner's trip on ``poisson_m_step_objective_batch`` on a
+    card: ``(evaluate, advance)``.  ``evaluate(params)`` -> (loss, error)
+    (B,), kernel A in evaluation mode and kernel B; ``advance(s, step)``
+    runs trip ``step`` on the runner's state ``s`` in place, its histories'
+    column included (kernels A and B; on a rank above 128 the weights go
+    out of place and are copied back).  Raises ``ValueError`` on shapes
+    the kernels do not take."""
+    from poor_man_gplvm_tpu_torch.ops.scan_kernels import MAX_LATENT
+
+    hyper, basis, yw, tw = args
+    if params.ndim != 3 or params.dtype != torch.float32:
+        raise ValueError("the fused Adam trip takes float32 params (B, "
+                         f"n_basis, N); got {params.dtype} "
+                         f"{tuple(params.shape)}")
+    B, K, N = params.shape
+    dev = params.device
+    basis = basis.to(torch.float32)
+    L = basis.shape[-2]
+    if (basis.ndim not in (2, 3) or basis.shape[-1] != K
+            or (basis.ndim == 3 and basis.shape[0] != B)):
+        raise ValueError(f"basis {tuple(basis.shape)} does not match params "
+                         f"{tuple(params.shape)}")
+    ops = {"yw": yw.to(torch.float32).contiguous(),
+           "tw": tw.to(torch.float32).contiguous(), "L": L}
+    if tuple(ops["yw"].shape) != (B, L, N) or tuple(ops["tw"].shape) != (
+            B, L):
+        raise ValueError(f"statistics {tuple(yw.shape)}, {tuple(tw.shape)} "
+                         f"do not match (B, L, N) = {(B, L, N)}")
+    if not (1 <= L <= MAX_LATENT and 1 <= K <= L and 1 <= B <= 65535):
+        raise ValueError(f"the fused Adam trip takes L <= {MAX_LATENT}, "
+                         f"n_basis <= L and B <= 65535; got B = {B}, "
+                         f"L = {L}, n_basis = {K}")
+    if any(x.device != dev for x in (basis, ops["yw"], ops["tw"])):
+        raise ValueError("the fused Adam trip's operands must share the "
+                         "params' device")
+    prior = hyper["param_prior_std"]
+    if isinstance(prior, numbers.Real):
+        prior = torch.full((B,), float(prior), device=dev)
+    ops["prior_std"] = _run_scalar(prior, params).reshape(-1).expand(
+        B).contiguous()
+    # the basis transposed, its rows padded to whole 16-byte copies
+    Lp = -(-L // 4) * 4
+    ops["basis_t"] = torch.zeros(basis.shape[:-2] + (K, Lp), device=dev)
+    ops["basis_t"][..., :L] = basis.transpose(-1, -2)
+    ops["basis_stride"] = K * Lp if basis.ndim == 3 else 0
+    tiles = -(-N // ADAM_TRIP_TILE)
+    parts = torch.empty((2, B, tiles), dtype=torch.float64, device=dev)
+    out = torch.empty_like(params) if K > _ADAM_TRIP_GROUP else None
+
+    def evaluate(p):
+        _launch_adam_trip(p, None, None, None, None, None, ops, parts,
+                          step_size)
+        r = {"loss": torch.empty((B,), device=dev),
+             "error": torch.empty((B,), device=dev)}
+        _launch_adam_finish(parts, None, r, None, 0)
+        return r["loss"], r["error"]
+
+    def advance(s, step):
+        p = s["params"]
+        _launch_adam_trip(p, p if out is None else out, s["mu"], s["nu"],
+                          s["count"], s["active"], ops, parts, step_size)
+        if out is not None:
+            p.copy_(out)
+        _launch_adam_finish(parts, s["active"], s, histories, step)
+
+    return evaluate, advance
+
+
+def _check_fused_state(s):
+    """Raise ``ValueError`` unless the runner's state ``s`` is what the
+    fused trip's kernels write: float32 weights and moments of one shape,
+    a (B,) int32 count."""
+    B = s["params"].shape[0]
+    if (s["mu"].shape != s["params"].shape
+            or s["nu"].shape != s["params"].shape
+            or s["mu"].dtype != torch.float32
+            or s["nu"].dtype != torch.float32
+            or s["count"].dtype != torch.int32
+            or tuple(s["count"].shape) != (B,)):
+        raise ValueError("the fused Adam trip takes float32 moments shaped "
+                         "as the params and a (B,) int32 count")
+
+
 #: per card: the side stream that the batched runner's trip is captured
 #: on, and the last CUDA graph captured there, kept so that the next
 #: capture shares its memory pool (and reuses its blocks) where a new pool
@@ -372,6 +573,16 @@ def make_adam_runner_batch(fun, step_size, maxiter=1000, tol=1e-6):
     ``n_iter`` as it was: the read that sees the largest ``n_iter`` fall
     behind the trips replayed ends the loop, and ``n_iter`` gives the
     counters, as if it had ended at the first trip that moved no run.
+
+    On a card, with ``fun`` ``poisson_m_step_objective_batch`` itself, the
+    start's evaluation and every trip (launched by the host, or captured)
+    are the two kernels of ``csrc/adam_poisson.cu`` on the state in place
+    (``_fused_poisson_trip``; a stopped run's entries keep their bits), and
+    the counter ``adam_fused_trips`` counts the trips as ``adam_steps``
+    does.  Their gradient is the objective's written out, summed in
+    another order than autograd's, so its bits differ from the trip of
+    autograd; any other objective, and the CPU, keep that trip.  Shapes
+    the kernels do not take raise ``ValueError``.
 
     Returns ``run(init_params, opt_state, *args)`` -> dict with params /
     opt_state / n_iter (B,) / final_loss (B,) / final_error (B,) /
@@ -411,11 +622,12 @@ def make_adam_runner_batch(fun, step_size, maxiter=1000, tol=1e-6):
                 "loss": torch.where(active, new_loss, s["loss"]),
                 "n_iter": torch.where(active, i + 1, s["n_iter"])}
 
-    def replay(s, args, i, histories):
+    def replay(s, args, i, histories, advance):
         """Trips ``i + 1`` on, on the card: captures the test and the trip
-        over ``s`` (replaced by static copies, updated in place), then
-        replays them, ``GRAPH_TRIPS_PER_READ`` between reads, until a read
-        finds no run moved or the cap.  Returns the runs' ``n_iter``."""
+        (``advance``'s, where the trip is fused) over ``s`` (replaced by
+        static copies, updated in place), then replays them,
+        ``GRAPH_TRIPS_PER_READ`` between reads, until a read finds no run
+        moved or the cap.  Returns the runs' ``n_iter``."""
         dev = s["params"].device
         stream, last = _GRAPH_HOMES.get(dev, (None, None))
         with torch.cuda.device(dev):
@@ -431,11 +643,14 @@ def make_adam_runner_batch(fun, step_size, maxiter=1000, tol=1e-6):
                                     else last.pool())
                 s["active"].copy_(stop_test(s))
                 step += 1
-                for k, v in trip(s, args, step).items():
-                    s[k].copy_(v)
-                for h, k in zip(histories, ("loss", "error")):
-                    h.index_copy_(1, step, torch.where(
-                        s["active"], s[k], 0.0)[:, None])
+                if advance is not None:
+                    advance(s, step)
+                else:
+                    for k, v in trip(s, args, step).items():
+                        s[k].copy_(v)
+                    for h, k in zip(histories, ("loss", "error")):
+                        h.index_copy_(1, step, torch.where(
+                            s["active"], s[k], 0.0)[:, None])
                 graph.capture_end()
             torch.cuda.current_stream(dev).wait_stream(stream)
             _GRAPH_HOMES[dev] = (stream, graph)
@@ -453,24 +668,34 @@ def make_adam_runner_batch(fun, step_size, maxiter=1000, tol=1e-6):
         params = init_params
         B = params.shape[0]
         dev = params.device
-        loss, grads = value_and_grad(params, args)
-        error = torch.sqrt(torch.sum(torch.square(grads),
-                                     dim=tuple(range(1, grads.ndim))))
         loss_history = torch.zeros((B, maxiter), device=dev)
         error_history = torch.zeros((B, maxiter), device=dev)
+        advance = None
+        if fun is poisson_m_step_objective_batch and dev.type == "cuda":
+            evaluate, advance = _fused_poisson_trip(
+                params, args, step_size, (loss_history, error_history))
+            loss, error = evaluate(params)
+        else:
+            loss, grads = value_and_grad(params, args)
+            error = torch.sqrt(torch.sum(torch.square(grads),
+                                         dim=tuple(range(1, grads.ndim))))
         loss_history[:, 0], error_history[:, 0] = loss, error
         s = {"params": params, "count": opt_state.count,
              "mu": opt_state.mu, "nu": opt_state.nu, "error": error,
              "loss": loss, "loss_prev": loss,
              "n_iter": torch.ones((B,), dtype=torch.int64, device=dev),
              "active": torch.ones((B,), dtype=torch.bool, device=dev)}
+        if advance is not None:  # the kernels update the state in place
+            _check_fused_state(s)
+            s = {k: v.clone(memory_format=torch.contiguous_format)
+                 for k, v in s.items()}
         i = run_steps = 0
         live = B
         while i < maxiter - 1:
             if i >= 5:
                 if dev.type == "cuda":
                     n_iter = replay(s, args, i,
-                                    (loss_history, error_history))
+                                    (loss_history, error_history), advance)
                     i, run_steps = max(n_iter) - 1, sum(n_iter) - B
                     break
                 s["active"] = stop_test(s)
@@ -480,11 +705,16 @@ def make_adam_runner_batch(fun, step_size, maxiter=1000, tol=1e-6):
                     break
             run_steps += live
             i += 1
+            if advance is not None:
+                advance(s, i)
+                continue
             s.update(trip(s, args, i))
             loss_history[:, i] = torch.where(s["active"], s["loss"], 0.0)
             error_history[:, i] = torch.where(s["active"], s["error"], 0.0)
         profiling.count("adam_steps", i)
         profiling.count("adam_run_steps", run_steps)
+        if advance is not None:
+            profiling.count("adam_fused_trips", i)
         return {"params": s["params"],
                 "opt_state": AdamState(s["count"], s["mu"], s["nu"]),
                 "n_iter": s["n_iter"], "final_loss": s["loss"],

@@ -248,10 +248,47 @@ def _graph_reads(trips, maxiter):
     return reads
 
 
+RUNNER_CASES = [(3e-3, 100, True), (1e-3, 100, None), (-1.0, 40, False),
+                (1e-6, 7, None)]
+
+
+def _runner_inputs(dev):
+    g = torch.Generator().manual_seed(3)
+    Bn, Lb, Kb, Nn = 6, 40, 9, 20
+    args = ({"param_prior_std": torch.linspace(0.5, 2.0, Bn).to(dev)},
+            (torch.randn(Lb, Kb, generator=g) * 0.3).to(dev),
+            (torch.rand(Bn, Lb, Nn, generator=g) * 5).to(dev),
+            (torch.rand(Bn, Lb, generator=g) * 10 + 1).to(dev))
+    return torch.randn(Bn, Kb, Nn, generator=g).to(dev), args
+
+
+@pytest.mark.parametrize("tol, maxiter, early", RUNNER_CASES)
+def test_batched_adam_on_the_cpu_is_the_loop_op_by_op(tol, maxiter, early):
+    """On the CPU the runner launches the autograd trip op by op: the same
+    bits as the loop written out, and no fused trip counted."""
+    p0, args = _runner_inputs(torch.device("cpu"))
+    fun = mstep.poisson_m_step_objective_batch
+    want = _runner_op_by_op(fun, 0.01, maxiter, tol)(
+        p0, mstep.adam_init_batch(p0), *args)
+    before = profiling.counters()
+    got = mstep.make_adam_runner_batch(fun, 0.01, maxiter=maxiter, tol=tol)(
+        p0, mstep.adam_init_batch(p0), *args)
+    after = profiling.counters()
+    for k in ("params", "n_iter", "final_loss", "final_error",
+              "loss_history", "error_history"):
+        assert torch.equal(got[k], want[k]), k
+    for a, b in zip(got["opt_state"], want["opt_state"]):
+        assert torch.equal(a, b)
+    if early is not None:
+        assert (max(want["n_iter"].tolist()) - 1 < maxiter - 1) == early
+    assert after.get("adam_fused_trips", 0) == before.get(
+        "adam_fused_trips", 0)
+    assert after["adam_steps"] - before.get("adam_steps", 0) == max(
+        want["n_iter"].tolist()) - 1
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("tol, maxiter, early", [
-    (3e-3, 100, True), (1e-3, 100, None), (-1.0, 40, False),
-    (1e-6, 7, None)])
+@pytest.mark.parametrize("tol, maxiter, early", RUNNER_CASES)
 def test_batched_adam_graph_on_the_card_is_the_loop_op_by_op(tol, maxiter,
                                                              early):
     """On a card the runner replays a CUDA graph of its tested trips: the
@@ -259,19 +296,18 @@ def test_batched_adam_graph_on_the_card_is_the_loop_op_by_op(tol, maxiter,
     own trips and every run stopped (the read that ends the loop after
     replays that moved no run), with every run to the cap, and with one
     replay; its counters as the CPU loop counts them, one read in
-    ``GRAPH_TRIPS_PER_READ`` trips."""
+    ``GRAPH_TRIPS_PER_READ`` trips.  The objective is wrapped, so that the
+    runner keeps the autograd trip (it fuses the trip of
+    ``poisson_m_step_objective_batch`` itself; ``test_torch_adam_fused.py``
+    holds that one)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the graph path runs only there")
     torch.backends.cuda.matmul.allow_tf32 = False
-    g = torch.Generator().manual_seed(3)
-    Bn, Lb, Kb, Nn = 6, 40, 9, 20
-    dev = torch.device("cuda")
-    args = ({"param_prior_std": torch.linspace(0.5, 2.0, Bn).to(dev)},
-            (torch.randn(Lb, Kb, generator=g) * 0.3).to(dev),
-            (torch.rand(Bn, Lb, Nn, generator=g) * 5).to(dev),
-            (torch.rand(Bn, Lb, generator=g) * 10 + 1).to(dev))
-    p0 = torch.randn(Bn, Kb, Nn, generator=g).to(dev)
-    fun = mstep.poisson_m_step_objective_batch
+    p0, args = _runner_inputs(torch.device("cuda"))
+
+    def fun(*a):
+        return mstep.poisson_m_step_objective_batch(*a)
+
     want = _runner_op_by_op(fun, 0.01, maxiter, tol)(
         p0, mstep.adam_init_batch(p0), *args)
     before = profiling.counters()
@@ -294,3 +330,4 @@ def test_batched_adam_graph_on_the_card_is_the_loop_op_by_op(tol, maxiter,
     assert delta("adam_steps") == trips
     assert delta("adam_run_steps") == sum(k - 1 for k in n)
     assert delta("host_syncs.adam_stop") == _graph_reads(trips, maxiter)
+    assert delta("adam_fused_trips") == 0
