@@ -3236,6 +3236,7 @@ def _sweep_rows_vs_single(y, res, launches):
     log-likelihoods (``sweep._runs_loglik``), against the unbatched
     kernels under the run's own configuration and its own band, bit for
     bit."""
+    from poor_man_gplvm_tpu_torch.models import PoissonGPLVMJump1D
     from poor_man_gplvm_tpu_torch.ops import band as bd
     from poor_man_gplvm_tpu_torch.ops import hmm
     from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk
@@ -3246,8 +3247,8 @@ def _sweep_rows_vs_single(y, res, launches):
     B = len(res["config_index"])
     hps = [{k: float(v[i]) for k, v in grid.items()
             if k != "tuning_lengthscale"} for i in range(B)]
-    stack, cfg = sweep._transition_stack("poisson", hps, SEL_NL, y.device)
-    ll = sweep._runs_loglik(y, res["tuning"], hps, "poisson",
+    stack, cfg = sweep._runs_stack(PoissonGPLVMJump1D, hps, SEL_NL, y.device)
+    ll = sweep._runs_loglik(y, res["tuning"], hps, PoissonGPLVMJump1D,
                             poisson_lgamma_term(y, torch.ones_like(y)))
     T = y.shape[0]
     lengths = torch.full((B,), T, dtype=torch.int32, device=y.device)

@@ -22,6 +22,7 @@ from __future__ import annotations
 import contextlib
 import functools
 import gc
+import inspect
 import numbers
 import warnings
 from abc import ABC, abstractmethod
@@ -312,6 +313,27 @@ class _GPLVMCommon(ABC):
 
     has_dynamics: bool = False
     observation_model: str = "poisson"
+    #: whether the initial posterior adds the uniform floor 1 / L to its
+    #: noise (the latent-only classes) or is noise alone (the jump classes)
+    init_plus_uniform: bool = False
+    #: hyperparam keys the emissions read, filled in from the model
+    _EMISSION_HYPER_KEYS: tuple = ()
+
+    @classmethod
+    def ctor_defaults(cls, names):
+        """{name: default} of those of ``names`` that the class's
+        constructors take, read from their signatures along the MRO (the
+        emission family's ``noise_std`` included), without building a
+        model (a constructor runs the basis SVD on the host)."""
+        out = {}
+        for klass in cls.__mro__:
+            init = vars(klass).get("__init__")
+            if init is None:
+                continue
+            for p in inspect.signature(init).parameters.values():
+                if p.name in names and p.default is not p.empty:
+                    out.setdefault(p.name, p.default)
+        return out
 
     # ------------------------------------------------------------------
     # construction helpers
@@ -383,19 +405,28 @@ class _GPLVMCommon(ABC):
     def __setstate__(self, state):
         self.__dict__.update(state)
 
-    @abstractmethod
     def get_tuning(self, params, hyperparam, tuning_basis):
-        """Link function mapping basis weights to tuning curves."""
+        """Link function mapping basis weights to tuning curves (the
+        family's ``tuning_link``)."""
+        return self.tuning_link(params, tuning_basis)
 
     @abstractmethod
     def loglikelihood(self, y, ypred, hyperparam):
         """Elementwise log-likelihood of observations ``y`` at the
         predicted means ``ypred``."""
 
+    def _filled(self, hyperparam, keys):
+        """A copy of ``hyperparam`` with the ``keys`` it lacks filled in
+        from the model's attributes."""
+        hyperparam = dict(hyperparam or {})
+        for k in keys:
+            hyperparam.setdefault(k, getattr(self, k))
+        return hyperparam
+
     def _emission_hyper(self, hyperparam):
-        """A copy of ``hyperparam`` with the emission hyperparameters the
-        family reads filled in from the model (none for Poisson)."""
-        return dict(hyperparam or {})
+        """``hyperparam`` with the emission hyperparameters the family reads
+        (``_EMISSION_HYPER_KEYS``) filled in from the model."""
+        return self._filled(hyperparam, self._EMISSION_HYPER_KEYS)
 
     @abstractmethod
     def sample_y(self, latent_l, hyperparam=None, tuning=None, dt=1.0,
@@ -406,10 +437,22 @@ class _GPLVMCommon(ABC):
     #: the memoization key of _make_transition
     _TRANSITION_HYPER_KEYS: tuple = ()
 
+    @classmethod
     @abstractmethod
+    def transition_of(cls, hp, n_latent_bin, device, custom_kernel=None):
+        """(hmm Transition, the matrices a fit keeps as attributes) of the
+        dynamics hyperparameters ``hp`` (a value for each of
+        ``_TRANSITION_HYPER_KEYS``) over ``n_latent_bin`` bins on
+        ``device``: the one build of a model's transition and of a grid's
+        (``parallel/sweep.py``)."""
+
     def _build_transition(self, hyperparam):
-        """Build the hmm Transition + matrices from instance attributes with
-        per-call hyperparam overrides (``hyperparam.get(key, self.key)``)."""
+        """``transition_of`` the instance attributes with per-call
+        hyperparam overrides (``hyperparam.get(key, self.key)``)."""
+        return self.transition_of(
+            {k: hyperparam.get(k, getattr(self, k))
+             for k in self._TRANSITION_HYPER_KEYS},
+            self.n_latent_bin, self.device, self.custom_transition_kernel)
 
     def _make_transition(self, hyperparam):
         """Memoized ``_build_transition``: repeated decodes with the same
@@ -439,23 +482,23 @@ class _GPLVMCommon(ABC):
             vals.append(float(v))
         return tuple(vals)
 
-    @abstractmethod
     def init_latent_posterior(self, T, generator, random_scale=0.1):
-        """Initial E-step posterior."""
-
-    def _random_posterior(self, T, generator, random_scale, plus_uniform):
-        """(log_post, post) of ``torch.rand((T, L), generator=generator) *
-        random_scale``, plus ``1 / L`` where ``plus_uniform``, each row
-        normalised, zeros floored at ``JOINT_ACC_INIT``.  On a CUDA device
-        from a CPU generator it is drawn on the card, the same uniforms
-        (``ops/rng.py``); else on the host."""
+        """Initial E-step posterior (T, L), returned as (log_post, post):
+        ``torch.rand((T, L), generator=generator) * random_scale``, plus
+        ``1 / L`` where the class's ``init_plus_uniform`` says (the
+        latent-only classes; the jump classes' is pure random, intentionally
+        different), each row normalised, zeros floored at
+        ``JOINT_ACC_INIT``.  On a CUDA device from a CPU generator it is
+        drawn on the card, the same uniforms (``ops/rng.py``); else on the
+        host."""
         L = self.n_latent_bin
         if _draws_on_card(self.device, generator, T * L):
-            offset = float(torch.ones(()) / L) if plus_uniform else 0.0
+            offset = float(torch.ones(()) / L) if self.init_plus_uniform \
+                else 0.0
             return rng.cpu_stream_posterior(T, L, generator, self.device,
                                             random_scale, offset)
         post = torch.rand((T, L), generator=generator) * random_scale
-        if plus_uniform:
+        if self.init_plus_uniform:
             post = torch.ones((T, L)) / L + post
         return _log_posterior_init(post / post.sum(dim=1, keepdim=True),
                                    self.device)
@@ -1142,6 +1185,9 @@ class _PoissonFamily:
     its optimizer state threaded across EM iterations."""
 
     observation_model = "poisson"
+    #: the hyperparam keys the M-step reads (``m_step_batch``; a single
+    #: fit's also reads ``smoothness_penalty``, for a B-spline basis)
+    _M_STEP_HYPER_KEYS = ("param_prior_std",)
 
     def loglikelihood(self, y, ypred, hyperparam):
         """``scipy.stats.poisson.logpmf(y, ypred + 1e-40)`` elementwise."""
@@ -1150,8 +1196,11 @@ class _PoissonFamily:
         return torch.where((y < 0) | (y != torch.round(y)),
                            torch.full_like(logp, -float("inf")), logp)
 
-    def get_tuning(self, params, hyperparam, tuning_basis):
-        return mstep.get_tuning_softplus(params, tuning_basis)
+    @staticmethod
+    def tuning_link(params, basis):
+        """Softplus of ``basis @ params``: one model's weights or a
+        bucket's (B, ...) at once."""
+        return mstep.get_tuning_softplus(params, basis)
 
     def sample_y(self, latent_l, hyperparam=None, tuning=None, dt=1.0,
                  generator=None):
@@ -1174,6 +1223,26 @@ class _PoissonFamily:
         )
         return mstep.package_adam_result(adam_res, host_trim=host_trim)
 
+    @classmethod
+    def m_step_batch(cls, params0, hp_runs, basis, step_size, maxiter, tol):
+        """A bucket's M-step: ``step(params, y_weighted, t_weighted)`` ->
+        (params, final losses (B,)), the batched Adam runner on the grouped
+        objective of B runs (``hp_runs``: (B,) tensors), its optimizer
+        state started at ``params0`` and threaded from call to call."""
+        hyper = {k: hp_runs[k] for k in cls._M_STEP_HYPER_KEYS}
+        run = mstep.make_adam_runner_batch(
+            mstep.poisson_m_step_objective_batch, step_size, maxiter=maxiter,
+            tol=tol)
+        opt_state = mstep.adam_init_batch(params0)
+
+        def step(params, y_weighted, t_weighted):
+            nonlocal opt_state
+            res = run(params, opt_state, hyper, basis, y_weighted, t_weighted)
+            opt_state = res["opt_state"]
+            return res["params"], res["final_loss"]
+
+        return step
+
     def fit_em(self, y, hyperparam=None, generator=None, n_iter=20,
                log_posterior_init=None, ma_neuron=None, ma_latent=None,
                n_time_per_chunk=None, dt=1.0, likelihood_scale=1.0,
@@ -1182,11 +1251,8 @@ class _PoissonFamily:
         """EM fit (see ``_GPLVMCommon.fit_em``) with Adam M-steps of
         ``m_step_step_size``, ``m_step_maxiter`` and ``m_step_tol``; the
         optimizer state starts fresh and is threaded across iterations."""
-        hyperparam_ = dict(hyperparam or {})
-        hyperparam_["param_prior_std"] = hyperparam_.get(
-            "param_prior_std", self.param_prior_std)
-        hyperparam_["smoothness_penalty"] = hyperparam_.get(
-            "smoothness_penalty", self.smoothness_penalty)
+        hyperparam_ = self._filled(
+            hyperparam, self._M_STEP_HYPER_KEYS + ("smoothness_penalty",))
         self.adam_runner, self.opt_state_init_fun = mstep.make_adam_runner(
             mstep.poisson_m_step_objective_smoothness
             if self.basis_type == "bspline"
@@ -1209,23 +1275,23 @@ class _GaussianFamily:
     every decode and fit unless a call passes its own."""
 
     observation_model = "gaussian"
+    _EMISSION_HYPER_KEYS = ("noise_std",)
+    _M_STEP_HYPER_KEYS = ("param_prior_std", "noise_std")
 
     def __init__(self, n_neuron, noise_std=0.5, **kwargs):
         super().__init__(n_neuron, **kwargs)
         self.noise_std = noise_std
-
-    def _emission_hyper(self, hyperparam):
-        hyperparam = dict(hyperparam or {})
-        hyperparam["noise_std"] = hyperparam.get("noise_std", self.noise_std)
-        return hyperparam
 
     def loglikelihood(self, y, ypred, hyperparam):
         """``scipy.stats.norm.logpdf(y, ypred, hyperparam['noise_std'])``
         elementwise."""
         return mstep._norm_logpdf(y - ypred, hyperparam["noise_std"])
 
-    def get_tuning(self, params, hyperparam, tuning_basis):
-        return mstep.get_tuning_linear(params, tuning_basis)
+    @staticmethod
+    def tuning_link(params, basis):
+        """``basis @ params``: one model's weights or a bucket's (B, ...)
+        at once."""
+        return mstep.get_tuning_linear(params, basis)
 
     def sample_y(self, latent_l, hyperparam=None, tuning=None, dt=1.0,
                  generator=None):
@@ -1251,14 +1317,27 @@ class _GaussianFamily:
                     hyperparam, tuning_basis, y_weighted, t_weighted),
                 "opt_state": None}
 
+    @classmethod
+    def m_step_batch(cls, params0, hp_runs, basis, step_size, maxiter, tol):
+        """A bucket's M-step: ``step(params, y_weighted, t_weighted)`` ->
+        (the ridge solves of B runs, zero losses (B,)); no optimizer state,
+        so ``params0`` and the Adam settings are unused."""
+        del params0, step_size, maxiter, tol
+        hyper = {k: hp_runs[k] for k in cls._M_STEP_HYPER_KEYS}
+
+        def step(params, y_weighted, t_weighted):
+            return (mstep.gaussian_m_step_analytic_batch(
+                        hyper, basis, y_weighted, t_weighted),
+                    torch.zeros((params.shape[0],), device=y_weighted.device))
+
+        return step
+
     def fit_em(self, y, hyperparam=None, generator=None, n_iter=20,
                log_posterior_init=None, ma_neuron=None, ma_latent=None,
                n_time_per_chunk=None, dt=1.0, likelihood_scale=1.0,
                save_every=None, **kwargs):
         """EM fit (see ``_GPLVMCommon.fit_em``) with ridge M-steps."""
-        hyperparam_ = self._emission_hyper(hyperparam)
-        hyperparam_["param_prior_std"] = hyperparam_.get(
-            "param_prior_std", self.param_prior_std)
+        hyperparam_ = self._filled(hyperparam, self._M_STEP_HYPER_KEYS)
         return super().fit_em(
             y, hyperparam=hyperparam_, generator=generator, n_iter=n_iter,
             log_posterior_init=log_posterior_init, ma_neuron=ma_neuron,

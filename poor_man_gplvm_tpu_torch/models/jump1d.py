@@ -34,6 +34,7 @@ class AbstractGPLVMJump1D(_GPLVMCommon):
     that raises, and ``device='cpu'`` runs on the CPU."""
 
     has_dynamics = True
+    init_plus_uniform = False
 
     def __init__(
         self,
@@ -83,13 +84,13 @@ class AbstractGPLVMJump1D(_GPLVMCommon):
         "movement_variance", "p_move_to_jump", "p_jump_to_move",
     )
 
-    def _build_transition(self, hyperparam):
+    @classmethod
+    def transition_of(cls, hp, n_latent_bin, device, custom_kernel=None):
         lat, log_lat, dyn, log_dyn = gpk.create_transition_prob_1d(
-            self.possible_latent_bin, self.possible_dynamics,
-            hyperparam.get("movement_variance", self.movement_variance),
-            hyperparam.get("p_move_to_jump", self.p_move_to_jump),
-            hyperparam.get("p_jump_to_move", self.p_jump_to_move),
-            custom_kernel=self.custom_transition_kernel,
+            torch.arange(n_latent_bin, device=device),
+            torch.arange(2, device=device), hp["movement_variance"],
+            hp["p_move_to_jump"], hp["p_jump_to_move"],
+            custom_kernel=custom_kernel,
         )
         trans = hmm.JointTransition(Tdyn=dyn, Tlat=lat, logTdyn=log_dyn,
                                     logTlat=log_lat)
@@ -216,14 +217,6 @@ class AbstractGPLVMJump1D(_GPLVMCommon):
         )
         y_l = self.sample_y(latent_l[:, 1], hyperparam, tuning, dt, g)
         return latent_l, y_l
-
-    def init_latent_posterior(self, T, generator, random_scale=0.1):
-        """Pure-random initial posterior (T, L), intentionally different
-        from the latent-only family's; returns (log_post, post).  On a
-        CUDA device from a CPU generator it is drawn on the card, the same
-        uniforms (``ops/rng.py``)."""
-        return self._random_posterior(T, generator, random_scale,
-                                      plus_uniform=False)
 
 
 class PoissonGPLVMJump1D(_PoissonFamily, AbstractGPLVMJump1D):

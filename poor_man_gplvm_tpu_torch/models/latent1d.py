@@ -31,6 +31,7 @@ class AbstractGPLVM1D(_GPLVMCommon):
     ``device='cpu'`` runs on the CPU."""
 
     has_dynamics = False
+    init_plus_uniform = True
 
     def __init__(
         self,
@@ -69,11 +70,11 @@ class AbstractGPLVM1D(_GPLVMCommon):
 
     _TRANSITION_HYPER_KEYS = ("movement_variance",)
 
-    def _build_transition(self, hyperparam):
+    @classmethod
+    def transition_of(cls, hp, n_latent_bin, device, custom_kernel=None):
         kernel, log_kernel = gpk.create_transition_prob_latent_1d(
-            self.possible_latent_bin,
-            hyperparam.get("movement_variance", self.movement_variance),
-            custom_kernel=self.custom_transition_kernel,
+            torch.arange(n_latent_bin, device=device),
+            hp["movement_variance"], custom_kernel=custom_kernel,
         )
         trans = hmm.LatentTransition(T=kernel, logT=log_kernel)
         return trans, {"log_latent_transition_kernel": log_kernel}
@@ -173,14 +174,6 @@ class AbstractGPLVM1D(_GPLVMCommon):
             init_latent,
         )
         return latent_l, self.sample_y(latent_l, hyperparam, tuning, dt, g)
-
-    def init_latent_posterior(self, T, generator, random_scale=0.1):
-        """Uniform-plus-noise initial posterior (T, L), intentionally
-        different from the jump family's pure-random one; returns
-        (log_post, post).  On a CUDA device from a CPU generator it is
-        drawn on the card, the same uniforms (``ops/rng.py``)."""
-        return self._random_posterior(T, generator, random_scale,
-                                      plus_uniform=True)
 
 
 class PoissonGPLVM1D(_PoissonFamily, AbstractGPLVM1D):

@@ -560,29 +560,28 @@ def make_adam_runner_batch(fun, step_size, maxiter=1000, tol=1e-6):
     ``adam_run_steps`` (the runs moving, summed over the trips) come from
     the loop's own reads (``host_syncs.adam_stop``).
 
-    On the CPU all B stop flags come to the host in one read per trip from
-    the sixth on, each trip's ops launched one by one.  On a card the
-    trips from the sixth on replay one CUDA graph of the rule's test and
-    the trip, captured once a run on static copies of the state: the same
-    kernels on the same values, so the same bits, at one launch a trip
-    where the host launched some seventy kernels.  The host reads the runs'
-    ``n_iter`` once in ``GRAPH_TRIPS_PER_READ`` replays, and so the loop
-    runs at the card's pace and not at the host's.  A replay after every
-    run has stopped moves none (each update is a ``torch.where`` on the
-    live flags, which returns the old values bit for bit) and leaves
-    ``n_iter`` as it was: the read that sees the largest ``n_iter`` fall
-    behind the trips replayed ends the loop, and ``n_iter`` gives the
-    counters, as if it had ended at the first trip that moved no run.
-
-    On a card, with ``fun`` ``poisson_m_step_objective_batch`` itself, the
-    start's evaluation and every trip (launched by the host, or captured)
-    are the two kernels of ``csrc/adam_poisson.cu`` on the state in place
+    The trip is autograd's, its ops launched one by one, and all B stop
+    flags come to the host in one read per trip from the sixth on.  On a
+    card, with ``fun`` ``poisson_m_step_objective_batch`` itself, the
+    start's evaluation and every trip are instead the two kernels of
+    ``csrc/adam_poisson.cu`` on the state in place
     (``_fused_poisson_trip``; a stopped run's entries keep their bits), and
     the counter ``adam_fused_trips`` counts the trips as ``adam_steps``
     does.  Their gradient is the objective's written out, summed in
     another order than autograd's, so its bits differ from the trip of
     autograd; any other objective, and the CPU, keep that trip.  Shapes
     the kernels do not take raise ``ValueError``.
+
+    The fused trips from the sixth on replay one CUDA graph of the rule's
+    test and the trip, captured once a run on static copies of the state:
+    the same kernels on the same values, so the same bits as the trips
+    launched by the host.  The host reads the runs' ``n_iter`` once in
+    ``GRAPH_TRIPS_PER_READ`` replays, and so the loop runs at the card's
+    pace and not at the host's.  A replay after every run has stopped
+    moves none (a stopped run's entries keep their bits) and leaves
+    ``n_iter`` as it was: the read that sees the largest ``n_iter`` fall
+    behind the trips replayed ends the loop, and ``n_iter`` gives the
+    counters, as if it had ended at the first trip that moved no run.
 
     Returns ``run(init_params, opt_state, *args)`` -> dict with params /
     opt_state / n_iter (B,) / final_loss (B,) / final_error (B,) /
@@ -603,8 +602,8 @@ def make_adam_runner_batch(fun, step_size, maxiter=1000, tol=1e-6):
         return s["active"] & (rel_change > tol)
 
     def trip(s, args, i):
-        """Trip ``i`` (an int, or a (1,) tensor on a card): the new state,
-        each stopped run's entries as they were."""
+        """Autograd's trip ``i``: the new state, each stopped run's entries
+        as they were."""
         active = s["active"]
         keep = active.reshape((-1,) + (1,) * (s["params"].ndim - 1))
         new_loss, grads = value_and_grad(s["params"], args)
@@ -622,12 +621,12 @@ def make_adam_runner_batch(fun, step_size, maxiter=1000, tol=1e-6):
                 "loss": torch.where(active, new_loss, s["loss"]),
                 "n_iter": torch.where(active, i + 1, s["n_iter"])}
 
-    def replay(s, args, i, histories, advance):
-        """Trips ``i + 1`` on, on the card: captures the test and the trip
-        (``advance``'s, where the trip is fused) over ``s`` (replaced by
-        static copies, updated in place), then replays them,
-        ``GRAPH_TRIPS_PER_READ`` between reads, until a read finds no run
-        moved or the cap.  Returns the runs' ``n_iter``."""
+    def replay(s, i, advance):
+        """Trips ``i + 1`` on, on the card: captures the test and the fused
+        trip ``advance`` over ``s`` (replaced by static copies, updated in
+        place), then replays them, ``GRAPH_TRIPS_PER_READ`` between reads,
+        until a read finds no run moved or the cap.  Returns the runs'
+        ``n_iter``."""
         dev = s["params"].device
         stream, last = _GRAPH_HOMES.get(dev, (None, None))
         with torch.cuda.device(dev):
@@ -643,14 +642,7 @@ def make_adam_runner_batch(fun, step_size, maxiter=1000, tol=1e-6):
                                     else last.pool())
                 s["active"].copy_(stop_test(s))
                 step += 1
-                if advance is not None:
-                    advance(s, step)
-                else:
-                    for k, v in trip(s, args, step).items():
-                        s[k].copy_(v)
-                    for h, k in zip(histories, ("loss", "error")):
-                        h.index_copy_(1, step, torch.where(
-                            s["active"], s[k], 0.0)[:, None])
+                advance(s, step)
                 graph.capture_end()
             torch.cuda.current_stream(dev).wait_stream(stream)
             _GRAPH_HOMES[dev] = (stream, graph)
@@ -693,9 +685,8 @@ def make_adam_runner_batch(fun, step_size, maxiter=1000, tol=1e-6):
         live = B
         while i < maxiter - 1:
             if i >= 5:
-                if dev.type == "cuda":
-                    n_iter = replay(s, args, i,
-                                    (loss_history, error_history), advance)
+                if advance is not None:
+                    n_iter = replay(s, i, advance)
                     i, run_steps = max(n_iter) - 1, sum(n_iter) - B
                     break
                 s["active"] = stop_test(s)

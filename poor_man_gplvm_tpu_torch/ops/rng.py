@@ -14,7 +14,7 @@ its normal sampler's fields are left as they were.
 models' random initial posterior on a CUDA device: ``offset +
 torch.rand((T, L), generator=generator) * scale`` normalised by rows, and
 its log with the zeros at ``JOINT_ACC_INIT``; it returns ``(log_post,
-post)``.  Its host recipe is ``_GPLVMCommon._random_posterior``
+post)``.  Its host recipe is ``_GPLVMCommon.init_latent_posterior``
 (``models/base.py``).  It copies the generator's 624 words to the card
 (``profiling.to_device``), launches the draw (kernel A, one thread block
 running the recurrence) and the normalisation (kernel B), and then reads

@@ -6,9 +6,10 @@ shapes, scanning with the probability-space scans under ``vmap``.  Here a
 bucket is B runs of one latent size L and basis rank ``n_basis``, and
 each EM iteration is:
 
-* the M-step of all B runs at once (``ops/mstep.py``: the statistics as
-  one batched product, the batched Adam runner, whose runs each stop at
-  their own iteration, or the batched ridge solve);
+* the M-step of all B runs at once (the statistics as one batched
+  product, then the model class's ``m_step_batch``: the batched Adam
+  runner, whose runs each stop at their own iteration, or the batched
+  ridge solve);
 * each run's emission log-likelihoods, formed as ``fit_em`` forms them;
 * ONE launch of K1 and ONE of K2 for all B runs (``hmm._scan_batch`` with
   a configuration index: each run's sequence under its own transition,
@@ -24,6 +25,10 @@ it ``sweep.init`` (a bucket's draws) and, each EM iteration,
 ``sweep.statistics``, ``sweep.m_step`` (the batched Adam runner or the
 ridge solve, and the tuning), ``sweep.emissions`` (``_runs_loglik``) and
 ``sweep.e_step`` (the K1 and K2 launches and the posterior's log).
+
+What a family is (its defaults, transition, link, emission keys, M-step
+and initial posterior) the model class answers (``models/``); the entry
+points take the JAX package's class name and resolve it once.
 
 ``tuning_lengthscale`` changes the basis rank (an SVD threshold), so it is
 swept by bucketing: one batched EM per distinct rank, with the basis per
@@ -50,12 +55,15 @@ import itertools
 import numpy as np
 import torch
 
+from poor_man_gplvm_tpu_torch.models import (
+    PoissonGPLVMJump1D,
+    resolve_model_class,
+)
 from poor_man_gplvm_tpu_torch.models.base import (
     _log_posterior_init,
     resolve_device,
 )
 from poor_man_gplvm_tpu_torch.ops import hmm
-from poor_man_gplvm_tpu_torch.ops import kernels as gpk
 from poor_man_gplvm_tpu_torch.ops import mstep
 from poor_man_gplvm_tpu_torch.ops.basis import generate_basis
 from poor_man_gplvm_tpu_torch.ops.emissions import (
@@ -141,16 +149,16 @@ def device_generator(generator, device):
     return torch.Generator(device=device).manual_seed(seed)
 
 
-def draw_run_init(model_class_str, T, n_latent_bin, generator,
+def draw_run_init(model_class, T, n_latent_bin, generator,
                   random_scale=0.1, device="cpu"):
     """A run's initial log posterior (T, L) on ``device``: the model
-    class's ``init_latent_posterior`` (pure random for the jump classes,
-    uniform plus noise for the latent-only ones), drawn on the device from
-    a generator seeded by the run's (``device_generator``)."""
+    class's ``init_latent_posterior`` (noise, plus the uniform floor where
+    its ``init_plus_uniform`` says), drawn on the device from a generator
+    seeded by the run's (``device_generator``)."""
     g = device_generator(generator, device)
     u = torch.rand((T, n_latent_bin), generator=g, device=device) \
         * random_scale
-    if "latentonly" in model_class_str:
+    if model_class.init_plus_uniform:
         u = 1.0 / n_latent_bin + u
     return _log_posterior_init(u / u.sum(dim=1, keepdim=True), device)[0]
 
@@ -170,7 +178,7 @@ def draw_poisson_jump_init(T, n_latent_bin, n_basis, n_neuron, generator,
     generator: (initial log posterior (T, L) on ``device``, weights
     (n_basis, N) on the CPU)."""
     params0 = torch.randn((n_basis, n_neuron), generator=generator)
-    return (draw_run_init("poisson", T, n_latent_bin, generator,
+    return (draw_run_init(PoissonGPLVMJump1D, T, n_latent_bin, generator,
                           device=device), params0)
 
 
@@ -179,82 +187,27 @@ def draw_poisson_jump_init(T, n_latent_bin, n_basis, n_neuron, generator,
 # ---------------------------------------------------------------------------
 
 
-def _family(model_class_str):
-    is_jump = "latentonly" not in model_class_str
-    is_poisson = model_class_str.startswith("poisson")
-    return is_jump, is_poisson
-
-
-def _config_defaults(model_class_str):
-    """Model-class ctor defaults for the sweepable numeric hyperparameters
-    (``models/jump1d.py``, ``models/latent1d.py``)."""
-    is_jump, is_poisson = _family(model_class_str)
-    d = {
-        "n_latent_bin": 100,
-        "tuning_lengthscale": 1.0 if is_jump else 5.0,
-        "movement_variance": 1.0,
-        "param_prior_std": 1.0,
-        "explained_variance_threshold_basis": 0.999,
-    }
-    if is_jump:
-        d.update(p_move_to_jump=0.01, p_jump_to_move=0.01)
-    if not is_poisson:
-        d["noise_std"] = 0.5
-    return d
-
-
-def _make_trans(model_class_str, hp, n_latent_bin, device):
-    """The transition a model of this class builds from ``hp``."""
-    is_jump, _ = _family(model_class_str)
-    bins = torch.arange(n_latent_bin, device=device)
-    if is_jump:
-        lat, log_lat, dyn, log_dyn = gpk.create_transition_prob_1d(
-            bins, torch.arange(2, device=device), hp["movement_variance"],
-            hp["p_move_to_jump"], hp["p_jump_to_move"])
-        return hmm.JointTransition(dyn, lat, log_dyn, log_lat)
-    lat, log_lat = gpk.create_transition_prob_latent_1d(
-        bins, hp["movement_variance"])
-    return hmm.LatentTransition(lat, log_lat)
-
-
-def _mstep_hyper(model_class_str, hp_runs):
-    """The batched M-step's hyperparameters: (B,) tensors."""
-    _, is_poisson = _family(model_class_str)
-    hyper = {"param_prior_std": hp_runs["param_prior_std"]}
-    if not is_poisson:
-        hyper["noise_std"] = hp_runs["noise_std"]
-    return hyper
-
-
-def _emission_hyper(model_class_str, hp):
-    _, is_poisson = _family(model_class_str)
-    return {} if is_poisson else {"noise_std": hp["noise_std"]}
-
-
-def _transition_stack(model_class_str, hps, n_latent_bin, device):
+def _runs_stack(model_class, hps, n_latent_bin, device):
     """(``TransitionStack`` of the distinct transitions of the runs' hps,
     cfg (B,) int32 on ``device``): one configuration per distinct
-    transition, in order of first appearance."""
-    is_jump, _ = _family(model_class_str)
-    keys = ("movement_variance", "p_move_to_jump", "p_jump_to_move") \
-        if is_jump else ("movement_variance",)
+    transition (by the class's ``_TRANSITION_HYPER_KEYS``), in order of
+    first appearance."""
     index, trans_l, cfg = {}, [], []
     for hp in hps:
-        k = tuple(float(hp[n]) for n in keys)
+        k = tuple(float(hp[n]) for n in model_class._TRANSITION_HYPER_KEYS)
         if k not in index:
             index[k] = len(trans_l)
-            trans_l.append(_make_trans(model_class_str, hp, n_latent_bin,
-                                       device))
+            trans_l.append(model_class.transition_of(hp, n_latent_bin,
+                                                     device)[0])
         cfg.append(index[k])
     return (hmm.stack_transitions(trans_l),
             torch.tensor(cfg, dtype=torch.int32, device=device))
 
 
-def _runs_loglik(y, tunings, hps, model_class_str, lgamma_term=None):
+def _runs_loglik(y, tunings, hps, model_class, lgamma_term=None):
     """(B, T, L) log-likelihoods, each run's formed on its own as
     ``fit_em`` and ``decode_latent`` form them (the (N,) neuron mask of
     ones broadcast to (T, N), every latent bin kept)."""
-    _, is_poisson = _family(model_class_str)
     T = y.shape[0]
     B, L, _ = tunings.shape
     ma = torch.ones_like(y)
@@ -262,10 +215,19 @@ def _runs_loglik(y, tunings, hps, model_class_str, lgamma_term=None):
     ll = torch.empty((B, T, L), dtype=torch.float32, device=y.device)
     for b in range(B):
         ll[b] = get_loglikelihood_ma_all(
-            y, tunings[b], _emission_hyper(model_class_str, hps[b]), ma, keep,
-            observation_model="poisson" if is_poisson else "gaussian",
+            y, tunings[b],
+            {k: hps[b][k] for k in model_class._EMISSION_HYPER_KEYS}, ma,
+            keep, observation_model=model_class.observation_model,
             lgamma_term=lgamma_term)
     return ll
+
+
+def _lgamma_term(y, model_class):
+    """The Poisson emissions' lgamma term of y, formed once for every run
+    (None for another observation model)."""
+    if model_class.observation_model != "poisson":
+        return None
+    return poisson_lgamma_term(y, torch.ones_like(y))
 
 
 def _e_step(ll, stack, cfg, likelihood_scale, want_dyn=False, n_chunk=None):
@@ -290,7 +252,7 @@ def _e_step(ll, stack, cfg, likelihood_scale, want_dyn=False, n_chunk=None):
     return lml, lat, ratios, dyn
 
 
-def _bucket_em(y, basis, params0, log_post, hps, model_class_str, n_iter,
+def _bucket_em(y, basis, params0, log_post, hps, model_class, n_iter,
                n_latent_bin, m_step_size, m_maxiter, m_tol, likelihood_scale,
                want_posterior=False):
     """The EM of one bucket of B runs.  basis (L, n_basis) shared or (B,
@@ -299,39 +261,26 @@ def _bucket_em(y, basis, params0, log_post, hps, model_class_str, n_iter,
     per-run dict entries stacked along B: params, tuning,
     log_marginal_l (B, n_iter), m_step_final_loss_l (B, n_iter) and, with
     ``want_posterior``, log_posterior_latent (B, T, L)."""
-    _, is_poisson = _family(model_class_str)
     dev = y.device
-    B = params0.shape[0]
     hp_runs = {k: torch.tensor([float(hp[k]) for hp in hps],
                                dtype=torch.float32, device=dev)
                for k in hps[0]}
-    hyper = _mstep_hyper(model_class_str, hp_runs)
-    stack, cfg = _transition_stack(model_class_str, hps, n_latent_bin, dev)
-    lg = poisson_lgamma_term(y, torch.ones_like(y)) if is_poisson else None
+    stack, cfg = _runs_stack(model_class, hps, n_latent_bin, dev)
+    lg = _lgamma_term(y, model_class)
     params = params0
-    if is_poisson:
-        run = mstep.make_adam_runner_batch(
-            mstep.poisson_m_step_objective_batch, m_step_size,
-            maxiter=m_maxiter, tol=m_tol)
-        opt_state = mstep.adam_init_batch(params)
+    m_step = model_class.m_step_batch(params0, hp_runs, basis, m_step_size,
+                                      m_maxiter, m_tol)
     lml_l, loss_l = [], []
     for _ in range(n_iter):
         with profiling.span("sweep.statistics"):
             y_w, t_w = mstep.get_statistics_batch(log_post, y)
             del log_post
         with profiling.span("sweep.m_step"):
-            if is_poisson:
-                res = run(params, opt_state, hyper, basis, y_w, t_w)
-                params, opt_state = res["params"], res["opt_state"]
-                loss_l.append(res["final_loss"])
-                tuning = mstep.get_tuning_softplus(params, basis)
-            else:
-                params = mstep.gaussian_m_step_analytic_batch(hyper, basis,
-                                                              y_w, t_w)
-                loss_l.append(torch.zeros((B,), device=dev))
-                tuning = mstep.get_tuning_linear(params, basis)
+            params, loss = m_step(params, y_w, t_w)
+            loss_l.append(loss)
+            tuning = model_class.tuning_link(params, basis)
         with profiling.span("sweep.emissions"):
-            ll = _runs_loglik(y, tuning, hps, model_class_str, lg)
+            ll = _runs_loglik(y, tuning, hps, model_class, lg)
         with profiling.span("sweep.e_step"):
             lml, lat, _, _ = _e_step(ll, stack, cfg, likelihood_scale)
             del ll
@@ -470,7 +419,8 @@ def sweep_fit_poisson_jump(
                     log_post0.pop() if pos is None
                     else _take(log_post0[0], pos, dev),
                     hps if pos is None else [hps[p] for p in pos],
-                    "poisson", n_iter, n_latent_bin, m_step_size, m_maxiter,
+                    PoissonGPLVMJump1D, n_iter, n_latent_bin, m_step_size,
+                    m_maxiter,
                     m_tol, likelihood_scale, want_posterior=True)
                 _scatter(per_run, idxs, pos, res, device)
         results = _stack_rows(per_run, B)
@@ -480,8 +430,8 @@ def sweep_fit_poisson_jump(
     return results
 
 
-def _full_configs(config_l, model_class_str):
-    defaults = _config_defaults(model_class_str)
+def _full_configs(config_l, model_class):
+    defaults = model_class.ctor_defaults(_SWEEPABLE_CTOR_KEYS)
     for cfg in config_l:
         unsupported = set(cfg) - _SWEEPABLE_CTOR_KEYS
         if unsupported:
@@ -514,11 +464,12 @@ def sweep_fit_model_class(
     place of the JAX ``key_l``.  Returns a list of per-run dicts
     (params / tuning / log_marginal_l / m_step_final_loss_l).  ``mesh``:
     each bucket's runs split over its devices (module docstring)."""
+    model_class = resolve_model_class(model_class_str)
     device = resolve_device(device)
     y = torch.as_tensor(y, dtype=torch.float32, device=device)
     T, n_neuron = y.shape
     B = len(config_l)
-    full_cfg, hp_names = _full_configs(config_l, model_class_str)
+    full_cfg, hp_names = _full_configs(config_l, model_class)
     bases = {}
     for cfg in full_cfg:
         bk = _basis_key(cfg)
@@ -545,7 +496,7 @@ def sweep_fit_model_class(
         # each run's initial posterior from its own generator, handed over
         # whole, so that the EM frees it after its first use
         log_post0 = [torch.stack([draw_run_init(
-            model_class_str, T, L, generator_l[i], random_scale,
+            model_class, T, L, generator_l[i], random_scale,
             device=device) for i in idxs]).to(device, torch.float32)]
         for dev, pos in _run_shards(len(idxs), mesh, device):
             n_runs = len(idxs) if pos is None else len(pos)
@@ -557,7 +508,7 @@ def sweep_fit_model_class(
                 log_post0.pop() if pos is None
                 else _take(log_post0[0], pos, dev),
                 hps if pos is None else [hps[p] for p in pos],
-                model_class_str, n_iter, L, m_step_size, m_maxiter, m_tol,
+                model_class, n_iter, L, m_step_size, m_maxiter, m_tol,
                 likelihood_scale)
             _scatter(per_run, idxs, pos, res, device)
     return per_run
@@ -580,11 +531,11 @@ def sweep_eval_model_class(
     Returns (decode metrics per run: dicts of ``log_marginal_final``,
     ``ratios`` (T,), ``posterior_dynamics_marg`` (T, n_dyn), zeros (T, 1)
     for a latent-only class; {frac: list of (n_mask,) LMLs per run})."""
+    model_class = resolve_model_class(model_class_str)
     device = per_run[0]["tuning"].device
     y_test = torch.as_tensor(y_test, dtype=torch.float32, device=device)
-    is_poisson = _family(model_class_str)[1]
     B = len(config_l)
-    full_cfg, hp_names = _full_configs(config_l, model_class_str)
+    full_cfg, hp_names = _full_configs(config_l, model_class)
     buckets = {}
     for i, cfg in enumerate(full_cfg):
         buckets.setdefault(cfg["n_latent_bin"], []).append(i)
@@ -595,10 +546,9 @@ def sweep_eval_model_class(
         for dev, pos in _run_shards(len(idxs), mesh, device):
             runs = idxs if pos is None else [idxs[p] for p in pos]
             y_d = y_test.to(dev)
-            lg = poisson_lgamma_term(y_d, torch.ones_like(y_d)) \
-                if is_poisson else None
             dec, masked = _eval_bucket(
-                y_d, lg, per_run, runs, full_cfg, hp_names, model_class_str,
+                y_d, _lgamma_term(y_d, model_class), per_run, runs, full_cfg,
+                hp_names, model_class,
                 masks_per_run, L, likelihood_scale)
             for j, i in enumerate(runs):
                 if dec_per_run[i] is None:
@@ -610,25 +560,25 @@ def sweep_eval_model_class(
 
 
 def _eval_bucket(y_test, lg, per_run, runs, full_cfg, hp_names,
-                 model_class_str, masks_per_run, L, likelihood_scale):
+                 model_class, masks_per_run, L, likelihood_scale):
     """``sweep_eval_model_class`` on the runs ``runs`` of one bucket of
     latent size L, on y_test's device: (a decode-metrics dict per run,
     {frac: (n_mask,) LMLs per run})."""
     device = y_test.device
     T = y_test.shape[0]
-    is_jump = _family(model_class_str)[0]
     hps = [{k: full_cfg[i][k] for k in hp_names} for i in runs]
-    stack, cfg = _transition_stack(model_class_str, hps, L, device)
+    stack, cfg = _runs_stack(model_class, hps, L, device)
     tunings = torch.stack([per_run[i]["tuning"].to(device) for i in runs])
-    ll = _runs_loglik(y_test, tunings, hps, model_class_str, lg)
+    ll = _runs_loglik(y_test, tunings, hps, model_class, lg)
     # the decode sums its ratios chunk by chunk
     n_chunk = hmm.auto_chunk_size(T, stack.n_dyn * L, L, device)
     lml, _lat, ratios, dyn = _e_step(ll, stack, cfg, likelihood_scale,
-                                     want_dyn=is_jump, n_chunk=n_chunk)
+                                     want_dyn=model_class.has_dynamics,
+                                     n_chunk=n_chunk)
     del _lat
     dec = [{"log_marginal_final": lml[j], "ratios": ratios[j],
-            "posterior_dynamics_marg": dyn[j] if is_jump else torch.zeros(
-                (T, 1), dtype=torch.float32, device=device)}
+            "posterior_dynamics_marg": dyn[j] if dyn is not None
+            else torch.zeros((T, 1), dtype=torch.float32, device=device)}
            for j in range(len(runs))]
     masked = {}
     for frac, masks_l in masks_per_run.items():

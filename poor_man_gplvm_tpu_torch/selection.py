@@ -30,15 +30,11 @@ import itertools
 import numpy as np
 import torch
 
+from poor_man_gplvm_tpu_torch.models import (
+    model_class_dict,
+    resolve_model_class,
+)
 from poor_man_gplvm_tpu_torch.models.base import resolve_device
-from poor_man_gplvm_tpu_torch.models.jump1d import (
-    GaussianGPLVMJump1D,
-    PoissonGPLVMJump1D,
-)
-from poor_man_gplvm_tpu_torch.models.latent1d import (
-    GaussianGPLVM1D,
-    PoissonGPLVM1D,
-)
 from poor_man_gplvm_tpu_torch.ops import emissions, hmm
 from poor_man_gplvm_tpu_torch.parallel import spmd as _spmd
 from poor_man_gplvm_tpu_torch.parallel import sweep as _sweep
@@ -57,13 +53,6 @@ __all__ = [
     "get_jump_consensus_shuffle",
     "get_lml_test_history",
 ]
-
-model_class_dict = {
-    "poisson": PoissonGPLVMJump1D,
-    "gaussian": GaussianGPLVMJump1D,
-    "poisson_latentonly": PoissonGPLVM1D,
-    "gaussian_latentonly": GaussianGPLVM1D,
-}
 
 default_fit_kwargs = {
     "n_iter": 20,
@@ -127,9 +116,7 @@ def fit_model_one_config(
     ``fit_kwargs`` (their fit has no Adam loop; the JAX ``fit_em`` ignores
     them)."""
     generator = _seeded(generator, 0)
-    if model_class_str not in model_class_dict:
-        raise ValueError(f"Invalid model class: {model_class_str}")
-    model_class = model_class_dict[model_class_str]
+    model_class = resolve_model_class(model_class_str)
     gens = generator if isinstance(generator, list) \
         else _sweep.split_generator(generator, n_repeat)
     model_fit_l, em_res_l = [], []
@@ -141,7 +128,7 @@ def fit_model_one_config(
         init_kw = fk.pop("posterior_init_kwargs", None) or {}
         if fk.get("log_posterior_init") is None:
             fk["log_posterior_init"] = _sweep.draw_run_init(
-                model_class_str, y_train.shape[0], model_fit.n_latent_bin, g,
+                model_class, y_train.shape[0], model_fit.n_latent_bin, g,
                 **init_kw, device=model_fit.device)
         if model_fit.observation_model == "gaussian":
             for k in _ADAM_FIT_KWARGS:
@@ -223,14 +210,13 @@ _BATCHED_FIT_KWARGS = frozenset({
 
 def _batched_backend_applicable(hyperparam_dict, fit_kwargs, model_class_str,
                                 n_configs, n_repeat):
-    if model_class_str not in model_class_dict:
-        return False
     if n_configs * n_repeat <= 1:
         return False
     # this family's ctor keys, not the all-family union: e.g. noise_std on
     # a poisson class falls through to the serial path, whose TypeError
     # surfaces before any device work
-    if set(hyperparam_dict) - set(_sweep._config_defaults(model_class_str)):
+    if set(hyperparam_dict) - set(model_class_dict[
+            model_class_str].ctor_defaults(_sweep._SWEEPABLE_CTOR_KEYS)):
         return False
     if set(fit_kwargs) - _BATCHED_FIT_KWARGS:
         return False
@@ -365,6 +351,7 @@ def model_selection_one_split(
     generator = _seeded(generator, 0)
     if backend not in ("auto", "serial", "batched"):
         raise ValueError(f"unknown backend {backend!r}")
+    model_class = resolve_model_class(model_class_str)
     if mesh is not None:
         _spmd.check_mesh(mesh)
         if backend == "serial":
@@ -374,7 +361,7 @@ def model_selection_one_split(
     y = _as_numpy(y)
     T = y.shape[0]
     metric_type_l = list(metric_type_l)
-    if "latentonly" in model_class_str:
+    if not model_class.has_dynamics:
         metric_type_l = [m for m in metric_type_l if "jump" not in m]
     train_index, test_index = _split_indices(T, train_index, test_index,
                                              test_frac)
@@ -466,7 +453,8 @@ def _one_split_batched(
         m_tol=float(fk.get("m_step_tol", 1e-6)), mesh=mesh, device=device)
 
     metric_type_l = eval_kw["metric_type_l"]
-    L_default = _sweep._config_defaults(model_class_str)["n_latent_bin"]
+    model_class = model_class_dict[model_class_str]
+    L_default = model_class.ctor_defaults(("n_latent_bin",))["n_latent_bin"]
     masks_per_run = {}
     if "downsampled_lml" in metric_type_l:
         for frac in eval_kw["latent_downsample_frac"]:
@@ -483,7 +471,6 @@ def _one_split_batched(
         likelihood_scale=1.0, mesh=mesh)
 
     # one constructor per config (its basis SVD), copied per chain
-    model_class = model_class_dict[model_class_str]
     templates = [model_class(n_neuron=n_neuron, device=device, **cfg)
                  for cfg in hyperparam_grid_l]
     sel = _Selector(model_to_return_type)

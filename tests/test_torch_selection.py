@@ -84,8 +84,8 @@ def _jax_draws(monkeypatch, key, seed, n_cfg, n_repeat):
             run_key[_state(g)] = chain_keys[c]
         eval_key[_state(gens_eval[ii])] = key_eval[ii]
 
-    def draw(model_class_str, T_, L_, g, random_scale=0.1, device="cpu"):
-        f = (_init_posterior_uniform_noise if "latentonly" in model_class_str
+    def draw(model_class, T_, L_, g, random_scale=0.1, device="cpu"):
+        f = (_init_posterior_uniform_noise if model_class.init_plus_uniform
              else _init_posterior_random)
         return torch.as_tensor(np.array(
             f(T_, L_, run_key[_state(g)], random_scale)[0]))

@@ -31,7 +31,8 @@ from poor_man_gplvm_tpu.models.latent1d import (  # noqa: E402
 )
 from poor_man_gplvm_tpu.ops import hmm as jhmm  # noqa: E402
 from poor_man_gplvm_tpu.parallel import sweep as jsw  # noqa: E402
-from poor_man_gplvm_tpu_torch.ops import hmm  # noqa: E402
+from poor_man_gplvm_tpu_torch import models  # noqa: E402
+from poor_man_gplvm_tpu_torch.ops import hmm, mstep  # noqa: E402
 from poor_man_gplvm_tpu_torch.ops import scan_kernels as sk  # noqa: E402
 from poor_man_gplvm_tpu_torch.parallel import spmd, sweep  # noqa: E402
 from poor_man_gplvm_tpu_torch.testing import (  # noqa: E402
@@ -66,8 +67,8 @@ def _np(x):
 def _jax_model_class_draws(monkeypatch, run_keys):
     """Put the JAX draws of ``sweep_fit_model_class`` in place of the
     port's: each run generator's (fresh) state -> its JAX key."""
-    def draw(model_class_str, T_, L_, g, random_scale=0.1, device="cpu"):
-        f = (_init_posterior_uniform_noise if "latentonly" in model_class_str
+    def draw(model_class, T_, L_, g, random_scale=0.1, device="cpu"):
+        f = (_init_posterior_uniform_noise if model_class.init_plus_uniform
              else _init_posterior_random)
         return torch.as_tensor(np.asarray(
             f(T_, L_, run_keys[_state(g)], random_scale)[0]))
@@ -336,13 +337,95 @@ def test_sweep_inputs_that_raise(y):
                                     [torch.Generator()], "poisson",
                                     device="cpu")
     # a stack needs one class and one set of constant-channel flags
-    t1 = sweep._make_trans("poisson", {"movement_variance": 1.0,
-                                       "p_move_to_jump": 0.01,
-                                       "p_jump_to_move": 0.01}, L, "cpu")
-    t2 = sweep._make_trans("poisson_latentonly", {"movement_variance": 1.0},
-                           L, "cpu")
+    t1 = models.PoissonGPLVMJump1D.transition_of(
+        {"movement_variance": 1.0, "p_move_to_jump": 0.01,
+         "p_jump_to_move": 0.01}, L, "cpu")[0]
+    t2 = models.PoissonGPLVM1D.transition_of({"movement_variance": 1.0}, L,
+                                             "cpu")[0]
     with pytest.raises(ValueError, match="share"):
         hmm.stack_transitions([t1, t2])
+
+
+#: (JAX class name, has dynamics, Gaussian emissions)
+FAMILIES = [("poisson", True, False), ("gaussian", True, True),
+            ("poisson_latentonly", False, False),
+            ("gaussian_latentonly", False, True)]
+
+
+@pytest.mark.parametrize("model_class_str, jump, gaussian", FAMILIES)
+def test_the_class_answers_what_its_models_use(model_class_str, jump,
+                                               gaussian):
+    """What the batched fit asks a model class at class level is what a
+    model of the class uses: the constructors' defaults of the sweepable
+    keys, the transition bit for bit, the tuning link, the emission keys
+    and the initial posterior's uniform floor."""
+    cls = models.resolve_model_class(model_class_str)
+    assert cls is models.model_class_dict[model_class_str]
+    want = {"n_latent_bin": 100, "tuning_lengthscale": 1.0 if jump else 5.0,
+            "movement_variance": 1.0, "param_prior_std": 1.0,
+            "explained_variance_threshold_basis": 0.999}
+    if jump:
+        want.update(p_move_to_jump=0.01, p_jump_to_move=0.01)
+    if gaussian:
+        want["noise_std"] = 0.5
+    got = cls.ctor_defaults(sweep._SWEEPABLE_CTOR_KEYS)
+    assert got == want
+    assert all(type(got[k]) is type(v) for k, v in want.items())
+    assert cls.has_dynamics == jump and cls.init_plus_uniform == (not jump)
+    assert cls.observation_model == ("gaussian" if gaussian else "poisson")
+
+    kw = {"movement_variance": 2.5}
+    if jump:
+        kw.update(p_move_to_jump=0.05, p_jump_to_move=0.2)
+    model = cls(N, n_latent_bin=L, tuning_lengthscale=3.0, device="cpu", **kw)
+    trans, attrs = cls.transition_of({**want, **kw}, L, "cpu")
+    trans_m, attrs_m = model._make_transition({})
+    fields = ("Tdyn", "Tlat", "logTdyn", "logTlat") if jump else ("T",
+                                                                 "logT")
+    for f in fields:
+        assert torch.equal(getattr(trans, f), getattr(trans_m, f)), f
+    assert trans.uniform_rows == trans_m.uniform_rows
+    assert attrs.keys() == attrs_m.keys()
+    assert all(torch.equal(attrs[k], attrs_m[k]) for k in attrs)
+
+    params = torch.randn((2,) + tuple(model.params.shape),
+                         generator=torch.Generator().manual_seed(1))
+    link = mstep.get_tuning_linear if gaussian else mstep.get_tuning_softplus
+    batched = cls.tuning_link(params, model.tuning_basis)
+    for b in range(2):
+        one = model.get_tuning(params[b], {}, model.tuning_basis)
+        assert torch.equal(one, link(params[b], model.tuning_basis))
+        np.testing.assert_allclose(_np(batched[b]), _np(one), rtol=1e-6,
+                                   atol=1e-6)
+    assert model._emission_hyper({}) == ({"noise_std": 0.5} if gaussian
+                                         else {})
+    assert tuple(model._emission_hyper({})) == cls._EMISSION_HYPER_KEYS
+
+
+def test_an_unknown_model_class_name_raises(y):
+    """A name outside the four raises ``ValueError`` at every entry point
+    that takes one, before any fit (it used to fit a Gaussian jump model
+    in the batched sweep)."""
+    from poor_man_gplvm_tpu_torch import selection
+
+    for name in ("poisson_jump", "Gaussian", ""):
+        with pytest.raises(ValueError, match="Invalid model class"):
+            models.resolve_model_class(name)
+        with pytest.raises(ValueError, match="Invalid model class"):
+            sweep.sweep_fit_model_class(y, [{}], [torch.Generator()], name,
+                                        device="cpu")
+        with pytest.raises(ValueError, match="Invalid model class"):
+            sweep.sweep_eval_model_class(
+                y, [{"tuning": torch.ones((L, N))}], [{}], name, {})
+        for backend in ("auto", "serial", "batched"):
+            with pytest.raises(ValueError, match="Invalid model class"):
+                selection.model_selection_one_split(
+                    y, {"movement_variance": [1.0, 2.0]},
+                    model_class_str=name, backend=backend, verbose=False,
+                    device="cpu")
+        with pytest.raises(ValueError, match="Invalid model class"):
+            selection.fit_model_one_config({}, y, model_class_str=name,
+                                           device="cpu")
 
 
 @pytest.mark.parametrize("model_class_str", ["poisson",
@@ -354,7 +437,8 @@ def test_run_draws_come_from_the_run_generator_on_its_device(
     normalised, one generator state gives one draw, and a latent-only
     row keeps the uniform floor."""
     def draw(seed):
-        return sweep.draw_run_init(model_class_str, T, L,
+        return sweep.draw_run_init(models.model_class_dict[model_class_str],
+                                   T, L,
                                    torch.Generator().manual_seed(seed),
                                    0.1, device="cpu")
 
@@ -371,8 +455,8 @@ def test_run_draws_come_from_the_run_generator_on_its_device(
         T, L, 5, N, torch.Generator().manual_seed(4), device="cpu")
     g = torch.Generator().manual_seed(4)
     assert torch.equal(w0, torch.randn((5, N), generator=g))
-    assert torch.equal(lp0, sweep.draw_run_init("poisson", T, L, g,
-                                                device="cpu"))
+    assert torch.equal(lp0, sweep.draw_run_init(models.PoissonGPLVMJump1D, T,
+                                                L, g, device="cpu"))
 
 
 def test_batched_runs_equal_the_serial_fits_on_the_port_draws(y):

@@ -179,8 +179,8 @@ def test_untraced_sweep_records_nothing_and_reads_as_before(y, monkeypatch):
 
 
 def _runner_op_by_op(fun, step_size, maxiter, tol):
-    """The batched Adam loop with every trip launched op by op (the loop
-    that the card's graph replays), for the graph to be held to."""
+    """The batched Adam loop with every autograd trip launched op by op,
+    for the CPU runner to be held to."""
 
     def value_and_grad(params, args):
         params = params.detach().requires_grad_(True)
@@ -231,6 +231,45 @@ def _runner_op_by_op(fun, step_size, maxiter, tol):
                 "final_loss": loss, "final_error": error,
                 "loss_history": loss_history,
                 "error_history": error_history}
+
+    return run
+
+
+def _fused_trips_by_the_host(step_size, maxiter, tol):
+    """The batched Adam loop on ``poisson_m_step_objective_batch`` with
+    every fused trip (``mstep._fused_poisson_trip``) launched by the host
+    and the rule's test read a trip (the loop that the card's graph
+    replays), for the graph to be held to."""
+
+    def run(params, opt_state, *args):
+        B = params.shape[0]
+        dev = params.device
+        hist = (torch.zeros((B, maxiter), device=dev),
+                torch.zeros((B, maxiter), device=dev))
+        evaluate, advance = mstep._fused_poisson_trip(params, args,
+                                                      step_size, hist)
+        loss, error = evaluate(params)
+        hist[0][:, 0], hist[1][:, 0] = loss, error
+        s = {"params": params.clone(), "count": opt_state.count.clone(),
+             "mu": opt_state.mu.clone(), "nu": opt_state.nu.clone(),
+             "error": error, "loss": loss, "loss_prev": loss.clone(),
+             "n_iter": torch.ones((B,), dtype=torch.int64, device=dev),
+             "active": torch.ones((B,), dtype=torch.bool, device=dev)}
+        i = 0
+        while i < maxiter - 1:
+            if i >= 5:
+                rel_change = (s["loss"] - s["loss_prev"]).abs() / \
+                    torch.clamp(s["loss"].abs(), min=1e-8)
+                s["active"] = s["active"] & (rel_change > tol)
+                if not bool(s["active"].any()):
+                    break
+            i += 1
+            advance(s, i)
+        return {"params": s["params"],
+                "opt_state": mstep.AdamState(s["count"], s["mu"], s["nu"]),
+                "n_iter": s["n_iter"], "final_loss": s["loss"],
+                "final_error": s["error"], "loss_history": hist[0],
+                "error_history": hist[1]}
 
     return run
 
@@ -291,24 +330,20 @@ def test_batched_adam_on_the_cpu_is_the_loop_op_by_op(tol, maxiter, early):
 @pytest.mark.parametrize("tol, maxiter, early", RUNNER_CASES)
 def test_batched_adam_graph_on_the_card_is_the_loop_op_by_op(tol, maxiter,
                                                              early):
-    """On a card the runner replays a CUDA graph of its tested trips: the
-    same bits as the loop launched op by op, with runs stopping at their
-    own trips and every run stopped (the read that ends the loop after
-    replays that moved no run), with every run to the cap, and with one
-    replay; its counters as the CPU loop counts them, one read in
-    ``GRAPH_TRIPS_PER_READ`` trips.  The objective is wrapped, so that the
-    runner keeps the autograd trip (it fuses the trip of
-    ``poisson_m_step_objective_batch`` itself; ``test_torch_adam_fused.py``
-    holds that one)."""
+    """On a card the runner replays a CUDA graph of its tested fused
+    trips: the same bits as the fused trips launched by the host one by
+    one, with runs stopping at their own trips and every run stopped (the
+    read that ends the loop after replays that moved no run), with every
+    run to the cap, and with one replay; its counters as the CPU loop
+    counts them, one read in ``GRAPH_TRIPS_PER_READ`` trips, every trip
+    fused (``test_torch_adam_fused.py`` holds the fused trip to its plain
+    version)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the graph path runs only there")
     torch.backends.cuda.matmul.allow_tf32 = False
     p0, args = _runner_inputs(torch.device("cuda"))
-
-    def fun(*a):
-        return mstep.poisson_m_step_objective_batch(*a)
-
-    want = _runner_op_by_op(fun, 0.01, maxiter, tol)(
+    fun = mstep.poisson_m_step_objective_batch
+    want = _fused_trips_by_the_host(0.01, maxiter, tol)(
         p0, mstep.adam_init_batch(p0), *args)
     before = profiling.counters()
     got = mstep.make_adam_runner_batch(fun, 0.01, maxiter=maxiter, tol=tol)(
@@ -330,4 +365,4 @@ def test_batched_adam_graph_on_the_card_is_the_loop_op_by_op(tol, maxiter,
     assert delta("adam_steps") == trips
     assert delta("adam_run_steps") == sum(k - 1 for k in n)
     assert delta("host_syncs.adam_stop") == _graph_reads(trips, maxiter)
-    assert delta("adam_fused_trips") == 0
+    assert delta("adam_fused_trips") == trips
