@@ -180,7 +180,11 @@ class LatentTransition:
         return self.T @ r
 
     def outer_acc(self, P, R):
-        return (P.T @ R) * self.T
+        # on the card ``joint_acc`` with one channel; on the CPU the plain
+        # product (a one-channel einsum sums small shapes in another order)
+        raw = ps.joint_acc(P[:, None], R[:, None])[0, 0] if P.is_cuda \
+            else P.T @ R
+        return raw * self.T
 
     def joint_shape(self):
         return (self.n_latent, self.n_latent)
@@ -274,7 +278,7 @@ class JointTransition:
         return self.Tdyn @ s
 
     def outer_acc(self, P, R):
-        raw = torch.einsum("tdi,tej->deij", P, R)
+        raw = ps.joint_acc(P, R)
         return raw * self.Tdyn[:, :, None, None] * self.Tlat[None]
 
     def joint_shape(self):

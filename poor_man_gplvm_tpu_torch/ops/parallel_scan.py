@@ -27,7 +27,9 @@ The Pallas TPU kernels become hand-written CUDA kernels for Hopper
   ``set_scan_precision``
 * ``joint_acc`` <- the pairwise-joint epilogue of ``_psmooth_kernel``'s
   marginal mode, as a kernel of its own over the ratios K4 writes, on the
-  tensor cores in 3xTF32
+  tensor cores in 3xTF32; on the card it also forms every full-mode
+  joint (``smooth_parallel``'s, the sequential engine's ``outer_acc``
+  and the mesh's), where the JAX package runs an XLA contraction
 
 Each wrapper checks its inputs, allocates its outputs with ``torch.empty``
 and launches on the current stream without synchronising.  On a CPU tensor
@@ -502,7 +504,7 @@ def psmooth_pass(post, tlat, tlat_t, tdyn, ins, tc, uniform_rows, mode,
 
 
 # ---------------------------------------------------------------------------
-# joint_acc: the pairwise-joint reduction of K4's marginal+acc mode
+# joint_acc: the pairwise joint over K2's or K4's ratios
 # ---------------------------------------------------------------------------
 
 #: joint_acc's output tile (128 x 128: one block of three warpgroups and
@@ -567,6 +569,8 @@ def joint_acc(post, r):
         return joint_acc_plain(post, r)
     if dev.type != "cuda":
         raise ValueError(f"joint_acc runs on cpu or cuda, not {dev.type}")
+    if T == 0:  # no step: the empty sum, as the plain version gives
+        return post.new_zeros((n_dyn, n_dyn, L, L))
     _count(joint_acc, "acc", "highest")
     return _joint_acc_run(post, r, 3)
 
@@ -639,8 +643,8 @@ def smooth_parallel(ll, tlat, tdyn, p_init, likelihood_scale, *,
     * post: the (T, n_dyn, L) filter posteriors when ``want_post``, else
       None; ratios: the per-step log ratios (T,);
     * acc: the pairwise joint (n_dyn, n_dyn, L, L), None unless
-      ``want_acc`` (in marginal mode it comes from K4's ratios through
-      ``joint_acc``, in full mode from an einsum outside the kernel);
+      ``want_acc``: ``joint_acc`` of K4's ratios (in marginal mode from
+      K4's r scratch, in full mode from its r output);
     * diag = (fwd_passes, bwd_passes, fwd_delta, bwd_delta), followed by
       the emit passes' post-hoc residuals (emit_delta_f, emit_delta_b)
       when ``want_carry``;
@@ -762,10 +766,14 @@ def smooth_parallel(ll, tlat, tdyn, p_init, likelihood_scale, *,
     else:
         smooth = emit[0]
         if want_acc:
-            # the pairwise-joint contraction runs outside the kernel, as in
-            # the JAX package's full mode (rows that are not steps carry
-            # r = 0)
-            acc = torch.einsum("tdi,tej->deij", post, emit[1])
+            # the pairwise joint of K4's ratios, outside the kernel as in
+            # the JAX package's full mode; row T - 1 is no step (r = 0).
+            # On the card joint_acc reads the T - 1 step rows, the
+            # sequential engine's ``outer_acc`` inputs, so it splits and
+            # sums them as that engine does; the CPU's einsum keeps every
+            # row (its BLAS blocks the sum by the row count)
+            n = T - 1 if post.is_cuda else T
+            acc = joint_acc(post[:n], emit[1][:n])
     if acc is not None:
         acc = acc * tdyn[:, :, None, None] * tlat[None]
 

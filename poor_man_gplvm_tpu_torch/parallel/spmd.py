@@ -419,8 +419,7 @@ def _staggered_backward(post, devs, tr, lens):
                 band=tr.band(dev, "highest") if dev.type == "cuda" else None)
             for e, (d, s, b) in enumerate(group):
                 smooth[d][s][b, :n[e]] = sm[e, :n[e]]
-                part = torch.einsum("tdi,tej->deij", filt[e, :n[e]],
-                                    r[e, :n[e]])
+                part = ps.joint_acc(filt[e, :n[e]], r[e, :n[e]])
                 prev = acc[d][b]
                 acc[d][b] = part if prev is None else \
                     _to(prev, dev) + part
@@ -559,8 +558,8 @@ def _pscan_smooth(ll, devs, tr, scale, t_true, tol=1e-6, diag_out=None):
     smooth = [e[0] for e in emitted]
     # rows that are not steps carry r = 0, so each shard's contraction sums
     # only real (t, t+1) pairs
-    acc_raw = psum([torch.einsum("tdi,tej->deij", p, e[1])
-                    for p, e in zip(post, emitted)], devs)[0]
+    acc_raw = psum([ps.joint_acc(p, e[1]) for p, e in zip(post, emitted)],
+                   devs)[0]
     if diag_out is not None:
         diag_out.append((fp, bp, fd, bdelta))
     return smooth, lml, post, ratios, tr.scale_acc(acc_raw)

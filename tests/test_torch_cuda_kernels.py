@@ -13,8 +13,10 @@ with the prior recomputed (the 'filter' memory modes) against its plain
 version, against K2 on K1's priors and band against dense, on its cluster
 of two blocks up to L = 1,024 (T = 1, 2, 7), with its launch plan against
 the host code's check; joint_acc's three ways of filling
-its ring bit for bit; and the 'checkpoint' mode's peak memory against full
-mode's.  Also
+its ring bit for bit, and at the north-star decode's shape against the
+float64 product; the full-mode decode bit for bit between the two CUDA
+engines (the pairwise joint through ``joint_acc`` on both); and the
+'checkpoint' mode's peak memory against full mode's.  Also
 ``bf16_gemm`` (the emission and statistics products at the matmul
 precisions 'high' and 'default') against its plain version, with its
 one-pass control, its rows, batch entries and column blocks alone bit for
@@ -512,9 +514,9 @@ def test_subnormal_prior_gives_a_zero_ratio(cuda):
 
 @pytest.mark.parametrize("name", ["PoissonGPLVMJump1D", "GaussianGPLVM1D"])
 def test_smooth_batch_full_matches_plain_and_each_sequence(cuda, name):
-    """``hmm.smooth_batch_full`` (one K1 and one K2 launch for the batch)
-    against its plain version, and each sequence bit for bit against the
-    sequential decode of it alone."""
+    """``hmm.smooth_batch_full`` (one K1 and one K2 launch for the batch,
+    one ``joint_acc`` per sequence) against its plain version, and each
+    sequence bit for bit against the sequential decode of it alone."""
     import numpy as np
 
     import poor_man_gplvm_tpu_torch as pmt
@@ -532,9 +534,11 @@ def test_smooth_batch_full_matches_plain_and_each_sequence(cuda, name):
     y_b = rng.normal(mean, 1.0) if kw else rng.poisson(mean)
     f0 = sk.filter_scan_batch.launches
     s0 = sk.smoother_scan_batch.launches
+    j0 = ps.joint_acc.launches
     err = batch_full_vs_plain(m, y_b.astype(np.float32))
     assert sk.filter_scan_batch.launches == f0 + 1
     assert sk.smoother_scan_batch.launches == s0 + 1
+    assert ps.joint_acc.launches == j0 + len(y_b)  # a joint per sequence
     for key, tol in BATCH_FULL_TOLERANCES.items():
         assert err[key] <= tol, (key, err)
     assert batch_full_vs_single(m, y_b.astype(np.float32)) == []
@@ -752,6 +756,80 @@ def test_joint_acc_loads_bit_equal(cuda, L):
            ps.joint_acc(post, r), ps.joint_acc(shifted(post), shifted(r))]
     torch.cuda.synchronize()
     assert all(torch.equal(got[0], g) for g in got[1:])
+
+
+def test_joint_acc_of_no_rows_is_the_empty_sum(cuda):
+    """No step (a one-bin sequence of a batched decode): zeros, as the
+    plain version gives, and no launch."""
+    none = torch.empty((0, 2, 7), device=cuda)
+    n0 = ps.joint_acc.launches
+    got = ps.joint_acc(none, none)
+    assert torch.equal(got, ps.joint_acc_plain(none, none))
+    assert ps.joint_acc.launches == n0
+
+
+@pytest.mark.parametrize("name", ["PoissonGPLVMJump1D", "PoissonGPLVM1D"])
+def test_full_decode_equal_between_the_cuda_engines(cuda, name, monkeypatch):
+    """The full-mode decode at T = 1e5, N = L = 500 (n_dyn 2 and 1): 'cuda'
+    (K1/K2 in one chunk, the joint by ``outer_acc``) and 'cuda_parallel'
+    (K3/K4) give every key bit for bit, the pairwise joint included: both
+    hand ``joint_acc`` the T - 1 step rows, so it splits and sums them
+    alike."""
+    import numpy as np
+
+    import poor_man_gplvm_tpu_torch as pmt
+
+    T = 100_000
+    m = getattr(pmt, name)(500, n_latent_bin=500, tuning_lengthscale=10.0,
+                           device=cuda)
+    rng = np.random.default_rng(25)
+    lat = np.clip(np.cumsum(rng.integers(-1, 2, size=T)) + 250, 0, 499)
+    y = torch.as_tensor(rng.poisson(m.tuning.cpu().numpy()[lat]).astype(
+        np.float32), device=cuda)
+    rows, launch = [], ps._joint_acc_run
+
+    def spy(post, r, passes):
+        rows.append(post.shape[0])
+        return launch(post, r, passes)
+
+    monkeypatch.setattr(ps, "_joint_acc_run", spy)
+    m.inference_engine = "cuda_parallel"
+    par = m.decode_latent(y)
+    monkeypatch.setattr(hmm, "_PARALLEL_UPGRADE_MIN_T", float("inf"))
+    m.inference_engine = "cuda"
+    seq = m.decode_latent(y, n_time_per_chunk=T)
+    torch.cuda.synchronize()
+    assert rows == [T - 1, T - 1]
+    assert par.keys() == seq.keys()
+    differ = [k for k, v in par.items() if torch.is_tensor(v)
+              and not torch.equal(v, seq[k])]
+    assert differ == [], differ
+    if name == "PoissonGPLVMJump1D":
+        assert torch.equal(par["p_joint_full"], seq["p_joint_full"])
+
+
+def test_joint_acc_at_the_decode_shape_within_limit_of_float64(cuda):
+    """``joint_acc`` at the north-star decode's shape, (T, n_dyn, L) =
+    (1e6, 2, 500), per entry within ``JOINT_ACC_ENTRY_RTOL`` of the float64
+    product, on K4-like inputs made on the card (posterior rows summing to
+    1, ratios around 1 with exact zeros)."""
+    from poor_man_gplvm_tpu_torch.testing import JOINT_ACC_FLOOR, _max_rel
+
+    T, n_dyn, L = 1_000_000, 2, 500
+    g = torch.Generator(device=cuda).manual_seed(25)
+    # -log(1 - u) with u in [0, 1): finite exponential draws
+    post = -torch.log1p(-torch.rand((T, n_dyn * L), generator=g,
+                                    device=cuda))
+    post = (post / post.sum(dim=1, keepdim=True)).view(T, n_dyn, L)
+    r = torch.rand((T, n_dyn, L), generator=g, device=cuda) * 2.0
+    r = torch.where(torch.rand(r.shape, generator=g, device=cuda) > 0.1,
+                    r, 0.0)
+    got = ps.joint_acc(post, r)
+    want = torch.einsum("tdi,tej->deij", post.double(), r.double())
+    torch.cuda.synchronize()
+    where = want.abs() > JOINT_ACC_FLOOR * want.abs().max()
+    assert bool(torch.isfinite(want).all()) and bool(where.any())
+    assert _max_rel(got.double(), want, where) <= JOINT_ACC_ENTRY_RTOL
 
 
 def test_checkpoint_peak_memory_below_full(cuda):

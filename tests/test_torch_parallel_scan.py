@@ -215,7 +215,19 @@ def test_cuda_parallel_engine_matches_jax_pallas_parallel(T):
     assert (torch.exp(got[0])[:, :, [1, 4]] == 0).all()
 
 
-def test_want_acc_false_skips_joint_only():
+def _spy_joint_acc(monkeypatch):
+    """Record every ``ps.joint_acc`` call's (post, r) and pass it on."""
+    calls, real = [], ps.joint_acc
+
+    def spy(post, r):
+        calls.append((post, r))
+        return real(post, r)
+
+    monkeypatch.setattr(ps, "joint_acc", spy)
+    return calls
+
+
+def test_want_acc_false_skips_joint_only(monkeypatch):
     L, T = 9, 1100
     rng = np.random.default_rng(2)
     y = rng.poisson(1.5, size=(T, N)).astype(np.float32)
@@ -224,11 +236,14 @@ def test_want_acc_false_skips_joint_only():
     trans = _port_trans(_jtrans(L))
     ones_n, ones_l = torch.ones(N), torch.ones(L)
     diag = []
+    calls = _spy_joint_acc(monkeypatch)
     full = hmm.smooth_combined_chunked(y, tuning, {}, trans, ones_n, ones_l,
                                        engine="cuda_parallel")
+    assert len(calls) == 1
     lean = hmm.smooth_combined_chunked(y, tuning, {}, trans, ones_n, ones_l,
                                        engine="cuda_parallel",
                                        want_acc=False, diag_out=diag)
+    assert len(calls) == 1  # no joint formed without want_acc
     assert lean[4] is None and full[4] is not None
     assert torch.equal(lean[0], full[0]) and float(lean[1]) == float(full[1])
     assert len(diag) == 1 and min(diag[0][:2]) >= 1
@@ -236,6 +251,48 @@ def test_want_acc_false_skips_joint_only():
     seq = hmm.smooth_combined_chunked(y, tuning, {}, trans, ones_n, ones_l,
                                       engine="cuda", want_acc=False)
     assert seq[4] is not None
+
+
+@pytest.mark.parametrize("path", ["smooth_parallel", "joint_outer_acc",
+                                  "latent_outer_acc"])
+def test_pairwise_joint_on_cpu_is_the_plain_product(path, monkeypatch):
+    """On CPU tensors the full mode's pairwise joint is the plain product
+    bit for bit: the einsum, through ``ps.joint_acc`` (the hand-written
+    kernel on a card), and P.T @ R with one channel.  ``smooth_parallel``
+    calls ``joint_acc`` once, on its filter posteriors and K4's ratios;
+    row T - 1 is no step (r = 0), so the card's T - 1 rows and the CPU's
+    T sum the same pairs."""
+    rng = np.random.default_rng(11)
+    L, T = 9, 301
+    trans = _port_trans(_jtrans(L))
+    calls = _spy_joint_acc(monkeypatch)
+    if path == "smooth_parallel":
+        ll = torch.as_tensor(_ll(3, T, L))
+        p_init = torch.full((2, L), 1.0 / (2 * L))
+        out = ps.smooth_parallel(ll, trans.Tlat, trans.Tdyn, p_init, 1.0,
+                                 uniform_rows=trans.uniform_rows,
+                                 want_post=True)
+        assert len(calls) == 1
+        post, r = calls[0]
+        assert torch.equal(post, out[2]) and r.shape == post.shape
+        assert not r[T - 1].any() and r[T - 2].any()
+        raw, got = torch.einsum("tdi,tej->deij", post, r), out[4]
+        assert torch.equal(got, raw * trans.Tdyn[:, :, None, None]
+                           * trans.Tlat[None])
+        return
+    P = torch.as_tensor(rng.dirichlet(np.ones(2 * L), T).reshape(T, 2, L)
+                        .astype(np.float32))
+    R = torch.as_tensor(rng.gamma(2.0, 0.5, (T, 2, L)).astype(np.float32))
+    if path == "joint_outer_acc":
+        want = torch.einsum("tdi,tej->deij", P, R) \
+            * trans.Tdyn[:, :, None, None] * trans.Tlat[None]
+        assert torch.equal(trans.outer_acc(P, R), want)
+        assert len(calls) == 1
+    else:
+        lat = hmm.LatentTransition(trans.Tlat[0], trans.logTlat[0])
+        P, R = P[:, 0].contiguous(), R[:, 0].contiguous()
+        assert torch.equal(lat.outer_acc(P, R), (P.T @ R) * lat.T)
+        assert not calls
 
 
 def test_engine_resolution_and_cpu_wrappers():
